@@ -1,0 +1,237 @@
+"""Paged KV cache: fixed-size pages + block tables + prefix sharing.
+
+Copied from ``deeplearning4j_tpu/generation/paged_cache.py`` (numpy only).
+
+A contiguous per-request KV cache (``SelfAttentionLayer.init_cache``)
+couples cache memory to ``max_cache`` per stream and couples the XLA
+shape set to the batch composition — both fatal for continuous batching,
+where requests of wildly different lengths join and leave a running
+decode batch every step.  The paged design (vLLM's PagedAttention)
+decouples them:
+
+- **Device side** (``pools``): per attention layer, K/V pools of
+  ``num_pages`` pages of ``page_size`` positions each
+  (``init_paged_cache``).  Pool shapes are the only shapes XLA ever
+  sees — slot count, page count, and page size close the decode shape
+  set, so steady-state serving compiles exactly nothing.
+- **Host side** (this class): a page allocator with per-page refcounts,
+  int32 block tables mapping each slot's logical page index to a pool
+  page, and a chained-hash prefix index so identical prompt prefixes
+  map to the SAME read-only pages (refcounted — freed only when the
+  last sharer leaves).
+
+Page 0 is reserved as the TRASH page: unallocated block-table entries
+point at it, so bucket-padding positions and idle decode slots scatter
+their garbage somewhere harmless that no causal mask ever lets a real
+query read.
+
+Thread-ownership: all mutating methods are called from the engine's
+single decode thread; the class itself takes no locks.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+TRASH_PAGE = 0
+
+
+class PageExhaustedError(RuntimeError):
+    """Not enough free pages for an allocation (the scheduler keeps the
+    request queued — or sheds it — instead of partially admitting)."""
+
+
+def _chain(parent: Optional[bytes], tokens: Sequence[int]) -> bytes:
+    """Chained prefix key: a page's KV content is a function of the WHOLE
+    prefix up to and including it (attention mixes every earlier
+    position into each hidden state), so the share key must hash the
+    chain, never the page's tokens alone."""
+    h = hashlib.sha256()
+    if parent is not None:
+        h.update(parent)
+    h.update(np.asarray(tokens, np.int64).tobytes())
+    return h.digest()
+
+
+class PagedKVCache:
+    """Host-side allocator over a fixed pool of KV pages.
+
+    ``num_pages`` counts the usable pool INCLUDING the reserved trash
+    page; ``pages_per_slot`` is the block-table width (the per-request
+    context ceiling is ``pages_per_slot * page_size``)."""
+
+    def __init__(self, num_pages: int, page_size: int, pages_per_slot: int):
+        if num_pages < 2:
+            raise ValueError(f"num_pages={num_pages} must be >= 2 "
+                             "(page 0 is the reserved trash page)")
+        if page_size < 1 or pages_per_slot < 1:
+            raise ValueError("page_size and pages_per_slot must be >= 1")
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.pages_per_slot = int(pages_per_slot)
+        self._free: List[int] = list(range(1, self.num_pages))
+        self._refs = np.zeros(self.num_pages, np.int64)
+        self._refs[TRASH_PAGE] = 1   # never allocatable
+        # chained prefix hash -> page id, and the reverse for cleanup
+        self._prefix: Dict[bytes, int] = {}
+        self._page_key: Dict[int, bytes] = {}
+        # counters the engine mirrors into metrics
+        self.shared_pages = 0
+        self.fresh_pages = 0
+        # pluggable retention policy (generation.prefix_cache.PrefixCache):
+        # when set, admission routes through its radix tree and completed
+        # requests' prompt pages stay cached under the tree's own refs
+        # instead of returning to the free list.  None (the default)
+        # keeps the legacy free-on-release behavior bit-identical.
+        self.retention = None
+
+    # ------------------------------------------------------------ capacity
+    @property
+    def max_context(self) -> int:
+        return self.pages_per_slot * self.page_size
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.num_pages - 1) - len(self._free)
+
+    def utilization(self) -> float:
+        usable = self.num_pages - 1
+        return (self.used_pages / usable) if usable else 0.0
+
+    def pages_needed(self, occupancy: int) -> int:
+        """Pages covering ``occupancy`` written positions."""
+        return -(-max(0, int(occupancy)) // self.page_size)
+
+    # ----------------------------------------------------------- allocation
+    def admit(self, prompt: Sequence[int],
+              max_new_tokens: int) -> Tuple[List[int], int]:
+        """Allocate the FULL page budget for one request up front and
+        return ``(pages, shared_len)``.
+
+        ``pages`` is the request's block-table prefix (logical order);
+        the first ``shared_len // page_size`` entries are refcounted
+        shares of pages another in-flight request already prefilled with
+        the identical chained prompt prefix — the new request's prefill
+        only runs on ``prompt[shared_len:]``.  Everything past the
+        prompt is reserved now (occupancy ``len(prompt) + max_new - 1``;
+        the final sampled token is never fed back), so decode can never
+        hit mid-flight page exhaustion: admission is the only gate.
+        Raises ``PageExhaustedError`` without allocating anything when
+        the pool cannot cover the non-shared remainder."""
+        prompt = [int(t) for t in prompt]
+        occupancy = len(prompt) + max(1, int(max_new_tokens)) - 1
+        total = self.pages_needed(occupancy)
+        if total > self.pages_per_slot:
+            raise ValueError(
+                f"request needs {total} pages "
+                f"({len(prompt)} prompt + {max_new_tokens} new tokens) but "
+                f"the block table holds {self.pages_per_slot} "
+                f"(max_context={self.max_context})")
+        # longest page-aligned shared prefix, capped so at least ONE
+        # prompt token is left to prefill (the last token's logits seed
+        # the first sample and are not cached with the pages)
+        shared: List[int] = []
+        key: Optional[bytes] = None
+        max_share = min(len(self._full_prompt_pages(prompt)),
+                        (len(prompt) - 1) // self.page_size)
+        for i in range(max_share):
+            key = _chain(key, prompt[i * self.page_size:
+                                     (i + 1) * self.page_size])
+            page = self._prefix.get(key)
+            if page is None:
+                break
+            shared.append(page)
+        fresh_count = total - len(shared)
+        if fresh_count > len(self._free):
+            raise PageExhaustedError(
+                f"need {fresh_count} pages, {len(self._free)} free "
+                f"(pool {self.num_pages - 1})")
+        for p in shared:
+            self._refs[p] += 1
+        fresh = [self._free.pop() for _ in range(fresh_count)]
+        for p in fresh:
+            self._refs[p] = 1
+        self.shared_pages += len(shared)
+        self.fresh_pages += fresh_count
+        pages = shared + fresh
+        # register THIS request's freshly prefilled full prompt pages so
+        # later identical prompts can share them
+        chain_key: Optional[bytes] = None
+        for i in self._full_prompt_pages(prompt):
+            chain_key = _chain(chain_key,
+                               prompt[i * self.page_size:
+                                      (i + 1) * self.page_size])
+            if i < len(shared):
+                continue   # already indexed by its first owner
+            if chain_key not in self._prefix:
+                self._prefix[chain_key] = pages[i]
+                self._page_key[pages[i]] = chain_key
+        return pages, len(shared) * self.page_size
+
+    def _full_prompt_pages(self, prompt: Sequence[int]) -> range:
+        return range(len(prompt) // self.page_size)
+
+    def alloc(self, count: int) -> List[int]:
+        """Raw allocation of ``count`` pages at refcount 1 (retention
+        policies use this for restore targets; ``admit`` stays the
+        request-shaped entry point)."""
+        if count > len(self._free):
+            raise PageExhaustedError(
+                f"need {count} pages, {len(self._free)} free "
+                f"(pool {self.num_pages - 1})")
+        pages = [self._free.pop() for _ in range(count)]
+        for p in pages:
+            self._refs[p] = 1
+        return pages
+
+    def ref(self, page: int) -> None:
+        """Take one additional reference on an already-allocated page."""
+        if page == TRASH_PAGE or self._refs[page] < 1:
+            raise AssertionError(
+                f"ref on unallocated page {page} (refs={self._refs[page]})")
+        self._refs[page] += 1
+
+    def free(self, pages: Sequence[int]) -> None:
+        """Drop one request's references; pages return to the free list
+        (and leave the prefix index) when their last sharer leaves."""
+        for p in pages:
+            if p == TRASH_PAGE:
+                continue
+            self._refs[p] -= 1
+            if self._refs[p] < 0:
+                raise AssertionError(f"double free of page {p}")
+            if self._refs[p] == 0:
+                key = self._page_key.pop(p, None)
+                if key is not None:
+                    self._prefix.pop(key, None)
+                self._free.append(p)
+
+    def refcount(self, page: int) -> int:
+        return int(self._refs[page])
+
+    def block_row(self, pages: Sequence[int]) -> np.ndarray:
+        """A full block-table row: the request's pages in logical order,
+        trash-padded to ``pages_per_slot``."""
+        row = np.full(self.pages_per_slot, TRASH_PAGE, np.int32)
+        row[:len(pages)] = np.asarray(pages, np.int32)
+        return row
+
+    def as_dict(self) -> dict:
+        out = {"num_pages": self.num_pages, "page_size": self.page_size,
+               "pages_per_slot": self.pages_per_slot,
+               "free_pages": self.free_pages,
+               "used_pages": self.used_pages,
+               "utilization": round(self.utilization(), 4),
+               "prefix_index_size": len(self._prefix),
+               "shared_pages_total": self.shared_pages,
+               "fresh_pages_total": self.fresh_pages}
+        if self.retention is not None:
+            out["prefix_cache"] = self.retention.stats()
+        return out

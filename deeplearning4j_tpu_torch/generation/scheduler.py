@@ -1,0 +1,485 @@
+"""Iteration-level decode scheduling: requests join/leave a RUNNING batch.
+
+Copied from ``deeplearning4j_tpu/generation/scheduler.py`` (numpy and
+threads only) with its imports pointed at the port's own copies.
+
+The request batcher composes whole requests into one forward pass; that is
+the wrong granularity for autoregressive decode, where a 500-token
+completion would pin its batch slot for the whole tail while finished
+requests' lanes idle.  ``DecodeScheduler`` schedules at ITERATION
+granularity (Orca/vLLM): every decode step serves whatever requests are
+active RIGHT NOW — new arrivals prefill into free slots between steps,
+finished/cancelled/expired requests free their slot and pages
+mid-flight, and the batch never drains to restart.
+
+Admission is the only capacity gate: a request is admitted when a slot
+is free AND its full page budget (prompt + max-new-tokens, minus any
+shared prefix) fits the pool, so decode can never stall mid-flight on
+pages.  The bounded pending queue sheds with the serving-stack errors
+(429 ``QueueFullError`` / 503 ``ShuttingDownError`` / 504
+``DeadlineExceededError``) instead of ever hanging a caller.
+
+Threading: ``submit``/``cancel`` run on client threads and only touch
+the pending deque + per-request flags (lock-guarded); everything else
+(slots, block tables, the page allocator) is owned by the engine's
+single decode thread.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from deeplearning4j_tpu_torch.observability.tracing import new_trace_id
+from deeplearning4j_tpu_torch.serving.admission import (
+    AdmissionController, DeadlineExceededError, ShuttingDownError,
+)
+from deeplearning4j_tpu_torch.generation.paged_cache import (
+    PagedKVCache, PageExhaustedError,
+)
+
+_DONE = object()   # stream sentinel
+
+
+class GenerationRequest:
+    """One generation request: client-facing handle + scheduler state.
+
+    Clients read ``stream()`` / ``tokens()`` / ``cancel()``; everything
+    else belongs to the scheduler.  Tokens are delivered per decode
+    step, so ``stream()`` yields them as they are generated."""
+
+    def __init__(self, prompt: Sequence[int], max_new_tokens: int, *,
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, seed: int = 0,
+                 deadline_s: float = 60.0, stop_token: Optional[int] = None,
+                 trace_id: Optional[str] = None):
+        if max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens={max_new_tokens} must be >= 1")
+        self.prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        if not self.prompt:
+            raise ValueError("empty prompt")
+        self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k) if top_k is not None else 0
+        self.top_p = float(top_p) if top_p is not None else 1.0
+        if self.top_k < 0:
+            raise ValueError(f"top_k={top_k} must be >= 1 (or None)")
+        self.seed = int(seed)
+        self.deadline = time.monotonic() + float(deadline_s)
+        self.stop_token = None if stop_token is None else int(stop_token)
+        self.trace_id = trace_id or new_trace_id()
+        self.submitted = time.perf_counter()
+        self.ttft_s: Optional[float] = None
+        self.itl_s: List[float] = []    # gaps between delivered tokens
+        self._last_token_t: Optional[float] = None
+        self.slo_ok: Optional[bool] = None   # set by the engine's SLOTracker
+        self.finish_reason: Optional[str] = None   # length|stop|cancelled…
+        self.tokens: List[int] = []
+        self.error: Optional[Exception] = None
+        self.done = threading.Event()
+        self.cancelled = False          # client flag, polled per step
+        self._stream: "queue.Queue" = queue.Queue()
+        # scheduler-owned (decode thread only)
+        self.slot: Optional[int] = None
+        self.pages: List[int] = []
+        self.shared_len = 0
+        self.cache_admit = None   # AdmitResult when retention is active
+
+    # ----------------------------------------------------------- client API
+    def cancel(self) -> None:
+        """Ask the scheduler to drop this request at the next step
+        boundary (its pages free mid-flight; already-streamed tokens
+        stand)."""
+        self.cancelled = True
+
+    def stream(self, timeout: Optional[float] = None):
+        """Yield token ids as they are generated; raises the request's
+        terminal error (shed/deadline/model failure), if any, after the
+        last delivered token."""
+        while True:
+            item = self._stream.get(timeout=timeout)
+            if item is _DONE:
+                if self.error is not None:
+                    raise self.error
+                return
+            yield item
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        """Block until the request finishes; returns all generated
+        tokens or raises the terminal error."""
+        if not self.done.wait(timeout):
+            raise TimeoutError(
+                f"generation still running [trace {self.trace_id}]")
+        if self.error is not None:
+            raise self.error
+        return list(self.tokens)
+
+    # -------------------------------------------------------- delivery side
+    def _deliver(self, token: int) -> None:
+        now = time.perf_counter()
+        if self.ttft_s is None:
+            self.ttft_s = now - self.submitted
+        else:
+            self.itl_s.append(now - self._last_token_t)
+        self._last_token_t = now
+        self.tokens.append(int(token))
+        self._stream.put(int(token))
+
+    def itl_p50_ms(self) -> Optional[float]:
+        """Median inter-token gap in ms (None before the second token) —
+        the per-request SLO evidence the access log carries."""
+        if not self.itl_s:
+            return None
+        vs = sorted(self.itl_s)
+        mid = len(vs) // 2
+        p50 = vs[mid] if len(vs) % 2 else 0.5 * (vs[mid - 1] + vs[mid])
+        return round(p50 * 1e3, 3)
+
+    def _finish(self, reason: str, error: Optional[Exception] = None) -> None:
+        self.finish_reason = reason
+        self.error = error
+        self._release_waiters()
+
+    def _release_waiters(self) -> None:
+        self._stream.put(_DONE)
+        self.done.set()
+
+    def as_dict(self) -> dict:
+        return {"trace_id": self.trace_id, "prompt_tokens": len(self.prompt),
+                "generated": len(self.tokens),
+                "max_new_tokens": self.max_new_tokens,
+                "finish_reason": self.finish_reason,
+                "ttft_ms": (round(self.ttft_s * 1e3, 3)
+                            if self.ttft_s is not None else None),
+                "itl_p50_ms": self.itl_p50_ms(),
+                "slo_ok": self.slo_ok}
+
+
+class _Slot:
+    """Decode-thread-side state of one running request."""
+
+    __slots__ = ("req", "pos", "generated")
+
+    def __init__(self, req: GenerationRequest, pos: int):
+        self.req = req
+        self.pos = pos            # stream position the NEXT write lands at
+        self.generated = 1        # prefill already sampled token 0
+
+
+class DecodeScheduler:
+    """Slots + pending queue + page allocator (see module docstring)."""
+
+    def __init__(self, cache: PagedKVCache, *, slots: int,
+                 max_queue: int = 64, default_deadline_s: float = 60.0,
+                 metrics=None):
+        if slots < 1:
+            raise ValueError(f"slots={slots} must be >= 1")
+        self.cache = cache
+        self.num_slots = int(slots)
+        self.admission = AdmissionController(
+            max_queue=max_queue, default_deadline_s=default_deadline_s,
+            metrics=metrics)
+        self.metrics = metrics
+        # terminal hook (engine accounting): called once per request on
+        # ANY terminal path, BEFORE the request's done event is set — so
+        # per-request verdicts the hook computes (slo_ok) are visible the
+        # moment result()/stream() return
+        self.on_finish = None
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._pending: "deque[GenerationRequest]" = deque()
+        self._stopping = False
+        self.slots: List[Optional[_Slot]] = [None] * self.num_slots
+        maxp = cache.pages_per_slot
+        # the decode step's host-side mirror arrays, updated in place on
+        # admit/retire and handed to the jitted step every iteration
+        self.block = np.zeros((self.num_slots, maxp), np.int32)
+        self.pos = np.zeros(self.num_slots, np.int32)
+        self.last_tok = np.zeros(self.num_slots, np.int32)
+        self.keys = np.zeros((self.num_slots, 2), np.uint32)
+        self.tok_idx = np.zeros(self.num_slots, np.int32)
+        self.temps = np.zeros(self.num_slots, np.float32)
+        self.top_ks = np.zeros(self.num_slots, np.int32)
+        self.top_ps = np.ones(self.num_slots, np.float32)
+
+    # ----------------------------------------------------------- client side
+    def submit(self, req: GenerationRequest) -> GenerationRequest:
+        """Admission-checked enqueue (client threads).  A request whose
+        worst-case page budget can NEVER fit the pool fails immediately
+        (ValueError — resubmitting cannot help); a full pending queue
+        sheds 429; shutdown sheds 503."""
+        worst = self.cache.pages_needed(
+            len(req.prompt) + req.max_new_tokens - 1)
+        if worst > self.cache.pages_per_slot:
+            raise ValueError(
+                f"request needs {worst} pages but a slot holds "
+                f"{self.cache.pages_per_slot} "
+                f"(max_context={self.cache.max_context})")
+        with self._wake:
+            self.admission.check_admit(len(self._pending), self._stopping,
+                                       trace_id=req.trace_id)
+            self._pending.append(req)
+            self._wake.notify_all()
+        return req
+
+    def wait_for_work(self, timeout: float) -> None:
+        """Decode-thread idle wait: returns early when a request arrives
+        or stop is requested."""
+        with self._wake:
+            if not self._pending and not self._stopping:
+                self._wake.wait(timeout)
+
+    def reopen(self) -> None:
+        """Re-arm admission after a shutdown (engine restart)."""
+        with self._wake:
+            self._stopping = False
+
+    def begin_shutdown(self, drain_pending: bool) -> None:
+        """Stop admitting.  Without ``drain_pending`` every queued
+        request fails 503 now; active requests are the engine's to
+        finish or fail."""
+        with self._wake:
+            self._stopping = True
+            pending = list(self._pending) if not drain_pending else []
+            if not drain_pending:
+                self._pending.clear()
+            self._wake.notify_all()
+        for req in pending:
+            err = self.admission.shed(ShuttingDownError,
+                                      "engine is shutting down",
+                                      trace_id=req.trace_id)
+            self._terminate(req, "shutdown", err)
+
+    def _terminate(self, req: GenerationRequest, reason: str,
+                   error: Optional[Exception] = None) -> None:
+        if req.done.is_set() or req.finish_reason is not None:
+            return   # already terminal (stop() races the loop's own end)
+        req.finish_reason = reason
+        req.error = error
+        try:
+            # accounting BEFORE the waiters wake: the hook stamps the
+            # request (slo_ok) and a client reading result() right after
+            # done.set() must see the stamp, not race it
+            if self.on_finish is not None:
+                self.on_finish(req)
+        finally:
+            req._release_waiters()
+
+    @property
+    def queued(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+    # ----------------------------------------------------- decode-thread side
+    def active_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is not None]
+
+    @property
+    def has_work(self) -> bool:
+        with self._lock:
+            pending = bool(self._pending)
+        return pending or any(s is not None for s in self.slots)
+
+    def purge_pending(self, now: Optional[float] = None) -> List[GenerationRequest]:
+        """Fail queued requests whose deadline passed without ever
+        running (504, no forward pass spent) — the queue-side purge the
+        serving batcher does for predict."""
+        now = time.monotonic() if now is None else now
+        out: List[GenerationRequest] = []
+        with self._lock:
+            keep: "deque[GenerationRequest]" = deque()
+            for req in self._pending:
+                if req.cancelled or now > req.deadline:
+                    out.append(req)
+                else:
+                    keep.append(req)
+            self._pending = keep
+        for req in out:
+            if req.cancelled:
+                self._terminate(req, "cancelled")
+            else:
+                err = self.admission.shed(
+                    DeadlineExceededError,
+                    "deadline expired while queued for a decode slot",
+                    trace_id=req.trace_id)
+                self._terminate(req, "deadline", err)
+        return out
+
+    def next_admittable(self) -> Optional[GenerationRequest]:
+        """Pop the oldest pending request IF a slot is free and its page
+        budget fits (allocates pages + a slot; the caller prefills it
+        immediately).  FIFO: a head request that doesn't fit blocks
+        later ones — admission order is completion-order fairness, not
+        best-fit packing.
+
+        With a retention policy installed, admission is cache-aware: the
+        radix tree prices the request at ⌈suffix/page⌉ instead of
+        ⌈prompt/page⌉ on a hit, refs the matched pages before anything
+        can evict them, and may evict/offload cold unpinned tree nodes
+        to make room — ``PageExhaustedError`` then means even eviction
+        could not free enough."""
+        free = next((i for i, s in enumerate(self.slots) if s is None), None)
+        if free is None:
+            return None
+        with self._lock:
+            if not self._pending:
+                return None
+            req = self._pending[0]
+            admit_result = None
+            try:
+                # never-fits requests were rejected at submit(), so the
+                # only failure here is transient pool pressure
+                if self.cache.retention is not None:
+                    admit_result = self.cache.retention.admit(
+                        req.prompt, req.max_new_tokens)
+                    pages = admit_result.pages
+                    shared_len = admit_result.shared_len
+                else:
+                    pages, shared_len = self.cache.admit(req.prompt,
+                                                         req.max_new_tokens)
+            except PageExhaustedError:
+                return None     # keep queued; pages free as slots retire
+            self._pending.popleft()
+        req.slot = free
+        req.pages = pages
+        req.shared_len = shared_len
+        req.cache_admit = admit_result
+        return req
+
+    def fail_admitted(self, req: GenerationRequest,
+                      error: Exception) -> None:
+        """Terminal path for a request that was admitted (pages + slot
+        reserved) but whose PREFILL failed before ``install``: free the
+        pages (which also drops any prefix-index entries registered for
+        its never-written pages) and release the waiters — without this
+        the request is invisible to ``evict_all`` and would hang its
+        clients forever while leaking its pages."""
+        if req.cache_admit is not None:
+            # radix nodes this admission created were never prefilled;
+            # drop them (and the tree's refs) before the request's own
+            # refs go, or a later match would serve unwritten pages
+            self.cache.retention.forget(req.cache_admit)
+            req.cache_admit = None
+        self.cache.free(req.pages)
+        req.pages = []
+        req.slot = None
+        self._terminate(req, "error", error)
+        if self.metrics is not None:
+            self.metrics.evictions.inc(reason="error")
+
+    def install(self, req: GenerationRequest, first_token: int,
+                base_key: np.ndarray) -> None:
+        """Bind an admitted+prefilled request to its slot: mirror arrays
+        pick it up from the next decode step on."""
+        i = req.slot
+        self.slots[i] = _Slot(req, pos=len(req.prompt))
+        self.block[i] = self.cache.block_row(req.pages)
+        self.pos[i] = len(req.prompt)
+        self.last_tok[i] = int(first_token)
+        self.keys[i] = base_key
+        self.tok_idx[i] = 1
+        self.temps[i] = req.temperature
+        self.top_ks[i] = req.top_k
+        self.top_ps[i] = req.top_p
+        req._deliver(first_token)
+        self._maybe_finish(i, int(first_token))
+
+    def after_step(self, sampled: np.ndarray) -> int:
+        """Deliver one decode step's tokens and advance/retire slots;
+        returns the number of tokens delivered."""
+        delivered = 0
+        now = time.monotonic()
+        for i in self.active_slots():
+            slot = self.slots[i]
+            req = slot.req
+            tok = int(sampled[i])
+            slot.pos += 1
+            self.pos[i] = slot.pos
+            self.last_tok[i] = tok
+            self.tok_idx[i] += 1
+            slot.generated += 1
+            req._deliver(tok)
+            if self.metrics is not None and req.itl_s:
+                self.metrics.inter_token.observe(req.itl_s[-1])
+            delivered += 1
+            if not self._maybe_finish(i, tok) and (
+                    req.cancelled or now > req.deadline):
+                self._evict(i, "cancelled" if req.cancelled else "deadline")
+        return delivered
+
+    def _maybe_finish(self, i: int, tok: int) -> bool:
+        slot = self.slots[i] if self.slots[i] is not None else None
+        if slot is None:   # install() path before the slot exists
+            return False
+        req = slot.req
+        if req.stop_token is not None and tok == req.stop_token:
+            self._retire(i, "stop")
+            return True
+        if slot.generated >= req.max_new_tokens:
+            self._retire(i, "length")
+            return True
+        return False
+
+    def _retire(self, i: int, reason: str) -> None:
+        slot = self.slots[i]
+        self._release(i)
+        self._terminate(slot.req, reason)
+
+    def _evict(self, i: int, reason: str,
+               error: Optional[Exception] = None) -> None:
+        """Mid-flight removal (deadline/cancel/shutdown/error): pages
+        free NOW, the stream ends with the matching error (except
+        cancel, which is a clean client-requested end)."""
+        slot = self.slots[i]
+        req = slot.req
+        self._release(i)
+        if reason == "deadline":
+            err = self.admission.shed(
+                DeadlineExceededError,
+                f"deadline expired after {len(req.tokens)} tokens",
+                trace_id=req.trace_id)
+        elif reason == "shutdown":
+            err = self.admission.shed(ShuttingDownError,
+                                      "engine stopped mid-generation",
+                                      trace_id=req.trace_id)
+        elif reason == "error":
+            err = error if error is not None else RuntimeError(
+                f"decode step failed [trace {req.trace_id}]")
+        else:
+            err = None
+        self._terminate(req, reason, err)
+        if self.metrics is not None:
+            self.metrics.evictions.inc(reason=reason)
+
+    def _release(self, i: int) -> None:
+        slot = self.slots[i]
+        self.cache.free(slot.req.pages)
+        self.slots[i] = None
+        # park the lane on the trash page with greedy sampling
+        self.block[i] = self.cache.block_row([])
+        self.pos[i] = 0
+        self.last_tok[i] = 0
+        self.keys[i] = 0
+        self.tok_idx[i] = 0
+        self.temps[i] = 0.0
+        self.top_ks[i] = 0
+        self.top_ps[i] = 1.0
+
+    def evict_all(self, reason: str,
+                  error: Optional[Exception] = None) -> None:
+        for i in self.active_slots():
+            self._evict(i, reason, error)
+
+    def as_dict(self) -> dict:
+        return {"slots": self.num_slots,
+                "active": len(self.active_slots()),
+                "queued": self.queued,
+                "cache": self.cache.as_dict(),
+                "requests": [s.req.as_dict()
+                             for s in self.slots if s is not None]}

@@ -1,0 +1,206 @@
+"""Config half of ``deeplearning4j_tpu/nn/conf.py``: the builder calls that
+``zoo.transformer_char_lm`` makes and ``MultiLayerConfiguration`` to and
+from the same JSON document (the ``configuration.json`` of a zip).
+
+The training policies (``stability``, ``introspection``, ``numerics``)
+are carried as plain dicts, so a reference config keeps them through a
+round trip; the engines that read them come with the training slice.
+Input preprocessors are not ported yet: a config that has any raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, List, Optional, Tuple
+
+from deeplearning4j_tpu_torch.nn.inputs import InputType
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
+
+_COMPUTE_DTYPES = (None, "bfloat16", "float16")
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdaterConfig:
+    """Updater hyperparameters (copied field for field from the reference,
+    so the JSON round-trips; the updaters come with the training slice)."""
+
+    name: str = "sgd"
+    learning_rate: float = 0.1
+    momentum: float = 0.9
+    rho: float = 0.95
+    rmsprop_decay: float = 0.95
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    epsilon: float = 1e-8
+    lr_policy: str = "none"
+    lr_policy_decay_rate: float = 0.0
+    lr_policy_steps: float = 1.0
+    lr_policy_power: float = 1.0
+    lr_policy_warmup_steps: float = 0.0
+    lr_policy_min_fraction: float = 0.0
+    weight_decay: float = 0.0
+    lr_schedule: Optional[Dict[int, float]] = None
+    momentum_schedule: Optional[Dict[int, float]] = None
+    gradient_normalization: str = "none"
+    gradient_normalization_threshold: float = 1.0
+
+    def to_dict(self):
+        d = dataclasses.asdict(self)
+        for k in ("lr_schedule", "momentum_schedule"):
+            if d[k]:
+                d[k] = {str(i): v for i, v in d[k].items()}
+        return d
+
+    @staticmethod
+    def from_dict(d):
+        d = dict(d)
+        for k in ("lr_schedule", "momentum_schedule"):
+            if d.get(k):
+                d[k] = {int(i): v for i, v in d[k].items()}
+        return UpdaterConfig(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiLayerConfiguration:
+    """Completed, immutable network config."""
+
+    layers: Tuple[Layer, ...]
+    input_type: Optional[InputType] = None
+    updater: UpdaterConfig = UpdaterConfig()
+    seed: int = 12345
+    optimization_algo: str = "stochastic_gradient_descent"
+    num_iterations: int = 1
+    backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+    pretrain: bool = False
+    backprop: bool = True
+    compute_dtype: Optional[str] = None
+    stability: Optional[dict] = None
+    introspection: Optional[dict] = None
+    numerics: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(
+                f"unsupported compute_dtype '{self.compute_dtype}' "
+                "(use 'bfloat16', 'float16', or None)")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "format_version": 1,
+            "layers": [l.to_dict() for l in self.layers],
+            "preprocessors": {},
+            "input_type": self.input_type.to_dict() if self.input_type else None,
+            "updater": self.updater.to_dict(),
+            "seed": self.seed,
+            "optimization_algo": self.optimization_algo,
+            "num_iterations": self.num_iterations,
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
+            "pretrain": self.pretrain,
+            "backprop": self.backprop,
+            "compute_dtype": self.compute_dtype,
+            "stability": self.stability,
+            "introspection": self.introspection,
+            "numerics": self.numerics,
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "MultiLayerConfiguration":
+        if d.get("preprocessors"):
+            raise NotImplementedError(
+                "input preprocessors are not ported yet "
+                f"(config has {sorted(d['preprocessors'])})")
+        return MultiLayerConfiguration(
+            layers=tuple(layer_from_dict(ld) for ld in d["layers"]),
+            input_type=(InputType.from_dict(d["input_type"])
+                        if d.get("input_type") else None),
+            updater=UpdaterConfig.from_dict(d["updater"]),
+            seed=d["seed"],
+            optimization_algo=d["optimization_algo"],
+            num_iterations=d["num_iterations"],
+            backprop_type=d["backprop_type"],
+            tbptt_fwd_length=d["tbptt_fwd_length"],
+            tbptt_back_length=d["tbptt_back_length"],
+            pretrain=d.get("pretrain", False),
+            backprop=d.get("backprop", True),
+            compute_dtype=d.get("compute_dtype"),
+            stability=d.get("stability"),
+            introspection=d.get("introspection"),
+            numerics=d.get("numerics"),
+        )
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration.from_dict(json.loads(s))
+
+
+class ListBuilder:
+    """Layer-stack builder."""
+
+    def __init__(self, parent: "Builder"):
+        self._parent = parent
+        self._layers: List[Layer] = []
+        self._compute_dtype: Optional[str] = None
+
+    def compute_dtype(self, dtype: str) -> "ListBuilder":
+        """Mixed precision: run the forward in ``dtype`` ("bfloat16");
+        params stay float32."""
+        if dtype not in ("bfloat16", "float16", "float32"):
+            raise ValueError(f"unsupported compute dtype '{dtype}'")
+        self._compute_dtype = None if dtype == "float32" else dtype
+        return self
+
+    def layer(self, layer: Layer) -> "ListBuilder":
+        self._layers.append(layer)
+        return self
+
+    def build(self) -> MultiLayerConfiguration:
+        if not self._layers:
+            raise ValueError("No layers added")
+        layers: List[Layer] = []
+        for i, layer in enumerate(self._layers):
+            if layer.name is None:
+                layer = layer.with_name(f"layer_{i}")
+            if getattr(layer, "n_in", 0) is None:
+                raise ValueError(
+                    f"Layer {i} ({type(layer).__name__}) has no n_in: the "
+                    "port's builder infers no sizes")
+            layer.validate()
+            layers.append(layer)
+        p = self._parent
+        return MultiLayerConfiguration(
+            layers=tuple(layers), updater=p._updater, seed=p._seed,
+            compute_dtype=self._compute_dtype)
+
+
+class Builder:
+    """Global-hyperparameter builder (the calls the zoo makes)."""
+
+    def __init__(self):
+        self._seed = 12345
+        self._updater = UpdaterConfig()
+
+    def seed(self, s: int) -> "Builder":
+        self._seed = int(s)
+        return self
+
+    def updater(self, name: str, **kwargs) -> "Builder":
+        self._updater = dataclasses.replace(self._updater, name=name.lower(),
+                                            **kwargs)
+        return self
+
+    def list(self) -> ListBuilder:
+        return ListBuilder(self)
+
+
+class NeuralNetConfiguration:
+    @staticmethod
+    def builder() -> Builder:
+        return Builder()

@@ -1,0 +1,1 @@
+"""Observability pieces the port needs (counterpart of ``deeplearning4j_tpu.observability``)."""
