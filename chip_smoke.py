@@ -2,14 +2,17 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. Build every CUDA kernel of the serving path from the sources in this
-   checkout (``nvcc``, one process per source, all started together).
+1. Build every CUDA kernel of the serving and training paths from the
+   sources in this checkout (``nvcc``, one process per source, all
+   started together).
 2. Hold each kernel against its plain PyTorch version on the card at the
-   engine's own shapes, and time the kernel, the plain version and a
-   library yardstick (``gather_pages`` + ``scaled_dot_product_attention``,
-   which the port never calls), beside the least time the card could
-   take (the bytes the call must move at 3.35 TB/s, or its operations at
-   the peak rate for their type, whichever is larger).
+   shapes its path gives it, and time the kernel, the plain version and a
+   library yardstick (which the port never calls: ``gather_pages`` +
+   ``scaled_dot_product_attention`` for paged decode, SDPA forward and
+   backward for flash attention, ``F.layer_norm`` for the prologue),
+   beside the least time the card could take (the bytes the call must
+   move at 3.35 TB/s, or its operations at the peak rate for their type,
+   whichever is larger).
 3. Serve the transformer char-LM at full width (vocab 128, d_model 1024,
    8 heads, 8 layers, bfloat16, seeded random weights) through the port's
    ``GenerationEngine`` (16 slots, pages of 16, context 512): 16
@@ -19,7 +22,15 @@ Phases (any failure exits non-zero; nothing is caught):
    first prefill's logits are then checked against the gather oracle, and
    a few full-batch decode steps run under ``torch.profiler`` to split
    the step's host wall from the device's busy time.
-4. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+4. Train the same model at full width (batch 8, T = 2048, Adam at 1e-3,
+   ``bench.py``'s batch: random ids from ``RandomState(0)``, labels the
+   one-hot of the ids rolled by one).  The first step's loss and
+   per-layer gradients are held against the built-in path
+   (``enable_helpers(False)``); then 2 warm-up and 5 timed ``fit`` steps,
+   the flash and prologue launch counts reset just before and read just
+   after (8 forward, 8 dQ, 8 dK/dV and 16 prologue launches a step, no
+   plain-version call), and one step under ``torch.profiler``.
+5. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -28,6 +39,7 @@ available or the port's package is not beside this script.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -38,10 +50,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch import helpers
+from deeplearning4j_tpu_torch.backend.device import pin_fp32_precision
 from deeplearning4j_tpu_torch.generation import GenerationEngine
+from deeplearning4j_tpu_torch.helpers import flash_attention as fa
+from deeplearning4j_tpu_torch.helpers import fused_epilogue as fe
 from deeplearning4j_tpu_torch.helpers import paged_attention as pa
+from deeplearning4j_tpu_torch.models.sequential import tree_leaves
 from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
 from deeplearning4j_tpu_torch.nn.layers.attention import gather_pages
+from deeplearning4j_tpu_torch.nn.layers.dense import EmbeddingLayer
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -54,6 +72,12 @@ PS, MAXP, PAGES = 16, 32, 16 * 32 + 1
 CLIENTS, PER_CLIENT, NEW_TOKENS = 4, 4, 64
 SPIN_CYCLES = 2_000_000     # about 1 ms of GPU clock: outlasts any enqueue
 PROFILED_STEPS = 10
+TRAIN_MODEL = dict(vocab_size=128, d_model=1024, n_heads=8, layers=8,
+                   compute_dtype="bfloat16", seed=12345)
+TRAIN_BATCH, TRAIN_T = 8, 2048
+WARM_STEPS, TIMED_STEPS = 2, 5
+LOSS_RTOL, GRAD_RTOL = 2e-2, 5e-2   # kernel path vs built-in path, bf16
+KERNEL_ITERS = 10
 
 
 def card() -> str:
@@ -70,15 +94,22 @@ def check(ok: bool, what: str) -> None:
 
 # ------------------------------------------------------------------ phase 1
 def build_kernels():
-    modules = [pa]
+    modules = [pa, fa, fe]
     with ThreadPoolExecutor(len(modules)) as ex:
         built = list(ex.map(lambda m: m.build(), modules))
     for m, b in zip(modules, built):
-        regs = [ln.split(":", 1)[1].strip() for ln in b.log.splitlines()
-                if "Used" in ln]
         print(f"build {m.SOURCE.name}: {b.build_s:.1f} s -> {b.path.name}")
-        for r in regs:
-            print(f"  ptxas: {r}")
+        entry = "?"
+        for ln in b.log.splitlines():
+            if "Compiling entry function" in ln:
+                # the kernel's name and template arguments, from the
+                # mangled symbol
+                found = re.search(r"((?:flash_[a-z]+|drn|paged_decode)_"
+                                  r"(?:kernel|mma))(I\w*?E)?E", ln)
+                entry = "".join(x for x in found.groups() if x) \
+                    if found else ln
+            elif "Used" in ln:
+                print(f"  ptxas {entry}: {ln.split(':', 1)[1].strip()}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -335,6 +366,325 @@ def decode_profile(progs, name_card):
           f"[{name_card}]")
 
 
+# ------------------------------------------------- phase 2, training kernels
+def _randn(seed, shape, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+def _scaled_err(a, ref):
+    """Largest difference over the reference's largest magnitude."""
+    return ((a.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _abs_err(a, ref):
+    return (a.float() - ref.float()).abs().max().item()
+
+
+def _bound(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _live_pairs(t, causal, window):
+    """(query, key) pairs inside the mask of one (b, h)."""
+    if not causal:
+        return t * t
+    q = np.arange(t)
+    seen = q + 1 if window is None else np.minimum(q + 1, window)
+    return int(seen.sum())
+
+
+def _sdpa_mask(t, causal, window):
+    if not causal or window is None:
+        return None
+    pos = torch.arange(t, device="cuda")
+    return ((pos[:, None] >= pos[None, :])
+            & (pos[None, :] > pos[:, None] - window))
+
+
+def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
+    b, t, h, d = shape
+    q, k, v, do = (_randn(seed + i, shape, dtype) for i in range(4))
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    ro, rlse = fa.flash_attention_plain_fwd(q, k, v, causal, window)
+    rdq, rdk, rdv = fa.flash_attention_plain_bwd(q, k, v, ro, rlse, do,
+                                                 causal, window)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    errs = {"o": _abs_err(o, ro), "lse": _abs_err(lse, rlse),
+            "dq": _scaled_err(dq, rdq), "dk": _scaled_err(dk, rdk),
+            "dv": _scaled_err(dv, rdv)}
+    abs_errs = {"dq": _abs_err(dq, rdq), "dk": _abs_err(dk, rdk),
+                "dv": _abs_err(dv, rdv)}
+    for what, err in errs.items():
+        check(err <= tol, f"flash[{name}] {what}: kernel vs plain {err} > "
+                          f"{tol}")
+    del ro, rlse, rdq, rdk, rdv
+
+    delta = fa._row_delta(o, do)
+    fwd_ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal,
+                                          window=window), flush,
+                     iters=KERNEL_ITERS)
+    dq_ms = time_ms(lambda: fa._launch_dq(q, k, v, do, lse, delta, causal,
+                                          window), flush, iters=KERNEL_ITERS)
+    dkv_ms = time_ms(lambda: fa._launch_dkv(q, k, v, do, lse, delta, causal,
+                                            window), flush,
+                     iters=KERNEL_ITERS)
+    pfwd_ms = time_ms(lambda: fa.flash_attention_plain_fwd(q, k, v, causal,
+                                                           window), flush,
+                      iters=3, warm=1)
+    pbwd_ms = time_ms(lambda: fa.flash_attention_plain_bwd(
+        q, k, v, o, lse, do, causal, window), flush, iters=3, warm=1)
+
+    # yardstick: one SDPA call forward, its autograd backward
+    qs, ks, vs = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    mask = _sdpa_mask(t, causal, window)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None)
+    lib_fwd_ms = time_ms(sdpa, flush, iters=KERNEL_ITERS)
+    out = sdpa()
+    gdo = do.transpose(1, 2)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), gdo, retain_graph=True), flush,
+        iters=KERNEL_ITERS)
+    lib_err = _abs_err(out.transpose(1, 2), o)
+    del out, qs, ks, vs
+
+    esz = q.element_size()
+    pairs = _live_pairs(t, causal, window) * b * h
+    tensor_bytes = q.numel() * esz
+    row_bytes = b * h * t * 4                         # lse or delta, f32
+    bounds = {
+        "fwd": _bound(4 * tensor_bytes + row_bytes, 4 * d * pairs, dtype),
+        "dq": _bound(5 * tensor_bytes + 2 * row_bytes, 6 * d * pairs, dtype),
+        "dkv": _bound(6 * tensor_bytes + 2 * row_bytes, 8 * d * pairs,
+                      dtype),
+    }
+    print(f"flash[{name}] q{list(shape)} {str(dtype)[6:]} causal={causal} "
+          f"window={window}: err o {errs['o']:.3e}, lse {errs['lse']:.3e}, "
+          f"dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e} "
+          f"(grads scaled by max abs; tol {tol:g}); library o err "
+          f"{lib_err:.3e} [{name_card}]")
+    print(f"flash[{name}] fwd {fwd_ms:.4f} ms (bound {bounds['fwd'][0]:.5f}"
+          f" ms, {bounds['fwd'][1]}), dQ {dq_ms:.4f} ms (bound "
+          f"{bounds['dq'][0]:.5f}), dK/dV {dkv_ms:.4f} ms (bound "
+          f"{bounds['dkv'][0]:.5f}); plain fwd {pfwd_ms:.4f} ms, plain bwd "
+          f"{pbwd_ms:.4f} ms; SDPA fwd {lib_fwd_ms:.4f} ms, SDPA bwd "
+          f"{lib_bwd_ms:.4f} ms [{name_card}]")
+    return {
+        "fwd": dict(err=errs["o"], ms=fwd_ms, plain_ms=pfwd_ms,
+                    lib_ms=lib_fwd_ms, bound=bounds["fwd"]),
+        "dq": dict(err=abs_errs["dq"], ms=dq_ms, plain_ms=pbwd_ms,
+                   lib_ms=lib_bwd_ms, bound=bounds["dq"]),
+        "dkv": dict(err=max(abs_errs["dk"], abs_errs["dv"]), ms=dkv_ms,
+                    plain_ms=pbwd_ms, lib_ms=lib_bwd_ms,
+                    bound=bounds["dkv"]),
+    }
+
+
+def prologue_case(name, seed, rows, c, dtype, has_res, has_mask, flush,
+                  name_card):
+    h = _randn(seed, (rows, c), dtype) * 3 + 1
+    res = _randn(seed + 1, (rows, c), dtype) if has_res else None
+    gamma = _randn(seed + 2, (c,), dtype) + 1
+    beta = _randn(seed + 3, (c,), dtype)
+    keep = 0.9 if has_mask else 1.0
+    mask = (torch.rand((rows, c), device="cuda") < keep) if has_mask \
+        else None
+    args = (h, res, gamma, beta, mask, 1e-5, keep)
+    out = fe.dropout_residual_norm_2d(*args)
+    ref = fe.dropout_residual_norm_plain(*args)
+    torch.cuda.synchronize()
+    # bf16: one rounding of values up to ~10, held relative to the
+    # largest magnitude; f32 absolute
+    err = (_scaled_err(out, ref) if dtype == torch.bfloat16
+           else _abs_err(out, ref))
+    check(err <= TOL[dtype], f"prologue[{name}]: kernel vs plain {err} > "
+                             f"{TOL[dtype]}")
+    ms = time_ms(lambda: fe.dropout_residual_norm_2d(*args), flush)
+    plain_ms = time_ms(lambda: fe.dropout_residual_norm_plain(*args), flush,
+                       iters=KERNEL_ITERS)
+    lib_ms = time_ms(lambda: F.layer_norm(h, (c,), gamma, beta, 1e-5),
+                     flush)
+    esz = h.element_size()
+    nbytes = (2 + has_res) * h.numel() * esz + 2 * c * esz + (
+        rows * c if has_mask else 0)
+    bms, by = _bound(nbytes, 0, dtype)
+    print(f"prologue[{name}] [{rows}, {c}] {str(dtype)[6:]} res={has_res} "
+          f"mask={has_mask}: err {err:.3e} (tol {TOL[dtype]:g}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.layer_norm {lib_ms:.4f} "
+          f"ms, bound {bms:.5f} ms ({by}) [{name_card}]")
+    return dict(err=_abs_err(out, ref), ms=ms, plain_ms=plain_ms,
+                lib_ms=lib_ms, bound=(bms, by))
+
+
+def train_kernel_phase(flush, name_card):
+    full = (TRAIN_BATCH, TRAIN_T, 8, 128)
+    flash = {}
+    for i, (name, shape, dtype, causal, window) in enumerate([
+            ("causal_bf16", full, torch.bfloat16, True, None),
+            ("causal_f32", full, torch.float32, True, None),
+            ("full_bf16", full, torch.bfloat16, False, None),
+            ("window256_bf16", full, torch.bfloat16, True, 256),
+            ("ragged1000_bf16", (TRAIN_BATCH, 1000, 8, 128), torch.bfloat16,
+             True, None)]):
+        flash[name] = flash_case(name, 200 + 10 * i, shape, dtype, causal,
+                                 window, flush, name_card)
+    rows = TRAIN_BATCH * TRAIN_T
+    prologue = {}
+    for i, (name, dtype, has_res, has_mask) in enumerate([
+            ("prologue_bf16", torch.bfloat16, False, False),
+            ("prologue_mask_bf16", torch.bfloat16, False, True),
+            ("residual_bf16", torch.bfloat16, True, False),
+            ("residual_mask_bf16", torch.bfloat16, True, True),
+            ("prologue_mask_f32", torch.float32, False, True)]):
+        prologue[name] = prologue_case(name, 300 + 10 * i, rows, 1024, dtype,
+                                       has_res, has_mask, flush, name_card)
+    return flash["causal_bf16"], prologue["prologue_bf16"]
+
+
+# ------------------------------------------------------------ phase 4, train
+def _matmul_params(net) -> int:
+    """Weights of rank >= 2 outside the embedding: the N of the 6·N·tokens
+    count (``bench.py`` ``_matmul_params``)."""
+    return sum(p.numel() for layer in net.layers
+               if not isinstance(layer, EmbeddingLayer)
+               for p in tree_leaves(net.params[layer.name]) if p.ndim >= 2)
+
+
+def _loss_and_grads(net, x, y):
+    """Loss and per-layer flat gradients of one forward/backward, no
+    update."""
+    trainable = net._trainable(net.params)
+    names = [n for n in sorted(trainable)]
+    leaves = {n: tree_leaves(trainable[n]) for n in names}
+    flat = [p for n in names for p in leaves[n]]
+    for p in flat:
+        p.requires_grad_(True)
+    try:
+        loss = net._loss_fn(net.params, x, y, None)
+        grads = torch.autograd.grad(loss, flat)
+    finally:
+        for p in flat:
+            p.requires_grad_(False)
+    out, i = {}, 0
+    for n in names:
+        k = len(leaves[n])
+        out[n] = torch.cat([g.reshape(-1) for g in grads[i:i + k]])
+        i += k
+    return float(loss), out
+
+
+def _kernel_counts():
+    return (fa.fwd_counts, fa.dq_counts, fa.dkv_counts, fe.counts)
+
+
+def train_phase(name_card):
+    net = transformer_char_lm(device="cuda", **TRAIN_MODEL)
+    vocab = TRAIN_MODEL["vocab_size"]
+    ids = np.random.RandomState(0).randint(0, vocab, (TRAIN_BATCH, TRAIN_T))
+    x = torch.as_tensor(ids, device="cuda")
+    y = torch.as_tensor(np.eye(vocab, dtype=np.float32)[np.roll(ids, -1, 1)],
+                        device="cuda")
+
+    # the first step through the kernels against the built-in path
+    k_loss, k_grads = _loss_and_grads(net, x, y)
+    helpers.enable_helpers(False)
+    try:
+        b_loss, b_grads = _loss_and_grads(net, x, y)
+    finally:
+        helpers.enable_helpers(True)
+    loss_rel = abs(k_loss - b_loss) / abs(b_loss)
+    grad_rel = {n: ((k_grads[n] - b_grads[n]).norm()
+                    / b_grads[n].norm().clamp_min(1e-30)).item()
+                for n in b_grads}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"train: first-step loss kernels {k_loss:.6f} vs built-in "
+          f"{b_loss:.6f} (rel {loss_rel:.3e}, tol {LOSS_RTOL}); per-layer "
+          f"gradient rel L2 max {grad_rel[worst]:.3e} at {worst} (tol "
+          f"{GRAD_RTOL})")
+    check(loss_rel <= LOSS_RTOL, f"first-step loss rel {loss_rel}")
+    check(all(r <= GRAD_RTOL for r in grad_rel.values()),
+          f"per-layer gradient rel L2 {grad_rel}")
+    del k_grads, b_grads
+    torch.cuda.empty_cache()
+
+    steps = WARM_STEPS + TIMED_STEPS
+    for c in _kernel_counts():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        losses.append(net.score_value)      # reads the loss: waits for it
+        step_s.append(time.perf_counter() - t0)
+    launches = [c.launches for c in _kernel_counts()]
+    plain = [c.plain_calls for c in _kernel_counts()]
+    layers = TRAIN_MODEL["layers"]
+    want = [layers * steps] * 3 + [2 * layers * steps]
+    print(f"train: launches over {steps} steps (fwd, dQ, dK/dV, prologue) "
+          f"{launches}, expected {want}; plain-version calls {plain}")
+    check(launches == want, f"launches {launches} == {want}")
+    check(plain == [0, 0, 0, 0], f"plain-version calls {plain} == 0")
+    check(all(np.isfinite(losses)), f"losses finite {losses}")
+    check(losses[-1] < losses[0], f"loss falls: {losses}")
+
+    med = float(np.median(step_s[WARM_STEPS:]))
+    tokens = TRAIN_BATCH * TRAIN_T
+    heads, d_model = TRAIN_MODEL["n_heads"], TRAIN_MODEL["d_model"]
+    flops = (6.0 * _matmul_params(net) * tokens
+             + 12.0 * layers * heads * TRAIN_T * TRAIN_T
+             * (d_model // heads) * TRAIN_BATCH * 0.5)
+    mfu = flops / med / PEAK_OPS[torch.bfloat16]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"train: losses {[round(v, 6) for v in losses]}")
+    print(f"train: step median {med * 1e3:.3f} ms over {TIMED_STEPS} steps "
+          f"(after {WARM_STEPS} warm-up); {tokens / med:.1f} tokens/s; "
+          f"analytic-FLOP utilisation {mfu:.4f} of 989 TFLOP/s "
+          f"({flops / 1e12:.2f} TFLOP a step); peak memory {peak_gb:.2f} GB "
+          f"[{name_card}]")
+    train_profile(net, x, y, name_card)
+    return launches
+
+
+def train_profile(net, x, y, name_card):
+    """Where one train step's time goes: the device's busy time by kernel
+    against the step's host wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    check(busy_ms > 0, "the profiler saw device time")
+    ours = {"flash fwd": "flash_fwd_", "flash dQ": "flash_dq_",
+            "flash dK/dV": "flash_dkv_", "prologue": "drn_kernel"}
+    share = {k: sum(e.self_device_time_total for e in ev if pat in e.key)
+             / 1e3 for k, pat in ours.items()}
+    print(f"train step (profiled): host wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) in "
+          f"{sum(e.count for e in ev)} device operations [{name_card}]")
+    print("train step kernels: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / busy_ms:.3f})" for k, v in share.items())
+        + f"; the four together {sum(share.values()) / busy_ms:.3f} of busy")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  top: {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -343,12 +693,17 @@ def main() -> int:
     print(name_card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)}")
+    pin_fp32_precision()
     t0 = time.perf_counter()
     build_kernels()
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = kernel_phase(flush, name_card)
+    flash, prologue = train_kernel_phase(flush, name_card)
     del flush
+    torch.cuda.empty_cache()
     launches = engine_phase(name_card)
+    torch.cuda.empty_cache()
+    train_launches = train_phase(name_card)
     d = rows["decode"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -357,6 +712,22 @@ def main() -> int:
         "launches": launches, "max_abs_err": d["err"], "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": d["lib_ms"]}]
+    flash_src = "deeplearning4j_tpu_torch/helpers/csrc/flash_attention.cu"
+    for (name, row, replaces), n in zip([
+            ("flash_attention_fwd", flash["fwd"], "flash_attention.py:125"),
+            ("flash_attention_dq", flash["dq"], "flash_attention.py:244"),
+            ("flash_attention_dkv", flash["dkv"], "flash_attention.py:271"),
+            ("dropout_residual_norm", prologue, "fused_epilogue.py:62")],
+            train_launches):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": (flash_src if name.startswith("flash") else
+                       "deeplearning4j_tpu_torch/helpers/csrc/"
+                       "fused_epilogue.cu"),
+            "replaces": f"deeplearning4j_tpu/helpers/{replaces}",
+            "launches": n, "max_abs_err": row["err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
+            "bound_by": row["bound"][1], "library_ms": row["lib_ms"]})
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -37,9 +37,13 @@ def get_helper(kind: str) -> Optional[object]:
     helper = _registry.get(kind)
     if helper is None:
         # lazy registration on first ask
-        from deeplearning4j_tpu_torch.helpers import paged_attention
+        from deeplearning4j_tpu_torch.helpers import (
+            flash_attention, fused_epilogue, paged_attention,
+        )
 
         register_helper("paged_attention",
                         paged_attention.PagedAttentionHelper())
+        register_helper("attention", flash_attention.FlashAttentionHelper())
+        register_helper("epilogue", fused_epilogue.FusedEpilogueHelper())
         helper = _registry.get(kind)
     return helper

@@ -1,4 +1,4 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build, load and count the port's hand-written CUDA kernels.
 
 Each kernel source under ``helpers/csrc/`` exposes a plain ``extern "C"``
 launcher.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
@@ -29,6 +29,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: Dict[Path, "Built"] = {}
+
+
+class Counts:
+    """Plain integer counts of one kernel: launches, and calls of its
+    plain version (CPU tensors).  Each wrapper bumps them where it launches
+    or takes the plain path, and nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
+        self.plain_calls = 0
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_calls = 0
 
 
 class Built(NamedTuple):

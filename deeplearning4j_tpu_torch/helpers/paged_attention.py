@@ -55,19 +55,7 @@ def paged_attention_mode() -> str:
     return _mode
 
 
-class Counts:
-    """Plain integer counts: kernel launches and plain-version calls."""
-
-    def __init__(self):
-        self.launches = 0
-        self.plain_calls = 0
-
-    def reset(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
-
-
-counts = Counts()
+counts = cuda_build.Counts()
 
 
 def _check_shapes(q, pk, pv, block, q_positions, page_size):

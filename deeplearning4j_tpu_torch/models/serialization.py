@@ -1,11 +1,13 @@
 """Zip checkpoints — counterpart of ``deeplearning4j_tpu/models/serialization.py``.
 
-The same container: ``manifest.json``, ``configuration.json`` (the
-config JSON) and ``coefficients.npz`` (params flattened to
-``"layer/sub/name"`` keys).  Reading goes through
-``models.interop.params_from_numpy``, so a zip the JAX package wrote
-loads here, and a zip written here loads there.  Updater state is not
-read or written yet (training comes with a later slice).
+The same container: ``manifest.json`` (with the iteration),
+``configuration.json`` (the config JSON), ``coefficients.npz`` (params
+flattened to ``"layer/sub/name"`` keys) and ``updaterState.npz`` (the
+updater's trees, ``"slot/layer/sub/name"``).  Reading goes through
+``models.interop``, so a zip the JAX package wrote loads and resumes
+training here, and a zip written here loads there.  The reader accepts
+the reference's reserved updater subtrees (stability, introspection,
+numerics) and ignores them.
 """
 
 from __future__ import annotations
@@ -18,12 +20,15 @@ from typing import Any, Dict
 import numpy as np
 
 from deeplearning4j_tpu_torch.backend.device import DeviceLike
-from deeplearning4j_tpu_torch.models.interop import params_from_numpy
+from deeplearning4j_tpu_torch.models.interop import (
+    params_from_numpy, updater_state_from_numpy,
+)
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 
 FORMAT_VERSION = 1
 CONFIG_ENTRY = "configuration.json"
 COEFFICIENTS_ENTRY = "coefficients.npz"
+UPDATER_ENTRY = "updaterState.npz"
 MANIFEST_ENTRY = "manifest.json"
 
 
@@ -49,16 +54,23 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
-def write_model(net, path) -> None:
-    manifest = {"format_version": FORMAT_VERSION,
-                "model_type": "MultiLayerNetwork", "iteration": 0,
-                "framework": "deeplearning4j_tpu_torch"}
+def _npz_bytes(tree) -> bytes:
     buf = io.BytesIO()
-    np.savez(buf, **_flatten(net.params))
+    np.savez(buf, **_flatten(tree))
+    return buf.getvalue()
+
+
+def write_model(net, path, save_updater: bool = True) -> None:
+    manifest = {"format_version": FORMAT_VERSION,
+                "model_type": "MultiLayerNetwork",
+                "iteration": net.iteration,
+                "framework": "deeplearning4j_tpu_torch"}
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(MANIFEST_ENTRY, json.dumps(manifest))
         zf.writestr(CONFIG_ENTRY, net.conf.to_json())
-        zf.writestr(COEFFICIENTS_ENTRY, buf.getvalue())
+        zf.writestr(COEFFICIENTS_ENTRY, _npz_bytes(net.params))
+        if save_updater and net.updater_state:
+            zf.writestr(UPDATER_ENTRY, _npz_bytes(net.updater_state))
 
 
 def read_manifest(path) -> Dict[str, Any]:
@@ -66,8 +78,21 @@ def read_manifest(path) -> Dict[str, Any]:
         return json.loads(zf.read(MANIFEST_ENTRY).decode())
 
 
-def restore_multi_layer_network(path, device: DeviceLike = None):
+def _read_npz(zf, entry) -> Dict[str, Any]:
+    return _unflatten(dict(np.load(io.BytesIO(zf.read(entry)))))
+
+
+def restore_multi_layer_network(path, device: DeviceLike = None,
+                                load_updater: bool = True):
     with zipfile.ZipFile(path, "r") as zf:
         conf = MultiLayerConfiguration.from_json(zf.read(CONFIG_ENTRY).decode())
-        flat = dict(np.load(io.BytesIO(zf.read(COEFFICIENTS_ENTRY))))
-    return params_from_numpy(conf, _unflatten(flat), device)
+        params = _read_npz(zf, COEFFICIENTS_ENTRY)
+        state = (_read_npz(zf, UPDATER_ENTRY)
+                 if load_updater and UPDATER_ENTRY in zf.namelist()
+                 else None)
+        manifest = json.loads(zf.read(MANIFEST_ENTRY).decode())
+    net = params_from_numpy(conf, params, device)
+    if state is not None:
+        net.updater_state = updater_state_from_numpy(net, state)
+    net.iteration = manifest.get("iteration", 0)
+    return net

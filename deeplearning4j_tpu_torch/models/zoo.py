@@ -18,6 +18,7 @@ def transformer_char_lm(vocab_size: int = 77, d_model: int = 128,
                         n_heads: int = 4, layers: int = 2,
                         ff_mult: int = 4, seed: int = 12345,
                         updater: str = "adam", lr: float = 1e-3,
+                        remat: bool = False,
                         compute_dtype: Optional[str] = None,
                         rope: bool = True,
                         n_kv_heads: Optional[int] = None,
@@ -28,7 +29,8 @@ def transformer_char_lm(vocab_size: int = 77, d_model: int = 128,
     of (LayerNorm -> self-attention) and (LayerNorm -> Dense relu ->
     Dense), final LayerNorm and a per-timestep softmax head — the same
     config (and JSON) the reference builds, with seeded weights on
-    ``device``."""
+    ``device``.  ``remat=True`` recomputes each block in the backward
+    pass."""
     b = (NeuralNetConfiguration.builder().seed(seed)
          .updater(updater, learning_rate=lr).list())
     if compute_dtype:
@@ -38,13 +40,13 @@ def transformer_char_lm(vocab_size: int = 77, d_model: int = 128,
     b.layer(EmbeddingLayer(n_in=vocab_size, n_out=d_model,
                            collapse_column=False))
     for _ in range(layers):
-        b.layer(ResidualBlock(layers=(
+        b.layer(ResidualBlock(remat=remat, layers=(
             LayerNorm(n_in=d_model),
             SelfAttentionLayer(n_in=d_model, n_out=d_model, n_heads=n_heads,
                                causal=True, rope=rope, n_kv_heads=n_kv_heads,
                                window=window, max_cache=max_cache),
         )))
-        b.layer(ResidualBlock(layers=(
+        b.layer(ResidualBlock(remat=remat, layers=(
             LayerNorm(n_in=d_model),
             DenseLayer(n_in=d_model, n_out=d_model * ff_mult,
                        activation="relu"),

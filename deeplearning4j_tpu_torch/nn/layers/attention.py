@@ -2,13 +2,14 @@
 
 Ported: ``split_heads``/``merge_heads``, ``rope`` (with [T] or per-row
 [B, T] positions), ``dot_product_attention`` (causal, sliding window,
-GQA contracted on the unexpanded kv heads), the paged-gather oracle
-(``gather_pages`` + ``paged_attention``), and ``SelfAttentionLayer``
-with ``init``, ``apply``, ``init_paged_cache`` and the paged branch of
-``apply_with_carry``.  The paged branch asks the helper seam for the
-fused kernel (``helpers/paged_attention.py``).  Still to come: the
-linear and rolling stream caches, ring attention (``seq_axis``) and
-the flash kernel on ``apply``.
+padding mask, GQA contracted on the unexpanded kv heads), the
+paged-gather oracle (``gather_pages`` + ``paged_attention``), and
+``SelfAttentionLayer`` with ``init``, ``apply`` (train and inference),
+``init_paged_cache`` and the paged branch of ``apply_with_carry``.
+``apply`` asks the helper seam for flash attention
+(``helpers/flash_attention.py``), the paged branch for the fused decode
+kernel (``helpers/paged_attention.py``).  Still to come: the linear and
+rolling stream caches and ring attention (``seq_axis``).
 """
 
 from __future__ import annotations
@@ -70,10 +71,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = False,
-                          window: Optional[int] = None) -> torch.Tensor:
-    """Scaled dot-product attention on [B, T, H, D], softmax in float32.
-    GQA (q has G times the kv heads) shares each kv head across its G
-    query heads without expanding K/V."""
+                          window: Optional[int] = None,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Scaled dot-product attention on [B, T, H, D], softmax in float32
+    (float64 for float64 inputs).  GQA (q has G times the kv heads) shares
+    each kv head across its G query heads without expanding K/V.  A
+    padding ``mask`` [B, Tk] (nonzero = a real key) hides padded keys."""
     check_window(causal, window)
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -95,6 +99,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             # sliding window: keep kpos in [qpos - window + 1, qpos]
             cm &= kpos[None, :] > qpos[:, None] - window
         scores = scores.masked_fill(~cm, NEG)
+    if mask is not None:
+        heads = (None,) * (scores.ndim - 3)
+        keys = (mask != 0)[(slice(None),) + heads + (None, slice(None))]
+        scores = scores.masked_fill(~keys, NEG)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     if grouped:
         o = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
@@ -154,9 +162,17 @@ class SelfAttentionLayer(Layer):
     n_kv_heads: Optional[int] = None
     window: Optional[int] = None
 
+    _TAKES_MASK = True
+
     @property
     def _kv_heads(self) -> int:
         return self.n_heads if self.n_kv_heads is None else self.n_kv_heads
+
+    def _expand_kv(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, Hkv, D] -> [B, T, H, D]: each kv head shared across its
+        query-head group (GQA), for the flash kernels."""
+        groups = self.n_heads // self._kv_heads
+        return x if groups == 1 else x.repeat_interleave(groups, dim=2)
 
     def param_shapes(self):
         kv_out = self._kv_heads * (self.n_out // self.n_heads)
@@ -193,18 +209,30 @@ class SelfAttentionLayer(Layer):
         y = merge_heads(o) @ params["Wo"] + params["bo"]
         return activations.get(self.activation)(y)
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False, rng=None, mask=None):
+        """Routes as the reference (``attention.py:498-510``): with
+        ``flash``, no padding mask and a non-float64 type, through the
+        ``"attention"`` helper on GQA-expanded heads; otherwise
+        ``dot_product_attention``."""
         if self.seq_axis is not None:
             raise NotImplementedError(
                 "ring attention (seq_axis) is not ported yet")
+        x = self.maybe_dropout(x, train=train, rng=rng)
         q, k, v = self._qkv(params, x)
         if self.rope:
             positions = torch.arange(q.shape[1], device=q.device)
             q = rope(q, positions, self.rope_theta)
             k = rope(k, positions, self.rope_theta)
-        # grouped contraction: no KV expansion materialized
-        o = dot_product_attention(q, k, v, causal=self.causal,
-                                  window=self.window)
+        o = None
+        if self.flash and mask is None and q.dtype != torch.float64:
+            helper = get_helper("attention")
+            if helper is not None and helper.supports(q):
+                o = helper.attend(q, self._expand_kv(k), self._expand_kv(v),
+                                  causal=self.causal, window=self.window)
+        if o is None:
+            # grouped contraction: no KV expansion materialized
+            o = dot_product_attention(q, k, v, causal=self.causal,
+                                      window=self.window, mask=mask)
         return self._out(params, o)
 
     def init_paged_cache(self, num_pages: int, page_size: int,
@@ -263,17 +291,21 @@ class SelfAttentionLayer(Layer):
                      "pos": pos + t_new}
         return self._out(params, o), new_carry
 
-    def apply_with_carry(self, params, x, carry):
+    def apply_with_carry(self, params, x, carry, *, train=False, rng=None,
+                         mask=None):
         """carry=None -> ``apply``.  With a paged carry (``"pk"`` in it):
         append this call's K/V to the pool and attend the new queries
         over everything the rows have written."""
         if carry is None:
-            return self.apply(params, x), None
-        if not self.causal or self.seq_axis is not None:
+            return self.apply(params, x, train=train, rng=rng,
+                              mask=mask), None
+        if not self.causal or self.seq_axis is not None or mask is not None:
             raise ValueError(
                 "KV-cache streaming requires causal=True attention without "
-                f"seq_axis; got causal={self.causal}, "
-                f"seq_axis={self.seq_axis}")
+                "seq_axis or padding masks; got "
+                f"causal={self.causal}, seq_axis={self.seq_axis}, "
+                f"mask={'set' if mask is not None else None}")
+        x = self.maybe_dropout(x, train=train, rng=rng)
         if "pk" not in carry:
             raise NotImplementedError(
                 "only the paged KV cache is ported; the linear and rolling "

@@ -8,7 +8,7 @@ from typing import Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.nn import activations, initializers
+from deeplearning4j_tpu_torch.nn import activations, initializers, losses
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 
 
@@ -17,6 +17,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 class DenseLayer(Layer):
     n_in: Optional[int] = None
     n_out: Optional[int] = None
+    _SUPPORTS_DROP_CONNECT = True  # apply() masks W via maybe_drop_connect
 
     def param_shapes(self):
         return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
@@ -28,8 +29,10 @@ class DenseLayer(Layer):
                        device=device)
         return {"W": w, "b": b}
 
-    def apply(self, params, x):
-        return activations.get(self.activation)(self.pre_output(params, x))
+    def apply(self, params, x, *, train=False, rng=None):
+        x = self.maybe_dropout(x, train=train, rng=rng)
+        w = self.maybe_drop_connect(params["W"], train=train, rng=rng)
+        return activations.get(self.activation)(x @ w + params["b"])
 
     def pre_output(self, params, x):
         return x @ params["W"] + params["b"]
@@ -38,12 +41,30 @@ class DenseLayer(Layer):
 @register_layer
 @dataclasses.dataclass(frozen=True)
 class OutputLayer(DenseLayer):
-    """Dense + loss head.  Inference stops at ``pre_output``; the network
-    applies ``activation`` at its API boundary.  ``loss`` is kept for
-    the config round-trip (scoring arrives with the training slice)."""
+    """Dense + loss head.  The network stops at ``pre_output`` and scores
+    it with ``loss`` (a name in ``nn/losses.py``) in float32, or applies
+    ``activation`` at its inference boundary."""
 
     loss: str = "mcxent"
     activation: str = "softmax"
+
+    def validate(self) -> None:
+        super().validate()
+        losses.get(self.loss)
+        if self.loss == "mcxent" and self.activation == "sigmoid":
+            import warnings
+
+            # mcxent lacks the (1-y)log(1-p) term: with independent sigmoid
+            # outputs it is minimised by saturating every unit to 1
+            warnings.warn(
+                "OutputLayer: loss 'mcxent' with activation 'sigmoid' "
+                "degenerates (all outputs ->1). Use activation='softmax' "
+                "for classification or loss='xent' for multi-label.",
+                stacklevel=2)
+
+    def score(self, params, x, labels, mask=None):
+        pre = self.pre_output(params, x)
+        return losses.score(self.loss, labels, pre, self.activation, mask)
 
 
 @register_layer
@@ -62,7 +83,7 @@ class EmbeddingLayer(Layer):
     param_shapes = DenseLayer.param_shapes
     init = DenseLayer.init
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False, rng=None):
         idx = x.to(torch.int64)
         if self.collapse_column and idx.ndim >= 2 and idx.shape[-1] == 1:
             idx = idx[..., 0]

@@ -31,7 +31,7 @@ class LayerNorm(Layer):
         return {"gamma": torch.ones((self.n_in,), dtype=dtype, device=device),
                 "beta": torch.zeros((self.n_in,), dtype=dtype, device=device)}
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False, rng=None):
         y = F.layer_norm(x, (x.shape[-1],), params["gamma"], params["beta"],
                          self.eps)
         return activations.get(self.activation)(y)

@@ -112,3 +112,228 @@ def test_engine_goes_through_the_kernel(cuda):
     assert all(len(o) == 12 for o in outs)
     calls = eng.programs.prefill_calls + eng.programs.decode_calls
     assert pa.counts.launches == 2 * calls and pa.counts.plain_calls == 0
+
+
+# ---------------------------------------------------------------- flash
+from deeplearning4j_tpu_torch.helpers import flash_attention as fa  # noqa: E402
+from deeplearning4j_tpu_torch.helpers import fused_epilogue as fe  # noqa: E402
+
+FLASH_CASES = {
+    # name: (B, T, H, D, causal, window)
+    "small_causal": (2, 96, 2, 64, True, None),
+    "ragged_causal": (1, 100, 3, 32, True, None),
+    "not_causal": (2, 77, 2, 16, False, None),
+    "window": (1, 200, 2, 64, True, 33),
+    "d256": (1, 70, 2, 256, True, None),
+    "d40": (2, 45, 1, 40, True, 7),
+    "full_width": (8, 2048, 8, 128, True, None),
+}
+
+
+def _flash_inputs(seed, b, t, h, d, dtype):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, t, h, d, generator=g).to("cuda", dtype)
+            for _ in range(4)]
+
+
+def _scaled_err(a, b):
+    """Largest difference over the reference's largest magnitude."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(name, dtype, cuda):
+    b, t, h, d, causal, window = FLASH_CASES[name]
+    q, k, v, do = _flash_inputs(11, b, t, h, d, dtype)
+    counts = (fa.fwd_counts.launches, fa.dq_counts.launches,
+              fa.dkv_counts.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    assert (fa.fwd_counts.launches, fa.dq_counts.launches,
+            fa.dkv_counts.launches) == tuple(c + 1 for c in counts)
+    ro, rlse = fa.flash_attention_plain_fwd(q, k, v, causal, window)
+    rdq, rdk, rdv = fa.flash_attention_plain_bwd(q, k, v, o, lse, do,
+                                                 causal, window)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= TOL[dtype]
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == dtype
+        assert _scaled_err(got, ref) <= TOL[dtype]
+
+
+def test_flash_autograd_on_the_card(cuda):
+    """``flash_attention`` differentiates through the kernels: its grads
+    equal those of the plain ``dot_product_attention`` in float32."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        dot_product_attention,
+    )
+
+    q, k, v, do = _flash_inputs(3, 2, 130, 2, 32, torch.float32)
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    before = fa.dkv_counts.launches
+    o = fa.flash_attention(q, k, v, causal=True, window=50)
+    g = torch.autograd.grad(o, (q, k, v), do)
+    assert fa.dkv_counts.launches == before + 1
+    ref = dot_product_attention(q, k, v, causal=True, window=50)
+    gr = torch.autograd.grad(ref, (q, k, v), do)
+    assert (o - ref).abs().max().item() <= 1e-4
+    for a, r in zip(g, gr):
+        assert (a - r).abs().max().item() <= 1e-4
+
+
+def test_flash_wrapper_refuses_what_it_does_not_take(cuda):
+    q, k, v, _ = _flash_inputs(1, 1, 16, 2, 64, torch.float32)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.half(), k.half(), v.half(), causal=True)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q, k.bfloat16(), v, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q[..., :12].contiguous(), k[..., :12].contiguous(),
+                     v[..., :12].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_fwd(q, k[:, :8].contiguous(), v[:, :8].contiguous())
+    assert not fa.supports(q.double()) and not fa.supports(q[..., :12])
+
+
+# ------------------------------------------------------- fused epilogue
+DRN_CASES = {
+    # name: (rows, C, residual, mask)
+    "prologue": (300, 1024, False, False),
+    "prologue_mask": (300, 1024, False, True),
+    "residual": (17, 96, True, False),
+    "residual_mask": (33, 4096, True, True),
+    "wide": (5, 8192, True, True),
+    "full_width": (16384, 1024, False, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(DRN_CASES))
+def test_epilogue_kernel_matches_plain(name, dtype, cuda):
+    rows, c, has_res, has_mask = DRN_CASES[name]
+    g = torch.Generator().manual_seed(5)
+    h = (torch.randn(rows, c, generator=g) * 3 + 1).to("cuda", dtype)
+    res = torch.randn(rows, c, generator=g).to("cuda", dtype) if has_res \
+        else None
+    gamma = (torch.randn(c, generator=g) + 1).to("cuda", dtype)
+    beta = torch.randn(c, generator=g).to("cuda", dtype)
+    mask = (torch.rand(rows, c, generator=g) < 0.9).cuda() if has_mask \
+        else None
+    before = fe.counts.launches
+    out = fe.dropout_residual_norm_2d(h, res, gamma, beta, mask, 1e-5, 0.9)
+    assert fe.counts.launches == before + 1
+    ref = fe.dropout_residual_norm_plain(h, res, gamma, beta, mask, 1e-5,
+                                         0.9)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    assert _scaled_err(out, ref) <= TOL[dtype]
+
+
+def test_epilogue_autograd_on_the_card(cuda):
+    g = torch.Generator().manual_seed(9)
+    h, res = (torch.randn(2, 7, 64, generator=g).cuda().requires_grad_()
+              for _ in range(2))
+    gamma = (torch.randn(64, generator=g) + 1).cuda().requires_grad_()
+    beta = torch.randn(64, generator=g).cuda().requires_grad_()
+    mask = torch.rand(2, 7, 64, generator=g).cuda() < 0.7
+    y = fe.dropout_residual_norm(h, res, gamma, beta, rate=0.3, mask=mask)
+    gy = torch.randn_like(y)
+    got = torch.autograd.grad(y, (h, res, gamma, beta), gy)
+    x = (h + res).double()
+    ref = torch.nn.functional.layer_norm(x, (64,), gamma.double(),
+                                         beta.double(), 1e-5)
+    ref = torch.where(mask, ref / 0.7, torch.zeros_like(ref))
+    want = torch.autograd.grad(ref, (h, res, gamma, beta), gy.double())
+    assert (y.double() - ref).abs().max().item() <= 1e-4
+    for a, r in zip(got, want):
+        assert (a.double() - r).abs().max().item() <= 1e-4
+
+
+def test_epilogue_wrapper_refuses_what_it_does_not_take(cuda):
+    h = torch.randn(4, 64, device="cuda")
+    gamma, beta = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    with pytest.raises(TypeError):
+        fe.dropout_residual_norm_2d(h.half(), None, gamma.half(),
+                                    beta.half(), None, 1e-5, 1.0)
+    with pytest.raises(ValueError, match="multiple"):
+        fe.dropout_residual_norm_2d(h[:, :30].contiguous(), None,
+                                    gamma[:30], beta[:30], None, 1e-5, 1.0)
+    with pytest.raises(TypeError):
+        fe.dropout_residual_norm_2d(h, None, gamma.bfloat16(), beta, None,
+                                    1e-5, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fe.dropout_residual_norm_2d(h.t().contiguous().t(), None, gamma,
+                                    beta, None, 1e-5, 1.0)
+
+
+def test_fit_step_goes_through_the_kernels(cuda):
+    """One bfloat16 ``fit`` step of a small char-LM on the card launches
+    each flash kernel once per attention layer and the prologue once per
+    residual block, and never runs a plain version."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
+
+    net = transformer_char_lm(vocab_size=29, d_model=64, n_heads=4,
+                              layers=2, compute_dtype="bfloat16")
+    ids = np.random.default_rng(0).integers(0, 29, (2, 40))
+    y = np.eye(29, dtype=np.float32)[np.roll(ids, -1, 1)]
+    counts = (fa.fwd_counts, fa.dq_counts, fa.dkv_counts, fe.counts)
+    for c in counts:
+        c.reset()
+    net.fit(ids, y)
+    net.fit(ids, y)
+    assert [c.launches for c in counts] == [4, 4, 4, 8]
+    assert [c.plain_calls for c in counts] == [0, 0, 0, 0]
+    assert np.isfinite(net.score_value) and net.iteration == 2
+
+
+def test_dropout_and_remat_on_the_card(cuda):
+    """A pre-norm block with input dropout, recomputed in the backward
+    (``remat``): the masks are drawn on the card from the same keys in
+    the forward and the recompute, so the kernel path's grads equal the
+    built-in path's (float32, kernel vs library LayerNorm)."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.models.sequential import tree_leaves
+    from deeplearning4j_tpu_torch.nn.layers import (
+        DenseLayer, LayerNorm, ResidualBlock, SelfAttentionLayer,
+    )
+
+    x = torch.randn(2, 48, 64, generator=torch.Generator().manual_seed(2))
+    x = x.cuda()
+    for sub in (DenseLayer(n_in=64, n_out=64, activation="relu",
+                           dropout=0.25),
+                SelfAttentionLayer(n_in=64, n_out=64, n_heads=4,
+                                   n_kv_heads=2, causal=True, rope=True,
+                                   dropout=0.25)):
+        block = ResidualBlock(remat=True, layers=(LayerNorm(n_in=64), sub))
+        params = block.init(torch.Generator().manual_seed(0),
+                            device=torch.device("cuda"))
+        leaves = tree_leaves(params)
+        grads = []
+        for on in (True, False):
+            helpers.enable_helpers(on)
+            try:
+                for p in leaves:
+                    p.grad = None
+                    p.requires_grad_(True)
+                before = fe.counts.launches
+                y = block.apply(params, x, train=True,
+                                rng=torch.Generator().manual_seed(9))
+                assert fe.counts.launches == before + on
+                (y * y).mean().backward()   # recomputes the block
+                assert fe.counts.launches == before + 2 * on
+                grads.append([p.grad.clone() for p in leaves])
+            finally:
+                helpers.enable_helpers(True)
+        for a, b in zip(*grads):
+            assert (a - b).abs().max().item() <= 1e-4 * max(
+                1.0, b.abs().max().item())

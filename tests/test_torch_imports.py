@@ -1,7 +1,8 @@
 """The port never imports ``jax`` or anything of ``deeplearning4j_tpu``
 (whose ``__init__`` imports jax): checked on the sources, and by
 importing every port module in a fresh interpreter where ``jax`` is
-poisoned."""
+poisoned.  ``chip_smoke.py``, which runs on a machine without JAX, is
+held to the same rule."""
 
 import ast
 import os
@@ -29,6 +30,12 @@ def test_sources_import_neither_jax_nor_the_jax_package():
            for f in files for name in _imported(ast.parse(f.read_text()))
            if name.split(".")[0] in FORBIDDEN]
     assert bad == []
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    names = list(_imported(ast.parse((REPO / "chip_smoke.py").read_text())))
+    assert any(n.startswith("deeplearning4j_tpu_torch") for n in names)
+    assert [n for n in names if n.split(".")[0] in FORBIDDEN] == []
 
 
 def test_importing_every_module_loads_no_jax(tmp_path):
