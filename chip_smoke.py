@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught):
    shapes its path gives it, and time the kernel, the plain version and a
    library yardstick (which the port never calls: ``gather_pages`` +
    ``scaled_dot_product_attention`` for paged decode, SDPA forward and
-   backward for flash attention, ``F.layer_norm`` for the prologue),
+   backward for flash attention, ``F.layer_norm`` for the prologue,
+   ``F.batch_norm`` for BatchNorm),
    beside the least time the card could take (the bytes the call must
    move at 3.35 TB/s, or its operations at the peak rate for their type,
    whichever is larger).
@@ -30,7 +31,22 @@ Phases (any failure exits non-zero; nothing is caught):
    the flash and prologue launch counts reset just before and read just
    after (8 forward, 8 dQ, 8 dK/dV and 16 prologue launches a step, no
    plain-version call), and one step under ``torch.profiler``.
-5. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+5. Hold the three BatchNorm kernels (training forward, training
+   backward, inference) against their plain versions at ResNet-50's
+   shapes (bfloat16; a float32 and a float16 case), and time them beside ``F.batch_norm`` (cuDNN, on
+   channels_last views) and their bound.
+6. ResNet-50 as a ComputationGraph at full width (224x224x3, 1000
+   classes, batch 128, bfloat16, Nesterov at 0.1, ``bench.py``'s batch:
+   ``RandomState(0)`` images in [0, 1) and one-hot labels; seeded random
+   weights).  ``output`` is held against the built-in path
+   (``enable_helpers(False)``: the logits and their argmax) and must
+   launch the inference kernel once per BatchNorm layer (53); the first step's loss (bfloat16) and
+   per-node gradients (float32 compute, where they are not rounding) are
+   held against the built-in path; then 2 warm-up and 5 timed ``fit``
+   steps (53 training-forward and 53 training-backward launches a step,
+   no plain-version call, finite losses, running stats that moved), and
+   one step under ``torch.profiler``.
+7. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -38,6 +54,7 @@ available or the port's package is not beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -53,17 +70,23 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch import helpers
 from deeplearning4j_tpu_torch.backend.device import pin_fp32_precision
 from deeplearning4j_tpu_torch.generation import GenerationEngine
+from deeplearning4j_tpu_torch.helpers import batch_norm as bn
 from deeplearning4j_tpu_torch.helpers import flash_attention as fa
 from deeplearning4j_tpu_torch.helpers import fused_epilogue as fe
 from deeplearning4j_tpu_torch.helpers import paged_attention as pa
 from deeplearning4j_tpu_torch.models.sequential import tree_leaves
-from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
+from deeplearning4j_tpu_torch.models.zoo import resnet50, transformer_char_lm
 from deeplearning4j_tpu_torch.nn.layers.attention import gather_pages
+from deeplearning4j_tpu_torch.nn.layers.convolution import ConvolutionLayer
+from deeplearning4j_tpu_torch.nn.layers.normalization import (
+    BatchNormalization,
+)
 from deeplearning4j_tpu_torch.nn.layers.dense import EmbeddingLayer
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+            torch.float32: 67e12}
+TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
 LOGITS_TOL = 0.1    # bf16 logits, kernel vs gather oracle, 8 layers
 MODEL = dict(vocab_size=128, d_model=1024, n_heads=8, layers=8,
              max_cache=512, compute_dtype="bfloat16", seed=12345)
@@ -78,6 +101,18 @@ TRAIN_BATCH, TRAIN_T = 8, 2048
 WARM_STEPS, TIMED_STEPS = 2, 5
 LOSS_RTOL, GRAD_RTOL = 2e-2, 5e-2   # kernel path vs built-in path, bf16
 KERNEL_ITERS = 10
+RESNET = dict(compute_dtype="bfloat16", seed=12345)   # 224x224x3, 1000
+RESNET_BATCH, RESNET_BN_LAYERS = 128, 53
+# bf16 logits, kernels vs built-in path: error over max |logit| (7.4e-3
+# measured on the H100) and images whose argmax may differ
+RESNET_LOGITS_TOL, RESNET_ARGMAX_MISSES = 2e-2, 2
+BN_CASES = [  # name, NHWC shape, dtype
+    ("stem_bf16", (128, 112, 112, 64), torch.bfloat16),
+    ("last_stage_bf16", (128, 7, 7, 2048), torch.bfloat16),
+    ("stage1_f32", (128, 56, 56, 256), torch.float32),
+    ("ragged_bf16", (13, 77, 101, 130), torch.bfloat16),
+    ("ragged_f16", (13, 77, 101, 130), torch.float16),
+]
 
 
 def card() -> str:
@@ -94,7 +129,7 @@ def check(ok: bool, what: str) -> None:
 
 # ------------------------------------------------------------------ phase 1
 def build_kernels():
-    modules = [pa, fa, fe]
+    modules = [pa, fa, fe, bn]
     with ThreadPoolExecutor(len(modules)) as ex:
         built = list(ex.map(lambda m: m.build(), modules))
     for m, b in zip(modules, built):
@@ -105,7 +140,8 @@ def build_kernels():
                 # the kernel's name and template arguments, from the
                 # mangled symbol
                 found = re.search(r"((?:flash_[a-z]+|drn|paged_decode)_"
-                                  r"(?:kernel|mma))(I\w*?E)?E", ln)
+                                  r"(?:kernel|mma))(I\w*?E)?E"
+                                  r"|(bn_[a-z_]+)(I\w*?E)?", ln)
                 entry = "".join(x for x in found.groups() if x) \
                     if found else ln
             elif "Used" in ln:
@@ -559,9 +595,9 @@ def _matmul_params(net) -> int:
                for p in tree_leaves(net.params[layer.name]) if p.ndim >= 2)
 
 
-def _loss_and_grads(net, x, y):
+def _loss_and_grads(net, loss_of):
     """Loss and per-layer flat gradients of one forward/backward, no
-    update."""
+    update; ``loss_of(params) -> (loss, new state)``."""
     trainable = net._trainable(net.params)
     names = [n for n in sorted(trainable)]
     leaves = {n: tree_leaves(trainable[n]) for n in names}
@@ -569,7 +605,7 @@ def _loss_and_grads(net, x, y):
     for p in flat:
         p.requires_grad_(True)
     try:
-        loss = net._loss_fn(net.params, x, y, None)
+        loss, _ = loss_of(net.params)
         grads = torch.autograd.grad(loss, flat)
     finally:
         for p in flat:
@@ -579,11 +615,36 @@ def _loss_and_grads(net, x, y):
         k = len(leaves[n])
         out[n] = torch.cat([g.reshape(-1) for g in grads[i:i + k]])
         i += k
-    return float(loss), out
+    return float(loss.detach()), out
 
 
 def _kernel_counts():
     return (fa.fwd_counts, fa.dq_counts, fa.dkv_counts, fe.counts)
+
+
+def first_step_check(what, net, loss_of):
+    """The first step's loss and per-layer gradients through the kernels
+    against the built-in path (``enable_helpers(False)``)."""
+    k_loss, k_grads = _loss_and_grads(net, loss_of)
+    helpers.enable_helpers(False)
+    try:
+        b_loss, b_grads = _loss_and_grads(net, loss_of)
+    finally:
+        helpers.enable_helpers(True)
+    loss_rel = abs(k_loss - b_loss) / abs(b_loss)
+    grad_rel = {n: ((k_grads[n] - b_grads[n]).norm()
+                    / b_grads[n].norm().clamp_min(1e-30)).item()
+                for n in b_grads}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"{what}: first-step loss kernels {k_loss:.6f} vs built-in "
+          f"{b_loss:.6f} (rel {loss_rel:.3e}, tol {LOSS_RTOL}); per-layer "
+          f"gradient rel L2 max {grad_rel[worst]:.3e} at {worst} (tol "
+          f"{GRAD_RTOL})")
+    check(loss_rel <= LOSS_RTOL, f"{what} first-step loss rel {loss_rel}")
+    check(all(r <= GRAD_RTOL for r in grad_rel.values()),
+          f"{what} per-layer gradient rel L2 {grad_rel}")
+    del k_grads, b_grads
+    torch.cuda.empty_cache()
 
 
 def train_phase(name_card):
@@ -595,26 +656,8 @@ def train_phase(name_card):
                         device="cuda")
 
     # the first step through the kernels against the built-in path
-    k_loss, k_grads = _loss_and_grads(net, x, y)
-    helpers.enable_helpers(False)
-    try:
-        b_loss, b_grads = _loss_and_grads(net, x, y)
-    finally:
-        helpers.enable_helpers(True)
-    loss_rel = abs(k_loss - b_loss) / abs(b_loss)
-    grad_rel = {n: ((k_grads[n] - b_grads[n]).norm()
-                    / b_grads[n].norm().clamp_min(1e-30)).item()
-                for n in b_grads}
-    worst = max(grad_rel, key=grad_rel.get)
-    print(f"train: first-step loss kernels {k_loss:.6f} vs built-in "
-          f"{b_loss:.6f} (rel {loss_rel:.3e}, tol {LOSS_RTOL}); per-layer "
-          f"gradient rel L2 max {grad_rel[worst]:.3e} at {worst} (tol "
-          f"{GRAD_RTOL})")
-    check(loss_rel <= LOSS_RTOL, f"first-step loss rel {loss_rel}")
-    check(all(r <= GRAD_RTOL for r in grad_rel.values()),
-          f"per-layer gradient rel L2 {grad_rel}")
-    del k_grads, b_grads
-    torch.cuda.empty_cache()
+    first_step_check("train", net,
+                     lambda params: net._loss_fn(params, x, y, None))
 
     steps = WARM_STEPS + TIMED_STEPS
     for c in _kernel_counts():
@@ -685,6 +728,297 @@ def train_profile(net, x, y, name_card):
               f"x{e.count:<5d} {e.key[:90]}")
 
 
+# ------------------------------------------------- phase 5, batch norm
+BN_EPS = 1e-5
+
+
+def bn_case(name, seed, shape, dtype, flush, name_card):
+    """The three BatchNorm kernels on one NHWC shape, as [N·H·W, C]."""
+    n, h, w, c = shape
+    m = n * h * w
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(m, c, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    gy = torch.randn(m, c, generator=g, device="cuda").to(dtype)
+    gamma = torch.randn(c, generator=g, device="cuda") + 1
+    beta = torch.randn(c, generator=g, device="cuda")
+    y, mean, var, inv = bn.bn_train_fwd_2d(x, gamma, beta, BN_EPS)
+    dx, dgamma, dbeta = bn.bn_train_bwd_2d(x, gy, gamma, mean, inv)
+    rvar = var + 0.25       # running stats of the inference case
+    yi = bn.bn_inference_2d(x, mean, rvar, gamma, beta, BN_EPS)
+    ry, rmean, rv, rinv = bn.bn_train_fwd_plain(x, gamma, beta, BN_EPS)
+    rdx, rdg, rdb = bn.bn_train_bwd_plain(x, gy, gamma, rmean, rinv)
+    ryi = bn.bn_inference_plain(x, mean, rvar, gamma, beta, BN_EPS)
+    torch.cuda.synchronize()
+    pairs = {"fwd": ((y, ry), (mean, rmean), (var, rv)),
+             "bwd": ((dx, rdx), (dgamma, rdg), (dbeta, rdb)),
+             "inf": ((yi, ryi),)}
+    errs = {k: max(_scaled_err(a, r) for a, r in v) for k, v in pairs.items()}
+    abs_errs = {k: max(_abs_err(a, r) for a, r in v)
+                for k, v in pairs.items()}
+    for k, err in errs.items():
+        check(err <= TOL[dtype], f"batch_norm[{name}] {k}: kernel vs plain "
+                                 f"{err} > {TOL[dtype]}")
+    del ry, rmean, rv, rinv, rdx, rdg, rdb, ryi, y, dx, yi
+    torch.cuda.empty_cache()
+
+    calls = {
+        "fwd": (lambda: bn.bn_train_fwd_2d(x, gamma, beta, BN_EPS),
+                lambda: bn.bn_train_fwd_plain(x, gamma, beta, BN_EPS)),
+        "bwd": (lambda: bn.bn_train_bwd_2d(x, gy, gamma, mean, inv),
+                lambda: bn.bn_train_bwd_plain(x, gy, gamma, mean, inv)),
+        "inf": (lambda: bn.bn_inference_2d(x, mean, rvar, gamma, beta,
+                                           BN_EPS),
+                lambda: bn.bn_inference_plain(x, mean, rvar, gamma, beta,
+                                              BN_EPS)),
+    }
+    ms = {k: time_ms(kern, flush) for k, (kern, _) in calls.items()}
+    plain_ms = {k: time_ms(plain, flush, iters=KERNEL_ITERS)
+                for k, (_, plain) in calls.items()}
+
+    # yardsticks the port never calls: F.batch_norm on the channels_last
+    # NCHW view of the NHWC tensor
+    x4 = x.view(n, h, w, c).permute(0, 3, 1, 2)
+    gy4 = gy.view(n, h, w, c).permute(0, 3, 1, 2)
+    xl, gl, bl = (t.detach().clone().requires_grad_()
+                  for t in (x4, gamma, beta))
+    lib_fwd = lambda: F.batch_norm(xl, None, None, gl, bl, True, 0.1, BN_EPS)
+    out = lib_fwd()
+    lib_err = _abs_err(out.permute(0, 2, 3, 1).reshape(m, c),
+                       bn.bn_train_fwd_plain(x, gamma, beta, BN_EPS)[0])
+    lib_ms = {
+        "fwd": time_ms(lib_fwd, flush),
+        "bwd": time_ms(lambda: torch.autograd.grad(
+            out, (xl, gl, bl), gy4, retain_graph=True), flush),
+        "inf": time_ms(lambda: F.batch_norm(x4, mean, rvar, gamma, beta,
+                                            False, 0.1, BN_EPS), flush),
+    }
+    del out, xl, gl, bl
+
+    esz = x.element_size()
+    bounds = {"fwd": _bound(2 * m * c * esz + 5 * c * 4, 0, dtype),
+              "bwd": _bound(3 * m * c * esz + 5 * c * 4, 0, dtype),
+              "inf": _bound(2 * m * c * esz + 4 * c * 4, 0, dtype)}
+    print(f"batch_norm[{name}] [{m}, {c}] {str(dtype)[6:]}: err train fwd "
+          f"{errs['fwd']:.3e}, train bwd {errs['bwd']:.3e}, inference "
+          f"{errs['inf']:.3e} (scaled by max abs; tol {TOL[dtype]:g}); "
+          f"F.batch_norm fwd abs err {lib_err:.3e} [{name_card}]")
+    print(f"batch_norm[{name}] " + "; ".join(
+        f"{label} {ms[k]:.4f} ms (bound {bounds[k][0]:.5f} ms, "
+        f"{bounds[k][1]}; plain {plain_ms[k]:.4f} ms, F.batch_norm "
+        f"{lib_ms[k]:.4f} ms)" for k, label in (
+            ("fwd", "train fwd"), ("bwd", "train bwd"),
+            ("inf", "inference"))) + f" [{name_card}]")
+    return {k: dict(err=abs_errs[k], ms=ms[k], plain_ms=plain_ms[k],
+                    lib_ms=lib_ms[k], bound=bounds[k]) for k in ms}
+
+
+def bn_kernel_phase(flush, name_card):
+    return {name: bn_case(name, 400 + 10 * i, shape, dtype, flush,
+                          name_card)
+            for i, (name, shape, dtype) in enumerate(BN_CASES)}
+
+
+# -------------------------------------------------- phase 6, ResNet-50
+def _forward_flops(net, acts) -> int:
+    """Multiply-adds x 2 of every convolution and of the head, from the
+    activations' shapes."""
+    total = 0
+    for node in net.conf.nodes:
+        layer = node.layer
+        if isinstance(layer, ConvolutionLayer):
+            kh, kw = layer.kernel_size
+            total += 2 * acts[node.name].numel() * kh * kw * layer.n_in
+        elif node.name in net.conf.outputs:
+            total += 2 * acts[node.inputs[0]].numel() * layer.n_out
+    return total
+
+
+def _bn_counts():
+    return (bn.inference_counts, bn.train_fwd_counts, bn.train_bwd_counts)
+
+
+def resnet_phase(name_card):
+    net = resnet50(device="cuda", **RESNET)
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.rand(RESNET_BATCH, 224, 224, 3).astype(
+        np.float32), device="cuda")
+    y = torch.as_tensor(np.eye(1000, dtype=np.float32)[
+        rs.randint(0, 1000, RESNET_BATCH)], device="cuda")
+    print(f"resnet50: {net.num_params()} params, "
+          f"{sum(1 for l in net.layers if type(l).__name__ == 'BatchNormalization')}"
+          f" BatchNorm layers, batch {RESNET_BATCH}x224x224x3 bf16")
+
+    # output() through the inference kernel
+    for c in _bn_counts():
+        c.reset()
+    probs = net.output(x)
+    torch.cuda.synchronize()
+    inf_launches = bn.inference_counts.launches
+    seen = [c.launches for c in _bn_counts()]
+    plain = [c.plain_calls for c in _bn_counts()]
+    print(f"resnet50 output: BatchNorm launches (inference, train fwd, "
+          f"train bwd) {seen}, plain-version calls {plain}")
+    check(seen == [RESNET_BN_LAYERS, 0, 0], f"output launches {seen}")
+    check(plain == [0, 0, 0], f"output plain-version calls {plain}")
+    check(tuple(probs.shape) == (RESNET_BATCH, 1000)
+          and bool(torch.isfinite(probs).all())
+          and (probs.sum(-1) - 1).abs().max().item() < 1e-3,
+          "output: finite probabilities of shape [128, 1000]")
+
+    def logits():
+        with torch.no_grad():
+            acts, _ = net._forward(net.params, net.net_state, {"input": x})
+        return acts
+
+    acts = logits()
+    fwd_flops = _forward_flops(net, acts)
+    # each BatchNorm keeps one [M, C] tensor for its backward (x here, x̂
+    # in the reference); a step must read x and write y forward, read x
+    # and g and write dx backward
+    bn_elems = sum(acts[n.inputs[0]].numel() for n in net.conf.nodes
+                   if isinstance(n.layer, BatchNormalization))
+    bn_bytes = 5 * bn_elems * 2
+    print(f"resnet50 BatchNorm: {bn_elems} input elements over the "
+          f"{RESNET_BN_LAYERS} layers, {bn_elems * 2 / 1e9:.3f} GB saved "
+          f"for the backward in bfloat16; least bytes a train step "
+          f"{bn_bytes / 1e9:.3f} GB = {bn_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+          f"ms at 3.35 TB/s")
+    k_logits = acts["fc"].float()
+    del acts
+    helpers.enable_helpers(False)
+    try:
+        b_logits = logits()["fc"].float()
+    finally:
+        helpers.enable_helpers(True)
+    err = _scaled_err(k_logits, b_logits)
+    agree = (k_logits.argmax(-1) == b_logits.argmax(-1)).sum().item()
+    print(f"resnet50 logits, kernels vs built-in path: max abs err "
+          f"{_abs_err(k_logits, b_logits):.3e} over max |logit| "
+          f"{b_logits.abs().max().item():.3f} = {err:.3e} (tol "
+          f"{RESNET_LOGITS_TOL}); argmax agrees on {agree}/{RESNET_BATCH} "
+          f"(at least {RESNET_BATCH - RESNET_ARGMAX_MISSES})")
+    check(err <= RESNET_LOGITS_TOL, f"resnet50 logits {err}")
+    check(agree >= RESNET_BATCH - RESNET_ARGMAX_MISSES,
+          f"resnet50 argmax agrees on {agree}/{RESNET_BATCH}")
+    del k_logits, b_logits, probs
+    torch.cuda.empty_cache()
+
+    def loss_of(params):
+        return net._loss_fn(params, net.net_state, x, y, None)
+
+    with torch.no_grad():
+        k_loss = float(loss_of(net.params)[0])
+        helpers.enable_helpers(False)
+        try:
+            b_loss = float(loss_of(net.params)[0])
+        finally:
+            helpers.enable_helpers(True)
+    loss_rel = abs(k_loss - b_loss) / abs(b_loss)
+    print(f"resnet50: first-step loss in bfloat16, kernels {k_loss:.6f} vs "
+          f"built-in {b_loss:.6f} (rel {loss_rel:.3e}, tol {LOSS_RTOL})")
+    check(loss_rel <= LOSS_RTOL, f"resnet50 bf16 first-step loss {loss_rel}")
+    # gradients in float32: in bfloat16 the lower layers' gradients at
+    # initialisation are mostly rounding, on the built-in path as on the
+    # kernels' (the BatchNorm backward cancels), so only a float32 run
+    # can hold the two paths to each other
+    bf16_conf = net.conf
+    net.conf = dataclasses.replace(bf16_conf, compute_dtype=None)
+    try:
+        first_step_check("resnet50 (float32)", net, loss_of)
+    finally:
+        net.conf = bf16_conf
+
+    steps = WARM_STEPS + TIMED_STEPS
+    start = {k: {s: v.clone() for s, v in st.items()}
+             for k, st in net.net_state.items()}
+    for c in _bn_counts():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        losses.append(net.score_value)      # reads the loss: waits for it
+        step_s.append(time.perf_counter() - t0)
+    launches = [c.launches for c in _bn_counts()]
+    plain = [c.plain_calls for c in _bn_counts()]
+    want = [0, RESNET_BN_LAYERS * steps, RESNET_BN_LAYERS * steps]
+    print(f"resnet50 train: BatchNorm launches over {steps} steps "
+          f"(inference, train fwd, train bwd) {launches}, expected {want}; "
+          f"plain-version calls {plain}")
+    check(launches == want, f"launches {launches} == {want}")
+    check(plain == [0, 0, 0], f"plain-version calls {plain} == 0")
+    check(all(np.isfinite(losses)), f"losses finite {losses}")
+    stats = [(k, s, v) for k, st in net.net_state.items()
+             for s, v in st.items()]
+    check(all(bool(torch.isfinite(v).all()) for _, _, v in stats),
+          "running stats finite")
+    check(all(not torch.equal(v, start[k][s]) for k, s, v in stats),
+          "every running stat moved")
+    med = float(np.median(step_s[WARM_STEPS:]))
+    util = 3.0 * fwd_flops / med / PEAK_OPS[torch.bfloat16]
+    print(f"resnet50 train: losses {[round(v, 6) for v in losses]}")
+    print(f"resnet50 train: step median {med * 1e3:.3f} ms over "
+          f"{TIMED_STEPS} steps (after {WARM_STEPS} warm-up); "
+          f"{RESNET_BATCH / med:.1f} images/s; analytic-FLOP utilisation "
+          f"{util:.4f} of 989 TFLOP/s ({3 * fwd_flops / 1e12:.3f} TFLOP a "
+          f"step, 3 x forward); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{name_card}]")
+    resnet_profile(net, x, y, name_card)
+    return inf_launches, launches[1], launches[2]
+
+
+def resnet_profile(net, x, y, name_card):
+    """Where one ResNet-50 train step's time goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    check(busy_ms > 0, "the profiler saw device time")
+    ours = [e for e in ev if re.search(r"\bbn_[a-z_]+(kernel|finalize)",
+                                       e.key)]
+    bn_ms = sum(e.self_device_time_total for e in ours) / 1e3
+    copies = [e for e in ev if "copy" in e.key.lower()]
+    print(f"resnet50 step (profiled): host wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) "
+          f"in {sum(e.count for e in ev)} device operations; BatchNorm "
+          f"kernels {bn_ms:.3f} ms ({bn_ms / busy_ms:.3f} of busy) in "
+          f"{sum(e.count for e in ours)} launches; copy kernels "
+          f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms in "
+          f"{sum(e.count for e in copies)} launches [{name_card}]")
+    for e in sorted(ours, key=lambda e: -e.self_device_time_total):
+        print(f"  bn: {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:100]}")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  top: {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:100]}")
+
+    # the host's side: one more step with the host's operations traced
+    # too (the tracing adds its own cost to the host time it reports)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        net.fit(x, y)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    host_ms = sum(e.self_cpu_time_total for e in ev) / 1e3
+    launch = [e for e in ev if e.key == "cudaLaunchKernel"]
+    print(f"resnet50 step host side (traced): self host time {host_ms:.3f} "
+          f"ms; cudaLaunchKernel {sum(e.count for e in launch)} calls, "
+          f"{sum(e.self_cpu_time_total for e in launch) / 1e3:.3f} ms "
+          f"[{name_card}]")
+    for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"  host: {e.self_cpu_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -699,11 +1033,14 @@ def main() -> int:
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = kernel_phase(flush, name_card)
     flash, prologue = train_kernel_phase(flush, name_card)
+    bn_rows = bn_kernel_phase(flush, name_card)
     del flush
     torch.cuda.empty_cache()
     launches = engine_phase(name_card)
     torch.cuda.empty_cache()
     train_launches = train_phase(name_card)
+    torch.cuda.empty_cache()
+    bn_launches = resnet_phase(name_card)
     d = rows["decode"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -725,6 +1062,19 @@ def main() -> int:
                        "deeplearning4j_tpu_torch/helpers/csrc/"
                        "fused_epilogue.cu"),
             "replaces": f"deeplearning4j_tpu/helpers/{replaces}",
+            "launches": n, "max_abs_err": row["err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
+            "bound_by": row["bound"][1], "library_ms": row["lib_ms"]})
+    stem = bn_rows["stem_bf16"]
+    for (name, key, line), n in zip([
+            ("batch_norm_inference", "inf", 131),
+            ("batch_norm_train_fwd", "fwd", 188),
+            ("batch_norm_train_bwd", "bwd", 204)], bn_launches):
+        row = stem[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/helpers/csrc/batch_norm.cu",
+            "replaces": f"deeplearning4j_tpu/helpers/pallas_ops.py:{line}",
             "launches": n, "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1], "library_ms": row["lib_ms"]})

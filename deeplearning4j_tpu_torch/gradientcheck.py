@@ -2,9 +2,9 @@
 
 Central differences of the network's loss against its autograd gradient,
 in float64 on a float64 copy of the parameters (reference
-``GradientCheckUtil.java``).  It runs through the plain paths: the
-kernels take float32/bfloat16 only, and float64 stays off the helpers, as
-in the reference.  Inputs are small, so the perturbed losses are
+``GradientCheckUtil.java``).  It runs through the built-in paths, with
+the helpers disabled: the kernels do not take float64, and float64 stays
+off the helpers, as in the reference.  Inputs are small, so the perturbed losses are
 evaluated one pair at a time.
 """
 
@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.helpers import helpers_disabled
 from deeplearning4j_tpu_torch.models.sequential import (
     _tree_like, cast_tree, tree_leaves,
 )
@@ -41,7 +42,8 @@ def check_gradients(net, x, y, *, epsilon: float = 1e-6,
         lmask, dtype=torch.float64, device=net.device)
 
     def loss():
-        return net._loss_fn(tree, x, y, None, fm, lm, train=False)
+        with helpers_disabled():
+            return net._loss_fn(tree, x, y, None, fm, lm, train=False)[0]
 
     for p in leaves:
         p.requires_grad_(True)

@@ -6,11 +6,13 @@ In the port a helper's kernel is a hand-written CUDA kernel: on a CUDA
 tensor it launches or raises, and only a tensor on the CPU goes to the
 kernel's plain PyTorch version.
 
-Toggle: ``enable_helpers(False)`` or env ``DL4J_TORCH_DISABLE_HELPERS=1``.
+Toggle: ``enable_helpers(False)``, ``with helpers_disabled():`` or env
+``DL4J_TORCH_DISABLE_HELPERS=1``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Optional
 
@@ -23,6 +25,18 @@ def enable_helpers(on: bool = True) -> None:
     traced programs that would keep an old choice)."""
     global _enabled
     _enabled = on
+
+
+@contextlib.contextmanager
+def helpers_disabled():
+    """The built-in paths inside the block (a float64 gradient check on
+    the card), then the earlier setting."""
+    global _enabled
+    was, _enabled = _enabled, False
+    try:
+        yield
+    finally:
+        _enabled = was
 
 
 def register_helper(kind: str, helper: object) -> None:
@@ -38,12 +52,13 @@ def get_helper(kind: str) -> Optional[object]:
     if helper is None:
         # lazy registration on first ask
         from deeplearning4j_tpu_torch.helpers import (
-            flash_attention, fused_epilogue, paged_attention,
+            batch_norm, flash_attention, fused_epilogue, paged_attention,
         )
 
         register_helper("paged_attention",
                         paged_attention.PagedAttentionHelper())
         register_helper("attention", flash_attention.FlashAttentionHelper())
         register_helper("epilogue", fused_epilogue.FusedEpilogueHelper())
+        register_helper("batch_norm", batch_norm.BatchNormHelper())
         helper = _registry.get(kind)
     return helper

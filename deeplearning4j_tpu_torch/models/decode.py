@@ -9,7 +9,8 @@ def _last_logits_fwd(net):
     """(params, x, carries) -> (preoutput, new_carries): the one seam the
     decode programs need."""
     def fwd(params, x, carries):
-        return net._forward(params, x, carries=carries or None)
+        h, new_carries, _ = net._forward(params, x, carries=carries or None)
+        return h, new_carries
     return fwd
 
 

@@ -1,17 +1,22 @@
-"""Weights and updater state carried across from the JAX package.
+"""Weights, layer state and updater state carried across from the JAX
+package.
 
 ``params_from_numpy(conf, tree)`` builds the port's network from the
 reference's parameter pytree as numpy arrays — what
 ``jax.device_get(net.params)`` returns, or a ``coefficients.npz`` read
-back into nested dicts.  ``updater_state_from_numpy(net, tree)`` does the
-same for the updater's trees (``updaterState.npz``).  Names and layouts
-are the same on both sides (``[n_in, n_out]`` kernels used as ``x @ W``),
-so nothing is transposed; every name and shape is checked.
+back into nested dicts; ``graph_params_from_numpy`` does the same for a
+``GraphConfiguration``.  ``net_state_from_numpy`` reads the layers'
+state (BatchNorm's running stats, ``netState.npz``) and
+``updater_state_from_numpy(net, tree)`` the updater's trees
+(``updaterState.npz``), for either facade.  Names and layouts are the
+same on both sides (``[n_in, n_out]`` kernels used as ``x @ W``, HWIO
+conv kernels), so nothing is transposed; every name and shape is
+checked.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -52,8 +57,7 @@ def _shapes(tree):
     return tuple(tree.shape)
 
 
-def updater_state_from_numpy(net: MultiLayerNetwork,
-                             tree: Mapping[str, Any]) -> dict:
+def updater_state_from_numpy(net, tree: Mapping[str, Any]) -> dict:
     """The updater state of ``tree`` ({slot: {layer: {param: array}}}) as
     float32 tensors on ``net.device``, checked against ``net``'s updater
     and trainable params.  The reserved subtrees are skipped."""
@@ -67,20 +71,66 @@ def updater_state_from_numpy(net: MultiLayerNetwork,
             for slot in slots}
 
 
-def params_from_numpy(conf: MultiLayerConfiguration,
-                      tree: Mapping[str, Any],
-                      device: DeviceLike = None) -> MultiLayerNetwork:
-    """The port's network for ``conf`` holding the weights of ``tree``
-    ({layer name: {param name: array}}, nested for composite layers) as
-    float32 tensors on ``device``."""
-    dev = resolve_device(device)
-    net = MultiLayerNetwork(conf)
+def net_state_from_numpy(layers, tree: Optional[Mapping[str, Any]],
+                         device: torch.device) -> dict:
+    """The state of the stateful ``layers`` from ``tree`` ({layer name:
+    {state name: array}}) as float32 tensors on ``device``; every
+    stateful layer must be there, with its names and shapes, and no
+    other.  ``tree=None`` gives each layer its initial state."""
+    want = {layer.name: _shapes(layer.init_state()) for layer in layers
+            if layer.init_state()}
+    if tree is None:
+        return {layer.name: layer.init_state(device) for layer in layers
+                if layer.name in want}
+    if set(tree) != set(want):
+        raise ValueError(f"net state: expected layers {sorted(want)}, got "
+                         f"{sorted(tree)}")
+    return {name: _convert(shapes, tree[name], name, device)
+            for name, shapes in want.items()}
+
+
+def _place(net, layers, tree, net_state, dev):
     net.params = {
         layer.name: _convert(
             layer.param_shapes() if layer.has_params() else {},
             tree.get(layer.name, {}), layer.name, dev)
-        for layer in conf.layers}
+        for layer in layers}
+    net.net_state = net_state_from_numpy(layers, net_state, dev)
     net.device = dev
-    net.updater_state = upd.init_state(conf.updater,
+    net.updater_state = upd.init_state(net.conf.updater,
                                        net._trainable(net.params))
+    return net
+
+
+def params_from_numpy(conf: MultiLayerConfiguration,
+                      tree: Mapping[str, Any],
+                      device: DeviceLike = None,
+                      net_state: Optional[Mapping[str, Any]] = None
+                      ) -> MultiLayerNetwork:
+    """The port's network for ``conf`` holding the weights of ``tree``
+    ({layer name: {param name: array}}, nested for composite layers) and
+    the layer state of ``net_state`` as float32 tensors on ``device``."""
+    return _place(MultiLayerNetwork(conf), conf.layers, tree, net_state,
+                  resolve_device(device))
+
+
+def graph_params_from_numpy(conf, params: Mapping[str, Any],
+                            net_state: Optional[Mapping[str, Any]] = None,
+                            device: DeviceLike = None):
+    """The port's ``ComputationGraph`` for ``conf`` (a
+    ``GraphConfiguration``) holding the weights of ``params`` ({node
+    name: {param name: array}}; vertices and parameterless layers may be
+    absent or empty) and the layer state of ``net_state``."""
+    from deeplearning4j_tpu_torch.models.graph import ComputationGraph
+
+    net = ComputationGraph(conf)
+    extra = set(params) - {n.name for n in conf.nodes}
+    if extra:
+        raise ValueError(f"params for unknown nodes {sorted(extra)}")
+    for n in conf.nodes:
+        if n.layer is None and params.get(n.name):
+            raise ValueError(f"vertex {n.name} has no params, got "
+                             f"{sorted(params[n.name])}")
+    _place(net, net.layers, params, net_state, resolve_device(device))
+    net.params = {n.name: net.params.get(n.name, {}) for n in conf.nodes}
     return net

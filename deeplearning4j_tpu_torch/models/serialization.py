@@ -1,13 +1,15 @@
 """Zip checkpoints — counterpart of ``deeplearning4j_tpu/models/serialization.py``.
 
-The same container: ``manifest.json`` (with the iteration),
-``configuration.json`` (the config JSON), ``coefficients.npz`` (params
-flattened to ``"layer/sub/name"`` keys) and ``updaterState.npz`` (the
-updater's trees, ``"slot/layer/sub/name"``).  Reading goes through
-``models.interop``, so a zip the JAX package wrote loads and resumes
-training here, and a zip written here loads there.  The reader accepts
-the reference's reserved updater subtrees (stability, introspection,
-numerics) and ignores them.
+The same container for both facades: ``manifest.json`` (the model type
+and the iteration), ``configuration.json`` (the config JSON),
+``coefficients.npz`` (params flattened to ``"layer/sub/name"`` keys),
+``netState.npz`` (the layers' state, BatchNorm's running stats, when
+there is any) and ``updaterState.npz`` (the updater's trees,
+``"slot/layer/sub/name"``).  Reading goes through ``models.interop``, so
+a zip the JAX package wrote loads and resumes training here, and a zip
+written here loads there.  The reader accepts the reference's reserved
+updater subtrees (stability, introspection, numerics) and ignores them.
+``load_model`` dispatches on the manifest's ``model_type``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 
 from deeplearning4j_tpu_torch.backend.device import DeviceLike
 from deeplearning4j_tpu_torch.models.interop import (
-    params_from_numpy, updater_state_from_numpy,
+    graph_params_from_numpy, params_from_numpy, updater_state_from_numpy,
 )
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 
@@ -29,6 +31,7 @@ FORMAT_VERSION = 1
 CONFIG_ENTRY = "configuration.json"
 COEFFICIENTS_ENTRY = "coefficients.npz"
 UPDATER_ENTRY = "updaterState.npz"
+NET_STATE_ENTRY = "netState.npz"
 MANIFEST_ENTRY = "manifest.json"
 
 
@@ -61,14 +64,17 @@ def _npz_bytes(tree) -> bytes:
 
 
 def write_model(net, path, save_updater: bool = True) -> None:
+    """A ``MultiLayerNetwork`` or ``ComputationGraph`` as a zip."""
     manifest = {"format_version": FORMAT_VERSION,
-                "model_type": "MultiLayerNetwork",
+                "model_type": type(net).__name__,
                 "iteration": net.iteration,
                 "framework": "deeplearning4j_tpu_torch"}
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr(MANIFEST_ENTRY, json.dumps(manifest))
         zf.writestr(CONFIG_ENTRY, net.conf.to_json())
         zf.writestr(COEFFICIENTS_ENTRY, _npz_bytes(net.params))
+        if net.net_state:
+            zf.writestr(NET_STATE_ENTRY, _npz_bytes(net.net_state))
         if save_updater and net.updater_state:
             zf.writestr(UPDATER_ENTRY, _npz_bytes(net.updater_state))
 
@@ -82,17 +88,48 @@ def _read_npz(zf, entry) -> Dict[str, Any]:
     return _unflatten(dict(np.load(io.BytesIO(zf.read(entry)))))
 
 
-def restore_multi_layer_network(path, device: DeviceLike = None,
-                                load_updater: bool = True):
+def _restore(path, conf_from_json, build, device, load_updater):
     with zipfile.ZipFile(path, "r") as zf:
-        conf = MultiLayerConfiguration.from_json(zf.read(CONFIG_ENTRY).decode())
+        names = set(zf.namelist())
+        conf = conf_from_json(zf.read(CONFIG_ENTRY).decode())
         params = _read_npz(zf, COEFFICIENTS_ENTRY)
+        net_state = (_read_npz(zf, NET_STATE_ENTRY)
+                     if NET_STATE_ENTRY in names else None)
         state = (_read_npz(zf, UPDATER_ENTRY)
-                 if load_updater and UPDATER_ENTRY in zf.namelist()
-                 else None)
+                 if load_updater and UPDATER_ENTRY in names else None)
         manifest = json.loads(zf.read(MANIFEST_ENTRY).decode())
-    net = params_from_numpy(conf, params, device)
+    net = build(conf, params, net_state, device)
     if state is not None:
         net.updater_state = updater_state_from_numpy(net, state)
     net.iteration = manifest.get("iteration", 0)
     return net
+
+
+def restore_multi_layer_network(path, device: DeviceLike = None,
+                                load_updater: bool = True):
+    return _restore(
+        path, MultiLayerConfiguration.from_json,
+        lambda conf, params, ns, dev: params_from_numpy(conf, params, dev,
+                                                        net_state=ns),
+        device, load_updater)
+
+
+def restore_computation_graph(path, device: DeviceLike = None,
+                              load_updater: bool = True):
+    from deeplearning4j_tpu_torch.models.graph import GraphConfiguration
+
+    return _restore(
+        path, GraphConfiguration.from_json,
+        lambda conf, params, ns, dev: graph_params_from_numpy(
+            conf, params, net_state=ns, device=dev),
+        device, load_updater)
+
+
+def load_model(path, device: DeviceLike = None, load_updater: bool = True):
+    """Restore either facade, as the manifest's ``model_type`` says."""
+    mtype = read_manifest(path).get("model_type")
+    if mtype == "MultiLayerNetwork":
+        return restore_multi_layer_network(path, device, load_updater)
+    if mtype == "ComputationGraph":
+        return restore_computation_graph(path, device, load_updater)
+    raise ValueError(f"Unknown model_type '{mtype}' in {path}")

@@ -1,6 +1,8 @@
-"""Config half of ``deeplearning4j_tpu/nn/conf.py``: the builder calls that
-``zoo.transformer_char_lm`` makes and ``MultiLayerConfiguration`` to and
-from the same JSON document (the ``configuration.json`` of a zip).
+"""Config half of ``deeplearning4j_tpu/nn/conf.py``: the builder calls the
+zoo makes, the global layer defaults (activation, weight init, l1/l2,
+dropout) that ``.list()`` and ``.graph()`` push into layers left at their
+class defaults, and ``MultiLayerConfiguration`` to and from the same JSON
+document (the ``configuration.json`` of a zip).
 
 The training policies (``stability``, ``introspection``, ``numerics``)
 are carried as plain dicts, so a reference config keeps them through a
@@ -165,7 +167,9 @@ class ListBuilder:
         if not self._layers:
             raise ValueError("No layers added")
         layers: List[Layer] = []
+        p = self._parent
         for i, layer in enumerate(self._layers):
+            layer = p._apply_global_defaults(layer)
             if layer.name is None:
                 layer = layer.with_name(f"layer_{i}")
             if getattr(layer, "n_in", 0) is None:
@@ -174,7 +178,6 @@ class ListBuilder:
                     "port's builder infers no sizes")
             layer.validate()
             layers.append(layer)
-        p = self._parent
         return MultiLayerConfiguration(
             layers=tuple(layers), updater=p._updater, seed=p._seed,
             compute_dtype=self._compute_dtype)
@@ -186,6 +189,12 @@ class Builder:
     def __init__(self):
         self._seed = 12345
         self._updater = UpdaterConfig()
+        self._activation: Optional[str] = None
+        self._weight_init: Optional[str] = None
+        self._l1: Optional[float] = None
+        self._l2: Optional[float] = None
+        self._dropout: Optional[float] = None
+        self._regularization = False
 
     def seed(self, s: int) -> "Builder":
         self._seed = int(s)
@@ -196,8 +205,56 @@ class Builder:
                                             **kwargs)
         return self
 
+    def activation(self, a: str) -> "Builder":
+        self._activation = a
+        return self
+
+    def weight_init(self, w: str) -> "Builder":
+        self._weight_init = w
+        return self
+
+    def regularization(self, flag: bool) -> "Builder":
+        self._regularization = flag
+        return self
+
+    def l1(self, v: float) -> "Builder":
+        self._l1 = v
+        return self
+
+    def l2(self, v: float) -> "Builder":
+        self._l2 = v
+        return self
+
+    def dropout(self, v: float) -> "Builder":
+        self._dropout = v
+        return self
+
     def list(self) -> ListBuilder:
         return ListBuilder(self)
+
+    def graph(self):
+        from deeplearning4j_tpu_torch.models.graph import GraphBuilder
+
+        return GraphBuilder(self)
+
+    def _apply_global_defaults(self, layer: Layer) -> Layer:
+        """Push the builder's globals into the layer fields still at their
+        class default (the reference's layerwise-override rule); l1 and l2
+        only under ``regularization(True)``."""
+        updates = {}
+        for field, glob in (
+                ("activation", self._activation),
+                ("weight_init", self._weight_init),
+                ("l1", self._l1 if self._regularization else None),
+                ("l2", self._l2 if self._regularization else None),
+                ("dropout", self._dropout)):
+            if glob is None or not hasattr(layer, field):
+                continue
+            default = next(f.default for f in dataclasses.fields(layer)
+                           if f.name == field)
+            if getattr(layer, field) == default:
+                updates[field] = glob
+        return dataclasses.replace(layer, **updates) if updates else layer
 
 
 class NeuralNetConfiguration:

@@ -11,7 +11,14 @@ tensors:
   - ``init(gen, dtype, device)`` -> parameter dict of tensors;
   - ``apply(params, x, *, train=False, rng=None)`` -> y; at train time
     ``rng`` is the layer's key (a ``torch.Generator``, see
-    ``backend/rng.py``) for its input dropout.
+    ``backend/rng.py``) for its input dropout;
+  - ``init_state(device)`` -> the layer's non-trainable state ({} for
+    most layers; BatchNorm's running mean and var).  A stateful layer
+    also has ``apply_with_state(params, state, x, *, train, rng)`` ->
+    (y, new_state), which the facades call in place of ``apply`` (the
+    reference's ``apply`` takes and returns the state of every layer);
+  - ``setup(input_type)`` / ``output_type(input_type)``: the size
+    inference a graph's ``set_input_types`` runs.
 
 Parameters live in the model's nested dict, not in the layer; gradients
 come from autograd through ``apply``.  Each class registers under its
@@ -27,6 +34,7 @@ from typing import Any, Dict, Optional, Type
 import torch
 
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
+from deeplearning4j_tpu_torch.nn.inputs import InputType
 
 _LAYER_REGISTRY: Dict[str, Type["Layer"]] = {}
 
@@ -78,12 +86,23 @@ class Layer:
                 "(weight masking is implemented for Dense/Output layers); "
                 "use plain dropout here")
 
+    def setup(self, input_type: InputType) -> "Layer":
+        """A completed copy with sizes inferred from ``input_type``."""
+        return self
+
+    def output_type(self, input_type: InputType) -> InputType:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no shape inference in the port yet")
+
     def param_shapes(self) -> Dict[str, Any]:
         raise NotImplementedError
 
     def init(self, gen: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
+
+    def init_state(self, device=None) -> Dict[str, torch.Tensor]:
+        return {}
 
     def has_params(self) -> bool:
         return True

@@ -1,5 +1,9 @@
-"""Dense, Output and Embedding layers — counterpart of
-``deeplearning4j_tpu/nn/layers/dense.py`` (params ``W`` [n_in, n_out], ``b``)."""
+"""Dense, Output, Activation and Embedding layers — counterpart of
+``deeplearning4j_tpu/nn/layers/dense.py`` (params ``W`` [n_in, n_out], ``b``).
+
+``x @ W`` promotes x and W to a common type first, as ``jnp`` does: a
+float32 activation meets bfloat16 weights where a float32 BatchNorm
+inference output (running stats are float32) feeds the head."""
 
 from __future__ import annotations
 
@@ -9,7 +13,15 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations, initializers, losses
+from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
+
+
+def _matmul(x, w):
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
 
 
 @register_layer
@@ -18,6 +30,16 @@ class DenseLayer(Layer):
     n_in: Optional[int] = None
     n_out: Optional[int] = None
     _SUPPORTS_DROP_CONNECT = True  # apply() masks W via maybe_drop_connect
+
+    def setup(self, input_type: InputType) -> "DenseLayer":
+        if self.n_in is None:
+            return dataclasses.replace(self, n_in=input_type.flat_size())
+        return self
+
+    def output_type(self, input_type: InputType) -> InputType:
+        if input_type.kind == "rnn":
+            return InputType.recurrent(self.n_out, input_type.timesteps)
+        return InputType.feed_forward(self.n_out)
 
     def param_shapes(self):
         return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
@@ -32,10 +54,10 @@ class DenseLayer(Layer):
     def apply(self, params, x, *, train=False, rng=None):
         x = self.maybe_dropout(x, train=train, rng=rng)
         w = self.maybe_drop_connect(params["W"], train=train, rng=rng)
-        return activations.get(self.activation)(x @ w + params["b"])
+        return activations.get(self.activation)(_matmul(x, w) + params["b"])
 
     def pre_output(self, params, x):
-        return x @ params["W"] + params["b"]
+        return _matmul(x, params["W"]) + params["b"]
 
 
 @register_layer
@@ -65,6 +87,27 @@ class OutputLayer(DenseLayer):
     def score(self, params, x, labels, mask=None):
         pre = self.pre_output(params, x)
         return losses.score(self.loss, labels, pre, self.activation, mask)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class ActivationLayer(Layer):
+    """Activation alone (reference ``nn/conf/layers/ActivationLayer``)."""
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+    def has_params(self) -> bool:
+        return False
+
+    def param_shapes(self):
+        return {}
+
+    def init(self, gen, dtype=torch.float32, device=None):
+        return {}
+
+    def apply(self, params, x, *, train=False, rng=None):
+        return activations.get(self.activation)(x)
 
 
 @register_layer

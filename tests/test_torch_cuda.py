@@ -18,7 +18,7 @@ from deeplearning4j_tpu_torch.helpers import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 
 
 @pytest.fixture
@@ -337,3 +337,159 @@ def test_dropout_and_remat_on_the_card(cuda):
         for a, b in zip(*grads):
             assert (a - b).abs().max().item() <= 1e-4 * max(
                 1.0, b.abs().max().item())
+
+
+# ------------------------------------------------------------ batch norm
+from deeplearning4j_tpu_torch.helpers import batch_norm as bn  # noqa: E402
+
+BN_CASES = {
+    # name: (rows, C)
+    "stem": (1605632, 64),
+    "last_stage": (6272, 2048),
+    "ragged": (1001, 130),
+    "one_row": (1, 7),
+    "narrow": (50000, 3),
+    "vector_c": (333, 24),
+}
+
+
+def _bn_inputs(seed, m, c, dtype):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(m, c, generator=g) * 2 + 3).to("cuda", dtype)
+    gy = torch.randn(m, c, generator=g).to("cuda", dtype)
+    gamma = (torch.randn(c, generator=g) + 1).cuda()
+    beta = torch.randn(c, generator=g).cuda()
+    return x, gy, gamma, beta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("name", sorted(BN_CASES))
+def test_batch_norm_kernels_match_plain(name, dtype, cuda):
+    m, c = BN_CASES[name]
+    x, gy, gamma, beta = _bn_inputs(13, m, c, dtype)
+    before = (bn.train_fwd_counts.launches, bn.train_bwd_counts.launches,
+              bn.inference_counts.launches)
+    y, mean, var, inv = bn.bn_train_fwd_2d(x, gamma, beta, 1e-5)
+    dx, dgamma, dbeta = bn.bn_train_bwd_2d(x, gy, gamma, mean, inv)
+    yi = bn.bn_inference_2d(x, mean, var, gamma, beta, 1e-5)
+    assert (bn.train_fwd_counts.launches, bn.train_bwd_counts.launches,
+            bn.inference_counts.launches) == tuple(b + 1 for b in before)
+    ry, rmean, rvar, rinv = bn.bn_train_fwd_plain(x, gamma, beta, 1e-5)
+    rdx, rdgamma, rdbeta = bn.bn_train_bwd_plain(x, gy, gamma, rmean, rinv)
+    ryi = bn.bn_inference_plain(x, rmean, rvar, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == yi.dtype == dtype
+
+    def err(a, ref):
+        # relative to the largest magnitude, absolute below 1 (a single
+        # row normalises to exactly 0 and its dx is 0)
+        return ((a.float() - ref.float()).abs().max()
+                / ref.float().abs().max().clamp_min(1.0)).item()
+
+    for got, ref in ((mean, rmean), (var, rvar), (inv, rinv)):
+        assert err(got, ref) <= 1e-5
+    for got, ref in ((y, ry), (yi, ryi), (dx, rdx), (dgamma, rdgamma),
+                     (dbeta, rdbeta)):
+        assert err(got, ref) <= TOL[dtype]
+
+
+def test_batch_norm_is_the_same_run_to_run(cuda):
+    x, gy, gamma, beta = _bn_inputs(3, 200000, 96, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        y, mean, var, inv = bn.bn_train_fwd_2d(x, gamma, beta, 1e-5)
+        runs.append((y, mean, var) + bn.bn_train_bwd_2d(x, gy, gamma, mean,
+                                                        inv))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_batch_norm_autograd_on_the_card(cuda):
+    """The helper's training and inference paths differentiate through
+    the kernels: float32 grads equal those of the float64 formula."""
+    helper = bn.BatchNormHelper()
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(3, 5, 5, 12, generator=g) + 1).cuda().requires_grad_()
+    gamma = (torch.randn(12, generator=g) + 1).cuda().requires_grad_()
+    beta = torch.randn(12, generator=g).cuda().requires_grad_()
+    gy = torch.randn(3, 5, 5, 12, generator=g).cuda()
+    y, mean, var = helper.apply_training(x, gamma, beta, 1e-5)
+    got = torch.autograd.grad(y, (x, gamma, beta), gy)
+    xd = x.double()
+    m = xd.mean(dim=(0, 1, 2))
+    v = xd.var(dim=(0, 1, 2), unbiased=False)
+    ref = (xd - m) * torch.rsqrt(v + 1e-5) * gamma.double() + beta.double()
+    want = torch.autograd.grad(ref, (x, gamma, beta), gy.double())
+    assert (y.double() - ref).abs().max().item() <= 1e-4
+    for a, r in zip(got, want):
+        assert (a.double() - r).abs().max().item() <= 1e-4 * max(
+            1.0, r.abs().max().item())
+    mean, var = mean.detach(), var.detach() + 0.5
+    yi = helper.apply_inference(x, mean, var, gamma, beta, 1e-5)
+    got = torch.autograd.grad(yi, (x, gamma, beta), gy)
+    ref = ((xd - mean.double()) * torch.rsqrt(var.double() + 1e-5)
+           * gamma.double() + beta.double())
+    want = torch.autograd.grad(ref, (x, gamma, beta), gy.double())
+    for a, r in zip(got, want):
+        assert (a.double() - r).abs().max().item() <= 1e-4 * max(
+            1.0, r.abs().max().item())
+
+
+def test_batch_norm_wrapper_refuses_what_it_does_not_take(cuda):
+    x, gy, gamma, beta = _bn_inputs(1, 16, 8, torch.float32)
+    with pytest.raises(TypeError):
+        bn.bn_train_fwd_2d(x.double(), gamma, beta, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.bn_train_fwd_2d(x.t().contiguous().t(), gamma, beta, 1e-5)
+    with pytest.raises(ValueError, match="must be"):
+        bn.bn_train_fwd_2d(x, gamma[:4], beta, 1e-5)
+    with pytest.raises(TypeError):
+        bn.bn_train_bwd_2d(x, gy.bfloat16(), gamma, gamma, gamma)
+    with pytest.raises(ValueError, match="a row"):
+        bn.bn_inference_2d(x[:0], gamma, gamma, gamma, beta, 1e-5)
+
+
+def test_batch_norm_layer_raises_for_float64_on_the_card(cuda):
+    """A CUDA tensor the kernels do not take never goes to the built-in
+    path quietly: float64 raises, and runs only with helpers disabled."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.nn.layers import BatchNormalization
+
+    layer = BatchNormalization(n_out=8, name="bn")
+    dev = torch.device("cuda")
+    params = layer.init(None, torch.float64, dev)
+    state = layer.init_state(dev)
+    x = torch.randn(4, 3, 3, 8, dtype=torch.float64, device=dev)
+    before = bn.train_fwd_counts.launches
+    with pytest.raises(TypeError, match="enable_helpers"):
+        layer.apply_with_state(params, state, x, train=True)
+    with helpers.helpers_disabled():
+        y, _ = layer.apply_with_state(params, state, x, train=True)
+    assert y.dtype == torch.float64
+    assert bn.train_fwd_counts.launches == before
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float16"])
+def test_resnet_goes_through_the_batch_norm_kernels(compute_dtype, cuda):
+    """A small ResNet in bfloat16 or float16 on the card: ``output``
+    launches the inference kernel once per BatchNorm layer and ``fit`` the
+    training kernels once each, with no plain-version call."""
+    from deeplearning4j_tpu_torch.models.zoo import resnet50
+
+    net = resnet50(height=16, width=16, channels=3, n_classes=4,
+                   blocks=(1, 1), stem_stride=1, init_channels=8,
+                   compute_dtype=compute_dtype)
+    x = np.random.default_rng(0).random((4, 16, 16, 3)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[[0, 1, 2, 3]]
+    counts = (bn.inference_counts, bn.train_fwd_counts, bn.train_bwd_counts)
+    for c in counts:
+        c.reset()
+    out = net.output(x)
+    net.fit(x, y)
+    net.fit(x, y)
+    assert [c.launches for c in counts] == [9, 18, 18]
+    assert [c.plain_calls for c in counts] == [0, 0, 0]
+    assert out.shape == (4, 4) and bool(torch.isfinite(out).all())
+    assert np.isfinite(net.score_value)
+    assert net.net_state["stem_bn"]["mean"].dtype == torch.float32
