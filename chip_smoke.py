@@ -4,12 +4,14 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. Build every CUDA kernel of the serving and training paths from the
    sources in this checkout (``nvcc``, one process per source, all
-   started together).
+   started together), and print each kernel's registers and shared
+   memory as ``ptxas`` reports them.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and time the kernel, the plain version and a
    library yardstick (which the port never calls: ``gather_pages`` +
    ``scaled_dot_product_attention`` for paged decode, SDPA forward and
-   backward for flash attention, ``F.layer_norm`` for the prologue,
+   backward for flash attention (bfloat16, float32 and float16 cases),
+   ``F.layer_norm`` for the prologue (bfloat16, float32, float16),
    ``F.batch_norm`` for BatchNorm),
    beside the least time the card could take (the bytes the call must
    move at 3.35 TB/s, or its operations at the peak rate for their type,
@@ -46,7 +48,23 @@ Phases (any failure exits non-zero; nothing is caught):
    steps (53 training-forward and 53 training-backward launches a step,
    no plain-version call, finite losses, running stats that moved), and
    one step under ``torch.profiler``.
-7. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+7. Hold the two LRN kernels (forward, backward) against their plain
+   versions at AlexNet's shapes (``[373248, 96]`` and ``[86528, 256]``
+   in bfloat16; a float32, a float16, a ragged C = 130, a C = 3 < n and
+   an n = 7 case), and time them beside ``F.local_response_norm`` (odd n
+   only, its alpha times n: cuDNN's convention divides alpha by the
+   window) and their bound.
+8. AlexNet as a MultiLayerNetwork at full width (zoo ``alexnet``:
+   224x224x3, 1000 classes, batch 128, bfloat16, Nesterov at 0.01 with
+   l2 5e-4; ``RandomState(0)`` images in [0, 1) and one-hot labels;
+   seeded random weights).  ``output`` is held against the built-in path
+   (logits and argmax) and must launch the LRN forward kernel twice; the
+   first step's loss (bfloat16) and per-layer gradients (float32
+   compute) are held against the built-in path with the same dropout
+   key; then 2 warm-up and 5 timed ``fit`` steps (2 forward and 2
+   backward LRN launches a step, no plain-version call, finite losses),
+   and one step under ``torch.profiler``.
+9. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -73,15 +91,18 @@ from deeplearning4j_tpu_torch.generation import GenerationEngine
 from deeplearning4j_tpu_torch.helpers import batch_norm as bn
 from deeplearning4j_tpu_torch.helpers import flash_attention as fa
 from deeplearning4j_tpu_torch.helpers import fused_epilogue as fe
+from deeplearning4j_tpu_torch.helpers import lrn
 from deeplearning4j_tpu_torch.helpers import paged_attention as pa
 from deeplearning4j_tpu_torch.models.sequential import tree_leaves
-from deeplearning4j_tpu_torch.models.zoo import resnet50, transformer_char_lm
+from deeplearning4j_tpu_torch.models.zoo import (
+    alexnet, resnet50, transformer_char_lm,
+)
 from deeplearning4j_tpu_torch.nn.layers.attention import gather_pages
 from deeplearning4j_tpu_torch.nn.layers.convolution import ConvolutionLayer
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNormalization,
 )
-from deeplearning4j_tpu_torch.nn.layers.dense import EmbeddingLayer
+from deeplearning4j_tpu_torch.nn.layers.dense import DenseLayer, EmbeddingLayer
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
@@ -113,6 +134,21 @@ BN_CASES = [  # name, NHWC shape, dtype
     ("ragged_bf16", (13, 77, 101, 130), torch.bfloat16),
     ("ragged_f16", (13, 77, 101, 130), torch.float16),
 ]
+LRN = dict(k=2.0, n=5, alpha=1e-4, beta=0.75)     # AlexNet's LRN layers
+LRN_CASES = [  # name, NHWC shape, dtype, n
+    ("lrn1_bf16", (128, 54, 54, 96), torch.bfloat16, 5),
+    ("lrn2_bf16", (128, 26, 26, 256), torch.bfloat16, 5),
+    ("lrn1_f32", (128, 54, 54, 96), torch.float32, 5),
+    ("lrn2_f16", (128, 26, 26, 256), torch.float16, 5),
+    ("ragged130_bf16", (13, 77, 101, 130), torch.bfloat16, 5),
+    ("c3_bf16", (64, 55, 55, 3), torch.bfloat16, 5),
+    ("n7_bf16", (128, 26, 26, 256), torch.bfloat16, 7),
+]
+ALEXNET = dict(compute_dtype="bfloat16", seed=12345)  # 224x224x3, 1000
+ALEXNET_BATCH, ALEXNET_LRN_LAYERS = 128, 2
+# logits, kernels vs built-in path: bf16 error over max |logit|, and
+# images whose argmax may differ (bf16 near-ties counted apart)
+ALEXNET_LOGITS_TOL, ALEXNET_ARGMAX_MISSES = 2e-2, 2
 
 
 def card() -> str:
@@ -129,7 +165,7 @@ def check(ok: bool, what: str) -> None:
 
 # ------------------------------------------------------------------ phase 1
 def build_kernels():
-    modules = [pa, fa, fe, bn]
+    modules = [pa, fa, fe, bn, lrn]
     with ThreadPoolExecutor(len(modules)) as ex:
         built = list(ex.map(lambda m: m.build(), modules))
     for m, b in zip(modules, built):
@@ -139,8 +175,8 @@ def build_kernels():
             if "Compiling entry function" in ln:
                 # the kernel's name and template arguments, from the
                 # mangled symbol
-                found = re.search(r"((?:flash_[a-z]+|drn|paged_decode)_"
-                                  r"(?:kernel|mma))(I\w*?E)?E"
+                found = re.search(r"((?:flash_[a-z]+|drn|paged_decode|"
+                                  r"lrn_[a-z]+)_(?:kernel|mma))(I\w*?E)?E"
                                   r"|(bn_[a-z_]+)(I\w*?E)?", ln)
                 entry = "".join(x for x in found.groups() if x) \
                     if found else ln
@@ -538,10 +574,10 @@ def prologue_case(name, seed, rows, c, dtype, has_res, has_mask, flush,
     out = fe.dropout_residual_norm_2d(*args)
     ref = fe.dropout_residual_norm_plain(*args)
     torch.cuda.synchronize()
-    # bf16: one rounding of values up to ~10, held relative to the
+    # bf16, f16: one rounding of values up to ~10, held relative to the
     # largest magnitude; f32 absolute
-    err = (_scaled_err(out, ref) if dtype == torch.bfloat16
-           else _abs_err(out, ref))
+    err = (_abs_err(out, ref) if dtype == torch.float32
+           else _scaled_err(out, ref))
     check(err <= TOL[dtype], f"prologue[{name}]: kernel vs plain {err} > "
                              f"{TOL[dtype]}")
     ms = time_ms(lambda: fe.dropout_residual_norm_2d(*args), flush)
@@ -570,7 +606,8 @@ def train_kernel_phase(flush, name_card):
             ("full_bf16", full, torch.bfloat16, False, None),
             ("window256_bf16", full, torch.bfloat16, True, 256),
             ("ragged1000_bf16", (TRAIN_BATCH, 1000, 8, 128), torch.bfloat16,
-             True, None)]):
+             True, None),
+            ("causal_f16", full, torch.float16, True, None)]):
         flash[name] = flash_case(name, 200 + 10 * i, shape, dtype, causal,
                                  window, flush, name_card)
     rows = TRAIN_BATCH * TRAIN_T
@@ -580,7 +617,9 @@ def train_kernel_phase(flush, name_card):
             ("prologue_mask_bf16", torch.bfloat16, False, True),
             ("residual_bf16", torch.bfloat16, True, False),
             ("residual_mask_bf16", torch.bfloat16, True, True),
-            ("prologue_mask_f32", torch.float32, False, True)]):
+            ("prologue_mask_f32", torch.float32, False, True),
+            ("prologue_mask_f16", torch.float16, False, True),
+            ("residual_f16", torch.float16, True, False)]):
         prologue[name] = prologue_case(name, 300 + 10 * i, rows, 1024, dtype,
                                        has_res, has_mask, flush, name_card)
     return flash["causal_bf16"], prologue["prologue_bf16"]
@@ -622,28 +661,40 @@ def _kernel_counts():
     return (fa.fwd_counts, fa.dq_counts, fa.dkv_counts, fe.counts)
 
 
-def first_step_check(what, net, loss_of):
+def _rel_l2(grads, ref):
+    return {n: ((grads[n] - ref[n]).norm()
+                / ref[n].norm().clamp_min(1e-30)).item() for n in ref}
+
+
+def first_step_check(what, net, loss_of, floor=False):
     """The first step's loss and per-layer gradients through the kernels
-    against the built-in path (``enable_helpers(False)``)."""
+    against the built-in path (``enable_helpers(False)``).  ``floor``:
+    also print how far two runs of the built-in path lie apart (the
+    libraries' own run-to-run spread)."""
     k_loss, k_grads = _loss_and_grads(net, loss_of)
     helpers.enable_helpers(False)
     try:
         b_loss, b_grads = _loss_and_grads(net, loss_of)
+        again = _loss_and_grads(net, loss_of)[1] if floor else None
     finally:
         helpers.enable_helpers(True)
     loss_rel = abs(k_loss - b_loss) / abs(b_loss)
-    grad_rel = {n: ((k_grads[n] - b_grads[n]).norm()
-                    / b_grads[n].norm().clamp_min(1e-30)).item()
-                for n in b_grads}
+    grad_rel = _rel_l2(k_grads, b_grads)
     worst = max(grad_rel, key=grad_rel.get)
     print(f"{what}: first-step loss kernels {k_loss:.6f} vs built-in "
           f"{b_loss:.6f} (rel {loss_rel:.3e}, tol {LOSS_RTOL}); per-layer "
           f"gradient rel L2 max {grad_rel[worst]:.3e} at {worst} (tol "
           f"{GRAD_RTOL})")
+    if again is not None:
+        spread = _rel_l2(again, b_grads)
+        top = max(spread, key=spread.get)
+        print(f"{what}: built-in path against itself, per-layer gradient "
+              f"rel L2 max {spread[top]:.3e} at {top}, {spread[worst]:.3e} "
+              f"at {worst}")
     check(loss_rel <= LOSS_RTOL, f"{what} first-step loss rel {loss_rel}")
     check(all(r <= GRAD_RTOL for r in grad_rel.values()),
           f"{what} per-layer gradient rel L2 {grad_rel}")
-    del k_grads, b_grads
+    del k_grads, b_grads, again
     torch.cuda.empty_cache()
 
 
@@ -965,12 +1016,15 @@ def resnet_phase(name_card):
           f"{util:.4f} of 989 TFLOP/s ({3 * fwd_flops / 1e12:.3f} TFLOP a "
           f"step, 3 x forward); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{name_card}]")
-    resnet_profile(net, x, y, name_card)
+    step_profile("resnet50", net, x, y, r"\bbn_[a-z_]+(kernel|finalize)",
+                 "BatchNorm", name_card)
     return inf_launches, launches[1], launches[2]
 
 
-def resnet_profile(net, x, y, name_card):
-    """Where one ResNet-50 train step's time goes."""
+def step_profile(what, net, x, y, kernel_re, label, name_card):
+    """Where one train step's time goes: device busy against host wall,
+    the share of the kernels whose names match ``kernel_re``, copy
+    kernels, then the host's operations in a second traced step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -982,19 +1036,22 @@ def resnet_profile(net, x, y, name_card):
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
     check(busy_ms > 0, "the profiler saw device time")
-    ours = [e for e in ev if re.search(r"\bbn_[a-z_]+(kernel|finalize)",
-                                       e.key)]
-    bn_ms = sum(e.self_device_time_total for e in ours) / 1e3
+    ours = [e for e in ev if re.search(kernel_re, e.key)]
+    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
     copies = [e for e in ev if "copy" in e.key.lower()]
-    print(f"resnet50 step (profiled): host wall {wall_ms:.3f} ms, device "
+    print(f"{what} step (profiled): host wall {wall_ms:.3f} ms, device "
           f"busy {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) "
-          f"in {sum(e.count for e in ev)} device operations; BatchNorm "
-          f"kernels {bn_ms:.3f} ms ({bn_ms / busy_ms:.3f} of busy) in "
+          f"in {sum(e.count for e in ev)} device operations; {label} "
+          f"kernels {ours_ms:.3f} ms ({ours_ms / busy_ms:.3f} of busy) in "
           f"{sum(e.count for e in ours)} launches; copy kernels "
           f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms in "
           f"{sum(e.count for e in copies)} launches [{name_card}]")
+    check(ours_ms > 0, f"the profiled {what} step ran the {label} kernels")
     for e in sorted(ours, key=lambda e: -e.self_device_time_total):
-        print(f"  bn: {e.self_device_time_total / 1e3:9.3f} ms  "
+        print(f"  {label}: {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:100]}")
+    for e in sorted(copies, key=lambda e: -e.self_device_time_total)[:4]:
+        print(f"  copy: {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:100]}")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  top: {e.self_device_time_total / 1e3:9.3f} ms  "
@@ -1010,13 +1067,259 @@ def resnet_profile(net, x, y, name_card):
     ev = prof.key_averages()
     host_ms = sum(e.self_cpu_time_total for e in ev) / 1e3
     launch = [e for e in ev if e.key == "cudaLaunchKernel"]
-    print(f"resnet50 step host side (traced): self host time {host_ms:.3f} "
+    print(f"{what} step host side (traced): self host time {host_ms:.3f} "
           f"ms; cudaLaunchKernel {sum(e.count for e in launch)} calls, "
           f"{sum(e.self_cpu_time_total for e in launch) / 1e3:.3f} ms "
           f"[{name_card}]")
     for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"  host: {e.self_cpu_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
+
+
+# ------------------------------------------------------------ phase 7, LRN
+def lrn_case(name, seed, shape, dtype, n, flush, name_card):
+    """The two LRN kernels on one NHWC shape, as [N·H·W, C].  x is wide
+    enough (std 30) that the window term moves s by a fifth at alpha
+    1e-4."""
+    b, h, w, c = shape
+    m = b * h * w
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(m, c, generator=g, device="cuda") * 30).to(dtype)
+    gy = torch.randn(m, c, generator=g, device="cuda").to(dtype)
+    prm = dict(LRN, n=n)
+    y = lrn.lrn_fwd_2d(x, **prm)
+    dx = lrn.lrn_bwd_2d(x, gy, **prm)
+    ry = lrn.lrn_fwd_plain(x, **prm)
+    rdx = lrn.lrn_bwd_plain(x, gy, **prm)
+    torch.cuda.synchronize()
+    errs = {"fwd": _scaled_err(y, ry), "bwd": _scaled_err(dx, rdx)}
+    abs_errs = {"fwd": _abs_err(y, ry), "bwd": _abs_err(dx, rdx)}
+    for k, err in errs.items():
+        check(err <= TOL[dtype], f"lrn[{name}] {k}: kernel vs plain {err} > "
+                                 f"{TOL[dtype]}")
+    del y, dx, rdx
+    calls = {
+        "fwd": (lambda: lrn.lrn_fwd_2d(x, **prm),
+                lambda: lrn.lrn_fwd_plain(x, **prm)),
+        "bwd": (lambda: lrn.lrn_bwd_2d(x, gy, **prm),
+                lambda: lrn.lrn_bwd_plain(x, gy, **prm)),
+    }
+    ms = {k: time_ms(kern, flush) for k, (kern, _) in calls.items()}
+    plain_ms = {k: time_ms(plain, flush, iters=KERNEL_ITERS)
+                for k, (_, plain) in calls.items()}
+
+    # yardstick the port never calls: F.local_response_norm on the NCHW
+    # tensor (its own layout), alpha times n (it divides by the window);
+    # its window is asymmetric for an even n, so odd n only
+    lib_ms, lib_err = {"fwd": None, "bwd": None}, None
+    if n % 2:
+        x4 = x.view(b, h, w, c).permute(0, 3, 1, 2).contiguous()
+        g4 = gy.view(b, h, w, c).permute(0, 3, 1, 2).contiguous()
+        xl = x4.requires_grad_()
+        lib = lambda: F.local_response_norm(
+            xl, n, alpha=prm["alpha"] * n, beta=prm["beta"], k=prm["k"])
+        out = lib()
+        lib_err = _scaled_err(out.permute(0, 2, 3, 1).reshape(m, c), ry)
+        lib_ms = {"fwd": time_ms(lib, flush),
+                  "bwd": time_ms(lambda: torch.autograd.grad(
+                      out, xl, g4, retain_graph=True), flush)}
+        del out, xl, x4, g4
+    del ry
+    torch.cuda.empty_cache()
+
+    # least time: each tensor read or written once, or the kernels'
+    # float32 operations (the window's 2n+1 products and sums, the power
+    # and the scaling: 2(2h+1) + 6 forward, 3(2h+1) + 14 backward) at the
+    # float32 rate whatever x's type, whichever is larger
+    esz, win = x.element_size(), 2 * (n // 2) + 1
+    bounds = {"fwd": _bound(2 * m * c * esz, m * c * (2 * win + 6),
+                            torch.float32),
+              "bwd": _bound(3 * m * c * esz, m * c * (3 * win + 14),
+                            torch.float32)}
+    lib_txt = ("n/a (even n)" if lib_err is None else f"{lib_err:.3e}")
+    print(f"lrn[{name}] [{m}, {c}] {str(dtype)[6:]} n={n}: err fwd "
+          f"{errs['fwd']:.3e}, bwd {errs['bwd']:.3e} (scaled by max abs; "
+          f"tol {TOL[dtype]:g}); F.local_response_norm fwd err {lib_txt} "
+          f"[{name_card}]")
+    print(f"lrn[{name}] " + "; ".join(
+        f"{k} {ms[k]:.4f} ms (bound {bounds[k][0]:.5f} ms, {bounds[k][1]}; "
+        f"plain {plain_ms[k]:.4f} ms, F.local_response_norm "
+        + ("n/a" if lib_ms[k] is None else f"{lib_ms[k]:.4f} ms") + ")"
+        for k in ("fwd", "bwd")) + f" [{name_card}]")
+    return {k: dict(err=abs_errs[k], ms=ms[k], plain_ms=plain_ms[k],
+                    lib_ms=lib_ms[k], bound=bounds[k]) for k in ms}
+
+
+def lrn_kernel_phase(flush, name_card):
+    return {name: lrn_case(name, 500 + 10 * i, shape, dtype, n, flush,
+                           name_card)
+            for i, (name, shape, dtype, n) in enumerate(LRN_CASES)}
+
+
+# -------------------------------------------------- phase 8, AlexNet
+def _sequential_flops(net, batch) -> int:
+    """Multiply-adds x 2 of every convolution and dense layer of the
+    forward, from the shapes the config infers."""
+    t, total = net.conf.input_type, 0
+    for i, layer in enumerate(net.layers):
+        if i in net.conf.preprocessors:
+            t = net.conf.preprocessors[i].output_type(t)
+        out = layer.output_type(t)
+        if isinstance(layer, ConvolutionLayer):
+            kh, kw = layer.kernel_size
+            total += (2 * out.height * out.width * out.channels * kh * kw
+                      * layer.n_in)
+        elif isinstance(layer, DenseLayer):
+            total += 2 * layer.n_in * layer.n_out
+        t = out
+    return total * batch
+
+
+def _lrn_counts():
+    return (lrn.fwd_counts, lrn.bwd_counts)
+
+
+def alexnet_phase(name_card):
+    net = alexnet(device="cuda", **ALEXNET)
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.rand(ALEXNET_BATCH, 224, 224, 3).astype(
+        np.float32), device="cuda")
+    y = torch.as_tensor(np.eye(1000, dtype=np.float32)[
+        rs.randint(0, 1000, ALEXNET_BATCH)], device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(net.params))
+    print(f"alexnet: {n_params} params, {ALEXNET_LRN_LAYERS} LRN layers, "
+          f"batch {ALEXNET_BATCH}x224x224x3 bf16")
+    check(n_params == 50844008, f"alexnet params {n_params}")
+
+    # output() through the forward kernel
+    for c in _lrn_counts():
+        c.reset()
+    probs = net.output(x)
+    torch.cuda.synchronize()
+    out_launches = [c.launches for c in _lrn_counts()]
+    plain = [c.plain_calls for c in _lrn_counts()]
+    print(f"alexnet output: LRN launches (forward, backward) {out_launches},"
+          f" plain-version calls {plain}")
+    check(out_launches == [ALEXNET_LRN_LAYERS, 0],
+          f"output launches {out_launches}")
+    check(plain == [0, 0], f"output plain-version calls {plain}")
+    check(tuple(probs.shape) == (ALEXNET_BATCH, 1000)
+          and bool(torch.isfinite(probs).all())
+          and (probs.sum(-1) - 1).abs().max().item() < 1e-3,
+          "output: finite probabilities of shape [128, 1000]")
+
+    def logits(helpers_on):
+        helpers.enable_helpers(helpers_on)
+        try:
+            with torch.no_grad():
+                pre, _, _ = net._forward(net.params, x)
+        finally:
+            helpers.enable_helpers(True)
+        return pre.float()
+
+    # bfloat16: at initialisation the logits are small (max about 0.2)
+    # and close together, and the built-in path rounds every LRN step to
+    # bfloat16 (2 + alpha * sum loses the window term), so an image whose
+    # top two logits lie within the paths' difference may flip: such a
+    # near-tie is counted apart.  float32 compute holds the argmax itself.
+    k_logits, b_logits = logits(True), logits(False)
+    err = _scaled_err(k_logits, b_logits)
+    diff = (k_logits - b_logits).abs().max().item()
+    kcls, bcls = k_logits.argmax(-1), b_logits.argmax(-1)
+    agree = (kcls == bcls).sum().item()
+    gap = b_logits.max(-1).values - b_logits.gather(1, kcls[:, None])[:, 0]
+    ties = ((kcls != bcls) & (gap <= diff)).sum().item()
+    bf16_conf = net.conf
+    net.conf = dataclasses.replace(bf16_conf, compute_dtype=None)
+    try:
+        k32, b32 = logits(True), logits(False)
+    finally:
+        net.conf = bf16_conf
+    err32 = _scaled_err(k32, b32)
+    agree32 = (k32.argmax(-1) == b32.argmax(-1)).sum().item()
+    print(f"alexnet logits, kernels vs built-in path: bfloat16 max abs err "
+          f"{diff:.3e} over max |logit| {b_logits.abs().max().item():.3f} = "
+          f"{err:.3e} (tol {ALEXNET_LOGITS_TOL}), argmax agrees on "
+          f"{agree}/{ALEXNET_BATCH} and {ties} more are near-ties (top-two "
+          f"gap <= {diff:.3e}); float32 {err32:.3e} (tol "
+          f"{TOL[torch.float32]:g}), argmax agrees on {agree32}/"
+          f"{ALEXNET_BATCH} (at least "
+          f"{ALEXNET_BATCH - ALEXNET_ARGMAX_MISSES} each); bfloat16 against "
+          f"float32: kernels {_scaled_err(k_logits, k32):.3e}, built-in "
+          f"{_scaled_err(b_logits, b32):.3e}")
+    check(err <= ALEXNET_LOGITS_TOL, f"alexnet logits {err}")
+    check(agree + ties >= ALEXNET_BATCH - ALEXNET_ARGMAX_MISSES,
+          f"alexnet bf16 argmax agrees on {agree}/{ALEXNET_BATCH}, {ties} "
+          "near-ties")
+    check(err32 <= TOL[torch.float32], f"alexnet float32 logits {err32}")
+    check(agree32 >= ALEXNET_BATCH - ALEXNET_ARGMAX_MISSES,
+          f"alexnet float32 argmax agrees on {agree32}/{ALEXNET_BATCH}")
+    del k_logits, b_logits, k32, b32, probs
+
+    # one dropout key for both paths: its masks are drawn from the key's
+    # seed on the card, and LRN draws nothing, so the paths drop the same
+    # units
+    key = torch.Generator().manual_seed(2024)
+
+    def loss_of(params):
+        return net._loss_fn(params, x, y, key)
+
+    with torch.no_grad():
+        k_loss = float(loss_of(net.params)[0])
+        helpers.enable_helpers(False)
+        try:
+            b_loss = float(loss_of(net.params)[0])
+        finally:
+            helpers.enable_helpers(True)
+    loss_rel = abs(k_loss - b_loss) / abs(b_loss)
+    print(f"alexnet: first-step loss in bfloat16, kernels {k_loss:.6f} vs "
+          f"built-in {b_loss:.6f} (rel {loss_rel:.3e}, tol {LOSS_RTOL})")
+    check(loss_rel <= LOSS_RTOL, f"alexnet bf16 first-step loss {loss_rel}")
+    net.conf = dataclasses.replace(bf16_conf, compute_dtype=None)
+    try:
+        first_step_check("alexnet (float32)", net, loss_of, floor=True)
+    finally:
+        net.conf = bf16_conf
+
+    fwd_flops = _sequential_flops(net, ALEXNET_BATCH)
+    lrn_elems = [ALEXNET_BATCH * 54 * 54 * 96, ALEXNET_BATCH * 26 * 26 * 256]
+    lrn_bytes = 5 * sum(lrn_elems) * 2
+    print(f"alexnet LRN: {sum(lrn_elems)} input elements over the 2 layers; "
+          f"least bytes a train step {lrn_bytes / 1e9:.3f} GB = "
+          f"{lrn_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+
+    steps = WARM_STEPS + TIMED_STEPS
+    for c in _lrn_counts():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        losses.append(net.score_value)      # reads the loss: waits for it
+        step_s.append(time.perf_counter() - t0)
+    launches = [c.launches for c in _lrn_counts()]
+    plain = [c.plain_calls for c in _lrn_counts()]
+    want = [ALEXNET_LRN_LAYERS * steps] * 2
+    print(f"alexnet train: LRN launches over {steps} steps (forward, "
+          f"backward) {launches}, expected {want}; plain-version calls "
+          f"{plain}")
+    check(launches == want, f"launches {launches} == {want}")
+    check(plain == [0, 0], f"plain-version calls {plain} == 0")
+    check(all(np.isfinite(losses)), f"losses finite {losses}")
+    med = float(np.median(step_s[WARM_STEPS:]))
+    util = 3.0 * fwd_flops / med / PEAK_OPS[torch.bfloat16]
+    print(f"alexnet train: losses {[round(v, 6) for v in losses]}")
+    print(f"alexnet train: step median {med * 1e3:.3f} ms over "
+          f"{TIMED_STEPS} steps (after {WARM_STEPS} warm-up); "
+          f"{ALEXNET_BATCH / med:.1f} images/s; analytic-FLOP utilisation "
+          f"{util:.4f} of 989 TFLOP/s ({3 * fwd_flops / 1e12:.3f} TFLOP a "
+          f"step, 3 x forward); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{name_card}]")
+    step_profile("alexnet", net, x, y, r"\blrn_(fwd|bwd)_kernel", "LRN",
+                 name_card)
+    return launches
 
 
 def main() -> int:
@@ -1034,6 +1337,7 @@ def main() -> int:
     rows = kernel_phase(flush, name_card)
     flash, prologue = train_kernel_phase(flush, name_card)
     bn_rows = bn_kernel_phase(flush, name_card)
+    lrn_rows = lrn_kernel_phase(flush, name_card)
     del flush
     torch.cuda.empty_cache()
     launches = engine_phase(name_card)
@@ -1041,6 +1345,8 @@ def main() -> int:
     train_launches = train_phase(name_card)
     torch.cuda.empty_cache()
     bn_launches = resnet_phase(name_card)
+    torch.cuda.empty_cache()
+    lrn_launches = alexnet_phase(name_card)
     d = rows["decode"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -1074,6 +1380,17 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/helpers/csrc/batch_norm.cu",
+            "replaces": f"deeplearning4j_tpu/helpers/pallas_ops.py:{line}",
+            "launches": n, "max_abs_err": row["err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
+            "bound_by": row["bound"][1], "library_ms": row["lib_ms"]})
+    lrn1 = lrn_rows["lrn1_bf16"]
+    for (name, key, line), n in zip([("lrn_fwd", "fwd", 65),
+                                     ("lrn_bwd", "bwd", 72)], lrn_launches):
+        row = lrn1[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/helpers/csrc/lrn.cu",
             "replaces": f"deeplearning4j_tpu/helpers/pallas_ops.py:{line}",
             "launches": n, "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],

@@ -52,7 +52,8 @@ def get_helper(kind: str) -> Optional[object]:
     if helper is None:
         # lazy registration on first ask
         from deeplearning4j_tpu_torch.helpers import (
-            batch_norm, flash_attention, fused_epilogue, paged_attention,
+            batch_norm, flash_attention, fused_epilogue, lrn,
+            paged_attention,
         )
 
         register_helper("paged_attention",
@@ -60,5 +61,6 @@ def get_helper(kind: str) -> Optional[object]:
         register_helper("attention", flash_attention.FlashAttentionHelper())
         register_helper("epilogue", fused_epilogue.FusedEpilogueHelper())
         register_helper("batch_norm", batch_norm.BatchNormHelper())
+        register_helper("lrn", lrn.LRNHelper())
         helper = _registry.get(kind)
     return helper

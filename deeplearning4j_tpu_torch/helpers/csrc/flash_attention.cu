@@ -27,12 +27,12 @@
 // about 4 * D flops per live (query, key) pair against 2 * D * 2 bytes of
 // q/k/v read once per tile pair from L2, far above the ~295 flops a byte at
 // which the H100's memory stops being the limit.  So the products go to the
-// tensor cores: for bfloat16 with D in {16, 32, 64, 128} (the main path)
-// every product is an mma.sync m16n8k16 (bf16 in, f32 accumulate), one
-// block of 4 warps per (b, h, tile of 64 rows), each warp 16 rows; the
-// score tile, p and ds stay in the accumulator registers, whose layout is
-// also the A operand of the next product, and m, l and the output sums are
-// f32 registers.  Tiles are staged in shared memory with synchronous loads
+// tensor cores: for bfloat16 (the main path) and float16 with D in
+// {16, 32, 64, 128} every product is an mma.sync m16n8k16 (bf16 or f16 in,
+// f32 accumulate), one block of 4 warps per (b, h, tile of 64 rows), each
+// warp 16 rows; the score tile, p and ds stay in the accumulator registers,
+// whose layout is also the A operand of the next product, and m, l and the
+// output sums are f32 registers.  Tiles are staged in shared memory with synchronous loads
 // (no TMA, no cp.async double buffering, no wgmma: later work).  float32
 // and other head dims run f32 kernels on the CUDA cores (the reference
 // multiplies float32 in f32, which the tensor cores do not): one block of
@@ -45,6 +45,7 @@
 // a loop inside the block.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,6 +59,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -67,6 +69,10 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half(x);
 }
 // the value after the reference's `.astype(T)` ahead of a product
 template <typename T>
@@ -474,35 +480,57 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bfloat16 with D in {16, 32, 64, 128}.  The same tiles,
-// masks, casts and loops as above, with every product on mma.sync m16n8k16
-// (bf16 in, f32 accumulate).  Each warp owns 16 rows of the block's tile;
-// the fragment layouts are PTX's: for lane = 4 g + t, an f32 accumulator
-// holds (row g, cols 2t, 2t+1) and (row g + 8, same cols), which is also
-// the A-operand layout of the next product once packed to bf16 pairs, so
-// p and ds never leave registers.  Tiles sit in shared memory as raw bf16
-// with rows padded by 8 elements (conflict-free fragment reads).
+// Tensor-core path: bfloat16 or float16 (the element type E) with D in
+// {16, 32, 64, 128}.  The same tiles, masks, casts and loops as above, with
+// every product on mma.sync m16n8k16 (E in, f32 accumulate).  Each warp
+// owns 16 rows of the block's tile; the fragment layouts are PTX's (the
+// same for both types): for lane = 4 g + t, an f32 accumulator holds
+// (row g, cols 2t, 2t+1) and (row g + 8, same cols), which is also the
+// A-operand layout of the next product once packed to E pairs, so p and ds
+// never leave registers.  Tiles sit in shared memory as raw 16-bit E with
+// rows padded by 8 elements (conflict-free fragment reads).
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 128;  // 4 warps x 16 rows
 constexpr int kMmaRows = 64;
 
+template <typename E>
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+                                         uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(
+    float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+template <>
+__device__ __forceinline__ void mma16816<__half>(
+    float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-// two f32 -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+// two f32 -> one register of two E, `lo` in the low half
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
-// elements (r, c) and (r, c + 1) of a [rows][ld] bf16 tile
+// elements (r, c) and (r, c + 1) of a [rows][ld] 16-bit tile
 __device__ __forceinline__ uint32_t ld_pair(const uint16_t* tile, int ld,
                                             int r, int c) {
   return *reinterpret_cast<const uint32_t*>(tile + r * ld + c);
@@ -524,19 +552,19 @@ __device__ __forceinline__ void ld_a(uint32_t (&a)[4], const uint16_t* tile,
 }
 
 // A operand from accumulators: k columns [16 kk, 16 kk + 16) of a 16-row
-// tile held as n-tiles of 8 (the f32 values rounded to bf16 here)
-template <int NT>
+// tile held as n-tiles of 8 (the f32 values rounded to E here)
+template <typename E, int NT>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
                                          const float (&acc)[NT][4], int kk) {
-  a[0] = pack2(acc[2 * kk][0], acc[2 * kk][1]);
-  a[1] = pack2(acc[2 * kk][2], acc[2 * kk][3]);
-  a[2] = pack2(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-  a[3] = pack2(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
+  a[0] = pack2<E>(acc[2 * kk][0], acc[2 * kk][1]);
+  a[1] = pack2<E>(acc[2 * kk][2], acc[2 * kk][3]);
+  a[2] = pack2<E>(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
+  a[3] = pack2<E>(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
 }
 
 // acc[j] (16 x 8 n-tiles) += A-tile rows [r0, r0 + 16) x B-tile rows^T, both
 // row-major over D: the q k^T, do v^T, k q^T and v do^T products
-template <int NT, int KT>
+template <typename E, int NT, int KT>
 __device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
                                         const uint16_t* at, const uint16_t* bt,
                                         int ld, int r0, int g, int t) {
@@ -546,14 +574,14 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
     ld_a(a, at, ld, r0, kk * 16, g, t);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
-      mma16816(acc[j], a, ld_pair(bt, ld, j * 8 + g, kk * 16 + 2 * t),
+      mma16816<E>(acc[j], a, ld_pair(bt, ld, j * 8 + g, kk * 16 + 2 * t),
                ld_pair(bt, ld, j * 8 + g, kk * 16 + 8 + 2 * t));
   }
 }
 
 // out[dt] (16 x 8 n-tiles over D) += P (16 x 8*NT, in accumulators) times
 // the B tile's rows [0, 8*NT) x D: the p v, ds k, p^T do and ds^T q products
-template <int NT, int DT>
+template <typename E, int NT, int DT>
 __device__ __forceinline__ void mma_pb(float (&out)[DT][4],
                                        const float (&p)[NT][4],
                                        const uint16_t* bt, int ld, int g,
@@ -561,15 +589,17 @@ __device__ __forceinline__ void mma_pb(float (&out)[DT][4],
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
     uint32_t a[4];
-    acc_to_a<NT>(a, p, kk);
+    acc_to_a<E, NT>(a, p, kk);
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
-      mma16816(out[dt], a, ld_col_pair(bt, ld, kk * 16 + 2 * t, dt * 8 + g),
+      mma16816<E>(out[dt], a,
+                  ld_col_pair(bt, ld, kk * 16 + 2 * t, dt * 8 + g),
                ld_col_pair(bt, ld, kk * 16 + 8 + 2 * t, dt * 8 + g));
   }
 }
 
-// rows [row0, row0 + rows) of head (b, h) into a raw bf16 tile, zero past T
+// rows [row0, row0 + rows) of head (b, h) into a raw 16-bit tile, zero
+// past T
 template <int ROWS>
 __device__ __forceinline__ void load_raw(uint16_t* dst, int ld,
                                          const uint16_t* __restrict__ src,
@@ -608,7 +638,7 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(kFull, v, 2);
 }
 
-template <int DT>  // D = 8 * DT
+template <typename E, int DT>  // D = 8 * DT
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
               const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
@@ -651,7 +681,7 @@ flash_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    mma_abt<NT, KT>(sc, qs, ks, LD, r0, g, t);
+    mma_abt<E, NT, KT>(sc, qs, ks, LD, r0, g, t);
 
     const bool full = tile_full(q0, kMmaRows, k0, kMmaRows, s);
     float mx[2] = {kNegInf, kNegInf};
@@ -689,7 +719,7 @@ flash_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dt][e] *= alpha[e >> 1];
-    mma_pb<NT, DT>(acc, sc, vs, LD, g, t);  // p rounded to bf16 here
+    mma_pb<E, NT, DT>(acc, sc, vs, LD, g, t);  // p rounded to E here
   }
 
 #pragma unroll
@@ -700,14 +730,14 @@ flash_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-          pack2(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+          pack2<E>(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
     if (t == 0)
       lse[(size_t)bh * s.t + rows[r]] =
           m[r] * kLn2 + logf(l[r] > 0.f ? l[r] : 1.f);
   }
 }
 
-template <int DT>
+template <typename E, int DT>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
              const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
@@ -756,8 +786,8 @@ flash_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-    mma_abt<NT, KT>(sc, qs, ks, LD, r0, g, t);
-    mma_abt<NT, KT>(dp, dos, vs, LD, r0, g, t);
+    mma_abt<E, NT, KT>(sc, qs, ks, LD, r0, g, t);
+    mma_abt<E, NT, KT>(dp, dos, vs, LD, r0, g, t);
     const bool full = tile_full(q0, kMmaRows, k0, kMmaRows, s);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -772,7 +802,7 @@ flash_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         }
         sc[j][e] = ds;
       }
-    mma_pb<NT, DT>(acc, sc, ks, LD, g, t);  // ds rounded to bf16 here
+    mma_pb<E, NT, DT>(acc, sc, ks, LD, g, t);  // ds rounded to E here
   }
 
 #pragma unroll
@@ -782,13 +812,13 @@ flash_dq_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<uint32_t*>(row + dt * 8 + 2 * t) =
-          pack2(acc[dt][2 * r] * s.scale, acc[dt][2 * r + 1] * s.scale);
+          pack2<E>(acc[dt][2 * r] * s.scale, acc[dt][2 * r + 1] * s.scale);
   }
 }
 
 constexpr int kMmaQRows = 32;  // query rows per step of the k-major loop
 
-template <int DT>
+template <typename E, int DT>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_dkv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
               const uint16_t* __restrict__ v,
@@ -842,8 +872,8 @@ flash_dkv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     for (int j = 0; j < NQ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    mma_abt<NQ, KT>(st, ks, qs, LD, r0, g, t);
-    mma_abt<NQ, KT>(dpt, vs, dos, LD, r0, g, t);
+    mma_abt<E, NQ, KT>(st, ks, qs, LD, r0, g, t);
+    mma_abt<E, NQ, KT>(dpt, vs, dos, LD, r0, g, t);
     const bool full = tile_full(q0, kMmaQRows, k0, kMmaRows, s);
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
@@ -858,8 +888,8 @@ flash_dkv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
         st[j][e] = p;
         dpt[j][e] = ds;
       }
-    mma_pb<NQ, DT>(dv_acc, st, dos, LD, g, t);   // p rounded to bf16 here
-    mma_pb<NQ, DT>(dk_acc, dpt, qs, LD, g, t);   // ds rounded to bf16 here
+    mma_pb<E, NQ, DT>(dv_acc, st, dos, LD, g, t);   // p rounded to E here
+    mma_pb<E, NQ, DT>(dk_acc, dpt, qs, LD, g, t);   // ds rounded to E here
   }
 
 #pragma unroll
@@ -868,10 +898,10 @@ flash_dkv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     const size_t off = (((size_t)b * s.t + keys[r]) * s.h + h) * D;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8 + 2 * t) = pack2(
+      *reinterpret_cast<uint32_t*>(dk + off + dt * 8 + 2 * t) = pack2<E>(
           dk_acc[dt][2 * r] * s.scale, dk_acc[dt][2 * r + 1] * s.scale);
       *reinterpret_cast<uint32_t*>(dv + off + dt * 8 + 2 * t) =
-          pack2(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
+          pack2<E>(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
     }
   }
 }
@@ -959,7 +989,7 @@ cudaError_t dispatch(int which, const Args& a) {
   return run<T, 32, 16>(which, a);
 }
 
-template <int DT>
+template <typename E, int DT>
 cudaError_t run_mma(int which, const Args& a) {
   constexpr int ld = DT * 8 + 8;
   const dim3 grid((a.s.t + kMmaRows - 1) / kMmaRows, a.b * a.s.h);
@@ -969,14 +999,14 @@ cudaError_t run_mma(int which, const Args& a) {
   cudaError_t err;
   if (which == 0) {
     const size_t smem = sizeof(uint16_t) * 3 * kMmaRows * ld;
-    auto kernel = flash_fwd_mma<DT>;
+    auto kernel = flash_fwd_mma<E, DT>;
     if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
     kernel<<<grid, kMmaThreads, smem, a.stream>>>(
         q, k, v, static_cast<uint16_t*>(a.o), static_cast<float*>(a.out_lse),
         a.s);
   } else if (which == 1) {
     const size_t smem = sizeof(uint16_t) * 4 * kMmaRows * ld;
-    auto kernel = flash_dq_mma<DT>;
+    auto kernel = flash_dq_mma<E, DT>;
     if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
     kernel<<<grid, kMmaThreads, smem, a.stream>>>(
         q, k, v, static_cast<const uint16_t*>(a.dout),
@@ -985,7 +1015,7 @@ cudaError_t run_mma(int which, const Args& a) {
   } else {
     const size_t smem = sizeof(uint16_t) * 2 * (kMmaRows + kMmaQRows) * ld +
                         sizeof(float) * 2 * kMmaQRows;
-    auto kernel = flash_dkv_mma<DT>;
+    auto kernel = flash_dkv_mma<E, DT>;
     if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
     kernel<<<grid, kMmaThreads, smem, a.stream>>>(
         q, k, v, static_cast<const uint16_t*>(a.dout),
@@ -995,16 +1025,17 @@ cudaError_t run_mma(int which, const Args& a) {
   return cudaGetLastError();
 }
 
-// bfloat16 with D a power of two in [16, 128] takes the tensor cores; any
-// other D (and float32, whose products the reference keeps in f32) runs
-// the f32 CUDA-core kernels
-cudaError_t dispatch_bf16(int which, const Args& a) {
+// bfloat16 and float16 with D a power of two in [16, 128] take the tensor
+// cores; any other D (and float32, whose products the reference keeps in
+// f32) runs the f32 CUDA-core kernels
+template <typename E>
+cudaError_t dispatch_16bit(int which, const Args& a) {
   switch (a.s.d) {
-    case 16: return run_mma<2>(which, a);
-    case 32: return run_mma<4>(which, a);
-    case 64: return run_mma<8>(which, a);
-    case 128: return run_mma<16>(which, a);
-    default: return dispatch<__nv_bfloat16>(which, a);
+    case 16: return run_mma<E, 2>(which, a);
+    case 32: return run_mma<E, 4>(which, a);
+    case 64: return run_mma<E, 8>(which, a);
+    case 128: return run_mma<E, 16>(which, a);
+    default: return dispatch<E>(which, a);
   }
 }
 
@@ -1016,13 +1047,15 @@ int launch(int which, int dtype, Args& a, int t, int h, int d, int causal,
   a.s = Shape{t, h, d, causal ? 1 : 0, causal ? window : 0, scale};
   a.stream = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(which, a);
-  if (dtype == 1) return (int)dispatch_bf16(which, a);
+  if (dtype == 1) return (int)dispatch_16bit<__nv_bfloat16>(which, a);
+  if (dtype == 2) return (int)dispatch_16bit<__half>(which, a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (every [B, T, H, D] tensor shares it).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (every [B, T, H, D] tensor
+// shares it).
 // window: 0 for none.  Each returns the cudaError_t of its launch (0 on
 // success); the caller validates shapes, contiguity and alignment.
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,

@@ -5,7 +5,8 @@
 //
 //     out = mask * LayerNorm_affine(h + res) / keep
 //
-// on [rows, C], moments over the true C in f32, the output in h's type.
+// on [rows, C] (float32, bfloat16 or float16), moments over the true C in
+// f32, the output in h's type.
 // `res` may be absent (the prologue form, dropout(LayerNorm(h)), that a
 // pre-norm ResidualBlock runs), and so may the keep-mask, which is drawn
 // outside the kernel (one byte per element, nonzero keeps) exactly as the
@@ -22,6 +23,7 @@
 // here the grid covers any number of rows.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,9 +37,13 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half(v);
 }
 
 // sum over the block; `red` holds kWarps floats
@@ -149,7 +155,8 @@ cudaError_t dispatch(const void* h, const void* res, const void* gamma,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (h, res, gamma, beta and out share it).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (h, res, gamma, beta and
+// out share it).
 // res and mask may be NULL.  C must be a multiple of 16 / sizeof(dtype) and
 // at most 128 * 16 of those vectors.  Returns the cudaError_t of the launch;
 // the caller validates shapes, contiguity and alignment.
@@ -167,8 +174,11 @@ extern "C" int dl4j_dropout_residual_norm(const void* h, const void* res,
     return (int)dispatch<float>(h, res, gamma, beta, mask, out, rows, c, eps,
                                 keep, s);
   }
-  if (dtype == 1) {
+  if (dtype == 1 || dtype == 2) {
     if (c % 8) return (int)cudaErrorInvalidValue;
+    if (dtype == 2)
+      return (int)dispatch<__half>(h, res, gamma, beta, mask, out, rows, c,
+                                   eps, keep, s);
     return (int)dispatch<__nv_bfloat16>(h, res, gamma, beta, mask, out, rows,
                                         c, eps, keep, s);
   }

@@ -9,8 +9,9 @@ the probabilities from lse.
 - On CUDA tensors three hand-written kernels run (``csrc/flash_attention.cu``,
   built with ``nvcc`` at first use and bound with ``ctypes``): the forward
   (``_fwd_kernel``), dQ (``_dq_kernel``, q-major) and dK/dV
-  (``_dkv_kernel``, k-major), on the tensor cores for bfloat16 with D in
-  {16, 32, 64, 128} and on the CUDA cores in float32 otherwise.  Each
+  (``_dkv_kernel``, k-major), on the tensor cores for bfloat16 and
+  float16 with D in {16, 32, 64, 128} and on the CUDA cores in float32
+  otherwise.  Each
   launches or raises; nothing falls back.
 - On CPU tensors the same ``autograd.Function`` runs the plain versions
   ``flash_attention_plain_fwd``/``flash_attention_plain_bwd``: a masked
@@ -39,7 +40,7 @@ from deeplearning4j_tpu_torch.nn.layers.attention import check_window
 NEG_INF = -1e30
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib = None     # the loaded library, once ``build`` has run
 
 fwd_counts = cuda_build.Counts()
@@ -48,9 +49,9 @@ dkv_counts = cuda_build.Counts()
 
 
 def supports(q: torch.Tensor) -> bool:
-    """What the kernels take: float32 or bfloat16 [B, T, H, D] with D a
-    multiple of 8 in [8, 256], any T >= 1.  float64 (gradient checks)
-    stays on the layer's exact path, as in the reference."""
+    """What the kernels take: float32, bfloat16 or float16 [B, T, H, D]
+    with D a multiple of 8 in [8, 256], any T >= 1.  float64 (gradient
+    checks) runs on the layer's exact path with helpers disabled."""
     if q.ndim != 4 or q.dtype not in _DTYPE_CODES:
         return False
     d = q.shape[-1]
@@ -164,8 +165,8 @@ def _check_kernel_args(q, k, v, extra=()):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the flash kernels take float32 or bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"the flash kernels take float32, bfloat16 or "
+                        f"float16, got {q.dtype}")
     b, t, h, d = q.shape
     if d % 8 or not 8 <= d <= 256:
         raise ValueError(f"the flash kernels take a head dim that is a "

@@ -38,7 +38,7 @@ from deeplearning4j_tpu_torch.helpers import cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_epilogue.cu"
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_VECTORS = 128 * 16   # 16-byte vectors a row may hold (kernel's K <= 16)
 _launcher = None
 
@@ -46,9 +46,10 @@ counts = cuda_build.Counts()
 
 
 def supports(x: torch.Tensor) -> bool:
-    """What the kernel takes: float32 or bfloat16 rows whose width is a
-    whole number of 16-byte vectors, up to 2048 of them (C <= 16384 in
-    bfloat16, 8192 in float32).  float64 stays on the exact path."""
+    """What the kernel takes: float32, bfloat16 or float16 rows whose
+    width is a whole number of 16-byte vectors, up to 2048 of them
+    (C <= 16384 in 16-bit types, 8192 in float32).  float64 runs on the
+    exact path with helpers disabled."""
     if x.dtype not in _DTYPE_CODES or x.ndim < 1:
         return False
     vec = 16 // x.element_size()
@@ -91,8 +92,8 @@ def _launch(h, res, gamma, beta, mask, eps, keep):
         raise ValueError(f"h must be [rows, C]; got {tuple(h.shape)}")
     rows, c = h.shape
     if h.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got "
-                        f"{h.dtype}")
+        raise TypeError(f"the kernel takes float32, bfloat16 or float16, "
+                        f"got {h.dtype}")
     if not supports(h):
         raise ValueError(f"the kernel takes C a multiple of "
                          f"{16 // h.element_size()} up to "

@@ -1,8 +1,8 @@
 """MultiLayerNetwork — counterpart of ``deeplearning4j_tpu/models/sequential.py``.
 
-Ported: ``init``, the forward with carries and layer state
-(``_forward``), ``output``, and training: ``_loss_fn`` (data loss +
-regularization, and the new layer state), the train step (loss ->
+Ported: ``init``, the forward with input preprocessors, carries and
+layer state (``_forward``), ``output``, and training: ``_loss_fn`` (data
+loss + regularization, and the new layer state), the train step (loss ->
 autograd -> updater -> parameter update -> new state), ``fit`` over an
 (X, y) pair or an iterable of batches, ``score`` and the lazy
 ``score_value``.  Params live in a nested dict
@@ -88,7 +88,8 @@ class MultiLayerNetwork(LazyScoreMixin):
     # --------------------------------------------------------------- forward
     def _forward(self, params, x, *, train=False, rng=None, fmask=None,
                  carries=None, net_state=None):
-        """Forward through every layer; the output layer stops at its
+        """Forward through every layer, each after its input preprocessor
+        (``conf.preprocessors``); the output layer stops at its
         pre-activation (after its input dropout).  Carry-capable layers
         (attention, residual blocks) take their carry from ``carries`` by
         layer name; stateful layers (BatchNorm) their state from
@@ -107,7 +108,10 @@ class MultiLayerNetwork(LazyScoreMixin):
         rngs = rng_mod.split(rng, n) if rng is not None else [None] * n
         new_carries, new_state = {}, dict(state)
         h = x
+        pre = self.conf.preprocessors
         for i, layer in enumerate(self.layers):
+            if i in pre:
+                h = pre[i](h)
             p = params[layer.name]
             if hasattr(layer, "apply_with_carry"):
                 h, nc = layer.apply_with_carry(

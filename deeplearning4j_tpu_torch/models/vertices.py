@@ -2,26 +2,26 @@
 
 A vertex is a function of its input activations; its backward is
 autograd.  Ported: ``ElementWiseVertex`` (add, subtract, product,
-average, max), ``MergeVertex``, ``SubsetVertex`` and ``ScaleVertex``.
-``LastTimeStepVertex``, ``DuplicateToTimeSeriesVertex`` and
-``PreprocessorVertex`` come with the recurrent and preprocessor slices;
-a config that names one raises when it is read.
+average, max), ``MergeVertex``, ``SubsetVertex``, ``ScaleVertex`` and
+``PreprocessorVertex``.  ``LastTimeStepVertex`` and
+``DuplicateToTimeSeriesVertex`` come with the recurrent slice; a config
+that names one raises when it is read.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Type
+from typing import Any, Dict, List, Optional, Type
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.inputs import InputType
+from deeplearning4j_tpu_torch.nn.preprocessors import preproc_from_dict
 
 _VERTEX_REGISTRY: Dict[str, Type["GraphVertex"]] = {}
 _NOT_PORTED = {
     "LastTimeStepVertex": "the recurrent slice (ROADMAP A6)",
     "DuplicateToTimeSeriesVertex": "the recurrent slice (ROADMAP A6)",
-    "PreprocessorVertex": "the preprocessor slice (ROADMAP A7, AlexNet)",
 }
 
 
@@ -148,3 +148,21 @@ class ScaleVertex(GraphVertex):
 
     def output_type(self, input_types):
         return input_types[0]
+
+
+@register_vertex
+@dataclasses.dataclass(frozen=True)
+class PreprocessorVertex(GraphVertex):
+    """An input preprocessor as a vertex of its own; ``preprocessor`` is
+    its serialized dict (the reference's field)."""
+
+    preprocessor: Optional[dict] = None
+
+    def _proc(self):
+        return preproc_from_dict(self.preprocessor)
+
+    def apply(self, inputs):
+        return self._proc()(inputs[0])
+
+    def output_type(self, input_types):
+        return self._proc().output_type(input_types[0])

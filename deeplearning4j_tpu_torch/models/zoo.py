@@ -1,5 +1,7 @@
 """Model zoo — counterpart of ``deeplearning4j_tpu/models/zoo.py``
-(``resnet50`` and ``transformer_char_lm`` so far)."""
+(``lenet``, ``resnet50``, ``alexnet`` and ``transformer_char_lm`` so
+far).  Each builds the reference's config (and JSON) and seeded weights
+on ``device``: ``cuda`` unless the caller passes ``device="cpu"``."""
 
 from __future__ import annotations
 
@@ -13,9 +15,36 @@ from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-    EmbeddingLayer, GlobalPoolingLayer, LayerNorm, OutputLayer,
-    ResidualBlock, RnnOutputLayer, SelfAttentionLayer, SubsamplingLayer,
+    EmbeddingLayer, GlobalPoolingLayer, LayerNorm,
+    LocalResponseNormalization, OutputLayer, ResidualBlock, RnnOutputLayer,
+    SelfAttentionLayer, SubsamplingLayer,
 )
+
+
+def lenet(seed: int = 12345, updater: str = "nesterovs", lr: float = 0.01,
+          n_classes: int = 10, device: DeviceLike = None
+          ) -> MultiLayerNetwork:
+    """LeNet-5 on flattened 28x28x1 images (the classic DL4J MNIST
+    config); the builder inserts ``FeedForwardToCnn`` before the first
+    convolution and ``CnnToFeedForward`` before the dense layer."""
+    conf = (NeuralNetConfiguration.builder().seed(seed)
+            .updater(updater, learning_rate=lr)
+            .regularization(True).l2(5e-4).list()
+            .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5),
+                                    stride=(1, 1), activation="identity",
+                                    weight_init="xavier"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5),
+                                    stride=(1, 1), activation="identity"))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                    stride=(2, 2)))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=n_classes, loss="mcxent",
+                               activation="softmax"))
+            .set_input_type(InputType.convolutional_flat(28, 28, 1))
+            .build())
+    return MultiLayerNetwork(conf).init(device)
 
 
 def _bottleneck(g, name: str, in_name: str, channels: int, stride: int,
@@ -96,6 +125,44 @@ def resnet50(height: int = 224, width: int = 224, channels: int = 3,
                                   activation="softmax",
                                   weight_init="xavier"), "gap")
     return ComputationGraph(b.set_outputs("fc").build()).init(device)
+
+
+def alexnet(height: int = 224, width: int = 224, channels: int = 3,
+            n_classes: int = 1000, seed: int = 12345,
+            updater: str = "nesterovs", lr: float = 0.01,
+            compute_dtype: Optional[str] = None,
+            device: DeviceLike = None) -> MultiLayerNetwork:
+    """AlexNet (the DL4J model-zoo config): five convolutions, LRN after
+    the first two, three max pools, two dense layers of 4096 with input
+    dropout 0.5, and the softmax head; l2 5e-4 under Nesterov.  Both LRN
+    layers run on the ``"lrn"`` helper."""
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(updater, learning_rate=lr)
+         .regularization(True).l2(5e-4).list())
+    if compute_dtype:
+        b.compute_dtype(compute_dtype)
+    pool = dict(pooling_type="max", kernel_size=(3, 3), stride=(2, 2))
+    (b.layer(ConvolutionLayer(n_out=96, kernel_size=(11, 11), stride=(4, 4),
+                              activation="relu", weight_init="relu"))
+      .layer(LocalResponseNormalization())
+      .layer(SubsamplingLayer(**pool))
+      .layer(ConvolutionLayer(n_out=256, kernel_size=(5, 5), stride=(1, 1),
+                              padding=(2, 2), activation="relu"))
+      .layer(LocalResponseNormalization())
+      .layer(SubsamplingLayer(**pool))
+      .layer(ConvolutionLayer(n_out=384, kernel_size=(3, 3), stride=(1, 1),
+                              padding=(1, 1), activation="relu"))
+      .layer(ConvolutionLayer(n_out=384, kernel_size=(3, 3), stride=(1, 1),
+                              padding=(1, 1), activation="relu"))
+      .layer(ConvolutionLayer(n_out=256, kernel_size=(3, 3), stride=(1, 1),
+                              padding=(1, 1), activation="relu"))
+      .layer(SubsamplingLayer(**pool))
+      .layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+      .layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+      .layer(OutputLayer(n_out=n_classes, loss="mcxent",
+                         activation="softmax"))
+      .set_input_type(InputType.convolutional(height, width, channels)))
+    return MultiLayerNetwork(b.build()).init(device)
 
 
 def transformer_char_lm(vocab_size: int = 77, d_model: int = 128,

@@ -7,7 +7,9 @@ document (the ``configuration.json`` of a zip).
 The training policies (``stability``, ``introspection``, ``numerics``)
 are carried as plain dicts, so a reference config keeps them through a
 round trip; the engines that read them come with the training slice.
-Input preprocessors are not ported yet: a config that has any raises.
+With ``set_input_type`` the list builder infers each layer's input size
+and inserts the input preprocessors (``nn/preprocessors.py``) between
+layers, as the reference's ``ListBuilder.build`` does.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
+from deeplearning4j_tpu_torch.nn.preprocessors import (
+    Preprocessor, auto_preprocessor, preproc_from_dict,
+)
 
 _COMPUTE_DTYPES = (None, "bfloat16", "float16")
 
@@ -68,6 +73,9 @@ class MultiLayerConfiguration:
     """Completed, immutable network config."""
 
     layers: Tuple[Layer, ...]
+    # {layer index: the preprocessor applied to that layer's input}
+    preprocessors: Dict[int, Preprocessor] = dataclasses.field(
+        default_factory=dict)
     input_type: Optional[InputType] = None
     updater: UpdaterConfig = UpdaterConfig()
     seed: int = 12345
@@ -93,7 +101,8 @@ class MultiLayerConfiguration:
         return {
             "format_version": 1,
             "layers": [l.to_dict() for l in self.layers],
-            "preprocessors": {},
+            "preprocessors": {str(i): p.to_dict()
+                              for i, p in self.preprocessors.items()},
             "input_type": self.input_type.to_dict() if self.input_type else None,
             "updater": self.updater.to_dict(),
             "seed": self.seed,
@@ -115,12 +124,10 @@ class MultiLayerConfiguration:
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "MultiLayerConfiguration":
-        if d.get("preprocessors"):
-            raise NotImplementedError(
-                "input preprocessors are not ported yet "
-                f"(config has {sorted(d['preprocessors'])})")
         return MultiLayerConfiguration(
             layers=tuple(layer_from_dict(ld) for ld in d["layers"]),
+            preprocessors={int(i): preproc_from_dict(pd) for i, pd
+                           in (d.get("preprocessors") or {}).items()},
             input_type=(InputType.from_dict(d["input_type"])
                         if d.get("input_type") else None),
             updater=UpdaterConfig.from_dict(d["updater"]),
@@ -149,6 +156,8 @@ class ListBuilder:
     def __init__(self, parent: "Builder"):
         self._parent = parent
         self._layers: List[Layer] = []
+        self._preprocessors: Dict[int, Preprocessor] = {}
+        self._input_type: Optional[InputType] = None
         self._compute_dtype: Optional[str] = None
 
     def compute_dtype(self, dtype: str) -> "ListBuilder":
@@ -163,23 +172,48 @@ class ListBuilder:
         self._layers.append(layer)
         return self
 
+    def input_preprocessor(self, index: int,
+                           preproc: Preprocessor) -> "ListBuilder":
+        """Apply ``preproc`` to the input of layer ``index`` (in place of
+        the one ``build`` would choose)."""
+        self._preprocessors[index] = preproc
+        return self
+
+    def set_input_type(self, t: InputType) -> "ListBuilder":
+        """The network's input type: ``build`` infers each layer's input
+        size from it and inserts the preprocessors the layers need."""
+        self._input_type = t
+        return self
+
     def build(self) -> MultiLayerConfiguration:
         if not self._layers:
             raise ValueError("No layers added")
         layers: List[Layer] = []
+        preprocessors = dict(self._preprocessors)
         p = self._parent
+        cur = self._input_type
         for i, layer in enumerate(self._layers):
             layer = p._apply_global_defaults(layer)
             if layer.name is None:
                 layer = layer.with_name(f"layer_{i}")
-            if getattr(layer, "n_in", 0) is None:
+            if cur is not None:
+                if i not in preprocessors:
+                    pre = auto_preprocessor(cur, layer)
+                    if pre is not None:
+                        preprocessors[i] = pre
+                if i in preprocessors:
+                    cur = preprocessors[i].output_type(cur)
+                layer = layer.setup(cur)
+                cur = layer.output_type(cur)
+            elif getattr(layer, "n_in", 0) is None:
                 raise ValueError(
-                    f"Layer {i} ({type(layer).__name__}) has no n_in: the "
-                    "port's builder infers no sizes")
-            layer.validate()
+                    f"Layer {i} ({type(layer).__name__}) has no n_in and no "
+                    "input_type was set for inference")
+            layer.validate()    # after setup: checks see inferred sizes
             layers.append(layer)
         return MultiLayerConfiguration(
-            layers=tuple(layers), updater=p._updater, seed=p._seed,
+            layers=tuple(layers), preprocessors=preprocessors,
+            input_type=self._input_type, updater=p._updater, seed=p._seed,
             compute_dtype=self._compute_dtype)
 
 

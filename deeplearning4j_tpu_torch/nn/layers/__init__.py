@@ -9,17 +9,17 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (
     ConvolutionLayer, GlobalPoolingLayer, SubsamplingLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.dense import (
-    ActivationLayer, DenseLayer, EmbeddingLayer, OutputLayer,
+    ActivationLayer, DenseLayer, DropoutLayer, EmbeddingLayer, OutputLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
-    BatchNormalization, LayerNorm,
+    BatchNormalization, LayerNorm, LocalResponseNormalization,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
 
 __all__ = [
     "ActivationLayer", "BatchNormalization", "ConvolutionLayer",
-    "DenseLayer", "EmbeddingLayer", "GlobalPoolingLayer", "Layer",
-    "LayerNorm", "OutputLayer", "ResidualBlock", "RnnOutputLayer",
-    "SelfAttentionLayer", "SubsamplingLayer", "layer_from_dict",
-    "register_layer",
+    "DenseLayer", "DropoutLayer", "EmbeddingLayer", "GlobalPoolingLayer",
+    "Layer", "LayerNorm", "LocalResponseNormalization", "OutputLayer",
+    "ResidualBlock", "RnnOutputLayer", "SelfAttentionLayer",
+    "SubsamplingLayer", "layer_from_dict", "register_layer",
 ]

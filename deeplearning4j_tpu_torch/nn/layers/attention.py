@@ -213,7 +213,9 @@ class SelfAttentionLayer(Layer):
         """Routes as the reference (``attention.py:498-510``): with
         ``flash``, no padding mask and a non-float64 type, through the
         ``"attention"`` helper on GQA-expanded heads; otherwise
-        ``dot_product_attention``."""
+        ``dot_product_attention``.  With the helpers on, a CUDA tensor on
+        that route that the kernels do not take raises instead (float64
+        on the card runs under ``helpers.helpers_disabled()``)."""
         if self.seq_axis is not None:
             raise NotImplementedError(
                 "ring attention (seq_axis) is not ported yet")
@@ -224,11 +226,17 @@ class SelfAttentionLayer(Layer):
             q = rope(q, positions, self.rope_theta)
             k = rope(k, positions, self.rope_theta)
         o = None
-        if self.flash and mask is None and q.dtype != torch.float64:
-            helper = get_helper("attention")
-            if helper is not None and helper.supports(q):
+        helper = get_helper("attention") if self.flash and mask is None \
+            else None
+        if helper is not None:
+            if helper.supports(q):
                 o = helper.attend(q, self._expand_kv(k), self._expand_kv(v),
                                   causal=self.causal, window=self.window)
+            elif q.device.type != "cpu":
+                raise TypeError(
+                    f"SelfAttentionLayer: the flash attention kernels do "
+                    f"not take {q.dtype} {tuple(q.shape)} on {q.device}; use "
+                    "helpers.helpers_disabled() for the built-in path")
         if o is None:
             # grouped contraction: no KV expansion materialized
             o = dot_product_attention(q, k, v, causal=self.causal,

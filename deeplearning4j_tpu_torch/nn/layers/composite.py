@@ -57,16 +57,23 @@ class ResidualBlock(Layer):
     def _fused_prologue_helper(self, x):
         """The ``"epilogue"`` helper when the block opens LayerNorm ->
         sublayer (identity activation) and the helper takes ``x``; else
-        None, and the block runs its sublayers one by one."""
+        None, and the block runs its sublayers one by one.  A CUDA tensor
+        that reaches the helper and that its kernel does not take raises
+        (the built-in path runs on the card only with helpers disabled)."""
         if len(self.layers) < 2:
             return None
         ln = self.layers[0]
         if not isinstance(ln, LayerNorm) or ln.activation != "identity":
             return None
         helper = get_helper("epilogue")
-        if helper is None or not helper.supports(x):
-            return None
-        return helper
+        if helper is None or helper.supports(x):
+            return helper
+        if x.device.type != "cpu":
+            raise TypeError(
+                f"ResidualBlock: the fused prologue kernel does not take "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}; use "
+                "helpers.helpers_disabled() for the built-in path")
+        return None
 
     def apply(self, params, x, *, train=False, rng=None, mask=None):
         n = len(self.layers)

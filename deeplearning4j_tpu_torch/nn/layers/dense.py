@@ -1,4 +1,4 @@
-"""Dense, Output, Activation and Embedding layers — counterpart of
+"""Dense, Output, Activation, Dropout and Embedding layers — counterpart of
 ``deeplearning4j_tpu/nn/layers/dense.py`` (params ``W`` [n_in, n_out], ``b``).
 
 ``x @ W`` promotes x and W to a common type first, as ``jnp`` does: a
@@ -108,6 +108,28 @@ class ActivationLayer(Layer):
 
     def apply(self, params, x, *, train=False, rng=None):
         return activations.get(self.activation)(x)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class DropoutLayer(Layer):
+    """Dropout alone (reference ``DropoutLayer``): ``maybe_dropout`` on its
+    input at train time, the identity at inference."""
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+    def has_params(self) -> bool:
+        return False
+
+    def param_shapes(self):
+        return {}
+
+    def init(self, gen, dtype=torch.float32, device=None):
+        return {}
+
+    def apply(self, params, x, *, train=False, rng=None):
+        return self.maybe_dropout(x, train=train, rng=rng)
 
 
 @register_layer

@@ -1,6 +1,5 @@
-"""LayerNorm and BatchNormalization — counterpart of
-``deeplearning4j_tpu/nn/layers/normalization.py`` (LRN comes with the
-AlexNet slice)."""
+"""BatchNormalization, LocalResponseNormalization and LayerNorm —
+counterpart of ``deeplearning4j_tpu/nn/layers/normalization.py``."""
 
 from __future__ import annotations
 
@@ -11,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import helpers
+from deeplearning4j_tpu_torch.helpers.lrn import window_sum
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
@@ -122,6 +122,55 @@ class BatchNormalization(Layer):
         else:
             y = params["gamma"] * xhat + params["beta"]
         return act(y), new_state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class LocalResponseNormalization(Layer):
+    """LRN across the trailing channel axis (NHWC):
+    ``y = x / (k + alpha * Σ_{|w| <= n/2} x[c + w]²)^beta``, with the
+    reference's defaults k = 2, n = 5, alpha = 1e-4, beta = 0.75.  No
+    parameters.
+
+    Every call goes through the ``"lrn"`` helper, at any size (the JAX
+    package sends only tensors below a VMEM cap there); on a CUDA tensor
+    the helper does not take (float64) the layer raises, so the built-in
+    path runs on the card only with helpers disabled.  The built-in path
+    is the reference's formula in x's type, with the kernel's window for
+    every n: offsets −⌊n/2⌋ … ⌊n/2⌋, n + 1 channels for an even n (where
+    the reference's ``reduce_window`` fails)."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+    def has_params(self) -> bool:
+        return False
+
+    def param_shapes(self):
+        return {}
+
+    def init(self, gen, dtype=torch.float32, device=None):
+        return {}
+
+    def apply(self, params, x, *, train=False, rng=None):
+        helper = helpers.get_helper("lrn")
+        if helper is not None:
+            if helper.supports(x):
+                return helper.apply(x, self.k, self.n, self.alpha, self.beta)
+            if x.device.type != "cpu":
+                raise TypeError(
+                    f"LocalResponseNormalization: the lrn kernels do not "
+                    f"take {x.dtype} {tuple(x.shape)} on {x.device}; use "
+                    "helpers.helpers_disabled() (or enable_helpers(False)) "
+                    "for the built-in path")
+        denom = (self.k + self.alpha * window_sum(x * x, self.n // 2)) \
+            ** self.beta
+        return x / denom
 
 
 @register_layer

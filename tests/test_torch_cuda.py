@@ -142,8 +142,8 @@ def _scaled_err(a, b):
             / b.float().abs().max().clamp_min(1e-30)).item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain(name, dtype, cuda):
     b, t, h, d, causal, window = FLASH_CASES[name]
@@ -191,7 +191,7 @@ def test_flash_autograd_on_the_card(cuda):
 def test_flash_wrapper_refuses_what_it_does_not_take(cuda):
     q, k, v, _ = _flash_inputs(1, 1, 16, 2, 64, torch.float32)
     with pytest.raises(TypeError):
-        fa.flash_fwd(q.half(), k.half(), v.half(), causal=True)
+        fa.flash_fwd(q.double(), k.double(), v.double(), causal=True)
     with pytest.raises(TypeError):
         fa.flash_fwd(q, k.bfloat16(), v, causal=True)
     with pytest.raises(ValueError, match="head dim"):
@@ -216,8 +216,8 @@ DRN_CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("name", sorted(DRN_CASES))
 def test_epilogue_kernel_matches_plain(name, dtype, cuda):
     rows, c, has_res, has_mask = DRN_CASES[name]
@@ -263,8 +263,8 @@ def test_epilogue_wrapper_refuses_what_it_does_not_take(cuda):
     h = torch.randn(4, 64, device="cuda")
     gamma, beta = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
     with pytest.raises(TypeError):
-        fe.dropout_residual_norm_2d(h.half(), None, gamma.half(),
-                                    beta.half(), None, 1e-5, 1.0)
+        fe.dropout_residual_norm_2d(h.double(), None, gamma.double(),
+                                    beta.double(), None, 1e-5, 1.0)
     with pytest.raises(ValueError, match="multiple"):
         fe.dropout_residual_norm_2d(h[:, :30].contiguous(), None,
                                     gamma[:30], beta[:30], None, 1e-5, 1.0)
@@ -276,14 +276,15 @@ def test_epilogue_wrapper_refuses_what_it_does_not_take(cuda):
                                     beta, None, 1e-5, 1.0)
 
 
-def test_fit_step_goes_through_the_kernels(cuda):
-    """One bfloat16 ``fit`` step of a small char-LM on the card launches
-    each flash kernel once per attention layer and the prologue once per
-    residual block, and never runs a plain version."""
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float16"])
+def test_fit_step_goes_through_the_kernels(compute_dtype, cuda):
+    """One bfloat16 or float16 ``fit`` step of a small char-LM on the card
+    launches each flash kernel once per attention layer and the prologue
+    once per residual block, and never runs a plain version."""
     from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
 
     net = transformer_char_lm(vocab_size=29, d_model=64, n_heads=4,
-                              layers=2, compute_dtype="bfloat16")
+                              layers=2, compute_dtype=compute_dtype)
     ids = np.random.default_rng(0).integers(0, 29, (2, 40))
     y = np.eye(29, dtype=np.float32)[np.roll(ids, -1, 1)]
     counts = (fa.fwd_counts, fa.dq_counts, fa.dkv_counts, fe.counts)
@@ -493,3 +494,147 @@ def test_resnet_goes_through_the_batch_norm_kernels(compute_dtype, cuda):
     assert out.shape == (4, 4) and bool(torch.isfinite(out).all())
     assert np.isfinite(net.score_value)
     assert net.net_state["stem_bn"]["mean"].dtype == torch.float32
+
+
+def test_layers_raise_for_float64_on_the_card(cuda):
+    """Attention and a pre-norm block on a float64 CUDA tensor raise with
+    the helpers on (the kernels take f32, bf16 and f16), and run their
+    built-in paths only with helpers disabled."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.nn.layers import (
+        DenseLayer, LayerNorm, ResidualBlock, SelfAttentionLayer,
+    )
+
+    dev = torch.device("cuda")
+    attn = SelfAttentionLayer(n_in=32, n_out=32, n_heads=2, causal=True)
+    block = ResidualBlock(layers=(LayerNorm(n_in=32),
+                                  DenseLayer(n_in=32, n_out=32)))
+    x = torch.randn(2, 9, 32, dtype=torch.float64, device=dev)
+    for layer in (attn, block):
+        params = layer.init(torch.Generator().manual_seed(0), torch.float64,
+                            dev)
+        with pytest.raises(TypeError, match="helpers_disabled"):
+            layer.apply(params, x)
+        with helpers.helpers_disabled():
+            y = layer.apply(params, x)
+        assert y.dtype == torch.float64 and y.shape == x.shape
+
+
+# ------------------------------------------------------------------- LRN
+from deeplearning4j_tpu_torch.helpers import lrn  # noqa: E402
+
+LRN_CASES = {
+    # name: (rows, C, n)
+    "lrn1": (373248, 96, 5),
+    "lrn2": (86528, 256, 5),
+    "ragged": (1001, 130, 5),
+    "narrow": (777, 3, 5),
+    "n7": (5000, 96, 7),
+    "even_n": (999, 64, 4),
+    "channel_tiles": (37, 5000, 5),
+    "one_channel": (64, 1, 3),
+}
+
+
+def _lrn_inputs(seed, rows, c, dtype):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(rows, c, generator=g) * 3).to("cuda", dtype)
+    gy = torch.randn(rows, c, generator=g).to("cuda", dtype)
+    return x, gy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("name", sorted(LRN_CASES))
+def test_lrn_kernels_match_plain(name, dtype, cuda):
+    rows, c, n = LRN_CASES[name]
+    x, gy = _lrn_inputs(21, rows, c, dtype)
+    before = (lrn.fwd_counts.launches, lrn.bwd_counts.launches)
+    y = lrn.lrn_fwd_2d(x, 2.0, n, 1e-2, 0.75)
+    dx = lrn.lrn_bwd_2d(x, gy, 2.0, n, 1e-2, 0.75)
+    assert (lrn.fwd_counts.launches,
+            lrn.bwd_counts.launches) == (before[0] + 1, before[1] + 1)
+    ry = lrn.lrn_fwd_plain(x, 2.0, n, 1e-2, 0.75)
+    rdx = lrn.lrn_bwd_plain(x, gy, 2.0, n, 1e-2, 0.75)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == dtype
+    assert _scaled_err(y, ry) <= TOL[dtype]
+    assert _scaled_err(dx, rdx) <= TOL[dtype]
+
+
+def test_lrn_is_the_same_run_to_run(cuda):
+    x, gy = _lrn_inputs(4, 86528, 256, torch.bfloat16)
+    runs = [(lrn.lrn_fwd_2d(x, 2.0, 5, 1e-4, 0.75),
+             lrn.lrn_bwd_2d(x, gy, 2.0, 5, 1e-4, 0.75)) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_lrn_autograd_on_the_card(cuda):
+    """``lrn.lrn`` differentiates through both kernels on an NHWC view:
+    float32 grads equal those of the float64 formula."""
+    g = torch.Generator().manual_seed(6)
+    x = (torch.randn(2, 7, 5, 24, generator=g) * 2).cuda().requires_grad_()
+    gy = torch.randn(2, 7, 5, 24, generator=g).cuda()
+    before = lrn.bwd_counts.launches
+    y = lrn.lrn(x, 2.0, 5, 1e-2, 0.75)
+    (got,) = torch.autograd.grad(y, x, gy)
+    assert lrn.bwd_counts.launches == before + 1
+    xd = x.double()
+    ref = xd / (2.0 + 1e-2 * lrn.window_sum(xd * xd, 2)) ** 0.75
+    (want,) = torch.autograd.grad(ref, x, gy.double())
+    assert (y.double() - ref).abs().max().item() <= 1e-4
+    assert (got.double() - want).abs().max().item() <= 1e-4
+
+
+def test_lrn_wrapper_refuses_what_it_does_not_take(cuda):
+    x, gy = _lrn_inputs(1, 16, 8, torch.float32)
+    with pytest.raises(TypeError):
+        lrn.lrn_fwd_2d(x.double(), 2.0, 5, 1e-4, 0.75)
+    with pytest.raises(TypeError):
+        lrn.lrn_bwd_2d(x, gy.bfloat16(), 2.0, 5, 1e-4, 0.75)
+    with pytest.raises(ValueError, match="contiguous"):
+        lrn.lrn_fwd_2d(x.t().contiguous().t(), 2.0, 5, 1e-4, 0.75)
+    with pytest.raises(ValueError, match="rows"):
+        lrn.lrn_fwd_2d(x[:0], 2.0, 5, 1e-4, 0.75)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lrn.lrn_fwd_2d(x, 2.0, 40001, 1e-4, 0.75)   # no tile fits
+
+
+def test_lrn_layer_raises_for_float64_on_the_card(cuda):
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.nn.layers import LocalResponseNormalization
+
+    layer = LocalResponseNormalization(name="lrn")
+    x = torch.randn(2, 5, 5, 16, dtype=torch.float64, device="cuda")
+    before = lrn.fwd_counts.launches
+    with pytest.raises(TypeError, match="helpers_disabled"):
+        layer.apply({}, x)
+    with helpers.helpers_disabled():
+        y = layer.apply({}, x)
+    assert y.dtype == torch.float64
+    assert lrn.fwd_counts.launches == before
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float16"])
+def test_alexnet_goes_through_the_lrn_kernels(compute_dtype, cuda):
+    """A small AlexNet on the card: ``output`` launches the forward kernel
+    once per LRN layer and ``fit`` both kernels once each, with no
+    plain-version call."""
+    from deeplearning4j_tpu_torch.models.zoo import alexnet
+
+    net = alexnet(height=67, width=67, n_classes=5,
+                  compute_dtype=compute_dtype)
+    x = np.random.default_rng(0).random((4, 67, 67, 3)).astype(np.float32)
+    y = np.eye(5, dtype=np.float32)[[0, 1, 2, 3]]
+    counts = (lrn.fwd_counts, lrn.bwd_counts)
+    for c in counts:
+        c.reset()
+    out = net.output(x)
+    assert [c.launches for c in counts] == [2, 0]
+    net.fit(x, y)
+    net.fit(x, y)
+    assert [c.launches for c in counts] == [6, 4]
+    assert [c.plain_calls for c in counts] == [0, 0]
+    assert out.shape == (4, 5) and bool(torch.isfinite(out).all())
+    assert np.isfinite(net.score_value)

@@ -135,8 +135,39 @@ def test_supports_refuses_float64_and_ragged_head_dims():
     x = torch.zeros(1, 5, 2, 16)
     assert fa.supports(x) and fa.supports(x.bfloat16())
     assert not fa.supports(x.double())
-    assert not fa.supports(x.half())
+    assert fa.supports(x.half())
     assert not fa.supports(torch.zeros(1, 5, 2, 12))
     assert not fa.supports(torch.zeros(1, 5, 2, 264))
     helper = fa.FlashAttentionHelper()
     assert helper.supports(x) and not helper.supports(x.double())
+
+
+def test_attention_layer_routes_float16_and_raises_off_the_cpu():
+    """``SelfAttentionLayer`` sends a float16 tensor to the helper (its
+    plain version on the CPU, close to the float32 result); a non-CPU
+    tensor the kernels do not take (float64 on the ``meta`` device here)
+    raises with the helpers on and takes the built-in path with them
+    off.  A padding mask keeps the built-in path, as in the reference."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.nn.layers import SelfAttentionLayer
+
+    layer = SelfAttentionLayer(n_in=32, n_out=32, n_heads=2, causal=True,
+                               name="attn")
+    params = layer.init(torch.Generator().manual_seed(1))
+    x = torch.from_numpy(_inputs(8, (2, 11, 32))[0])
+    ref = layer.apply(params, x)
+    before = fa.fwd_counts.plain_calls
+    y = layer.apply({k: v.half() for k, v in params.items()}, x.half())
+    assert fa.fwd_counts.plain_calls == before + 1 and y.dtype == torch.half
+    assert _scaled(y.float().numpy(), ref.numpy()) <= 5e-3
+    mask = torch.ones(2, 11)
+    layer.apply(params, x, mask=mask)
+    assert fa.fwd_counts.plain_calls == before + 1
+
+    meta = torch.empty(2, 11, 32, dtype=torch.float64, device="meta")
+    mparams = {k: v.double().to("meta") for k, v in params.items()}
+    with pytest.raises(TypeError, match="helpers_disabled"):
+        layer.apply(mparams, meta)
+    with helpers.helpers_disabled():
+        out = layer.apply(mparams, meta)
+    assert out.shape == meta.shape and out.dtype == torch.float64

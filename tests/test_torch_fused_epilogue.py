@@ -95,3 +95,35 @@ def test_supports():
     assert not fe.supports(torch.zeros(3, 96, dtype=torch.float64))
     assert not fe.supports(torch.zeros(3, 30))           # not whole vectors
     assert not fe.supports(torch.zeros(3, 8196))          # past 8192 in f32
+
+
+def test_residual_block_routes_float16_and_raises_off_the_cpu():
+    """A pre-norm ``ResidualBlock`` sends a float16 tensor through the
+    prologue (its plain version on the CPU); a non-CPU tensor the kernel
+    does not take (float64 on the ``meta`` device here) raises with the
+    helpers on and runs the sublayers one by one with them off."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.nn.layers import (
+        DenseLayer, LayerNorm, ResidualBlock,
+    )
+
+    block = ResidualBlock(layers=(LayerNorm(n_in=C), DenseLayer(
+        n_in=C, n_out=C, activation="relu")))
+    params = block.init(torch.Generator().manual_seed(2))
+    h = torch.from_numpy(_data(3, False)[0])
+    ref = block.apply(params, h)
+    half = {k: {n: v.half() for n, v in sub.items()}
+            for k, sub in params.items()}
+    before = fe.counts.plain_calls
+    y = block.apply(half, h.half())
+    assert fe.counts.plain_calls == before + 1 and y.dtype == torch.half
+    assert (y.float() - ref).abs().max().item() <= 5e-3 * ref.abs().max()
+
+    meta = torch.empty(ROWS, C, dtype=torch.float64, device="meta")
+    mparams = {k: {n: v.double().to("meta") for n, v in sub.items()}
+               for k, sub in params.items()}
+    with pytest.raises(TypeError, match="helpers_disabled"):
+        block.apply(mparams, meta)
+    with helpers.helpers_disabled():
+        out = block.apply(mparams, meta)
+    assert out.shape == meta.shape and out.dtype == torch.float64

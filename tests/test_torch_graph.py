@@ -171,8 +171,7 @@ def test_vertex_matches_jax(name):
 
 
 def test_unported_vertices_raise_clearly():
-    for name in ("LastTimeStepVertex", "DuplicateToTimeSeriesVertex",
-                 "PreprocessorVertex"):
+    for name in ("LastTimeStepVertex", "DuplicateToTimeSeriesVertex"):
         with pytest.raises(NotImplementedError, match=name):
             vertices.vertex_from_dict({"type": name})
     with pytest.raises(ValueError, match="Unknown vertex"):
