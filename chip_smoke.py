@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ``F.batch_norm`` for BatchNorm),
    beside the least time the card could take (the bytes the call must
    move at 3.35 TB/s, or its operations at the peak rate for their type,
-   whichever is larger).
+   whichever is larger).  Each flash case prints the kernels its calls
+   take (``fa.kernel_path``); a bfloat16 or float16 case at D = 128 must
+   take wgmma for the forward and dK/dV and mma.sync for dQ.
 3. Serve the transformer char-LM at full width (vocab 128, d_model 1024,
    8 heads, 8 layers, bfloat16, seeded random weights) through the port's
    ``GenerationEngine`` (16 slots, pages of 16, context 512): 16
@@ -176,12 +178,15 @@ def build_kernels():
                 # the kernel's name and template arguments, from the
                 # mangled symbol
                 found = re.search(r"((?:flash_[a-z]+|drn|paged_decode|"
-                                  r"lrn_[a-z]+)_(?:kernel|mma))(I\w*?E)?E"
+                                  r"lrn_[a-z]+)_(?:kernel|mma|wgmma))"
+                                  r"(I\w*?E)?E"
                                   r"|(bn_[a-z_]+)(I\w*?E)?", ln)
                 entry = "".join(x for x in found.groups() if x) \
                     if found else ln
-            elif "Used" in ln:
-                print(f"  ptxas {entry}: {ln.split(':', 1)[1].strip()}")
+            elif "Used" in ln or "spill" in ln:
+                print(f"  ptxas {entry}: {ln.split(':', 1)[-1].strip()}")
+            elif "warning" in ln.lower() or "Performance Loss" in ln:
+                print(f"  {ln.strip()[:200]}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -480,6 +485,13 @@ def _sdpa_mask(t, causal, window):
 
 def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
     b, t, h, d = shape
+    paths = {k: fa.kernel_path(k, dtype, d) for k in ("fwd", "dq", "dkv")}
+    print(f"flash[{name}] paths: forward {paths['fwd']}, dQ {paths['dq']}, "
+          f"dK/dV {paths['dkv']}")
+    if dtype != torch.float32 and d in (64, 128):
+        check(paths == {"fwd": "wgmma", "dq": "mma_sync", "dkv": "wgmma"},
+              f"flash[{name}] takes wgmma for the forward and dK/dV, "
+              f"mma.sync for dQ: {paths}")
     q, k, v, do = (_randn(seed + i, shape, dtype) for i in range(4))
     o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=causal,

@@ -27,27 +27,44 @@
 // about 4 * D flops per live (query, key) pair against 2 * D * 2 bytes of
 // q/k/v read once per tile pair from L2, far above the ~295 flops a byte at
 // which the H100's memory stops being the limit.  So the products go to the
-// tensor cores: for bfloat16 (the main path) and float16 with D in
-// {16, 32, 64, 128} every product is an mma.sync m16n8k16 (bf16 or f16 in,
-// f32 accumulate), one block of 4 warps per (b, h, tile of 64 rows), each
-// warp 16 rows; the score tile, p and ds stay in the accumulator registers,
-// whose layout is also the A operand of the next product, and m, l and the
-// output sums are f32 registers.  Tiles are staged in shared memory with synchronous loads
-// (no TMA, no cp.async double buffering, no wgmma: later work).  float32
-// and other head dims run f32 kernels on the CUDA cores (the reference
-// multiplies float32 in f32, which the tensor cores do not): one block of
-// 256 threads (16 x 16) per (b, h, tile of BM rows), a BM x BM score tile
-// held as R x R (R = BM / 16) per thread, row statistics reduced across the
-// 16 threads of a row with warp shuffles, tiles staged in shared memory as
-// f32 with rows padded to an odd stride.  BM is 64 for D <= 128 and 32
-// above, to keep a block's shared memory under the 227 KB a block may use.
-// In both, the TPU's sequential key grid axis with its VMEM scratch becomes
-// a loop inside the block.
+// tensor cores, by three routes (`path`, queried by dl4j_flash_path):
+//
+// - wgmma (bfloat16 and float16 with D in {64, 128}: the forward and dK/dV
+//   of the main path).  Per block a producer warpgroup whose one thread
+//   keeps TMA loads in flight into a two-stage ring guarded by mbarriers,
+//   and two consumer warpgroups of 64 rows each on wgmma m64nNk16: q k^T
+//   and the other score products with both operands in shared memory, p v
+//   (and p^T do, ds^T q) with p taken straight from the accumulators as
+//   the register A operand and the shared-memory tile read transposed.
+//   Forward: one block per (b, h, tile of 128 queries), 128-key tiles.
+//   dK/dV: one block per (b, h, tile of 128 keys), 64-query steps, dK and
+//   dV summed in registers.  The tensor maps zero-fill rows past T.
+// - mma.sync m16n8k16 (the same types with D in {16, 32, 64, 128}
+//   otherwise, and dQ): one block of 4 warps per (b, h, tile of 64 rows),
+//   each warp 16 rows; the score tile, p and ds stay in the accumulator
+//   registers, whose layout is also the A operand of the next product.
+//   Tiles are staged in shared memory with synchronous loads.
+// - f32 kernels on the CUDA cores (float32, which the reference multiplies
+//   in f32, and other head dims): one block of 256 threads (16 x 16) per
+//   (b, h, tile of BM rows), a BM x BM score tile held as R x R (R = BM /
+//   16) per thread, row statistics reduced across the 16 threads of a row
+//   with warp shuffles, tiles staged in shared memory as f32 with rows
+//   padded to an odd stride.  BM is 64 for D <= 128 and 32 above, to keep
+//   a block's shared memory under the 227 KB a block may use.
+//
+// In every route, m, l and the output sums are f32 registers, and the
+// TPU's sequential key grid axis with its VMEM scratch becomes a loop
+// inside the block.  No route falls back to another: a failed tensor-map
+// encode or launch is returned as an error.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -480,8 +497,10 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bfloat16 or float16 (the element type E) with D in
-// {16, 32, 64, 128}.  The same tiles, masks, casts and loops as above, with
+// mma.sync path: bfloat16 or float16 (the element type E), the forward and
+// dK/dV with D in {16, 32}, dQ with D in {16, 32, 64, 128} (the forward
+// and dK/dV at 64 and 128 take the wgmma path below).  The same tiles,
+// masks, casts and loops as above, with
 // every product on mma.sync m16n8k16 (E in, f32 accumulate).  Each warp
 // owns 16 rows of the block's tile; the fragment layouts are PTX's (the
 // same for both types): for lane = 4 g + t, an f32 accumulator holds
@@ -627,7 +646,6 @@ __device__ __forceinline__ bool tile_full(int q0, int bq, int k0, int bk,
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
@@ -636,6 +654,110 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(kFull, v, 1);
   return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+// 2^x in one MUFU instruction; results below 2^-126 flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One key tile of the forward's online softmax, for a thread's two rows:
+// sc (raw scores q k^T of this tile) becomes p, m (the running max of the
+// raw scores) and l advance, and alpha is the factor by which the output
+// sums must shrink.  p = 2^((s - m) * scale * log2 e), one FMA and one
+// MUFU an element; masking runs only on tiles that are not `full`.  A row
+// that has seen no key keeps m = kNegInf, and its p are 0.
+template <int NT>
+__device__ __forceinline__ void softmax_step(float (&sc)[NT][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             const int (&rows)[2], int k0,
+                                             bool full, const Shape& s) {
+  const int t = threadIdx.x % 4;
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!live(rows[e >> 1], k0 + j * 8 + 2 * t + (e & 1), s))
+          sc[j][e] = kNegInf;
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+  const float sl2 = s.scale * kLog2e;
+  float mu[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    alpha[r] = ex2((m[r] - mx[r]) * sl2);
+    m[r] = mx[r];
+    // masked scores hold kNegInf; real ones are far above half of it
+    mu[r] = mx[r] > 0.5f * kNegInf ? mx[r] * sl2 : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(sc[j][e], sl2, -mu[e >> 1]));
+      sc[j][e] = p;
+      rs[e >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + quad_sum(rs[r]);
+}
+
+template <int DT>
+__device__ __forceinline__ void rescale(float (&acc)[DT][4],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] *= alpha[e >> 1];
+}
+
+// dK/dV's p for a thread's two key rows over a query step starting at q0:
+// st (raw k q^T) becomes p = 2^(s * scale * log2 e - lse), 0 where masked.
+// lses (log2 units) holds the step's queries by column.
+template <int NQ>
+__device__ __forceinline__ void probs(float (&st)[NQ][4], const float* lses,
+                                      int q0, const int (&keys)[2], bool full,
+                                      const Shape& s) {
+  const int t = threadIdx.x % 4;
+  const float sl2 = s.scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    const float2 lz = *reinterpret_cast<const float2*>(lses + j * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      st[j][e] = ex2(fmaf(st[j][e], sl2, -(e & 1 ? lz.y : lz.x)));
+  }
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!live(q0 + j * 8 + 2 * t + (e & 1), keys[e >> 1], s))
+          st[j][e] = 0.f;
+  }
+}
+
+// ... and ds = p (dp - delta): dpt (v do^T) becomes ds, 0 where p is
+template <int NQ>
+__device__ __forceinline__ void dsoft(const float (&p)[NQ][4],
+                                      float (&dpt)[NQ][4], const float* dels) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    const float2 dz = *reinterpret_cast<const float2*>(dels + j * 8 + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dpt[j][e] = p[j][e] * (dpt[j][e] - (e & 1 ? dz.y : dz.x));
+  }
 }
 
 template <typename E, int DT>  // D = 8 * DT
@@ -659,8 +781,6 @@ flash_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
   load_raw<kMmaRows>(qs, LD, q, b, h, q0, s);
 
-  // scores in log2 units: p = 2^(s * scale * log2 e - m)
-  const float sl2 = s.scale * kLog2e;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[DT][4];
 #pragma unroll
@@ -683,42 +803,10 @@ flash_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
     mma_abt<E, NT, KT>(sc, qs, ks, LD, r0, g, t);
 
-    const bool full = tile_full(q0, kMmaRows, k0, kMmaRows, s);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        sc[j][e] = full || live(rows[e >> 1], col, s) ? sc[j][e] * sl2
-                                                      : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
-      }
-    float alpha[2], rs[2] = {0.f, 0.f}, m_new[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = exp2f(m[r] - m_new[r]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // masked scores hold kNegInf; real ones are far above half of it
-        const float p = sc[j][e] > 0.5f * kNegInf
-                            ? exp2f(sc[j][e] - m_new[e >> 1]) : 0.f;
-        sc[j][e] = p;
-        rs[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = alpha[r] * l[r] + quad_sum(rs[r]);
-      m[r] = m_new[r];
-    }
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dt][e] *= alpha[e >> 1];
+    float alpha[2];
+    softmax_step<NT>(sc, m, l, alpha, rows, k0,
+                     tile_full(q0, kMmaRows, k0, kMmaRows, s), s);
+    rescale<DT>(acc, alpha);
     mma_pb<E, NT, DT>(acc, sc, vs, LD, g, t);  // p rounded to E here
   }
 
@@ -733,7 +821,7 @@ flash_fwd_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
           pack2<E>(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
     if (t == 0)
       lse[(size_t)bh * s.t + rows[r]] =
-          m[r] * kLn2 + logf(l[r] > 0.f ? l[r] : 1.f);
+          m[r] * s.scale + logf(l[r] > 0.f ? l[r] : 1.f);
   }
 }
 
@@ -841,7 +929,6 @@ flash_dkv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
   const int g = lane / 4, t = lane % 4;
   const int r0 = warp * 16;
   const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  const float sl2 = s.scale * kLog2e;
 
   load_raw<kMmaRows>(ks, LD, k, b, h, k0, s);
   load_raw<kMmaRows>(vs, LD, v, b, h, k0, s);
@@ -874,22 +961,348 @@ flash_dkv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
     mma_abt<E, NQ, KT>(st, ks, qs, LD, r0, g, t);
     mma_abt<E, NQ, KT>(dpt, vs, dos, LD, r0, g, t);
-    const bool full = tile_full(q0, kMmaQRows, k0, kMmaRows, s);
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + 2 * t + (e & 1);
-        float p = 0.f, ds = 0.f;
-        if (full || live(q0 + qc, keys[e >> 1], s)) {
-          p = exp2f(st[j][e] * sl2 - lses[qc]);
-          ds = p * (dpt[j][e] - dels[qc]);
-        }
-        st[j][e] = p;
-        dpt[j][e] = ds;
-      }
+    probs<NQ>(st, lses, q0, keys, tile_full(q0, kMmaQRows, k0, kMmaRows, s),
+              s);
+    dsoft<NQ>(st, dpt, dels);
     mma_pb<E, NQ, DT>(dv_acc, st, dos, LD, g, t);   // p rounded to E here
     mma_pb<E, NQ, DT>(dk_acc, dpt, qs, LD, g, t);   // ds rounded to E here
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= s.t) continue;
+    const size_t off = (((size_t)b * s.t + keys[r]) * s.h + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<uint32_t*>(dk + off + dt * 8 + 2 * t) = pack2<E>(
+          dk_acc[dt][2 * r] * s.scale, dk_acc[dt][2 * r + 1] * s.scale);
+      *reinterpret_cast<uint32_t*>(dv + off + dt * 8 + 2 * t) =
+          pack2<E>(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma path: bfloat16 and float16 with D in {64, 128}, forward and dK/dV
+// (dQ stays on mma.sync).  A block is three warpgroups: warpgroup 0 is the
+// producer, and one thread of it issues every TMA load into a ring of
+// kStages shared-memory stages, each guarded by a `full` mbarrier (TMA
+// bytes arrived) and an `empty` one (both consumers done with it);
+// warpgroups 1 and 2 are consumers, 64 rows each, on wgmma.  setmaxnreg
+// gives the producer 24 registers a thread and each consumer 240.  The
+// tile walk is the mma.sync kernels' with 128-row tiles, and each
+// consumer skips a tile or step in which its 64 rows see no key
+// (`band_hit`), releasing the stage all the same.  dK/dV's lse and delta
+// rows for a step are written into its stage by the producer warp's 32
+// lanes (plain loads, zero past T), each lane arriving on `full` after its
+// stores: a bulk copy needs 16-byte-aligned rows, and a row of [B, H, T]
+// float32 starts aligned only when T is a multiple of 4.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // producer + two consumer warpgroups
+constexpr int kTile = 128;       // rows of a query tile (fwd), key tile (both)
+constexpr int kStep = 64;        // query rows a dK/dV step
+constexpr int kStages = 2;
+constexpr int kConsumerWarps = 8;
+constexpr int kBoxRow = 128;     // bytes of a box row: 64 16-bit values
+
+// any live (query, key) pair in [q0, q1) x [k0, k1)
+__device__ __forceinline__ bool band_hit(int q0, int q1, int k0, int k1,
+                                         const Shape& s) {
+  q1 = min(q1, s.t);
+  k1 = min(k1, s.t);
+  if (q0 >= q1 || k0 >= k1) return false;
+  if (!s.causal) return true;
+  return q1 - 1 >= k0 && (s.window == 0 || q0 - (k1 - 1) < s.window);
+}
+
+// the 1024-byte-aligned start of dynamic shared memory
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024 - (hopper::smem_addr(raw) & 1023)) & 1023);
+}
+
+// K-major descriptor of a tile of `rows` x D (boxes of rows x 64) at
+// `addr`, k step kk of 16 values along D
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor(uint32_t addr, int kk) {
+  return hopper::desc128(addr + (kk / 4) * ROWS * kBoxRow + (kk % 4) * 32,
+                         16, 1024);
+}
+
+// MN-major (transposed B) descriptor of the same tile, k step kk of 16 rows
+template <int ROWS>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t addr, int kk) {
+  return hopper::desc128(addr + kk * 16 * kBoxRow, ROWS * kBoxRow, 1024);
+}
+
+// all D / 64 boxes of rows [row0, row0 + rows) of head (b, h)
+template <int D>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, int box_bytes,
+                                         const CUtensorMap* map,
+                                         uint64_t* bar, int b, int h,
+                                         int row0) {
+#pragma unroll
+  for (int bx = 0; bx < D / 64; ++bx)
+    hopper::tma_load_4d(dst + bx * box_bytes, map, bar, bx * 64, h, row0, b);
+}
+
+template <typename E, int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma(__grid_constant__ const CUtensorMap qmap,
+                __grid_constant__ const CUtensorMap kmap,
+                __grid_constant__ const CUtensorMap vmap,
+                uint16_t* __restrict__ o, float* __restrict__ lse, Shape s) {
+  constexpr int DT = D / 8, NT = kTile / 8;
+  constexpr int BOX = kTile * kBoxRow, TILE = (D / 64) * BOX;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = aligned_smem(smem_raw);
+  uint8_t* kv = qs + TILE;  // stage st: K at kv + 2 st TILE, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kv + 2 * kStages * TILE);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.y;
+  const int b = bh / s.h, h = bh % s.h;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest rows first
+  int k_lo, k_hi;
+  key_range(q0, kTile, s, &k_lo, &k_hi);
+  const int n_tiles = (k_hi - k_lo + kTile - 1) / kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {  // producer
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, TILE);
+      tma_tile<D>(qs, BOX, &qmap, q_full, b, h, q0);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) hopper::mbar_wait(&empty[st], (i / kStages - 1) & 1);
+        uint8_t* kt = kv + 2 * st * TILE;
+        const int k0 = k_lo + i * kTile;
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * TILE);
+        tma_tile<D>(kt, BOX, &kmap, &full[st], b, h, k0);
+        tma_tile<D>(kt + TILE, BOX, &vmap, &full[st], b, h, k0);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<240>();
+  const int wg = warp / 4 - 1;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's 64 rows
+  const int rows[2] = {r0 + (warp % 4) * 16 + g, r0 + (warp % 4) * 16 + g + 8};
+  const uint32_t q_addr = hopper::smem_addr(qs) + 64 * wg * kBoxRow;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    const int k0 = k_lo + i * kTile;
+    hopper::mbar_wait(&full[st], (i / kStages) & 1);
+    if (band_hit(r0, r0 + 64, k0, k0 + kTile, s)) {
+      const uint32_t k_addr = hopper::smem_addr(kv + 2 * st * TILE);
+      float sc[NT][4];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<E>(sc, kmajor<kTile>(q_addr, kk),
+                            kmajor<kTile>(k_addr, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(sc);
+
+      float alpha[2];
+      softmax_step<NT>(sc, m, l, alpha, rows, k0,
+                       tile_full(r0, 64, k0, kTile, s), s);
+      rescale<DT>(acc, alpha);
+      uint32_t pa[NT / 2][4];  // p rounded to E
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) acc_to_a<E, NT>(pa[kk], sc, kk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk)
+        hopper::wgmma_rs<E>(acc, pa[kk], mnmajor<kTile>(k_addr + TILE, kk),
+                            1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(acc);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= s.t) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    uint16_t* orow = o + (((size_t)b * s.t + rows[r]) * s.h + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
+          pack2<E>(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+    if (t == 0)
+      lse[(size_t)bh * s.t + rows[r]] =
+          m[r] * s.scale + logf(l[r] > 0.f ? l[r] : 1.f);
+  }
+}
+
+template <typename E, int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dkv_wgmma(__grid_constant__ const CUtensorMap qmap,
+                __grid_constant__ const CUtensorMap kmap,
+                __grid_constant__ const CUtensorMap vmap,
+                __grid_constant__ const CUtensorMap dmap,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, uint16_t* __restrict__ dk,
+                uint16_t* __restrict__ dv, Shape s) {
+  constexpr int DT = D / 8, NQ = kStep / 8;
+  constexpr int KBOX = kTile * kBoxRow, KTILE = (D / 64) * KBOX;
+  constexpr int QBOX = kStep * kBoxRow, QTILE = (D / 64) * QBOX;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = aligned_smem(smem_raw);
+  uint8_t* vs = ks + KTILE;
+  uint8_t* qd = vs + KTILE;  // stage st: q at qd + 2 st QTILE, dO after it
+  float* stats = reinterpret_cast<float*>(qd + 2 * kStages * QTILE);
+  // stage st: lse (log2 units) at stats + 2 st kStep, delta after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + 2 * kStages * kStep);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.y;
+  const int b = bh / s.h, h = bh % s.h;
+  const int k0 = blockIdx.x * kTile;  // longest columns (small k0) first
+  int q_lo, q_hi;
+  query_range(k0, kTile, s, &q_lo, &q_hi);
+  q_lo = (q_lo / kStep) * kStep;
+  const int n_steps = (q_hi - q_lo + kStep - 1) / kStep;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&full[st], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[st], kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {  // producer: warp 0 loads, lane 0 issues the TMA
+    hopper::setmaxnreg_dec<24>();
+    if (warp != 0) return;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * KTILE);
+      tma_tile<D>(ks, KBOX, &kmap, kv_full, b, h, k0);
+      tma_tile<D>(vs, KBOX, &vmap, kv_full, b, h, k0);
+    }
+    for (int i = 0; i < n_steps; ++i) {
+      const int st = i % kStages;
+      if (i >= kStages) hopper::mbar_wait(&empty[st], (i / kStages - 1) & 1);
+      const int q0 = q_lo + i * kStep;
+      // the step's lse and delta rows, zero past T; each lane's stores
+      // precede its arrival, which releases them to the consumers
+      float* ls = stats + 2 * st * kStep;
+      for (int r = lane; r < kStep; r += 32) {
+        const bool in = q0 + r < s.t;
+        const size_t at = (size_t)bh * s.t + q0 + r;
+        ls[r] = in ? lse[at] * kLog2e : 0.f;
+        ls[kStep + r] = in ? delta[at] : 0.f;
+      }
+      if (lane == 0) {
+        uint8_t* qt = qd + 2 * st * QTILE;
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * QTILE);
+        tma_tile<D>(qt, QBOX, &qmap, &full[st], b, h, q0);
+        tma_tile<D>(qt + QTILE, QBOX, &dmap, &full[st], b, h, q0);
+      } else {
+        hopper::mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<240>();
+  const int wg = warp / 4 - 1;
+  const int g = lane / 4, t = lane % 4;
+  const int kb = k0 + 64 * wg;  // this warpgroup's 64 keys
+  const int keys[2] = {kb + (warp % 4) * 16 + g, kb + (warp % 4) * 16 + g + 8};
+  const uint32_t k_addr = hopper::smem_addr(ks) + 64 * wg * kBoxRow;
+  const uint32_t v_addr = hopper::smem_addr(vs) + 64 * wg * kBoxRow;
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % kStages;
+    const int q0 = q_lo + i * kStep;
+    hopper::mbar_wait(&full[st], (i / kStages) & 1);
+    if (band_hit(q0, q0 + kStep, kb, kb + 64, s)) {
+      const uint32_t q_addr = hopper::smem_addr(qd + 2 * st * QTILE);
+      const uint32_t do_addr = q_addr + QTILE;
+      // rows: this warpgroup's 64 keys; columns: the step's 64 queries.
+      // p is taken while v do^T runs, and ds while p^T do runs.
+      float sc[NQ][4], dp[NQ][4];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<E>(sc, kmajor<kTile>(k_addr, kk),
+                            kmajor<kStep>(q_addr, kk), kk > 0);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<E>(dp, kmajor<kTile>(v_addr, kk),
+                            kmajor<kStep>(do_addr, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_acc(sc);
+
+      const float* ls = stats + 2 * st * kStep;
+      probs<NQ>(sc, ls, q0, keys, tile_full(q0, kStep, kb, 64, s), s);
+      uint32_t pa[NQ / 2][4], da[NQ / 2][4];  // p, ds rounded to E
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) acc_to_a<E, NQ>(pa[kk], sc, kk);
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(dp);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk)
+        hopper::wgmma_rs<E>(dv_acc, pa[kk], mnmajor<kStep>(do_addr, kk), 1);
+      hopper::wgmma_commit();
+
+      dsoft<NQ>(sc, dp, ls + kStep);
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) acc_to_a<E, NQ>(da[kk], dp, kk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk)
+        hopper::wgmma_rs<E>(dk_acc, da[kk], mnmajor<kStep>(q_addr, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(dv_acc);
+      hopper::fence_acc(dk_acc);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
   }
 
 #pragma unroll
@@ -997,14 +1410,7 @@ cudaError_t run_mma(int which, const Args& a) {
   const uint16_t* k = static_cast<const uint16_t*>(a.k);
   const uint16_t* v = static_cast<const uint16_t*>(a.v);
   cudaError_t err;
-  if (which == 0) {
-    const size_t smem = sizeof(uint16_t) * 3 * kMmaRows * ld;
-    auto kernel = flash_fwd_mma<E, DT>;
-    if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
-    kernel<<<grid, kMmaThreads, smem, a.stream>>>(
-        q, k, v, static_cast<uint16_t*>(a.o), static_cast<float*>(a.out_lse),
-        a.s);
-  } else if (which == 1) {
+  if (which == 1) {
     const size_t smem = sizeof(uint16_t) * 4 * kMmaRows * ld;
     auto kernel = flash_dq_mma<E, DT>;
     if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
@@ -1012,30 +1418,144 @@ cudaError_t run_mma(int which, const Args& a) {
         q, k, v, static_cast<const uint16_t*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<uint16_t*>(a.dq), a.s);
+  } else if constexpr (DT <= 4) {  // D 64 and 128: wgmma (`path`)
+    if (which == 0) {
+      const size_t smem = sizeof(uint16_t) * 3 * kMmaRows * ld;
+      auto kernel = flash_fwd_mma<E, DT>;
+      if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+      kernel<<<grid, kMmaThreads, smem, a.stream>>>(
+          q, k, v, static_cast<uint16_t*>(a.o),
+          static_cast<float*>(a.out_lse), a.s);
+    } else {
+      const size_t smem = sizeof(uint16_t) * 2 * (kMmaRows + kMmaQRows) * ld +
+                          sizeof(float) * 2 * kMmaQRows;
+      auto kernel = flash_dkv_mma<E, DT>;
+      if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+      kernel<<<grid, kMmaThreads, smem, a.stream>>>(
+          q, k, v, static_cast<const uint16_t*>(a.dout),
+          static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), static_cast<uint16_t*>(a.dk),
+          static_cast<uint16_t*>(a.dv), a.s);
+    }
   } else {
-    const size_t smem = sizeof(uint16_t) * 2 * (kMmaRows + kMmaQRows) * ld +
-                        sizeof(float) * 2 * kMmaQRows;
-    auto kernel = flash_dkv_mma<E, DT>;
-    if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
-    kernel<<<grid, kMmaThreads, smem, a.stream>>>(
-        q, k, v, static_cast<const uint16_t*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<uint16_t*>(a.dk), static_cast<uint16_t*>(a.dv), a.s);
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// bfloat16 and float16 with D a power of two in [16, 128] take the tensor
-// cores; any other D (and float32, whose products the reference keeps in
-// f32) runs the f32 CUDA-core kernels
+// Tensor-map encoding: cuTensorMapEncodeTiled is a driver call, fetched
+// through the runtime so that the library needs no -lcuda.  A failed
+// encode returns kMapError + its CUresult, so the wrapper can tell it from
+// a CUDA launch error.
+constexpr int kMapError = 10000;
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [B, T, H, D] as dims {D, H, T, B}; boxes of {64, 1, rows, 1}, 128-byte
+// swizzle; rows at or past T load as zeros
 template <typename E>
-cudaError_t dispatch_16bit(int which, const Args& a) {
-  switch (a.s.d) {
-    case 16: return run_mma<E, 2>(which, a);
-    case 32: return run_mma<E, 4>(which, a);
-    case 64: return run_mma<E, 8>(which, a);
-    case 128: return run_mma<E, 16>(which, a);
-    default: return dispatch<E>(which, a);
+int encode(CUtensorMap* map, const void* ptr, int b, const Shape& s,
+           int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)s.d, (cuuint64_t)s.h,
+                              (cuuint64_t)s.t, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {2ull * s.d, 2ull * s.h * s.d,
+                                 2ull * s.t * s.h * s.d};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map,
+      std::is_same<E, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
+}
+
+template <typename E, int D>
+int run_wgmma(int which, const Args& a) {
+  const dim3 grid((a.s.t + kTile - 1) / kTile, a.b * a.s.h);
+  const size_t tile = (size_t)kTile * D * 2, step = (size_t)kStep * D * 2;
+  CUtensorMap qm, km, vm, dm;
+  int rc;
+  cudaError_t err;
+  if (which == 0) {
+    if ((rc = encode<E>(&qm, a.q, a.b, a.s, kTile)) ||
+        (rc = encode<E>(&km, a.k, a.b, a.s, kTile)) ||
+        (rc = encode<E>(&vm, a.v, a.b, a.s, kTile)))
+      return rc;
+    const size_t smem = 1024 + (1 + 2 * kStages) * tile +
+                        sizeof(uint64_t) * (1 + 2 * kStages);
+    auto kernel = flash_fwd_wgmma<E, D>;
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return (int)err;
+    kernel<<<grid, kWgThreads, smem, a.stream>>>(
+        qm, km, vm, static_cast<uint16_t*>(a.o),
+        static_cast<float*>(a.out_lse), a.s);
+  } else {
+    if ((rc = encode<E>(&qm, a.q, a.b, a.s, kStep)) ||
+        (rc = encode<E>(&km, a.k, a.b, a.s, kTile)) ||
+        (rc = encode<E>(&vm, a.v, a.b, a.s, kTile)) ||
+        (rc = encode<E>(&dm, a.dout, a.b, a.s, kStep)))
+      return rc;
+    const size_t smem = 1024 + 2 * tile + 2 * kStages * step +
+                        sizeof(float) * 2 * kStages * kStep +
+                        sizeof(uint64_t) * (1 + 2 * kStages);
+    auto kernel = flash_dkv_wgmma<E, D>;
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return (int)err;
+    kernel<<<grid, kWgThreads, smem, a.stream>>>(
+        qm, km, vm, dm, static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<uint16_t*>(a.dk),
+        static_cast<uint16_t*>(a.dv), a.s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Which kernels a call takes (which: 0 forward, 1 dQ, 2 dK/dV; dtype as
+// the launchers'): 2 the wgmma path (bfloat16 and float16, D in {64, 128},
+// forward and dK/dV), 1 mma.sync (the same types with D in {16, 32, 64,
+// 128} otherwise), 0 the f32 CUDA-core kernels (float32, whose products
+// the reference keeps in f32, and any other D).
+int path(int which, int dtype, int d) {
+  if (dtype != 1 && dtype != 2) return 0;
+  if (which != 1 && (d == 64 || d == 128)) return 2;
+  return d == 16 || d == 32 || d == 64 || d == 128 ? 1 : 0;
+}
+
+template <typename E>
+int dispatch_16bit(int which, const Args& a) {
+  switch (path(which, std::is_same<E, __half>::value ? 2 : 1, a.s.d)) {
+    case 2:
+      return a.s.d == 64 ? run_wgmma<E, 64>(which, a)
+                         : run_wgmma<E, 128>(which, a);
+    case 1:
+      switch (a.s.d) {
+        case 16: return (int)run_mma<E, 2>(which, a);
+        case 32: return (int)run_mma<E, 4>(which, a);
+        case 64: return (int)run_mma<E, 8>(which, a);
+        default: return (int)run_mma<E, 16>(which, a);
+      }
+    default:
+      return (int)dispatch<E>(which, a);
   }
 }
 
@@ -1047,8 +1567,8 @@ int launch(int which, int dtype, Args& a, int t, int h, int d, int causal,
   a.s = Shape{t, h, d, causal ? 1 : 0, causal ? window : 0, scale};
   a.stream = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch<float>(which, a);
-  if (dtype == 1) return (int)dispatch_16bit<__nv_bfloat16>(which, a);
-  if (dtype == 2) return (int)dispatch_16bit<__half>(which, a);
+  if (dtype == 1) return dispatch_16bit<__nv_bfloat16>(which, a);
+  if (dtype == 2) return dispatch_16bit<__half>(which, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1056,8 +1576,14 @@ int launch(int which, int dtype, Args& a, int t, int h, int d, int causal,
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (every [B, T, H, D] tensor
 // shares it).
-// window: 0 for none.  Each returns the cudaError_t of its launch (0 on
-// success); the caller validates shapes, contiguity and alignment.
+// window: 0 for none.  Each launcher returns the cudaError_t of its launch
+// (0 on success), or kMapError + the CUresult of a failed tensor-map
+// encode; the caller validates shapes, contiguity and alignment.
+// dl4j_flash_path says which kernels a call takes (see `path`).
+extern "C" int dl4j_flash_path(int which, int dtype, int d) {
+  return path(which, dtype, d);
+}
+
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int dtype, int b, int t,
                               int h, int d, int causal, int window,

@@ -4,8 +4,10 @@ Each kernel source under ``helpers/csrc/`` exposes a plain ``extern "C"``
 launcher.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``helpers/_build/`` (listed in ``.gitignore``) and
 loaded with ``ctypes``; no PyTorch headers are involved, so a build takes
-seconds.  The library's file name carries a hash of the source, so an
-edited source rebuilds and an unchanged one is loaded as it is.
+seconds.  The library's file name carries a hash of the source, of every
+header beside it (``csrc/*.cuh``) and of the compile flags, so an edited
+source or header, or a changed flag, rebuilds, and an unchanged build is
+loaded as it is.
 
 Nothing here runs at import time: the CPU tests import every module on
 a machine that has no ``nvcc``.
@@ -64,15 +66,24 @@ def _nvcc() -> str:
         "CUDA kernels are compiled from source at first use")
 
 
+def build_digest(source: Path, flags=NVCC_FLAGS) -> str:
+    """Hash of what a build of ``source`` depends on: the source, the
+    port's headers beside it and the flags."""
+    h = hashlib.sha1(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:12]
+
+
 def load_library(source: Path) -> Built:
-    """Compile ``source`` (once per content hash) and load it."""
+    """Compile ``source`` (once per build digest) and load it."""
     source = Path(source).resolve()
     with _lock:
         hit = _loaded.get(source)
         if hit is not None:
             return hit
-        digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
-        out = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+        out = BUILD_DIR / f"lib{source.stem}-{build_digest(source)}.so"
         build_s, log = 0.0, ""
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -9,10 +9,12 @@ the probabilities from lse.
 - On CUDA tensors three hand-written kernels run (``csrc/flash_attention.cu``,
   built with ``nvcc`` at first use and bound with ``ctypes``): the forward
   (``_fwd_kernel``), dQ (``_dq_kernel``, q-major) and dK/dV
-  (``_dkv_kernel``, k-major), on the tensor cores for bfloat16 and
-  float16 with D in {16, 32, 64, 128} and on the CUDA cores in float32
-  otherwise.  Each
-  launches or raises; nothing falls back.
+  (``_dkv_kernel``, k-major).  bfloat16 and float16 take the tensor
+  cores: the forward and dK/dV with D in {64, 128} on ``wgmma`` fed by
+  TMA (``csrc/hopper.cuh``), the rest with D in {16, 32, 64, 128} (dQ
+  included) on ``mma.sync``; float32 and other head dims run on the CUDA
+  cores.  ``kernel_path`` says which.  Each launches or raises; nothing
+  falls back.
 - On CPU tensors the same ``autograd.Function`` runs the plain versions
   ``flash_attention_plain_fwd``/``flash_attention_plain_bwd``: a masked
   full softmax in float32 with the kernels' casts.  The kernels are held
@@ -41,6 +43,9 @@ NEG_INF = -1e30
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_KERNELS = {"fwd": 0, "dq": 1, "dkv": 2}
+PATHS = ("cuda_cores", "mma_sync", "wgmma")   # dl4j_flash_path's answers
+_MAP_ERROR = 10000      # kMapError in the source: a failed tensor-map encode
 _lib = None     # the loaded library, once ``build`` has run
 
 fwd_counts = cuda_build.Counts()
@@ -139,8 +144,20 @@ def build() -> cuda_build.Built:
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_ptr + tail
         fn.restype = i
+    lib.dl4j_flash_path.argtypes = [i, i, i]
+    lib.dl4j_flash_path.restype = i
     _lib = lib
     return built
+
+
+def kernel_path(kernel: str, dtype: torch.dtype, d: int) -> str:
+    """Which kernels a CUDA call of ``kernel`` ("fwd", "dq" or "dkv")
+    takes for ``dtype`` and head dim ``d``, as the library's dispatch
+    decides: "wgmma", "mma_sync" or "cuda_cores"."""
+    if _lib is None:
+        build()
+    return PATHS[_lib.dl4j_flash_path(_KERNELS[kernel], _DTYPE_CODES[dtype],
+                                      d)]
 
 
 def _validate(name_tensors, dtype, device):
@@ -191,6 +208,9 @@ def _tail(q, b, t, h, d, causal, window):
 
 
 def _raise_on(rc, what):
+    if rc >= _MAP_ERROR:
+        raise RuntimeError(f"flash attention {what}: TMA tensor-map encode "
+                           f"failed (CUresult {rc - _MAP_ERROR})")
     if rc != 0:
         raise RuntimeError(f"flash attention {what} kernel launch failed: "
                            f"CUDA error {rc}")

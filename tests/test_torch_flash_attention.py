@@ -171,3 +171,139 @@ def test_attention_layer_routes_float16_and_raises_off_the_cpu():
     with helpers.helpers_disabled():
         out = layer.apply(mparams, meta)
     assert out.shape == meta.shape and out.dtype == torch.float64
+
+
+# ------------------------------------------------- the wgmma kernels' walk
+# A numpy mirror of the loop bounds of ``flash_fwd_wgmma`` and
+# ``flash_dkv_wgmma`` (``csrc/flash_attention.cu``): ``key_range``,
+# ``query_range``, ``band_hit`` and ``tile_full`` with the kernels' tile
+# sizes.  The forward walks 128-key tiles under a 128-row query tile, the
+# dK/dV kernel 64-row query steps under a 128-key tile; each block is two
+# consumer warpgroups of 64 rows (queries or keys), and a warpgroup skips
+# a tile in which its rows see no key.
+TILE, STEP, WG_ROWS = 128, 64, 64
+
+
+def _live(q, k, t, causal, window):
+    """The mask as the kernels' ``live``, over index arrays."""
+    keep = (q < t) & (k < t)
+    if causal:
+        keep &= k <= q
+        if window:
+            keep &= k > q - window
+    return keep
+
+
+def _band_hit(q0, q1, k0, k1, t, causal, window):
+    q1, k1 = min(q1, t), min(k1, t)
+    if q0 >= q1 or k0 >= k1:
+        return False
+    if not causal:
+        return True
+    return q1 - 1 >= k0 and (not window or q0 - (k1 - 1) < window)
+
+
+def _tile_full(q0, bq, k0, bk, t, causal, window):
+    if q0 + bq > t or k0 + bk > t:
+        return False
+    if not causal:
+        return True
+    return k0 + bk - 1 <= q0 and (not window or k0 > q0 + bq - 1 - window)
+
+
+def _key_range(q0, bm, t, causal, window):
+    lo, hi = 0, t
+    if causal:
+        hi = min(t, q0 + bm)
+        if window:
+            lo = max(0, q0 - window + 1)
+    return lo // bm * bm, hi
+
+
+def _query_range(k0, bm, t, causal, window):
+    lo, hi = 0, t
+    if causal:
+        lo = k0
+        if window:
+            hi = min(t, k0 + bm - 1 + window)
+    return lo // bm * bm, hi
+
+
+def _walk(kernel, t, causal, window):
+    """(loaded (rows, cols) tiles as (q0, q1, k0, k1), visits [T, T]):
+    every tile the producer loads, and how often a consumer computes each
+    live (query, key) pair."""
+    visits = np.zeros((t, t), dtype=np.int64)
+    loaded = []
+    for blk in range((t + TILE - 1) // TILE):
+        if kernel == "fwd":
+            q0 = blk * TILE
+            k_lo, k_hi = _key_range(q0, TILE, t, causal, window)
+            tiles = [(q0, q0 + TILE, k, k + TILE)
+                     for k in range(k_lo, k_hi, TILE)]
+            parts = [(q0 + WG_ROWS * w, q0 + WG_ROWS * (w + 1), None, None)
+                     for w in range(2)]
+        else:
+            k0 = blk * TILE
+            q_lo, q_hi = _query_range(k0, TILE, t, causal, window)
+            q_lo = q_lo // STEP * STEP
+            tiles = [(q, q + STEP, k0, k0 + TILE)
+                     for q in range(q_lo, q_hi, STEP)]
+            parts = [(None, None, k0 + WG_ROWS * w, k0 + WG_ROWS * (w + 1))
+                     for w in range(2)]
+        loaded += tiles
+        for pq0, pq1, pk0, pk1 in parts:
+            rects = [((pq0, pq1) if pq0 is not None else (tq0, tq1),
+                      (pk0, pk1) if pk0 is not None else (tk0, tk1))
+                     for tq0, tq1, tk0, tk1 in tiles]
+            hits = [_band_hit(q0, q1, k0, k1, t, causal, window)
+                    for (q0, q1), (k0, k1) in rects]
+            for ((q0, q1), (k0, k1)), hit in zip(rects, hits):
+                if not hit:
+                    continue
+                qi, ki = np.meshgrid(np.arange(q0, q1), np.arange(k0, k1),
+                                     indexing="ij")
+                keep = _live(qi, ki, t, causal, window)
+                if _tile_full(q0, q1 - q0, k0, k1 - k0, t, causal, window):
+                    assert keep.all()
+                visits[qi[keep], ki[keep]] += 1
+    return loaded, visits
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("causal, window", [
+    (False, None), (True, None), (True, 1), (True, 100), (True, 128),
+    (True, 200)], ids=["full", "causal", "window1", "window100",
+                      "window128", "window200"])
+def test_wgmma_tile_walk_visits_each_live_pair_once(kernel, causal, window):
+    """For every T from 1 to 300: each live (query, key) pair is computed
+    exactly once, and every loaded tile holds a live pair (none outside
+    the band)."""
+    for t in range(1, 301):
+        loaded, visits = _walk(kernel, t, causal, window)
+        pos = np.arange(t)
+        live = _live(pos[:, None], pos[None, :], t, causal, window)
+        assert (visits == live).all(), (t, np.argwhere(visits != live)[:3])
+        for q0, q1, k0, k1 in loaded:
+            assert q0 < t and k0 < t
+            assert _band_hit(q0, q1, k0, k1, t, causal, window), (t, q0, k0)
+
+
+def test_build_digest_covers_headers_and_flags(tmp_path):
+    """The kernels' library name changes with the source, with any
+    ``.cuh`` header beside it and with the compile flags, so an edit to
+    any of them rebuilds instead of loading a stale library."""
+    from deeplearning4j_tpu_torch.helpers import cuda_build
+
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = cuda_build.build_digest(src)
+    assert cuda_build.build_digest(src) == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = cuda_build.build_digest(src)
+    assert second != first
+    flags = cuda_build.NVCC_FLAGS + ("-lcuda",)
+    assert cuda_build.build_digest(src, flags) != second
+    src.write_text('#include "h.cuh"\n// edited\n')
+    assert cuda_build.build_digest(src) != second
