@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; nothing is caught):
    beside the least time the card could take (the bytes the call must
    move at 3.35 TB/s, or its operations at the peak rate for their type,
    whichever is larger).  Each flash case prints the kernels its calls
-   take (``fa.kernel_path``); a bfloat16 or float16 case at D = 128 must
-   take wgmma for the forward and dK/dV and mma.sync for dQ.
+   take (``fa.kernel_path``); a bfloat16 or float16 case at D = 64 or 128
+   must take wgmma for the forward, dQ and dK/dV, and the delta its dQ
+   hands to dK/dV must match the torch reduction ``_row_delta``.
 3. Serve the transformer char-LM at full width (vocab 128, d_model 1024,
    8 heads, 8 layers, bfloat16, seeded random weights) through the port's
    ``GenerationEngine`` (16 slots, pages of 16, context 512): 16
@@ -34,17 +35,21 @@ Phases (any failure exits non-zero; nothing is caught):
    (``enable_helpers(False)``); then 2 warm-up and 5 timed ``fit`` steps,
    the flash and prologue launch counts reset just before and read just
    after (8 forward, 8 dQ, 8 dK/dV and 16 prologue launches a step, no
-   plain-version call), and one step under ``torch.profiler``.
+   plain-version call), and one step under ``torch.profiler`` (then one
+   more with the host traced, which must show no ``_row_delta``
+   reduction: delta comes from the dQ kernel).
 5. Hold the three BatchNorm kernels (training forward, training
    backward, inference) against their plain versions at ResNet-50's
-   shapes (bfloat16; a float32 and a float16 case), and time them beside ``F.batch_norm`` (cuDNN, on
-   channels_last views) and their bound.
+   shapes (bfloat16; a float32 and a float16 case, ragged C, and gamma
+   and beta in bfloat16 as the layer passes them), and time them beside
+   ``F.batch_norm`` (cuDNN, on channels_last views) and their bound.
 6. ResNet-50 as a ComputationGraph at full width (224x224x3, 1000
    classes, batch 128, bfloat16, Nesterov at 0.1, ``bench.py``'s batch:
    ``RandomState(0)`` images in [0, 1) and one-hot labels; seeded random
    weights).  ``output`` is held against the built-in path
    (``enable_helpers(False)``: the logits and their argmax) and must
-   launch the inference kernel once per BatchNorm layer (53); the first step's loss (bfloat16) and
+   launch the inference kernel once per BatchNorm layer (53), and one
+   ``output`` runs under ``torch.profiler``; the first step's loss (bfloat16) and
    per-node gradients (float32 compute, where they are not rounding) are
    held against the built-in path; then 2 warm-up and 5 timed ``fit``
    steps (53 training-forward and 53 training-backward launches a step,
@@ -129,13 +134,18 @@ RESNET_BATCH, RESNET_BN_LAYERS = 128, 53
 # bf16 logits, kernels vs built-in path: error over max |logit| (7.4e-3
 # measured on the H100) and images whose argmax may differ
 RESNET_LOGITS_TOL, RESNET_ARGMAX_MISSES = 2e-2, 2
-BN_CASES = [  # name, NHWC shape, dtype
-    ("stem_bf16", (128, 112, 112, 64), torch.bfloat16),
-    ("last_stage_bf16", (128, 7, 7, 2048), torch.bfloat16),
-    ("stage1_f32", (128, 56, 56, 256), torch.float32),
-    ("ragged_bf16", (13, 77, 101, 130), torch.bfloat16),
-    ("ragged_f16", (13, 77, 101, 130), torch.float16),
+BN_CASES = [  # name, NHWC shape, dtype, gamma/beta dtype
+    ("stem_bf16", (128, 112, 112, 64), torch.bfloat16, torch.float32),
+    ("last_stage_bf16", (128, 7, 7, 2048), torch.bfloat16, torch.float32),
+    ("stage3_bf16", (128, 14, 14, 1024), torch.bfloat16, torch.float32),
+    ("stage1_f32", (128, 56, 56, 256), torch.float32, torch.float32),
+    ("ragged_bf16", (13, 77, 101, 130), torch.bfloat16, torch.float32),
+    ("ragged_f16", (13, 77, 101, 130), torch.float16, torch.float32),
+    # gamma and beta as the layer passes them under a bf16 compute dtype
+    ("last_stage_bf16_affine", (128, 7, 7, 2048), torch.bfloat16,
+     torch.bfloat16),
 ]
+DELTA_TOL = 1e-5    # dQ's delta vs _row_delta, over max(1, max |delta|)
 LRN = dict(k=2.0, n=5, alpha=1e-4, beta=0.75)     # AlexNet's LRN layers
 LRN_CASES = [  # name, NHWC shape, dtype, n
     ("lrn1_bf16", (128, 54, 54, 96), torch.bfloat16, 5),
@@ -489,9 +499,9 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
     print(f"flash[{name}] paths: forward {paths['fwd']}, dQ {paths['dq']}, "
           f"dK/dV {paths['dkv']}")
     if dtype != torch.float32 and d in (64, 128):
-        check(paths == {"fwd": "wgmma", "dq": "mma_sync", "dkv": "wgmma"},
-              f"flash[{name}] takes wgmma for the forward and dK/dV, "
-              f"mma.sync for dQ: {paths}")
+        check(paths == {"fwd": "wgmma", "dq": "wgmma", "dkv": "wgmma"},
+              f"flash[{name}] takes wgmma for the forward, dQ and dK/dV: "
+              f"{paths}")
     q, k, v, do = (_randn(seed + i, shape, dtype) for i in range(4))
     o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=causal,
@@ -511,11 +521,20 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
                           f"{tol}")
     del ro, rlse, rdq, rdk, rdv
 
-    delta = fa._row_delta(o, do)
+    # the delta dQ hands to dK/dV (the kernel's own on the wgmma route)
+    _, delta = fa._launch_dq(q, k, v, do, o, lse, causal, window)
+    rdelta = fa._row_delta(o, do)
+    torch.cuda.synchronize()
+    delta_err = _abs_err(delta, rdelta) / max(
+        1.0, rdelta.abs().max().item())
+    check(delta_err <= DELTA_TOL, f"flash[{name}] delta: dQ's vs "
+                                  f"_row_delta {delta_err} > {DELTA_TOL}")
+    del rdelta
     fwd_ms = time_ms(lambda: fa.flash_fwd(q, k, v, causal=causal,
                                           window=window), flush,
                      iters=KERNEL_ITERS)
-    dq_ms = time_ms(lambda: fa._launch_dq(q, k, v, do, lse, delta, causal,
+    # dQ with its delta: the kernel's own, or _row_delta on other routes
+    dq_ms = time_ms(lambda: fa._launch_dq(q, k, v, do, o, lse, causal,
                                           window), flush, iters=KERNEL_ITERS)
     dkv_ms = time_ms(lambda: fa._launch_dkv(q, k, v, do, lse, delta, causal,
                                             window), flush,
@@ -547,17 +566,20 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
     row_bytes = b * h * t * 4                         # lse or delta, f32
     bounds = {
         "fwd": _bound(4 * tensor_bytes + row_bytes, 4 * d * pairs, dtype),
-        "dq": _bound(5 * tensor_bytes + 2 * row_bytes, 6 * d * pairs, dtype),
+        # q, k, v, dO and O read, dq written; lse read, delta written
+        "dq": _bound(6 * tensor_bytes + 2 * row_bytes,
+                     6 * d * pairs + 2 * d * b * h * t, dtype),
         "dkv": _bound(6 * tensor_bytes + 2 * row_bytes, 8 * d * pairs,
                       dtype),
     }
     print(f"flash[{name}] q{list(shape)} {str(dtype)[6:]} causal={causal} "
           f"window={window}: err o {errs['o']:.3e}, lse {errs['lse']:.3e}, "
           f"dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e} "
-          f"(grads scaled by max abs; tol {tol:g}); library o err "
+          f"(grads scaled by max abs; tol {tol:g}); delta vs _row_delta "
+          f"{delta_err:.3e} (tol {DELTA_TOL:g}); library o err "
           f"{lib_err:.3e} [{name_card}]")
     print(f"flash[{name}] fwd {fwd_ms:.4f} ms (bound {bounds['fwd'][0]:.5f}"
-          f" ms, {bounds['fwd'][1]}), dQ {dq_ms:.4f} ms (bound "
+          f" ms, {bounds['fwd'][1]}), dQ with delta {dq_ms:.4f} ms (bound "
           f"{bounds['dq'][0]:.5f}), dK/dV {dkv_ms:.4f} ms (bound "
           f"{bounds['dkv'][0]:.5f}); plain fwd {pfwd_ms:.4f} ms, plain bwd "
           f"{pbwd_ms:.4f} ms; SDPA fwd {lib_fwd_ms:.4f} ms, SDPA bwd "
@@ -619,7 +641,9 @@ def train_kernel_phase(flush, name_card):
             ("window256_bf16", full, torch.bfloat16, True, 256),
             ("ragged1000_bf16", (TRAIN_BATCH, 1000, 8, 128), torch.bfloat16,
              True, None),
-            ("causal_f16", full, torch.float16, True, None)]):
+            ("causal_f16", full, torch.float16, True, None),
+            ("causal_f16_d64", (TRAIN_BATCH, TRAIN_T, 8, 64), torch.float16,
+             True, None)]):
         flash[name] = flash_case(name, 200 + 10 * i, shape, dtype, causal,
                                  window, flush, name_card)
     rows = TRAIN_BATCH * TRAIN_T
@@ -790,20 +814,36 @@ def train_profile(net, x, y, name_card):
         print(f"  top: {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
 
+    # the host's side, in a second step: its launches, and no delta
+    # reduction (``_row_delta`` labels itself flash_row_delta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        net.fit(x, y)
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    launch = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
+    row_delta = sum(e.count for e in ev if e.key == "flash_row_delta")
+    print(f"train step host side (traced): cudaLaunchKernel {launch} calls;"
+          f" _row_delta reductions {row_delta} [{name_card}]")
+    check(row_delta == 0, f"the train step ran {row_delta} _row_delta "
+                          "reductions")
+
 
 # ------------------------------------------------- phase 5, batch norm
 BN_EPS = 1e-5
 
 
-def bn_case(name, seed, shape, dtype, flush, name_card):
-    """The three BatchNorm kernels on one NHWC shape, as [N·H·W, C]."""
+def bn_case(name, seed, shape, dtype, adt, flush, name_card):
+    """The three BatchNorm kernels on one NHWC shape, as [N·H·W, C], with
+    gamma and beta in ``adt``."""
     n, h, w, c = shape
     m = n * h * w
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(m, c, generator=g, device="cuda") * 2 + 0.5).to(dtype)
     gy = torch.randn(m, c, generator=g, device="cuda").to(dtype)
-    gamma = torch.randn(c, generator=g, device="cuda") + 1
-    beta = torch.randn(c, generator=g, device="cuda")
+    gamma = (torch.randn(c, generator=g, device="cuda") + 1).to(adt)
+    beta = torch.randn(c, generator=g, device="cuda").to(adt)
     y, mean, var, inv = bn.bn_train_fwd_2d(x, gamma, beta, BN_EPS)
     dx, dgamma, dbeta = bn.bn_train_bwd_2d(x, gy, gamma, mean, inv)
     rvar = var + 0.25       # running stats of the inference case
@@ -839,11 +879,12 @@ def bn_case(name, seed, shape, dtype, flush, name_card):
                 for k, (_, plain) in calls.items()}
 
     # yardsticks the port never calls: F.batch_norm on the channels_last
-    # NCHW view of the NHWC tensor
+    # NCHW view of the NHWC tensor, gamma and beta in float32 (as cuDNN
+    # takes them beside the float32 running stats)
     x4 = x.view(n, h, w, c).permute(0, 3, 1, 2)
     gy4 = gy.view(n, h, w, c).permute(0, 3, 1, 2)
     xl, gl, bl = (t.detach().clone().requires_grad_()
-                  for t in (x4, gamma, beta))
+                  for t in (x4, gamma.float(), beta.float()))
     lib_fwd = lambda: F.batch_norm(xl, None, None, gl, bl, True, 0.1, BN_EPS)
     out = lib_fwd()
     lib_err = _abs_err(out.permute(0, 2, 3, 1).reshape(m, c),
@@ -852,16 +893,20 @@ def bn_case(name, seed, shape, dtype, flush, name_card):
         "fwd": time_ms(lib_fwd, flush),
         "bwd": time_ms(lambda: torch.autograd.grad(
             out, (xl, gl, bl), gy4, retain_graph=True), flush),
-        "inf": time_ms(lambda: F.batch_norm(x4, mean, rvar, gamma, beta,
-                                            False, 0.1, BN_EPS), flush),
+        "inf": time_ms(lambda: F.batch_norm(x4, mean, rvar, gl.detach(),
+                                            bl.detach(), False, 0.1, BN_EPS),
+                       flush),
     }
     del out, xl, gl, bl
 
-    esz = x.element_size()
-    bounds = {"fwd": _bound(2 * m * c * esz + 5 * c * 4, 0, dtype),
-              "bwd": _bound(3 * m * c * esz + 5 * c * 4, 0, dtype),
-              "inf": _bound(2 * m * c * esz + 4 * c * 4, 0, dtype)}
-    print(f"batch_norm[{name}] [{m}, {c}] {str(dtype)[6:]}: err train fwd "
+    esz, asz = x.element_size(), gamma.element_size()
+    bounds = {"fwd": _bound(2 * m * c * esz + 2 * c * asz + 3 * c * 4, 0,
+                            dtype),
+              "bwd": _bound(3 * m * c * esz + c * asz + 4 * c * 4, 0, dtype),
+              "inf": _bound(2 * m * c * esz + 2 * c * asz + 2 * c * 4, 0,
+                            dtype)}
+    print(f"batch_norm[{name}] [{m}, {c}] {str(dtype)[6:]} (gamma, beta "
+          f"{str(adt)[6:]}): err train fwd "
           f"{errs['fwd']:.3e}, train bwd {errs['bwd']:.3e}, inference "
           f"{errs['inf']:.3e} (scaled by max abs; tol {TOL[dtype]:g}); "
           f"F.batch_norm fwd abs err {lib_err:.3e} [{name_card}]")
@@ -876,9 +921,9 @@ def bn_case(name, seed, shape, dtype, flush, name_card):
 
 
 def bn_kernel_phase(flush, name_card):
-    return {name: bn_case(name, 400 + 10 * i, shape, dtype, flush,
+    return {name: bn_case(name, 400 + 10 * i, shape, dtype, adt, flush,
                           name_card)
-            for i, (name, shape, dtype) in enumerate(BN_CASES)}
+            for i, (name, shape, dtype, adt) in enumerate(BN_CASES)}
 
 
 # -------------------------------------------------- phase 6, ResNet-50
@@ -927,6 +972,8 @@ def resnet_phase(name_card):
           and bool(torch.isfinite(probs).all())
           and (probs.sum(-1) - 1).abs().max().item() < 1e-3,
           "output: finite probabilities of shape [128, 1000]")
+    output_profile("resnet50", lambda: net.output(x),
+                   r"\bbn_[a-z_]+(kernel|finalize)", "BatchNorm", name_card)
 
     def logits():
         with torch.no_grad():
@@ -1031,6 +1078,30 @@ def resnet_phase(name_card):
     step_profile("resnet50", net, x, y, r"\bbn_[a-z_]+(kernel|finalize)",
                  "BatchNorm", name_card)
     return inf_launches, launches[1], launches[2]
+
+
+def output_profile(what, call, kernel_re, label, name_card):
+    """Where one ``output`` call's time goes: device busy against host
+    wall, and the share of the kernels whose names match ``kernel_re``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    ours = [e for e in ev if re.search(kernel_re, e.key)]
+    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
+    check(ours_ms > 0, f"the profiled {what} output ran the {label} kernels")
+    print(f"{what} output (profiled): host wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) "
+          f"in {sum(e.count for e in ev)} device operations; {label} "
+          f"kernels {ours_ms:.3f} ms ({ours_ms / busy_ms:.3f} of busy) in "
+          f"{sum(e.count for e in ours)} launches [{name_card}]")
 
 
 def step_profile(what, net, x, y, kernel_re, label, name_card):

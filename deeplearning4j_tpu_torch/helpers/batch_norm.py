@@ -6,9 +6,12 @@ channel-contiguous ``[rows, C]`` view of any rank.
 - On CUDA tensors each is the hand-written kernel
   ``csrc/batch_norm.cu`` (built with ``nvcc`` at first use, bound with
   ``ctypes``): gridded per-channel reductions with float32 partials merged
-  in a fixed order, then one elementwise pass.  No size cap and no rank
-  gate, unlike the JAX package (a single VMEM block below 2^20 elements,
-  training only at rank 2).  They launch or raise; nothing falls back.
+  in a fixed order, then one elementwise pass on a grid of channel slices
+  by row chunks (``elementwise_grid``).  gamma and beta are read in their
+  own type (float32, bfloat16 or float16), so no call casts them.  No size
+  cap and no rank gate, unlike the JAX package (a single VMEM block below
+  2^20 elements, training only at rank 2).  They launch or raise; nothing
+  falls back.
 - On CPU tensors the plain versions below run instead, through the same
   ``autograd.Function``s.
 
@@ -39,6 +42,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _CHANNEL_TILE = 32        # channels a reduction block covers (csrc kTx)
 _ROW_LANES = 8            # rows it walks at once (csrc kTy)
 _BLOCKS_PER_SM = 8        # reduction blocks to aim for on each SM
+_EW_THREADS = 256         # threads of an elementwise block (csrc kThreads)
+_EW_THREADS_PER_SM = 1024  # elementwise threads to aim for on each SM
+_EW_MIN_ROWS = 8          # rows a thread walks at least (csrc unrolls 4)
 _launchers: Dict[str, object] = {}
 _sms: Dict[int, int] = {}
 
@@ -98,10 +104,11 @@ def build() -> cuda_build.Built:
     built = cuda_build.load_library(SOURCE)
     lib, p, i, f = built.lib, ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
+    grid = [i] * 4       # vec, bx, by, rows per chunk of the elementwise
     sig = {
-        "dl4j_bn_train_fwd": [p] * 6 + [i, ll, i, i, f, i, i, p],
-        "dl4j_bn_train_bwd": [p] * 8 + [i, ll, i, i, i, i, p],
-        "dl4j_bn_inference": [p] * 6 + [i, ll, i, f, i, i, p],
+        "dl4j_bn_train_fwd": [p] * 6 + [i, i, ll, i, i, f] + grid + [p],
+        "dl4j_bn_train_bwd": [p] * 8 + [i, i, ll, i, i] + grid + [p],
+        "dl4j_bn_inference": [p] * 6 + [i, i, ll, i, f] + grid + [p],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)
@@ -129,6 +136,38 @@ def chunking(m: int, c: int, sms: int) -> Tuple[int, int]:
     return rpc, -(-m // rpc)
 
 
+def elementwise_grid(m: int, c: int, vec: int,
+                     sms: int) -> Tuple[int, int, int, int]:
+    """(bx, by, rows per chunk, chunks) of the elementwise pass over
+    ``vec``-channel vectors: a block of at most ``_EW_THREADS`` threads is
+    ``bx`` vector columns (one channel slice; C / vec split into as few
+    slices as fit) by ``by`` rows; row chunks give about
+    ``_EW_THREADS_PER_SM`` threads on each SM (4 blocks of 256; more of a
+    ragged C's narrower blocks), each thread walking at least
+    ``_EW_MIN_ROWS`` rows."""
+    cols = c // vec
+    slices = -(-cols // _EW_THREADS)
+    bx = -(-cols // slices)
+    by = max(1, _EW_THREADS // bx)
+    want = max(1, _EW_THREADS_PER_SM * sms // (slices * bx * by))
+    rpc = max(by * _EW_MIN_ROWS, -(-m // want))
+    rpc = -(-rpc // by) * by
+    return bx, by, rpc, -(-m // rpc)
+
+
+def _ew_args(x, *ts):
+    """The elementwise grid's launch arguments (vec, bx, by, rows per
+    chunk) for x [rows, C] and the other [rows, C] tensors of a call:
+    16-byte vectors when every row is whole vectors and the tensors are
+    16-byte aligned, else the scalar path (vec 1)."""
+    m, c = x.shape
+    vec = 16 // x.element_size()
+    if c % vec or any(t.data_ptr() % 16 for t in (x,) + ts):
+        vec = 1
+    bx, by, rpc, _ = elementwise_grid(m, c, vec, _sm_count(x.device))
+    return vec, bx, by, rpc
+
+
 def _check_2d(name, t, dev, dtype, shape):
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, x on {dev}")
@@ -140,9 +179,15 @@ def _check_2d(name, t, dev, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+_AFFINE = ("gamma", "beta")   # per-channel tensors read in their own type
+
+
 def _prepare(x, **named):
     """Validate x [rows, C] (and tensors of its shape or of [C]) for a
-    launch; per-channel tensors come back as contiguous float32."""
+    launch.  gamma and beta come back as they are (float32, bfloat16 or
+    float16, one type for both); the running stats, mean and inv as
+    contiguous float32 (a no-op for the float32 tensors the layer
+    keeps)."""
     dev = x.device
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernels take float32, bfloat16 or float16, "
@@ -162,21 +207,32 @@ def _prepare(x, **named):
             if not t.is_floating_point():
                 raise TypeError(f"{name} must be floating, got {t.dtype}")
             _check_2d(name, t, dev, None, (c,))
-            out[name] = t.float().contiguous()
-    if not _launchers:
-        build()
+            if name in _AFFINE:
+                if t.dtype not in _DTYPE_CODES:
+                    raise TypeError(f"{name} must be float32, bfloat16 or "
+                                    f"float16, got {t.dtype}")
+                out[name] = t
+            else:
+                out[name] = t.float().contiguous()
+    affine = {out[n].dtype for n in _AFFINE if n in out}
+    if len(affine) > 1:
+        raise TypeError(f"gamma and beta must share one type, got "
+                        f"{sorted(map(str, affine))}")
     return m, c, out
 
 
+def _adt(t) -> int:
+    """The dtype code of the affine tensors in ``_prepare``'s output."""
+    return _DTYPE_CODES[t["gamma"].dtype]
+
+
 def _run(name, counts, *args):
+    if not _launchers:
+        build()
     rc = _launchers[name](*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     counts.launches += 1
-
-
-def _aligned(*ts) -> int:
-    return int(all(t.data_ptr() % 16 == 0 for t in ts))
 
 
 def _stream(dev):
@@ -194,8 +250,8 @@ def _launch_train_fwd(x, gamma, beta, eps):
     with torch.cuda.device(dev):
         _run("dl4j_bn_train_fwd", train_fwd_counts, x.data_ptr(),
              t["gamma"].data_ptr(), t["beta"].data_ptr(), y.data_ptr(),
-             stats.data_ptr(), scratch.data_ptr(), _DTYPE_CODES[x.dtype], m,
-             c, rpc, float(eps), sms, _aligned(x, y), _stream(dev))
+             stats.data_ptr(), scratch.data_ptr(), _DTYPE_CODES[x.dtype],
+             _adt(t), m, c, rpc, float(eps), *_ew_args(x, y), _stream(dev))
     return y, stats[0], stats[1], stats[2]
 
 
@@ -212,8 +268,8 @@ def _launch_train_bwd(x, g, gamma, mean, inv):
         _run("dl4j_bn_train_bwd", train_bwd_counts, x.data_ptr(),
              g.data_ptr(), t["gamma"].data_ptr(), t["mean"].data_ptr(),
              t["inv"].data_ptr(), dx.data_ptr(), dgb.data_ptr(),
-             scratch.data_ptr(), _DTYPE_CODES[x.dtype], m, c, rpc, sms,
-             _aligned(x, g, dx), _stream(dev))
+             scratch.data_ptr(), _DTYPE_CODES[x.dtype], _adt(t), m, c, rpc,
+             *_ew_args(x, g, dx), _stream(dev))
     return dx, dgb[0], dgb[1]
 
 
@@ -225,8 +281,8 @@ def _launch_inference(x, mean, var, gamma, beta, eps):
         _run("dl4j_bn_inference", inference_counts, x.data_ptr(),
              t["mean"].data_ptr(), t["var"].data_ptr(),
              t["gamma"].data_ptr(), t["beta"].data_ptr(), y.data_ptr(),
-             _DTYPE_CODES[x.dtype], m, c, float(eps), _sm_count(dev),
-             _aligned(x, y), _stream(dev))
+             _DTYPE_CODES[x.dtype], _adt(t), m, c, float(eps),
+             *_ew_args(x, y), _stream(dev))
     return y
 
 

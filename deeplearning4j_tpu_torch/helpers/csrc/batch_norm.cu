@@ -13,8 +13,9 @@
 //                   xhat = (x - mean) * inv recomputed from x
 //   inference:      y = (x - mean) * (gamma * rsqrt(var+eps)) + beta
 //
-// x, y, g and dx are float32, bfloat16 or float16; per-channel values and
-// every sum are float32.
+// x, y, g and dx are float32, bfloat16 or float16; gamma and beta are read
+// in their own type (float32, bfloat16 or float16), so the caller casts
+// nothing per call; running stats, moments and every sum are float32.
 //
 // What bounds it: bytes.  Each element takes a few flops against 2-4 bytes
 // moved, far below the ~295 flops a byte at which the H100's memory stops
@@ -29,7 +30,10 @@
 //   - a finalize pass that merges the chunks of a channel in a fixed
 //     order (Chan's formula for the moments) and writes the per-channel
 //     coefficients;
-//   - an elementwise pass, 16-byte vectors where C and the pointers allow.
+//   - an elementwise pass on a 2-D grid of channel slices x row chunks:
+//     a thread keeps its channels' coefficients in registers (worked out
+//     once per thread for inference) and walks its rows with 16-byte
+//     vectors where C and the pointers allow.
 // No float atomics: the moments and gradients are the same run to run.
 // The backward recomputes xhat from x, mean and inv instead of reading a
 // saved xhat: the saved tensor is one [M, C] either way, and the forward
@@ -88,12 +92,13 @@ __device__ __forceinline__ void store_vec(T* p, const float (&f)[V]) {
   }
 }
 
-// per-channel values: scalar loads, served from L1 (C floats per array),
-// so these arrays need no alignment
-template <int V>
-__device__ __forceinline__ void load_chan(const float* p, float (&f)[V]) {
-#pragma unroll
-  for (int j = 0; j < V; ++j) f[j] = __ldg(p + j);
+// one channel's value stored as float32 (code 0), bfloat16 (1) or
+// float16 (2); converting to float32 is exact
+__device__ __forceinline__ float chan(const void* p, int code, int i) {
+  if (code == 1)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  if (code == 2) return __half2float(static_cast<const __half*>(p)[i]);
+  return static_cast<const float*>(p)[i];
 }
 
 // Chan et al.: merge (nb, mb, m2b) into (n, mean, m2)
@@ -159,9 +164,10 @@ bn_moments_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
 __global__ void __launch_bounds__(kTx * kFy)
 bn_moments_finalize(const float* __restrict__ part_mean,
                     const float* __restrict__ part_m2,
-                    const float* __restrict__ gamma,
-                    const float* __restrict__ beta, float* __restrict__ stats,
-                    long long m, int c, int rpc, int n_chunks, float eps) {
+                    const void* __restrict__ gamma,
+                    const void* __restrict__ beta, int adt,
+                    float* __restrict__ stats, long long m, int c, int rpc,
+                    int n_chunks, float eps) {
   __shared__ float sn[kFy][kTx], smean[kFy][kTx], sm2[kFy][kTx];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int ch = blockIdx.x * kTx + tx;
@@ -183,8 +189,8 @@ bn_moments_finalize(const float* __restrict__ part_mean,
     stats[ch] = mean;
     stats[c + ch] = var;
     stats[2 * c + ch] = inv;
-    stats[3 * c + ch] = gamma[ch] * inv;
-    stats[4 * c + ch] = beta[ch];
+    stats[3 * c + ch] = chan(gamma, adt, ch) * inv;
+    stats[4 * c + ch] = chan(beta, adt, ch);
   }
 }
 
@@ -243,7 +249,7 @@ bn_grad_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
 __global__ void __launch_bounds__(kTx * kFy)
 bn_grad_finalize(const float* __restrict__ part_g,
                  const float* __restrict__ part_gx,
-                 const float* __restrict__ gamma,
+                 const void* __restrict__ gamma, int adt,
                  const float* __restrict__ mean, const float* __restrict__ inv,
                  float* __restrict__ dgb, float* __restrict__ coef,
                  long long m, int c, int n_chunks) {
@@ -262,7 +268,7 @@ bn_grad_finalize(const float* __restrict__ part_g,
   if (ty == 0 && ch < c) {
     for (int k = 1; k < kFy; ++k) { sum_g += sg[k][tx]; sum_gx += sgx[k][tx]; }
     const float iv = inv[ch];
-    const float a = gamma[ch] * iv;
+    const float a = chan(gamma, adt, ch) * iv;
     dgb[ch] = sum_gx;
     dgb[c + ch] = sum_g;
     coef[ch] = mean[ch];
@@ -273,77 +279,120 @@ bn_grad_finalize(const float* __restrict__ part_g,
 }
 
 // ------------------------------------------------------------ elementwise
-// out = (x - p0[c]) * P + p2[c] (+ p3[c] * g when kGrad), with
-// P = p1[c], or P = p3[c] * rsqrt(p1[c] + eps) when kInference (p1 = var,
-// p3 = gamma).  Grid-stride over V-element vectors of the flat [M*C]
-// array; a vector never straddles rows (C % V == 0).
-template <typename T, int V, bool kGrad, bool kInference>
+// out = (x - ctr) * scl + sft (+ gsc * g in the backward), per channel,
+// with the coefficients taken once per thread into registers:
+//   kInference: ctr = mean, scl = gamma * rsqrt(var + eps), sft = beta,
+//               from the running stats (float32) and gamma and beta (in
+//               their own type).  The reference kernel's x * scl + (beta
+//               - mean * scl) cancels where scl is large (a variance near
+//               0: 1 / sqrt(eps) = 316 at eps 1e-5), so x is centred
+//               first, as in the training passes;
+//   otherwise:  ctr, scl, sft (and gsc) read from the float32 rows the
+//               finalize kernel wrote.
+// Grid (channel slices, row chunks), block (bx, by): thread (tx, ty) of
+// slice sx owns the V adjacent channels of vector column sx * bx + tx
+// and walks rows ty, ty + by, ... of its chunk, four rows at a time, so
+// x and out move as 16-byte vectors along a row (V = 16 / sizeof(T)) with
+// no per-vector index arithmetic beyond the row offset; V = 1 is the
+// scalar path for a C that is not whole vectors or unaligned pointers.
+enum { kApply = 0, kGradPass = 1, kInference = 2 };
+
+struct Coef {
+  const float* p0;  // kInference: mean; else ctr
+  const float* p1;  // kInference: var; else scl
+  const float* p2;  // sft (training passes)
+  const float* p3;  // gsc (kGradPass)
+  const void* gamma;  // kInference, in type `adt`
+  const void* beta;   // kInference, in type `adt`
+  int adt;
+  float eps;
+};
+
+template <typename T, int V, int kMode>
 __global__ void __launch_bounds__(kThreads)
 bn_elementwise_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                      const float* __restrict__ p0,
-                      const float* __restrict__ p1,
-                      const float* __restrict__ p2,
-                      const float* __restrict__ p3, T* __restrict__ out,
-                      long long n_vec, int c, float eps) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_vec) return;
-  int c0 = (int)((i * V) % c);
-  const int step = (int)((stride * V) % c);
-  for (; i < n_vec; i += stride) {
-    const size_t e = (size_t)i * V;
-    float xv[V], a0[V], a1[V], a2[V], y[V];
-    load_vec<T, V>(x + e, xv);
-    load_chan<V>(p0 + c0, a0);
-    load_chan<V>(p1 + c0, a1);
-    load_chan<V>(p2 + c0, a2);
-    if constexpr (kInference) {
-      float gm[V];
-      load_chan<V>(p3 + c0, gm);
+                      Coef k, T* __restrict__ out, long long m, int c,
+                      int rpc) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col * V >= c) return;
+  const int c0 = col * V;
+  float ctr[V], scl[V], sft[V], gsc[V];
 #pragma unroll
-      for (int j = 0; j < V; ++j) a1[j] = gm[j] * rsqrtf(a1[j] + eps);
+  for (int j = 0; j < V; ++j) {
+    ctr[j] = k.p0[c0 + j];
+    if constexpr (kMode == kInference) {
+      scl[j] = chan(k.gamma, k.adt, c0 + j) * rsqrtf(k.p1[c0 + j] + k.eps);
+      sft[j] = chan(k.beta, k.adt, c0 + j);
+    } else {
+      scl[j] = k.p1[c0 + j];
+      sft[j] = k.p2[c0 + j];
+      if constexpr (kMode == kGradPass) gsc[j] = k.p3[c0 + j];
+    }
+  }
+  const long long r1 = min((long long)(blockIdx.y + 1) * rpc, m);
+  const long long by = blockDim.y;
+  long long r = (long long)blockIdx.y * rpc + threadIdx.y;
+  auto row = [&](const float (&xv)[V], const float (&gv)[V], long long rr) {
+    float y[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      y[j] = (xv[j] - ctr[j]) * scl[j] + sft[j];
+      if constexpr (kMode == kGradPass) y[j] += gsc[j] * gv[j];
+    }
+    store_vec<T, V>(out + (size_t)rr * c + c0, y);
+  };
+  for (; r + 3 * by < r1; r += 4 * by) {
+    float xv[4][V], gv[4][V];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      load_vec<T, V>(x + (size_t)(r + u * by) * c + c0, xv[u]);
+      if constexpr (kMode == kGradPass)
+        load_vec<T, V>(g + (size_t)(r + u * by) * c + c0, gv[u]);
     }
 #pragma unroll
-    for (int j = 0; j < V; ++j) y[j] = (xv[j] - a0[j]) * a1[j] + a2[j];
-    if constexpr (kGrad) {
-      float gv[V], a3[V];
-      load_vec<T, V>(g + e, gv);
-      load_chan<V>(p3 + c0, a3);
-#pragma unroll
-      for (int j = 0; j < V; ++j) y[j] += a3[j] * gv[j];
-    }
-    store_vec<T, V>(out + e, y);
-    c0 += step;
-    if (c0 >= c) c0 -= c;
+    for (int u = 0; u < 4; ++u) row(xv[u], gv[u], r + u * by);
+  }
+  for (; r < r1; r += by) {
+    float xv[V], gv[V];
+    load_vec<T, V>(x + (size_t)r * c + c0, xv);
+    if constexpr (kMode == kGradPass)
+      load_vec<T, V>(g + (size_t)r * c + c0, gv);
+    row(xv, gv, r);
   }
 }
 
-template <typename T, int V, bool kGrad, bool kInference>
-cudaError_t elementwise(const void* x, const void* g, const float* p0,
-                        const float* p1, const float* p2, const float* p3,
-                        void* out, long long m, int c, float eps, int sms,
-                        cudaStream_t s) {
-  const long long n_vec = m * c / V;
-  const long long want = (n_vec + kThreads - 1) / kThreads;
-  const int blocks = (int)min(want, (long long)sms * 8);
-  bn_elementwise_kernel<T, V, kGrad, kInference><<<blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), p0, p1, p2, p3,
-      static_cast<T*>(out), n_vec, c, eps);
-  return cudaGetLastError();
+// The elementwise grid, as the caller sized it (``elementwise_grid`` in
+// batch_norm.py): vec is 1 or 16 / sizeof(T), block (bx, by), rpc rows a
+// chunk.
+struct Grid {
+  int vec, bx, by, rpc;
+};
+
+inline bool grid_ok(const Grid& gr, long long m, int c, int kv) {
+  return (gr.vec == 1 || (gr.vec == kv && c % kv == 0)) && gr.bx >= 1 &&
+         gr.by >= 1 && gr.bx * gr.by <= kThreads && gr.rpc >= 1 &&
+         (m + gr.rpc - 1) / gr.rpc <= 65535;
 }
 
-// 16-byte vectors when every row is whole vectors and the pointers allow
-template <typename T, bool kGrad, bool kInference>
-cudaError_t elementwise_any(const void* x, const void* g, const float* p0,
-                            const float* p1, const float* p2, const float* p3,
-                            void* out, long long m, int c, float eps, int sms,
-                            int vec_ok, cudaStream_t s) {
+template <typename T, int kMode>
+cudaError_t elementwise(const void* x, const void* g, const Coef& k,
+                        void* out, long long m, int c, const Grid& gr,
+                        cudaStream_t s) {
   constexpr int kV = 16 / sizeof(T);
-  if (vec_ok && c % kV == 0)
-    return elementwise<T, kV, kGrad, kInference>(x, g, p0, p1, p2, p3, out,
-                                                 m, c, eps, sms, s);
-  return elementwise<T, 1, kGrad, kInference>(x, g, p0, p1, p2, p3, out, m,
-                                              c, eps, sms, s);
+  if (!grid_ok(gr, m, c, kV)) return cudaErrorInvalidValue;
+  const int cols = c / gr.vec;
+  const dim3 grid((cols + gr.bx - 1) / gr.bx,
+                  (unsigned)((m + gr.rpc - 1) / gr.rpc));
+  const dim3 block(gr.bx, gr.by);
+  if (gr.vec == kV)
+    bn_elementwise_kernel<T, kV, kMode><<<grid, block, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), k,
+        static_cast<T*>(out), m, c, gr.rpc);
+  else
+    bn_elementwise_kernel<T, 1, kMode><<<grid, block, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g), k,
+        static_cast<T*>(out), m, c, gr.rpc);
+  return cudaGetLastError();
 }
 
 inline int n_chunks_of(long long m, int rpc) {
@@ -351,9 +400,9 @@ inline int n_chunks_of(long long m, int rpc) {
 }
 
 template <typename T>
-cudaError_t train_fwd(const void* x, const float* gamma, const float* beta,
-                      void* y, float* stats, float* scratch, long long m,
-                      int c, int rpc, float eps, int sms, int vec_ok,
+cudaError_t train_fwd(const void* x, const void* gamma, const void* beta,
+                      int adt, void* y, float* stats, float* scratch,
+                      long long m, int c, int rpc, float eps, const Grid& gr,
                       cudaStream_t s) {
   const int n_chunks = n_chunks_of(m, rpc);
   const int ctiles = (c + kTx - 1) / kTx;
@@ -364,20 +413,20 @@ cudaError_t train_fwd(const void* x, const float* gamma, const float* beta,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bn_moments_finalize<<<ctiles, dim3(kTx, kFy), 0, s>>>(
-      part_mean, part_m2, gamma, beta, stats, m, c, rpc, n_chunks, eps);
+      part_mean, part_m2, gamma, beta, adt, stats, m, c, rpc, n_chunks, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // y = (x - mean) * (gamma * inv) + beta
-  return elementwise_any<T, false, false>(x, nullptr, stats, stats + 3 * c,
-                                          stats + 4 * c, nullptr, y, m, c,
-                                          0.f, sms, vec_ok, s);
+  const Coef k{stats, stats + 3 * c, stats + 4 * c, nullptr,
+               nullptr, nullptr, 0, 0.f};
+  return elementwise<T, kApply>(x, nullptr, k, y, m, c, gr, s);
 }
 
 template <typename T>
-cudaError_t train_bwd(const void* x, const void* g, const float* gamma,
-                      const float* mean, const float* inv, void* dx,
+cudaError_t train_bwd(const void* x, const void* g, const void* gamma,
+                      int adt, const float* mean, const float* inv, void* dx,
                       float* dgb, float* scratch, long long m, int c, int rpc,
-                      int sms, int vec_ok, cudaStream_t s) {
+                      const Grid& gr, cudaStream_t s) {
   const int n_chunks = n_chunks_of(m, rpc);
   const int ctiles = (c + kTx - 1) / kTx;
   float* part_g = scratch;
@@ -389,88 +438,98 @@ cudaError_t train_bwd(const void* x, const void* g, const float* gamma,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bn_grad_finalize<<<ctiles, dim3(kTx, kFy), 0, s>>>(
-      part_g, part_gx, gamma, mean, inv, dgb, coef, m, c, n_chunks);
+      part_g, part_gx, gamma, adt, mean, inv, dgb, coef, m, c, n_chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // dx = (x - mean) * coef1 + coef2 + a * g
-  return elementwise_any<T, true, false>(x, g, coef, coef + c, coef + 2 * c,
-                                         coef + 3 * c, dx, m, c, 0.f, sms,
-                                         vec_ok, s);
+  const Coef k{coef, coef + c, coef + 2 * c, coef + 3 * c,
+               nullptr, nullptr, 0, 0.f};
+  return elementwise<T, kGradPass>(x, g, k, dx, m, c, gr, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, y, g and dx share it);
-// every other pointer is float32.  Shapes: x, y, g, dx [m, c]; gamma,
-// beta, mean, var, inv [c]; stats [5, c] (mean, var, inv, gamma*inv,
-// beta); dgb [2, c] (dgamma, dbeta); scratch 2*n_chunks*c floats (forward) or
-// 2*n_chunks*c + 4*c (backward), n_chunks = ceil(m / rows_per_chunk).
-// vec_ok: the caller found x, y, g and dx 16-byte aligned.  Each returns the
-// cudaError_t of its launches (the forward and backward launch three
-// kernels each, the inference one); the caller validates shapes,
-// contiguity and alignment.
+// adt: the same codes for gamma and beta (gamma alone in the backward),
+// read in their own type; mean, var and inv are float32, as are stats,
+// dgb and scratch.  Shapes: x, y, g, dx [m, c]; gamma, beta, mean, var,
+// inv [c]; stats [5, c] (mean, var, inv, gamma*inv, beta); dgb [2, c]
+// (dgamma, dbeta); scratch 2*n_chunks*c floats (forward) or 2*n_chunks*c +
+// 4*c (backward), n_chunks = ceil(m / rows_per_chunk).  The elementwise
+// pass runs on the grid (vec, bx, by, ew_rpc) the caller sized: vec = 16 /
+// sizeof(x's type) only when C is whole vectors and x, y, g and dx are
+// 16-byte aligned, else 1.  Each returns the cudaError_t of its launches
+// (the forward and backward launch three kernels each, the inference
+// one); the caller validates shapes, contiguity and alignment.
 
-extern "C" int dl4j_bn_train_fwd(const void* x, const float* gamma,
-                                 const float* beta, void* y, float* stats,
-                                 float* scratch, int dtype, long long m,
-                                 int c, int rows_per_chunk, float eps,
-                                 int sms, int vec_ok, void* stream) {
-  if (m < 1 || c < 1 || rows_per_chunk < 1 || sms < 1 ||
+extern "C" int dl4j_bn_train_fwd(const void* x, const void* gamma,
+                                 const void* beta, void* y, float* stats,
+                                 float* scratch, int dtype, int adt,
+                                 long long m, int c, int rows_per_chunk,
+                                 float eps, int vec, int bx, int by,
+                                 int ew_rpc, void* stream) {
+  if (m < 1 || c < 1 || rows_per_chunk < 1 || adt < 0 || adt > 2 ||
       n_chunks_of(m, rows_per_chunk) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Grid gr{vec, bx, by, ew_rpc};
   if (dtype == 0)
-    return (int)train_fwd<float>(x, gamma, beta, y, stats, scratch, m, c,
-                                 rows_per_chunk, eps, sms, vec_ok, s);
+    return (int)train_fwd<float>(x, gamma, beta, adt, y, stats, scratch, m,
+                                 c, rows_per_chunk, eps, gr, s);
   if (dtype == 1)
-    return (int)train_fwd<__nv_bfloat16>(x, gamma, beta, y, stats, scratch,
-                                         m, c, rows_per_chunk, eps, sms,
-                                         vec_ok, s);
+    return (int)train_fwd<__nv_bfloat16>(x, gamma, beta, adt, y, stats,
+                                         scratch, m, c, rows_per_chunk, eps,
+                                         gr, s);
   if (dtype == 2)
-    return (int)train_fwd<__half>(x, gamma, beta, y, stats, scratch, m, c,
-                                  rows_per_chunk, eps, sms, vec_ok, s);
+    return (int)train_fwd<__half>(x, gamma, beta, adt, y, stats, scratch, m,
+                                  c, rows_per_chunk, eps, gr, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int dl4j_bn_train_bwd(const void* x, const void* g,
-                                 const float* gamma, const float* mean,
+                                 const void* gamma, const float* mean,
                                  const float* inv, void* dx, float* dgb,
-                                 float* scratch, int dtype, long long m,
-                                 int c, int rows_per_chunk, int sms,
-                                 int vec_ok, void* stream) {
-  if (m < 1 || c < 1 || rows_per_chunk < 1 || sms < 1 ||
+                                 float* scratch, int dtype, int adt,
+                                 long long m, int c, int rows_per_chunk,
+                                 int vec, int bx, int by, int ew_rpc,
+                                 void* stream) {
+  if (m < 1 || c < 1 || rows_per_chunk < 1 || adt < 0 || adt > 2 ||
       n_chunks_of(m, rows_per_chunk) > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Grid gr{vec, bx, by, ew_rpc};
   if (dtype == 0)
-    return (int)train_bwd<float>(x, g, gamma, mean, inv, dx, dgb, scratch,
-                                 m, c, rows_per_chunk, sms, vec_ok, s);
+    return (int)train_bwd<float>(x, g, gamma, adt, mean, inv, dx, dgb,
+                                 scratch, m, c, rows_per_chunk, gr, s);
   if (dtype == 1)
-    return (int)train_bwd<__nv_bfloat16>(x, g, gamma, mean, inv, dx, dgb,
-                                         scratch, m, c, rows_per_chunk, sms,
-                                         vec_ok, s);
+    return (int)train_bwd<__nv_bfloat16>(x, g, gamma, adt, mean, inv, dx,
+                                         dgb, scratch, m, c, rows_per_chunk,
+                                         gr, s);
   if (dtype == 2)
-    return (int)train_bwd<__half>(x, g, gamma, mean, inv, dx, dgb, scratch,
-                                  m, c, rows_per_chunk, sms, vec_ok, s);
+    return (int)train_bwd<__half>(x, g, gamma, adt, mean, inv, dx, dgb,
+                                  scratch, m, c, rows_per_chunk, gr, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int dl4j_bn_inference(const void* x, const float* mean,
-                                 const float* var, const float* gamma,
-                                 const float* beta, void* y, int dtype,
-                                 long long m, int c, float eps, int sms,
-                                 int vec_ok, void* stream) {
-  if (m < 1 || c < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+                                 const float* var, const void* gamma,
+                                 const void* beta, void* y, int dtype,
+                                 int adt, long long m, int c, float eps,
+                                 int vec, int bx, int by, int ew_rpc,
+                                 void* stream) {
+  if (m < 1 || c < 1 || adt < 0 || adt > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Grid gr{vec, bx, by, ew_rpc};
   // y = (x - mean) * (gamma * rsqrt(var + eps)) + beta
+  const Coef k{mean, var, nullptr, nullptr, gamma, beta, adt, eps};
   if (dtype == 0)
-    return (int)elementwise_any<float, false, true>(
-        x, nullptr, mean, var, beta, gamma, y, m, c, eps, sms, vec_ok, s);
+    return (int)elementwise<float, kInference>(x, nullptr, k, y, m, c, gr, s);
   if (dtype == 1)
-    return (int)elementwise_any<__nv_bfloat16, false, true>(
-        x, nullptr, mean, var, beta, gamma, y, m, c, eps, sms, vec_ok, s);
+    return (int)elementwise<__nv_bfloat16, kInference>(x, nullptr, k, y, m,
+                                                       c, gr, s);
   if (dtype == 2)
-    return (int)elementwise_any<__half, false, true>(
-        x, nullptr, mean, var, beta, gamma, y, m, c, eps, sms, vec_ok, s);
+    return (int)elementwise<__half, kInference>(x, nullptr, k, y, m, c, gr,
+                                                s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,9 +12,12 @@
 //   dQ:      q-major, recomputes p = exp(s - lse);
 //            ds = p * (dout v^T - delta); dq = ds k * scale.
 //   dK/dV:   k-major, the same p and ds; dv = p^T dout; dk = ds^T q * scale.
-// delta = rowsum(dout * o) is computed by the caller (a torch reduction, as
-// the reference leaves it to XLA).  Neither backward kernel uses atomics:
-// each block owns its output rows, so gradients are the same run to run.
+// delta = rowsum(dout * o) [B, H, T] float32: on the wgmma route the dQ
+// kernel computes it from the o and dout tiles it holds and writes it for
+// dK/dV, which runs after it; on the other routes the caller computes it
+// (a torch reduction, as the reference leaves it to XLA) and dQ reads it.
+// Neither backward kernel uses atomics: each block owns its output rows,
+// so gradients are the same run to run.
 //
 // Mask, as the reference's `_causal_mask`: keep kpos <= qpos and, with a
 // window, kpos > qpos - window.  Key (or query) tiles outside that band are
@@ -29,18 +32,19 @@
 // which the H100's memory stops being the limit.  So the products go to the
 // tensor cores, by three routes (`path`, queried by dl4j_flash_path):
 //
-// - wgmma (bfloat16 and float16 with D in {64, 128}: the forward and dK/dV
-//   of the main path).  Per block a producer warpgroup whose one thread
+// - wgmma (bfloat16 and float16 with D in {64, 128}: all three kernels of
+//   the main path).  Per block a producer warpgroup whose one thread
 //   keeps TMA loads in flight into a two-stage ring guarded by mbarriers,
 //   and two consumer warpgroups of 64 rows each on wgmma m64nNk16: q k^T
 //   and the other score products with both operands in shared memory, p v
-//   (and p^T do, ds^T q) with p taken straight from the accumulators as
-//   the register A operand and the shared-memory tile read transposed.
-//   Forward: one block per (b, h, tile of 128 queries), 128-key tiles.
-//   dK/dV: one block per (b, h, tile of 128 keys), 64-query steps, dK and
-//   dV summed in registers.  The tensor maps zero-fill rows past T.
-// - mma.sync m16n8k16 (the same types with D in {16, 32, 64, 128}
-//   otherwise, and dQ): one block of 4 warps per (b, h, tile of 64 rows),
+//   (and p^T do, ds^T q, ds k) with p or ds taken straight from the
+//   accumulators as the register A operand and the shared-memory tile
+//   read transposed.  Forward: one block per (b, h, tile of 128 queries),
+//   128-key tiles.  dQ: the same blocks, 64-key steps.  dK/dV: one block
+//   per (b, h, tile of 128 keys), 64-query steps, dK and dV summed in
+//   registers.  The tensor maps zero-fill rows past T.
+// - mma.sync m16n8k16 (the same types with D in {16, 32}): one block of
+//   4 warps per (b, h, tile of 64 rows),
 //   each warp 16 rows; the score tile, p and ds stay in the accumulator
 //   registers, whose layout is also the A operand of the next product.
 //   Tiles are staged in shared memory with synchronous loads.
@@ -120,15 +124,18 @@ __device__ __forceinline__ bool live(int q, int k, const Shape& s) {
   return k <= q && (s.window == 0 || k > q - s.window);
 }
 
-// Key tiles [k_lo, k_hi) that a query tile [q0, q0 + bm) sees.
+// Key tiles [k_lo, k_hi) that a query tile [q0, q0 + bm) sees, walked in
+// steps of `step` keys (k_lo a multiple of it).
 __device__ __forceinline__ void key_range(int q0, int bm, const Shape& s,
-                                          int* k_lo, int* k_hi) {
+                                          int* k_lo, int* k_hi,
+                                          int step = 0) {
+  if (step == 0) step = bm;
   int lo = 0, hi = s.t;
   if (s.causal) {
     hi = min(s.t, q0 + bm);
     if (s.window) lo = max(0, q0 - s.window + 1);
   }
-  *k_lo = (lo / bm) * bm;
+  *k_lo = (lo / step) * step;
   *k_hi = hi;
 }
 
@@ -497,9 +504,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// mma.sync path: bfloat16 or float16 (the element type E), the forward and
-// dK/dV with D in {16, 32}, dQ with D in {16, 32, 64, 128} (the forward
-// and dK/dV at 64 and 128 take the wgmma path below).  The same tiles,
+// mma.sync path: bfloat16 or float16 (the element type E) with D in
+// {16, 32} (at 64 and 128 all three kernels take the wgmma path below).
+// The same tiles,
 // masks, casts and loops as above, with
 // every product on mma.sync m16n8k16 (E in, f32 accumulate).  Each warp
 // owns 16 rows of the block's tile; the fragment layouts are PTX's (the
@@ -983,8 +990,8 @@ flash_dkv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma path: bfloat16 and float16 with D in {64, 128}, forward and dK/dV
-// (dQ stays on mma.sync).  A block is three warpgroups: warpgroup 0 is the
+// wgmma path: bfloat16 and float16 with D in {64, 128}, forward, dQ and
+// dK/dV.  A block is three warpgroups: warpgroup 0 is the
 // producer, and one thread of it issues every TMA load into a ring of
 // kStages shared-memory stages, each guarded by a `full` mbarrier (TMA
 // bytes arrived) and an `empty` one (both consumers done with it);
@@ -1001,7 +1008,7 @@ flash_dkv_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
 
 constexpr int kWgThreads = 384;  // producer + two consumer warpgroups
 constexpr int kTile = 128;       // rows of a query tile (fwd), key tile (both)
-constexpr int kStep = 64;        // query rows a dK/dV step
+constexpr int kStep = 64;        // query rows a dK/dV step, keys a dQ step
 constexpr int kStages = 2;
 constexpr int kConsumerWarps = 8;
 constexpr int kBoxRow = 128;     // bytes of a box row: 64 16-bit values
@@ -1319,6 +1326,192 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap qmap,
   }
 }
 
+// dQ, q-major: one block per (b, h, tile of 128 queries), heaviest first.
+// The producer's one thread loads the query tile's Q, dO and O once, then
+// streams 64-key K and V steps through the ring.  Each consumer first
+// takes delta = rowsum(dO * O) for its 64 rows from the dO and O tiles:
+// the four lanes that share a row (the accumulators' layout) each sum a
+// quarter of it and combine by shuffles, reading the swizzled tiles at
+// the same offset in both (a row's chunks are permuted alike in the two,
+// so the products pair up), and lane t = 0 writes it for dK/dV.  A step is
+// S = Q K^T and dP = dO V^T (SS, both K-major; p taken while dP runs),
+// ds = p (dP - delta) rounded to E in registers, and dQ += ds K (RS, the
+// K tile read MN-major).  At 64-key steps S and dP are 32 accumulators
+// each beside dQ's 64 (D = 128).
+template <typename E, int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_dq_wgmma(__grid_constant__ const CUtensorMap qmap,
+               __grid_constant__ const CUtensorMap kmap,
+               __grid_constant__ const CUtensorMap vmap,
+               __grid_constant__ const CUtensorMap dmap,
+               __grid_constant__ const CUtensorMap omap,
+               const float* __restrict__ lse, float* __restrict__ delta,
+               uint16_t* __restrict__ dq, Shape s) {
+  constexpr int DT = D / 8, NK = kStep / 8;
+  constexpr int QBOX = kTile * kBoxRow, QTILE = (D / 64) * QBOX;
+  constexpr int KBOX = kStep * kBoxRow, KTILE = (D / 64) * KBOX;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = aligned_smem(smem_raw);
+  uint8_t* dos = qs + QTILE;
+  uint8_t* os = dos + QTILE;
+  uint8_t* kv = os + QTILE;  // stage st: K at kv + 2 st KTILE, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kv + 2 * kStages * KTILE);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.y;
+  const int b = bh / s.h, h = bh % s.h;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest rows first
+  int k_lo, k_hi;
+  key_range(q0, kTile, s, &k_lo, &k_hi, kStep);
+  const int n_steps = (k_hi - k_lo + kStep - 1) / kStep;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {  // producer
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, 3 * QTILE);
+      tma_tile<D>(qs, QBOX, &qmap, q_full, b, h, q0);
+      tma_tile<D>(dos, QBOX, &dmap, q_full, b, h, q0);
+      tma_tile<D>(os, QBOX, &omap, q_full, b, h, q0);
+      for (int i = 0; i < n_steps; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) hopper::mbar_wait(&empty[st], (i / kStages - 1) & 1);
+        uint8_t* kt = kv + 2 * st * KTILE;
+        const int k0 = k_lo + i * kStep;
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * KTILE);
+        tma_tile<D>(kt, KBOX, &kmap, &full[st], b, h, k0);
+        tma_tile<D>(kt + KTILE, KBOX, &vmap, &full[st], b, h, k0);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<240>();
+  const int wg = warp / 4 - 1;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's 64 rows
+  const int lr[2] = {64 * wg + (warp % 4) * 16 + g,
+                     64 * wg + (warp % 4) * 16 + g + 8};  // rows in the tile
+  const int rows[2] = {q0 + lr[0], q0 + lr[1]};
+  const uint32_t q_addr = hopper::smem_addr(qs) + 64 * wg * kBoxRow;
+  const uint32_t do_addr = hopper::smem_addr(dos) + 64 * wg * kBoxRow;
+  const float sl2 = s.scale * kLog2e;
+  float lse_r[2], del_r[2];  // lse in log2 units
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    lse_r[r] = rows[r] < s.t ? lse[(size_t)bh * s.t + rows[r]] * kLog2e : 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  // delta: lane t takes 16-byte chunks t and t + 4 of each box row, the
+  // order swapped for odd g so that a quarter warp's 8 loads hit 8
+  // distinct chunks of the 128-byte rows (no bank conflict)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = 0.f;
+#pragma unroll
+    for (int bx = 0; bx < D / 64; ++bx)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int off = bx * QBOX + lr[r] * kBoxRow + (t + 4 * (u ^ (g & 1))) * 16;
+        const uint4 ov = *reinterpret_cast<const uint4*>(os + off);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dos + off);
+        const E* oe = reinterpret_cast<const E*>(&ov);
+        const E* de = reinterpret_cast<const E*>(&dv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          sum = fmaf(to_f32(oe[j]), to_f32(de[j]), sum);
+      }
+    del_r[r] = quad_sum(sum);
+    if (t == 0 && rows[r] < s.t) delta[(size_t)bh * s.t + rows[r]] = del_r[r];
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i % kStages;
+    const int k0 = k_lo + i * kStep;
+    hopper::mbar_wait(&full[st], (i / kStages) & 1);
+    if (band_hit(r0, r0 + 64, k0, k0 + kStep, s)) {
+      const uint32_t k_addr = hopper::smem_addr(kv + 2 * st * KTILE);
+      const uint32_t v_addr = k_addr + KTILE;
+      float sc[NK][4], dp[NK][4];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<E>(sc, kmajor<kTile>(q_addr, kk),
+                            kmajor<kStep>(k_addr, kk), kk > 0);
+      hopper::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<E>(dp, kmajor<kTile>(do_addr, kk),
+                            kmajor<kStep>(v_addr, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      hopper::fence_acc(sc);
+
+      // p = 2^(s * scale * log2 e - lse), 0 where masked
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = ex2(fmaf(sc[j][e], sl2, -lse_r[e >> 1]));
+      if (!tile_full(r0, 64, k0, kStep, s)) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!live(rows[e >> 1], k0 + j * 8 + 2 * t + (e & 1), s))
+              sc[j][e] = 0.f;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(dp);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = sc[j][e] * (dp[j][e] - del_r[e >> 1]);
+      uint32_t da[NK / 2][4];  // ds rounded to E
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk) acc_to_a<E, NK>(da[kk], dp, kk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk)
+        hopper::wgmma_rs<E>(acc, da[kk], mnmajor<kStep>(k_addr, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_acc(acc);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= s.t) continue;
+    uint16_t* row = dq + (((size_t)b * s.t + rows[r]) * s.h + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(row + dt * 8 + 2 * t) =
+          pack2<E>(acc[dt][2 * r] * s.scale, acc[dt][2 * r + 1] * s.scale);
+  }
+}
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   if (smem > 48 * 1024)
@@ -1327,9 +1520,11 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaSuccess;
 }
 
+// o is the forward's output and dQ's input; delta is dQ's output on the
+// wgmma route and an input everywhere else
 struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void *o, *out_lse, *dq, *dk, *dv;
+  const void *q, *k, *v, *dout, *lse;
+  void *o, *out_lse, *delta, *dq, *dk, *dv;
   int b;
   Shape s;
   cudaStream_t stream;
@@ -1402,7 +1597,7 @@ cudaError_t dispatch(int which, const Args& a) {
   return run<T, 32, 16>(which, a);
 }
 
-template <typename E, int DT>
+template <typename E, int DT>  // D = 8 * DT in {16, 32}
 cudaError_t run_mma(int which, const Args& a) {
   constexpr int ld = DT * 8 + 8;
   const dim3 grid((a.s.t + kMmaRows - 1) / kMmaRows, a.b * a.s.h);
@@ -1410,7 +1605,14 @@ cudaError_t run_mma(int which, const Args& a) {
   const uint16_t* k = static_cast<const uint16_t*>(a.k);
   const uint16_t* v = static_cast<const uint16_t*>(a.v);
   cudaError_t err;
-  if (which == 1) {
+  if (which == 0) {
+    const size_t smem = sizeof(uint16_t) * 3 * kMmaRows * ld;
+    auto kernel = flash_fwd_mma<E, DT>;
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, kMmaThreads, smem, a.stream>>>(
+        q, k, v, static_cast<uint16_t*>(a.o),
+        static_cast<float*>(a.out_lse), a.s);
+  } else if (which == 1) {
     const size_t smem = sizeof(uint16_t) * 4 * kMmaRows * ld;
     auto kernel = flash_dq_mma<E, DT>;
     if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
@@ -1418,27 +1620,15 @@ cudaError_t run_mma(int which, const Args& a) {
         q, k, v, static_cast<const uint16_t*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
         static_cast<uint16_t*>(a.dq), a.s);
-  } else if constexpr (DT <= 4) {  // D 64 and 128: wgmma (`path`)
-    if (which == 0) {
-      const size_t smem = sizeof(uint16_t) * 3 * kMmaRows * ld;
-      auto kernel = flash_fwd_mma<E, DT>;
-      if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
-      kernel<<<grid, kMmaThreads, smem, a.stream>>>(
-          q, k, v, static_cast<uint16_t*>(a.o),
-          static_cast<float*>(a.out_lse), a.s);
-    } else {
-      const size_t smem = sizeof(uint16_t) * 2 * (kMmaRows + kMmaQRows) * ld +
-                          sizeof(float) * 2 * kMmaQRows;
-      auto kernel = flash_dkv_mma<E, DT>;
-      if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
-      kernel<<<grid, kMmaThreads, smem, a.stream>>>(
-          q, k, v, static_cast<const uint16_t*>(a.dout),
-          static_cast<const float*>(a.lse),
-          static_cast<const float*>(a.delta), static_cast<uint16_t*>(a.dk),
-          static_cast<uint16_t*>(a.dv), a.s);
-    }
   } else {
-    return cudaErrorInvalidValue;
+    const size_t smem = sizeof(uint16_t) * 2 * (kMmaRows + kMmaQRows) * ld +
+                        sizeof(float) * 2 * kMmaQRows;
+    auto kernel = flash_dkv_mma<E, DT>;
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, kMmaThreads, smem, a.stream>>>(
+        q, k, v, static_cast<const uint16_t*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<uint16_t*>(a.dk), static_cast<uint16_t*>(a.dv), a.s);
   }
   return cudaGetLastError();
 }
@@ -1511,6 +1701,21 @@ int run_wgmma(int which, const Args& a) {
     kernel<<<grid, kWgThreads, smem, a.stream>>>(
         qm, km, vm, static_cast<uint16_t*>(a.o),
         static_cast<float*>(a.out_lse), a.s);
+  } else if (which == 1) {
+    CUtensorMap om;
+    if ((rc = encode<E>(&qm, a.q, a.b, a.s, kTile)) ||
+        (rc = encode<E>(&km, a.k, a.b, a.s, kStep)) ||
+        (rc = encode<E>(&vm, a.v, a.b, a.s, kStep)) ||
+        (rc = encode<E>(&dm, a.dout, a.b, a.s, kTile)) ||
+        (rc = encode<E>(&om, a.o, a.b, a.s, kTile)))
+      return rc;
+    const size_t smem = 1024 + 3 * tile + 2 * kStages * step +
+                        sizeof(uint64_t) * (1 + 2 * kStages);
+    auto kernel = flash_dq_wgmma<E, D>;
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return (int)err;
+    kernel<<<grid, kWgThreads, smem, a.stream>>>(
+        qm, km, vm, dm, om, static_cast<const float*>(a.lse),
+        static_cast<float*>(a.delta), static_cast<uint16_t*>(a.dq), a.s);
   } else {
     if ((rc = encode<E>(&qm, a.q, a.b, a.s, kStep)) ||
         (rc = encode<E>(&km, a.k, a.b, a.s, kTile)) ||
@@ -1531,14 +1736,15 @@ int run_wgmma(int which, const Args& a) {
 }
 
 // Which kernels a call takes (which: 0 forward, 1 dQ, 2 dK/dV; dtype as
-// the launchers'): 2 the wgmma path (bfloat16 and float16, D in {64, 128},
-// forward and dK/dV), 1 mma.sync (the same types with D in {16, 32, 64,
-// 128} otherwise), 0 the f32 CUDA-core kernels (float32, whose products
-// the reference keeps in f32, and any other D).
+// the launchers'): 2 the wgmma path (bfloat16 and float16, D in {64,
+// 128}), 1 mma.sync (the same types with D in {16, 32}), 0 the f32
+// CUDA-core kernels (float32, whose products the reference keeps in f32,
+// and any other D).  All three kernels of a call take the same route.
 int path(int which, int dtype, int d) {
+  (void)which;
   if (dtype != 1 && dtype != 2) return 0;
-  if (which != 1 && (d == 64 || d == 128)) return 2;
-  return d == 16 || d == 32 || d == 64 || d == 128 ? 1 : 0;
+  if (d == 64 || d == 128) return 2;
+  return d == 16 || d == 32 ? 1 : 0;
 }
 
 template <typename E>
@@ -1548,12 +1754,8 @@ int dispatch_16bit(int which, const Args& a) {
       return a.s.d == 64 ? run_wgmma<E, 64>(which, a)
                          : run_wgmma<E, 128>(which, a);
     case 1:
-      switch (a.s.d) {
-        case 16: return (int)run_mma<E, 2>(which, a);
-        case 32: return (int)run_mma<E, 4>(which, a);
-        case 64: return (int)run_mma<E, 8>(which, a);
-        default: return (int)run_mma<E, 16>(which, a);
-      }
+      return a.s.d == 16 ? (int)run_mma<E, 2>(which, a)
+                         : (int)run_mma<E, 4>(which, a);
     default:
       return (int)dispatch<E>(which, a);
   }
@@ -1579,7 +1781,9 @@ int launch(int which, int dtype, Args& a, int t, int h, int d, int causal,
 // window: 0 for none.  Each launcher returns the cudaError_t of its launch
 // (0 on success), or kMapError + the CUresult of a failed tensor-map
 // encode; the caller validates shapes, contiguity and alignment.
-// dl4j_flash_path says which kernels a call takes (see `path`).
+// dl4j_flash_path says which kernels a call takes (see `path`).  dQ
+// writes delta [B, H, T] float32 on the wgmma route (path 2) and reads
+// it on the others.
 extern "C" int dl4j_flash_path(int which, int dtype, int d) {
   return path(which, dtype, d);
 }
@@ -1599,15 +1803,17 @@ extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,
 }
 
 extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dq, int dtype, int b,
-                             int t, int h, int d, int causal, int window,
-                             float scale, void* stream) {
+                             const void* dout, const void* o,
+                             const void* lse, void* delta, void* dq,
+                             int dtype, int b, int t, int h, int d,
+                             int causal, int window, float scale,
+                             void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.dout = dout;
+  a.o = const_cast<void*>(o);
   a.lse = lse;
   a.delta = delta;
   a.dq = dq;
@@ -1627,7 +1833,7 @@ extern "C" int dl4j_flash_dkv(const void* q, const void* k, const void* v,
   a.v = v;
   a.dout = dout;
   a.lse = lse;
-  a.delta = delta;
+  a.delta = const_cast<void*>(delta);
   a.dk = dk;
   a.dv = dv;
   a.b = b;

@@ -10,11 +10,13 @@ the probabilities from lse.
   built with ``nvcc`` at first use and bound with ``ctypes``): the forward
   (``_fwd_kernel``), dQ (``_dq_kernel``, q-major) and dK/dV
   (``_dkv_kernel``, k-major).  bfloat16 and float16 take the tensor
-  cores: the forward and dK/dV with D in {64, 128} on ``wgmma`` fed by
-  TMA (``csrc/hopper.cuh``), the rest with D in {16, 32, 64, 128} (dQ
-  included) on ``mma.sync``; float32 and other head dims run on the CUDA
-  cores.  ``kernel_path`` says which.  Each launches or raises; nothing
-  falls back.
+  cores: with D in {64, 128} all three on ``wgmma`` fed by TMA
+  (``csrc/hopper.cuh``), with D in {16, 32} on ``mma.sync``; float32 and
+  other head dims run on the CUDA cores.  ``kernel_path`` says which.
+  On the wgmma route dQ also computes delta = rowsum(dO·O) from the tiles
+  it holds and hands it to dK/dV; the other routes take it from the torch
+  reduction ``_row_delta``.  Each launches or raises; nothing falls
+  back.
 - On CPU tensors the same ``autograd.Function`` runs the plain versions
   ``flash_attention_plain_fwd``/``flash_attention_plain_bwd``: a masked
   full softmax in float32 with the kernels' casts.  The kernels are held
@@ -139,7 +141,7 @@ def build() -> cuda_build.Built:
     lib = built.lib
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i] * 7 + [f, p]    # dtype, b, t, h, d, causal, window, scale, stream
-    for name, n_ptr in (("dl4j_flash_fwd", 5), ("dl4j_flash_dq", 7),
+    for name, n_ptr in (("dl4j_flash_fwd", 5), ("dl4j_flash_dq", 8),
                         ("dl4j_flash_dkv", 8)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * n_ptr + tail
@@ -236,23 +238,29 @@ def _launch_fwd(q, k, v, causal, window):
     return o, lse
 
 
-def _launch_dq(q, k, v, do, lse, delta, causal, window):
-    b, t, h, d = _check_kernel_args(q, k, v, (("do", do),))
-    if do.shape != q.shape:
-        raise ValueError(f"do {tuple(do.shape)} must match q {tuple(q.shape)}")
-    for name, x in (("lse", lse), ("delta", delta)):
-        _stats_check(name, x, b, h, t, q.device)
+def _launch_dq(q, k, v, do, o, lse, causal, window):
+    """(dq, delta): on the wgmma route the kernel writes delta itself;
+    on the others ``_row_delta`` computes it first and the kernel reads
+    it."""
+    b, t, h, d = _check_kernel_args(q, k, v, (("do", do), ("o", o)))
+    for name, x in (("do", do), ("o", o)):
+        if x.shape != q.shape:
+            raise ValueError(f"{name} {tuple(x.shape)} must match q "
+                             f"{tuple(q.shape)}")
+    _stats_check("lse", lse, b, h, t, q.device)
+    if kernel_path("dq", q.dtype, d) == "wgmma":
+        delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    else:
+        delta = _row_delta(o, do)
     dq = torch.empty_like(q)
-    if _lib is None:
-        build()
     with torch.cuda.device(q.device):
         rc = _lib.dl4j_flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *_tail(q, b, t, h, d, causal, window), _stream(q.device))
     _raise_on(rc, "dQ")
     dq_counts.launches += 1
-    return dq
+    return dq, delta
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal, window):
@@ -277,8 +285,10 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, window):
 
 def _row_delta(o, do):
     """delta = rowsum(do·o) as float32 [B, H, T]: a torch reduction, as
-    the reference leaves it to XLA."""
-    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    the reference leaves it to XLA (labelled ``flash_row_delta`` in a
+    profile)."""
+    with torch.profiler.record_function("flash_row_delta"):
+        return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_fwd(q, k, v, *, causal: bool = False,
@@ -302,8 +312,7 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool = False,
         dq_counts.plain_calls += 1
         dkv_counts.plain_calls += 1
         return flash_attention_plain_bwd(q, k, v, o, lse, do, causal, window)
-    delta = _row_delta(o, do)
-    dq = _launch_dq(q, k, v, do, lse, delta, causal, window)
+    dq, delta = _launch_dq(q, k, v, do, o, lse, causal, window)
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, window)
     return dq, dk, dv
 

@@ -1,10 +1,12 @@
 """What both facades share — counterpart of
 ``deeplearning4j_tpu/models/common.py``: nested-dict tree helpers, the
-lazy ``score_value``, the checks before training and the SGD step
-(loss -> autograd -> updater -> in-place update -> new layer state)."""
+lazy ``score_value``, the flat parameter vector and ``clone``, the checks
+before training, the SGD step (loss -> autograd -> updater -> in-place
+update -> new layer state) and the raise for what is not ported yet."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.optimize import updaters as upd
@@ -43,6 +45,69 @@ def _tree_like(template, leaves):
 def trainable(params):
     """The layers that have parameters."""
     return {k: v for k, v in params.items() if v}
+
+
+def tree_clone(tree):
+    """A deep copy of a nested dict of tensors: each tensor cloned on its
+    device, anything else kept as it is."""
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return tree.detach().clone()
+    return tree
+
+
+def not_ported(facade: str, what: str, where: str):
+    raise NotImplementedError(f"{facade}.{what} is not ported yet ({where})")
+
+
+class FlatParamsMixin:
+    """``num_params``, the flat parameter vector and ``clone`` of a facade
+    whose ``params`` is a nested dict (reference ``sequential.py:100-122``,
+    ``graph.py:368-385``).  The vector's order is ``tree_leaves``'s, sorted
+    keys at every level as in ``jax.tree_util.tree_leaves``, so a port
+    vector and a JAX vector of the same weights are equal element for
+    element."""
+
+    def num_params(self) -> int:
+        # nested: composite layers (ResidualBlock) hold dicts of params
+        return sum(p.numel() for p in tree_leaves(self.params))
+
+    def params_to_vector(self) -> np.ndarray:
+        """Every parameter, flattened into one float32 numpy vector."""
+        leaves = tree_leaves(self.params)
+        if not leaves:
+            return np.zeros((0,), np.float32)
+        return np.concatenate([p.detach().float().cpu().numpy().reshape(-1)
+                               for p in leaves])
+
+    def set_params_vector(self, vec) -> None:
+        """Write ``vec`` (``params_to_vector``'s layout) into the params,
+        in place: each leaf keeps its dtype and device."""
+        vec = np.asarray(vec)
+        leaves = tree_leaves(self.params)
+        total = sum(p.numel() for p in leaves)
+        if total != vec.size:
+            raise ValueError(
+                f"param vector size {vec.size} != model size {total}")
+        flat = torch.from_numpy(np.ascontiguousarray(vec.reshape(-1)))
+        off = 0
+        with torch.no_grad():
+            for p in leaves:
+                n = p.numel()
+                p.copy_(flat[off:off + n].reshape(p.shape))
+                off += n
+
+    def clone(self):
+        """An independent copy on the same device: params, layer state
+        and updater state deep-copied, the iteration count carried."""
+        net = type(self)(self.conf)
+        net.device = self.device
+        net.params = tree_clone(self.params)
+        net.net_state = tree_clone(self.net_state)
+        net.updater_state = tree_clone(self.updater_state)
+        net.iteration = self.iteration
+        return net
 
 
 class LazyScoreMixin:

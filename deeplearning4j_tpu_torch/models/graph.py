@@ -13,9 +13,10 @@ from ``set_input_types``, ``init``, the forward (the compute-dtype cast
 inside the graph, one key per node, output nodes stopping at their
 pre-output), the loss (float32), the SGD train step with per-layer
 learning rates, ``fit`` over a pair, an iterable or a dict of inputs,
-``output``, ``score``, the lazy ``score_value``, ``num_params`` and
-``save``/``load``.  What else the reference's graph does raises
-``NotImplementedError`` naming its ROADMAP item.
+``output``, ``feed_forward``, ``score``, the lazy ``score_value``,
+``num_params``, the flat parameter vector, ``clone``, YAML as well as
+JSON, and ``save``/``load``.  What else the reference's graph does
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ from deeplearning4j_tpu_torch.backend.device import (
 )
 from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models.common import (
-    LazyScoreMixin, cast_tree, check_trainable, sgd_step, trainable,
-    tree_leaves, unpack_batch,
+    FlatParamsMixin, LazyScoreMixin, cast_tree, check_trainable, not_ported,
+    sgd_step, trainable, unpack_batch,
 )
 from deeplearning4j_tpu_torch.models.sequential import init_net_state
 from deeplearning4j_tpu_torch.models.vertices import (
@@ -153,6 +154,18 @@ class GraphConfiguration:
             "introspection": self.introspection,
             "numerics": self.numerics,
         }, indent=2)
+
+    def to_yaml(self) -> str:
+        """The JSON's content as YAML (reference ``graph.py:127``)."""
+        import yaml
+
+        return yaml.safe_dump(json.loads(self.to_json()), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "GraphConfiguration":
+        import yaml
+
+        return GraphConfiguration.from_json(json.dumps(yaml.safe_load(s)))
 
     @staticmethod
     def from_json(s: str) -> "GraphConfiguration":
@@ -282,12 +295,7 @@ def _infer_shapes(conf: GraphConfiguration, input_types: Dict[str, InputType],
         conf, nodes=tuple(new_nodes[n.name] for n in conf.nodes))
 
 
-def _not_ported(what: str, where: str):
-    raise NotImplementedError(f"ComputationGraph.{what} is not ported yet "
-                              f"({where})")
-
-
-class ComputationGraph(LazyScoreMixin):
+class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
     """DAG-network facade with ``MultiLayerNetwork``'s API surface."""
 
     def __init__(self, conf: GraphConfiguration):
@@ -323,9 +331,6 @@ class ComputationGraph(LazyScoreMixin):
         return self
 
     _trainable = staticmethod(trainable)
-
-    def num_params(self) -> int:
-        return sum(p.numel() for p in tree_leaves(self.params))
 
     # ------------------------------------------------------------- forward
     def _forward(self, params, net_state, inputs: Dict[str, torch.Tensor],
@@ -431,6 +436,28 @@ class ComputationGraph(LazyScoreMixin):
                 outs.append(activations.get(node.layer.activation)(pre))
         return outs[0] if len(outs) == 1 else outs
 
+    def feed_forward(self, inputs, train: bool = False, fmask=None):
+        """Every vertex's activation (the inputs too) as a dict by name;
+        output vertices carry their post-activation values.  float32 at
+        the API boundary under a compute dtype (reference ``graph.py:1029``).
+        """
+        inputs = self._on_device(self._as_input_dict(inputs))
+        rng = self._keys.next() if train else None
+        with torch.no_grad():
+            acts, _ = self._forward(self.params, self.net_state, inputs,
+                                    train=train, rng=rng,
+                                    fmask=self._on_device(fmask))
+        cd = self.conf.compute_dtype is not None
+        out = {}
+        for name, a in acts.items():
+            if name in self.conf.outputs:
+                a = activations.get(self.nodes[name].layer.activation)(
+                    a.float() if cd else a)
+            elif cd and torch.is_tensor(a) and a.is_floating_point():
+                a = a.float()
+            out[name] = a
+        return out
+
     def score(self, inputs=None, labels=None, dataset=None, fmask=None,
               lmask=None) -> float:
         """Loss of (inputs, labels) at inference (no dropout, running
@@ -484,17 +511,21 @@ class ComputationGraph(LazyScoreMixin):
 
     # --------------------------------------------------------- not ported
     def fit_scanned(self, *args, **kwargs):
-        _not_ported("fit_scanned", "PyTorch runs eagerly; CUDA-graph "
-                    "capture of the step is its counterpart, ROADMAP A2")
+        not_ported("ComputationGraph", "fit_scanned", "PyTorch runs "
+                   "eagerly; CUDA-graph capture of the step is its "
+                   "counterpart, ROADMAP A2")
 
     def rnn_time_step(self, *args, **kwargs):
-        _not_ported("rnn_time_step", "the recurrent slice, ROADMAP A6")
+        not_ported("ComputationGraph", "rnn_time_step",
+                   "the recurrent slice, ROADMAP A6")
 
     def pretrain(self, *args, **kwargs):
-        _not_ported("pretrain", "AutoEncoder/RBM, ROADMAP A7")
+        not_ported("ComputationGraph", "pretrain",
+                   "AutoEncoder/RBM, ROADMAP A7")
 
     def set_listeners(self, *listeners):
-        _not_ported("set_listeners", "listeners, ROADMAP A8")
+        not_ported("ComputationGraph", "set_listeners",
+                   "listeners, ROADMAP A8")
 
     # ---------------------------------------------------------- checkpoints
     def save(self, path, save_updater: bool = True) -> None:

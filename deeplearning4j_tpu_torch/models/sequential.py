@@ -1,11 +1,13 @@
 """MultiLayerNetwork — counterpart of ``deeplearning4j_tpu/models/sequential.py``.
 
 Ported: ``init``, the forward with input preprocessors, carries and
-layer state (``_forward``), ``output``, and training: ``_loss_fn`` (data
-loss + regularization, and the new layer state), the train step (loss ->
-autograd -> updater -> parameter update -> new state), ``fit`` over an
-(X, y) pair or an iterable of batches, ``score`` and the lazy
-``score_value``.  Params live in a nested dict
+layer state (``_forward``), ``output`` (with a features mask),
+``feed_forward``, ``num_params``, the flat parameter vector
+(``params_to_vector``/``set_params_vector``), ``clone``, and training:
+``_loss_fn`` (data loss + regularization, and the new layer state), the
+train step (loss -> autograd -> updater -> parameter update -> new
+state), ``fit`` over an (X, y) pair or an iterable of batches, ``score``
+and the lazy ``score_value``.  Params live in a nested dict
 ``{layer name: {param name: tensor}}`` with the reference's names and
 layouts, on ``self.device``; ``updater_state`` holds the updater's trees
 of the same shape, and ``net_state`` the float32 state of stateful layers
@@ -15,8 +17,10 @@ gradients land on the float32 params, and the loss runs in float32 — the
 reference's mixed-precision policy.
 
 Not ported yet (later slices): TBPTT, the full-batch solvers,
-``fit_scanned``, ``checkpoint_manager``/``retry_policy``, listeners and
-fit telemetry, and the stability, introspection and numerics engines.
+``checkpoint_manager``/``retry_policy``, fit telemetry, and the
+stability, introspection and numerics engines; ``fit_scanned``,
+``rnn_time_step``, ``pretrain``, ``set_listeners``, ``add_listener`` and
+``evaluate`` raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from deeplearning4j_tpu_torch.backend.device import (
 )
 from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models.common import (  # noqa: F401 (re-exported)
-    LazyScoreMixin, _tree_like, cast_tree, check_trainable, sgd_step,
-    trainable, tree_leaves, unpack_batch,
+    FlatParamsMixin, LazyScoreMixin, _tree_like, cast_tree, check_trainable,
+    not_ported, sgd_step, trainable, tree_leaves, unpack_batch,
 )
 from deeplearning4j_tpu_torch.nn import activations, losses
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
@@ -52,7 +56,7 @@ def init_net_state(layers, device, dtype):
     return state
 
 
-class MultiLayerNetwork(LazyScoreMixin):
+class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
     def __init__(self, conf: MultiLayerConfiguration):
         self.conf = conf
         self.layers: Tuple[Layer, ...] = conf.layers
@@ -87,14 +91,15 @@ class MultiLayerNetwork(LazyScoreMixin):
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, x, *, train=False, rng=None, fmask=None,
-                 carries=None, net_state=None):
+                 carries=None, net_state=None, collect=None):
         """Forward through every layer, each after its input preprocessor
         (``conf.preprocessors``); the output layer stops at its
         pre-activation (after its input dropout).  Carry-capable layers
         (attention, residual blocks) take their carry from ``carries`` by
         layer name; stateful layers (BatchNorm) their state from
         ``net_state`` (``self.net_state`` when None).  ``rng`` (the step's
-        key) splits into one key per layer.  Returns (pre_output,
+        key) splits into one key per layer.  With a list as ``collect``,
+        each layer's output is appended to it.  Returns (pre_output,
         new_carries, new_net_state)."""
         state = self.net_state if net_state is None else net_state
         cd = self.conf.compute_dtype
@@ -128,14 +133,31 @@ class MultiLayerNetwork(LazyScoreMixin):
             else:
                 kw = {"mask": fmask} if layer._TAKES_MASK else {}
                 h = layer.apply(p, h, train=train, rng=rngs[i], **kw)
+            if collect is not None:
+                collect.append(h)
         return h, new_carries, new_state
 
-    def output(self, x) -> torch.Tensor:
-        """Inference forward; float32 at the API boundary."""
+    def output(self, x, fmask=None) -> torch.Tensor:
+        """Inference forward, masked by ``fmask`` where given; float32 at
+        the API boundary."""
         x = torch.as_tensor(x, device=self.device)
         with torch.no_grad():
-            pre, _, _ = self._forward(self.params, x)
+            pre, _, _ = self._forward(self.params, x,
+                                      fmask=self._as_device(fmask))
             return activations.get(self.layers[-1].activation)(pre.float())
+
+    def feed_forward(self, x, train: bool = False):
+        """Every layer's activation, in order (the output layer's is its
+        pre-activation, as in the reference); float32 at the API boundary
+        under a compute dtype."""
+        rng = self._keys.next() if train else None
+        acts = []
+        with torch.no_grad():
+            self._forward(self.params, torch.as_tensor(x, device=self.device),
+                          train=train, rng=rng, collect=acts)
+        if self.conf.compute_dtype is not None:
+            acts = [a.float() for a in acts]
+        return acts
 
     # ----------------------------------------------------------------- score
     def _loss_fn(self, params, x, y, rng=None, fmask=None, lmask=None, *,
@@ -211,6 +233,32 @@ class MultiLayerNetwork(LazyScoreMixin):
                 for _ in range(self.conf.num_iterations):
                     self._one_step(x, y, fm, lm)
         return self
+
+    # --------------------------------------------------------- not ported
+    def fit_scanned(self, *args, **kwargs):
+        not_ported("MultiLayerNetwork", "fit_scanned", "PyTorch runs "
+                   "eagerly; CUDA-graph capture of the step is its "
+                   "counterpart, ROADMAP A2 and C1")
+
+    def rnn_time_step(self, *args, **kwargs):
+        not_ported("MultiLayerNetwork", "rnn_time_step",
+                   "the recurrent slice, ROADMAP A6")
+
+    def pretrain(self, *args, **kwargs):
+        not_ported("MultiLayerNetwork", "pretrain",
+                   "AutoEncoder/RBM, ROADMAP A7")
+
+    def set_listeners(self, *listeners):
+        not_ported("MultiLayerNetwork", "set_listeners",
+                   "listeners, ROADMAP A8")
+
+    def add_listener(self, listener):
+        not_ported("MultiLayerNetwork", "add_listener",
+                   "listeners, ROADMAP A8")
+
+    def evaluate(self, *args, **kwargs):
+        not_ported("MultiLayerNetwork", "evaluate",
+                   "evaluation/, ROADMAP A8")
 
     # ----------------------------------------------------------- checkpoints
     def save(self, path, save_updater: bool = True) -> None:

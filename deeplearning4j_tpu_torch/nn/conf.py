@@ -149,6 +149,18 @@ class MultiLayerConfiguration:
     def from_json(s: str) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(json.loads(s))
 
+    def to_yaml(self) -> str:
+        """The JSON's content as YAML (reference ``nn/conf.py:325``)."""
+        import yaml
+
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        import yaml
+
+        return MultiLayerConfiguration.from_dict(yaml.safe_load(s))
+
 
 class ListBuilder:
     """Layer-stack builder."""

@@ -308,3 +308,75 @@ def test_kernel_moment_merge_in_numpy():
         ref = x[:, ch].astype(np.float64)
         np.testing.assert_allclose(mean, ref.mean(), rtol=1e-6)
         np.testing.assert_allclose(m2 / m, ref.var(), rtol=1e-3)
+
+
+def _elementwise_blocks(x, mean, var, gamma, beta, eps, vec, sms):
+    """The inference pass of ``bn_elementwise_kernel`` run in numpy on the
+    grid ``elementwise_grid`` gives: per (channel slice, row chunk) block
+    and (tx, ty) thread, the thread's ``vec`` channels' coefficients
+    worked out once, then its rows ty, ty + by, ... of the chunk.  Returns
+    y and how often each element was written."""
+    m, c = x.shape
+    bx, by, rpc, n_chunks = bn.elementwise_grid(m, c, vec, sms)
+    assert bx * by <= 256 and n_chunks <= 65535
+    assert (n_chunks - 1) * rpc < m <= n_chunks * rpc
+    slices = -(-(c // vec) // bx)
+    y = np.zeros_like(x)
+    writes = np.zeros(x.shape, np.int64)
+    for sx in range(slices):
+        for tx in range(bx):
+            col = sx * bx + tx
+            if col * vec >= c:
+                continue
+            ch = np.arange(col * vec, col * vec + vec)
+            scale = gamma[ch] / np.sqrt(var[ch] + np.float32(eps))
+            for cy in range(n_chunks):
+                for ty in range(by):
+                    rows = np.arange(cy * rpc + ty, min((cy + 1) * rpc, m),
+                                     by)
+                    y[np.ix_(rows, ch)] = ((x[np.ix_(rows, ch)] - mean[ch])
+                                           * scale + beta[ch])
+                    writes[np.ix_(rows, ch)] += 1
+    return y, writes
+
+
+@pytest.mark.parametrize("m, c, vec, sms", [
+    (37, 130, 1, 132),     # ragged C: the scalar path
+    (300, 3, 1, 132),      # C below a vector
+    (2000, 64, 8, 4),      # the stem's C in bf16 vectors, several chunks
+    (49, 2048, 8, 132),    # the last stage's C: one slice of 256 vectors
+    (70, 4096, 4, 132),    # float32 vectors, four channel slices
+    (333, 24, 4, 2),       # vec_c
+], ids=["ragged130", "c3", "stem", "last_stage", "slices4", "vec24"])
+def test_elementwise_grid_matches_inference(m, c, vec, sms):
+    """Every element is written once, and the kernel's arithmetic on its
+    grid gives the plain version's and the JAX kernel's output."""
+    x, gamma, beta, _ = _data(9, m, c)
+    rng = np.random.default_rng(10)
+    mean = rng.standard_normal(c).astype(np.float32)
+    var = (rng.random(c) + 0.5).astype(np.float32)
+    y, writes = _elementwise_blocks(x, mean, var, gamma, beta, 1e-5, vec,
+                                    sms)
+    assert (writes == 1).all()
+    plain = bn.bn_inference_plain(*_t(x, mean, var, gamma, beta), 1e-5)
+    np.testing.assert_allclose(y, plain.numpy(), atol=ATOL)
+    jy = pallas_ops.bn_inference(*(jnp.asarray(a) for a in
+                                   (x, mean, var, gamma, beta)), 1e-5)
+    np.testing.assert_allclose(y, np.asarray(jy), atol=ATOL)
+
+
+def test_prepare_keeps_per_channel_types():
+    """The kernels read gamma and beta in their own type: ``_prepare``
+    hands bfloat16 and float16 ones on as they are (no cast launch per
+    call), the running stats as float32, and refuses a mixed pair."""
+    x = torch.zeros(4, 6, dtype=torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        gamma, beta = torch.ones(6, dtype=dt), torch.zeros(6, dtype=dt)
+        mean, var = torch.zeros(6), torch.ones(6)
+        _, _, out = bn._prepare(x, mean=mean, var=var, gamma=gamma,
+                                beta=beta)
+        assert out["gamma"] is gamma and out["beta"] is beta
+        assert out["gamma"].dtype == dt and out["mean"] is mean
+        assert bn._adt(out) == bn._DTYPE_CODES[dt]
+    with pytest.raises(TypeError, match="one type"):
+        bn._prepare(x, gamma=torch.ones(6), beta=torch.zeros(6).bfloat16())

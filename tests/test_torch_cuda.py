@@ -196,6 +196,14 @@ def test_flash_kernels_match_plain(name, dtype, cuda):
     for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
         assert got.dtype == dtype
         assert _grad_err(got, ref) <= TOL[dtype]
+    # the delta dQ hands to dK/dV (computed in the kernel on the wgmma
+    # route) is the torch reduction's, up to summation order
+    dq2, delta = fa._launch_dq(q, k, v, do, o, lse, causal, window)
+    ref = fa._row_delta(o, do)
+    torch.cuda.synchronize()
+    assert torch.equal(dq2, dq)
+    assert (delta - ref).abs().max().item() <= 1e-5 * max(
+        1.0, ref.abs().max().item())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
@@ -214,16 +222,18 @@ def test_flash_dkv_is_the_same_run_to_run(d, dtype, cuda):
 
 
 def test_flash_paths_at_the_main_path_shape(cuda):
-    """The char-LM's D = 128 in bf16 and f16 takes wgmma for the forward
-    and dK/dV and mma.sync for dQ; float32 the CUDA cores."""
+    """The char-LM's D = 128 in bf16 and f16 takes wgmma for the forward,
+    dQ and dK/dV, as does D = 64; D = 16 and 32 take mma.sync; float32
+    the CUDA cores."""
     for dtype in (torch.bfloat16, torch.float16):
-        assert fa.kernel_path("fwd", dtype, 128) == "wgmma"
-        assert fa.kernel_path("dkv", dtype, 128) == "wgmma"
-        assert fa.kernel_path("dq", dtype, 128) == "mma_sync"
-        assert fa.kernel_path("fwd", dtype, 64) == "wgmma"
+        for d in (64, 128):
+            for kernel in ("fwd", "dq", "dkv"):
+                assert fa.kernel_path(kernel, dtype, d) == "wgmma"
         assert fa.kernel_path("fwd", dtype, 32) == "mma_sync"
+        assert fa.kernel_path("dq", dtype, 32) == "mma_sync"
         assert fa.kernel_path("dkv", dtype, 40) == "cuda_cores"
     assert fa.kernel_path("fwd", torch.float32, 128) == "cuda_cores"
+    assert fa.kernel_path("dq", torch.float32, 128) == "cuda_cores"
 
 
 def test_flash_tensor_map_failure_raises(cuda):
@@ -426,6 +436,7 @@ BN_CASES = {
     # name: (rows, C)
     "stem": (1605632, 64),
     "last_stage": (6272, 2048),
+    "stage3": (25088, 1024),
     "ragged": (1001, 130),
     "one_row": (1, 7),
     "narrow": (50000, 3),
@@ -472,6 +483,32 @@ def test_batch_norm_kernels_match_plain(name, dtype, cuda):
     for got, ref in ((y, ry), (yi, ryi), (dx, rdx), (dgamma, rdgamma),
                      (dbeta, rdbeta)):
         assert err(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("adt", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("name", ["last_stage", "ragged"])
+def test_batch_norm_reads_per_channel_values_in_their_own_type(name, adt,
+                                                               cuda):
+    """gamma and beta in bfloat16 or float16 give bitwise what their
+    float32 copies give (the widening is exact), in all three kernels."""
+    m, c = BN_CASES[name]
+    x, gy, gamma, beta = _bn_inputs(17, m, c, torch.bfloat16)
+    gamma, beta = gamma.to(adt), beta.to(adt)
+    g32, b32 = gamma.float(), beta.float()
+    y, mean, var, inv = bn.bn_train_fwd_2d(x, gamma, beta, 1e-5)
+    y32, _, _, _ = bn.bn_train_fwd_2d(x, g32, b32, 1e-5)
+    dx, dgamma, dbeta = bn.bn_train_bwd_2d(x, gy, gamma, mean, inv)
+    dx32, dg32, db32 = bn.bn_train_bwd_2d(x, gy, g32, mean, inv)
+    rvar = var + 0.25
+    yi = bn.bn_inference_2d(x, mean, rvar, gamma, beta, 1e-5)
+    yi32 = bn.bn_inference_2d(x, mean, rvar, g32, b32, 1e-5)
+    torch.cuda.synchronize()
+    for a, b in ((y, y32), (dx, dx32), (dgamma, dg32), (dbeta, db32),
+                 (yi, yi32)):
+        assert torch.equal(a, b)
+    ryi = bn.bn_inference_plain(x, mean, rvar, gamma, beta, 1e-5)
+    assert _scaled_err(yi, ryi) <= TOL[torch.bfloat16]
 
 
 def test_batch_norm_is_the_same_run_to_run(cuda):

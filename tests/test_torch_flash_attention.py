@@ -174,13 +174,14 @@ def test_attention_layer_routes_float16_and_raises_off_the_cpu():
 
 
 # ------------------------------------------------- the wgmma kernels' walk
-# A numpy mirror of the loop bounds of ``flash_fwd_wgmma`` and
-# ``flash_dkv_wgmma`` (``csrc/flash_attention.cu``): ``key_range``,
-# ``query_range``, ``band_hit`` and ``tile_full`` with the kernels' tile
-# sizes.  The forward walks 128-key tiles under a 128-row query tile, the
-# dK/dV kernel 64-row query steps under a 128-key tile; each block is two
-# consumer warpgroups of 64 rows (queries or keys), and a warpgroup skips
-# a tile in which its rows see no key.
+# A numpy mirror of the loop bounds of ``flash_fwd_wgmma``,
+# ``flash_dq_wgmma`` and ``flash_dkv_wgmma`` (``csrc/flash_attention.cu``):
+# ``key_range``, ``query_range``, ``band_hit`` and ``tile_full`` with the
+# kernels' tile sizes.  The forward walks 128-key tiles under a 128-row
+# query tile, dQ 64-key steps under a 128-row query tile, the dK/dV kernel
+# 64-row query steps under a 128-key tile; each block is two consumer
+# warpgroups of 64 rows (queries or keys), and a warpgroup skips a tile in
+# which its rows see no key.
 TILE, STEP, WG_ROWS = 128, 64, 64
 
 
@@ -211,13 +212,14 @@ def _tile_full(q0, bq, k0, bk, t, causal, window):
     return k0 + bk - 1 <= q0 and (not window or k0 > q0 + bq - 1 - window)
 
 
-def _key_range(q0, bm, t, causal, window):
+def _key_range(q0, bm, t, causal, window, step=None):
+    step = step or bm
     lo, hi = 0, t
     if causal:
         hi = min(t, q0 + bm)
         if window:
             lo = max(0, q0 - window + 1)
-    return lo // bm * bm, hi
+    return lo // step * step, hi
 
 
 def _query_range(k0, bm, t, causal, window):
@@ -236,11 +238,12 @@ def _walk(kernel, t, causal, window):
     visits = np.zeros((t, t), dtype=np.int64)
     loaded = []
     for blk in range((t + TILE - 1) // TILE):
-        if kernel == "fwd":
+        if kernel in ("fwd", "dq"):
             q0 = blk * TILE
-            k_lo, k_hi = _key_range(q0, TILE, t, causal, window)
-            tiles = [(q0, q0 + TILE, k, k + TILE)
-                     for k in range(k_lo, k_hi, TILE)]
+            kstep = TILE if kernel == "fwd" else STEP
+            k_lo, k_hi = _key_range(q0, TILE, t, causal, window, kstep)
+            tiles = [(q0, q0 + TILE, k, k + kstep)
+                     for k in range(k_lo, k_hi, kstep)]
             parts = [(q0 + WG_ROWS * w, q0 + WG_ROWS * (w + 1), None, None)
                      for w in range(2)]
         else:
@@ -270,7 +273,7 @@ def _walk(kernel, t, causal, window):
     return loaded, visits
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("causal, window", [
     (False, None), (True, None), (True, 1), (True, 100), (True, 128),
     (True, 200)], ids=["full", "causal", "window1", "window100",
@@ -287,6 +290,106 @@ def test_wgmma_tile_walk_visits_each_live_pair_once(kernel, causal, window):
         for q0, q1, k0, k1 in loaded:
             assert q0 < t and k0 < t
             assert _band_hit(q0, q1, k0, k1, t, causal, window), (t, q0, k0)
+
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _rows(a, r0, n):
+    """Rows [r0, r0 + n) of a [T, D] array, zero past T, as TMA loads a
+    tile."""
+    out = np.zeros((n, a.shape[1]), np.float32)
+    part = a[r0:r0 + n]
+    out[:len(part)] = part
+    return out
+
+
+def _dq_blocks(q, k, v, o, do, lse, causal, window):
+    """(dq, delta) of one [T, D] head, computed in float32 on the block
+    schedule of ``flash_dq_wgmma``: 128-query blocks of two 64-row
+    warpgroups; 64-key steps from ``key_range`` rounded to the step;
+    steps a warpgroup's rows do not see skipped; p = 2^(s·scale·log2 e −
+    lse·log2 e) masked only on steps that are not full; delta from the
+    block's O and dO tiles (zero rows past T)."""
+    t, d = q.shape
+    sl2 = np.float32(1.0 / np.sqrt(d)) * LOG2E
+    dq = np.zeros_like(q)
+    delta = np.zeros(t, np.float32)
+    for q0 in range(0, t, TILE):
+        k_lo, k_hi = _key_range(q0, TILE, t, causal, window, STEP)
+        qt, dot = _rows(q, q0, TILE), _rows(do, q0, TILE)
+        dl = (_rows(o, q0, TILE) * dot).sum(-1, dtype=np.float32)
+        for w in range(2):
+            r0 = q0 + WG_ROWS * w
+            rows = np.arange(r0, r0 + WG_ROWS)
+            lr = rows - q0
+            lse2 = np.where(rows < t, lse[np.minimum(rows, t - 1)] * LOG2E,
+                            np.float32(0))
+            acc = np.zeros((WG_ROWS, d), np.float32)
+            for k0 in range(k_lo, k_hi, STEP):
+                if not _band_hit(r0, r0 + WG_ROWS, k0, k0 + STEP, t, causal,
+                                 window):
+                    continue
+                kt, vt = _rows(k, k0, STEP), _rows(v, k0, STEP)
+                p = np.exp2(qt[lr] @ kt.T * sl2 - lse2[:, None])
+                if not _tile_full(r0, WG_ROWS, k0, STEP, t, causal, window):
+                    keep = _live(rows[:, None], np.arange(k0, k0 + STEP)[None],
+                                 t, causal, window)
+                    p = np.where(keep, p, np.float32(0))
+                ds = p * (dot[lr] @ vt.T - dl[lr][:, None])
+                acc += ds.astype(np.float32) @ kt
+            live_rows = rows < t
+            dq[rows[live_rows]] = acc[live_rows] / np.float32(np.sqrt(d))
+            delta[rows[live_rows]] = dl[lr[live_rows]]
+    return dq, delta
+
+
+def _dq_case(seed, t, d, causal, window):
+    q, k, v, do = _inputs(seed, (1, t, 1, d))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = fa.flash_attention_plain_fwd(tq, tk, tv, causal, window)
+    dq, delta = _dq_blocks(q[0, :, 0], k[0, :, 0], v[0, :, 0],
+                           o.numpy()[0, :, 0], do[0, :, 0],
+                           lse.numpy()[0, 0], causal, window)
+    return (q, k, v, do), (tq, tk, tv, tdo, o, lse), dq, delta
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [1, 100, 300])
+@pytest.mark.parametrize("causal, window", [(True, None), (False, None),
+                                            (True, 64)],
+                         ids=["causal", "full", "window64"])
+def test_dq_block_schedule_matches_plain_backward(causal, window, t, d):
+    """The wgmma dQ kernel's schedule, emulated in numpy, gives the plain
+    backward's dq and ``_row_delta``'s delta within 1e-5 (float32)."""
+    _, (tq, tk, tv, tdo, o, lse), dq, delta = _dq_case(t + d, t, d, causal,
+                                                       window)
+    rdq, _, _ = fa.flash_attention_plain_bwd(tq, tk, tv, o, lse, tdo,
+                                             causal, window)
+    rdq = rdq.numpy()[0, :, 0]
+    # at T = 1 the one key has weight 1 and dq is 0 up to rounding: there
+    # the absolute difference, else the scaled one
+    err = (np.abs(dq - rdq).max() if np.abs(rdq).max() < 1e-3
+           else _scaled(dq, rdq))
+    assert err <= 1e-5
+    np.testing.assert_allclose(delta, fa._row_delta(o, tdo).numpy()[0, 0],
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d, causal, window", [(128, True, None),
+                                               (64, False, None),
+                                               (128, True, 64)],
+                         ids=["causal_d128", "full_d64", "window64_d128"])
+def test_dq_block_schedule_matches_jax_kernel(d, causal, window):
+    """At T = 256, which the JAX kernel tiles, the emulated schedule's dq
+    against the JAX backward run in interpret mode."""
+    (q, k, v, do), _, dq, _ = _dq_case(7 + d, 256, d, causal, window)
+    _, vjp = jax.vjp(
+        lambda q, k, v: jfa.flash_attention(q, k, v, causal=causal,
+                                            window=window, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jdq = np.asarray(vjp(jnp.asarray(do))[0])[0, :, 0]
+    assert _scaled(dq, jdq) <= TOL
 
 
 def test_build_digest_covers_headers_and_flags(tmp_path):
