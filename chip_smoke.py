@@ -10,15 +10,17 @@ Phases (any failure exits non-zero; nothing is caught):
    shapes its path gives it, and time the kernel, the plain version and a
    library yardstick (which the port never calls: ``gather_pages`` +
    ``scaled_dot_product_attention`` for paged decode, SDPA forward and
-   backward for flash attention (bfloat16, float32 and float16 cases),
+   backward for flash attention (bfloat16, float16 and float32 cases),
    ``F.layer_norm`` for the prologue (bfloat16, float32, float16),
    ``F.batch_norm`` for BatchNorm),
    beside the least time the card could take (the bytes the call must
    move at 3.35 TB/s, or its operations at the peak rate for their type,
    whichever is larger).  Each flash case prints the kernels its calls
    take (``fa.kernel_path``); a bfloat16 or float16 case at D = 64 or 128
-   must take wgmma for the forward, dQ and dK/dV, and the delta its dQ
-   hands to dK/dV must match the torch reduction ``_row_delta``.
+   must take wgmma for the forward, dQ and dK/dV, a float32 one tf32x3
+   for dQ and dK/dV (bounded at a third of the TF32 rate, with the CUDA
+   cores' bound printed beside it), and the delta its dQ hands to dK/dV
+   must match the torch reduction ``_row_delta``.
 3. Serve the transformer char-LM at full width (vocab 128, d_model 1024,
    8 heads, 8 layers, bfloat16, seeded random weights) through the port's
    ``GenerationEngine`` (16 slots, pages of 16, context 512): 16
@@ -35,9 +37,14 @@ Phases (any failure exits non-zero; nothing is caught):
    (``enable_helpers(False)``); then 2 warm-up and 5 timed ``fit`` steps,
    the flash and prologue launch counts reset just before and read just
    after (8 forward, 8 dQ, 8 dK/dV and 16 prologue launches a step, no
-   plain-version call), and one step under ``torch.profiler`` (then one
-   more with the host traced, which must show no ``_row_delta``
-   reduction: delta comes from the dQ kernel).
+   plain-version call), and one step under ``torch.profiler``, whose
+   flash kernels must be the routes' own (``flash_dq_wgmma`` and the
+   like; then one more with the host traced, which must show no
+   ``_row_delta`` reduction: delta comes from the dQ kernel).  Then the
+   same in float32, the zoo default (no ``compute_dtype``): the first
+   step against the built-in path, 7 ``fit`` steps with their launch
+   counts, and the profiled steps, whose backward must run
+   ``flash_dq_tf32`` and ``flash_dkv_tf32``.
 5. Hold the three BatchNorm kernels (training forward, training
    backward, inference) against their plain versions at ResNet-50's
    shapes (bfloat16; a float32 and a float16 case, ragged C, and gamma
@@ -114,6 +121,9 @@ from deeplearning4j_tpu_torch.nn.layers.dense import DenseLayer, EmbeddingLayer
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}
+# float32 products on the tensor cores in 3xTF32: three TF32 products (495
+# TFLOP/s dense) per float32 one; the rate of the tf32x3 flash route only
+TF32X3_OPS = 495e12 / 3
 TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
 LOGITS_TOL = 0.1    # bf16 logits, kernel vs gather oracle, 8 layers
 MODEL = dict(vocab_size=128, d_model=1024, n_heads=8, layers=8,
@@ -125,6 +135,9 @@ SPIN_CYCLES = 2_000_000     # about 1 ms of GPU clock: outlasts any enqueue
 PROFILED_STEPS = 10
 TRAIN_MODEL = dict(vocab_size=128, d_model=1024, n_heads=8, layers=8,
                    compute_dtype="bfloat16", seed=12345)
+# the zoo default: no compute_dtype, float32 throughout
+TRAIN_MODEL_F32 = {k: v for k, v in TRAIN_MODEL.items()
+                   if k != "compute_dtype"}
 TRAIN_BATCH, TRAIN_T = 8, 2048
 WARM_STEPS, TIMED_STEPS = 2, 5
 LOSS_RTOL, GRAD_RTOL = 2e-2, 5e-2   # kernel path vs built-in path, bf16
@@ -469,9 +482,9 @@ def _abs_err(a, ref):
     return (a.float() - ref.float()).abs().max().item()
 
 
-def _bound(nbytes, ops, dtype):
+def _bound(nbytes, ops, dtype, peak=None):
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[dtype]
+    t_ops = ops / (peak or PEAK_OPS[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -502,6 +515,10 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
         check(paths == {"fwd": "wgmma", "dq": "wgmma", "dkv": "wgmma"},
               f"flash[{name}] takes wgmma for the forward, dQ and dK/dV: "
               f"{paths}")
+    if dtype == torch.float32 and d in (64, 128):
+        check(paths == {"fwd": "cuda_cores", "dq": "tf32x3",
+                        "dkv": "tf32x3"},
+              f"flash[{name}] takes tf32x3 for dQ and dK/dV: {paths}")
     q, k, v, do = (_randn(seed + i, shape, dtype) for i in range(4))
     o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=causal,
@@ -521,7 +538,8 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
                           f"{tol}")
     del ro, rlse, rdq, rdk, rdv
 
-    # the delta dQ hands to dK/dV (the kernel's own on the wgmma route)
+    # the delta dQ hands to dK/dV (the kernel's own on the wgmma and
+    # tf32x3 routes)
     _, delta = fa._launch_dq(q, k, v, do, o, lse, causal, window)
     rdelta = fa._row_delta(o, do)
     torch.cuda.synchronize()
@@ -558,20 +576,32 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
         out, (qs, ks, vs), gdo, retain_graph=True), flush,
         iters=KERNEL_ITERS)
     lib_err = _abs_err(out.transpose(1, 2), o)
+    if dtype == torch.float32:
+        # which kernels SDPA's float32 backward runs (the yardstick's
+        # route, read off the profiler)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, (qs, ks, vs), gdo, retain_graph=True)
+            torch.cuda.synchronize()
+        names = sorted({e.key[:120] for e in prof.key_averages()
+                        if e.self_device_time_total > 0})
+        print(f"flash[{name}] SDPA bwd kernels: {names}")
     del out, qs, ks, vs
 
     esz = q.element_size()
     pairs = _live_pairs(t, causal, window) * b * h
     tensor_bytes = q.numel() * esz
     row_bytes = b * h * t * 4                         # lse or delta, f32
-    bounds = {
-        "fwd": _bound(4 * tensor_bytes + row_bytes, 4 * d * pairs, dtype),
-        # q, k, v, dO and O read, dq written; lse read, delta written
-        "dq": _bound(6 * tensor_bytes + 2 * row_bytes,
-                     6 * d * pairs + 2 * d * b * h * t, dtype),
-        "dkv": _bound(6 * tensor_bytes + 2 * row_bytes, 8 * d * pairs,
-                      dtype),
-    }
+    # q, k, v, dO and O read, dq written; lse read, delta written
+    work = {"fwd": (4 * tensor_bytes + row_bytes, 4 * d * pairs),
+            "dq": (6 * tensor_bytes + 2 * row_bytes,
+                   6 * d * pairs + 2 * d * b * h * t),
+            "dkv": (6 * tensor_bytes + 2 * row_bytes, 8 * d * pairs)}
+    # at the rate of the route's products: 3xTF32 on tf32x3
+    bounds = {kn: _bound(*work[kn], dtype,
+                         TF32X3_OPS if paths[kn] == "tf32x3" else None)
+              for kn in work}
     print(f"flash[{name}] q{list(shape)} {str(dtype)[6:]} causal={causal} "
           f"window={window}: err o {errs['o']:.3e}, lse {errs['lse']:.3e}, "
           f"dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv {errs['dv']:.3e} "
@@ -584,14 +614,24 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
           f"{bounds['dkv'][0]:.5f}); plain fwd {pfwd_ms:.4f} ms, plain bwd "
           f"{pbwd_ms:.4f} ms; SDPA fwd {lib_fwd_ms:.4f} ms, SDPA bwd "
           f"{lib_bwd_ms:.4f} ms [{name_card}]")
+    if "tf32x3" in paths.values():
+        cores = {kn: _bound(*work[kn], dtype)[0] for kn in ("dq", "dkv")}
+        print(f"flash[{name}] tf32x3 bounds at {TF32X3_OPS / 1e12:.0f} "
+              f"TFLOP/s: dQ {bounds['dq'][0]:.5f} ms, dK/dV "
+              f"{bounds['dkv'][0]:.5f} ms; at the CUDA cores' "
+              f"{PEAK_OPS[torch.float32] / 1e12:.0f} TFLOP/s: dQ "
+              f"{cores['dq']:.5f} ms, dK/dV {cores['dkv']:.5f} ms; dQ + "
+              f"dK/dV {dq_ms + dkv_ms:.4f} ms, "
+              f"{(dq_ms + dkv_ms) / lib_bwd_ms:.3f} x SDPA bwd [{name_card}]")
     return {
         "fwd": dict(err=errs["o"], ms=fwd_ms, plain_ms=pfwd_ms,
-                    lib_ms=lib_fwd_ms, bound=bounds["fwd"]),
+                    lib_ms=lib_fwd_ms, bound=bounds["fwd"],
+                    path=paths["fwd"]),
         "dq": dict(err=abs_errs["dq"], ms=dq_ms, plain_ms=pbwd_ms,
-                   lib_ms=lib_bwd_ms, bound=bounds["dq"]),
+                   lib_ms=lib_bwd_ms, bound=bounds["dq"], path=paths["dq"]),
         "dkv": dict(err=max(abs_errs["dk"], abs_errs["dv"]), ms=dkv_ms,
                     plain_ms=pbwd_ms, lib_ms=lib_bwd_ms,
-                    bound=bounds["dkv"]),
+                    bound=bounds["dkv"], path=paths["dkv"]),
     }
 
 
@@ -643,6 +683,12 @@ def train_kernel_phase(flush, name_card):
              True, None),
             ("causal_f16", full, torch.float16, True, None),
             ("causal_f16_d64", (TRAIN_BATCH, TRAIN_T, 8, 64), torch.float16,
+             True, None),
+            ("full_f32", full, torch.float32, False, None),
+            ("window256_f32", full, torch.float32, True, 256),
+            ("ragged1000_f32", (TRAIN_BATCH, 1000, 8, 128), torch.float32,
+             True, None),
+            ("causal_f32_d64", (TRAIN_BATCH, TRAIN_T, 8, 64), torch.float32,
              True, None)]):
         flash[name] = flash_case(name, 200 + 10 * i, shape, dtype, causal,
                                  window, flush, name_card)
@@ -658,7 +704,7 @@ def train_kernel_phase(flush, name_card):
             ("residual_f16", torch.float16, True, False)]):
         prologue[name] = prologue_case(name, 300 + 10 * i, rows, 1024, dtype,
                                        has_res, has_mask, flush, name_card)
-    return flash["causal_bf16"], prologue["prologue_bf16"]
+    return flash["causal_bf16"], flash["causal_f32"], prologue["prologue_bf16"]
 
 
 # ------------------------------------------------------------ phase 4, train
@@ -734,16 +780,19 @@ def first_step_check(what, net, loss_of, floor=False):
     torch.cuda.empty_cache()
 
 
-def train_phase(name_card):
-    net = transformer_char_lm(device="cuda", **TRAIN_MODEL)
-    vocab = TRAIN_MODEL["vocab_size"]
+def train_phase(name_card, model=TRAIN_MODEL, what="train"):
+    """``fit`` on the char-LM at full width; ``model`` without a
+    compute_dtype trains in float32, whose flash backward must run on
+    tf32x3."""
+    net = transformer_char_lm(device="cuda", **model)
+    vocab = model["vocab_size"]
     ids = np.random.RandomState(0).randint(0, vocab, (TRAIN_BATCH, TRAIN_T))
     x = torch.as_tensor(ids, device="cuda")
     y = torch.as_tensor(np.eye(vocab, dtype=np.float32)[np.roll(ids, -1, 1)],
                         device="cuda")
 
     # the first step through the kernels against the built-in path
-    first_step_check("train", net,
+    first_step_check(what, net,
                      lambda params: net._loss_fn(params, x, y, None))
 
     steps = WARM_STEPS + TIMED_STEPS
@@ -759,9 +808,9 @@ def train_phase(name_card):
         step_s.append(time.perf_counter() - t0)
     launches = [c.launches for c in _kernel_counts()]
     plain = [c.plain_calls for c in _kernel_counts()]
-    layers = TRAIN_MODEL["layers"]
+    layers = model["layers"]
     want = [layers * steps] * 3 + [2 * layers * steps]
-    print(f"train: launches over {steps} steps (fwd, dQ, dK/dV, prologue) "
+    print(f"{what}: launches over {steps} steps (fwd, dQ, dK/dV, prologue) "
           f"{launches}, expected {want}; plain-version calls {plain}")
     check(launches == want, f"launches {launches} == {want}")
     check(plain == [0, 0, 0, 0], f"plain-version calls {plain} == 0")
@@ -770,25 +819,30 @@ def train_phase(name_card):
 
     med = float(np.median(step_s[WARM_STEPS:]))
     tokens = TRAIN_BATCH * TRAIN_T
-    heads, d_model = TRAIN_MODEL["n_heads"], TRAIN_MODEL["d_model"]
+    heads, d_model = model["n_heads"], model["d_model"]
     flops = (6.0 * _matmul_params(net) * tokens
              + 12.0 * layers * heads * TRAIN_T * TRAIN_T
              * (d_model // heads) * TRAIN_BATCH * 0.5)
-    mfu = flops / med / PEAK_OPS[torch.bfloat16]
+    dtype = getattr(torch, model.get("compute_dtype") or "float32")
+    peak = PEAK_OPS[dtype]
+    mfu = flops / med / peak
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"train: losses {[round(v, 6) for v in losses]}")
-    print(f"train: step median {med * 1e3:.3f} ms over {TIMED_STEPS} steps "
-          f"(after {WARM_STEPS} warm-up); {tokens / med:.1f} tokens/s; "
-          f"analytic-FLOP utilisation {mfu:.4f} of 989 TFLOP/s "
-          f"({flops / 1e12:.2f} TFLOP a step); peak memory {peak_gb:.2f} GB "
-          f"[{name_card}]")
-    train_profile(net, x, y, name_card)
+    print(f"{what}: losses {[round(v, 6) for v in losses]}")
+    print(f"{what}: step median {med * 1e3:.3f} ms over {TIMED_STEPS} steps"
+          f" (after {WARM_STEPS} warm-up); {tokens / med:.1f} tokens/s; "
+          f"analytic-FLOP utilisation {mfu:.4f} of {peak / 1e12:.0f} "
+          f"TFLOP/s ({flops / 1e12:.2f} TFLOP a step); peak memory "
+          f"{peak_gb:.2f} GB [{name_card}]")
+    paths = {kn: fa.kernel_path(kn, dtype, d_model // heads)
+             for kn in ("fwd", "dq", "dkv")}
+    train_profile(net, x, y, name_card, what, paths)
     return launches
 
 
-def train_profile(net, x, y, name_card):
+def train_profile(net, x, y, name_card, what, paths):
     """Where one train step's time goes: the device's busy time by kernel
-    against the step's host wall."""
+    against the step's host wall.  The flash kernels of each route in
+    ``paths`` must show up by name (``flash_dq_tf32`` and the like)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -804,12 +858,26 @@ def train_profile(net, x, y, name_card):
             "flash dK/dV": "flash_dkv_", "prologue": "drn_kernel"}
     share = {k: sum(e.self_device_time_total for e in ev if pat in e.key)
              / 1e3 for k, pat in ours.items()}
-    print(f"train step (profiled): host wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) in "
+    # each flash kernel's time is all on its route's kernel
+    suffix = {"wgmma": "wgmma", "tf32x3": "tf32", "mma_sync": "mma",
+              "cuda_cores": "kernel"}
+    for kn, label in (("fwd", "flash fwd"), ("dq", "flash dQ"),
+                      ("dkv", "flash dK/dV")):
+        name = f"flash_{kn}_{suffix[paths[kn]]}"
+        on_route = sum(e.self_device_time_total for e in ev
+                       if name in e.key) / 1e3
+        check(on_route > 0 and on_route == share[label],
+              f"{what}: the step's {label} ran {name} only ({on_route} of "
+              f"{share[label]} ms)")
+    print(f"{what} step (profiled): host wall {wall_ms:.3f} ms, device busy"
+          f" {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) in "
           f"{sum(e.count for e in ev)} device operations [{name_card}]")
-    print("train step kernels: " + ", ".join(
-        f"{k} {v:.3f} ms ({v / busy_ms:.3f})" for k, v in share.items())
-        + f"; the four together {sum(share.values()) / busy_ms:.3f} of busy")
+    print(f"{what} step kernels ({paths['fwd']} fwd, {paths['dq']} dQ, "
+          f"{paths['dkv']} dK/dV): " + ", ".join(
+              f"{k} {v:.3f} ms ({v / busy_ms:.3f})" for k, v in share.items())
+          + f"; the four together {sum(share.values()) / busy_ms:.3f} of "
+          f"busy; flash {sum(share.values()) - share['prologue']:.3f} ms "
+          f"({(sum(share.values()) - share['prologue']) / busy_ms:.3f})")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  top: {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
@@ -824,9 +892,9 @@ def train_profile(net, x, y, name_card):
     ev = prof.key_averages()
     launch = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
     row_delta = sum(e.count for e in ev if e.key == "flash_row_delta")
-    print(f"train step host side (traced): cudaLaunchKernel {launch} calls;"
-          f" _row_delta reductions {row_delta} [{name_card}]")
-    check(row_delta == 0, f"the train step ran {row_delta} _row_delta "
+    print(f"{what} step host side (traced): cudaLaunchKernel {launch} "
+          f"calls; _row_delta reductions {row_delta} [{name_card}]")
+    check(row_delta == 0, f"the {what} step ran {row_delta} _row_delta "
                           "reductions")
 
 
@@ -1418,7 +1486,7 @@ def main() -> int:
     build_kernels()
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
     rows = kernel_phase(flush, name_card)
-    flash, prologue = train_kernel_phase(flush, name_card)
+    flash, flash_f32, prologue = train_kernel_phase(flush, name_card)
     bn_rows = bn_kernel_phase(flush, name_card)
     lrn_rows = lrn_kernel_phase(flush, name_card)
     del flush
@@ -1426,6 +1494,8 @@ def main() -> int:
     launches = engine_phase(name_card)
     torch.cuda.empty_cache()
     train_launches = train_phase(name_card)
+    torch.cuda.empty_cache()
+    f32_launches = train_phase(name_card, TRAIN_MODEL_F32, "train_f32")
     torch.cuda.empty_cache()
     bn_launches = resnet_phase(name_card)
     torch.cuda.empty_cache()
@@ -1439,12 +1509,20 @@ def main() -> int:
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
         "bound_by": d["bound_by"], "library_ms": d["lib_ms"]}]
     flash_src = "deeplearning4j_tpu_torch/helpers/csrc/flash_attention.cu"
+    # the bfloat16 char-LM's kernels, then the float32 char-LM's (the
+    # launches of the float32 fit phase; its dQ and dK/dV on tf32x3)
     for (name, row, replaces), n in zip([
             ("flash_attention_fwd", flash["fwd"], "flash_attention.py:125"),
             ("flash_attention_dq", flash["dq"], "flash_attention.py:244"),
             ("flash_attention_dkv", flash["dkv"], "flash_attention.py:271"),
-            ("dropout_residual_norm", prologue, "fused_epilogue.py:62")],
-            train_launches):
+            ("dropout_residual_norm", prologue, "fused_epilogue.py:62"),
+            ("flash_attention_fwd_f32", flash_f32["fwd"],
+             "flash_attention.py:125"),
+            ("flash_attention_dq_f32", flash_f32["dq"],
+             "flash_attention.py:244"),
+            ("flash_attention_dkv_f32", flash_f32["dkv"],
+             "flash_attention.py:271")],
+            list(train_launches) + list(f32_launches[:3])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": (flash_src if name.startswith("flash") else
@@ -1453,7 +1531,8 @@ def main() -> int:
             "replaces": f"deeplearning4j_tpu/helpers/{replaces}",
             "launches": n, "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
-            "bound_by": row["bound"][1], "library_ms": row["lib_ms"]})
+            "bound_by": row["bound"][1], "library_ms": row["lib_ms"],
+            **({"path": row["path"]} if "path" in row else {})})
     stem = bn_rows["stem_bf16"]
     for (name, key, line), n in zip([
             ("batch_norm_inference", "inf", 131),

@@ -12,10 +12,11 @@
 //   dQ:      q-major, recomputes p = exp(s - lse);
 //            ds = p * (dout v^T - delta); dq = ds k * scale.
 //   dK/dV:   k-major, the same p and ds; dv = p^T dout; dk = ds^T q * scale.
-// delta = rowsum(dout * o) [B, H, T] float32: on the wgmma route the dQ
-// kernel computes it from the o and dout tiles it holds and writes it for
-// dK/dV, which runs after it; on the other routes the caller computes it
-// (a torch reduction, as the reference leaves it to XLA) and dQ reads it.
+// delta = rowsum(dout * o) [B, H, T] float32: on the wgmma and tf32x3
+// routes the dQ kernel computes it from the o and dout rows it reads and
+// writes it for dK/dV, which runs after it; on the other routes the caller
+// computes it (a torch reduction, as the reference leaves it to XLA) and
+// dQ reads it.
 // Neither backward kernel uses atomics: each block owns its output rows,
 // so gradients are the same run to run.
 //
@@ -30,7 +31,8 @@
 // about 4 * D flops per live (query, key) pair against 2 * D * 2 bytes of
 // q/k/v read once per tile pair from L2, far above the ~295 flops a byte at
 // which the H100's memory stops being the limit.  So the products go to the
-// tensor cores, by three routes (`path`, queried by dl4j_flash_path):
+// tensor cores, by three routes, and the rest to the CUDA cores (`path`,
+// queried by dl4j_flash_path):
 //
 // - wgmma (bfloat16 and float16 with D in {64, 128}: all three kernels of
 //   the main path).  Per block a producer warpgroup whose one thread
@@ -48,8 +50,11 @@
 //   each warp 16 rows; the score tile, p and ds stay in the accumulator
 //   registers, whose layout is also the A operand of the next product.
 //   Tiles are staged in shared memory with synchronous loads.
-// - f32 kernels on the CUDA cores (float32, which the reference multiplies
-//   in f32, and other head dims): one block of 256 threads (16 x 16) per
+// - tf32x3 (float32 dQ and dK/dV with D in {64, 128}): mma.sync m16n8k8
+//   in TF32, three products per pair of fragments so that the result
+//   keeps float32 accuracy; see the section before `prepare`.
+// - f32 kernels on the CUDA cores (the float32 forward, and every kernel
+//   at other head dims): one block of 256 threads (16 x 16) per
 //   (b, h, tile of BM rows), a BM x BM score tile held as R x R (R = BM /
 //   16) per thread, row statistics reduced across the 16 threads of a row
 //   with warp shuffles, tiles staged in shared memory as f32 with rows
@@ -1512,6 +1517,481 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap qmap,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tf32x3 path: float32 dQ and dK/dV with D in {64, 128} on the tensor
+// cores.  One TF32 product (10-bit mantissa) misses the float32 budget by
+// an order of magnitude, so every product is three: each operand x is
+// split as big = tf32(x), small = tf32(x - big) (round to nearest, ties
+// away: cvt.rna's rounding), and c += small·big + big·small + big·big on
+// mma.sync m16n8k8 with f32 accumulators (the small products first).  The
+// bound is then the operations at a third of the TF32 rate.
+//
+// A block is 8 warps of 16 rows each.  dQ: one block per (b, h, tile of
+// 128 queries), heaviest first; Q and dO are copied into shared memory
+// once and K and V stream in 32-key steps.  dK/dV: one block per (b, h,
+// tile of 128 keys), K and V once, Q, dO, lse and delta in 32-query steps;
+// dK and dV are summed in registers (no atomics).
+//
+// What the design does about the cost of the split.  `cvt.rna.tf32.f32`
+// runs on the conversion pipe, a fraction of the ALU rate, and with every
+// warp splitting every operand it read, the conversions, not the tensor
+// cores, set the time.  So the rounding is done with an integer add and a
+// mask (the same result), the resident tile of a warp's own rows (Q and dO
+// in dQ, K and V in dK/dV) is split in registers as its fragments are
+// read, and each streamed step is split once for all 8 warps: cp.async
+// lands the raw step in a staging buffer while the previous step computes,
+// then the block writes its big and small halves into shared tiles that
+// the warps read as B fragments.  The resident tiles are stored unpadded
+// with their 16-byte chunks XOR-swizzled by row (conflict-free ldmatrix);
+// the split tiles' rows are padded to D + 4 floats, which makes both the
+// ldmatrix rows and the relabelled scalar reads below conflict-free.  At
+// D = 128 that is 231,936 bytes of the 232,448 a block may use.  What
+// holds the kernels now is shared-memory traffic rather than the tensor
+// cores: each warp reads a step's big and small tiles for its own 16
+// rows, about 190 bytes per mma.sync.
+//
+// Fragments, for lane = 4 g + t (PTX's tf32 layouts): A (16 x 8) holds
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8, k x n) holds
+// (t, g), (t + 4, g); an accumulator holds (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).  The products over D (S = Q K^T,
+// dP = dO V^T, and their transposes in dK/dV) read both operands as
+// stored rows with ldmatrix: an 8 x 8 matrix of 16-bit pairs is 8 rows of
+// 4 floats, lane (g, t) receiving float (g, t), which is the tf32 A and B
+// layout.  The products over tokens (dQ += dS K, dV += P^T dO,
+// dK += dS^T Q) take p or ds straight from the accumulators as A, whose
+// lane holds columns 2t and 2t + 1 where A wants t and t + 4: the sum is
+// order-free, so k is relabelled (k = t is token 2t, k = t + 4 is token
+// 2t + 1) and the B fragment is read from token rows 2t and 2t + 1.
+// ---------------------------------------------------------------------------
+
+constexpr int kTfThreads = 256;  // 8 warps x 16 rows
+constexpr int kTfRows = 128;     // queries of a dQ block, keys of a dK/dV block
+constexpr int kTfStep = 32;      // keys a dQ step, queries a dK/dV step
+
+// tf32(x) as cvt.rna.tf32.f32 gives it (finite x): the low 13 bits
+// rounded off, ties away from zero, on the integer pipe
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small to about 2^-22 |x|, both tf32 values
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// an A fragment split in two
+struct FragA {
+  uint32_t big[4], small[4];
+};
+
+__device__ __forceinline__ void split_a(FragA& f, float a0, float a1,
+                                        float a2, float a3) {
+  split(a0, f.big[0], f.small[0]);
+  split(a1, f.big[1], f.small[1]);
+  split(a2, f.big[2], f.small[2]);
+  split(a3, f.big[3], f.small[3]);
+}
+
+// c += a b in 3xTF32, b's fragment given as its big and small halves
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     uint32_t bb0, uint32_t bb1, uint32_t bs0,
+                                     uint32_t bs1) {
+  mma1688(c, a.small, bb0, bb1);
+  mma1688(c, a.big, bs0, bs1);
+  mma1688(c, a.big, bb0, bb1);
+}
+
+// four 8 x 4-float matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_addr(row))
+      : "memory");
+}
+
+// float 4 ch + e of row r of an unpadded [rows][D] tile whose 16-byte
+// chunks are XOR-swizzled by the row's low three bits
+template <int D>
+__device__ __forceinline__ int swz(int r, int ch) {
+  return r * D + ((ch ^ (r & 7)) << 2);
+}
+
+// the A fragment of rows [r0, r0 + 16) and columns [c0, c0 + 8) of a
+// swizzled resident tile, split
+template <int D>
+__device__ __forceinline__ void load_a(FragA& f, const float* tile, int r0,
+                                       int c0, int lane) {
+  const int m = lane / 8, row = r0 + lane % 8 + 8 * (m & 1);
+  uint32_t r[4];
+  ldsm4(r, tile + swz<D>(row, c0 / 4 + (m >> 1)));
+  split_a(f, __uint_as_float(r[0]), __uint_as_float(r[1]),
+          __uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// acc[j] (16 x 8 n-tiles) += A rows [r0, r0 + 16) of the resident tile
+// `at` times rows [8j, 8j + 8) of the split step tile (big, small)
+// transposed, over D
+template <int NT, int D>
+__device__ __forceinline__ void mma3_abt(float (&acc)[NT][4], const float* at,
+                                         const float* bbig,
+                                         const float* bsmall, int r0,
+                                         int lane) {
+  constexpr int LD = D + 4;
+  const int m = lane / 8;
+  // matrices: (n-tile j, k 0-3), (j, k 4-7), (j + 1, 0-3), (j + 1, 4-7)
+  const int boff = (8 * (m >> 1) + lane % 8) * LD + 4 * (m & 1);
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += 8) {
+    FragA a;
+    load_a<D>(a, at, r0, c0, lane);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t bb[4], bs[4];
+      ldsm4(bb, bbig + boff + 8 * j * LD + c0);
+      ldsm4(bs, bsmall + boff + 8 * j * LD + c0);
+      mma3(acc[j], a, bb[0], bb[1], bs[0], bs[1]);
+      mma3(acc[j + 1], a, bb[2], bb[3], bs[2], bs[3]);
+    }
+  }
+}
+
+// out[dt] (16 x 8 n-tiles over D) += P (16 x 8 NT, in accumulators) times
+// rows [0, 8 NT) of the split step tile, k relabelled as above
+template <int NT, int D>
+__device__ __forceinline__ void mma3_pb(float (&out)[D / 8][4],
+                                        const float (&p)[NT][4],
+                                        const float* bbig,
+                                        const float* bsmall, int g, int t) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    FragA a;
+    split_a(a, p[j][0], p[j][2], p[j][1], p[j][3]);
+    const int off = (8 * j + 2 * t) * LD + g;
+    const uint32_t* hb = reinterpret_cast<const uint32_t*>(bbig) + off;
+    const uint32_t* hs = reinterpret_cast<const uint32_t*>(bsmall) + off;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      mma3(out[dt], a, hb[8 * dt], hb[LD + 8 * dt], hs[8 * dt],
+           hs[LD + 8 * dt]);
+  }
+}
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [row0, row0 + ROWS) of head (b, h) of a [B, T, H, D] float tensor
+// into an unpadded [ROWS][D] tile by 16-byte asynchronous copies, swizzled
+// (SWZ) or as they are; rows at or past T are zero-filled
+template <int ROWS, int D, bool SWZ>
+__device__ __forceinline__ void cp_tile(float* dst, const float* src, int b,
+                                        int h, int row0, const Shape& s) {
+  constexpr int VPR = D / 4;
+  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += kTfThreads) {
+    const int r = idx / VPR, ch = idx % VPR;
+    const int t = row0 + r;
+    const bool in = t < s.t;
+    cp16(dst + (SWZ ? swz<D>(r, ch) : r * D + 4 * ch),
+         in ? src + (((size_t)b * s.t + t) * s.h + h) * D + 4 * ch : src, in);
+  }
+}
+
+// a staged [ROWS][D] step tile into its big and small halves, rows padded
+// to D + 4
+template <int ROWS, int D>
+__device__ __forceinline__ void split_tile(float* big, float* small,
+                                           const float* raw) {
+  constexpr int VPR = D / 4;
+  for (int idx = threadIdx.x; idx < ROWS * VPR; idx += kTfThreads) {
+    const int r = idx / VPR, c = (idx % VPR) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(raw + r * D + c);
+    uint4 hi, lo;
+    split(x.x, hi.x, lo.x);
+    split(x.y, hi.y, lo.y);
+    split(x.z, hi.z, lo.z);
+    split(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(big + r * (D + 4) + c) = hi;
+    *reinterpret_cast<uint4*>(small + r * (D + 4) + c) = lo;
+  }
+}
+
+// Shared memory of both kernels, in floats: the two resident tiles, the
+// four split step tiles, the staged step, and (dK/dV) the step's lse and
+// delta, staged and in use
+template <int D>
+struct TfSmem {
+  static constexpr int kResident = kTfRows * D;
+  static constexpr int kSplit = kTfStep * (D + 4);
+  static constexpr int kStage = kTfStep * D;
+  static constexpr int kFloats =
+      2 * kResident + 4 * kSplit + 2 * kStage + 4 * kTfStep;
+};
+
+// dQ, q-major.  Each warp first takes delta = rowsum(dO * O) for its 16
+// rows, dO from the shared tile and O from device memory (read once), and
+// writes it for dK/dV.  A step is S = Q K^T and dP = dO V^T, p =
+// 2^(s * scale * log2 e - lse * log2 e) masked on steps that are not
+// full, ds = p (dP - delta), dQ += ds K.  Per thread at D = 128: dQ 64
+// accumulators, S and dP 16 each.
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, 1)
+flash_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ o, const float* __restrict__ lse,
+              float* __restrict__ delta, float* __restrict__ dq, Shape s) {
+  using M = TfSmem<D>;
+  constexpr int DT = D / 8, NK = kTfStep / 8;
+  extern __shared__ __align__(16) float tf_smem[];
+  float* qs = tf_smem;              // [128][D], swizzled
+  float* dos = qs + M::kResident;   // [128][D], swizzled
+  float* kb = dos + M::kResident;   // K big, K small, V big, V small:
+  float* ksm = kb + M::kSplit;      // [32][D + 4] each
+  float* vb = ksm + M::kSplit;
+  float* vsm = vb + M::kSplit;
+  float* stage = vsm + M::kSplit;   // the next step's K, V [32][D] each
+
+  const int bh = blockIdx.y;
+  const int b = bh / s.h, h = bh % s.h;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTfRows;  // heaviest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = 16 * warp;  // the warp's rows in the tile
+  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  int k_lo, k_hi;
+  key_range(q0, kTfRows, s, &k_lo, &k_hi, kTfStep);
+  const int n_steps = (k_hi - k_lo + kTfStep - 1) / kTfStep;
+
+  cp_tile<kTfRows, D, true>(qs, q, b, h, q0, s);
+  cp_tile<kTfRows, D, true>(dos, dout, b, h, q0, s);
+  cp_commit();
+  cp_tile<kTfStep, D, false>(stage, k, b, h, k_lo, s);
+  cp_tile<kTfStep, D, false>(stage + M::kStage, v, b, h, k_lo, s);
+  cp_commit();
+
+  const float sl2 = s.scale * kLog2e;
+  float lse_r[2], del_r[2] = {0.f, 0.f};  // lse in log2 units
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    lse_r[r] = rows[r] < s.t ? lse[(size_t)bh * s.t + rows[r]] * kLog2e : 0.f;
+
+  cp_wait<1>();  // Q and dO
+  __syncthreads();
+  for (int r = 0; r < 16; ++r) {
+    const int row = q0 + r0 + r;
+    if (row >= s.t) break;  // uniform across the warp
+    const float* orow = o + (((size_t)b * s.t + row) * s.h + h) * D;
+    float sum = 0.f;
+    for (int ch = lane; ch < D / 4; ch += 32) {
+      const float4 ov = *reinterpret_cast<const float4*>(orow + 4 * ch);
+      const float4 dv =
+          *reinterpret_cast<const float4*>(dos + swz<D>(r0 + r, ch));
+      sum = fmaf(ov.x, dv.x, sum);
+      sum = fmaf(ov.y, dv.y, sum);
+      sum = fmaf(ov.z, dv.z, sum);
+      sum = fmaf(ov.w, dv.w, sum);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    if (r == g) del_r[0] = sum;
+    if (r == g + 8) del_r[1] = sum;
+    if (lane == 0) delta[(size_t)bh * s.t + row] = sum;
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int k0 = k_lo + i * kTfStep;
+    cp_wait<0>();     // this step's K and V are staged
+    __syncthreads();  // ... for every thread, and the split tiles are free
+    split_tile<kTfStep, D>(kb, ksm, stage);
+    split_tile<kTfStep, D>(vb, vsm, stage + M::kStage);
+    __syncthreads();  // the split tiles are written, the stage is free
+    if (i + 1 < n_steps) {
+      cp_tile<kTfStep, D, false>(stage, k, b, h, k0 + kTfStep, s);
+      cp_tile<kTfStep, D, false>(stage + M::kStage, v, b, h, k0 + kTfStep, s);
+    }
+    cp_commit();
+    if (band_hit(q0 + r0, q0 + r0 + 16, k0, k0 + kTfStep, s)) {
+      float sc[NK][4], dp[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+      mma3_abt<NK, D>(sc, qs, kb, ksm, r0, lane);
+      mma3_abt<NK, D>(dp, dos, vb, vsm, r0, lane);
+      const bool full = tile_full(q0 + r0, 16, k0, kTfStep, s);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(sc[j][e], sl2, -lse_r[e >> 1]));
+          if (!full && !live(rows[e >> 1], k0 + 8 * j + 2 * t + (e & 1), s))
+            p = 0.f;
+          sc[j][e] = p * (dp[j][e] - del_r[e >> 1]);
+        }
+      mma3_pb<NK, D>(acc, sc, kb, ksm, g, t);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= s.t) continue;
+    float* row = dq + (((size_t)b * s.t + rows[r]) * s.h + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<float2*>(row + 8 * dt + 2 * t) = make_float2(
+          acc[dt][2 * r] * s.scale, acc[dt][2 * r + 1] * s.scale);
+  }
+}
+
+// dK/dV, k-major.  A step's lse and delta are staged by 4-byte copies
+// beside its Q and dO, and moved (lse scaled to log2 units) beside the
+// split tiles.  Per warp: S^T = K Q^T and dP^T = V dO^T (16 keys x 32
+// queries), p and ds as in dQ, dV += P^T dO and dK += dS^T Q.  Per thread
+// at D = 128: dK and dV 64 accumulators each, S^T and dP^T 16 each.
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, 1)
+flash_dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dk,
+               float* __restrict__ dv, Shape s) {
+  using M = TfSmem<D>;
+  constexpr int DT = D / 8, NQ = kTfStep / 8;
+  extern __shared__ __align__(16) float tf_smem[];
+  float* ks = tf_smem;              // [128][D], swizzled
+  float* vs = ks + M::kResident;    // [128][D], swizzled
+  float* qb = vs + M::kResident;    // Q big, Q small, dO big, dO small:
+  float* qsm = qb + M::kSplit;      // [32][D + 4] each
+  float* dob = qsm + M::kSplit;
+  float* dosm = dob + M::kSplit;
+  float* stage = dosm + M::kSplit;  // the next step's Q, dO [32][D] each
+  float* stats = stage + 2 * M::kStage;  // staged lse, delta; in use
+
+  const int bh = blockIdx.y;
+  const int b = bh / s.h, h = bh % s.h;
+  const int k0 = blockIdx.x * kTfRows;  // longest columns (small k0) first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = 16 * warp;  // the warp's keys in the tile
+  const int kb = k0 + r0;
+  const int keys[2] = {kb + g, kb + g + 8};
+  int q_lo, q_hi;
+  query_range(k0, kTfRows, s, &q_lo, &q_hi);
+  q_lo = (q_lo / kTfStep) * kTfStep;
+  const int n_steps = (q_hi - q_lo + kTfStep - 1) / kTfStep;
+
+  auto stage_step = [&](int qs0) {
+    cp_tile<kTfStep, D, false>(stage, q, b, h, qs0, s);
+    cp_tile<kTfStep, D, false>(stage + M::kStage, dout, b, h, qs0, s);
+    if (threadIdx.x < 2 * kTfStep) {
+      const int r = threadIdx.x % kTfStep;
+      const bool in = qs0 + r < s.t;
+      const float* src = threadIdx.x < kTfStep ? lse : delta;
+      cp4(stats + threadIdx.x, in ? src + (size_t)bh * s.t + qs0 + r : src,
+          in);
+    }
+  };
+
+  cp_tile<kTfRows, D, true>(ks, k, b, h, k0, s);
+  cp_tile<kTfRows, D, true>(vs, v, b, h, k0, s);
+  if (n_steps > 0) stage_step(q_lo);
+  cp_commit();
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+  const float sl2 = s.scale * kLog2e;
+  const float* ls = stats + 2 * kTfStep;  // the step's lse (log2), delta
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int q0 = q_lo + i * kTfStep;
+    cp_wait<0>();     // K and V, and this step's Q, dO, lse and delta
+    __syncthreads();  // ... for every thread, and the split tiles are free
+    split_tile<kTfStep, D>(qb, qsm, stage);
+    split_tile<kTfStep, D>(dob, dosm, stage + M::kStage);
+    if (threadIdx.x < 2 * kTfStep)
+      stats[2 * kTfStep + threadIdx.x] =
+          stats[threadIdx.x] * (threadIdx.x < kTfStep ? kLog2e : 1.f);
+    __syncthreads();  // the split tiles are written, the stage is free
+    if (i + 1 < n_steps) stage_step(q0 + kTfStep);
+    cp_commit();
+    if (band_hit(q0, q0 + kTfStep, kb, kb + 16, s)) {
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      mma3_abt<NQ, D>(st, ks, qb, qsm, r0, lane);
+      mma3_abt<NQ, D>(dpt, vs, dob, dosm, r0, lane);
+      const bool full = tile_full(q0, kTfStep, kb, 16, s);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float2 lz = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+        const float2 dz =
+            *reinterpret_cast<const float2*>(ls + kTfStep + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(st[j][e], sl2, -(e & 1 ? lz.y : lz.x)));
+          if (!full && !live(q0 + 8 * j + 2 * t + (e & 1), keys[e >> 1], s))
+            p = 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - (e & 1 ? dz.y : dz.x));
+        }
+      }
+      mma3_pb<NQ, D>(dv_acc, st, dob, dosm, g, t);
+      mma3_pb<NQ, D>(dk_acc, dpt, qb, qsm, g, t);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= s.t) continue;
+    const size_t off = (((size_t)b * s.t + keys[r]) * s.h + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      *reinterpret_cast<float2*>(dk + off + 8 * dt + 2 * t) = make_float2(
+          dk_acc[dt][2 * r] * s.scale, dk_acc[dt][2 * r + 1] * s.scale);
+      *reinterpret_cast<float2*>(dv + off + 8 * dt + 2 * t) =
+          make_float2(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   if (smem > 48 * 1024)
@@ -1735,13 +2215,42 @@ int run_wgmma(int which, const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// Which kernels a call takes (which: 0 forward, 1 dQ, 2 dK/dV; dtype as
-// the launchers'): 2 the wgmma path (bfloat16 and float16, D in {64,
-// 128}), 1 mma.sync (the same types with D in {16, 32}), 0 the f32
-// CUDA-core kernels (float32, whose products the reference keeps in f32,
-// and any other D).  All three kernels of a call take the same route.
+// float32 dQ (which 1) or dK/dV (2) on the tf32x3 path
+template <int D>
+cudaError_t run_tf32(int which, const Args& a) {
+  const dim3 grid((a.s.t + kTfRows - 1) / kTfRows, a.b * a.s.h);
+  const size_t smem = sizeof(float) * TfSmem<D>::kFloats;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  cudaError_t err;
+  if (which == 1) {
+    auto kernel = flash_dq_tf32<D>;
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, kTfThreads, smem, a.stream>>>(
+        q, k, v, dout, static_cast<const float*>(a.o), lse,
+        static_cast<float*>(a.delta), static_cast<float*>(a.dq), a.s);
+  } else {
+    auto kernel = flash_dkv_tf32<D>;
+    if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<grid, kTfThreads, smem, a.stream>>>(
+        q, k, v, dout, lse, static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.s);
+  }
+  return cudaGetLastError();
+}
+
+// Which kernel a call takes (which: 0 forward, 1 dQ, 2 dK/dV; dtype as
+// the launchers'): 3 tf32x3 (float32 dQ and dK/dV with D in {64, 128}),
+// 2 the wgmma path (bfloat16 and float16, D in {64, 128}), 1 mma.sync
+// (the same types with D in {16, 32}), 0 the f32 CUDA-core kernels
+// (the float32 forward, and float32 or 16-bit types at any other D).  The
+// three kernels of a 16-bit call take one route; a float32 call at D 64 or
+// 128 runs its forward on the CUDA cores and its backward on tf32x3.
 int path(int which, int dtype, int d) {
-  (void)which;
+  if (dtype == 0) return which != 0 && (d == 64 || d == 128) ? 3 : 0;
   if (dtype != 1 && dtype != 2) return 0;
   if (d == 64 || d == 128) return 2;
   return d == 16 || d == 32 ? 1 : 0;
@@ -1768,7 +2277,11 @@ int launch(int which, int dtype, Args& a, int t, int h, int d, int causal,
     return (int)cudaErrorInvalidValue;
   a.s = Shape{t, h, d, causal ? 1 : 0, causal ? window : 0, scale};
   a.stream = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(which, a);
+  if (dtype == 0) {
+    if (path(which, 0, d) == 3)
+      return (int)(d == 64 ? run_tf32<64>(which, a) : run_tf32<128>(which, a));
+    return (int)dispatch<float>(which, a);
+  }
   if (dtype == 1) return dispatch_16bit<__nv_bfloat16>(which, a);
   if (dtype == 2) return dispatch_16bit<__half>(which, a);
   return (int)cudaErrorInvalidValue;
@@ -1782,8 +2295,8 @@ int launch(int which, int dtype, Args& a, int t, int h, int d, int causal,
 // (0 on success), or kMapError + the CUresult of a failed tensor-map
 // encode; the caller validates shapes, contiguity and alignment.
 // dl4j_flash_path says which kernels a call takes (see `path`).  dQ
-// writes delta [B, H, T] float32 on the wgmma route (path 2) and reads
-// it on the others.
+// writes delta [B, H, T] float32 on the wgmma and tf32x3 routes (paths 2
+// and 3) and reads it on the others.
 extern "C" int dl4j_flash_path(int which, int dtype, int d) {
   return path(which, dtype, d);
 }

@@ -11,12 +11,14 @@ the probabilities from lse.
   (``_fwd_kernel``), dQ (``_dq_kernel``, q-major) and dK/dV
   (``_dkv_kernel``, k-major).  bfloat16 and float16 take the tensor
   cores: with D in {64, 128} all three on ``wgmma`` fed by TMA
-  (``csrc/hopper.cuh``), with D in {16, 32} on ``mma.sync``; float32 and
-  other head dims run on the CUDA cores.  ``kernel_path`` says which.
-  On the wgmma route dQ also computes delta = rowsum(dO·O) from the tiles
-  it holds and hands it to dK/dV; the other routes take it from the torch
-  reduction ``_row_delta``.  Each launches or raises; nothing falls
-  back.
+  (``csrc/hopper.cuh``), with D in {16, 32} on ``mma.sync``.  The float32
+  dQ and dK/dV with D in {64, 128} take the tensor cores too, in 3xTF32
+  (``tf32x3``: three TF32 products per pair of operands, which keeps
+  float32 accuracy); the float32 forward and other head dims run on the
+  CUDA cores.  ``kernel_path`` says which.  On the wgmma and tf32x3
+  routes dQ also computes delta = rowsum(dO·O) and hands it to dK/dV; the
+  other routes take it from the torch reduction ``_row_delta``.  Each
+  launches or raises; nothing falls back.
 - On CPU tensors the same ``autograd.Function`` runs the plain versions
   ``flash_attention_plain_fwd``/``flash_attention_plain_bwd``: a masked
   full softmax in float32 with the kernels' casts.  The kernels are held
@@ -46,7 +48,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KERNELS = {"fwd": 0, "dq": 1, "dkv": 2}
-PATHS = ("cuda_cores", "mma_sync", "wgmma")   # dl4j_flash_path's answers
+# dl4j_flash_path's answers, by code
+PATHS = ("cuda_cores", "mma_sync", "wgmma", "tf32x3")
+DELTA_IN_DQ = ("wgmma", "tf32x3")   # routes whose dQ kernel writes delta
 _MAP_ERROR = 10000      # kMapError in the source: a failed tensor-map encode
 _lib = None     # the loaded library, once ``build`` has run
 
@@ -155,7 +159,7 @@ def build() -> cuda_build.Built:
 def kernel_path(kernel: str, dtype: torch.dtype, d: int) -> str:
     """Which kernels a CUDA call of ``kernel`` ("fwd", "dq" or "dkv")
     takes for ``dtype`` and head dim ``d``, as the library's dispatch
-    decides: "wgmma", "mma_sync" or "cuda_cores"."""
+    decides: "wgmma", "mma_sync", "tf32x3" or "cuda_cores"."""
     if _lib is None:
         build()
     return PATHS[_lib.dl4j_flash_path(_KERNELS[kernel], _DTYPE_CODES[dtype],
@@ -239,16 +243,16 @@ def _launch_fwd(q, k, v, causal, window):
 
 
 def _launch_dq(q, k, v, do, o, lse, causal, window):
-    """(dq, delta): on the wgmma route the kernel writes delta itself;
-    on the others ``_row_delta`` computes it first and the kernel reads
-    it."""
+    """(dq, delta): on the wgmma and tf32x3 routes the kernel writes
+    delta itself; on the others ``_row_delta`` computes it first and the
+    kernel reads it."""
     b, t, h, d = _check_kernel_args(q, k, v, (("do", do), ("o", o)))
     for name, x in (("do", do), ("o", o)):
         if x.shape != q.shape:
             raise ValueError(f"{name} {tuple(x.shape)} must match q "
                              f"{tuple(q.shape)}")
     _stats_check("lse", lse, b, h, t, q.device)
-    if kernel_path("dq", q.dtype, d) == "wgmma":
+    if kernel_path("dq", q.dtype, d) in DELTA_IN_DQ:
         delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     else:
         delta = _row_delta(o, do)

@@ -2,14 +2,19 @@
 card, for the package in this checkout:
 
     python3 scripts/torch_train_step_host.py [--steps 20] [--tag NAME]
+                                             [--float32]
 
 The model and batch are ``chip_smoke.py``'s train phase at full width
 (vocab 128, d_model 1024, 8 heads, 8 layers, bfloat16, batch 8,
-T = 2048, Adam at 1e-3, ``bench.py``'s batch).  After 3 warm-up steps it
-prints the median and the least of ``--steps`` timed ``fit`` steps (each
-ending in the loss read), then traces one more step on host and device
-and prints its wall, the host's self time and the device's busy time,
-and the host's operations by self time.  The script uses only the
+T = 2048, Adam at 1e-3, ``bench.py``'s batch); ``--float32`` trains it
+in float32, the zoo default (no ``compute_dtype``).  After 3 warm-up
+steps it prints the median and the least of ``--steps`` timed ``fit``
+steps (each ending in the loss read), then traces one more step on host
+and device and prints its wall, the host's self time and the device's
+busy time, and the host's operations by self time; then one step traced
+on the device alone, for its busy time and the flash kernels' share of
+it (the device's own rows, which the host trace counts twice).  The
+script uses only the
 public API (``transformer_char_lm``, ``fit``, ``score_value``), so a copy
 of it measures another commit's checkout in the same way; run two
 commits in turns, in fresh processes, to compare them.
@@ -38,13 +43,18 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--tag", default="step")
+    ap.add_argument("--float32", action="store_true",
+                    help="train in float32 (no compute_dtype)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    net = transformer_char_lm(device="cuda", **MODEL)
+    model = dict(MODEL)
+    if args.float32:
+        del model["compute_dtype"]
+    net = transformer_char_lm(device="cuda", **model)
     vocab = MODEL["vocab_size"]
     ids = np.random.RandomState(0).randint(0, vocab, (BATCH, T))
     x = torch.as_tensor(ids, device="cuda")
@@ -77,6 +87,20 @@ def main() -> int:
     for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:25]:
         print(f"{args.tag} host: {e.self_cpu_time_total / 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:80]}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        net.fit(x, y)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    flash = {kn: sum(e.self_device_time_total for e in ev
+                     if f"flash_{kn}_" in e.key) / 1e3
+             for kn in ("fwd", "dq", "dkv")}
+    print(f"{args.tag}: device-only traced step: busy {busy_ms:.3f} ms; "
+          f"flash fwd {flash['fwd']:.3f} ms, dQ {flash['dq']:.3f} ms, "
+          f"dK/dV {flash['dkv']:.3f} ms ({sum(flash.values()) / busy_ms:.3f}"
+          f" of busy)")
     return 0
 
 

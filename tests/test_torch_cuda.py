@@ -197,7 +197,7 @@ def test_flash_kernels_match_plain(name, dtype, cuda):
         assert got.dtype == dtype
         assert _grad_err(got, ref) <= TOL[dtype]
     # the delta dQ hands to dK/dV (computed in the kernel on the wgmma
-    # route) is the torch reduction's, up to summation order
+    # and tf32x3 routes) is the torch reduction's, up to summation order
     dq2, delta = fa._launch_dq(q, k, v, do, o, lse, causal, window)
     ref = fa._row_delta(o, do)
     torch.cuda.synchronize()
@@ -206,8 +206,8 @@ def test_flash_kernels_match_plain(name, dtype, cuda):
         1.0, ref.abs().max().item())
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
-                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_dkv_is_the_same_run_to_run(d, dtype, cuda):
     """dK/dV uses no atomics: two runs give bitwise the same gradients."""
@@ -223,8 +223,9 @@ def test_flash_dkv_is_the_same_run_to_run(d, dtype, cuda):
 
 def test_flash_paths_at_the_main_path_shape(cuda):
     """The char-LM's D = 128 in bf16 and f16 takes wgmma for the forward,
-    dQ and dK/dV, as does D = 64; D = 16 and 32 take mma.sync; float32
-    the CUDA cores."""
+    dQ and dK/dV, as does D = 64; D = 16 and 32 take mma.sync.  float32
+    takes tf32x3 for dQ and dK/dV at D = 64 and 128, and the CUDA cores
+    for its forward and at other D (40)."""
     for dtype in (torch.bfloat16, torch.float16):
         for d in (64, 128):
             for kernel in ("fwd", "dq", "dkv"):
@@ -232,8 +233,12 @@ def test_flash_paths_at_the_main_path_shape(cuda):
         assert fa.kernel_path("fwd", dtype, 32) == "mma_sync"
         assert fa.kernel_path("dq", dtype, 32) == "mma_sync"
         assert fa.kernel_path("dkv", dtype, 40) == "cuda_cores"
-    assert fa.kernel_path("fwd", torch.float32, 128) == "cuda_cores"
-    assert fa.kernel_path("dq", torch.float32, 128) == "cuda_cores"
+    for d in (64, 128):
+        assert fa.kernel_path("fwd", torch.float32, d) == "cuda_cores"
+        assert fa.kernel_path("dq", torch.float32, d) == "tf32x3"
+        assert fa.kernel_path("dkv", torch.float32, d) == "tf32x3"
+    for kernel in ("fwd", "dq", "dkv"):
+        assert fa.kernel_path(kernel, torch.float32, 40) == "cuda_cores"
 
 
 def test_flash_tensor_map_failure_raises(cuda):

@@ -60,6 +60,14 @@ def _scaled(a, ref):
     return np.abs(a - ref).max() / max(np.abs(ref).max(), 1e-30)
 
 
+def _grad_err(a, ref):
+    """Scaled error; where the reference's largest magnitude is below
+    1e-3 (at T = 1 a row's one key has weight 1, so dq and dk are 0 up to
+    rounding) the absolute difference."""
+    return (np.abs(a - ref).max() if np.abs(ref).max() < 1e-3
+            else _scaled(a, ref))
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_port_matches_jax_kernel(name):
     shape, causal, window = CASES[name]
@@ -173,7 +181,7 @@ def test_attention_layer_routes_float16_and_raises_off_the_cpu():
     assert out.shape == meta.shape and out.dtype == torch.float64
 
 
-# ------------------------------------------------- the wgmma kernels' walk
+# ------------------------------------------ the tensor-core kernels' walk
 # A numpy mirror of the loop bounds of ``flash_fwd_wgmma``,
 # ``flash_dq_wgmma`` and ``flash_dkv_wgmma`` (``csrc/flash_attention.cu``):
 # ``key_range``, ``query_range``, ``band_hit`` and ``tile_full`` with the
@@ -181,8 +189,15 @@ def test_attention_layer_routes_float16_and_raises_off_the_cpu():
 # query tile, dQ 64-key steps under a 128-row query tile, the dK/dV kernel
 # 64-row query steps under a 128-key tile; each block is two consumer
 # warpgroups of 64 rows (queries or keys), and a warpgroup skips a tile in
-# which its rows see no key.
+# which its rows see no key.  The float32 ``flash_dq_tf32`` and
+# ``flash_dkv_tf32`` walk the same 128-row blocks in 32-row steps, each
+# block eight warps of 16 rows that skip the steps their rows do not see.
 TILE, STEP, WG_ROWS = 128, 64, 64
+TF_STEP, TF_ROWS = 32, 16
+# kernel: (rows of a block, step, rows of a block's part)
+WALKS = {"fwd": (TILE, TILE, WG_ROWS), "dq": (TILE, STEP, WG_ROWS),
+         "dkv": (TILE, STEP, WG_ROWS), "dq_tf32": (TILE, TF_STEP, TF_ROWS),
+         "dkv_tf32": (TILE, TF_STEP, TF_ROWS)}
 
 
 def _live(q, k, t, causal, window):
@@ -237,23 +252,23 @@ def _walk(kernel, t, causal, window):
     live (query, key) pair."""
     visits = np.zeros((t, t), dtype=np.int64)
     loaded = []
-    for blk in range((t + TILE - 1) // TILE):
-        if kernel in ("fwd", "dq"):
-            q0 = blk * TILE
-            kstep = TILE if kernel == "fwd" else STEP
-            k_lo, k_hi = _key_range(q0, TILE, t, causal, window, kstep)
-            tiles = [(q0, q0 + TILE, k, k + kstep)
-                     for k in range(k_lo, k_hi, kstep)]
-            parts = [(q0 + WG_ROWS * w, q0 + WG_ROWS * (w + 1), None, None)
-                     for w in range(2)]
+    tile, step, part = WALKS[kernel]
+    for blk in range((t + tile - 1) // tile):
+        if kernel.startswith(("fwd", "dq")):
+            q0 = blk * tile
+            k_lo, k_hi = _key_range(q0, tile, t, causal, window, step)
+            tiles = [(q0, q0 + tile, k, k + step)
+                     for k in range(k_lo, k_hi, step)]
+            parts = [(q0 + part * w, q0 + part * (w + 1), None, None)
+                     for w in range(tile // part)]
         else:
-            k0 = blk * TILE
-            q_lo, q_hi = _query_range(k0, TILE, t, causal, window)
-            q_lo = q_lo // STEP * STEP
-            tiles = [(q, q + STEP, k0, k0 + TILE)
-                     for q in range(q_lo, q_hi, STEP)]
-            parts = [(None, None, k0 + WG_ROWS * w, k0 + WG_ROWS * (w + 1))
-                     for w in range(2)]
+            k0 = blk * tile
+            q_lo, q_hi = _query_range(k0, tile, t, causal, window)
+            q_lo = q_lo // step * step
+            tiles = [(q, q + step, k0, k0 + tile)
+                     for q in range(q_lo, q_hi, step)]
+            parts = [(None, None, k0 + part * w, k0 + part * (w + 1))
+                     for w in range(tile // part)]
         loaded += tiles
         for pq0, pq1, pk0, pk1 in parts:
             rects = [((pq0, pq1) if pq0 is not None else (tq0, tq1),
@@ -273,7 +288,7 @@ def _walk(kernel, t, causal, window):
     return loaded, visits
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("kernel", sorted(WALKS))
 @pytest.mark.parametrize("causal, window", [
     (False, None), (True, None), (True, 1), (True, 100), (True, 128),
     (True, 200)], ids=["full", "causal", "window1", "window100",
@@ -366,12 +381,7 @@ def test_dq_block_schedule_matches_plain_backward(causal, window, t, d):
                                                        window)
     rdq, _, _ = fa.flash_attention_plain_bwd(tq, tk, tv, o, lse, tdo,
                                              causal, window)
-    rdq = rdq.numpy()[0, :, 0]
-    # at T = 1 the one key has weight 1 and dq is 0 up to rounding: there
-    # the absolute difference, else the scaled one
-    err = (np.abs(dq - rdq).max() if np.abs(rdq).max() < 1e-3
-           else _scaled(dq, rdq))
-    assert err <= 1e-5
+    assert _grad_err(dq, rdq.numpy()[0, :, 0]) <= 1e-5
     np.testing.assert_allclose(delta, fa._row_delta(o, tdo).numpy()[0, 0],
                                atol=1e-5, rtol=1e-5)
 
@@ -390,6 +400,252 @@ def test_dq_block_schedule_matches_jax_kernel(d, causal, window):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     jdq = np.asarray(vjp(jnp.asarray(do))[0])[0, :, 0]
     assert _scaled(dq, jdq) <= TOL
+
+
+# ------------------------------------------------ the tf32x3 kernels
+# ``flash_dq_tf32`` and ``flash_dkv_tf32`` multiply float32 on the tensor
+# cores in TF32 (10-bit mantissa), three products per pair of operands.
+def _tf32(x):
+    """The kernels' ``to_tf32``, which rounds as ``cvt.rna.tf32.f32``
+    does: float32 to a 10-bit mantissa, ties away from zero (low 13 bits
+    zero)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    mag = ((u & np.uint32(0x7FFFFFFF)) + np.uint32(0x1000)) \
+        & np.uint32(0xFFFFE000)
+    return ((u & np.uint32(0x80000000)) | mag).view(np.float32)
+
+
+def _split(x):
+    """x = big + small, both TF32 values, as the kernels' ``split``."""
+    big = _tf32(x)
+    return big, _tf32(np.asarray(x, np.float32) - big)
+
+
+def _mm(a, b, products=3):
+    """a @ b as the kernels take it on ``mma.sync`` m16n8k8: each product
+    exact (TF32 significands), summed into a float32 accumulator, the two
+    small products first.  ``products=1`` is one TF32 product."""
+    (ab, asm), (bb, bsm) = _split(a), _split(b)
+    f64 = np.float64
+    if products == 1:
+        return (ab.astype(f64) @ bb.astype(f64)).astype(np.float32)
+    acc = (asm.astype(f64) @ bb.astype(f64)).astype(np.float32)
+    acc += (ab.astype(f64) @ bsm.astype(f64)).astype(np.float32)
+    acc += (ab.astype(f64) @ bb.astype(f64)).astype(np.float32)
+    return acc
+
+
+def _tf32_dq_blocks(q, k, v, o, do, lse, causal, window, products=3):
+    """(dq, delta) of one [T, D] head on the block schedule of
+    ``flash_dq_tf32``: 128-query blocks of eight 16-row warps, 32-key
+    steps from ``key_range`` rounded to the step, steps a warp's rows do
+    not see skipped, masks only on steps that are not full; delta =
+    rowsum(dO·O) per row in float32; every product through ``_mm``."""
+    t, d = q.shape
+    sl2 = np.float32(1.0 / np.sqrt(d)) * LOG2E
+    dq = np.zeros_like(q)
+    delta = (o * do).sum(-1, dtype=np.float32)
+    for q0 in range(0, t, TILE):
+        k_lo, k_hi = _key_range(q0, TILE, t, causal, window, TF_STEP)
+        for r0 in range(q0, q0 + TILE, TF_ROWS):
+            if r0 >= t:
+                break
+            rows = np.arange(r0, r0 + TF_ROWS)
+            qt, dot = _rows(q, r0, TF_ROWS), _rows(do, r0, TF_ROWS)
+            lse2 = np.where(rows < t, lse[np.minimum(rows, t - 1)] * LOG2E,
+                            np.float32(0))
+            dl = np.where(rows < t, delta[np.minimum(rows, t - 1)],
+                          np.float32(0))
+            acc = np.zeros((TF_ROWS, d), np.float32)
+            for k0 in range(k_lo, k_hi, TF_STEP):
+                if not _band_hit(r0, r0 + TF_ROWS, k0, k0 + TF_STEP, t,
+                                 causal, window):
+                    continue
+                kt, vt = _rows(k, k0, TF_STEP), _rows(v, k0, TF_STEP)
+                p = np.exp2(_mm(qt, kt.T, products) * sl2 - lse2[:, None])
+                if not _tile_full(r0, TF_ROWS, k0, TF_STEP, t, causal,
+                                  window):
+                    keep = _live(rows[:, None],
+                                 np.arange(k0, k0 + TF_STEP)[None], t,
+                                 causal, window)
+                    p = np.where(keep, p, np.float32(0))
+                ds = p * (_mm(dot, vt.T, products) - dl[:, None])
+                acc += _mm(ds, kt, products)
+            live = rows < t
+            dq[rows[live]] = acc[live] * np.float32(1.0 / np.sqrt(d))
+    return dq, delta
+
+
+def _tf32_dkv_blocks(q, k, v, do, lse, delta, causal, window, products=3):
+    """(dk, dv) of one [T, D] head on the block schedule of
+    ``flash_dkv_tf32``: 128-key blocks of eight 16-key warps, 32-query
+    steps from ``query_range`` rounded to the step, lse and delta read
+    with the step."""
+    t, d = q.shape
+    sl2 = np.float32(1.0 / np.sqrt(d)) * LOG2E
+    scale = np.float32(1.0 / np.sqrt(d))
+    dk, dv = np.zeros_like(k), np.zeros_like(v)
+    lse_p = np.concatenate([lse, np.zeros(TILE, np.float32)])
+    del_p = np.concatenate([delta, np.zeros(TILE, np.float32)])
+    for k0 in range(0, t, TILE):
+        q_lo, q_hi = _query_range(k0, TILE, t, causal, window)
+        q_lo = q_lo // TF_STEP * TF_STEP
+        for kb in range(k0, k0 + TILE, TF_ROWS):
+            if kb >= t:
+                break
+            keys = np.arange(kb, kb + TF_ROWS)
+            kt, vt = _rows(k, kb, TF_ROWS), _rows(v, kb, TF_ROWS)
+            dk_acc = np.zeros((TF_ROWS, d), np.float32)
+            dv_acc = np.zeros((TF_ROWS, d), np.float32)
+            for q0 in range(q_lo, q_hi, TF_STEP):
+                if not _band_hit(q0, q0 + TF_STEP, kb, kb + TF_ROWS, t,
+                                 causal, window):
+                    continue
+                qt, dot = _rows(q, q0, TF_STEP), _rows(do, q0, TF_STEP)
+                lse2 = lse_p[q0:q0 + TF_STEP] * LOG2E
+                p = np.exp2(_mm(kt, qt.T, products) * sl2 - lse2[None])
+                if not _tile_full(q0, TF_STEP, kb, TF_ROWS, t, causal,
+                                  window):
+                    keep = _live(np.arange(q0, q0 + TF_STEP)[None],
+                                 keys[:, None], t, causal, window)
+                    p = np.where(keep, p, np.float32(0))
+                ds = p * (_mm(vt, dot.T, products)
+                          - del_p[q0:q0 + TF_STEP][None])
+                dv_acc += _mm(p, dot, products)
+                dk_acc += _mm(ds, qt, products)
+            live = keys < t
+            dk[keys[live]] = dk_acc[live] * scale
+            dv[keys[live]] = dv_acc[live]
+    return dk, dv
+
+
+def _tf32_case(seed, t, d, causal, window, products=3):
+    q, k, v, do = _inputs(seed, (1, t, 1, d))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = fa.flash_attention_plain_fwd(tq, tk, tv, causal, window)
+    head = [a[0, :, 0] for a in (q, k, v, o.numpy(), do)]
+    lse1 = lse.numpy()[0, 0]
+    dq, delta = _tf32_dq_blocks(*head, lse1, causal, window, products)
+    return (q, k, v, do), (tq, tk, tv, tdo, o, lse), (dq, delta), head, lse1
+
+
+def test_tf32_rounding_and_split():
+    """``_tf32`` rounds to nearest with ties away, keeps 10 mantissa
+    bits, and big + small holds a float32 to about 2^-22 of it."""
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)
+    assert _tf32(one + ulp / 2) == one + ulp            # tie: away from 0
+    assert _tf32(-(one + ulp / 2)) == -(one + ulp)
+    assert _tf32(one + ulp / 2 - np.float32(2.0 ** -23)) == one
+    x = np.random.default_rng(0).standard_normal(10000).astype(np.float32)
+    assert not (_tf32(x).view(np.uint32) & np.uint32(0x1FFF)).any()
+    big, small = _split(x)
+    assert np.abs(big - x).max() / np.abs(x).max() > 1e-4
+    assert (np.abs(big.astype(np.float64) + small - x)
+            <= np.abs(x) * 2.0 ** -21).all()
+
+
+def test_tf32_fragments_give_the_product():
+    """The fragment layouts the kernels rely on, lane by lane (lane =
+    4 g + t).  ldmatrix of an 8 x 4-float matrix hands lane (g, t) float
+    (g, t), which is the tf32 A and B layout (``load_a``, the B loads of
+    ``mma3_abt``); and an accumulator (row g, cols 2t, 2t + 1) fed back
+    as A with k relabelled (k = t is token 2t, k = t + 4 token 2t + 1)
+    times B read from token rows 2t and 2t + 1 (``mma3_pb``) is P·B."""
+    rng = np.random.default_rng(1)
+    g, t = np.divmod(np.arange(32), 4)
+
+    def mma(a, b):
+        """m16n8k8 from per-lane A (4 values) and B (2) fragments."""
+        am, bm = np.zeros((16, 8)), np.zeros((8, 8))
+        am[g, t], am[g + 8, t], am[g, t + 4], am[g + 8, t + 4] = a.T
+        bm[t, g], bm[t + 4, g] = b.T
+        return am @ bm
+
+    def ldsm4(tile, row_of_lane, col_of_lane):
+        """ldmatrix .x4: lane l gives the row of matrix l // 8 (4 floats
+        from its column); lane (g, t) receives float t of row g of each."""
+        rows = [[tile[row_of_lane[8 * m + i],
+                      col_of_lane[8 * m + i]:col_of_lane[8 * m + i] + 4]
+                 for i in range(8)] for m in range(4)]
+        return np.stack([np.array(rows[m])[g, t] for m in range(4)], 1)
+
+    lane = np.arange(32)
+    m = lane // 8
+    tile = rng.standard_normal((40, 24))
+    r0, c0 = 16, 8
+    a = ldsm4(tile, r0 + lane % 8 + 8 * (m & 1), c0 + 4 * (m >> 1))
+    bt = rng.standard_normal((16, 24))
+    b = ldsm4(bt, 8 * (0 + (m >> 1)) + lane % 8, c0 + 4 * (m & 1))
+    want = tile[r0:r0 + 16, c0:c0 + 8] @ bt[:16, c0:c0 + 8].T
+    np.testing.assert_allclose(mma(a, b[:, :2]), want[:, :8])
+    np.testing.assert_allclose(mma(a, b[:, 2:]), want[:, 8:])
+
+    p = rng.standard_normal((16, 8))
+    acc = np.stack([p[g, 2 * t], p[g, 2 * t + 1], p[g + 8, 2 * t],
+                    p[g + 8, 2 * t + 1]], 1)
+    a = acc[:, [0, 2, 1, 3]]
+    tokens = rng.standard_normal((8, 8))
+    b = np.stack([tokens[2 * t, g], tokens[2 * t + 1, g]], 1)
+    np.testing.assert_allclose(mma(a, b), p @ tokens)
+    # without the relabelling the same registers give another product
+    b_plain = np.stack([tokens[t, g], tokens[t + 4, g]], 1)
+    assert np.abs(mma(a, b_plain) - p @ tokens).max() > 1e-3
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [1, 100, 300])
+@pytest.mark.parametrize("causal, window", [(True, None), (False, None),
+                                            (True, 64)],
+                         ids=["causal", "full", "window64"])
+def test_tf32x3_block_schedule_matches_plain_backward(causal, window, t, d):
+    """The tf32x3 dQ and dK/dV kernels' schedules and 3xTF32 products,
+    emulated in numpy, give the plain backward's dq, dk, dv and
+    ``_row_delta``'s delta within 1e-5 (float32)."""
+    _, (tq, tk, tv, tdo, o, lse), (dq, delta), head, lse1 = _tf32_case(
+        t + d + 1, t, d, causal, window)
+    q, k, v, _, do = head
+    dk, dv = _tf32_dkv_blocks(q, k, v, do, lse1, delta, causal, window)
+    refs = fa.flash_attention_plain_bwd(tq, tk, tv, o, lse, tdo, causal,
+                                        window)
+    for got, ref in zip((dq, dk, dv), refs):
+        assert _grad_err(got, ref.numpy()[0, :, 0]) <= 1e-5
+    np.testing.assert_allclose(delta, fa._row_delta(o, tdo).numpy()[0, 0],
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d, causal, window", [(128, True, None),
+                                               (64, False, None),
+                                               (128, True, 64)],
+                         ids=["causal_d128", "full_d64", "window64_d128"])
+def test_tf32x3_block_schedule_matches_jax_kernel(d, causal, window):
+    """At T = 256 the emulated tf32x3 schedules' dq, dk and dv against the
+    JAX backward run in interpret mode."""
+    (q, k, v, do), _, (dq, delta), head, lse1 = _tf32_case(
+        11 + d, 256, d, causal, window)
+    dk, dv = _tf32_dkv_blocks(head[0], head[1], head[2], head[4], lse1,
+                              delta, causal, window)
+    _, vjp = jax.vjp(
+        lambda q, k, v: jfa.flash_attention(q, k, v, causal=causal,
+                                            window=window, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for got, jg in zip((dq, dk, dv), vjp(jnp.asarray(do))):
+        assert _scaled(got, np.asarray(jg)[0, :, 0]) <= TOL
+
+
+def test_one_tf32_product_misses_the_float32_budget():
+    """Why three products: at T = 1024, D = 128, causal, dq from one TF32
+    product per pair misses the float32 budget (1e-4 of the largest
+    magnitude) by an order of magnitude, and 3xTF32 keeps it within
+    1e-5."""
+    errs = {}
+    for products in (1, 3):
+        _, (tq, tk, tv, tdo, o, lse), (dq, _), _, _ = _tf32_case(
+            5, 1024, 128, True, None, products)
+        rdq = fa.flash_attention_plain_bwd(tq, tk, tv, o, lse, tdo,
+                                           True, None)[0]
+        errs[products] = _scaled(dq, rdq.numpy()[0, :, 0])
+    assert errs[1] >= 1e-4 and errs[3] <= 1e-5, errs
 
 
 def test_build_digest_covers_headers_and_flags(tmp_path):
