@@ -18,9 +18,11 @@ Phases (any failure exits non-zero; nothing is caught):
    whichever is larger).  Each flash case prints the kernels its calls
    take (``fa.kernel_path``); a bfloat16 or float16 case at D = 64 or 128
    must take wgmma for the forward, dQ and dK/dV, a float32 one tf32x3
-   for dQ and dK/dV (bounded at a third of the TF32 rate, with the CUDA
+   for all three (bounded at a third of the TF32 rate, with the CUDA
    cores' bound printed beside it), and the delta its dQ hands to dK/dV
-   must match the torch reduction ``_row_delta``.
+   must match the torch reduction ``_row_delta``.  Paged decode runs at
+   the engine's shapes and at contexts up to 4096 keys, where its split
+   over the key range has the most blocks to merge.
 3. Serve the transformer char-LM at full width (vocab 128, d_model 1024,
    8 heads, 8 layers, bfloat16, seeded random weights) through the port's
    ``GenerationEngine`` (16 slots, pages of 16, context 512): 16
@@ -43,7 +45,7 @@ Phases (any failure exits non-zero; nothing is caught):
    ``_row_delta`` reduction: delta comes from the dQ kernel).  Then the
    same in float32, the zoo default (no ``compute_dtype``): the first
    step against the built-in path, 7 ``fit`` steps with their launch
-   counts, and the profiled steps, whose backward must run
+   counts, and the profiled steps, which must run ``flash_fwd_tf32``,
    ``flash_dq_tf32`` and ``flash_dkv_tf32``.
 5. Hold the three BatchNorm kernels (training forward, training
    backward, inference) against their plain versions at ResNet-50's
@@ -130,6 +132,9 @@ MODEL = dict(vocab_size=128, d_model=1024, n_heads=8, layers=8,
              max_cache=512, compute_dtype="bfloat16", seed=12345)
 ENGINE = dict(slots=16, page_size=16, max_context=512, prefill_buckets=(16,))
 PS, MAXP, PAGES = 16, 32, 16 * 32 + 1
+# the long-context decode case's own table: 256 pages of 16, 4096 keys
+LONG_PS, LONG_MAXP = 16, 256
+LONG_PAGES = 16 * LONG_MAXP + 1
 CLIENTS, PER_CLIENT, NEW_TOKENS = 4, 4, 64
 SPIN_CYCLES = 2_000_000     # about 1 ms of GPU clock: outlasts any enqueue
 PROFILED_STEPS = 10
@@ -193,6 +198,7 @@ def build_kernels():
     modules = [pa, fa, fe, bn, lrn]
     with ThreadPoolExecutor(len(modules)) as ex:
         built = list(ex.map(lambda m: m.build(), modules))
+    usage = {}      # kernel -> [registers, spill bytes], from ptxas
     for m, b in zip(modules, built):
         print(f"build {m.SOURCE.name}: {b.build_s:.1f} s -> {b.path.name}")
         entry = "?"
@@ -201,44 +207,66 @@ def build_kernels():
                 # the kernel's name and template arguments, from the
                 # mangled symbol
                 found = re.search(r"((?:flash_[a-z]+|drn|paged_decode|"
-                                  r"lrn_[a-z]+)_(?:kernel|mma|wgmma))"
+                                  r"lrn_[a-z]+)_(?:kernel|mma|wgmma|tf32))"
                                   r"(I\w*?E)?E"
                                   r"|(bn_[a-z_]+)(I\w*?E)?", ln)
                 entry = "".join(x for x in found.groups() if x) \
                     if found else ln
             elif "Used" in ln or "spill" in ln:
                 print(f"  ptxas {entry}: {ln.split(':', 1)[-1].strip()}")
+                use = usage.setdefault(entry, [0, 0])
+                regs = re.search(r"Used (\d+) registers", ln)
+                if regs:
+                    use[0] = int(regs.group(1))
+                use[1] += sum(int(n) for n in
+                              re.findall(r"(\d+) bytes spill", ln))
             elif "warning" in ln.lower() or "Performance Loss" in ln:
                 print(f"  {ln.strip()[:200]}")
+    # the float32 flash forward and paged decode kernels: registers, and
+    # no spills (a library found already built has no ptxas report)
+    new = {k: v for k, v in usage.items()
+           if k.startswith(("flash_fwd_tf32", "paged_decode_kernel"))}
+    print("build, float32 flash forward and paged decode kernels "
+          "(registers, spill bytes): " + "; ".join(
+              f"{k} {r}, {sp}" for k, (r, sp) in sorted(new.items())))
+    compiled = {m.SOURCE.name for m, b in zip(modules, built) if b.log}
+    for source, kernel in (("flash_attention.cu", "flash_fwd_tf32"),
+                           ("paged_attention.cu", "paged_decode_kernel")):
+        check(source not in compiled
+              or any(k.startswith(kernel) for k in new),
+              f"ptxas reported {kernel}: {sorted(new)}")
+    check(all(sp == 0 for _, sp in new.values()),
+          f"those kernels spill nothing: {new}")
 
 
 # ------------------------------------------------------------------ phase 2
-def paged_case(seed, b, t, hq, hkv, d, dtype, start=None):
+def paged_case(seed, b, t, hq, hkv, d, dtype, start=None, ps=PS,
+               maxp=MAXP, pages=PAGES):
     """Engine-shaped inputs: trash page 0; row 0 an idle slot (all-trash
     block row at position 0); the other rows at mixed positions ending in
     partly filled pages (or, with ``start``, one prompt written from
     there)."""
     rng = np.random.default_rng(seed)
     g = torch.Generator().manual_seed(seed)
-    pk = torch.randn(PAGES * PS, hkv, d, generator=g)
-    pv = torch.randn(PAGES * PS, hkv, d, generator=g)
+    pk = torch.randn(pages * ps, hkv, d, generator=g)
+    pv = torch.randn(pages * ps, hkv, d, generator=g)
     q = torch.randn(b, t, hq, d, generator=g)
-    block = rng.permutation(np.arange(1, PAGES))[:b * MAXP].reshape(b, MAXP)
+    block = rng.permutation(np.arange(1, pages))[:b * maxp].reshape(b, maxp)
     if start is None:
-        last = rng.integers(t - 1, MAXP * PS, size=(b,))
+        last = rng.integers(t - 1, maxp * ps, size=(b,))
         last[0] = t - 1
         block[0] = 0
     else:
         last = np.full((b,), start + t - 1)
     for i in range(b):
-        block[i, int(last[i]) // PS + 1:] = 0
+        block[i, int(last[i]) // ps + 1:] = 0
     qpos = (last - (t - 1))[:, None] + np.arange(t)
     return ([x.to("cuda", dtype) for x in (q, pk, pv)]
             + [torch.as_tensor(block, dtype=torch.int32, device="cuda"),
                torch.as_tensor(qpos, dtype=torch.int32, device="cuda")])
 
 
-def bound_ms(q, pk, block, qpos):
+def bound_ms(q, pk, block, qpos, ps=PS):
     """Least time: the live K/V the call must read (keys up to each row's
     highest position), q, positions and block table read once, the output
     written once — or the 4*D flops per (query, key) pair at the peak rate
@@ -246,10 +274,11 @@ def bound_ms(q, pk, block, qpos):
     esz = q.element_size()
     b, t, hq, d = q.shape
     hkv = pk.shape[1]
-    keys = torch.clamp(qpos.max(dim=1).values + 1, max=MAXP * PS)
+    cap = block.shape[1] * ps
+    keys = torch.clamp(qpos.max(dim=1).values + 1, max=cap)
     nbytes = (int(keys.sum()) * hkv * d * esz * 2 + 2 * q.numel() * esz
               + (block.numel() + qpos.numel()) * 4)
-    pairs = int(torch.clamp(qpos + 1, max=MAXP * PS).sum()) * hq
+    pairs = int(torch.clamp(qpos + 1, max=cap).sum()) * hq
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = pairs * 4 * d / PEAK_OPS[q.dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -293,11 +322,11 @@ def host_ms(fn, calls=100):
     return dt * 1e3 / calls
 
 
-def library_call(q, pk, pv, block, qpos):
+def library_call(q, pk, pv, block, qpos, ps=PS):
     """Yardstick: gather the paged view, then one SDPA with a boolean
     causal-by-position mask."""
-    gk = gather_pages(pk, block, PS).transpose(1, 2)
-    gv = gather_pages(pv, block, PS).transpose(1, 2)
+    gk = gather_pages(pk, block, ps).transpose(1, 2)
+    gv = gather_pages(pv, block, ps).transpose(1, 2)
     kpos = torch.arange(gk.shape[2], device=q.device)
     mask = (qpos[:, None, :, None] >= kpos)               # [B, 1, T, L]
     o = F.scaled_dot_product_attention(
@@ -307,6 +336,7 @@ def library_call(q, pk, pv, block, qpos):
 
 
 def kernel_phase(flush, name_card):
+    long_table = dict(ps=LONG_PS, maxp=LONG_MAXP, pages=LONG_PAGES)
     cases = [
         ("decode", dict(b=16, t=1, hq=8, hkv=8, d=128), torch.bfloat16, None),
         ("prefill", dict(b=1, t=16, hq=8, hkv=8, d=128), torch.bfloat16, 0),
@@ -314,31 +344,40 @@ def kernel_phase(flush, name_card):
          None),
         ("decode_gqa", dict(b=16, t=1, hq=8, hkv=2, d=128), torch.bfloat16,
          None),
+        ("decode_long", dict(b=16, t=1, hq=8, hkv=8, d=128, **long_table),
+         torch.bfloat16, None),
     ]
     rows = {}
     for i, (name, shape, dtype, start) in enumerate(cases):
         args = paged_case(100 + i, dtype=dtype, start=start, **shape)
-        out = pa.paged_decode_attention(*args, page_size=PS)
-        ref = pa.paged_attention_plain(*args, PS)
+        ps = shape.get("ps", PS)
+        out = pa.paged_decode_attention(*args, page_size=ps)
+        again = pa.paged_decode_attention(*args, page_size=ps)
+        ref = pa.paged_attention_plain(*args, ps)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        call = lambda: pa.paged_decode_attention(*args, page_size=PS)
+        check(torch.equal(out, again), f"{name}: two calls give the same "
+                                       "bits")
+        call = lambda: pa.paged_decode_attention(*args, page_size=ps)
         ms = time_ms(call, flush)
         enqueue_ms = host_ms(call)
-        plain_ms = time_ms(lambda: pa.paged_attention_plain(*args, PS), flush)
-        lib = library_call(*args)
+        plain_ms = time_ms(lambda: pa.paged_attention_plain(*args, ps), flush)
+        lib = library_call(*args, ps)
         lib_err = (lib.float() - ref.float()).abs().max().item()
-        lib_ms = time_ms(lambda: library_call(*args), flush)
-        bms, by = bound_ms(args[0], args[1], args[3], args[4])
+        lib_ms = time_ms(lambda: library_call(*args, ps), flush)
+        bms, by = bound_ms(args[0], args[1], args[3], args[4], ps)
+        keys = int(args[4].max()) + 1
         rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                           bound_ms=bms, bound_by=by)
         print(f"paged_decode_attention[{name}] q{list(args[0].shape)} "
-              f"{str(dtype)[6:]}: max_abs_err {err:.3e} (tol {TOL[dtype]:g}); "
+              f"{str(dtype)[6:]}, longest context {keys} keys: max_abs_err "
+              f"{err:.3e} (tol {TOL[dtype]:g}), repeat bitwise equal; "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms (err {lib_err:.2e}), bound {bms:.5f} ms "
               f"({by}); host enqueue {enqueue_ms:.4f} ms [{name_card}]")
         check(err <= TOL[dtype], f"{name}: kernel vs plain {err} > "
                                  f"{TOL[dtype]}")
+        del args, out, again, ref, lib
     return rows
 
 
@@ -516,9 +555,9 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
               f"flash[{name}] takes wgmma for the forward, dQ and dK/dV: "
               f"{paths}")
     if dtype == torch.float32 and d in (64, 128):
-        check(paths == {"fwd": "cuda_cores", "dq": "tf32x3",
-                        "dkv": "tf32x3"},
-              f"flash[{name}] takes tf32x3 for dQ and dK/dV: {paths}")
+        check(paths == {"fwd": "tf32x3", "dq": "tf32x3", "dkv": "tf32x3"},
+              f"flash[{name}] takes tf32x3 for the forward, dQ and dK/dV: "
+              f"{paths}")
     q, k, v, do = (_randn(seed + i, shape, dtype) for i in range(4))
     o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
     dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, causal=causal,
@@ -615,13 +654,15 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
           f"{pbwd_ms:.4f} ms; SDPA fwd {lib_fwd_ms:.4f} ms, SDPA bwd "
           f"{lib_bwd_ms:.4f} ms [{name_card}]")
     if "tf32x3" in paths.values():
-        cores = {kn: _bound(*work[kn], dtype)[0] for kn in ("dq", "dkv")}
+        cores = {kn: _bound(*work[kn], dtype)[0] for kn in work}
         print(f"flash[{name}] tf32x3 bounds at {TF32X3_OPS / 1e12:.0f} "
-              f"TFLOP/s: dQ {bounds['dq'][0]:.5f} ms, dK/dV "
-              f"{bounds['dkv'][0]:.5f} ms; at the CUDA cores' "
-              f"{PEAK_OPS[torch.float32] / 1e12:.0f} TFLOP/s: dQ "
-              f"{cores['dq']:.5f} ms, dK/dV {cores['dkv']:.5f} ms; dQ + "
-              f"dK/dV {dq_ms + dkv_ms:.4f} ms, "
+              f"TFLOP/s: fwd {bounds['fwd'][0]:.5f} ms, dQ "
+              f"{bounds['dq'][0]:.5f} ms, dK/dV {bounds['dkv'][0]:.5f} ms; "
+              f"at the CUDA cores' {PEAK_OPS[torch.float32] / 1e12:.0f} "
+              f"TFLOP/s: fwd {cores['fwd']:.5f} ms, dQ {cores['dq']:.5f} "
+              f"ms, dK/dV {cores['dkv']:.5f} ms; fwd {fwd_ms:.4f} ms, "
+              f"{fwd_ms / lib_fwd_ms:.3f} x SDPA fwd; dQ + dK/dV "
+              f"{dq_ms + dkv_ms:.4f} ms, "
               f"{(dq_ms + dkv_ms) / lib_bwd_ms:.3f} x SDPA bwd [{name_card}]")
     return {
         "fwd": dict(err=errs["o"], ms=fwd_ms, plain_ms=pfwd_ms,
@@ -782,7 +823,7 @@ def first_step_check(what, net, loss_of, floor=False):
 
 def train_phase(name_card, model=TRAIN_MODEL, what="train"):
     """``fit`` on the char-LM at full width; ``model`` without a
-    compute_dtype trains in float32, whose flash backward must run on
+    compute_dtype trains in float32, whose flash kernels must run on
     tf32x3."""
     net = transformer_char_lm(device="cuda", **model)
     vocab = model["vocab_size"]
@@ -1510,7 +1551,7 @@ def main() -> int:
         "bound_by": d["bound_by"], "library_ms": d["lib_ms"]}]
     flash_src = "deeplearning4j_tpu_torch/helpers/csrc/flash_attention.cu"
     # the bfloat16 char-LM's kernels, then the float32 char-LM's (the
-    # launches of the float32 fit phase; its dQ and dK/dV on tf32x3)
+    # launches of the float32 fit phase, all three on tf32x3)
     for (name, row, replaces), n in zip([
             ("flash_attention_fwd", flash["fwd"], "flash_attention.py:125"),
             ("flash_attention_dq", flash["dq"], "flash_attention.py:244"),

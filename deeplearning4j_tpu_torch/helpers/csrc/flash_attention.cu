@@ -50,11 +50,11 @@
 //   each warp 16 rows; the score tile, p and ds stay in the accumulator
 //   registers, whose layout is also the A operand of the next product.
 //   Tiles are staged in shared memory with synchronous loads.
-// - tf32x3 (float32 dQ and dK/dV with D in {64, 128}): mma.sync m16n8k8
-//   in TF32, three products per pair of fragments so that the result
-//   keeps float32 accuracy; see the section before `prepare`.
-// - f32 kernels on the CUDA cores (the float32 forward, and every kernel
-//   at other head dims): one block of 256 threads (16 x 16) per
+// - tf32x3 (float32 with D in {64, 128}: all three kernels): mma.sync
+//   m16n8k8 in TF32, three products per pair of fragments so that the
+//   result keeps float32 accuracy; see the section before `prepare`.
+// - f32 kernels on the CUDA cores (every kernel at other head dims): one
+//   block of 256 threads (16 x 16) per
 //   (b, h, tile of BM rows), a BM x BM score tile held as R x R (R = BM /
 //   16) per thread, row statistics reduced across the 16 threads of a row
 //   with warp shuffles, tiles staged in shared memory as f32 with rows
@@ -1518,17 +1518,17 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// tf32x3 path: float32 dQ and dK/dV with D in {64, 128} on the tensor
-// cores.  One TF32 product (10-bit mantissa) misses the float32 budget by
+// tf32x3 path: the float32 forward, dQ and dK/dV with D in {64, 128} on
+// the tensor cores.  One TF32 product (10-bit mantissa) misses the float32 budget by
 // an order of magnitude, so every product is three: each operand x is
 // split as big = tf32(x), small = tf32(x - big) (round to nearest, ties
 // away: cvt.rna's rounding), and c += small·big + big·small + big·big on
 // mma.sync m16n8k8 with f32 accumulators (the small products first).  The
 // bound is then the operations at a third of the TF32 rate.
 //
-// A block is 8 warps of 16 rows each.  dQ: one block per (b, h, tile of
-// 128 queries), heaviest first; Q and dO are copied into shared memory
-// once and K and V stream in 32-key steps.  dK/dV: one block per (b, h,
+// A block is 8 warps of 16 rows each.  Forward and dQ: one block per
+// (b, h, tile of 128 queries), heaviest first; Q (and dO) are copied into
+// shared memory once and K and V stream in 32-key steps.  dK/dV: one block per (b, h,
 // tile of 128 keys), K and V once, Q, dO, lse and delta in 32-query steps;
 // dK and dV are summed in registers (no atomics).
 //
@@ -1536,8 +1536,8 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap qmap,
 // runs on the conversion pipe, a fraction of the ALU rate, and with every
 // warp splitting every operand it read, the conversions, not the tensor
 // cores, set the time.  So the rounding is done with an integer add and a
-// mask (the same result), the resident tile of a warp's own rows (Q and dO
-// in dQ, K and V in dK/dV) is split in registers as its fragments are
+// mask (the same result), the resident tile of a warp's own rows (Q, and
+// dO in dQ; K and V in dK/dV) is split in registers as its fragments are
 // read, and each streamed step is split once for all 8 warps: cp.async
 // lands the raw step in a staging buffer while the previous step computes,
 // then the block writes its big and small halves into shared tiles that
@@ -1545,7 +1545,8 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap qmap,
 // with their 16-byte chunks XOR-swizzled by row (conflict-free ldmatrix);
 // the split tiles' rows are padded to D + 4 floats, which makes both the
 // ldmatrix rows and the relabelled scalar reads below conflict-free.  At
-// D = 128 that is 231,936 bytes of the 232,448 a block may use.  What
+// D = 128 that is 231,936 bytes of the 232,448 a block may use in dQ and
+// dK/dV, and 165,888 in the forward (one resident tile).  What
 // holds the kernels now is shared-memory traffic rather than the tensor
 // cores: each warp reads a step's big and small tiles for its own 16
 // rows, about 190 bytes per mma.sync.
@@ -1557,7 +1558,7 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap qmap,
 // dP = dO V^T, and their transposes in dK/dV) read both operands as
 // stored rows with ldmatrix: an 8 x 8 matrix of 16-bit pairs is 8 rows of
 // 4 floats, lane (g, t) receiving float (g, t), which is the tf32 A and B
-// layout.  The products over tokens (dQ += dS K, dV += P^T dO,
+// layout.  The products over tokens (O += P V, dQ += dS K, dV += P^T dO,
 // dK += dS^T Q) take p or ds straight from the accumulators as A, whose
 // lane holds columns 2t and 2t + 1 where A wants t and t + 4: the sum is
 // order-free, so k is relabelled (k = t is token 2t, k = t + 4 is token
@@ -1753,7 +1754,98 @@ struct TfSmem {
   static constexpr int kStage = kTfStep * D;
   static constexpr int kFloats =
       2 * kResident + 4 * kSplit + 2 * kStage + 4 * kTfStep;
+  // the forward: Q resident, the split K and V tiles, their staging
+  static constexpr int kFwdFloats = kResident + 4 * kSplit + 2 * kStage;
 };
+
+// Forward, q-major: dQ's schedule without dP.  A step is S = Q K^T, the
+// online softmax on the accumulators (`softmax_step`: one FMA and one
+// ex2 per p, masks only on steps that are not full), the output sums
+// rescaled by alpha, and O += P V with p split in registers (k relabelled
+// as in dQ's dS K).  The rescale is skipped when no row of the warp moved
+// its max: alpha is then exactly 1, so the sums are the same bits either
+// way.  lse = m * scale + log(l), natural log, as the tf32x3 backward
+// reads it.  Per thread at D = 128: O 64 accumulators, S 16.
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, 1)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, Shape s) {
+  using M = TfSmem<D>;
+  constexpr int DT = D / 8, NK = kTfStep / 8;
+  extern __shared__ __align__(16) float tf_smem[];
+  float* qs = tf_smem;              // [128][D], swizzled
+  float* kb = qs + M::kResident;    // K big, K small, V big, V small:
+  float* ksm = kb + M::kSplit;      // [32][D + 4] each
+  float* vb = ksm + M::kSplit;
+  float* vsm = vb + M::kSplit;
+  float* stage = vsm + M::kSplit;   // the next step's K, V [32][D] each
+
+  const int bh = blockIdx.y;
+  const int b = bh / s.h, h = bh % s.h;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTfRows;  // heaviest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = 16 * warp;  // the warp's rows in the tile
+  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  int k_lo, k_hi;
+  key_range(q0, kTfRows, s, &k_lo, &k_hi, kTfStep);
+  const int n_steps = (k_hi - k_lo + kTfStep - 1) / kTfStep;
+
+  cp_tile<kTfRows, D, true>(qs, q, b, h, q0, s);
+  cp_tile<kTfStep, D, false>(stage, k, b, h, k_lo, s);
+  cp_tile<kTfStep, D, false>(stage + M::kStage, v, b, h, k_lo, s);
+  cp_commit();
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int k0 = k_lo + i * kTfStep;
+    cp_wait<0>();     // Q, and this step's K and V, are staged
+    __syncthreads();  // ... for every thread, and the split tiles are free
+    split_tile<kTfStep, D>(kb, ksm, stage);
+    split_tile<kTfStep, D>(vb, vsm, stage + M::kStage);
+    __syncthreads();  // the split tiles are written, the stage is free
+    if (i + 1 < n_steps) {
+      cp_tile<kTfStep, D, false>(stage, k, b, h, k0 + kTfStep, s);
+      cp_tile<kTfStep, D, false>(stage + M::kStage, v, b, h, k0 + kTfStep, s);
+    }
+    cp_commit();
+    if (band_hit(q0 + r0, q0 + r0 + 16, k0, k0 + kTfStep, s)) {
+      float sc[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+      mma3_abt<NK, D>(sc, qs, kb, ksm, r0, lane);
+      float alpha[2];
+      softmax_step<NK>(sc, m, l, alpha, rows, k0,
+                       tile_full(q0 + r0, 16, k0, kTfStep, s), s);
+      if (!__all_sync(kFull, alpha[0] == 1.f && alpha[1] == 1.f))
+        rescale<DT>(acc, alpha);
+      mma3_pb<NK, D>(acc, sc, vb, vsm, g, t);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= s.t) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    float* row = o + (((size_t)b * s.t + rows[r]) * s.h + h) * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<float2*>(row + 8 * dt + 2 * t) =
+          make_float2(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+    if (t == 0)  // a row that saw no key: kNegInf, as the CUDA cores'
+      lse[(size_t)bh * s.t + rows[r]] =
+          l[r] > 0.f ? m[r] * s.scale + logf(l[r]) : kNegInf;
+  }
+}
 
 // dQ, q-major.  Each warp first takes delta = rowsum(dO * O) for its 16
 // rows, dO from the shared tile and O from device memory (read once), and
@@ -2215,7 +2307,7 @@ int run_wgmma(int which, const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// float32 dQ (which 1) or dK/dV (2) on the tf32x3 path
+// the float32 forward (which 0), dQ (1) or dK/dV (2) on the tf32x3 path
 template <int D>
 cudaError_t run_tf32(int which, const Args& a) {
   const dim3 grid((a.s.t + kTfRows - 1) / kTfRows, a.b * a.s.h);
@@ -2226,7 +2318,14 @@ cudaError_t run_tf32(int which, const Args& a) {
   const float* dout = static_cast<const float*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   cudaError_t err;
-  if (which == 1) {
+  if (which == 0) {
+    const size_t fwd_smem = sizeof(float) * TfSmem<D>::kFwdFloats;
+    auto kernel = flash_fwd_tf32<D>;
+    if ((err = prepare(kernel, fwd_smem)) != cudaSuccess) return err;
+    kernel<<<grid, kTfThreads, fwd_smem, a.stream>>>(
+        q, k, v, static_cast<float*>(a.o), static_cast<float*>(a.out_lse),
+        a.s);
+  } else if (which == 1) {
     auto kernel = flash_dq_tf32<D>;
     if ((err = prepare(kernel, smem)) != cudaSuccess) return err;
     kernel<<<grid, kTfThreads, smem, a.stream>>>(
@@ -2243,14 +2342,12 @@ cudaError_t run_tf32(int which, const Args& a) {
 }
 
 // Which kernel a call takes (which: 0 forward, 1 dQ, 2 dK/dV; dtype as
-// the launchers'): 3 tf32x3 (float32 dQ and dK/dV with D in {64, 128}),
-// 2 the wgmma path (bfloat16 and float16, D in {64, 128}), 1 mma.sync
-// (the same types with D in {16, 32}), 0 the f32 CUDA-core kernels
-// (the float32 forward, and float32 or 16-bit types at any other D).  The
-// three kernels of a 16-bit call take one route; a float32 call at D 64 or
-// 128 runs its forward on the CUDA cores and its backward on tf32x3.
+// the launchers'): 3 tf32x3 (float32 with D in {64, 128}), 2 the wgmma
+// path (bfloat16 and float16, D in {64, 128}), 1 mma.sync (the same types
+// with D in {16, 32}), 0 the f32 CUDA-core kernels (float32 or 16-bit
+// types at any other D).  The three kernels of a call take one route.
 int path(int which, int dtype, int d) {
-  if (dtype == 0) return which != 0 && (d == 64 || d == 128) ? 3 : 0;
+  if (dtype == 0) return d == 64 || d == 128 ? 3 : 0;
   if (dtype != 1 && dtype != 2) return 0;
   if (d == 64 || d == 128) return 2;
   return d == 16 || d == 32 ? 1 : 0;

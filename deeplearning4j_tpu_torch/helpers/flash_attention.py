@@ -11,11 +11,11 @@ the probabilities from lse.
   (``_fwd_kernel``), dQ (``_dq_kernel``, q-major) and dK/dV
   (``_dkv_kernel``, k-major).  bfloat16 and float16 take the tensor
   cores: with D in {64, 128} all three on ``wgmma`` fed by TMA
-  (``csrc/hopper.cuh``), with D in {16, 32} on ``mma.sync``.  The float32
-  dQ and dK/dV with D in {64, 128} take the tensor cores too, in 3xTF32
-  (``tf32x3``: three TF32 products per pair of operands, which keeps
-  float32 accuracy); the float32 forward and other head dims run on the
-  CUDA cores.  ``kernel_path`` says which.  On the wgmma and tf32x3
+  (``csrc/hopper.cuh``), with D in {16, 32} on ``mma.sync``.  float32
+  with D in {64, 128} takes the tensor cores too, all three kernels in
+  3xTF32 (``tf32x3``: three TF32 products per pair of operands, which
+  keeps float32 accuracy); other head dims run on the CUDA cores.
+  ``kernel_path`` says which.  On the wgmma and tf32x3
   routes dQ also computes delta = rowsum(dO·O) and hands it to dK/dV; the
   other routes take it from the torch reduction ``_row_delta``.  Each
   launches or raises; nothing falls back.

@@ -10,7 +10,11 @@ unwritten slots.  GQA contracts the unexpanded kv heads.
 
 - On a CUDA tensor ``paged_decode_attention`` launches the hand-written
   kernel ``csrc/paged_attention.cu`` (built with ``nvcc`` at first use,
-  bound with ``ctypes``) or raises.  Nothing falls back.
+  bound with ``ctypes``) or raises.  Nothing falls back.  The kernel
+  splits each row's keys across the blocks of a thread-block cluster
+  (flash-decoding) and merges their float32 partials through distributed
+  shared memory in a fixed order, so its output is the same bits from
+  call to call.
 - On a CPU tensor it runs ``paged_attention_plain``, a port of the
   reference's ``_lax_paged``: a loop over the live pages with the same
   online softmax.  The kernel is held against it on the card.

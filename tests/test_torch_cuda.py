@@ -75,6 +75,35 @@ def test_kernel_matches_plain(name, dtype, cuda):
     assert err <= TOL[dtype], err
 
 
+# the split over keys at long contexts: (B, T, Hq, Hkv, D, page size,
+# pages a row); pages of 24 put split edges (multiples of 8) inside pages
+SPLIT_CASES = {
+    "long4096": (16, 1, 8, 8, 128, 16, 256),
+    "long_gqa_ps24": (4, 1, 8, 2, 128, 24, 160),
+    "long_prefill_ps24": (2, 16, 8, 8, 128, 24, 160),
+    "d64_ps8": (8, 1, 4, 4, 64, 8, 300),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_kernel_matches_plain_and_repeats_bitwise(name, dtype, cuda):
+    """Long contexts split over the blocks of a cluster: the kernel
+    matches the plain version and gives the same bits on a second call
+    (the splits merge in a fixed order, no atomics)."""
+    b, t, hq, hkv, d, ps, maxp = SPLIT_CASES[name]
+    args = _case(5, b, t, hq, hkv, d, ps=ps, maxp=maxp, pages=b * maxp + 1,
+                 dtype=dtype)
+    first = pa.paged_decode_attention(*args, page_size=ps)
+    second = pa.paged_decode_attention(*args, page_size=ps)
+    ref = pa.paged_attention_plain(*args, ps)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    err = (first.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, pk, pv, block, qpos = _case(1, 2, 1, 4, 4, 128)
     with pytest.raises(TypeError):
@@ -224,8 +253,8 @@ def test_flash_dkv_is_the_same_run_to_run(d, dtype, cuda):
 def test_flash_paths_at_the_main_path_shape(cuda):
     """The char-LM's D = 128 in bf16 and f16 takes wgmma for the forward,
     dQ and dK/dV, as does D = 64; D = 16 and 32 take mma.sync.  float32
-    takes tf32x3 for dQ and dK/dV at D = 64 and 128, and the CUDA cores
-    for its forward and at other D (40)."""
+    takes tf32x3 for the forward, dQ and dK/dV at D = 64 and 128, and the
+    CUDA cores at other D (40)."""
     for dtype in (torch.bfloat16, torch.float16):
         for d in (64, 128):
             for kernel in ("fwd", "dq", "dkv"):
@@ -234,11 +263,40 @@ def test_flash_paths_at_the_main_path_shape(cuda):
         assert fa.kernel_path("dq", dtype, 32) == "mma_sync"
         assert fa.kernel_path("dkv", dtype, 40) == "cuda_cores"
     for d in (64, 128):
-        assert fa.kernel_path("fwd", torch.float32, d) == "cuda_cores"
+        assert fa.kernel_path("fwd", torch.float32, d) == "tf32x3"
         assert fa.kernel_path("dq", torch.float32, d) == "tf32x3"
         assert fa.kernel_path("dkv", torch.float32, d) == "tf32x3"
     for kernel in ("fwd", "dq", "dkv"):
         assert fa.kernel_path(kernel, torch.float32, 40) == "cuda_cores"
+
+
+# the float32 forward at the chip run's shapes (B cut to 2)
+F32_FWD_CASES = {
+    # name: (B, T, H, D, causal, window)
+    "causal": (2, 2048, 8, 128, True, None),
+    "full": (2, 2048, 8, 128, False, None),
+    "window256": (2, 2048, 8, 128, True, 256),
+    "t1000": (2, 1000, 8, 128, True, None),
+    "d64": (2, 2048, 8, 64, True, None),
+    "t1_d128": (2, 1, 8, 128, True, None),
+    "t1_d64": (2, 1, 8, 64, False, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(F32_FWD_CASES))
+def test_flash_f32_forward_matches_plain(name, cuda):
+    """The tf32x3 forward against the plain forward: o and lse within
+    1e-4, and the same bits on a second call."""
+    b, t, h, d, causal, window = F32_FWD_CASES[name]
+    assert fa.kernel_path("fwd", torch.float32, d) == "tf32x3"
+    q, k, v, _ = _flash_inputs(21, b, t, h, d, torch.float32)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, window=window)
+    o2, lse2 = fa.flash_fwd(q, k, v, causal=causal, window=window)
+    ro, rlse = fa.flash_attention_plain_fwd(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert (o - ro).abs().max().item() <= TOL[torch.float32]
+    assert (lse - rlse).abs().max().item() <= TOL[torch.float32]
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 def test_flash_tensor_map_failure_raises(cuda):

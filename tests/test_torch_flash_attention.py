@@ -189,14 +189,16 @@ def test_attention_layer_routes_float16_and_raises_off_the_cpu():
 # query tile, dQ 64-key steps under a 128-row query tile, the dK/dV kernel
 # 64-row query steps under a 128-key tile; each block is two consumer
 # warpgroups of 64 rows (queries or keys), and a warpgroup skips a tile in
-# which its rows see no key.  The float32 ``flash_dq_tf32`` and
-# ``flash_dkv_tf32`` walk the same 128-row blocks in 32-row steps, each
-# block eight warps of 16 rows that skip the steps their rows do not see.
+# which its rows see no key.  The float32 ``flash_fwd_tf32``,
+# ``flash_dq_tf32`` and ``flash_dkv_tf32`` walk the same 128-row blocks in
+# 32-row steps, each block eight warps of 16 rows that skip the steps
+# their rows do not see.
 TILE, STEP, WG_ROWS = 128, 64, 64
 TF_STEP, TF_ROWS = 32, 16
 # kernel: (rows of a block, step, rows of a block's part)
 WALKS = {"fwd": (TILE, TILE, WG_ROWS), "dq": (TILE, STEP, WG_ROWS),
-         "dkv": (TILE, STEP, WG_ROWS), "dq_tf32": (TILE, TF_STEP, TF_ROWS),
+         "dkv": (TILE, STEP, WG_ROWS), "fwd_tf32": (TILE, TF_STEP, TF_ROWS),
+         "dq_tf32": (TILE, TF_STEP, TF_ROWS),
          "dkv_tf32": (TILE, TF_STEP, TF_ROWS)}
 
 
@@ -433,6 +435,100 @@ def _mm(a, b, products=3):
     acc += (ab.astype(f64) @ bsm.astype(f64)).astype(np.float32)
     acc += (ab.astype(f64) @ bb.astype(f64)).astype(np.float32)
     return acc
+
+
+NEG_INF32 = np.float32(fa.NEG_INF)
+
+
+def _tf32_fwd_blocks(q, k, v, causal, window, products=3):
+    """(o, lse) of one [T, D] head on the block schedule of
+    ``flash_fwd_tf32``: 128-query blocks of eight 16-row warps, 32-key
+    steps from ``key_range`` rounded to the step, steps a warp's rows do
+    not see skipped; ``softmax_step``'s online softmax (m the running max
+    of the raw scores, p = 2^(s sl2 - m sl2), masks only on steps that are
+    not full); S = Q K^T and O += P V through ``_mm``; lse = m scale +
+    log l."""
+    t, d = q.shape
+    scale = np.float32(1.0 / np.sqrt(d))
+    sl2 = scale * LOG2E
+    o = np.zeros_like(q)
+    lse = np.zeros(t, np.float32)
+    for q0 in range(0, t, TILE):
+        k_lo, k_hi = _key_range(q0, TILE, t, causal, window, TF_STEP)
+        for r0 in range(q0, q0 + TILE, TF_ROWS):
+            if r0 >= t:
+                break
+            rows = np.arange(r0, r0 + TF_ROWS)
+            qt = _rows(q, r0, TF_ROWS)
+            m = np.full(TF_ROWS, NEG_INF32)
+            l = np.zeros(TF_ROWS, np.float32)
+            acc = np.zeros((TF_ROWS, d), np.float32)
+            for k0 in range(k_lo, k_hi, TF_STEP):
+                if not _band_hit(r0, r0 + TF_ROWS, k0, k0 + TF_STEP, t,
+                                 causal, window):
+                    continue
+                kt, vt = _rows(k, k0, TF_STEP), _rows(v, k0, TF_STEP)
+                sc = _mm(qt, kt.T, products)
+                if not _tile_full(r0, TF_ROWS, k0, TF_STEP, t, causal,
+                                  window):
+                    keep = _live(rows[:, None],
+                                 np.arange(k0, k0 + TF_STEP)[None], t,
+                                 causal, window)
+                    sc = np.where(keep, sc, NEG_INF32)
+                mx = np.maximum(m, sc.max(1))
+                alpha = np.exp2((m - mx) * sl2)
+                mu = np.where(mx > NEG_INF32 / 2, mx * sl2, np.float32(0))
+                p = np.exp2(sc * sl2 - mu[:, None])
+                l = alpha * l + p.sum(1, dtype=np.float32)
+                m = mx
+                acc = acc * alpha[:, None] + _mm(p, vt, products)
+            seen = l > 0
+            inv = np.where(seen, 1 / np.where(seen, l, 1), np.float32(0))
+            live = rows < t
+            o[rows[live]] = (acc * inv[:, None])[live]
+            lse[rows[live]] = np.where(
+                seen, m * scale + np.log(np.where(seen, l, 1)),
+                NEG_INF32)[live]
+    return o, lse
+
+
+def _tf32_fwd_case(seed, t, d, causal, window):
+    q, k, v = _inputs(seed, (1, t, 1, d), n=3)
+    o, lse = _tf32_fwd_blocks(q[0, :, 0], k[0, :, 0], v[0, :, 0], causal,
+                              window)
+    return (q, k, v), o, lse
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [1, 100, 300])
+@pytest.mark.parametrize("causal, window", [(True, None), (False, None),
+                                            (True, 64)],
+                         ids=["causal", "full", "window64"])
+def test_tf32x3_forward_schedule_matches_plain(causal, window, t, d):
+    """The tf32x3 forward's schedule, online softmax and 3xTF32 products,
+    emulated in numpy, give the plain forward's o and lse within 1e-5
+    (float32)."""
+    (q, k, v), o, lse = _tf32_fwd_case(t + 2 * d, t, d, causal, window)
+    ro, rlse = fa.flash_attention_plain_fwd(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal, window)
+    np.testing.assert_allclose(o, ro.numpy()[0, :, 0], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse, rlse.numpy()[0, 0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d, causal, window", [(128, True, None),
+                                               (64, False, None),
+                                               (128, True, 64)],
+                         ids=["causal_d128", "full_d64", "window64_d128"])
+def test_tf32x3_forward_schedule_matches_jax_kernel(d, causal, window):
+    """At T = 256 the emulated tf32x3 forward's o and lse against the JAX
+    forward run in interpret mode."""
+    (q, k, v), o, lse = _tf32_fwd_case(13 + d, 256, d, causal, window)
+    jo = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, window=window, interpret=True)
+    np.testing.assert_allclose(o, np.asarray(jo)[0, :, 0], atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(lse, _jax_lse(q, k, v, causal, window)[0, 0],
+                               atol=TOL, rtol=TOL)
 
 
 def _tf32_dq_blocks(q, k, v, o, do, lse, causal, window, products=3):
