@@ -5,7 +5,8 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Build every CUDA kernel of the serving and training paths from the
    sources in this checkout (``nvcc``, one process per source, all
    started together), and print each kernel's registers and shared
-   memory as ``ptxas`` reports them.
+   memory as ``ptxas`` reports them; the float32 flash forward, paged
+   decode and BatchNorm's two reductions must spill nothing.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and time the kernel, the plain version and a
    library yardstick (which the port never calls: ``gather_pages`` +
@@ -63,7 +64,10 @@ Phases (any failure exits non-zero; nothing is caught):
    held against the built-in path; then 2 warm-up and 5 timed ``fit``
    steps (53 training-forward and 53 training-backward launches a step,
    no plain-version call, finite losses, running stats that moved), and
-   one step under ``torch.profiler``.
+   one step under ``torch.profiler``, which must launch two BatchNorm
+   kernels for each of those calls (212: the reduction and the
+   elementwise pass) and splits their time by pass (moments, grad sums,
+   apply, dx).
 7. Hold the two LRN kernels (forward, backward) against their plain
    versions at AlexNet's shapes (``[373248, 96]`` and ``[86528, 256]``
    in bfloat16; a float32, a float16, a ragged C = 130, a C = 3 < n and
@@ -222,16 +226,20 @@ def build_kernels():
                               re.findall(r"(\d+) bytes spill", ln))
             elif "warning" in ln.lower() or "Performance Loss" in ln:
                 print(f"  {ln.strip()[:200]}")
-    # the float32 flash forward and paged decode kernels: registers, and
-    # no spills (a library found already built has no ptxas report)
+    # the float32 flash forward, paged decode and BatchNorm's two
+    # reductions: registers, and no spills (a library found already built
+    # has no ptxas report)
+    watched = (("flash_attention.cu", "flash_fwd_tf32"),
+               ("paged_attention.cu", "paged_decode_kernel"),
+               ("batch_norm.cu", "bn_moments_kernel"),
+               ("batch_norm.cu", "bn_grad_sums_kernel"))
     new = {k: v for k, v in usage.items()
-           if k.startswith(("flash_fwd_tf32", "paged_decode_kernel"))}
-    print("build, float32 flash forward and paged decode kernels "
-          "(registers, spill bytes): " + "; ".join(
+           if k.startswith(tuple(kernel for _, kernel in watched))}
+    print("build, float32 flash forward, paged decode and BatchNorm "
+          "reduction kernels (registers, spill bytes): " + "; ".join(
               f"{k} {r}, {sp}" for k, (r, sp) in sorted(new.items())))
     compiled = {m.SOURCE.name for m, b in zip(modules, built) if b.log}
-    for source, kernel in (("flash_attention.cu", "flash_fwd_tf32"),
-                           ("paged_attention.cu", "paged_decode_kernel")):
+    for source, kernel in watched:
         check(source not in compiled
               or any(k.startswith(kernel) for k in new),
               f"ptxas reported {kernel}: {sorted(new)}")
@@ -1054,6 +1062,47 @@ def _bn_counts():
     return (bn.inference_counts, bn.train_fwd_counts, bn.train_bwd_counts)
 
 
+# BatchNorm's CUDA kernels a training call launches: the reduction (moments
+# or grad sums, the merge folded in) and the elementwise pass
+BN_KERNELS_PER_TRAIN_CALL = 2
+BN_KERNEL_RE = r"\bbn_[a-z_]+(kernel|finalize)"
+# the elementwise pass's mode (its last template argument) by name
+BN_MODES = {"0": "apply", "1": "dx", "2": "inference"}
+
+
+def bn_pass(key: str) -> str:
+    """The BatchNorm pass of a profiled kernel name."""
+    if "finalize" in key:
+        return "finalize"
+    if "bn_moments" in key:
+        return "moments"
+    if "bn_grad_sums" in key:
+        return "grad sums"
+    mode = re.search(r"bn_elementwise_kernel<[^<>]*?(\d+)>", key)
+    return BN_MODES.get(mode.group(1), "elementwise") if mode else key
+
+
+def bn_passes(events):
+    """{pass: (device ms, launches)} of the profiled BatchNorm kernels among
+    ``events`` (``torch.profiler`` key averages)."""
+    split = {}
+    for e in events:
+        if e.self_device_time_total > 0 and re.search(BN_KERNEL_RE, e.key):
+            ms, n = split.get(bn_pass(e.key), (0.0, 0))
+            split[bn_pass(e.key)] = (ms + e.self_device_time_total / 1e3,
+                                     n + e.count)
+    return split
+
+
+def bn_pass_split(events, label="BatchNorm"):
+    """Print profiled BatchNorm kernels' device ms and launches by pass."""
+    split = bn_passes(events)
+    print(f"  {label} by pass: " + "; ".join(
+        f"{k} {ms:.3f} ms in {n} launches"
+        for k, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0])))
+    return split
+
+
 def resnet_phase(name_card):
     net = resnet50(device="cuda", **RESNET)
     rs = np.random.RandomState(0)
@@ -1081,8 +1130,8 @@ def resnet_phase(name_card):
           and bool(torch.isfinite(probs).all())
           and (probs.sum(-1) - 1).abs().max().item() < 1e-3,
           "output: finite probabilities of shape [128, 1000]")
-    output_profile("resnet50", lambda: net.output(x),
-                   r"\bbn_[a-z_]+(kernel|finalize)", "BatchNorm", name_card)
+    output_profile("resnet50", lambda: net.output(x), BN_KERNEL_RE,
+                   "BatchNorm", name_card)
 
     def logits():
         with torch.no_grad():
@@ -1184,8 +1233,9 @@ def resnet_phase(name_card):
           f"{util:.4f} of 989 TFLOP/s ({3 * fwd_flops / 1e12:.3f} TFLOP a "
           f"step, 3 x forward); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{name_card}]")
-    step_profile("resnet50", net, x, y, r"\bbn_[a-z_]+(kernel|finalize)",
-                 "BatchNorm", name_card)
+    step_profile("resnet50", net, x, y, BN_KERNEL_RE, "BatchNorm", name_card,
+                 split=bn_pass_split,
+                 launches=2 * BN_KERNELS_PER_TRAIN_CALL * RESNET_BN_LAYERS)
     return inf_launches, launches[1], launches[2]
 
 
@@ -1213,9 +1263,11 @@ def output_profile(what, call, kernel_re, label, name_card):
           f"{sum(e.count for e in ours)} launches [{name_card}]")
 
 
-def step_profile(what, net, x, y, kernel_re, label, name_card):
+def step_profile(what, net, x, y, kernel_re, label, name_card, split=None,
+                 launches=None):
     """Where one train step's time goes: device busy against host wall,
-    the share of the kernels whose names match ``kernel_re``, copy
+    the share of the kernels whose names match ``kernel_re`` (split by
+    ``split`` where given; ``launches`` of them where given), copy
     kernels, then the host's operations in a second traced step."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1239,9 +1291,15 @@ def step_profile(what, net, x, y, kernel_re, label, name_card):
           f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms in "
           f"{sum(e.count for e in copies)} launches [{name_card}]")
     check(ours_ms > 0, f"the profiled {what} step ran the {label} kernels")
+    n_ours = sum(e.count for e in ours)
+    check(launches is None or n_ours == launches,
+          f"the profiled {what} step launched {n_ours} {label} kernels, "
+          f"expected {launches}")
     for e in sorted(ours, key=lambda e: -e.self_device_time_total):
         print(f"  {label}: {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:100]}")
+    if split is not None:
+        split(ours, label)
     for e in sorted(copies, key=lambda e: -e.self_device_time_total)[:4]:
         print(f"  copy: {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:100]}")

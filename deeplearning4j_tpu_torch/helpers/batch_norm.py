@@ -5,9 +5,11 @@ channel-contiguous ``[rows, C]`` view of any rank.
 
 - On CUDA tensors each is the hand-written kernel
   ``csrc/batch_norm.cu`` (built with ``nvcc`` at first use, bound with
-  ``ctypes``): gridded per-channel reductions with float32 partials merged
-  in a fixed order, then one elementwise pass on a grid of channel slices
-  by row chunks (``elementwise_grid``).  gamma and beta are read in their
+  ``ctypes``): a training call is two launches, a gridded per-channel
+  reduction (``chunking``: 16-byte loads, float32 partials, the last
+  block of each channel slice merging them in a fixed order) and one
+  elementwise pass on a grid of channel slices by row chunks
+  (``elementwise_grid``).  gamma and beta are read in their
   own type (float32, bfloat16 or float16), so no call casts them.  No size
   cap and no rank gate, unlike the JAX package (a single VMEM block below
   2^20 elements, training only at rank 2).  They launch or raise; nothing
@@ -39,14 +41,17 @@ from deeplearning4j_tpu_torch.helpers import cuda_build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "batch_norm.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_CHANNEL_TILE = 32        # channels a reduction block covers (csrc kTx)
-_ROW_LANES = 8            # rows it walks at once (csrc kTy)
-_BLOCKS_PER_SM = 8        # reduction blocks to aim for on each SM
+_RED_THREADS = 512        # threads of a reduction block (csrc kRedThreads)
+_RED_BLOCKS_PER_SM = 1    # reduction blocks to aim for on each SM: one wave
+_RED_MIN_ROWS = 8         # rows a reduction thread walks at least
+_RED_VEC_COLS = 8         # 16-byte vectors of a slice: 128 bytes of a row
+_RED_SCALAR_COLS = 32     # channels of a slice on the scalar path
 _EW_THREADS = 256         # threads of an elementwise block (csrc kThreads)
 _EW_THREADS_PER_SM = 1024  # elementwise threads to aim for on each SM
 _EW_MIN_ROWS = 8          # rows a thread walks at least (csrc unrolls 4)
 _launchers: Dict[str, object] = {}
 _sms: Dict[int, int] = {}
+_arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
 
 inference_counts = cuda_build.Counts()
 train_fwd_counts = cuda_build.Counts()
@@ -105,9 +110,10 @@ def build() -> cuda_build.Built:
     lib, p, i, f = built.lib, ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
     grid = [i] * 4       # vec, bx, by, rows per chunk of the elementwise
+    grids = [i] * 7      # vec; bx, by, rows per chunk of each pass
     sig = {
-        "dl4j_bn_train_fwd": [p] * 6 + [i, i, ll, i, i, f] + grid + [p],
-        "dl4j_bn_train_bwd": [p] * 8 + [i, i, ll, i, i] + grid + [p],
+        "dl4j_bn_train_fwd": [p] * 7 + [i, i, i, ll, i, f] + grids + [p],
+        "dl4j_bn_train_bwd": [p] * 9 + [i, i, i, ll, i] + grids + [p],
         "dl4j_bn_inference": [p] * 6 + [i, i, ll, i, f] + grid + [p],
     }
     for name, argtypes in sig.items():
@@ -125,15 +131,25 @@ def _sm_count(dev: torch.device) -> int:
     return _sms[idx]
 
 
-def chunking(m: int, c: int, sms: int) -> Tuple[int, int]:
-    """(rows per chunk, chunks) of the reduction grid: about
-    ``_BLOCKS_PER_SM`` blocks of (chunk, 32 channels) on each SM, at least
-    eight rows per row lane."""
-    tiles = -(-c // _CHANNEL_TILE)
-    want = max(1, _BLOCKS_PER_SM * sms // tiles)
-    rpc = max(8 * _ROW_LANES, -(-m // want))
-    rpc = -(-rpc // _ROW_LANES) * _ROW_LANES
-    return rpc, -(-m // rpc)
+def chunking(m: int, c: int, vec: int,
+             sms: int) -> Tuple[int, int, int, int]:
+    """(bx, by, rows per chunk, chunks) of the two reductions over
+    ``vec``-channel vectors: a block of ``_RED_THREADS`` threads is ``bx``
+    vector columns (a power of two, so that a warp holds whole rows: up
+    to 128 bytes of a row on the vector path, 32 channels on the scalar
+    one) by ``by`` row lanes; row chunks make one wave of
+    ``_RED_BLOCKS_PER_SM`` blocks on each SM (fewer when each thread
+    would walk less than ``_RED_MIN_ROWS`` rows).  Each slice's last
+    block merges the slice's chunks."""
+    cols = c // vec
+    bx = min(1 << (cols - 1).bit_length(),
+             _RED_VEC_COLS if vec > 1 else _RED_SCALAR_COLS)
+    by = _RED_THREADS // bx
+    slices = -(-cols // bx)
+    want = max(1, _RED_BLOCKS_PER_SM * sms // slices)
+    rpc = max(by * _RED_MIN_ROWS, -(-m // want))
+    rpc = -(-rpc // by) * by
+    return bx, by, rpc, -(-m // rpc)
 
 
 def elementwise_grid(m: int, c: int, vec: int,
@@ -155,17 +171,46 @@ def elementwise_grid(m: int, c: int, vec: int,
     return bx, by, rpc, -(-m // rpc)
 
 
+def _vec(x, *ts) -> int:
+    """16 / element size when every row of x [rows, C] is whole 16-byte
+    vectors and x and the other [rows, C] tensors of the call are 16-byte
+    aligned, else 1 (the scalar path)."""
+    vec = 16 // x.element_size()
+    if x.shape[1] % vec or any(t.data_ptr() % 16 for t in (x,) + ts):
+        return 1
+    return vec
+
+
 def _ew_args(x, *ts):
     """The elementwise grid's launch arguments (vec, bx, by, rows per
-    chunk) for x [rows, C] and the other [rows, C] tensors of a call:
-    16-byte vectors when every row is whole vectors and the tensors are
-    16-byte aligned, else the scalar path (vec 1)."""
+    chunk) for x [rows, C] and the other [rows, C] tensors of a call."""
     m, c = x.shape
-    vec = 16 // x.element_size()
-    if c % vec or any(t.data_ptr() % 16 for t in (x,) + ts):
-        vec = 1
+    vec = _vec(x, *ts)
     bx, by, rpc, _ = elementwise_grid(m, c, vec, _sm_count(x.device))
     return vec, bx, by, rpc
+
+
+def _train_args(x, *ts):
+    """A training call's grids: (vec, reduction bx, by, rows per chunk,
+    elementwise bx, by, rows per chunk), and the reduction's chunks and
+    channel slices."""
+    m, c = x.shape
+    vec, ebx, eby, erpc = _ew_args(x, *ts)
+    bx, by, rpc, n_chunks = chunking(m, c, vec, _sm_count(x.device))
+    return (vec, bx, by, rpc, ebx, eby, erpc), n_chunks, -(-(c // vec) // bx)
+
+
+def _arrival_counters(dev, stream: int, slices: int) -> torch.Tensor:
+    """The reductions' arrival counters for ``stream`` on ``dev``: int32,
+    one a channel slice, zeroed once; each call leaves them zero (the
+    last block of a slice resets its counter), so one buffer serves every
+    call on the stream, and a captured call can be replayed."""
+    key = (dev.index, stream)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < slices:
+        buf = torch.zeros(max(slices, 256), dtype=torch.int32, device=dev)
+        _arrivals[key] = buf
+    return buf
 
 
 def _check_2d(name, t, dev, dtype, shape):
@@ -242,34 +287,37 @@ def _stream(dev):
 def _launch_train_fwd(x, gamma, beta, eps):
     m, c, t = _prepare(x, gamma=gamma, beta=beta)
     dev = x.device
-    sms = _sm_count(dev)
-    rpc, n_chunks = chunking(m, c, sms)
     y = torch.empty_like(x)
+    grids, n_chunks, slices = _train_args(x, y)
     stats = torch.empty((5, c), dtype=torch.float32, device=dev)
     scratch = torch.empty((2, n_chunks, c), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        stream = _stream(dev)
+        arrivals = _arrival_counters(dev, stream, slices)
         _run("dl4j_bn_train_fwd", train_fwd_counts, x.data_ptr(),
              t["gamma"].data_ptr(), t["beta"].data_ptr(), y.data_ptr(),
-             stats.data_ptr(), scratch.data_ptr(), _DTYPE_CODES[x.dtype],
-             _adt(t), m, c, rpc, float(eps), *_ew_args(x, y), _stream(dev))
+             stats.data_ptr(), scratch.data_ptr(), arrivals.data_ptr(),
+             arrivals.numel(), _DTYPE_CODES[x.dtype], _adt(t), m, c,
+             float(eps), *grids, stream)
     return y, stats[0], stats[1], stats[2]
 
 
 def _launch_train_bwd(x, g, gamma, mean, inv):
     m, c, t = _prepare(x, g=g, gamma=gamma, mean=mean, inv=inv)
     dev = x.device
-    sms = _sm_count(dev)
-    rpc, n_chunks = chunking(m, c, sms)
     dx = torch.empty_like(x)
+    grids, n_chunks, slices = _train_args(x, g, dx)
     dgb = torch.empty((2, c), dtype=torch.float32, device=dev)
     scratch = torch.empty(2 * n_chunks * c + 4 * c, dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
+        stream = _stream(dev)
+        arrivals = _arrival_counters(dev, stream, slices)
         _run("dl4j_bn_train_bwd", train_bwd_counts, x.data_ptr(),
              g.data_ptr(), t["gamma"].data_ptr(), t["mean"].data_ptr(),
              t["inv"].data_ptr(), dx.data_ptr(), dgb.data_ptr(),
-             scratch.data_ptr(), _DTYPE_CODES[x.dtype], _adt(t), m, c, rpc,
-             *_ew_args(x, g, dx), _stream(dev))
+             scratch.data_ptr(), arrivals.data_ptr(), arrivals.numel(),
+             _DTYPE_CODES[x.dtype], _adt(t), m, c, *grids, stream)
     return dx, dgb[0], dgb[1]
 
 

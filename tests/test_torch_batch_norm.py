@@ -257,57 +257,148 @@ def test_supports():
 @pytest.mark.parametrize("m,c", [(1, 1), (7, 3), (6272, 2048),
                                  (1605632, 64), (100000, 130)])
 def test_chunking_covers_every_row(m, c):
-    rpc, n = bn.chunking(m, c, 132)
-    assert rpc % 8 == 0 and rpc >= 64
+    """The reductions' grid, for bfloat16 (16-byte vectors where C is
+    whole vectors): one wave of at most one block an SM, each block 512
+    threads of a power-of-two number of vector columns (a warp holds
+    whole rows), each thread walking at least eight rows."""
+    vec = 8 if c % 8 == 0 else 1
+    bx, by, rpc, n = bn.chunking(m, c, vec, 132)
+    cap = 8 if vec > 1 else 32
+    assert bx * by == 512 and bx & (bx - 1) == 0
+    assert min(c // vec, cap) <= bx <= cap
+    assert rpc % by == 0 and rpc >= 8 * by
     assert (n - 1) * rpc < m <= n * rpc
     assert n <= 65535
-    tiles = -(-c // 32)
-    assert tiles * n <= max(8 * 132, tiles) + tiles
+    slices = -(-(c // vec) // bx)
+    assert slices * n <= max(132, slices)
+
+
+def _butterfly(parts, merge):
+    """The kernels' butterfly over a power-of-two group of lanes: at each
+    offset o, every lane i merges lane i ^ o into itself; lane 0's
+    result."""
+    o = 1
+    while o < len(parts):
+        parts = [merge(parts[i], parts[i ^ o]) for i in range(len(parts))]
+        o *= 2
+    return parts[0]
+
+
+def _on_reduction_grid(m, c, vec, sms, thread_part, merge, empty):
+    """A reduction kernel's schedule in numpy, all channels at once (every
+    channel slice runs the same one).  In each row chunk, row lane ty
+    takes rows ty, ty + by, ... (``thread_part`` of that slice of rows);
+    the 32 / bx row lanes of a warp merge in a butterfly; lane p of warp
+    0 takes warps p, p + 32 / bx, ... in order, and those lanes merge in
+    a butterfly.  The merging block's L lanes a channel take chunks lane,
+    lane + L, ... in order, and merge in a butterfly."""
+    bx, by, rpc, n_chunks = bn.chunking(m, c, vec, sms)
+    per_warp = 32 // bx
+    warps = by // per_warp
+
+    def chunk(k):
+        rows = [thread_part(slice(k * rpc + ty, min((k + 1) * rpc, m), by))
+                for ty in range(by)]
+        warp = [_butterfly(rows[w * per_warp:(w + 1) * per_warp], merge)
+                for w in range(warps)]
+        parts = []
+        for p in range(per_warp):
+            acc = empty
+            for w in range(p, warps, per_warp):
+                acc = merge(acc, warp[w])
+            parts.append(acc)
+        return _butterfly(parts, merge)
+
+    chunks = [chunk(k) for k in range(n_chunks)]
+    lanes = min(32, 512 // (bx * vec))
+    lane_parts = []
+    for lane in range(lanes):
+        acc = empty
+        for k in range(lane, n_chunks, lanes):
+            acc = merge(acc, chunks[k])
+        lane_parts.append(acc)
+    return _butterfly(lane_parts, merge), n_chunks
+
+
+def _chan_merge(a, b):
+    (na, ma, qa), (nb, mb, qb) = a, b
+    if nb == 0:
+        return a
+    nn = na + nb
+    f = np.float32(nb / nn)
+    d = mb - ma
+    return nn, ma + d * f, qa + qb + d * d * np.float32(na) * f
 
 
 def test_kernel_moment_merge_in_numpy():
     """The moments kernel's arithmetic, run in numpy on the kernel's own
-    grid: per thread a sum shifted by its first value, then Chan's merge
-    over the 8 row lanes of a chunk and over the chunks in order.  It
-    must give the two-pass mean and biased variance, also for data far
-    from zero."""
+    grid: per thread a sum shifted by its first value (in row order),
+    then Chan's merge over the threads of a chunk and over the chunks,
+    in the kernels' fixed order.  It must give the two-pass mean and
+    biased variance, also for data far from zero."""
     rng = np.random.default_rng(7)
     m, c = 1000, 5
     x = (rng.standard_normal((m, c)) * 0.01 + 100.0).astype(np.float32)
-    rpc, n_chunks = bn.chunking(m, c, 1)
+    zero = np.zeros(c, np.float32)
 
-    def merge(a, b):
-        (na, ma, qa), (nb, mb, qb) = a, b
-        if nb == 0:
-            return a
-        nn = na + nb
-        d = mb - ma
-        f = np.float32(nb / nn)
-        return nn, np.float32(ma + d * f), np.float32(qa + qb + d * d * na * f)
+    def thread_part(rows):
+        v = x[rows]
+        if v.shape[0] == 0:
+            return 0, zero, zero
+        d = v - v[0]
+        s, q, n = np.cumsum(d, 0)[-1], np.cumsum(d * d, 0)[-1], v.shape[0]
+        return n, v[0] + s / np.float32(n), np.maximum(q - s * s / n, 0)
 
-    for ch in range(c):
-        total = (0, np.float32(0), np.float32(0))
-        for k in range(n_chunks):
-            lanes = []
-            for ty in range(8):
-                rows = x[k * rpc + ty:min((k + 1) * rpc, m):8, ch]
-                if rows.size == 0:
-                    lanes.append((0, np.float32(0), np.float32(0)))
-                    continue
-                v = rows - rows[0]
-                s, q, n = v.sum(dtype=np.float32), (v * v).sum(
-                    dtype=np.float32), rows.size
-                lanes.append((n, np.float32(rows[0] + s / n),
-                              np.float32(max(q - s * s / n, 0.0))))
-            part = lanes[0]
-            for lane in lanes[1:]:
-                part = merge(part, lane)
-            total = merge(total, (min(rpc, m - k * rpc), part[1], part[2]))
-        n, mean, m2 = total
-        assert n == m
-        ref = x[:, ch].astype(np.float64)
-        np.testing.assert_allclose(mean, ref.mean(), rtol=1e-6)
-        np.testing.assert_allclose(m2 / m, ref.var(), rtol=1e-3)
+    (n, mean, m2), n_chunks = _on_reduction_grid(
+        m, c, 1, 8, thread_part, _chan_merge, (0, zero, zero))
+    assert n == m and n_chunks > 1
+    assert mean.dtype == m2.dtype == np.float32
+    ref = x.astype(np.float64)
+    np.testing.assert_allclose(mean, ref.mean(0), rtol=1e-6)
+    np.testing.assert_allclose(m2 / m, ref.var(0), rtol=1e-3)
+
+
+@pytest.mark.parametrize("m, c, vec, sms", [
+    (2000, 64, 8, 4),      # the stem's C in bf16 vectors, several chunks
+    (20000, 1, 1, 8),      # C = 1: 512 row lanes, 32 chunk lanes
+    (1001, 130, 1, 40),    # ragged C: the scalar path's 32-channel slices
+    (3333, 24, 8, 8),      # three vectors in blocks of four columns
+    (4096, 32, 4, 16),     # float32 vectors, 16 chunk lanes
+])
+def test_grad_sum_merge_order_on_the_grid(m, c, vec, sms):
+    """The grad-sums kernel's schedule in numpy: every row goes into
+    exactly one thread, every thread into one chunk partial and every
+    chunk into the merging block's sum, once (sums of ones count the
+    rows exactly); the sums of g and g*xhat on that schedule are the
+    plain version's dbeta and dgamma."""
+    x, gamma, _, g = _data(11, m, c)
+    ones = np.ones((m, c), np.float32)
+    zero = np.zeros(c, np.float32)
+    add = lambda a, b: (a[0] + b[0], a[1] + b[1])   # noqa: E731
+    (count, _), _ = _on_reduction_grid(
+        m, c, vec, sms, lambda r: (np.cumsum(ones[r], 0)[-1] if
+                                   ones[r].size else zero, zero),
+        add, (zero, zero))
+    np.testing.assert_array_equal(count, np.full(c, m, np.float32))
+
+    mean = x.mean(0).astype(np.float32)
+    inv = (1 / np.sqrt(x.var(0) + 1e-5)).astype(np.float32)
+
+    def thread_part(rows):
+        gv = g[rows]
+        if gv.shape[0] == 0:
+            return zero, zero
+        return (np.cumsum(gv, 0)[-1],
+                np.cumsum(gv * ((x[rows] - mean) * inv), 0)[-1])
+
+    (sum_g, sum_gx), _ = _on_reduction_grid(m, c, vec, sms, thread_part,
+                                            add, (zero, zero))
+    _, dgamma, dbeta = bn.bn_train_bwd_plain(
+        *_t(x, g, gamma, mean, inv))
+    np.testing.assert_allclose(sum_g, dbeta.numpy(), rtol=RTOL_G,
+                               atol=ATOL_G)
+    np.testing.assert_allclose(sum_gx, dgamma.numpy(), rtol=RTOL_G,
+                               atol=ATOL_G)
 
 
 def _elementwise_blocks(x, mean, var, gamma, beta, eps, vec, sms):

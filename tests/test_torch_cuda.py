@@ -585,6 +585,96 @@ def test_batch_norm_is_the_same_run_to_run(cuda):
         assert torch.equal(a, b)
 
 
+def _bn_err(a, ref):
+    """Largest difference relative to the reference's largest magnitude,
+    absolute below 1 (a single row normalises to exactly 0 and its dx is
+    0 up to rounding)."""
+    return ((a.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1.0)).item()
+
+
+BN_REDUCTION_CASES = {
+    # name: (rows, C, dtype, offset in elements); ResNet-50's BatchNorm
+    # inputs at batch 128 in bfloat16 first
+    "stem": (1605632, 64, torch.bfloat16, 0),
+    "stage1_64": (401408, 64, torch.bfloat16, 0),
+    "stage1_256": (401408, 256, torch.bfloat16, 0),
+    "stage2_128": (100352, 128, torch.bfloat16, 0),
+    "stage2_512": (100352, 512, torch.bfloat16, 0),
+    "stage3_256": (25088, 256, torch.bfloat16, 0),
+    "stage3_1024": (25088, 1024, torch.bfloat16, 0),
+    "stage4_512": (6272, 512, torch.bfloat16, 0),
+    "stage4_2048": (6272, 2048, torch.bfloat16, 0),
+    "stem_f32": (1605632, 64, torch.float32, 0),
+    "m1": (1, 64, torch.bfloat16, 0),             # variance 0
+    "c1": (300001, 1, torch.float32, 0),
+    "ragged_bf16": (101101, 130, torch.bfloat16, 0),  # the scalar path
+    "ragged_f16": (101101, 130, torch.float16, 0),
+    "unaligned": (50000, 64, torch.bfloat16, 1),  # x one element off
+    "single_chunk": (200, 64, torch.bfloat16, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(BN_REDUCTION_CASES))
+def test_batch_norm_reductions_match_plain(name, cuda):
+    """The two reductions (moments with the merge folded in, grad sums
+    with theirs) on their grid, through the training forward and
+    backward: the moments to 1e-5 and the outputs and dgamma, dbeta to
+    ``TOL``; 16-byte vectors exactly where C is whole vectors and x and g
+    are aligned."""
+    m, c, dtype, offset = BN_REDUCTION_CASES[name]
+    g = torch.Generator().manual_seed(29)
+    base = (torch.randn(m * c + offset, generator=g) * 2 + 3).to("cuda",
+                                                                 dtype)
+    gbase = torch.randn(m * c + offset, generator=g).to("cuda", dtype)
+    x, gy = base[offset:].view(m, c), gbase[offset:].view(m, c)
+    gamma = (torch.randn(c, generator=g) + 1).cuda()
+    beta = torch.randn(c, generator=g).cuda()
+    vec = bn._vec(x, gy)
+    assert vec == (1 if offset or c % (16 // x.element_size()) else
+                   16 // x.element_size())
+    bx, by, rpc, n_chunks = bn.chunking(m, c, vec, bn._sm_count(x.device))
+    if name == "single_chunk":
+        assert n_chunks == 1
+    y, mean, var, inv = bn.bn_train_fwd_2d(x, gamma, beta, 1e-5)
+    dx, dgamma, dbeta = bn.bn_train_bwd_2d(x, gy, gamma, mean, inv)
+    ry, rmean, rvar, rinv = bn.bn_train_fwd_plain(x, gamma, beta, 1e-5)
+    rdx, rdgamma, rdbeta = bn.bn_train_bwd_plain(x, gy, gamma, rmean, rinv)
+    torch.cuda.synchronize()
+    for got, ref in ((mean, rmean), (var, rvar), (inv, rinv)):
+        assert _bn_err(got, ref) <= 1e-5
+    for got, ref in ((y, ry), (dx, rdx), (dgamma, rdgamma),
+                     (dbeta, rdbeta)):
+        assert _bn_err(got, ref) <= TOL[dtype]
+    if m == 1:
+        assert not var.any()
+
+
+def test_batch_norm_reductions_repeat_and_leave_counters_at_zero(cuda):
+    """Calls back to back, without a sync, at C = 64 (one channel slice)
+    and C = 2048 (32 slices) and again: every repeat gives the same bits,
+    and the arrival counters are zero when the stream is done."""
+    cases = [_bn_inputs(31, 1605632, 64, torch.bfloat16),
+             _bn_inputs(37, 6272, 2048, torch.bfloat16)]
+    runs = []
+    for i in (0, 1, 0, 1, 0):
+        x, gy, gamma, beta = cases[i]
+        y, mean, var, inv = bn.bn_train_fwd_2d(x, gamma, beta, 1e-5)
+        runs.append((i, (y, mean, var) + bn.bn_train_bwd_2d(
+            x, gy, gamma, mean, inv)))
+    torch.cuda.synchronize()
+    assert bn._arrivals and all(not t.any() for t in bn._arrivals.values())
+    for i in (0, 1):
+        same = [r for j, r in runs if j == i]
+        for other in same[1:]:
+            for a, b in zip(same[0], other):
+                assert torch.equal(a, b)
+        x, gy, gamma, beta = cases[i]
+        ry, rmean, rvar, rinv = bn.bn_train_fwd_plain(x, gamma, beta, 1e-5)
+        assert _bn_err(same[0][1], rmean) <= 1e-5
+        assert _bn_err(same[0][0], ry) <= TOL[torch.bfloat16]
+
+
 def test_batch_norm_autograd_on_the_card(cuda):
     """The helper's training and inference paths differentiate through
     the kernels: float32 grads equal those of the float64 formula."""
