@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing is caught):
    sources in this checkout (``nvcc``, one process per source, all
    started together), and print each kernel's registers and shared
    memory as ``ptxas`` reports them; the float32 flash forward, paged
-   decode and BatchNorm's two reductions must spill nothing.
+   decode, BatchNorm's two reductions and LRN's vector kernels must spill
+   nothing.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, and time the kernel, the plain version and a
    library yardstick (which the port never calls: ``gather_pages`` +
@@ -71,9 +72,11 @@ Phases (any failure exits non-zero; nothing is caught):
 7. Hold the two LRN kernels (forward, backward) against their plain
    versions at AlexNet's shapes (``[373248, 96]`` and ``[86528, 256]``
    in bfloat16; a float32, a float16, a ragged C = 130, a C = 3 < n and
-   an n = 7 case), and time them beside ``F.local_response_norm`` (odd n
-   only, its alpha times n: cuDNN's convention divides alpha by the
-   window) and their bound.
+   an n = 7 case), each on the route it must take (``lrn.route``: the
+   vector kernels for AlexNet's shapes, the staged ones for C = 130 and
+   C = 3), and time them beside ``F.local_response_norm`` (odd n only,
+   its alpha times n: cuDNN's convention divides alpha by the window)
+   and their bound.
 8. AlexNet as a MultiLayerNetwork at full width (zoo ``alexnet``:
    224x224x3, 1000 classes, batch 128, bfloat16, Nesterov at 0.01 with
    l2 5e-4; ``RandomState(0)`` images in [0, 1) and one-hot labels;
@@ -83,7 +86,9 @@ Phases (any failure exits non-zero; nothing is caught):
    compute) are held against the built-in path with the same dropout
    key; then 2 warm-up and 5 timed ``fit`` steps (2 forward and 2
    backward LRN launches a step, no plain-version call, finite losses),
-   and one step under ``torch.profiler``.
+   and one step under ``torch.profiler``, which must run the vector
+   route's kernels 4 times (``lrn_fwd_vec``, ``lrn_bwd_vec``) and prints
+   their time by layer.
 9. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
@@ -169,15 +174,17 @@ BN_CASES = [  # name, NHWC shape, dtype, gamma/beta dtype
 ]
 DELTA_TOL = 1e-5    # dQ's delta vs _row_delta, over max(1, max |delta|)
 LRN = dict(k=2.0, n=5, alpha=1e-4, beta=0.75)     # AlexNet's LRN layers
-LRN_CASES = [  # name, NHWC shape, dtype, n
-    ("lrn1_bf16", (128, 54, 54, 96), torch.bfloat16, 5),
-    ("lrn2_bf16", (128, 26, 26, 256), torch.bfloat16, 5),
-    ("lrn1_f32", (128, 54, 54, 96), torch.float32, 5),
-    ("lrn2_f16", (128, 26, 26, 256), torch.float16, 5),
-    ("ragged130_bf16", (13, 77, 101, 130), torch.bfloat16, 5),
-    ("c3_bf16", (64, 55, 55, 3), torch.bfloat16, 5),
-    ("n7_bf16", (128, 26, 26, 256), torch.bfloat16, 7),
+LRN_CASES = [  # name, NHWC shape, dtype, n, the route it takes
+    ("lrn1_bf16", (128, 54, 54, 96), torch.bfloat16, 5, "vector"),
+    ("lrn2_bf16", (128, 26, 26, 256), torch.bfloat16, 5, "vector"),
+    ("lrn1_f32", (128, 54, 54, 96), torch.float32, 5, "vector"),
+    ("lrn2_f16", (128, 26, 26, 256), torch.float16, 5, "vector"),
+    ("ragged130_bf16", (13, 77, 101, 130), torch.bfloat16, 5, "staged"),
+    ("c3_bf16", (64, 55, 55, 3), torch.bfloat16, 5, "staged"),
+    ("n7_bf16", (128, 26, 26, 256), torch.bfloat16, 7, "vector"),
 ]
+# the LRN kernels of AlexNet's step (the vector route's), by name
+LRN_STEP_KERNEL_RE = r"\blrn_(fwd|bwd)_vec\b"
 ALEXNET = dict(compute_dtype="bfloat16", seed=12345)  # 224x224x3, 1000
 ALEXNET_BATCH, ALEXNET_LRN_LAYERS = 128, 2
 # logits, kernels vs built-in path: bf16 error over max |logit|, and
@@ -211,7 +218,8 @@ def build_kernels():
                 # the kernel's name and template arguments, from the
                 # mangled symbol
                 found = re.search(r"((?:flash_[a-z]+|drn|paged_decode|"
-                                  r"lrn_[a-z]+)_(?:kernel|mma|wgmma|tf32))"
+                                  r"lrn_[a-z]+)_(?:kernel|mma|wgmma|tf32|"
+                                  r"vec))"
                                   r"(I\w*?E)?E"
                                   r"|(bn_[a-z_]+)(I\w*?E)?", ln)
                 entry = "".join(x for x in found.groups() if x) \
@@ -226,17 +234,20 @@ def build_kernels():
                               re.findall(r"(\d+) bytes spill", ln))
             elif "warning" in ln.lower() or "Performance Loss" in ln:
                 print(f"  {ln.strip()[:200]}")
-    # the float32 flash forward, paged decode and BatchNorm's two
-    # reductions: registers, and no spills (a library found already built
-    # has no ptxas report)
+    # the float32 flash forward, paged decode, BatchNorm's two reductions
+    # and LRN's vector route: registers, and no spills (a library found
+    # already built has no ptxas report)
     watched = (("flash_attention.cu", "flash_fwd_tf32"),
                ("paged_attention.cu", "paged_decode_kernel"),
                ("batch_norm.cu", "bn_moments_kernel"),
-               ("batch_norm.cu", "bn_grad_sums_kernel"))
+               ("batch_norm.cu", "bn_grad_sums_kernel"),
+               ("lrn.cu", "lrn_fwd_vec"),
+               ("lrn.cu", "lrn_bwd_vec"))
     new = {k: v for k, v in usage.items()
            if k.startswith(tuple(kernel for _, kernel in watched))}
-    print("build, float32 flash forward, paged decode and BatchNorm "
-          "reduction kernels (registers, spill bytes): " + "; ".join(
+    print("build, float32 flash forward, paged decode, BatchNorm "
+          "reduction and LRN vector kernels (registers, spill bytes): "
+          + "; ".join(
               f"{k} {r}, {sp}" for k, (r, sp) in sorted(new.items())))
     compiled = {m.SOURCE.name for m, b in zip(modules, built) if b.log}
     for source, kernel in watched:
@@ -1094,7 +1105,7 @@ def bn_passes(events):
     return split
 
 
-def bn_pass_split(events, label="BatchNorm"):
+def bn_pass_split(events, label="BatchNorm", prof=None):
     """Print profiled BatchNorm kernels' device ms and launches by pass."""
     split = bn_passes(events)
     print(f"  {label} by pass: " + "; ".join(
@@ -1267,8 +1278,9 @@ def step_profile(what, net, x, y, kernel_re, label, name_card, split=None,
                  launches=None):
     """Where one train step's time goes: device busy against host wall,
     the share of the kernels whose names match ``kernel_re`` (split by
-    ``split`` where given; ``launches`` of them where given), copy
-    kernels, then the host's operations in a second traced step."""
+    ``split(events, label, prof)`` where given; ``launches`` of them where
+    given), copy kernels, then the host's operations in a second traced
+    step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1299,7 +1311,7 @@ def step_profile(what, net, x, y, kernel_re, label, name_card, split=None,
         print(f"  {label}: {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:100]}")
     if split is not None:
-        split(ours, label)
+        split(ours, label, prof)
     for e in sorted(copies, key=lambda e: -e.self_device_time_total)[:4]:
         print(f"  copy: {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:100]}")
@@ -1327,16 +1339,52 @@ def step_profile(what, net, x, y, kernel_re, label, name_card, split=None,
 
 
 # ------------------------------------------------------------ phase 7, LRN
-def lrn_case(name, seed, shape, dtype, n, flush, name_card):
-    """The two LRN kernels on one NHWC shape, as [N·H·W, C].  x is wide
-    enough (std 30) that the window term moves s by a fifth at alpha
-    1e-4."""
+def lrn_bounds(m, c, esz, n):
+    """Least ms of the LRN forward and backward on [m, C] with elements of
+    ``esz`` bytes: each tensor read or written once, or the kernels'
+    float32 operations (the window's 2n+1 products and sums, the power
+    and the scaling: 2(2h+1) + 6 forward, 3(2h+1) + 14 backward) at the
+    float32 rate whatever x's type, whichever is larger."""
+    win = 2 * (n // 2) + 1
+    return {"fwd": _bound(2 * m * c * esz, m * c * (2 * win + 6),
+                          torch.float32),
+            "bwd": _bound(3 * m * c * esz, m * c * (3 * win + 14),
+                          torch.float32)}
+
+
+def lrn_library(x, gy, shape, prm, ry, flush, iters=30):
+    """The yardstick the port never calls: ({"fwd", "bwd"} ms, error of
+    its forward against ``ry``) of ``F.local_response_norm`` on the NCHW
+    tensor (its own layout), alpha times n (it divides by the window);
+    its window is asymmetric for an even n, so (None, None) there."""
+    n, (b, h, w, c) = prm["n"], shape
+    if n % 2 == 0:
+        return {"fwd": None, "bwd": None}, None
+    x4 = x.view(b, h, w, c).permute(0, 3, 1, 2).contiguous()
+    g4 = gy.view(b, h, w, c).permute(0, 3, 1, 2).contiguous()
+    xl = x4.requires_grad_()
+    lib = lambda: F.local_response_norm(
+        xl, n, alpha=prm["alpha"] * n, beta=prm["beta"], k=prm["k"])
+    out = lib()
+    err = _scaled_err(out.permute(0, 2, 3, 1).reshape(-1, c), ry)
+    return {"fwd": time_ms(lib, flush, iters=iters),
+            "bwd": time_ms(lambda: torch.autograd.grad(
+                out, xl, g4, retain_graph=True), flush, iters=iters)}, err
+
+
+def lrn_case(name, seed, shape, dtype, n, want_route, flush, name_card):
+    """The two LRN kernels on one NHWC shape, as [N·H·W, C], on the route
+    the case names.  x is wide enough (std 30) that the window term moves
+    s by a fifth at alpha 1e-4."""
     b, h, w, c = shape
     m = b * h * w
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(m, c, generator=g, device="cuda") * 30).to(dtype)
     gy = torch.randn(m, c, generator=g, device="cuda").to(dtype)
     prm = dict(LRN, n=n)
+    route = lrn.route(x, n, gy)
+    check(route == want_route, f"lrn[{name}] takes the {route} route, "
+                               f"expected {want_route}")
     y = lrn.lrn_fwd_2d(x, **prm)
     dx = lrn.lrn_bwd_2d(x, gy, **prm)
     ry = lrn.lrn_fwd_plain(x, **prm)
@@ -1358,36 +1406,14 @@ def lrn_case(name, seed, shape, dtype, n, flush, name_card):
     plain_ms = {k: time_ms(plain, flush, iters=KERNEL_ITERS)
                 for k, (_, plain) in calls.items()}
 
-    # yardstick the port never calls: F.local_response_norm on the NCHW
-    # tensor (its own layout), alpha times n (it divides by the window);
-    # its window is asymmetric for an even n, so odd n only
-    lib_ms, lib_err = {"fwd": None, "bwd": None}, None
-    if n % 2:
-        x4 = x.view(b, h, w, c).permute(0, 3, 1, 2).contiguous()
-        g4 = gy.view(b, h, w, c).permute(0, 3, 1, 2).contiguous()
-        xl = x4.requires_grad_()
-        lib = lambda: F.local_response_norm(
-            xl, n, alpha=prm["alpha"] * n, beta=prm["beta"], k=prm["k"])
-        out = lib()
-        lib_err = _scaled_err(out.permute(0, 2, 3, 1).reshape(m, c), ry)
-        lib_ms = {"fwd": time_ms(lib, flush),
-                  "bwd": time_ms(lambda: torch.autograd.grad(
-                      out, xl, g4, retain_graph=True), flush)}
-        del out, xl, x4, g4
+    lib_ms, lib_err = lrn_library(x, gy, shape, prm, ry, flush)
     del ry
     torch.cuda.empty_cache()
 
-    # least time: each tensor read or written once, or the kernels'
-    # float32 operations (the window's 2n+1 products and sums, the power
-    # and the scaling: 2(2h+1) + 6 forward, 3(2h+1) + 14 backward) at the
-    # float32 rate whatever x's type, whichever is larger
-    esz, win = x.element_size(), 2 * (n // 2) + 1
-    bounds = {"fwd": _bound(2 * m * c * esz, m * c * (2 * win + 6),
-                            torch.float32),
-              "bwd": _bound(3 * m * c * esz, m * c * (3 * win + 14),
-                            torch.float32)}
+    bounds = lrn_bounds(m, c, x.element_size(), n)
     lib_txt = ("n/a (even n)" if lib_err is None else f"{lib_err:.3e}")
-    print(f"lrn[{name}] [{m}, {c}] {str(dtype)[6:]} n={n}: err fwd "
+    print(f"lrn[{name}] [{m}, {c}] {str(dtype)[6:]} n={n}, {route} route: "
+          f"err fwd "
           f"{errs['fwd']:.3e}, bwd {errs['bwd']:.3e} (scaled by max abs; "
           f"tol {TOL[dtype]:g}); F.local_response_norm fwd err {lib_txt} "
           f"[{name_card}]")
@@ -1401,9 +1427,9 @@ def lrn_case(name, seed, shape, dtype, n, flush, name_card):
 
 
 def lrn_kernel_phase(flush, name_card):
-    return {name: lrn_case(name, 500 + 10 * i, shape, dtype, n, flush,
-                           name_card)
-            for i, (name, shape, dtype, n) in enumerate(LRN_CASES)}
+    return {name: lrn_case(name, 500 + 10 * i, shape, dtype, n, route,
+                           flush, name_card)
+            for i, (name, shape, dtype, n, route) in enumerate(LRN_CASES)}
 
 
 # -------------------------------------------------- phase 8, AlexNet
@@ -1423,6 +1449,22 @@ def _sequential_flops(net, batch) -> int:
             total += 2 * layer.n_in * layer.n_out
         t = out
     return total * batch
+
+
+def lrn_layer_split(events, label, prof):
+    """Print a profiled AlexNet step's LRN kernels by layer, from the
+    trace's launch order: the forward runs lrn1 then lrn2, the backward
+    lrn2 then lrn1."""
+    runs = sorted((e for e in prof.events() if e.self_device_time_total > 0
+                   and re.search(LRN_STEP_KERNEL_RE, e.name)),
+                  key=lambda e: e.time_range.start)
+    fwd = [e.self_device_time_total / 1e3 for e in runs if "fwd" in e.name]
+    bwd = [e.self_device_time_total / 1e3 for e in runs if "bwd" in e.name]
+    check(len(fwd) == len(bwd) == ALEXNET_LRN_LAYERS,
+          f"{label} launches by direction {len(fwd)}, {len(bwd)}")
+    print(f"  {label} by layer: " + "; ".join(
+        f"lrn{i + 1} fwd {fwd[i]:.4f} ms, bwd {bwd[-1 - i]:.4f} ms"
+        for i in range(ALEXNET_LRN_LAYERS)))
 
 
 def _lrn_counts():
@@ -1567,8 +1609,8 @@ def alexnet_phase(name_card):
           f"{util:.4f} of 989 TFLOP/s ({3 * fwd_flops / 1e12:.3f} TFLOP a "
           f"step, 3 x forward); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{name_card}]")
-    step_profile("alexnet", net, x, y, r"\blrn_(fwd|bwd)_kernel", "LRN",
-                 name_card)
+    step_profile("alexnet", net, x, y, LRN_STEP_KERNEL_RE, "LRN", name_card,
+                 split=lrn_layer_split, launches=2 * ALEXNET_LRN_LAYERS)
     return launches
 
 

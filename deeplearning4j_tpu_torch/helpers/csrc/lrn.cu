@@ -21,25 +21,50 @@
 // reads x and g and writes dx, with about 2n + 10 flops an element: far
 // below the ~295 flops a byte at which the H100's memory stops being the
 // limit.  So every element is read from device memory once and written
-// once: one block of 256 threads takes a tile of rows x channels (about
+// once, and the kernels must keep enough loads in flight to stream at the
+// memory's rate.  Two routes, chosen by the caller from the shape, type,
+// n and alignment (lrn.py `route`), never on a failure:
+//
+// Vector route (`lrn_fwd_vec`, `lrn_bwd_vec`): C a whole number of 16-byte
+// vectors (V = 8 channels in 16 bits, 4 in float32), 2 (n/2) <= V, every
+// pointer 16-byte aligned.  One lane holds one vector, loaded with one
+// 16-byte load; a warp holds 32 consecutive vectors of the flattened
+// tensor, so a row's neighbouring channels sit in neighbouring lanes, and
+// the n/2 halo channels on each side come from lanes i-1 and i+1 by warp
+// shuffles (zeros where the neighbour is another row's).  A warp's first
+// and last lanes load but do not store: they only feed their neighbours'
+// halos, so a warp tile stores 30 vectors and the next tile starts there.
+// No shared memory, no barrier; the window sums run in registers.  The
+// grid gives every warp one tile, so a lane has one 16-byte load of each
+// input in flight; few registers (about 30 forward, 40 backward) let 48
+// to 64 warps an SM keep 32 to 48 KB of loads in flight.  (A one-wave
+// grid striding over the tiles was 4-9% slower at AlexNet's shapes: its
+// last pass left SMs idle.  scripts/torch_lrn_probe.py times variants.)
+// The backward computes s, s^-beta and t for its own channels only (one lg2
+// and two ex2 an element) and takes t's halo from its neighbours: the
+// edge lanes' outer t values are wrong (their far halo is missing), but
+// only their inner n/2 channels, which need x no further than 2 (n/2)
+// <= V channels in, are ever shuffled to a storing lane.
+//
+// Staged route (`lrn_fwd_kernel`, `lrn_bwd_kernel`), for every other
+// shape: one block of 256 threads takes a tile of rows x channels (about
 // 2048 elements, the caller's choice) and stages it in shared memory in
 // its own type, with a halo of channels on each side (zeros outside
 // [0, C)).  Where a row fits a tile the tile spans whole rows, one
 // contiguous span of the tensor copied in 16-byte vectors; wider rows are
 // cut into channel tiles whose halos overlap their neighbours' (scalar
 // loads).  Then consecutive threads take consecutive elements, so every
-// window sum reads shared memory without bank conflicts (eight neighbouring
-// channels a thread would read it 8-way conflicted) and the stores
-// coalesce.  The arithmetic is float32.  The TPU kernel pads channels to
-// 128 lanes and holds the whole array in one VMEM block (which the JAX
-// package caps at 2^20 elements); neither applies here.
+// window sum reads shared memory without bank conflicts and the stores
+// coalesce.  The TPU kernel pads channels to 128 lanes and holds the whole
+// array in one VMEM block (which the JAX package caps at 2^20 elements);
+// neither applies here.
 //
 // The backward recomputes s from x instead of reading a saved s: it reads x
 // anyway (for t), so a saved s would cost the forward a write and the
 // backward a read, and a bfloat16 s would lose the precision the float32
-// recompute keeps.  It stages x with a halo of 2 (n/2) channels and g with
-// n/2, computes s^-beta and t over the tile and a halo of n/2, then t's
-// window sums.
+// recompute keeps.  The staged backward stages x with a halo of 2 (n/2)
+// channels and g with n/2, computes s^-beta and t over the tile and a halo
+// of n/2, then t's window sums.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -286,8 +311,8 @@ cudaError_t run_h(int which, const void* x, const void* g, void* out,
   return cudaGetLastError();
 }
 
-// n = 3, 5 (AlexNet's) and 7, and their even neighbours, get unrolled
-// window loops; any other n reads its half-width at run time
+// n = 3, 5 and 7, and their even neighbours, get unrolled window loops;
+// any other n reads its half-width at run time
 template <typename T>
 cudaError_t run(int which, const void* x, const void* g, void* out,
                 const Params& p, int vec, cudaStream_t stream) {
@@ -316,6 +341,280 @@ int launch(int which, const void* x, const void* g, void* out, int dtype,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ------------------------------------------------------------ vector route
+constexpr int kVecThreads = 256;
+constexpr int kTileVecs = 30;  // vectors a warp tile stores: lanes 1..30
+// warp tiles a warp takes, their loads issued before any arithmetic (1:
+// 2 to 8 were no faster, the extra registers cost resident warps)
+constexpr int kFwdTiles = 1;
+constexpr int kBwdTiles = 1;
+
+struct VecParams {
+  int nvec;     // rows * C / V
+  int per_row;  // C / V
+  int tiles;    // ceil(nvec / kTileVecs)
+  float k, alpha, beta;
+};
+
+// A 16-byte vector as floats, one 32-bit word at a time: V channels, E of
+// them a word (little-endian: the lower half holds the lower channel).
+template <typename T>
+struct Pack;
+template <>
+struct Pack<float> {
+  static constexpr int V = 4, E = 1;
+  __device__ static void unpack(uint32_t w, float* f) {
+    f[0] = __uint_as_float(w);
+  }
+  __device__ static uint32_t pack(const float* f) {
+    return __float_as_uint(f[0]);
+  }
+};
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int V = 8, E = 2;
+  __device__ static void unpack(uint32_t w, float* f) {
+    f[0] = __uint_as_float(w << 16);
+    f[1] = __uint_as_float(w & 0xffff0000u);
+  }
+  __device__ static uint32_t pack(const float* f) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(f[0], f[1]);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+template <>
+struct Pack<__half> {
+  static constexpr int V = 8, E = 2;
+  __device__ static void unpack(uint32_t w, float* f) {
+    const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w));
+    f[0] = v.x;
+    f[1] = v.y;
+  }
+  __device__ static uint32_t pack(const float* f) {
+    const __half2 v = __floats2half2_rn(f[0], f[1]);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void unpack_all(const uint4& r, float* f) {
+  using P = Pack<T>;
+  P::unpack(r.x, f);
+  P::unpack(r.y, f + P::E);
+  P::unpack(r.z, f + 2 * P::E);
+  P::unpack(r.w, f + 3 * P::E);
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 pack_all(const float* f) {
+  using P = Pack<T>;
+  return make_uint4(P::pack(f), P::pack(f + P::E), P::pack(f + 2 * P::E),
+                    P::pack(f + 3 * P::E));
+}
+
+// The first of the `tiles` consecutive warp tiles this warp takes.
+__device__ __forceinline__ int first_tile(int tiles) {
+  return (int)((blockIdx.x * kVecThreads + threadIdx.x) >> 5) * tiles;
+}
+
+// Lane l of warp tile `tile` holds vector tile * kTileVecs + l - 1.
+__device__ __forceinline__ int vec_index(int tile) {
+  return tile * kTileVecs + (int)(threadIdx.x & 31) - 1;
+}
+
+__device__ __forceinline__ uint4 load_vec(const uint4* __restrict__ src,
+                                          int e, int nvec) {
+  return e >= 0 && e < nvec ? __ldg(src + e) : make_uint4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ bool stores(int e, int nvec) {
+  const int lane = threadIdx.x & 31;
+  return lane >= 1 && lane <= kTileVecs && e < nvec;
+}
+
+// xs[0, V + 2H): channel j - H of this lane's vector, its own from `r`, the
+// H on each side from the neighbour lanes' words (zeros where the
+// neighbour's vector is another row's).  Every lane of the warp calls it.
+template <typename T, int H>
+__device__ __forceinline__ void with_halo(const uint4& r, bool first,
+                                          bool last, float* xs) {
+  using P = Pack<T>;
+  constexpr int V = P::V, E = P::E, NW = (H + E - 1) / E;
+  unpack_all<T>(r, xs + H);
+  if constexpr (H > 0) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+    float left[NW * E], right[NW * E];
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      P::unpack(__shfl_up_sync(0xffffffffu, w[4 - NW + j], 1), left + j * E);
+      P::unpack(__shfl_down_sync(0xffffffffu, w[j], 1), right + j * E);
+    }
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      xs[i] = first ? 0.f : left[NW * E - H + i];
+      xs[V + H + i] = last ? 0.f : right[i];
+    }
+  }
+}
+
+template <typename T, int H>
+__global__ void __launch_bounds__(kVecThreads)
+lrn_fwd_vec(const T* __restrict__ x, T* __restrict__ y, VecParams p) {
+  constexpr int V = Pack<T>::V;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  const int t0 = first_tile(kFwdTiles);
+  if (t0 >= p.tiles) return;  // the whole warp
+  uint4 raw[kFwdTiles];
+#pragma unroll
+  for (int u = 0; u < kFwdTiles; ++u)
+    raw[u] = load_vec(xv, vec_index(t0 + u), p.nvec);
+#pragma unroll
+  for (int u = 0; u < kFwdTiles; ++u) {
+    const int e = vec_index(t0 + u);
+    const int pos = (int)((unsigned)e % (unsigned)p.per_row);
+    float xs[V + 2 * H], out[V];
+    with_halo<T, H>(raw[u], pos == 0, pos == p.per_row - 1, xs);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float sum = 0.f;
+#pragma unroll
+      for (int d = 0; d <= 2 * H; ++d) sum += xs[i + d] * xs[i + d];
+      out[i] = xs[H + i] * pow_neg(p.k + p.alpha * sum, p.beta);
+    }
+    if (stores(e, p.nvec)) yv[e] = pack_all<T>(out);
+  }
+}
+
+template <typename T, int H>
+__global__ void __launch_bounds__(kVecThreads)
+lrn_bwd_vec(const T* __restrict__ x, const T* __restrict__ g,
+            T* __restrict__ dx, VecParams p) {
+  constexpr int V = Pack<T>::V;
+  static_assert(2 * H <= V, "an edge lane's inner t needs x within V");
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const uint4* gv = reinterpret_cast<const uint4*>(g);
+  uint4* dv = reinterpret_cast<uint4*>(dx);
+  const float c2 = 2.f * p.alpha * p.beta;
+  const int t0 = first_tile(kBwdTiles);
+  if (t0 >= p.tiles) return;  // the whole warp
+  uint4 xr[kBwdTiles], gr[kBwdTiles];
+#pragma unroll
+  for (int u = 0; u < kBwdTiles; ++u) {
+    xr[u] = load_vec(xv, vec_index(t0 + u), p.nvec);
+    gr[u] = load_vec(gv, vec_index(t0 + u), p.nvec);
+  }
+#pragma unroll
+  for (int u = 0; u < kBwdTiles; ++u) {
+    const int e = vec_index(t0 + u);
+    const int pos = (int)((unsigned)e % (unsigned)p.per_row);
+    const bool first = pos == 0, last = pos == p.per_row - 1;
+    float xs[V + 2 * H], gs[V], pw[V], t[V + 2 * H], out[V];
+    with_halo<T, H>(xr[u], first, last, xs);
+    unpack_all<T>(gr[u], gs);
+    // s, s^-beta and t = g x s^(-beta-1) for this lane's channels
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float sum = 0.f;
+#pragma unroll
+      for (int d = 0; d <= 2 * H; ++d) sum += xs[i + d] * xs[i + d];
+      const float lg = __log2f(p.k + p.alpha * sum);
+      pw[i] = exp2f(-p.beta * lg);
+      t[H + i] = gs[i] * xs[H + i] * exp2f((-p.beta - 1.f) * lg);
+    }
+    // t's halo: the neighbours' outermost H channels of their own
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float l = __shfl_up_sync(0xffffffffu, t[V + i], 1);
+      const float r = __shfl_down_sync(0xffffffffu, t[H + i], 1);
+      t[i] = first ? 0.f : l;
+      t[V + H + i] = last ? 0.f : r;
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float sum = 0.f;
+#pragma unroll
+      for (int d = 0; d <= 2 * H; ++d) sum += t[i + d];
+      out[i] = gs[i] * pw[i] - c2 * xs[H + i] * sum;
+    }
+    if (stores(e, p.nvec)) dv[e] = pack_all<T>(out);
+  }
+}
+
+// Blocks that give every warp its `tiles_per_warp` tiles.
+int blocks_for(int tiles, int tiles_per_warp) {
+  const int per_block = tiles_per_warp * (kVecThreads / 32);
+  return (tiles + per_block - 1) / per_block;
+}
+
+template <typename T, int H>
+cudaError_t run_vec_h(int which, const void* x, const void* g, void* out,
+                      const VecParams& p, cudaStream_t stream) {
+  if (which == 0)
+    lrn_fwd_vec<T, H><<<blocks_for(p.tiles, kFwdTiles), kVecThreads, 0,
+                        stream>>>(static_cast<const T*>(x),
+                                  static_cast<T*>(out), p);
+  else
+    lrn_bwd_vec<T, H><<<blocks_for(p.tiles, kBwdTiles), kVecThreads, 0,
+                        stream>>>(static_cast<const T*>(x),
+                                  static_cast<const T*>(g),
+                                  static_cast<T*>(out), p);
+  return cudaGetLastError();
+}
+
+// n / 2 from 0 to V / 2, unrolled
+template <typename T>
+cudaError_t run_vec(int which, const void* x, const void* g, void* out,
+                    const VecParams& p, int half, cudaStream_t stream) {
+  constexpr int V = Pack<T>::V;
+  switch (half) {
+    case 0: return run_vec_h<T, 0>(which, x, g, out, p, stream);
+    case 1: return run_vec_h<T, 1>(which, x, g, out, p, stream);
+    case 2: return run_vec_h<T, 2>(which, x, g, out, p, stream);
+    case 3:
+      if constexpr (V >= 6)
+        return run_vec_h<T, 3>(which, x, g, out, p, stream);
+      break;
+    case 4:
+      if constexpr (V >= 8)
+        return run_vec_h<T, 4>(which, x, g, out, p, stream);
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_vec_t(int which, const void* x, const void* g, void* out,
+                         int rows, int c, int half, float k, float alpha,
+                         float beta, cudaStream_t stream) {
+  constexpr int V = Pack<T>::V;
+  const long long nvec = (long long)rows * c / V;
+  const bool aligned = ((uintptr_t)x | (uintptr_t)out |
+                        (uintptr_t)(g ? g : x)) % 16 == 0;
+  if (c % V || !aligned || nvec > 0x7fffff00LL) return cudaErrorInvalidValue;
+  const int tiles = (int)((nvec + kTileVecs - 1) / kTileVecs);
+  const VecParams p{(int)nvec, c / V, tiles, k, alpha, beta};
+  return run_vec<T>(which, x, g, out, p, half, stream);
+}
+
+int launch_vec(int which, const void* x, const void* g, void* out, int dtype,
+               int rows, int c, int half, float k, float alpha, float beta,
+               void* stream) {
+  if (rows < 1 || c < 1 || half < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_vec_t<float>(which, x, g, out, rows, c, half, k,
+                                    alpha, beta, s);
+  if (dtype == 1)
+    return (int)launch_vec_t<__nv_bfloat16>(which, x, g, out, rows, c, half,
+                                            k, alpha, beta, s);
+  if (dtype == 2)
+    return (int)launch_vec_t<__half>(which, x, g, out, rows, c, half, k,
+                                     alpha, beta, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, g, y and dx share it).
@@ -336,4 +635,23 @@ extern "C" int dl4j_lrn_bwd(const void* x, const void* g, void* dx,
                             int vec, void* stream) {
   return launch(1, x, g, dx, dtype, rows, c, rpb, ct, half, k, alpha, beta,
                 vec, stream);
+}
+
+// The vector route: the same arguments but the tiling and vec.  Returns
+// cudaErrorInvalidValue (without launching) where the route does not
+// apply: C not a whole number of 16-byte vectors, a pointer not 16-byte
+// aligned, 2 half > V, or more than 2^31 - 256 vectors.
+extern "C" int dl4j_lrn_fwd_vec(const void* x, void* y, int dtype, int rows,
+                                int c, int half, float k, float alpha,
+                                float beta, void* stream) {
+  return launch_vec(0, x, nullptr, y, dtype, rows, c, half, k, alpha, beta,
+                    stream);
+}
+
+extern "C" int dl4j_lrn_bwd_vec(const void* x, const void* g, void* dx,
+                                int dtype, int rows, int c, int half,
+                                float k, float alpha, float beta,
+                                void* stream) {
+  return launch_vec(1, x, g, dx, dtype, rows, c, half, k, alpha, beta,
+                    stream);
 }

@@ -12,9 +12,14 @@ path fails on even n).  alpha is not divided by n (DL4J's semantics).
 
 - On CUDA tensors both directions are the hand-written kernels
   ``csrc/lrn.cu`` (built with ``nvcc`` at first use, bound with
-  ``ctypes``): a block stages a tile of rows (whole rows where C fits,
-  channel tiles with a halo where it does not) in shared memory and takes
-  every window sum there, consecutive threads on consecutive elements.
+  ``ctypes``), on one of two routes that ``route`` picks from the shape,
+  type, n and alignment:
+  - ``"vector"`` (AlexNet's shapes): one lane a 16-byte vector of a row,
+    the halo channels from the neighbour lanes by warp shuffles, the
+    window sums in registers, one pass with no shared memory;
+  - ``"staged"`` (everything else): a block stages a tile of rows (whole
+    rows where C fits, channel tiles with a halo where it does not) in
+    shared memory and takes every window sum there.
   float32 arithmetic whatever x's type, outputs in x's type, no size cap.
   They launch or raise; nothing falls back.
 - On CPU tensors the plain versions below run instead, through the same
@@ -41,8 +46,14 @@ from deeplearning4j_tpu_torch.helpers import cuda_build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lrn.cu"
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-TILE = 2048               # elements of a block's tile
-MAX_ROWS = 256            # rows of a block's tile
+TILE = 2048               # elements of a block's tile (staged route)
+MAX_ROWS = 256            # rows of a block's tile (staged route)
+# the vector route's warp schedule, as in csrc/lrn.cu: lane l of warp tile
+# t holds vector t * TILE_VECTORS + l - 1 and stores it for l in 1..30
+LANES = 32
+TILE_VECTORS = LANES - 2
+FWD_TILES, BWD_TILES = 1, 1     # tiles a warp takes, loads first
+MAX_VECTORS = 2 ** 31 - 256
 _launchers = {}
 
 fwd_counts = cuda_build.Counts()
@@ -100,13 +111,33 @@ def build() -> cuda_build.Built:
     """Compile (at most once per source hash) and load the kernels."""
     built = cuda_build.load_library(SOURCE)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i] * 6 + [f] * 3 + [i, p]  # dtype..half, k, alpha, beta, vec
-    for name, n_ptr in (("dl4j_lrn_fwd", 2), ("dl4j_lrn_bwd", 3)):
+    staged = [i] * 6 + [f] * 3 + [i, p]  # dtype..half, k, alpha, beta, vec
+    vector = [i] * 4 + [f] * 3 + [p]     # dtype..half, k, alpha, beta
+    for name, n_ptr, tail in (("dl4j_lrn_fwd", 2, staged),
+                              ("dl4j_lrn_bwd", 3, staged),
+                              ("dl4j_lrn_fwd_vec", 2, vector),
+                              ("dl4j_lrn_bwd_vec", 3, vector)):
         fn = getattr(built.lib, name)
         fn.argtypes = [p] * n_ptr + tail
         fn.restype = i
         _launchers[name] = fn
     return built
+
+
+def route(x: torch.Tensor, n: int, *others: torch.Tensor) -> str:
+    """The route a call on x [rows, C] takes, with ``others`` the call's
+    other [rows, C] tensors (g, the output): ``"vector"`` where C is a
+    whole number of 16-byte vectors of V channels and at most ``TILE``,
+    2·⌊n/2⌋ <= V (an edge lane's inner t needs x no further in), every
+    pointer is 16-byte aligned and there are at most ``MAX_VECTORS``
+    vectors; else ``"staged"``."""
+    rows, c = x.shape
+    v = 16 // x.element_size()
+    if (c % v == 0 and c <= TILE and 2 * (n // 2) <= v
+            and rows * c // v <= MAX_VECTORS
+            and all(t.data_ptr() % 16 == 0 for t in (x,) + others)):
+        return "vector"
+    return "staged"
 
 
 def tiling(c: int) -> Tuple[int, int]:
@@ -141,28 +172,33 @@ def _launch(name, counts, x, g, k, n, alpha, beta):
                          f"got {(rows, c)}")
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
-    rpb, ct = tiling(c)
     tensors = [("x", x)] + ([("g", g)] if g is not None else [])
     for tname, t in tensors:
         _check(tname, t, x)
     out = torch.empty_like(x)
-    vec = int(all(t.data_ptr() % 16 == 0 for _, t in tensors)
-              and out.data_ptr() % 16 == 0)
+    ins = [t for _, t in tensors]
     if not _launchers:
         build()
-    ptrs = [t.data_ptr() for _, t in tensors] + [out.data_ptr()]
+    ptrs = [t.data_ptr() for t in ins] + [out.data_ptr()]
     with torch.cuda.device(x.device):
-        rc = _launchers[name](
-            *ptrs, _DTYPE_CODES[x.dtype], rows, c, rpb, ct, n // 2,
-            float(k), float(alpha), float(beta), vec,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if route(x, n, *ins[1:], out) == "vector":
+            rc = _launchers[name + "_vec"](
+                *ptrs, _DTYPE_CODES[x.dtype], rows, c, n // 2, float(k),
+                float(alpha), float(beta), stream)
+        else:
+            rpb, ct = tiling(c)
+            vec = int(all(p % 16 == 0 for p in ptrs))
+            rc = _launchers[name](
+                *ptrs, _DTYPE_CODES[x.dtype], rows, c, rpb, ct, n // 2,
+                float(k), float(alpha), float(beta), vec, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     counts.launches += 1
     return out
 
 
-def _route(x, counts):
+def _use_kernel(x, counts):
     """True for the kernel (CUDA tensor), False for the plain version (CPU
     tensor, counted); anything else raises."""
     if x.device.type == "cpu":
@@ -176,14 +212,14 @@ def _route(x, counts):
 def lrn_fwd_2d(x, k: float, n: int, alpha: float, beta: float):
     """y on [rows, C]: the kernel on CUDA tensors, its plain version on
     CPU tensors (no autograd)."""
-    if _route(x, fwd_counts):
+    if _use_kernel(x, fwd_counts):
         return _launch("dl4j_lrn_fwd", fwd_counts, x, None, k, n, alpha, beta)
     return lrn_fwd_plain(x, k, n, alpha, beta)
 
 
 def lrn_bwd_2d(x, g, k: float, n: int, alpha: float, beta: float):
     """dx on [rows, C], as ``lrn_fwd_2d``."""
-    if _route(x, bwd_counts):
+    if _use_kernel(x, bwd_counts):
         return _launch("dl4j_lrn_bwd", bwd_counts, x, g, k, n, alpha, beta)
     return lrn_bwd_plain(x, g, k, n, alpha, beta)
 

@@ -1,8 +1,8 @@
-"""Two checkouts' float32 flash forward, paged decode and BatchNorm
-training kernels, timed in turns on one CUDA card:
+"""Two checkouts' float32 flash forward, paged decode, BatchNorm
+training and LRN kernels, timed in turns on one CUDA card:
 
     python3 scripts/torch_kernel_compare.py --other PATH [--iters 30]
-        [--only flash|paged|bn ...]
+        [--only flash|paged|bn|lrn ...]
 
 ``PATH`` is the root of another checkout of this repository (an older
 commit unpacked with ``git archive``).  Both checkouts' kernel sources
@@ -19,8 +19,11 @@ sums and, where a checkout has them, their finalize kernels) beside their
 byte bounds (moments read x; grad sums read x and g).  The cases are
 ``chip_smoke.py``'s: the float32 char-LM's attention shapes, the serving
 shapes, and ResNet-50's nine BatchNorm shapes at batch 128 in bfloat16
-with ``chip_smoke.py``'s float32 and ragged BatchNorm cases.  ``--only``
-picks kernel families (default: all three).
+with ``chip_smoke.py``'s float32 and ragged BatchNorm cases.  LRN runs
+each checkout's own wrapper (forward and backward) at ``chip_smoke.py``'s
+seven LRN cases, and prints this checkout's route, the bounds and
+``F.local_response_norm`` (odd n).  ``--only`` picks kernel families
+(default: all four).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import chip_smoke as cs  # noqa: E402
 from deeplearning4j_tpu_torch.helpers import batch_norm as bn  # noqa: E402
 from deeplearning4j_tpu_torch.helpers import cuda_build  # noqa: E402
 from deeplearning4j_tpu_torch.helpers import flash_attention as fa  # noqa: E402
+from deeplearning4j_tpu_torch.helpers import lrn  # noqa: E402
 from deeplearning4j_tpu_torch.helpers import paged_attention as pa  # noqa: E402
 
 CSRC = Path("deeplearning4j_tpu_torch/helpers/csrc")
@@ -78,6 +82,7 @@ BN_SHAPES = [  # name, [M, C], dtype: ResNet-50's inputs at batch 128
      if name in ("stage1_f32", "ragged_bf16", "ragged_f16")]
 BN_PROFILED_CALLS = 20
 BN_WRAPPER = "deeplearning4j_tpu_torch/helpers/batch_norm.py"
+LRN_WRAPPER = "deeplearning4j_tpu_torch/helpers/lrn.py"
 
 
 def load_module(path: Path, name: str):
@@ -223,16 +228,61 @@ def bn_cases(trees, flush, iters, name_card):
         torch.cuda.empty_cache()
 
 
+def lrn_cases(trees, flush, iters, name_card):
+    other, this = trees
+    mods = {this: lrn, other: load_module(other / LRN_WRAPPER, "other_lrn")}
+    for mod in mods.values():
+        mod.build()
+    for i, (name, shape, dtype, n, _) in enumerate(cs.LRN_CASES):
+        b, h, w, c = shape
+        m = b * h * w
+        g = torch.Generator(device="cuda").manual_seed(500 + 10 * i)
+        x = (torch.randn(m, c, generator=g, device="cuda") * 30).to(dtype)
+        gy = torch.randn(m, c, generator=g, device="cuda").to(dtype)
+        prm = dict(cs.LRN, n=n)
+        ry = lrn.lrn_fwd_plain(x, **prm)
+        rdx = lrn.lrn_bwd_plain(x, gy, **prm)
+        errs = {}
+        for tree, mod in mods.items():
+            y, dx = mod.lrn_fwd_2d(x, **prm), mod.lrn_bwd_2d(x, gy, **prm)
+            torch.cuda.synchronize()
+            errs[tree] = max(cs._scaled_err(y, ry), cs._scaled_err(dx, rdx))
+            cs.check(errs[tree] <= cs.TOL[dtype],
+                     f"lrn {name} ({tree}): kernel vs plain {errs[tree]}")
+        del y, dx, rdx
+        best = {"fwd": {}, "bwd": {}}
+        for tree in list(trees) + list(reversed(trees)):
+            mod = mods[tree]
+            for k, fn in (("fwd", lambda: mod.lrn_fwd_2d(x, **prm)),
+                          ("bwd", lambda: mod.lrn_bwd_2d(x, gy, **prm))):
+                ms = cs.time_ms(fn, flush, iters=iters)
+                best[k][tree] = min(best[k].get(tree, ms), ms)
+        lib, _ = cs.lrn_library(x, gy, shape, prm, ry, flush, iters=iters)
+        bounds = cs.lrn_bounds(m, c, x.element_size(), n)
+        print(f"lrn [{name}] [{m}, {c}] {str(dtype)[6:]} n={n}, this route "
+              f"{lrn.route(x, n, gy)}: " + "; ".join(
+                  f"{k} other {best[k][other]:.4f} -> this "
+                  f"{best[k][this]:.4f} ms (bound {bounds[k][0]:.5f}, "
+                  f"{bounds[k][0] / best[k][this]:.3f} of it; "
+                  f"F.local_response_norm "
+                  + ("n/a" if lib[k] is None else f"{lib[k]:.4f}") + ")"
+                  for k in ("fwd", "bwd"))
+              + f"; err {errs[other]:.2e} / {errs[this]:.2e} [{name_card}]",
+              flush=True)
+        del x, gy, ry
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--only", action="append",
-                    choices=("flash", "paged", "bn"),
+                    choices=("flash", "paged", "bn", "lrn"),
                     help="kernel families to time (repeatable; default "
                          "all)")
     args = ap.parse_args()
-    only = set(args.only or ("flash", "paged", "bn"))
+    only = set(args.only or ("flash", "paged", "bn", "lrn"))
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -240,7 +290,8 @@ def main() -> int:
     other, this = args.other.resolve(), ROOT
     trees = (other, this)
     names = ([f"{k}_attention.cu" for k in ("flash", "paged") if k in only]
-             + (["batch_norm.cu"] if "bn" in only else []))
+             + (["batch_norm.cu"] if "bn" in only else [])
+             + (["lrn.cu"] if "lrn" in only else []))
     sources = [(tree / CSRC / name).resolve() for tree in trees
                for name in names]
     with ThreadPoolExecutor(len(sources)) as ex:   # every build at once
@@ -250,6 +301,8 @@ def main() -> int:
     flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32, device="cuda")
     if "bn" in only:
         bn_cases(trees, flush, args.iters, name_card)
+    if "lrn" in only:
+        lrn_cases(trees, flush, args.iters, name_card)
     if "flash" in only:
         flash_cases(trees, flush, args.iters, name_card)
     if "paged" in only:

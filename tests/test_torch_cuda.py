@@ -792,32 +792,48 @@ def test_layers_raise_for_float64_on_the_card(cuda):
 # ------------------------------------------------------------------- LRN
 from deeplearning4j_tpu_torch.helpers import lrn  # noqa: E402
 
+_ALL = ("f32", "bf16", "f16")
 LRN_CASES = {
-    # name: (rows, C, n)
-    "lrn1": (373248, 96, 5),
-    "lrn2": (86528, 256, 5),
-    "ragged": (1001, 130, 5),
-    "narrow": (777, 3, 5),
-    "n7": (5000, 96, 7),
-    "even_n": (999, 64, 4),
-    "channel_tiles": (37, 5000, 5),
-    "one_channel": (64, 1, 3),
+    # name: (rows, C, n, x's offset in elements into its buffer, the types
+    # that take the vector route; the others take the staged one)
+    "lrn1": (373248, 96, 5, 0, _ALL),
+    "lrn2": (86528, 256, 5, 0, _ALL),
+    "ragged": (1001, 130, 5, 0, ()),
+    "narrow": (777, 3, 5, 0, ()),
+    "n7": (5000, 96, 7, 0, ("bf16", "f16")),      # float32: 2h = 6 > 4
+    "even_n": (999, 64, 4, 0, _ALL),
+    "channel_tiles": (37, 5000, 5, 0, ()),
+    "one_channel": (64, 1, 3, 0, ()),
+    "c8": (4099, 8, 5, 0, _ALL),                  # one vector a row
+    "c16": (4099, 16, 3, 0, _ALL),
+    "unaligned": (999, 96, 5, 1, ()),
+    "n9": (2001, 96, 9, 0, ("bf16", "f16")),      # 2h = 8: V in 16 bits
+    "n17": (2001, 96, 17, 0, ()),                 # 2h = 16 > 8
+    "one_row": (1, 96, 5, 0, _ALL),
 }
+_LRN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+               "f16": torch.float16}
 
 
-def _lrn_inputs(seed, rows, c, dtype):
+def _lrn_inputs(seed, rows, c, dtype, offset=0):
+    """x (``offset`` elements into its buffer) and gy on the card."""
     g = torch.Generator().manual_seed(seed)
     x = (torch.randn(rows, c, generator=g) * 3).to("cuda", dtype)
+    if offset:
+        buf = torch.empty(rows * c + offset, device="cuda", dtype=dtype)
+        buf[offset:].view(rows, c).copy_(x)
+        x = buf[offset:].view(rows, c)
     gy = torch.randn(rows, c, generator=g).to("cuda", dtype)
     return x, gy
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("dtype", sorted(_LRN_DTYPES))
 @pytest.mark.parametrize("name", sorted(LRN_CASES))
 def test_lrn_kernels_match_plain(name, dtype, cuda):
-    rows, c, n = LRN_CASES[name]
-    x, gy = _lrn_inputs(21, rows, c, dtype)
+    rows, c, n, offset, vector = LRN_CASES[name]
+    x, gy = _lrn_inputs(21, rows, c, _LRN_DTYPES[dtype], offset)
+    want = "vector" if dtype in vector else "staged"
+    assert lrn.route(x, n) == lrn.route(x, n, gy) == want
     before = (lrn.fwd_counts.launches, lrn.bwd_counts.launches)
     y = lrn.lrn_fwd_2d(x, 2.0, n, 1e-2, 0.75)
     dx = lrn.lrn_bwd_2d(x, gy, 2.0, n, 1e-2, 0.75)
@@ -826,17 +842,36 @@ def test_lrn_kernels_match_plain(name, dtype, cuda):
     ry = lrn.lrn_fwd_plain(x, 2.0, n, 1e-2, 0.75)
     rdx = lrn.lrn_bwd_plain(x, gy, 2.0, n, 1e-2, 0.75)
     torch.cuda.synchronize()
-    assert y.dtype == dx.dtype == dtype
-    assert _scaled_err(y, ry) <= TOL[dtype]
-    assert _scaled_err(dx, rdx) <= TOL[dtype]
+    assert y.dtype == dx.dtype == _LRN_DTYPES[dtype]
+    assert _scaled_err(y, ry) <= TOL[_LRN_DTYPES[dtype]]
+    assert _scaled_err(dx, rdx) <= TOL[_LRN_DTYPES[dtype]]
 
 
-def test_lrn_is_the_same_run_to_run(cuda):
-    x, gy = _lrn_inputs(4, 86528, 256, torch.bfloat16)
+@pytest.mark.parametrize("name", ["lrn1", "lrn2"])
+def test_lrn_is_the_same_run_to_run(name, cuda):
+    rows, c, _, _, _ = LRN_CASES[name]
+    x, gy = _lrn_inputs(4, rows, c, torch.bfloat16)
     runs = [(lrn.lrn_fwd_2d(x, 2.0, 5, 1e-4, 0.75),
              lrn.lrn_bwd_2d(x, gy, 2.0, 5, 1e-4, 0.75)) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_lrn_vector_entry_refuses_what_its_route_does_not_take(cuda):
+    """The vector kernels' C entry points return an error without
+    launching where ``route`` would pick the staged kernels."""
+    lrn.build()
+    stream = torch.cuda.current_stream().cuda_stream
+    buf = torch.zeros(64 * 96 + 1, device="cuda", dtype=torch.bfloat16)
+    out = torch.empty(64, 96, device="cuda", dtype=torch.bfloat16)
+    for x, c, half in ((buf[1:].view(64, 96), 96, 2),   # unaligned
+                       (buf[:64 * 96].view(64, 96), 90, 2),  # C % 8
+                       (buf[:64 * 96].view(64, 96), 96, 5)):  # 2h > 8
+        rc = lrn._launchers["dl4j_lrn_fwd_vec"](
+            x.data_ptr(), out.data_ptr(), 1, 64, c, half, 2.0, 1e-4, 0.75,
+            stream)
+        assert rc != 0
+    torch.cuda.synchronize()
 
 
 def test_lrn_autograd_on_the_card(cuda):

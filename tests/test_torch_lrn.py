@@ -162,6 +162,26 @@ def test_supports_and_tiling():
     assert lrn.tiling(256) == (8, 256)
     assert lrn.tiling(5000) == (1, lrn.TILE)
     assert lrn.tiling(1) == (lrn.MAX_ROWS, 1)
+    # the route a call takes: AlexNet's shapes in every type on the vector
+    # route, the rest staged
+    bf = torch.bfloat16
+    for c in (96, 256):
+        x = torch.zeros(4, c, dtype=bf)
+        assert lrn.route(x, 5) == "vector"
+        assert lrn.route(x, 5, torch.zeros_like(x)) == "vector"
+        assert lrn.route(x.half(), 5) == "vector"
+    assert lrn.route(torch.zeros(4, 96), 5) == "vector"      # float32, V = 4
+    assert lrn.route(torch.zeros(4, 8, dtype=bf), 9) == "vector"  # 2h = V
+    assert lrn.route(torch.zeros(4, 130, dtype=bf), 5) == "staged"
+    assert lrn.route(torch.zeros(4, 3, dtype=bf), 5) == "staged"
+    buf = torch.zeros(4 * 96 + 1, dtype=bf)
+    unaligned = buf[1:].view(4, 96)
+    assert unaligned.data_ptr() % 16 == 2
+    assert lrn.route(unaligned, 5) == "staged"
+    assert lrn.route(torch.zeros(4, 96, dtype=bf), 5, unaligned) == "staged"
+    assert lrn.route(torch.zeros(4, 96), 7) == "staged"      # 2h = 6 > V
+    assert lrn.route(torch.zeros(4, 8, dtype=bf), 11) == "staged"
+    assert lrn.route(torch.zeros(2, 5000, dtype=bf), 5) == "staged"
 
 
 def _emulate_kernel(x, g, k, n, alpha, beta, rpb, ct):
@@ -223,6 +243,107 @@ def test_kernel_tiling_in_numpy(rows, c, n, ct):
     rpb, tile = lrn.tiling(c) if ct is None else (2, ct)
     y, dx = _emulate_kernel(x, g, K, n, 1e-2, BETA, rpb, tile)
     assert not np.isnan(y).any() and not np.isnan(dx).any()
+    _close(y, lrn.lrn_fwd_plain(torch.from_numpy(x), K, n, 1e-2, BETA))
+    _close(dx, lrn.lrn_bwd_plain(torch.from_numpy(x), torch.from_numpy(g),
+                                 K, n, 1e-2, BETA))
+
+
+def _emulate_vector(x, g, k, n, alpha, beta, v):
+    """The vector route's warp schedule in numpy, index for index: lane l
+    of warp tile t holds vector t·TILE_VECTORS + l − 1 of the flattened
+    [rows·C / v, v] tensor (zeros past either end); warp w loads the
+    tiles w·U .. w·U + U − 1 (U = FWD_TILES forward, BWD_TILES backward)
+    before its arithmetic, and the grid has warps enough for every tile;
+    the halo comes from lanes l ∓ 1 by shuffles
+    (a lane with no such neighbour reads its own value), zeroed where the
+    vector starts or ends a row (its position in the row by unsigned
+    modulo, as in the kernel); the backward's t halo likewise from the
+    neighbours' t; lanes 1..TILE_VECTORS store.  Returns y, dx and how
+    often each vector was stored by each direction."""
+    rows, c = x.shape
+    h, lanes = n // 2, np.arange(lrn.LANES)
+    per_row = c // v
+    nvec = rows * per_row
+    xv, gv = x.reshape(nvec, v), g.reshape(nvec, v)
+    tiles = -(-nvec // lrn.TILE_VECTORS)
+    y = np.full((nvec, v), np.nan, np.float32)
+    dx = np.full((nvec, v), np.nan, np.float32)
+    stored = np.zeros((2, nvec), np.int64)
+
+    def load(src, e):
+        ok = (e >= 0) & (e < nvec)
+        out = np.zeros((lrn.LANES, v), np.float32)
+        out[ok] = src[e[ok]]
+        return out
+
+    def up(a):      # __shfl_up_sync(.., 1): lane l reads lane l - 1
+        return np.concatenate([a[:1], a[:-1]])
+
+    def down(a):    # __shfl_down_sync(.., 1): lane l reads lane l + 1
+        return np.concatenate([a[1:], a[-1:]])
+
+    def with_halo(own, first, last):
+        left, right = up(own)[:, v - h:].copy(), down(own)[:, :h].copy()
+        left[first], right[last] = 0.0, 0.0
+        return np.concatenate([left, own, right], 1)
+
+    def window(a, i):
+        out = a[:, i].copy()
+        for d in range(1, 2 * h + 1):
+            out = out + a[:, i + d]
+        return out
+
+    def lane_vectors(tile):
+        e = tile * lrn.TILE_VECTORS + lanes - 1
+        pos = (e & 0xFFFFFFFF) % per_row
+        keep = (lanes >= 1) & (lanes <= lrn.TILE_VECTORS) & (e < nvec)
+        return e, pos == 0, pos == per_row - 1, keep
+
+    for t0 in range(0, tiles, lrn.FWD_TILES):      # one warp each
+        raw = [load(xv, lane_vectors(t0 + u)[0])
+               for u in range(lrn.FWD_TILES)]
+        for u in range(lrn.FWD_TILES):
+            e, first, last, keep = lane_vectors(t0 + u)
+            xs = with_halo(raw[u], first, last)
+            out = np.stack([
+                xs[:, h + i] * (k + alpha * window(xs * xs, i)) ** -beta
+                for i in range(v)], 1)
+            y[e[keep]] = out[keep]
+            stored[0, e[keep]] += 1
+    for t0 in range(0, tiles, lrn.BWD_TILES):
+        raw = [(load(xv, lane_vectors(t0 + u)[0]),
+                load(gv, lane_vectors(t0 + u)[0]))
+               for u in range(lrn.BWD_TILES)]
+        for u in range(lrn.BWD_TILES):
+            e, first, last, keep = lane_vectors(t0 + u)
+            xs, gs = with_halo(raw[u][0], first, last), raw[u][1]
+            s = np.stack([k + alpha * window(xs * xs, i)
+                          for i in range(v)], 1)
+            pw = s ** -beta
+            t = with_halo(gs * xs[:, h:h + v] * s ** (-beta - 1),
+                          first, last)
+            out = np.stack([
+                gs[:, i] * pw[:, i]
+                - 2 * alpha * beta * xs[:, h + i] * window(t, i)
+                for i in range(v)], 1)
+            dx[e[keep]] = out[keep]
+            stored[1, e[keep]] += 1
+    return y.reshape(rows, c), dx.reshape(rows, c), stored
+
+
+@pytest.mark.parametrize("c,n,v", [(c, n, 8) for c in (8, 16, 96, 256)
+                                   for n in (3, 4, 5, 7)]
+                         + [(c, 5, 4) for c in (8, 16, 96, 256)])
+def test_vector_lane_schedule_in_numpy(c, n, v):
+    """The vector route's lanes, halos from neighbour lanes, warp-edge
+    lanes and row-edge zeros give the plain version's result, every vector
+    stored exactly once; 37 rows never fill the last warp tile.  v = 8 is
+    a 16-bit type's vector, v = 4 float32's."""
+    rows = 37
+    assert (rows * c // v) % lrn.TILE_VECTORS
+    x, g = _data(rows * c + n, (rows, c))
+    y, dx, stored = _emulate_vector(x, g, K, n, 1e-2, BETA, v)
+    assert (stored == 1).all()
     _close(y, lrn.lrn_fwd_plain(torch.from_numpy(x), K, n, 1e-2, BETA))
     _close(dx, lrn.lrn_bwd_plain(torch.from_numpy(x), torch.from_numpy(g),
                                  K, n, 1e-2, BETA))
