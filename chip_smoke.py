@@ -28,12 +28,35 @@ Phases (any failure exits non-zero; nothing is caught):
 3. Serve the transformer char-LM at full width (vocab 128, d_model 1024,
    8 heads, 8 layers, bfloat16, seeded random weights) through the port's
    ``GenerationEngine`` (16 slots, pages of 16, context 512): 16
-   concurrent greedy requests of 64 new tokens from 4 client threads.
-   The kernel launch counts are reset just before and read just after;
-   every attention call of the run must have launched the kernel.  The
-   first prefill's logits are then checked against the gather oracle, and
-   a few full-batch decode steps run under ``torch.profiler`` to split
-   the step's host wall from the device's busy time.
+   concurrent greedy requests of 64 new tokens from 4 client threads,
+   then the same 16 sampled (temperature 0.8, top_k 20, a fixed seed
+   each).  Twice: through the captured CUDA graphs the engine runs by
+   default (one for decode, one per prefill bucket, captured at start and
+   never again: the capture count is checked after the warm-up and after
+   serving), and through ``GenerationPrograms(capture=False)``, the same
+   programs run eagerly.  Greedy and sampled tokens must be identical
+   between the two.  The captured engine serves the greedy requests once
+   more, the counts at 0, under ``torch.profiler``, whose
+   ``paged_decode_kernel`` launches must be layers x calls (the wrapper's
+   count ticks where a launch is recorded into a graph, not on replay):
+   that count is the kernels line's.  Each mode prints its
+   decode-step median, TTFT p50/p99, tokens/s, and a profiled window of
+   full-batch decode steps: host wall, device busy, idle share and
+   device operations a step.  The first prefill's logits are then checked
+   against the gather oracle.
+   Then ``generate`` at the same width (batch 16, prompt 64, 448 steps:
+   64 + 448 - 1 = 511 positions of the linear cache's 512): greedy ids of
+   the captured loop must equal ``sample_sequence``'s (the host loop over
+   ``rnn_time_step``), a second call must capture nothing, and the first
+   replayed step's log-probabilities are held against the loop's; then
+   the rolling cache (2 kv heads, window 128, wrapped three times) the
+   same way.  Sampled ``generate`` (float32, where the top logits do not
+   tie) gives the same ids for the same seed, others for another, the
+   greedy ids at top_k=1, and ``sample_sequence``'s ids with the same
+   seed (step i of both reads noise slice i) in at least 15 of 16 rows:
+   a row may part where two perturbed scores lie within the rounding of
+   log-probabilities against logits; a wrong noise slice parts every
+   row.
 4. Train the same model at full width (batch 8, T = 2048, Adam at 1e-3,
    ``bench.py``'s batch: random ids from ``RandomState(0)``, labels the
    one-hot of the ids rolled by one).  The first step's loss and
@@ -113,11 +136,13 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch import helpers
 from deeplearning4j_tpu_torch.backend.device import pin_fp32_precision
 from deeplearning4j_tpu_torch.generation import GenerationEngine
+from deeplearning4j_tpu_torch.generation.programs import GenerationPrograms
 from deeplearning4j_tpu_torch.helpers import batch_norm as bn
 from deeplearning4j_tpu_torch.helpers import flash_attention as fa
 from deeplearning4j_tpu_torch.helpers import fused_epilogue as fe
 from deeplearning4j_tpu_torch.helpers import lrn
 from deeplearning4j_tpu_torch.helpers import paged_attention as pa
+from deeplearning4j_tpu_torch.models.decode import generate
 from deeplearning4j_tpu_torch.models.sequential import tree_leaves
 from deeplearning4j_tpu_torch.models.zoo import (
     alexnet, resnet50, transformer_char_lm,
@@ -128,6 +153,7 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNormalization,
 )
 from deeplearning4j_tpu_torch.nn.layers.dense import DenseLayer, EmbeddingLayer
+from deeplearning4j_tpu_torch.utils.sampling import sample_sequence
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
@@ -145,6 +171,11 @@ PS, MAXP, PAGES = 16, 32, 16 * 32 + 1
 LONG_PS, LONG_MAXP = 16, 256
 LONG_PAGES = 16 * LONG_MAXP + 1
 CLIENTS, PER_CLIENT, NEW_TOKENS = 4, 4, 64
+SAMPLED = dict(temperature=0.8, top_k=20)    # the sampled requests
+# generate: batch, prompt, steps (64 + 448 - 1 = 511 <= max_cache 512);
+# the rolling cache's window wraps three times over the 448 steps
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 16, 64, 448
+GEN_ROLLING = dict(n_kv_heads=2, window=128)
 SPIN_CYCLES = 2_000_000     # about 1 ms of GPU clock: outlasts any enqueue
 PROFILED_STEPS = 10
 TRAIN_MODEL = dict(vocab_size=128, d_model=1024, n_heads=8, layers=8,
@@ -401,26 +432,21 @@ def kernel_phase(flush, name_card):
 
 
 # ------------------------------------------------------------------ phase 3
-def engine_phase(name_card):
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, MODEL["vocab_size"],
-                            int(rng.integers(4, 13))).tolist()
-               for _ in range(CLIENTS * PER_CLIENT)]
-    net = transformer_char_lm(device="cuda", **MODEL)
-    pa.counts.reset()
-    t_build = time.perf_counter()
-    eng = GenerationEngine(net, **ENGINE).start()
-    print(f"engine start (warm-up included): "
-          f"{time.perf_counter() - t_build:.2f} s")
+def serve(eng, prompts, sampled=False):
+    """The requests from ``CLIENTS`` threads, ``PER_CLIENT`` each (greedy,
+    or ``SAMPLED`` with a fixed seed a request); (token lists, handles,
+    wall seconds from the first submit to the last result)."""
     results = [None] * len(prompts)
     handles = [None] * len(prompts)
     errors = []
+    kw = SAMPLED if sampled else {}
 
     def client(c):
         try:
             mine = range(c * PER_CLIENT, (c + 1) * PER_CLIENT)
             for i in mine:
-                handles[i] = eng.submit(prompts[i], NEW_TOKENS)
+                handles[i] = eng.submit(prompts[i], NEW_TOKENS,
+                                        seed=100 + i, **kw)
             for i in mine:
                 results[i] = handles[i].result(timeout=300)
         except Exception as e:          # reported below, fails the run
@@ -434,30 +460,137 @@ def engine_phase(name_card):
     for th in threads:
         th.join(600)
     wall = time.perf_counter() - t0
-    launches, plain = pa.counts.launches, pa.counts.plain_calls
-    progs = eng.programs
-    calls = progs.prefill_calls + progs.decode_calls
-    steps = sorted(eng.decode_step_s)
-    eng.stop()
     check(not errors and not any(th.is_alive() for th in threads),
           f"client errors {errors!r}")
     check(all(r is not None and len(r) == NEW_TOKENS for r in results),
           "every request returns 64 tokens")
-    check(launches == MODEL["layers"] * calls and launches > 0,
-          f"launches {launches} == layers x calls {MODEL['layers']} x "
-          f"{calls}")
-    check(plain == 0, f"plain-version calls {plain} == 0")
+    return results, handles, wall
+
+
+def paged_profile(fn):
+    """``fn()`` under ``torch.profiler``; (its result, the paged kernel's
+    launches on the device, the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if "paged_decode_kernel" in e.key)
+    return out, n
+
+
+def engine_mode(net, capture, prompts, name_card):
+    """Serve the requests greedy (timed), then sampled, through captured
+    programs (the engine's default) or ``capture=False``; with capture
+    also once more greedy, the counts at 0, under the profiler, whose
+    paged-kernel launches must be layers x calls.  The mode's launches
+    are that profiled count (captured) or the wrapper's over warm-up and
+    the timed serve (eager).  Returns the mode's tokens and numbers."""
+    label = "captured" if capture else "eager"
+    layers = MODEL["layers"]
+    pa.counts.reset()
+    eng = GenerationEngine(net, **ENGINE)
+    if not capture:
+        p = eng.programs
+        eng.programs = GenerationPrograms(
+            net, slots=p.slots, pages_per_slot=p.pages_per_slot,
+            page_size=p.page_size, num_pages=p.num_pages,
+            prefill_buckets=p.prefill_buckets, capture=False)
+    progs = eng.programs
+    t_build = time.perf_counter()
+    eng.start()
+    print(f"engine [{label}] start (warm-up and captures included): "
+          f"{time.perf_counter() - t_build:.2f} s; captures "
+          f"{progs.captures}, paged launches a graph "
+          f"{progs.graph_launches()}")
+    programs = len(progs.prefill_buckets) + 1
+    check(progs.captures == (programs if capture else 0),
+          f"{label}: captures after warm-up {progs.captures}")
+    check(all(n == layers for n in progs.graph_launches().values()),
+          f"every graph holds {layers} paged launches")
+    calls0 = progs.prefill_calls + progs.decode_calls
+    greedy, handles, wall = serve(eng, prompts)
+    calls = progs.prefill_calls + progs.decode_calls - calls0
+    plain = pa.counts.plain_calls
+    steps = sorted(eng.decode_step_s)
     ttft = np.asarray([h.ttft_s for h in handles]) * 1e3
-    tok_s = sum(len(r) for r in results) / wall
-    print(f"engine: {len(results)} requests x {NEW_TOKENS} tokens in "
-          f"{wall:.3f} s; prefill calls {progs.prefill_calls}, decode "
-          f"steps {progs.decode_calls}; kernel launches {launches}, plain "
-          f"calls {plain}")
-    print(f"engine: {tok_s:.1f} tokens/s [{name_card}]")
-    print(f"engine: TTFT p50 {np.percentile(ttft, 50):.2f} ms, p99 "
-          f"{np.percentile(ttft, 99):.2f} ms [{name_card}]")
-    print(f"engine: decode step median {np.median(steps) * 1e3:.3f} ms "
-          f"over {len(steps)} steps [{name_card}]")
+    row = dict(tokens=greedy, tok_s=sum(len(r) for r in greedy) / wall,
+               step_ms=float(np.median(steps)) * 1e3,
+               ttft50=float(np.percentile(ttft, 50)),
+               ttft99=float(np.percentile(ttft, 99)))
+    check(plain == 0, f"plain-version calls {plain} == 0")
+    print(f"engine [{label}]: {len(greedy)} requests x {NEW_TOKENS} tokens "
+          f"in {wall:.3f} s; {calls} calls ({progs.decode_calls} decode "
+          f"steps in all); plain calls {plain}; {row['tok_s']:.1f} "
+          f"tokens/s; TTFT p50 {row['ttft50']:.2f} ms, p99 "
+          f"{row['ttft99']:.2f} ms; decode step median {row['step_ms']:.3f} "
+          f"ms over {len(steps)} steps [{name_card}]")
+    if capture:
+        # the wrapper counts a launch where it is recorded into a graph,
+        # not where a replay runs it: the served requests once more, with
+        # the counts at 0, and the launches counted by the profiler
+        pa.counts.reset()
+        calls0 = progs.prefill_calls + progs.decode_calls
+        (again, _, _), launches = paged_profile(lambda: serve(eng, prompts))
+        calls = progs.prefill_calls + progs.decode_calls - calls0
+        print(f"engine [{label}], profiled serve: {calls} replays, "
+              f"paged_decode_kernel launches {launches} (layers x calls "
+              f"{layers * calls}), wrapper launches {pa.counts.launches}")
+        check(pa.counts.launches == 0 and pa.counts.plain_calls == 0,
+              "the profiled serve runs replays only")
+        check(launches == layers * calls, f"profiled launches {launches} "
+                                          f"== {layers} x {calls}")
+        check(again == greedy, "the profiled serve's tokens")
+    else:
+        # warm-up and the timed serve, by the wrapper's count
+        launches = pa.counts.launches
+        print(f"engine [{label}]: paged launches {launches} (layers x "
+              f"calls {layers * (calls0 + calls)})")
+        check(launches == layers * (calls0 + calls),
+              f"eager launches {launches} == layers x calls")
+    check(launches > 0, f"{label}: the paged kernel ran")
+    row["launches"] = launches
+    row["sampled"], _, _ = serve(eng, prompts, sampled=True)
+    eng.stop()
+    check(progs.captures == (programs if capture else 0),
+          f"{label}: no capture while serving ({progs.captures})")
+    print(f"engine [{label}]: captures {progs.captures}, replays "
+          f"{progs.replays}, stats {eng.stats()['captures']}/"
+          f"{eng.stats()['replays']}")
+    row.update(decode_profile(progs, label, name_card))
+    return row, progs
+
+
+def engine_phase(name_card):
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, MODEL["vocab_size"],
+                            int(rng.integers(4, 13))).tolist()
+               for _ in range(CLIENTS * PER_CLIENT)]
+    net = transformer_char_lm(device="cuda", **MODEL)
+    captured, progs = engine_mode(net, True, prompts, name_card)
+    eager, _ = engine_mode(net, False, prompts, name_card)
+    check(captured["tokens"] == eager["tokens"],
+          "greedy tokens, captured == eager programs")
+    check(captured["sampled"] == eager["sampled"],
+          "sampled tokens (temperature 0.8, top_k 20), captured == eager")
+    differ = sum(a != b for a, b in zip(captured["sampled"],
+                                        captured["tokens"]))
+    print(f"engine: greedy and sampled tokens identical between captured "
+          f"and eager programs ({differ} of {len(prompts)} sampled "
+          f"requests differ from greedy)")
+    for what, key in (("decode step median ms", "step_ms"),
+                      ("tokens/s", "tok_s"), ("TTFT p50 ms", "ttft50"),
+                      ("TTFT p99 ms", "ttft99"),
+                      ("profiled step wall ms", "wall_ms"),
+                      ("profiled step busy ms", "busy_ms"),
+                      ("profiled idle share", "idle"),
+                      ("device operations a step", "ops"),
+                      ("unprofiled step wall ms", "plain_wall"),
+                      ("unprofiled step device span ms", "span_ms")):
+        print(f"engine {what}: captured {captured[key]:.4f}, eager "
+              f"{eager[key]:.4f} [{name_card}]")
 
     # the first prefill through the kernel vs the gather oracle
     p0 = prompts[0]
@@ -480,26 +613,25 @@ def engine_phase(name_card):
           f" argmax {int(a.argmax())} vs {int(b.argmax())})")
     check(bool(torch.isfinite(a).all()) and d <= LOGITS_TOL,
           f"prefill logits kernel vs gather {d} > {LOGITS_TOL}")
-    decode_profile(progs, name_card)
-    return launches
+    return captured["launches"]
 
 
-def decode_profile(progs, name_card):
+def decode_profile(progs, label, name_card):
     """Where a decode step's time goes: ``PROFILED_STEPS`` full-batch
-    steps (every slot live, at the positions the served requests reach)
+    calls (every slot live, at the positions the served requests reach)
     under ``torch.profiler``, the device's busy time per step against
-    the host wall per step."""
+    the host wall per step.  A captured step must launch the paged
+    kernel once per layer."""
     from torch.profiler import ProfilerActivity, profile
 
     s, maxp = progs.slots, progs.pages_per_slot
-    pools = progs.fresh_pools()
     block = (1 + np.arange(s * maxp, dtype=np.int32)).reshape(s, maxp)
     pos = np.random.default_rng(1).integers(8, 72, s).astype(np.int32)
     zi, zf = np.zeros(s, np.int32), np.zeros(s, np.float32)
     keys = np.zeros((s, 2), np.uint32)
 
     def step():
-        progs.decode(pools, block, pos, zi, keys, zi, zf, zi,
+        progs.decode(block, pos, zi, keys, zi, zf, zi,
                      np.ones(s, np.float32))
 
     step()
@@ -512,16 +644,136 @@ def decode_profile(progs, name_card):
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
     ev = prof.key_averages()
     busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / PROFILED_STEPS
-    attn_ms = sum(e.self_device_time_total for e in ev
-                  if "paged_decode_kernel" in e.key) / 1e3 / PROFILED_STEPS
-    launches = sum(e.count for e in ev
-                   if e.self_device_time_total > 0) / PROFILED_STEPS
+    attn = [e for e in ev if "paged_decode_kernel" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 \
+        / PROFILED_STEPS
+    attn_n = sum(e.count for e in attn)
+    # the feed-forward blocks' LayerNorm opens with the fused prologue
+    drn_n = sum(e.count for e in ev if "drn_kernel" in e.key)
+    ops = sum(e.count for e in ev
+              if e.self_device_time_total > 0) / PROFILED_STEPS
     check(attn_ms > 0, "the profiled decode steps ran the kernel")
-    print(f"decode step (profiled, {PROFILED_STEPS} steps, {s} live slots): "
-          f"host wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"(idle share {1 - busy_ms / wall_ms:.3f}) in {launches:.0f} device "
-          f"operations, paged attention kernel {attn_ms:.3f} ms "
-          f"[{name_card}]")
+    check(attn_n == MODEL["layers"] * PROFILED_STEPS,
+          f"{label}: paged launches {attn_n} over {PROFILED_STEPS} steps")
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"decode step [{label}] top device time a step: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3 / PROFILED_STEPS:.4f}"
+        f" ms x{e.count // PROFILED_STEPS}" for e in top))
+    # unprofiled: the host wall of a call, and its device span (CUDA
+    # events around the staging copies, the program and the read-back)
+    t0 = time.perf_counter()
+    for _ in range(PROFILED_STEPS):
+        step()
+    plain_wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    spans = []
+    for _ in range(PROFILED_STEPS):
+        s_ev = torch.cuda.Event(enable_timing=True)
+        e_ev = torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        step()
+        e_ev.record()
+        e_ev.synchronize()
+        spans.append(s_ev.elapsed_time(e_ev))
+    span_ms = float(np.median(spans))
+    print(f"decode step [{label}] unprofiled: host wall {plain_wall:.3f} ms "
+          f"a call, device span {span_ms:.3f} ms (events; busy "
+          f"{busy_ms:.3f} of it in kernels) [{name_card}]")
+    idle = 1 - busy_ms / wall_ms
+    print(f"decode step [{label}] (profiled, {PROFILED_STEPS} steps, {s} "
+          f"live slots): host wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms (idle share {idle:.3f}) in {ops:.0f} device "
+          f"operations, paged attention kernel {attn_ms:.4f} ms in "
+          f"{attn_n / PROFILED_STEPS:.0f} launches, fused prologue "
+          f"{drn_n / PROFILED_STEPS:.0f} launches [{name_card}]")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=idle, ops=ops,
+                plain_wall=plain_wall, span_ms=span_ms)
+
+
+# ---------------------------------------------------------------- phase 3b
+def generate_phase(name_card, what, **model_kw):
+    """``generate`` (the captured loop) against ``sample_sequence`` (the
+    host loop over ``rnn_time_step``) at full width: greedy ids equal,
+    ms a generated token, the first replayed step's log-probabilities
+    against the loop's; a second call captures nothing."""
+    b, t, steps = GEN_BATCH, GEN_PROMPT, GEN_STEPS
+    net = transformer_char_lm(device="cuda", **{**MODEL, **model_kw})
+    prompt = np.random.default_rng(5).integers(0, MODEL["vocab_size"],
+                                                (b, t))
+    t0 = time.perf_counter()
+    got = generate(net, prompt, steps, temperature=0.0)
+    first_s = time.perf_counter() - t0
+    (gen,) = net._graph_cache.values()
+    t0 = time.perf_counter()
+    again = generate(net, prompt, steps, temperature=0.0)
+    gen_s = time.perf_counter() - t0
+    check(gen.captures == 1 and np.array_equal(again, got),
+          f"{what}: a second call replays the same graph "
+          f"(captures {gen.captures})")
+    t0 = time.perf_counter()
+    ref = sample_sequence(net, prompt, steps, temperature=0.0)
+    loop_s = time.perf_counter() - t0
+    same = int((got == ref).all(axis=1).sum())
+    print(f"generate [{what}] batch {b}, prompt {t}, {steps} steps: "
+          f"captured {gen_s * 1e3 / steps:.4f} ms a token (first call, "
+          f"capture included, {first_s:.2f} s), eager loop "
+          f"{loop_s * 1e3 / steps:.4f} ms a token; {same} of {b} rows "
+          f"identical; replays {gen.replays} [{name_card}]")
+    check(np.array_equal(got, ref), f"{what}: greedy generate == "
+                                    "sample_sequence")
+    # the first replayed step's log-probabilities against the loop's
+    generate(net, prompt, 2, temperature=0.0)
+    two = [g for k, g in net._graph_cache.items() if k[1] == 2][0]
+    lp = torch.log_softmax(two.step_logits, dim=-1)
+    net.rnn_clear_previous_state()
+    net.rnn_time_step(prompt)
+    probs = net.rnn_time_step(got[:, 0])
+    diff = (lp - torch.log(probs.clamp_min(1e-30))).abs().max().item()
+    print(f"generate [{what}]: first replayed step, log-probabilities vs "
+          f"the loop's: max_abs_diff {diff:.3e}")
+    check(np.isfinite(diff) and diff <= LOGITS_TOL,
+          f"{what}: first-step log-probabilities {diff}")
+
+
+def generate_phases(name_card):
+    generate_phase(name_card, "linear")
+    torch.cuda.empty_cache()
+    generate_phase(name_card, "rolling", **GEN_ROLLING)
+    torch.cuda.empty_cache()
+    # sampled: in float32 (the zoo default), where the top two logits of
+    # a step do not tie; in bfloat16 they do, and top_k=1 then keeps both
+    # (the reference's kept set), so it need not be the argmax
+    f32 = {k: v for k, v in MODEL.items() if k != "compute_dtype"}
+    net = transformer_char_lm(device="cuda", **f32)
+    prompt = np.random.default_rng(5).integers(
+        0, MODEL["vocab_size"], (GEN_BATCH, GEN_PROMPT))
+    greedy = generate(net, prompt, GEN_STEPS, temperature=0.0)
+    kw = dict(temperature=0.8, top_k=20, rng=11)
+    t0 = time.perf_counter()
+    a = generate(net, prompt, GEN_STEPS, **kw)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = generate(net, prompt, GEN_STEPS, **kw)
+    ms = (time.perf_counter() - t0) * 1e3 / GEN_STEPS
+    c = generate(net, prompt, GEN_STEPS, **{**kw, "rng": 12})
+    top1 = generate(net, prompt, GEN_STEPS, **{**kw, "top_k": 1})
+    loop = sample_sequence(net, prompt, GEN_STEPS, **kw)
+    rows = int((loop == a).all(axis=1).sum())
+    parted = [int(np.argmax(r)) for r in (loop != a) if r.any()]
+    print(f"generate [sampled, float32] vs sample_sequence, same seed: "
+          f"{rows} of {GEN_BATCH} rows identical, rows parting at steps "
+          f"{parted}, {int((loop == a).sum())} of {a.size} ids equal")
+    check(rows >= GEN_BATCH - 1, f"sampled generate == sample_sequence in "
+                                 f"{rows} of {GEN_BATCH} rows")
+    print(f"generate [sampled, float32] temperature 0.8, top_k 20: "
+          f"{ms:.4f} ms a token (first call {first_s:.2f} s); same seed "
+          f"same ids {np.array_equal(a, b)}, another seed differs in "
+          f"{int((a != c).sum())} of {a.size} ids, top_k=1 == greedy "
+          f"{np.array_equal(top1, greedy)}; {len(net._graph_cache)} "
+          f"captured loops [{name_card}]")
+    check(a.shape == greedy.shape and np.array_equal(a, b),
+          "sampled generate: the same seed gives the same ids")
+    check(not np.array_equal(a, c), "another seed gives other ids")
+    check(np.array_equal(top1, greedy), "top_k=1 == greedy")
 
 
 # ------------------------------------------------- phase 2, training kernels
@@ -1146,7 +1398,8 @@ def resnet_phase(name_card):
 
     def logits():
         with torch.no_grad():
-            acts, _ = net._forward(net.params, net.net_state, {"input": x})
+            acts, _, _ = net._forward(net.params, net.net_state,
+                                      {"input": x})
         return acts
 
     acts = logits()
@@ -1633,6 +1886,8 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
     launches = engine_phase(name_card)
+    torch.cuda.empty_cache()
+    generate_phases(name_card)
     torch.cuda.empty_cache()
     train_launches = train_phase(name_card)
     torch.cuda.empty_cache()

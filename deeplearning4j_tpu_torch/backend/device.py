@@ -57,3 +57,27 @@ def compute_dtype(name: Optional[str]) -> torch.dtype:
     except KeyError:
         raise ValueError(
             f"unsupported dtype '{name}'; known: {sorted(_DTYPES)}") from None
+
+
+def warm_on_side_stream(fn, device: torch.device) -> None:
+    """Run ``fn()`` once on a side stream of ``device`` and join it back:
+    the call before a capture, so that library handles and workspaces
+    come up outside the captured region."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
+def capture_graph(fn, pool=None):
+    """Capture ``fn()`` into a CUDA graph, into the graph memory ``pool``
+    when given; the caller warms ``fn`` first (``warm_on_side_stream``).
+    ``fn`` runs exactly once, inside the capture.  Returns (the graph,
+    what the captured call returned: the tensors every replay rewrites).
+    A capture that fails raises."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode="thread_local"):
+        out = fn()
+    return graph, out

@@ -5,7 +5,8 @@ counterpart of ``deeplearning4j_tpu/generation/engine.py``.
   requests join/leave the RUNNING batch every step; prefix sharing;
   admission control with 429/503/504 instead of hangs),
 - a ``GenerationPrograms`` (bucketed prefill + one decode step), whose
-  paged attention runs the CUDA kernel on the card.
+  paged attention runs the CUDA kernel on the card; there every call is
+  the replay of a CUDA graph captured when the engine starts.
 
 One background decode thread owns the device pools, the slot arrays and
 the page allocator; clients only touch the admission queue and their
@@ -20,8 +21,8 @@ Minimal use::
     engine.stop()
 
 Not ported yet: the persistent ``PrefixCache``, ``deploy``/``rollback``
-and the model registry, the metrics, SLO and flight-recorder hooks,
-``fleet_publisher``, and CUDA-graph capture of the decode step.
+and the model registry, the metrics, SLO and flight-recorder hooks, and
+``fleet_publisher``.
 """
 
 from __future__ import annotations
@@ -72,7 +73,6 @@ class GenerationEngine:
             model, slots=self.scheduler.num_slots,
             pages_per_slot=pages_per_slot, page_size=page_size,
             num_pages=num_pages, prefill_buckets=self.prefill_buckets)
-        self._pools = None              # decode-thread-owned device state
         self._stop_event = threading.Event()
         self._drain = True
         self._thread: Optional[threading.Thread] = None
@@ -82,12 +82,11 @@ class GenerationEngine:
 
     # ------------------------------------------------------------- lifecycle
     def start(self) -> "GenerationEngine":
-        """Warm the programs once, allocate the live page pools, start the
-        decode thread."""
+        """Warm the programs (on the card: capture their graphs over the
+        live page pools, once), start the decode thread."""
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError("engine already started")
         self.programs.warm()
-        self._pools = self.programs.fresh_pools()
         self.scheduler.reopen()   # a restart re-arms admission
         self._stop_event.clear()
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -168,7 +167,9 @@ class GenerationEngine:
                                  "running batch and reseeding the pools")
                 self.scheduler.evict_all("error", e)
                 try:
-                    self._pools = progs.fresh_pools()
+                    # in place: the captured graphs hold the pools'
+                    # addresses
+                    progs.reset_pools()
                 except Exception:
                     logger.exception("pool reseed failed; decode thread "
                                      "exiting")
@@ -198,8 +199,8 @@ class GenerationEngine:
         tokens[0, :len(suffix)] = suffix
         key = base_key(req.seed)
         block = self.cache.block_row(req.pages)[None]
-        self._pools, tok = progs.prefill(
-            bucket, self._pools, block,
+        tok = progs.prefill(
+            bucket, block,
             np.asarray([req.shared_len], np.int32), len(suffix) - 1,
             tokens, key[None], np.zeros(1, np.int32),
             np.asarray([req.temperature], np.float32),
@@ -210,8 +211,8 @@ class GenerationEngine:
     def _step(self, progs: GenerationPrograms) -> None:
         s = self.scheduler
         t0 = time.perf_counter()
-        self._pools, sampled = progs.decode(
-            self._pools, s.block, s.pos, s.last_tok, s.keys, s.tok_idx,
+        sampled = progs.decode(
+            s.block, s.pos, s.last_tok, s.keys, s.tok_idx,
             s.temps, s.top_ks, s.top_ps)
         self.decode_step_s.append(time.perf_counter() - t0)
         s.after_step(sampled)
@@ -226,4 +227,6 @@ class GenerationEngine:
             "busy_wall_s": round(self.busy_wall_s, 6),
             "prefill_calls": self.programs.prefill_calls,
             "decode_calls": self.programs.decode_calls,
+            "captures": self.programs.captures,
+            "replays": self.programs.replays,
         }

@@ -2,13 +2,17 @@
 ``deeplearning4j_tpu/models/common.py``: nested-dict tree helpers, the
 lazy ``score_value``, the flat parameter vector and ``clone``, the checks
 before training, the SGD step (loss -> autograd -> updater -> in-place
-update -> new layer state) and the raise for what is not ported yet."""
+update -> new layer state), the stream caches of ``rnn_time_step`` and
+``generate`` (seeding, the host-side capacity check) and the raise for
+what is not ported yet."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.backend.device import compute_dtype
+from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.optimize import updaters as upd
 
 
@@ -61,6 +65,68 @@ def not_ported(facade: str, what: str, where: str):
     raise NotImplementedError(f"{facade}.{what} is not ported yet ({where})")
 
 
+def _recurrent(layer) -> bool:
+    """A layer that carries state but has no stream cache: a recurrent
+    layer, or a block holding one."""
+    subs = getattr(layer, "layers", None)
+    if isinstance(subs, tuple):
+        return any(_recurrent(s) for s in subs)
+    return hasattr(layer, "apply_with_carry") and \
+        not hasattr(layer, "init_cache")
+
+
+def check_streamable(facade: str, named_layers) -> None:
+    """Raise for a stack that ``rnn_time_step`` cannot stream in the port
+    yet: recurrent state comes with the recurrent slice."""
+    for name, layer in named_layers:
+        if _recurrent(layer):
+            raise NotImplementedError(
+                f"{facade}.rnn_time_step: layer '{name}' "
+                f"({type(layer).__name__}) carries recurrent state, which is "
+                "not ported yet (the recurrent slice, ROADMAP A6)")
+
+
+def seed_stream_caches(named_layers, rnn_state, batch, cdtype, device):
+    """The stream caches shared by both facades' ``rnn_time_step`` and
+    ``generate``: for every (name, layer) with an ``init_cache`` and no
+    carry in ``rnn_state``, a cache in the model's compute dtype on
+    ``device``.  Returns the carries (maybe empty)."""
+    dtype = compute_dtype(cdtype)
+    carries = dict(rnn_state) if rnn_state else {}
+    for name, layer in named_layers:
+        if hasattr(layer, "init_cache") and name not in carries:
+            cache = layer.init_cache(int(batch), dtype, device)
+            if cache is not None:
+                carries[name] = cache
+    return carries
+
+
+def check_cache_capacity(carries, t_new: int, pos: int | None = None) -> None:
+    """Raise before the call when a streamed chunk would overflow any
+    linear attention cache (the in-place write would fault; the
+    reference's ``dynamic_update_slice`` would clamp and silently move
+    keys).  ``pos`` is the facade's host-side stream position, which
+    keeps the decode loop free of device-to-host syncs (every cache
+    advances in lockstep with the streamed input)."""
+    def walk(name, c):
+        if not isinstance(c, dict):
+            return
+        if "pos" in c and "k" in c:
+            if SelfAttentionLayer.cache_overflow(c, t_new, pos=pos):
+                at = pos if pos is not None else int(c["pos"])
+                raise ValueError(
+                    f"rnn_time_step: streaming past the KV cache of "
+                    f"'{name}' (pos={at} + {t_new} > "
+                    f"max_cache={c['k'].shape[1]}); raise the layer's "
+                    "max_cache or rnn_clear_previous_state()")
+        else:
+            for k, v in c.items():
+                walk(f"{name}.{k}", v)
+
+    for name, c in (carries or {}).items():
+        walk(name, c)
+
+
 class FlatParamsMixin:
     """``num_params``, the flat parameter vector and ``clone`` of a facade
     whose ``params`` is a nested dict (reference ``sequential.py:100-122``,
@@ -68,6 +134,11 @@ class FlatParamsMixin:
     keys at every level as in ``jax.tree_util.tree_leaves``, so a port
     vector and a JAX vector of the same weights are equal element for
     element."""
+
+    def compute_params(self):
+        """The params as the forward uses them: cast to the compute dtype
+        (the same tensors when there is none)."""
+        return cast_tree(self.params, compute_dtype(self.conf.compute_dtype))
 
     def num_params(self) -> int:
         # nested: composite layers (ResidualBlock) hold dicts of params

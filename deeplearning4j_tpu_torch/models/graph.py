@@ -15,8 +15,10 @@ pre-output), the loss (float32), the SGD train step with per-layer
 learning rates, ``fit`` over a pair, an iterable or a dict of inputs,
 ``output``, ``feed_forward``, ``score``, the lazy ``score_value``,
 ``num_params``, the flat parameter vector, ``clone``, YAML as well as
-JSON, and ``save``/``load``.  What else the reference's graph does
-raises ``NotImplementedError`` naming its ROADMAP item.
+JSON, ``save``/``load``, and streaming inference over attention nodes
+(``rnn_time_step``, ``rnn_clear_previous_state``: carries flow through
+the forward).  What else the reference's graph does raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from deeplearning4j_tpu_torch.backend.device import (
 )
 from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models.common import (
-    FlatParamsMixin, LazyScoreMixin, cast_tree, check_trainable, not_ported,
+    FlatParamsMixin, LazyScoreMixin, cast_tree, check_cache_capacity,
+    check_streamable, check_trainable, not_ported, seed_stream_caches,
     sgd_step, trainable, unpack_batch,
 )
 from deeplearning4j_tpu_torch.models.sequential import init_net_state
@@ -44,7 +47,9 @@ from deeplearning4j_tpu_torch.nn import activations, losses
 from deeplearning4j_tpu_torch.nn.conf import _COMPUTE_DTYPES, UpdaterConfig
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
-from deeplearning4j_tpu_torch.nn.layers.dense import OutputLayer
+from deeplearning4j_tpu_torch.nn.layers.dense import (
+    EmbeddingLayer, OutputLayer,
+)
 from deeplearning4j_tpu_torch.optimize import updaters as upd
 
 
@@ -309,6 +314,15 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         self.iteration = 0
         self._keys = KeyStream(conf.seed)
         self.output_nodes = [self.nodes[o] for o in conf.outputs]
+        self._rnn_state: Dict[str, Any] = {}
+        self._stream_pos: Optional[int] = 0
+        # generate's captured decode loops, by the reference's jit key
+        self._graph_cache: Dict[Any, Any] = {}
+        self._graph_params = None     # the captured loops' parameters
+        # graph input -> the embedding that reads it as token ids
+        self._id_consumers = {
+            inp: n.layer for n in conf.nodes
+            if isinstance(n.layer, EmbeddingLayer) for inp in n.inputs}
 
     @property
     def layers(self):
@@ -334,10 +348,12 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
 
     # ------------------------------------------------------------- forward
     def _forward(self, params, net_state, inputs: Dict[str, torch.Tensor],
-                 *, train=False, rng=None, fmask=None):
+                 *, train=False, rng=None, fmask=None, carries=None):
         """Fold over the topological order.  Output-layer nodes stop at
         their pre-output (callers apply the loss or the activation).
-        Returns (activations by node name, new net state)."""
+        Carry-capable nodes (attention, residual blocks) take their carry
+        from ``carries`` by node name.  Returns (activations by node name,
+        new net state, new carries)."""
         acts: Dict[str, Any] = dict(inputs)
         new_state = dict(net_state)
         cd = self.conf.compute_dtype
@@ -351,6 +367,7 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         rngs = (rng_mod.split(rng, n_nodes) if rng is not None
                 else [None] * n_nodes)
         out_names = set(self.conf.outputs)
+        new_carries: Dict[str, Any] = {}
         for i, name in enumerate(self.topo):
             node = self.nodes[name]
             xs = [acts[inp] for inp in node.inputs]
@@ -365,14 +382,14 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
                     params[name], net_state.get(name, {}), xs[0],
                     train=train, rng=rngs[i])
             elif hasattr(layer, "apply_with_carry"):
-                acts[name], _ = layer.apply_with_carry(
-                    params[name], xs[0], None, train=train, rng=rngs[i],
-                    mask=fmask)
+                acts[name], new_carries[name] = layer.apply_with_carry(
+                    params[name], xs[0], (carries or {}).get(name),
+                    train=train, rng=rngs[i], mask=fmask)
             else:
                 kw = {"mask": fmask} if layer._TAKES_MASK else {}
                 acts[name] = layer.apply(params[name], xs[0], train=train,
                                          rng=rngs[i], **kw)
-        return acts, new_state
+        return acts, new_state, new_carries
 
     def _loss_fn(self, params, net_state, inputs, labels, rng=None,
                  fmask=None, lmask=None, *, train=True):
@@ -382,8 +399,9 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         with one input or one output."""
         inputs = self._as_input_dict(inputs)
         labels = self._as_label_dict(labels)
-        acts, new_state = self._forward(params, net_state, inputs,
-                                        train=train, rng=rng, fmask=fmask)
+        acts, new_state, _ = self._forward(params, net_state, inputs,
+                                           train=train, rng=rng,
+                                           fmask=fmask)
         total = 0.0
         for node in self.output_nodes:
             layer = node.layer
@@ -426,8 +444,8 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         compute dtype; a list for a graph with several outputs."""
         inputs = self._on_device(self._as_input_dict(inputs))
         with torch.no_grad():
-            acts, _ = self._forward(self.params, self.net_state, inputs,
-                                    fmask=self._on_device(fmask))
+            acts, _, _ = self._forward(self.params, self.net_state, inputs,
+                                       fmask=self._on_device(fmask))
             outs = []
             for node in self.output_nodes:
                 pre = acts[node.name]
@@ -444,9 +462,9 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         inputs = self._on_device(self._as_input_dict(inputs))
         rng = self._keys.next() if train else None
         with torch.no_grad():
-            acts, _ = self._forward(self.params, self.net_state, inputs,
-                                    train=train, rng=rng,
-                                    fmask=self._on_device(fmask))
+            acts, _, _ = self._forward(self.params, self.net_state, inputs,
+                                       train=train, rng=rng,
+                                       fmask=self._on_device(fmask))
         cd = self.conf.compute_dtype is not None
         out = {}
         for name, a in acts.items():
@@ -509,15 +527,79 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
             self._one_step(*unpack_batch(batch))
         return self
 
+    # ------------------------------------------------- streaming rnnTimeStep
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_state = {}
+        self._stream_pos = 0
+
+    def _id_consumer(self, input_name: str):
+        """The embedding that reads this graph input as token ids, if
+        any."""
+        return self._id_consumers.get(input_name)
+
+    def _named_layers(self):
+        return [(n, self.nodes[n].layer) for n in self.topo
+                if self.nodes[n].layer is not None]
+
+    def rnn_time_step(self, inputs, fmask=None):
+        """Stateful streaming inference (reference ``graph.py:1090``):
+        feed one timestep or a few; attention nodes keep a KV cache
+        between calls.  Id inputs (read by an embedding) follow
+        ``MultiLayerNetwork.rnn_time_step``'s rules; a rank-2 feature
+        input is one step.  Each output's activation, float32 under a
+        compute dtype; a list for several outputs."""
+        check_streamable("ComputationGraph", self._named_layers())
+        inputs = self._on_device(self._as_input_dict(inputs))
+        squeeze = False
+        expanded = {}
+        for name, v in inputs.items():
+            emb = self._id_consumer(name)
+            if emb is not None:
+                sq = v.ndim == 1 or (
+                    emb.collapse_column and v.ndim == 2 and v.shape[1] == 1)
+                if v.ndim == 1:
+                    v = v[:, None]
+                if v.ndim == 2 and emb.collapse_column:
+                    v = v[..., None]
+            else:
+                sq = v.ndim == 2
+                if sq:
+                    v = v[:, None, :]
+            squeeze = squeeze or sq
+            expanded[name] = v
+        first = next(iter(expanded.values()))
+        if not self._rnn_state:
+            self._stream_pos = 0
+        carries = seed_stream_caches(
+            self._named_layers(), self._rnn_state, first.shape[0],
+            self.conf.compute_dtype, self.device)
+        # the longest time axis bounds what any cache appends this call;
+        # inputs of unequal lengths leave the host position unknown, and
+        # the check then reads each cache's device position
+        t_all = {int(v.shape[1]) for v in expanded.values() if v.ndim >= 2}
+        t_new = max(t_all, default=1)
+        if len(t_all) > 1:
+            self._stream_pos = None
+        check_cache_capacity(carries, t_new, pos=self._stream_pos)
+        with torch.no_grad():
+            acts, _, new_carries = self._forward(
+                self.params, self.net_state, expanded,
+                fmask=self._on_device(fmask), carries=carries or None)
+            outs = []
+            for node in self.output_nodes:
+                o = activations.get(node.layer.activation)(
+                    acts[node.name].float())
+                outs.append(o[:, -1] if squeeze and o.ndim == 3 else o)
+        self._rnn_state = new_carries
+        if self._stream_pos is not None:
+            self._stream_pos += t_new
+        return outs[0] if len(outs) == 1 else outs
+
     # --------------------------------------------------------- not ported
     def fit_scanned(self, *args, **kwargs):
         not_ported("ComputationGraph", "fit_scanned", "PyTorch runs "
                    "eagerly; CUDA-graph capture of the step is its "
                    "counterpart, ROADMAP A2")
-
-    def rnn_time_step(self, *args, **kwargs):
-        not_ported("ComputationGraph", "rnn_time_step",
-                   "the recurrent slice, ROADMAP A6")
 
     def pretrain(self, *args, **kwargs):
         not_ported("ComputationGraph", "pretrain",
@@ -526,6 +608,10 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
     def set_listeners(self, *listeners):
         not_ported("ComputationGraph", "set_listeners",
                    "listeners, ROADMAP A8")
+
+    def evaluate(self, *args, **kwargs):
+        not_ported("ComputationGraph", "evaluate",
+                   "evaluation/, ROADMAP A8")
 
     # ---------------------------------------------------------- checkpoints
     def save(self, path, save_updater: bool = True) -> None:

@@ -3,7 +3,10 @@
 Ported: ``init``, the forward with input preprocessors, carries and
 layer state (``_forward``), ``output`` (with a features mask),
 ``feed_forward``, ``num_params``, the flat parameter vector
-(``params_to_vector``/``set_params_vector``), ``clone``, and training:
+(``params_to_vector``/``set_params_vector``), ``clone``, streaming
+inference over attention stacks (``rnn_time_step``,
+``rnn_clear_previous_state``: the stream caches, a host-side position),
+and training:
 ``_loss_fn`` (data loss + regularization, and the new layer state), the
 train step (loss -> autograd -> updater -> parameter update -> new
 state), ``fit`` over an (X, y) pair or an iterable of batches, ``score``
@@ -17,10 +20,11 @@ gradients land on the float32 params, and the loss runs in float32 — the
 reference's mixed-precision policy.
 
 Not ported yet (later slices): TBPTT, the full-batch solvers,
-``checkpoint_manager``/``retry_policy``, fit telemetry, and the
-stability, introspection and numerics engines; ``fit_scanned``,
-``rnn_time_step``, ``pretrain``, ``set_listeners``, ``add_listener`` and
-``evaluate`` raise ``NotImplementedError`` naming their ROADMAP item.
+``checkpoint_manager``/``retry_policy``, fit telemetry, the stability,
+introspection and numerics engines, and ``rnn_time_step`` over recurrent
+layers; ``fit_scanned``, ``pretrain``, ``set_listeners``,
+``add_listener`` and ``evaluate`` raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,13 +39,16 @@ from deeplearning4j_tpu_torch.backend.device import (
 )
 from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models.common import (  # noqa: F401 (re-exported)
-    FlatParamsMixin, LazyScoreMixin, _tree_like, cast_tree, check_trainable,
-    not_ported, sgd_step, trainable, tree_leaves, unpack_batch,
+    FlatParamsMixin, LazyScoreMixin, _tree_like, cast_tree,
+    check_cache_capacity, check_streamable, check_trainable, not_ported,
+    seed_stream_caches, sgd_step, trainable, tree_leaves, unpack_batch,
 )
 from deeplearning4j_tpu_torch.nn import activations, losses
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
-from deeplearning4j_tpu_torch.nn.layers.dense import OutputLayer
+from deeplearning4j_tpu_torch.nn.layers.dense import (
+    EmbeddingLayer, OutputLayer,
+)
 from deeplearning4j_tpu_torch.optimize import updaters as upd
 
 
@@ -66,6 +73,11 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         self.device: Optional[torch.device] = None
         self.iteration = 0
         self._keys = KeyStream(conf.seed)
+        self._rnn_state: Dict[str, Any] = {}
+        self._stream_pos = 0
+        # generate's captured decode loops, by the reference's jit key
+        self._graph_cache: Dict[Any, Any] = {}
+        self._graph_params = None     # the captured loops' parameters
 
     def init(self, device: DeviceLike = None,
              dtype=torch.float32) -> "MultiLayerNetwork":
@@ -83,11 +95,6 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         return self
 
     _trainable = staticmethod(trainable)
-
-    def compute_params(self):
-        """The params as the forward uses them: cast to the compute dtype
-        (the same tensors when there is none)."""
-        return cast_tree(self.params, compute_dtype(self.conf.compute_dtype))
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, x, *, train=False, rng=None, fmask=None,
@@ -234,15 +241,61 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
                     self._one_step(x, y, fm, lm)
         return self
 
+    # ------------------------------------------------- streaming rnnTimeStep
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_state = {}
+        self._stream_pos = 0
+
+    def _embeds_ids(self) -> bool:
+        """The first layer reads integer token ids (an embedding), so a
+        rank-2 streaming input is [B, T] ids, not [B, F] features."""
+        return bool(self.layers) and isinstance(self.layers[0],
+                                                EmbeddingLayer)
+
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Stateful streaming inference (reference ``sequential.py:727``):
+        feed one timestep or a few; attention layers keep a KV cache,
+        seeded on the first call, between calls.  Inputs: [B] ids (one
+        step; also [B, 1] under ``collapse_column``), [B, T] ids, [B, F]
+        features (one step) or [B, T, F].  One-step inputs give [B, V],
+        the others [B, T, V]; float32 under a compute dtype.  The stream
+        position is counted on the host, so the capacity check needs no
+        sync."""
+        check_streamable("MultiLayerNetwork",
+                         ((l.name, l) for l in self.layers))
+        x = torch.as_tensor(x, device=self.device)
+        if self._embeds_ids():
+            collapse = self.layers[0].collapse_column
+            squeeze = x.ndim == 1 or (
+                collapse and x.ndim == 2 and x.shape[1] == 1)
+            if x.ndim == 1:
+                x = x[:, None]
+            if x.ndim == 2 and collapse:
+                # [B, T, 1]: the time axis survives the column collapse
+                x = x[..., None]
+        else:
+            squeeze = x.ndim == 2          # [B, F]: one step of features
+            if squeeze:
+                x = x[:, None, :]
+        if not self._rnn_state:
+            self._stream_pos = 0
+        carries = seed_stream_caches(
+            ((l.name, l) for l in self.layers), self._rnn_state,
+            x.shape[0], self.conf.compute_dtype, self.device)
+        check_cache_capacity(carries, int(x.shape[1]), pos=self._stream_pos)
+        with torch.no_grad():
+            pre, new_carries, _ = self._forward(self.params, x,
+                                                carries=carries or None)
+            out = activations.get(self.layers[-1].activation)(pre.float())
+        self._rnn_state = new_carries
+        self._stream_pos += int(x.shape[1])
+        return out[:, -1] if squeeze and out.ndim == 3 else out
+
     # --------------------------------------------------------- not ported
     def fit_scanned(self, *args, **kwargs):
         not_ported("MultiLayerNetwork", "fit_scanned", "PyTorch runs "
                    "eagerly; CUDA-graph capture of the step is its "
-                   "counterpart, ROADMAP A2 and C1")
-
-    def rnn_time_step(self, *args, **kwargs):
-        not_ported("MultiLayerNetwork", "rnn_time_step",
-                   "the recurrent slice, ROADMAP A6")
+                   "counterpart, ROADMAP A2")
 
     def pretrain(self, *args, **kwargs):
         not_ported("MultiLayerNetwork", "pretrain",

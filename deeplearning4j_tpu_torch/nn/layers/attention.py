@@ -5,18 +5,19 @@ Ported: ``split_heads``/``merge_heads``, ``rope`` (with [T] or per-row
 padding mask, GQA contracted on the unexpanded kv heads), the
 paged-gather oracle (``gather_pages`` + ``paged_attention``), and
 ``SelfAttentionLayer`` with ``init``, ``apply`` (train and inference),
-``init_paged_cache`` and the paged branch of ``apply_with_carry``.
-``apply`` asks the helper seam for flash attention
-(``helpers/flash_attention.py``), the paged branch for the fused decode
-kernel (``helpers/paged_attention.py``).  Still to come: the linear and
-rolling stream caches and ring attention (``seq_axis``).
+the stream caches (``init_cache``, ``cache_overflow``: the linear and the
+rolling cache of ``rnn_time_step`` and ``generate``), ``init_paged_cache``
+and every branch of ``apply_with_carry``.  ``apply`` asks the helper seam
+for flash attention (``helpers/flash_attention.py``), the paged branch
+for the fused decode kernel (``helpers/paged_attention.py``).  Still to
+come: ring attention (``seq_axis``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -25,6 +26,8 @@ from deeplearning4j_tpu_torch.nn import activations, initializers
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 
 NEG = -1e30
+# a rolling cache's empty slot: far below any reachable qpos - window
+KPOS_EMPTY = torch.iinfo(torch.int32).min // 2
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -72,12 +75,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = False,
                           window: Optional[int] = None,
-                          mask: Optional[torch.Tensor] = None
+                          mask: Optional[torch.Tensor] = None,
+                          q_offset: Union[int, torch.Tensor] = 0,
+                          k_offset: Union[int, torch.Tensor] = 0,
+                          q_positions: Optional[torch.Tensor] = None,
+                          k_positions: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Scaled dot-product attention on [B, T, H, D], softmax in float32
     (float64 for float64 inputs).  GQA (q has G times the kv heads) shares
     each kv head across its G query heads without expanding K/V.  A
-    padding ``mask`` [B, Tk] (nonzero = a real key) hides padded keys."""
+    padding ``mask`` [B, Tk] (nonzero = a real key) hides padded keys.
+
+    The causal mask compares global positions: ``q_offset + arange(Tq)``
+    against ``k_offset + arange(Tk)``, or the explicit ``q_positions``
+    [Tq] / ``k_positions`` [Tk] (a rolling cache stores keys out of
+    order).  An offset is an int or a device int tensor; nothing here
+    reads it back to the host, so the call can be captured in a CUDA
+    graph."""
     check_window(causal, window)
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
@@ -92,8 +106,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(acc)
     scores = scores / math.sqrt(d)
     if causal:
-        qpos = torch.arange(tq, device=q.device)
-        kpos = torch.arange(tk, device=q.device)
+        qpos = (q_positions if q_positions is not None
+                else q_offset + torch.arange(tq, device=q.device))
+        kpos = (k_positions if k_positions is not None
+                else k_offset + torch.arange(tk, device=q.device))
         cm = qpos[:, None] >= kpos[None, :]
         if window is not None:
             # sliding window: keep kpos in [qpos - window + 1, qpos]
@@ -243,6 +259,38 @@ class SelfAttentionLayer(Layer):
                                       window=self.window, mask=mask)
         return self._out(params, o)
 
+    def init_cache(self, batch: int, dtype=torch.float32, device=None):
+        """KV cache for streaming inference (``rnn_time_step``,
+        ``generate``).  Linear mode (no ``window``): ``max_cache`` slots,
+        ``pos`` (a device int32 scalar) counts the filled timesteps, and
+        overflow is a hard error checked on the host
+        (``cache_overflow``).  Rolling mode (``window`` set): ``window``
+        slots written modulo the window, each slot's global position in
+        ``kpos``: unbounded decode in O(window) memory.  GQA caches hold
+        the unexpanded kv heads."""
+        length = self.window if self.window is not None else self.max_cache
+        shape = (batch, length, self._kv_heads, self.n_out // self.n_heads)
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                 "v": torch.zeros(shape, dtype=dtype, device=device),
+                 "pos": torch.zeros((), dtype=torch.int32, device=device)}
+        if self.window is not None:
+            cache["kpos"] = torch.full((length,), KPOS_EMPTY,
+                                       dtype=torch.int32, device=device)
+        return cache
+
+    @staticmethod
+    def cache_overflow(carry, t_new: int, pos: Optional[int] = None) -> bool:
+        """Would appending ``t_new`` steps pass the end of a linear cache?
+        Checked on the host before the call: the in-place write would
+        fault (the reference's ``dynamic_update_slice`` would clamp).
+        Rolling caches never overflow.  ``pos`` is the facade's host-side
+        stream position; without it the device scalar is read (a sync)."""
+        if "kpos" in carry:
+            return False
+        if pos is None:
+            pos = int(carry["pos"])
+        return pos + t_new > carry["k"].shape[1]
+
     def init_paged_cache(self, num_pages: int, page_size: int,
                          dtype=torch.float32, device=None):
         """K/V pools [num_pages, page_size, Hkv, D] for paged streaming
@@ -299,11 +347,57 @@ class SelfAttentionLayer(Layer):
                      "pos": pos + t_new}
         return self._out(params, o), new_carry
 
+    def _apply_stream(self, params, q, k, v, carry):
+        """The linear and rolling stream caches (``init_cache``).  Keys are
+        stored after RoPE, at their global positions.  The cache tensors
+        are updated in place and handed back in the same dict (the
+        reference returns new arrays), so a captured CUDA graph sees them
+        at fixed addresses; ``pos`` advances in place too."""
+        pos = carry["pos"]
+        t_new = q.shape[1]
+        new_pos = pos + torch.arange(t_new, dtype=pos.dtype,
+                                     device=pos.device)
+        if self.rope:
+            q = rope(q, new_pos, self.rope_theta)
+            k = rope(k, new_pos, self.rope_theta)
+        kc, vc = carry["k"], carry["v"]
+        if "kpos" in carry:
+            # rolling: attend over [old ring || this chunk] first (writing
+            # first would clobber keys still in band for the chunk's
+            # earlier rows), then write the chunk's last min(t_new, window)
+            # positions modulo the window
+            ring = kc.shape[1]
+            o = dot_product_attention(
+                q, torch.cat([kc.to(q.dtype), k.to(q.dtype)], dim=1),
+                torch.cat([vc.to(q.dtype), v.to(q.dtype)], dim=1),
+                causal=True, window=self.window, q_positions=new_pos,
+                k_positions=torch.cat([carry["kpos"], new_pos]))
+            if t_new > ring:
+                k, v, new_pos = k[:, -ring:], v[:, -ring:], new_pos[-ring:]
+            slots = (new_pos % ring).to(torch.int64)
+            kc.index_copy_(1, slots, k.to(kc.dtype))
+            vc.index_copy_(1, slots, v.to(vc.dtype))
+            carry["kpos"].index_copy_(0, slots, new_pos)
+        else:
+            # linear: write at pos + arange(t_new), then attend by global
+            # position (which also hides the unfilled tail); overflow was
+            # refused on the host (cache_overflow)
+            slots = new_pos.to(torch.int64)
+            kc.index_copy_(1, slots, k.to(kc.dtype))
+            vc.index_copy_(1, slots, v.to(vc.dtype))
+            o = dot_product_attention(q, kc.to(q.dtype), vc.to(q.dtype),
+                                      causal=True, window=self.window,
+                                      q_offset=pos)
+        pos.add_(t_new)
+        return self._out(params, o), carry
+
     def apply_with_carry(self, params, x, carry, *, train=False, rng=None,
                          mask=None):
         """carry=None -> ``apply``.  With a paged carry (``"pk"`` in it):
         append this call's K/V to the pool and attend the new queries
-        over everything the rows have written."""
+        over everything the rows have written.  With a stream cache
+        (``init_cache``): append to the linear or rolling cache, in
+        place, and attend over the cached prefix."""
         if carry is None:
             return self.apply(params, x, train=train, rng=rng,
                               mask=mask), None
@@ -314,9 +408,7 @@ class SelfAttentionLayer(Layer):
                 f"causal={self.causal}, seq_axis={self.seq_axis}, "
                 f"mask={'set' if mask is not None else None}")
         x = self.maybe_dropout(x, train=train, rng=rng)
-        if "pk" not in carry:
-            raise NotImplementedError(
-                "only the paged KV cache is ported; the linear and rolling "
-                "stream caches come with a later slice")
         q, k, v = self._qkv(params, x)
-        return self._apply_paged(params, q, k, v, carry)
+        if "pk" in carry:
+            return self._apply_paged(params, q, k, v, carry)
+        return self._apply_stream(params, q, k, v, carry)

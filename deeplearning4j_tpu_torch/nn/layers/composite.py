@@ -113,6 +113,22 @@ class ResidualBlock(Layer):
                 total = total + sub.reg_score(params[f"sub{i}"])
         return total
 
+    def init_cache(self, batch: int, dtype=torch.float32, device=None):
+        """Stream caches of the cache-bearing sublayers (attention), by
+        ``sub{i}``: a dict (maybe empty) when any sublayer carries state,
+        None when none does."""
+        carry = {}
+        carryable = False
+        for i, sub in enumerate(self.layers):
+            if hasattr(sub, "init_cache"):
+                carryable = True
+                c = sub.init_cache(batch, dtype, device)
+                if c is not None:
+                    carry[f"sub{i}"] = c
+            elif hasattr(sub, "apply_with_carry"):
+                carryable = True
+        return carry if carryable else None
+
     def init_paged_cache(self, num_pages: int, page_size: int,
                          dtype=torch.float32, device=None):
         """Paged pools for the pageable sublayers (attention), or None

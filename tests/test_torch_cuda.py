@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.helpers import paged_attention as pa
+from deeplearning4j_tpu_torch.models.common import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -122,25 +123,204 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         pa.paged_decode_attention(q, pk, pv, block, qpos, page_size=16)
 
 
-def test_engine_goes_through_the_kernel(cuda):
-    """A small bfloat16 model served on the card launches the kernel once
-    per attention layer per call and never runs the plain version."""
+def _paged_launches(fn):
+    """``fn()`` under the profiler; the paged kernel's launches on the
+    device (graph replays included: the Python counts do not tick on
+    replay)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.count for e in prof.key_averages()
+                    if "paged_decode_kernel" in e.key)
+
+
+def _small_engine(capture=None, slots=4):
     from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.generation.programs import (
+        GenerationPrograms,
+    )
     from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
 
     net = transformer_char_lm(vocab_size=29, d_model=64, n_heads=4,
                               layers=2, compute_dtype="bfloat16")
+    eng = GenerationEngine(net, slots=slots, page_size=16, max_context=64,
+                           prefill_buckets=(16, 32))
+    if capture is not None:
+        p = eng.programs
+        eng.programs = GenerationPrograms(
+            net, slots=p.slots, pages_per_slot=p.pages_per_slot,
+            page_size=p.page_size, num_pages=p.num_pages,
+            prefill_buckets=p.prefill_buckets, capture=capture)
+    return eng
+
+
+def test_engine_goes_through_the_kernel(cuda):
+    """A small bfloat16 model served on the card: every call is a graph
+    replay, each graph holds one paged-kernel launch per attention layer,
+    and the profiler counts that many launches per call while serving;
+    the plain version never runs."""
+    eng = _small_engine()
     pa.counts.reset()
-    eng = GenerationEngine(net, slots=4, page_size=16, max_context=64,
-                           prefill_buckets=(16,)).start()
+    eng.start()
     try:
-        outs = [h.result(timeout=60) for h in
-                [eng.submit([1 + i, 2, 3], 12) for i in range(6)]]
+        progs = eng.programs
+        calls0 = progs.prefill_calls + progs.decode_calls
+        outs, launches = _paged_launches(lambda: [
+            h.result(timeout=60) for h in
+            [eng.submit([1 + i, 2, 3], 12) for i in range(6)]])
     finally:
         eng.stop()
     assert all(len(o) == 12 for o in outs)
-    calls = eng.programs.prefill_calls + eng.programs.decode_calls
-    assert pa.counts.launches == 2 * calls and pa.counts.plain_calls == 0
+    calls = progs.prefill_calls + progs.decode_calls - calls0
+    assert progs.graph_launches() == {"prefill_16": 2, "prefill_32": 2,
+                                      "decode": 2}
+    assert launches == 2 * calls and calls > 0
+    assert progs.replays == progs.prefill_calls + progs.decode_calls
+    assert pa.counts.plain_calls == 0
+
+
+def _program_inputs(rng, progs, step):
+    """A decode call's host arrays: live rows at mixed positions in their
+    own pages, greedy and sampled (top-k, top-p) rows mixed."""
+    s, maxp = progs.slots, progs.pages_per_slot
+    block = (1 + np.arange(s * maxp, dtype=np.int32)).reshape(s, maxp)
+    pos = (np.arange(s, dtype=np.int32) * 3 + 5 + step)
+    return dict(block=block, pos=pos,
+                tokens=rng.integers(0, 29, s).astype(np.int32),
+                keys=rng.integers(0, 2 ** 32, (s, 2), dtype=np.uint64)
+                .astype(np.uint32),
+                token_idx=np.full(s, step, np.int32),
+                temps=np.array([0, 0.8, 1.2, 0.0][:s], np.float32),
+                top_ks=np.array([0, 5, 0, 0][:s], np.int32),
+                top_ps=np.array([1, 1, 0.9, 1][:s], np.float32))
+
+
+def test_captured_programs_equal_eager_programs_bitwise(cuda):
+    """Captured decode and prefill against ``capture=False`` on the same
+    inputs: tokens, logits and the pools bit for bit over several
+    steps."""
+    runs = {}
+    for capture in (True, False):
+        progs = _small_engine(capture).programs
+        progs.warm()
+        rng = np.random.default_rng(0)
+        toks, logits = [], []
+        for b in progs.prefill_buckets:
+            prompt = np.zeros((1, b), np.int32)
+            prompt[0, :b - 3] = rng.integers(0, 29, b - 3)
+            toks.append(progs.prefill(
+                b, (1 + np.arange(progs.pages_per_slot, dtype=np.int32))
+                [None], np.zeros(1, np.int32), b - 4, prompt,
+                np.array([[7, 9]], np.uint32), np.zeros(1, np.int32),
+                np.array([0.9], np.float32), np.array([4], np.int32),
+                np.ones(1, np.float32)))
+            logits.append(progs.last_logits.clone())
+        for step in range(5):
+            toks.append(progs.decode(**_program_inputs(rng, progs, step)))
+            logits.append(progs.last_logits.clone())
+        torch.cuda.synchronize()
+        runs[capture] = (toks, logits, [t.clone() for t in
+                                        tree_leaves(progs.pools)], progs)
+    (ct, cl, cp, cprogs), (et, el, ep, eprogs) = runs[True], runs[False]
+    assert cprogs.captures == 3 and eprogs.captures == 0
+    # the warm-up's three calls, then two prefills and five decodes
+    assert cprogs.replays == 3 + 2 + 5 and eprogs.replays == 0
+    for a, b in zip(ct, et):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(cl, el):
+        assert torch.equal(a, b)
+    for a, b in zip(cp, ep):
+        assert torch.equal(a, b)
+
+
+def test_steady_state_serving_captures_nothing(cuda):
+    eng = _small_engine().start()
+    try:
+        progs = eng.programs
+        assert progs.captures == len(progs.prefill_buckets) + 1
+        replays = progs.replays
+        for _ in range(2):
+            outs = [h.result(timeout=60) for h in
+                    [eng.submit([3, 1 + i] * (i + 1), 9, temperature=0.7,
+                                top_k=5, seed=i) for i in range(7)]]
+            assert all(len(o) == 9 for o in outs)
+        assert progs.captures == len(progs.prefill_buckets) + 1
+        assert progs.replays > replays
+        stats = eng.stats()
+        assert stats["captures"] == progs.captures
+        assert stats["replays"] == progs.replays
+    finally:
+        eng.stop()
+    # a restart warms the same graphs: still nothing new
+    eng.start()
+    try:
+        assert len(eng.generate([1, 2, 3], 4)) == 4
+        assert eng.programs.captures == len(eng.programs.prefill_buckets) + 1
+    finally:
+        eng.stop()
+
+
+def test_engine_error_path_reseeds_pools_in_place_and_serves(cuda):
+    eng = _small_engine().start()
+    try:
+        progs = eng.programs
+        ptrs = [t.data_ptr() for t in tree_leaves(progs.pools)]
+        want = eng.generate([5, 6, 7], 6).tolist()
+        real = progs.decode
+        failed = []
+
+        def fail_once(*a, **kw):
+            if not failed:
+                failed.append(1)
+                raise RuntimeError("injected decode failure")
+            return real(*a, **kw)
+
+        progs.decode = fail_once
+        with pytest.raises(RuntimeError, match="injected"):
+            eng.submit([1, 2], 5).result(timeout=60)
+        progs.decode = real
+        assert [t.data_ptr() for t in tree_leaves(progs.pools)] == ptrs
+        assert eng.generate([5, 6, 7], 6).tolist() == want
+        assert progs.captures == len(progs.prefill_buckets) + 1
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize("window", [None, 8], ids=["linear", "rolling"])
+def test_captured_generate_equals_the_host_loop(window, cuda):
+    """``generate``'s replayed loop against ``sample_sequence`` (eager
+    ``rnn_time_step``), greedy and sampled (step i of both reads noise
+    slice i), on a float32 stack; a second call with the same key
+    captures nothing; every loop reads the net's own parameters."""
+    from deeplearning4j_tpu_torch.models.decode import generate
+    from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
+    from deeplearning4j_tpu_torch.utils.sampling import sample_sequence
+
+    net = transformer_char_lm(vocab_size=29, d_model=64, n_heads=4,
+                              layers=2, max_cache=64, window=window,
+                              n_kv_heads=2 if window else None)
+    prompt = np.random.default_rng(3).integers(0, 29, (4, 6))
+    got = generate(net, prompt, 30, temperature=0.0)
+    ref = sample_sequence(net, prompt, 30, temperature=0.0)
+    np.testing.assert_array_equal(got, ref)
+    (gen,) = net._graph_cache.values()
+    assert gen.captures == 1 and gen.replays == 29
+    np.testing.assert_array_equal(
+        generate(net, prompt, 30, temperature=0.0), got)
+    assert gen.captures == 1 and gen.replays == 58
+    a = generate(net, prompt, 30, temperature=0.9, top_k=7, rng=3)
+    np.testing.assert_array_equal(
+        generate(net, prompt, 30, temperature=0.9, top_k=7, rng=3), a)
+    np.testing.assert_array_equal(
+        sample_sequence(net, prompt, 30, temperature=0.9, top_k=7, rng=3), a)
+    np.testing.assert_array_equal(
+        generate(net, prompt, 30, temperature=0.9, top_k=1, rng=3), got)
+    assert len(net._graph_cache) == 3
+    assert ([t.data_ptr() for t in tree_leaves(net._graph_params)]
+            == [t.data_ptr() for t in tree_leaves(net.params)])
 
 
 # ---------------------------------------------------------------- flash

@@ -21,6 +21,7 @@ import jax
 from deeplearning4j_tpu.generation import GenerationEngine as JaxEngine
 from deeplearning4j_tpu.models.zoo import transformer_char_lm as jax_lm
 from deeplearning4j_tpu_torch.generation import GenerationEngine
+from deeplearning4j_tpu_torch.models.common import tree_leaves
 from deeplearning4j_tpu_torch.helpers import paged_attention as pa
 from deeplearning4j_tpu_torch.models.interop import params_from_numpy
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
@@ -127,3 +128,27 @@ def test_admission_errors(port_net):
     with pytest.raises(ShuttingDownError) as e:
         eng.submit([1, 2, 3], 4)
     assert e.value.http_status == 503
+
+
+def test_error_path_reseeds_the_pools_in_place(port_net):
+    """A failed decode step fails the running batch and zeroes the pools
+    in place (a captured graph holds their addresses); the engine goes on
+    serving the same tokens.  On the CPU nothing is captured."""
+    eng = GenerationEngine(port_net, max_queue=8, deadline_s=30.0,
+                           **GEOM).start()
+    try:
+        progs = eng.programs
+        pools = tree_leaves(progs.pools)
+        want = eng.generate([4, 5, 6], 5).tolist()
+        real = progs.decode
+        progs.decode = lambda *a, **kw: (_ for _ in ()).throw(
+            RuntimeError("injected decode failure"))
+        with pytest.raises(RuntimeError, match="injected"):
+            eng.submit([1, 2], 4).result(timeout=60)
+        progs.decode = real
+        assert eng.generate([4, 5, 6], 5).tolist() == want
+        assert all(a is b for a, b in zip(tree_leaves(progs.pools), pools))
+        stats = eng.stats()
+        assert stats["captures"] == 0 and stats["replays"] == 0
+    finally:
+        eng.stop()

@@ -358,7 +358,7 @@ def test_global_defaults_reach_layers_like_jax(shapes):
 def test_unported_parts_raise():
     net = zoo.resnet50(device="cpu", **TINY)
     for call in (lambda: net.fit_scanned([], 2), lambda: net.pretrain([]),
-                 lambda: net.rnn_time_step(None),
+                 lambda: net.evaluate(None),
                  lambda: net.set_listeners()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()

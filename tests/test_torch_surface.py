@@ -1,8 +1,8 @@
 """The facades' public surface in the port against the JAX facades, on the
 committed fixtures (``tests/regression_fixtures/``): ``output`` with a
 features mask, ``feed_forward``, ``num_params``, the flat parameter
-vector, ``clone``, the configurations' YAML, and the named raise of what
-``MultiLayerNetwork`` does not port yet.
+vector, ``clone``, the configurations' YAML, ``rnn_time_step``, and the
+named raise of what either facade does not port yet.
 
 Tolerances: outputs and activations at ``rtol=1e-4, atol=1e-5`` (float32,
 the same weights, different summation orders); parameter vectors
@@ -155,10 +155,29 @@ def test_yaml_round_trip_equals_the_json_config(name):
 
 
 @pytest.mark.parametrize("method, item", [
-    ("fit_scanned", "A2"), ("rnn_time_step", "A6"), ("pretrain", "A7"),
-    ("set_listeners", "A8"), ("add_listener", "A8"), ("evaluate", "A8")])
+    ("fit_scanned", "A2"), ("pretrain", "A7"), ("set_listeners", "A8"),
+    ("add_listener", "A8"), ("evaluate", "A8")])
 def test_unported_sequential_methods_name_their_item(method, item):
     net = _port("mlp")
     with pytest.raises(NotImplementedError,
                        match=f"MultiLayerNetwork.{method} .*ROADMAP {item}"):
         getattr(net, method)(None)
+
+
+@pytest.mark.parametrize("method, item", [
+    ("fit_scanned", "A2"), ("pretrain", "A7"), ("set_listeners", "A8"),
+    ("evaluate", "A8")])
+def test_unported_graph_methods_name_their_item(method, item):
+    net = _port("graph")
+    with pytest.raises(NotImplementedError,
+                       match=f"ComputationGraph.{method} .*ROADMAP {item}"):
+        getattr(net, method)(None)
+
+
+def test_rnn_time_step_streams_the_committed_transformer():
+    """``rnn_time_step`` (no longer a raise) on the committed char-LM: a
+    prompt chunk, then one id at a time, against the JAX facade."""
+    net, jnet = _port("transformer"), _jax("transformer")
+    ids = _input("transformer")[:, :6]
+    for feed in (ids[:, :4], ids[:, 4], ids[:, 5]):
+        _close(net.rnn_time_step(feed).numpy(), jnet.rnn_time_step(feed))
