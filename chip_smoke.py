@@ -61,17 +61,29 @@ Phases (any failure exits non-zero; nothing is caught):
    ``bench.py``'s batch: random ids from ``RandomState(0)``, labels the
    one-hot of the ids rolled by one).  The first step's loss and
    per-layer gradients are held against the built-in path
-   (``enable_helpers(False)``); then 2 warm-up and 5 timed ``fit`` steps,
-   the flash and prologue launch counts reset just before and read just
-   after (8 forward, 8 dQ, 8 dK/dV and 16 prologue launches a step, no
-   plain-version call), and one step under ``torch.profiler``, whose
-   flash kernels must be the routes' own (``flash_dq_wgmma`` and the
-   like; then one more with the host traced, which must show no
+   (``enable_helpers(False)``).  Then 2 warm-up and 5 timed ``fit`` steps
+   in each mode from one state (``fit_modes``): eagerly (the nets'
+   internal switch ``_capture`` off), eagerly again, and through the
+   captured CUDA graph that ``fit`` replays by default.  Eager, the
+   wrappers count 8 forward, 8 dQ, 8 dK/dV and 16 prologue launches a
+   step; captured, one step's worth at the warm-up and one at the
+   capture (the counts tick where a launch is recorded, not on replay),
+   the graph holds one step's, and there is one capture from the first
+   step on.  If the two eager runs agree bit for bit, the captured run
+   must equal them bit for bit (losses, params, updater state, running
+   stats); else the leaves that differ are named and the three runs are
+   repeated with ``cudnn.deterministic``, and if the eager runs still
+   differ the captured one is held to twice their largest difference.
+   Each mode prints its step median, tokens/s, analytic-FLOP
+   utilisation and the spread of its timed steps, then two steps under
+   ``torch.profiler`` (host wall, busy, idle share; the flash kernels
+   must be the routes' own, ``flash_dq_wgmma`` and the like, 8 a step
+   each and 16 prologue: those profiled launches of the captured mode
+   are the kernels line's) and one with the host traced (no
    ``_row_delta`` reduction: delta comes from the dQ kernel).  Then the
-   same in float32, the zoo default (no ``compute_dtype``): the first
-   step against the built-in path, 7 ``fit`` steps with their launch
-   counts, and the profiled steps, which must run ``flash_fwd_tf32``,
-   ``flash_dq_tf32`` and ``flash_dkv_tf32``.
+   same in float32, the zoo default (no ``compute_dtype``), whose
+   profiled steps must run ``flash_fwd_tf32``, ``flash_dq_tf32`` and
+   ``flash_dkv_tf32``.
 5. Hold the three BatchNorm kernels (training forward, training
    backward, inference) against their plain versions at ResNet-50's
    shapes (bfloat16; a float32 and a float16 case, ragged C, and gamma
@@ -80,18 +92,19 @@ Phases (any failure exits non-zero; nothing is caught):
 6. ResNet-50 as a ComputationGraph at full width (224x224x3, 1000
    classes, batch 128, bfloat16, Nesterov at 0.1, ``bench.py``'s batch:
    ``RandomState(0)`` images in [0, 1) and one-hot labels; seeded random
-   weights).  ``output`` is held against the built-in path
-   (``enable_helpers(False)``: the logits and their argmax) and must
-   launch the inference kernel once per BatchNorm layer (53), and one
-   ``output`` runs under ``torch.profiler``; the first step's loss (bfloat16) and
+   weights).  ``output`` eagerly (the inference kernel once per
+   BatchNorm layer, 53) and captured (two calls: a warm-up and capture,
+   then a replay, both equal to the eager probabilities bit for bit),
+   each mode profiled over two calls (53 inference kernels a call); the
+   logits are held against the built-in path (``enable_helpers(False)``:
+   the logits and their argmax); the first step's loss (bfloat16) and
    per-node gradients (float32 compute, where they are not rounding) are
-   held against the built-in path; then 2 warm-up and 5 timed ``fit``
-   steps (53 training-forward and 53 training-backward launches a step,
-   no plain-version call, finite losses, running stats that moved), and
-   one step under ``torch.profiler``, which must launch two BatchNorm
-   kernels for each of those calls (212: the reduction and the
-   elementwise pass) and splits their time by pass (moments, grad sums,
-   apply, dx).
+   held against the built-in path; then ``fit_modes`` as in 4 (53
+   training-forward and 53 training-backward wrapper launches a step,
+   finite losses, running stats that moved) and each mode's two profiled
+   steps, which must launch two BatchNorm kernels for each of those calls
+   (212 a step: the reduction and the elementwise pass), split by pass
+   (moments, grad sums, apply, dx).
 7. Hold the two LRN kernels (forward, backward) against their plain
    versions at AlexNet's shapes (``[373248, 96]`` and ``[86528, 256]``
    in bfloat16; a float32, a float16, a ragged C = 130, a C = 3 < n and
@@ -103,16 +116,26 @@ Phases (any failure exits non-zero; nothing is caught):
 8. AlexNet as a MultiLayerNetwork at full width (zoo ``alexnet``:
    224x224x3, 1000 classes, batch 128, bfloat16, Nesterov at 0.01 with
    l2 5e-4; ``RandomState(0)`` images in [0, 1) and one-hot labels;
-   seeded random weights).  ``output`` is held against the built-in path
-   (logits and argmax) and must launch the LRN forward kernel twice; the
-   first step's loss (bfloat16) and per-layer gradients (float32
-   compute) are held against the built-in path with the same dropout
-   key; then 2 warm-up and 5 timed ``fit`` steps (2 forward and 2
-   backward LRN launches a step, no plain-version call, finite losses),
-   and one step under ``torch.profiler``, which must run the vector
-   route's kernels 4 times (``lrn_fwd_vec``, ``lrn_bwd_vec``) and prints
-   their time by layer.
-9. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+   seeded random weights).  ``output`` eagerly (two LRN forward
+   launches) and captured, equal bit for bit; the logits are held
+   against the built-in path (logits and argmax); the first step's loss
+   (bfloat16) and per-layer gradients (float32 compute) are held against
+   the built-in path with the same dropout key; the two dropout masks of
+   a step are drawn in a captured graph from the device keys of the
+   net's next two steps and held against the eager draws from host keys
+   of the same seeds (equal; the two steps' differ), and the draw is
+   timed; then ``fit_modes`` (2 forward and 2 backward LRN launches a
+   step) and each mode's profiled steps, which must run the vector
+   route's kernels 4 times a step (``lrn_fwd_vec``, ``lrn_bwd_vec``),
+   with their time by layer.
+9. LeNet (zoo ``lenet``, MNIST-shaped: 784 inputs, 10 classes, float32,
+   batch 128, ``RandomState(0)`` host batches): ``fit_modes`` over 7
+   batches; then three passes over 24 batches by eager ``fit``, captured
+   ``fit`` and ``fit_scanned(scan_steps=8)`` from one state, the third
+   pass timed (ms a step each); ``fit_scanned`` must equal captured
+   ``fit`` bit for bit (under ``cudnn.deterministic`` if ``fit_modes``
+   found the eager runs apart) with one capture.
+10. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -145,7 +168,7 @@ from deeplearning4j_tpu_torch.helpers import paged_attention as pa
 from deeplearning4j_tpu_torch.models.decode import generate
 from deeplearning4j_tpu_torch.models.sequential import tree_leaves
 from deeplearning4j_tpu_torch.models.zoo import (
-    alexnet, resnet50, transformer_char_lm,
+    alexnet, lenet, resnet50, transformer_char_lm,
 )
 from deeplearning4j_tpu_torch.nn.layers.attention import gather_pages
 from deeplearning4j_tpu_torch.nn.layers.convolution import ConvolutionLayer
@@ -221,6 +244,8 @@ ALEXNET_BATCH, ALEXNET_LRN_LAYERS = 128, 2
 # logits, kernels vs built-in path: bf16 error over max |logit|, and
 # images whose argmax may differ (bf16 near-ties counted apart)
 ALEXNET_LOGITS_TOL, ALEXNET_ARGMAX_MISSES = 2e-2, 2
+# LeNet-MNIST (BASELINE.md:29): batch, host batches, fit_scanned's window
+LENET_BATCH, LENET_BATCHES, LENET_SCAN = 128, 24, 8
 
 
 def card() -> str:
@@ -1051,10 +1076,6 @@ def _loss_and_grads(net, loss_of):
     return float(loss.detach()), out
 
 
-def _kernel_counts():
-    return (fa.fwd_counts, fa.dq_counts, fa.dkv_counts, fe.counts)
-
-
 def _rel_l2(grads, ref):
     return {n: ((grads[n] - ref[n]).norm()
                 / ref[n].norm().clamp_min(1e-30)).item() for n in ref}
@@ -1092,10 +1113,194 @@ def first_step_check(what, net, loss_of, floor=False):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------- captured against eager training
+def twin(net, capture):
+    """A copy of ``net`` (params, updater and layer state, iteration, and
+    its key stream's position, which ``clone`` starts afresh) whose
+    ``fit`` replays captured graphs (``capture``) or runs eagerly."""
+    t = net.clone()
+    t._keys._gen.set_state(net._keys._gen.get_state())
+    t._capture = capture
+    return t
+
+
+def named_state(net):
+    """(name, tensor) of every param, updater-state and layer-state
+    leaf."""
+    out = []
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{name}/{k}")
+        else:
+            out.append((name, tree))
+
+    for part in ("params", "updater_state", "net_state"):
+        walk(getattr(net, part), part)
+    return out
+
+
+def state_gaps(a, b):
+    """{leaf: max |a - b|} over the leaves where two nets differ."""
+    return {n: (x.float() - y.float()).abs().max().item()
+            for (n, x), (_, y) in zip(named_state(a), named_state(b))
+            if not torch.equal(x, y)}
+
+
+def fit_steps(net, batches, steps):
+    """``steps`` ``fit`` calls over ``batches`` in turn, each timed on the
+    host to the loss read: (losses, seconds, captures after each)."""
+    losses, secs, caps = [], [], []
+    for i in range(steps):
+        x, y = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        losses.append(net.score_value)      # reads the loss: waits for it
+        secs.append(time.perf_counter() - t0)
+        graphs = net._step_graphs
+        caps.append(graphs.captures if graphs is not None else 0)
+    return losses, secs, caps
+
+
+def _loss_gap(a, b):
+    return max(abs(x - y) for x, y in zip(a, b))
+
+
+def modes_agree(what, runs, rerun):
+    """Captured against eager training: ``runs`` is [(net, losses)] of two
+    eager runs and a captured one over the same steps from one state.  If
+    the eager runs agree bit for bit, the captured run must equal them
+    bit for bit.  If not, the leaves that differ are named and all three
+    run again with ``cudnn.deterministic`` (``rerun()`` gives the new
+    triple): bit for bit if the eager runs then agree, else the captured
+    run held to twice their largest difference.  Returns the verdict."""
+    (e1, l1), (e2, l2), (c, lc) = runs
+    gaps = state_gaps(e1, e2)
+    if not gaps and l1 == l2:
+        got = state_gaps(c, e1)
+        print(f"{what}: two eager runs agree bit for bit; captured against "
+              f"eager: {len(got)} of {len(named_state(c))} leaves differ, "
+              f"losses {'equal' if lc == l1 else 'differ'}")
+        check(not got and lc == l1, f"{what}: captured == eager bit for "
+                                    f"bit ({sorted(got)[:4]})")
+        return "bit for bit"
+    top = sorted(gaps.items(), key=lambda kv: -kv[1])[:4]
+    print(f"{what}: two eager runs differ in {len(gaps)} of "
+          f"{len(named_state(e1))} leaves (largest {top}), losses by "
+          f"{_loss_gap(l1, l2):.3e}; again with cudnn.deterministic")
+    torch.backends.cudnn.deterministic = True
+    try:
+        (e1, l1), (e2, l2), (c, lc) = rerun()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    gaps, got = state_gaps(e1, e2), state_gaps(c, e1)
+    if not gaps and l1 == l2:
+        print(f"{what}: under cudnn.deterministic two eager runs agree bit "
+              f"for bit; captured against eager: {len(got)} leaves differ")
+        check(not got and lc == l1, f"{what}: captured == eager bit for "
+                                    f"bit, deterministic ({sorted(got)[:4]})")
+        return "bit for bit under cudnn.deterministic"
+    bound = 2 * max(gaps.values(), default=0.0)
+    worst = max(got.values(), default=0.0)
+    top = sorted(gaps.items(), key=lambda kv: -kv[1])[:4]
+    print(f"{what}: under cudnn.deterministic two eager runs still differ "
+          f"in {len(gaps)} leaves (largest {top}); captured against eager "
+          f"{worst:.3e} (bound {bound:.3e}), losses "
+          f"{_loss_gap(lc, l1):.3e} (bound {2 * _loss_gap(l1, l2):.3e})")
+    check(worst <= bound and _loss_gap(lc, l1) <= 2 * _loss_gap(l1, l2),
+          f"{what}: captured within twice the eager spread")
+    return f"within twice the eager spread ({worst:.3e} <= {bound:.3e})"
+
+
+def _launch_counts():
+    return {n: (c.launches, c.plain_calls)
+            for n, c in helpers.kernel_counts().items()}
+
+
+def fit_modes(what, net, batches, per_step, name_card, items=None,
+              flops=None, peak=None, unit="images"):
+    """The phase's 2 warm-up and 5 timed ``fit`` steps twice from one
+    state: eagerly (``_capture`` off; run twice, for the comparison) and
+    through the captured graph (``net`` itself, the default).  Eager, the
+    wrappers count ``per_step`` launches a step; captured, they count
+    one step's worth at the warm-up and one at the capture, the graph
+    holds ``per_step``, and there is one capture from the first step on.
+    The modes agree as ``modes_agree`` says.  Prints each mode's median,
+    ``items``/s, analytic-FLOP utilisation and the spread of its timed
+    steps.  Returns (eager net, {mode: numbers})."""
+    steps = WARM_STEPS + TIMED_STEPS
+    init = twin(net, False)
+    eager, eager2 = twin(net, False), twin(net, False)
+    net._capture = True
+    # an output graph the phase captured before counts apart
+    caps0 = net._step_graphs.captures if net._step_graphs else 0
+    runs, out = [], {}
+    for label, n in (("eager", eager), ("eager again", eager2),
+                     ("captured", net)):
+        for c in helpers.kernel_counts().values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs, caps = fit_steps(n, batches, steps)
+        counts = _launch_counts()
+        runs.append((n, losses))
+        check(all(np.isfinite(losses)), f"{what} [{label}] losses finite")
+        check(all(p == 0 for _, p in counts.values()),
+              f"{what} [{label}]: plain-version calls {counts}")
+        if label == "eager again":
+            continue
+        factor = steps if label == "eager" else 2
+        got = {k: l for k, (l, _) in counts.items() if l}
+        want = {k: factor * v for k, v in per_step.items()}
+        print(f"{what} [{label}]: wrapper launches over {steps} steps "
+              f"{got}, expected {want}; captures after each step {caps}")
+        check(got == want, f"{what} [{label}] launches {got} == {want}")
+        if label == "captured":
+            held = [v for k, v in net._step_graphs.graph_launches().items()
+                    if k[0] == "train"]
+            print(f"{what} [captured]: the graph holds {held}; "
+                  f"{net._step_graphs.replays} replays")
+            check(caps == [caps0 + 1] * steps,
+                  f"{what}: one capture, at the first step ({caps})")
+            check(held == [per_step], f"{what}: graph launches {held}")
+        timed = secs[WARM_STEPS:]
+        med = float(np.median(timed))
+        row = dict(ms=med * 1e3, spread=(min(timed) * 1e3,
+                                         max(timed) * 1e3),
+                   losses=losses,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        line = (f"{what} [{label}]: step median {med * 1e3:.3f} ms over "
+                f"{TIMED_STEPS} steps (after {WARM_STEPS} warm-up), timed "
+                f"steps {row['spread'][0]:.3f}-{row['spread'][1]:.3f} ms")
+        if items is not None:
+            line += f"; {items / med:.1f} {unit}/s"
+        if flops is not None:
+            row["util"] = flops / med / peak
+            line += (f"; analytic-FLOP utilisation {row['util']:.4f} of "
+                     f"{peak / 1e12:.0f} TFLOP/s ({flops / 1e12:.3f} TFLOP "
+                     f"a step)")
+        print(line + f"; peak memory {row['peak_gb']:.2f} GB [{name_card}]")
+        print(f"{what} [{label}]: losses {[round(v, 6) for v in losses]}")
+        out[label] = row
+
+    def rerun():
+        nets = [twin(init, False), twin(init, False), twin(init, True)]
+        return [(n, fit_steps(n, batches, steps)[0]) for n in nets]
+
+    out["agree"] = modes_agree(what, runs, rerun)
+    print(f"{what}: captured against eager: {out['agree']}; median "
+          f"{out['captured']['ms']:.3f} vs {out['eager']['ms']:.3f} ms "
+          f"[{name_card}]")
+    del init, eager2, runs
+    torch.cuda.empty_cache()
+    return eager, out
+
+
 def train_phase(name_card, model=TRAIN_MODEL, what="train"):
-    """``fit`` on the char-LM at full width; ``model`` without a
-    compute_dtype trains in float32, whose flash kernels must run on
-    tf32x3."""
+    """``fit`` on the char-LM at full width, captured and eager; ``model``
+    without a compute_dtype trains in float32, whose flash kernels must
+    run on tf32x3."""
     net = transformer_char_lm(device="cuda", **model)
     vocab = model["vocab_size"]
     ids = np.random.RandomState(0).randint(0, vocab, (TRAIN_BATCH, TRAIN_T))
@@ -1107,69 +1312,85 @@ def train_phase(name_card, model=TRAIN_MODEL, what="train"):
     first_step_check(what, net,
                      lambda params: net._loss_fn(params, x, y, None))
 
-    steps = WARM_STEPS + TIMED_STEPS
-    for c in _kernel_counts():
-        c.reset()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_s = [], []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        net.fit(x, y)
-        losses.append(net.score_value)      # reads the loss: waits for it
-        step_s.append(time.perf_counter() - t0)
-    launches = [c.launches for c in _kernel_counts()]
-    plain = [c.plain_calls for c in _kernel_counts()]
     layers = model["layers"]
-    want = [layers * steps] * 3 + [2 * layers * steps]
-    print(f"{what}: launches over {steps} steps (fwd, dQ, dK/dV, prologue) "
-          f"{launches}, expected {want}; plain-version calls {plain}")
-    check(launches == want, f"launches {launches} == {want}")
-    check(plain == [0, 0, 0, 0], f"plain-version calls {plain} == 0")
-    check(all(np.isfinite(losses)), f"losses finite {losses}")
-    check(losses[-1] < losses[0], f"loss falls: {losses}")
-
-    med = float(np.median(step_s[WARM_STEPS:]))
     tokens = TRAIN_BATCH * TRAIN_T
     heads, d_model = model["n_heads"], model["d_model"]
     flops = (6.0 * _matmul_params(net) * tokens
              + 12.0 * layers * heads * TRAIN_T * TRAIN_T
              * (d_model // heads) * TRAIN_BATCH * 0.5)
     dtype = getattr(torch, model.get("compute_dtype") or "float32")
-    peak = PEAK_OPS[dtype]
-    mfu = flops / med / peak
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"{what}: losses {[round(v, 6) for v in losses]}")
-    print(f"{what}: step median {med * 1e3:.3f} ms over {TIMED_STEPS} steps"
-          f" (after {WARM_STEPS} warm-up); {tokens / med:.1f} tokens/s; "
-          f"analytic-FLOP utilisation {mfu:.4f} of {peak / 1e12:.0f} "
-          f"TFLOP/s ({flops / 1e12:.2f} TFLOP a step); peak memory "
-          f"{peak_gb:.2f} GB [{name_card}]")
+    per_step = {"flash_fwd": layers, "flash_dq": layers,
+                "flash_dkv": layers, "prologue": 2 * layers}
+    eager, rows = fit_modes(what, net, [(x, y)], per_step, name_card,
+                            items=tokens, flops=flops,
+                            peak=PEAK_OPS[dtype], unit="tokens")
+    check(rows["captured"]["losses"][-1] < rows["captured"]["losses"][0],
+          f"loss falls: {rows['captured']['losses']}")
     paths = {kn: fa.kernel_path(kn, dtype, d_model // heads)
              for kn in ("fwd", "dq", "dkv")}
-    train_profile(net, x, y, name_card, what, paths)
+    train_profile(eager, x, y, name_card, f"{what} [eager]", paths, layers)
+    launches = train_profile(net, x, y, name_card, f"{what} [captured]",
+                             paths, layers)
     return launches
 
 
-def train_profile(net, x, y, name_card, what, paths):
-    """Where one train step's time goes: the device's busy time by kernel
-    against the step's host wall.  The flash kernels of each route in
-    ``paths`` must show up by name (``flash_dq_tf32`` and the like)."""
+PROFILED_FIT_STEPS = 2      # fit steps under the profiler, each mode
+
+
+def _profile_fit(net, x, y, steps=PROFILED_FIT_STEPS):
+    """``steps`` fit calls under the CUDA profiler: (events with device
+    time, host wall ms a step, device busy ms a step)."""
     from torch.profiler import ProfilerActivity, profile
 
+    net.fit(x, y)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        for _ in range(steps):
+            net.fit(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / steps
+    check(busy_ms > 0, "the profiler saw device time")
+    return ev, wall_ms, busy_ms, prof
+
+
+def _host_trace(what, net, x, y, name_card):
+    """One more step with the host's operations traced (the tracing adds
+    its own cost to the host time it reports); the events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         net.fit(x, y)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
-    check(busy_ms > 0, "the profiler saw device time")
+    ev = prof.key_averages()
+    host_ms = sum(e.self_cpu_time_total for e in ev) / 1e3
+    launch = [e for e in ev if e.key == "cudaLaunchKernel"]
+    graphs = sum(e.count for e in ev if e.key == "cudaGraphLaunch")
+    print(f"{what} step host side (traced): self host time {host_ms:.3f} "
+          f"ms; cudaLaunchKernel {sum(e.count for e in launch)} calls, "
+          f"{sum(e.self_cpu_time_total for e in launch) / 1e3:.3f} ms; "
+          f"cudaGraphLaunch {graphs} [{name_card}]")
+    return ev
+
+
+def train_profile(net, x, y, name_card, what, paths, layers):
+    """Where a train step's time goes, over ``PROFILED_FIT_STEPS`` steps:
+    the device's busy time by kernel against the step's host wall.  Each
+    flash kernel must run on its route in ``paths`` (``flash_dq_tf32``
+    and the like), ``layers`` times a step, and the prologue twice that.
+    Returns the profiled launches (fwd, dQ, dK/dV, prologue)."""
+    n = PROFILED_FIT_STEPS
+    ev, wall_ms, busy_ms, _ = _profile_fit(net, x, y, n)
     ours = {"flash fwd": "flash_fwd_", "flash dQ": "flash_dq_",
             "flash dK/dV": "flash_dkv_", "prologue": "drn_kernel"}
     share = {k: sum(e.self_device_time_total for e in ev if pat in e.key)
-             / 1e3 for k, pat in ours.items()}
+             / 1e3 / n for k, pat in ours.items()}
+    counts = {k: sum(e.count for e in ev if pat in e.key)
+              for k, pat in ours.items()}
     # each flash kernel's time is all on its route's kernel
     suffix = {"wgmma": "wgmma", "tf32x3": "tf32", "mma_sync": "mma",
               "cuda_cores": "kernel"}
@@ -1177,13 +1398,18 @@ def train_profile(net, x, y, name_card, what, paths):
                       ("dkv", "flash dK/dV")):
         name = f"flash_{kn}_{suffix[paths[kn]]}"
         on_route = sum(e.self_device_time_total for e in ev
-                       if name in e.key) / 1e3
+                       if name in e.key) / 1e3 / n
         check(on_route > 0 and on_route == share[label],
               f"{what}: the step's {label} ran {name} only ({on_route} of "
               f"{share[label]} ms)")
-    print(f"{what} step (profiled): host wall {wall_ms:.3f} ms, device busy"
-          f" {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) in "
-          f"{sum(e.count for e in ev)} device operations [{name_card}]")
+    want = {"flash fwd": layers * n, "flash dQ": layers * n,
+            "flash dK/dV": layers * n, "prologue": 2 * layers * n}
+    check(counts == want, f"{what}: profiled launches {counts} == {want}")
+    print(f"{what} step (profiled, {n} steps): host wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}) in "
+          f"{sum(e.count for e in ev) / n:.0f} device operations a step; "
+          f"launches {counts} [{name_card}]")
     print(f"{what} step kernels ({paths['fwd']} fwd, {paths['dq']} dQ, "
           f"{paths['dkv']} dK/dV): " + ", ".join(
               f"{k} {v:.3f} ms ({v / busy_ms:.3f})" for k, v in share.items())
@@ -1191,23 +1417,17 @@ def train_profile(net, x, y, name_card, what, paths):
           f"busy; flash {sum(share.values()) - share['prologue']:.3f} ms "
           f"({(sum(share.values()) - share['prologue']) / busy_ms:.3f})")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  top: {e.self_device_time_total / 1e3:9.3f} ms  "
-              f"x{e.count:<5d} {e.key[:90]}")
+        print(f"  top: {e.self_device_time_total / 1e3 / n:9.3f} ms  "
+              f"x{e.count // n:<5d} {e.key[:90]}")
 
-    # the host's side, in a second step: its launches, and no delta
-    # reduction (``_row_delta`` labels itself flash_row_delta)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        net.fit(x, y)
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-    launch = sum(e.count for e in ev if e.key == "cudaLaunchKernel")
-    row_delta = sum(e.count for e in ev if e.key == "flash_row_delta")
-    print(f"{what} step host side (traced): cudaLaunchKernel {launch} "
-          f"calls; _row_delta reductions {row_delta} [{name_card}]")
+    # the host's side: its launches, and no delta reduction
+    # (``_row_delta`` labels itself flash_row_delta)
+    hev = _host_trace(what, net, x, y, name_card)
+    row_delta = sum(e.count for e in hev if e.key == "flash_row_delta")
+    print(f"{what} step: _row_delta reductions {row_delta}")
     check(row_delta == 0, f"the {what} step ran {row_delta} _row_delta "
                           "reductions")
+    return [counts[k] for k in ours]
 
 
 # ------------------------------------------------- phase 5, batch norm
@@ -1358,11 +1578,13 @@ def bn_passes(events):
 
 
 def bn_pass_split(events, label="BatchNorm", prof=None):
-    """Print profiled BatchNorm kernels' device ms and launches by pass."""
+    """Print profiled BatchNorm kernels' device ms and launches by pass, a
+    step (``PROFILED_FIT_STEPS`` profiled); returns the totals."""
     split = bn_passes(events)
-    print(f"  {label} by pass: " + "; ".join(
-        f"{k} {ms:.3f} ms in {n} launches"
-        for k, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0])))
+    n = PROFILED_FIT_STEPS
+    print(f"  {label} by pass, a step: " + "; ".join(
+        f"{k} {ms / n:.3f} ms in {c // n} launches"
+        for k, (ms, c) in sorted(split.items(), key=lambda kv: -kv[1][0])))
     return split
 
 
@@ -1377,24 +1599,42 @@ def resnet_phase(name_card):
           f"{sum(1 for l in net.layers if type(l).__name__ == 'BatchNormalization')}"
           f" BatchNorm layers, batch {RESNET_BATCH}x224x224x3 bf16")
 
-    # output() through the inference kernel
+    # output() through the inference kernel: eagerly, then captured (the
+    # default): the first call warms and captures, later ones replay
+    eager = twin(net, False)
     for c in _bn_counts():
         c.reset()
-    probs = net.output(x)
+    probs = eager.output(x)
     torch.cuda.synchronize()
-    inf_launches = bn.inference_counts.launches
     seen = [c.launches for c in _bn_counts()]
     plain = [c.plain_calls for c in _bn_counts()]
-    print(f"resnet50 output: BatchNorm launches (inference, train fwd, "
-          f"train bwd) {seen}, plain-version calls {plain}")
+    print(f"resnet50 output [eager]: BatchNorm launches (inference, train "
+          f"fwd, train bwd) {seen}, plain-version calls {plain}")
     check(seen == [RESNET_BN_LAYERS, 0, 0], f"output launches {seen}")
     check(plain == [0, 0, 0], f"output plain-version calls {plain}")
     check(tuple(probs.shape) == (RESNET_BATCH, 1000)
           and bool(torch.isfinite(probs).all())
           and (probs.sum(-1) - 1).abs().max().item() < 1e-3,
           "output: finite probabilities of shape [128, 1000]")
-    output_profile("resnet50", lambda: net.output(x), BN_KERNEL_RE,
-                   "BatchNorm", name_card)
+    for c in _bn_counts():
+        c.reset()
+    cap_probs = [net.output(x), net.output(x)]
+    graphs = net._step_graphs
+    seen = [c.launches for c in _bn_counts()]
+    print(f"resnet50 output [captured]: wrapper launches {seen} (warm-up "
+          f"and capture), captures {graphs.captures}, replays "
+          f"{graphs.replays}, the graph holds "
+          f"{list(graphs.graph_launches().values())}")
+    check(seen == [2 * RESNET_BN_LAYERS, 0, 0] and graphs.captures == 1
+          and graphs.replays == 1, "captured output: one capture")
+    check(all(torch.equal(p, probs) for p in cap_probs),
+          "resnet50 output: captured == eager bit for bit")
+    output_profile("resnet50 [eager]", lambda: eager.output(x),
+                   BN_KERNEL_RE, "BatchNorm", name_card, RESNET_BN_LAYERS)
+    inf_launches = output_profile(
+        "resnet50 [captured]", lambda: net.output(x), BN_KERNEL_RE,
+        "BatchNorm", name_card, RESNET_BN_LAYERS)
+    del eager, cap_probs
 
     def logits():
         with torch.no_grad():
@@ -1460,135 +1700,107 @@ def resnet_phase(name_card):
     finally:
         net.conf = bf16_conf
 
-    steps = WARM_STEPS + TIMED_STEPS
     start = {k: {s: v.clone() for s, v in st.items()}
              for k, st in net.net_state.items()}
-    for c in _bn_counts():
-        c.reset()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_s = [], []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        net.fit(x, y)
-        losses.append(net.score_value)      # reads the loss: waits for it
-        step_s.append(time.perf_counter() - t0)
-    launches = [c.launches for c in _bn_counts()]
-    plain = [c.plain_calls for c in _bn_counts()]
-    want = [0, RESNET_BN_LAYERS * steps, RESNET_BN_LAYERS * steps]
-    print(f"resnet50 train: BatchNorm launches over {steps} steps "
-          f"(inference, train fwd, train bwd) {launches}, expected {want}; "
-          f"plain-version calls {plain}")
-    check(launches == want, f"launches {launches} == {want}")
-    check(plain == [0, 0, 0], f"plain-version calls {plain} == 0")
-    check(all(np.isfinite(losses)), f"losses finite {losses}")
+    per_step = {"bn_train_fwd": RESNET_BN_LAYERS,
+                "bn_train_bwd": RESNET_BN_LAYERS}
+    eager, rows = fit_modes("resnet50 train", net, [(x, y)], per_step,
+                            name_card, items=RESNET_BATCH,
+                            flops=3.0 * fwd_flops,
+                            peak=PEAK_OPS[torch.bfloat16])
     stats = [(k, s, v) for k, st in net.net_state.items()
              for s, v in st.items()]
     check(all(bool(torch.isfinite(v).all()) for _, _, v in stats),
           "running stats finite")
     check(all(not torch.equal(v, start[k][s]) for k, s, v in stats),
           "every running stat moved")
-    med = float(np.median(step_s[WARM_STEPS:]))
-    util = 3.0 * fwd_flops / med / PEAK_OPS[torch.bfloat16]
-    print(f"resnet50 train: losses {[round(v, 6) for v in losses]}")
-    print(f"resnet50 train: step median {med * 1e3:.3f} ms over "
-          f"{TIMED_STEPS} steps (after {WARM_STEPS} warm-up); "
-          f"{RESNET_BATCH / med:.1f} images/s; analytic-FLOP utilisation "
-          f"{util:.4f} of 989 TFLOP/s ({3 * fwd_flops / 1e12:.3f} TFLOP a "
-          f"step, 3 x forward); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{name_card}]")
-    step_profile("resnet50", net, x, y, BN_KERNEL_RE, "BatchNorm", name_card,
-                 split=bn_pass_split,
-                 launches=2 * BN_KERNELS_PER_TRAIN_CALL * RESNET_BN_LAYERS)
-    return inf_launches, launches[1], launches[2]
+    kernels = 2 * BN_KERNELS_PER_TRAIN_CALL * RESNET_BN_LAYERS
+    step_profile("resnet50 [eager]", eager, x, y, BN_KERNEL_RE,
+                 "BatchNorm", name_card, split=bn_pass_split,
+                 launches=kernels)
+    split = step_profile("resnet50 [captured]", net, x, y, BN_KERNEL_RE,
+                         "BatchNorm", name_card, split=bn_pass_split,
+                         launches=kernels)
+    # a training call launches one reduction (moments, grad sums) each
+    return inf_launches, split["moments"][1], split["grad sums"][1]
 
 
-def output_profile(what, call, kernel_re, label, name_card):
-    """Where one ``output`` call's time goes: device busy against host
-    wall, and the share of the kernels whose names match ``kernel_re``."""
+def output_profile(what, call, kernel_re, label, name_card, per_call):
+    """Where ``output``'s time goes, over ``PROFILED_FIT_STEPS`` calls:
+    device busy against host wall, and the share of the kernels whose
+    names match ``kernel_re``, which must launch ``per_call`` times a
+    call.  Returns their launches."""
     from torch.profiler import ProfilerActivity, profile
 
+    n = PROFILED_FIT_STEPS
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        call()
+        for _ in range(n):
+            call()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
     ours = [e for e in ev if re.search(kernel_re, e.key)]
-    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
+    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3 / n
+    launches = sum(e.count for e in ours)
     check(ours_ms > 0, f"the profiled {what} output ran the {label} kernels")
-    print(f"{what} output (profiled): host wall {wall_ms:.3f} ms, device "
-          f"busy {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) "
-          f"in {sum(e.count for e in ev)} device operations; {label} "
-          f"kernels {ours_ms:.3f} ms ({ours_ms / busy_ms:.3f} of busy) in "
-          f"{sum(e.count for e in ours)} launches [{name_card}]")
+    check(launches == per_call * n, f"{what} output: {launches} {label} "
+                                    f"launches == {per_call} x {n}")
+    print(f"{what} output (profiled, {n} calls): host wall {wall_ms:.3f} "
+          f"ms, device busy {busy_ms:.3f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}) in "
+          f"{sum(e.count for e in ev) / n:.0f} device operations a call; "
+          f"{label} kernels {ours_ms:.3f} ms ({ours_ms / busy_ms:.3f} of "
+          f"busy) in {launches} launches [{name_card}]")
+    return launches
 
 
 def step_profile(what, net, x, y, kernel_re, label, name_card, split=None,
                  launches=None):
-    """Where one train step's time goes: device busy against host wall,
-    the share of the kernels whose names match ``kernel_re`` (split by
-    ``split(events, label, prof)`` where given; ``launches`` of them where
-    given), copy kernels, then the host's operations in a second traced
+    """Where a train step's time goes, over ``PROFILED_FIT_STEPS`` steps:
+    device busy against host wall, the share of the kernels whose names
+    match ``kernel_re`` (``launches`` of them a step where given; split by
+    ``split(events, label, prof)`` where given, whose result is
+    returned), copy kernels, then the host's operations in a traced
     step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        net.fit(x, y)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
-    check(busy_ms > 0, "the profiler saw device time")
+    n = PROFILED_FIT_STEPS
+    ev, wall_ms, busy_ms, prof = _profile_fit(net, x, y, n)
     ours = [e for e in ev if re.search(kernel_re, e.key)]
-    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3
+    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3 / n
     copies = [e for e in ev if "copy" in e.key.lower()]
-    print(f"{what} step (profiled): host wall {wall_ms:.3f} ms, device "
-          f"busy {busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}) "
-          f"in {sum(e.count for e in ev)} device operations; {label} "
-          f"kernels {ours_ms:.3f} ms ({ours_ms / busy_ms:.3f} of busy) in "
-          f"{sum(e.count for e in ours)} launches; copy kernels "
-          f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms in "
-          f"{sum(e.count for e in copies)} launches [{name_card}]")
+    print(f"{what} step (profiled, {n} steps): host wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}) in "
+          f"{sum(e.count for e in ev) / n:.0f} device operations a step; "
+          f"{label} kernels {ours_ms:.3f} ms ({ours_ms / busy_ms:.3f} of "
+          f"busy) in {sum(e.count for e in ours) / n:.0f} launches a step; "
+          f"copy kernels "
+          f"{sum(e.self_device_time_total for e in copies) / 1e3 / n:.3f} "
+          f"ms in {sum(e.count for e in copies) / n:.0f} launches "
+          f"[{name_card}]")
     check(ours_ms > 0, f"the profiled {what} step ran the {label} kernels")
     n_ours = sum(e.count for e in ours)
-    check(launches is None or n_ours == launches,
-          f"the profiled {what} step launched {n_ours} {label} kernels, "
-          f"expected {launches}")
+    check(launches is None or n_ours == launches * n,
+          f"the profiled {what} steps launched {n_ours} {label} kernels, "
+          f"expected {launches} x {n}")
     for e in sorted(ours, key=lambda e: -e.self_device_time_total):
-        print(f"  {label}: {e.self_device_time_total / 1e3:9.3f} ms  "
-              f"x{e.count:<5d} {e.key[:100]}")
-    if split is not None:
-        split(ours, label, prof)
+        print(f"  {label}: {e.self_device_time_total / 1e3 / n:9.3f} ms  "
+              f"x{e.count // n:<5d} {e.key[:100]}")
+    out = split(ours, label, prof) if split is not None else None
     for e in sorted(copies, key=lambda e: -e.self_device_time_total)[:4]:
-        print(f"  copy: {e.self_device_time_total / 1e3:9.3f} ms  "
-              f"x{e.count:<5d} {e.key[:100]}")
+        print(f"  copy: {e.self_device_time_total / 1e3 / n:9.3f} ms  "
+              f"x{e.count // n:<5d} {e.key[:100]}")
     for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"  top: {e.self_device_time_total / 1e3:9.3f} ms  "
-              f"x{e.count:<5d} {e.key[:100]}")
-
-    # the host's side: one more step with the host's operations traced
-    # too (the tracing adds its own cost to the host time it reports)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        net.fit(x, y)
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-    host_ms = sum(e.self_cpu_time_total for e in ev) / 1e3
-    launch = [e for e in ev if e.key == "cudaLaunchKernel"]
-    print(f"{what} step host side (traced): self host time {host_ms:.3f} "
-          f"ms; cudaLaunchKernel {sum(e.count for e in launch)} calls, "
-          f"{sum(e.self_cpu_time_total for e in launch) / 1e3:.3f} ms "
-          f"[{name_card}]")
-    for e in sorted(ev, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"  top: {e.self_device_time_total / 1e3 / n:9.3f} ms  "
+              f"x{e.count // n:<5d} {e.key[:100]}")
+    hev = _host_trace(what, net, x, y, name_card)
+    for e in sorted(hev, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"  host: {e.self_cpu_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}")
+    return out
 
 
 # ------------------------------------------------------------ phase 7, LRN
@@ -1705,19 +1917,23 @@ def _sequential_flops(net, batch) -> int:
 
 
 def lrn_layer_split(events, label, prof):
-    """Print a profiled AlexNet step's LRN kernels by layer, from the
-    trace's launch order: the forward runs lrn1 then lrn2, the backward
-    lrn2 then lrn1."""
+    """Print the first profiled AlexNet step's LRN kernels by layer, from
+    the trace's launch order: the forward runs lrn1 then lrn2, the
+    backward lrn2 then lrn1.  Returns the launches (forward, backward)
+    over the profiled steps."""
     runs = sorted((e for e in prof.events() if e.self_device_time_total > 0
                    and re.search(LRN_STEP_KERNEL_RE, e.name)),
                   key=lambda e: e.time_range.start)
     fwd = [e.self_device_time_total / 1e3 for e in runs if "fwd" in e.name]
     bwd = [e.self_device_time_total / 1e3 for e in runs if "bwd" in e.name]
-    check(len(fwd) == len(bwd) == ALEXNET_LRN_LAYERS,
-          f"{label} launches by direction {len(fwd)}, {len(bwd)}")
+    want = ALEXNET_LRN_LAYERS * PROFILED_FIT_STEPS
+    check(len(fwd) == len(bwd) == want,
+          f"{label} launches by direction {len(fwd)}, {len(bwd)} == {want}")
     print(f"  {label} by layer: " + "; ".join(
-        f"lrn{i + 1} fwd {fwd[i]:.4f} ms, bwd {bwd[-1 - i]:.4f} ms"
+        f"lrn{i + 1} fwd {fwd[i]:.4f} ms, bwd "
+        f"{bwd[ALEXNET_LRN_LAYERS - 1 - i]:.4f} ms"
         for i in range(ALEXNET_LRN_LAYERS)))
+    return len(fwd), len(bwd)
 
 
 def _lrn_counts():
@@ -1736,15 +1952,16 @@ def alexnet_phase(name_card):
           f"batch {ALEXNET_BATCH}x224x224x3 bf16")
     check(n_params == 50844008, f"alexnet params {n_params}")
 
-    # output() through the forward kernel
+    # output() through the forward kernel: eagerly, then captured
+    eager = twin(net, False)
     for c in _lrn_counts():
         c.reset()
-    probs = net.output(x)
+    probs = eager.output(x)
     torch.cuda.synchronize()
     out_launches = [c.launches for c in _lrn_counts()]
     plain = [c.plain_calls for c in _lrn_counts()]
-    print(f"alexnet output: LRN launches (forward, backward) {out_launches},"
-          f" plain-version calls {plain}")
+    print(f"alexnet output [eager]: LRN launches (forward, backward) "
+          f"{out_launches}, plain-version calls {plain}")
     check(out_launches == [ALEXNET_LRN_LAYERS, 0],
           f"output launches {out_launches}")
     check(plain == [0, 0], f"output plain-version calls {plain}")
@@ -1752,6 +1969,15 @@ def alexnet_phase(name_card):
           and bool(torch.isfinite(probs).all())
           and (probs.sum(-1) - 1).abs().max().item() < 1e-3,
           "output: finite probabilities of shape [128, 1000]")
+    cap_probs = [net.output(x), net.output(x)]
+    check(all(torch.equal(p, probs) for p in cap_probs)
+          and net._step_graphs.captures == 1,
+          "alexnet output: captured == eager bit for bit, one capture")
+    output_profile("alexnet [eager]", lambda: eager.output(x),
+                   r"\blrn_fwd_vec\b", "LRN", name_card, ALEXNET_LRN_LAYERS)
+    output_profile("alexnet [captured]", lambda: net.output(x),
+                   r"\blrn_fwd_vec\b", "LRN", name_card, ALEXNET_LRN_LAYERS)
+    del eager, cap_probs
 
     def logits(helpers_on):
         helpers.enable_helpers(helpers_on)
@@ -1833,38 +2059,145 @@ def alexnet_phase(name_card):
           f"least bytes a train step {lrn_bytes / 1e9:.3f} GB = "
           f"{lrn_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
 
-    steps = WARM_STEPS + TIMED_STEPS
-    for c in _lrn_counts():
-        c.reset()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_s = [], []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        net.fit(x, y)
-        losses.append(net.score_value)      # reads the loss: waits for it
-        step_s.append(time.perf_counter() - t0)
-    launches = [c.launches for c in _lrn_counts()]
-    plain = [c.plain_calls for c in _lrn_counts()]
-    want = [ALEXNET_LRN_LAYERS * steps] * 2
-    print(f"alexnet train: LRN launches over {steps} steps (forward, "
-          f"backward) {launches}, expected {want}; plain-version calls "
-          f"{plain}")
-    check(launches == want, f"launches {launches} == {want}")
-    check(plain == [0, 0], f"plain-version calls {plain} == 0")
-    check(all(np.isfinite(losses)), f"losses finite {losses}")
-    med = float(np.median(step_s[WARM_STEPS:]))
-    util = 3.0 * fwd_flops / med / PEAK_OPS[torch.bfloat16]
-    print(f"alexnet train: losses {[round(v, 6) for v in losses]}")
-    print(f"alexnet train: step median {med * 1e3:.3f} ms over "
-          f"{TIMED_STEPS} steps (after {WARM_STEPS} warm-up); "
-          f"{ALEXNET_BATCH / med:.1f} images/s; analytic-FLOP utilisation "
-          f"{util:.4f} of 989 TFLOP/s ({3 * fwd_flops / 1e12:.3f} TFLOP a "
-          f"step, 3 x forward); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{name_card}]")
-    step_profile("alexnet", net, x, y, LRN_STEP_KERNEL_RE, "LRN", name_card,
-                 split=lrn_layer_split, launches=2 * ALEXNET_LRN_LAYERS)
-    return launches
+    dropout_masks(net, name_card)
+    per_step = {"lrn_fwd": ALEXNET_LRN_LAYERS, "lrn_bwd": ALEXNET_LRN_LAYERS}
+    eager, rows = fit_modes("alexnet train", net, [(x, y)], per_step,
+                            name_card, items=ALEXNET_BATCH,
+                            flops=3.0 * fwd_flops,
+                            peak=PEAK_OPS[torch.bfloat16])
+    step_profile("alexnet [eager]", eager, x, y, LRN_STEP_KERNEL_RE, "LRN",
+                 name_card, split=lrn_layer_split,
+                 launches=2 * ALEXNET_LRN_LAYERS)
+    return step_profile("alexnet [captured]", net, x, y, LRN_STEP_KERNEL_RE,
+                        "LRN", name_card, split=lrn_layer_split,
+                        launches=2 * ALEXNET_LRN_LAYERS)
+
+
+def dropout_masks(net, name_card):
+    """AlexNet's two dropout masks as a train step draws them: the layer
+    keys split from the step's device key, each mask counter-based on
+    the card.  Drawn in a captured graph that reads a static key, as the
+    train graph does: for two steps' keys from the net's key stream, the
+    replayed masks equal the eager draws from host keys of the same
+    seeds, and the two steps' masks differ.  Prints what the draw costs
+    a step on the card (CUDA events)."""
+    from deeplearning4j_tpu_torch.backend import rng as rng_mod
+    from deeplearning4j_tpu_torch.backend.device import (
+        capture_graph, warm_on_side_stream,
+    )
+
+    drops = [(i, l) for i, l in enumerate(net.layers) if l.dropout > 0.0]
+    n = len(net.layers)
+    key = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def draw():
+        keys = rng_mod.split(key, n)
+        return [rng_mod.bernoulli(keys[i], 1.0 - l.dropout,
+                                  (ALEXNET_BATCH, l.n_in), "cuda")
+                for i, l in drops]
+
+    warm_on_side_stream(draw, torch.device("cuda"))
+    graph, masks = capture_graph(draw)
+    stream = twin(net, False)._keys      # the net's next step keys
+    seeds = [rng_mod.seed_of(stream.next()) for _ in range(2)]
+    drawn = []
+    for seed in seeds:
+        key.fill_(seed)
+        graph.replay()
+        host = rng_mod.split(torch.Generator().manual_seed(seed), n)
+        want = [rng_mod.bernoulli(host[i], 1.0 - l.dropout,
+                                  (ALEXNET_BATCH, l.n_in), "cuda")
+                for i, l in drops]
+        check(all(torch.equal(m, w) for m, w in zip(masks, want)),
+              "alexnet: the captured masks equal the eager ones")
+        drawn.append([m.clone() for m in masks])
+    check(all(not torch.equal(a, b) for a, b in zip(*drawn)),
+          "alexnet: two steps' masks differ")
+    keep = [m.float().mean().item() for m in drawn[0]]
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    s.record()
+    for _ in range(KERNEL_ITERS):
+        graph.replay()
+    e.record()
+    e.synchronize()
+    ms = s.elapsed_time(e) / KERNEL_ITERS
+    print(f"alexnet dropout: masks {[(ALEXNET_BATCH, l.n_in) for _, l in drops]}"
+          f" of step keys {seeds}: captured == eager, the two steps differ; "
+          f"keep rates {[round(k, 4) for k in keep]}; the counter-based "
+          f"draw of both masks (key split included) {ms:.4f} ms a step "
+          f"[{name_card}]")
+    del graph, masks, drawn
+
+
+def lenet_phase(name_card):
+    """LeNet (zoo ``lenet``: MNIST-shaped 784 inputs, 10 classes, float32,
+    Nesterov at 0.01, l2 5e-4) at batch 128 on ``RandomState(0)`` host
+    batches, the dispatch-bound configuration the reference's
+    ``fit_scanned`` was written for: 7 ``fit`` steps captured and eager
+    (``fit_modes``); then three passes over 24 batches by eager ``fit``,
+    captured ``fit`` and ``fit_scanned(scan_steps=8)`` from one state,
+    the third pass timed: ms a step for each, and ``fit_scanned``'s
+    params, updater state and loss equal captured ``fit``'s bit for
+    bit."""
+    net = lenet(device="cuda")
+    rs = np.random.RandomState(0)
+    batches = [(rs.rand(LENET_BATCH, 784).astype(np.float32),
+                np.eye(10, dtype=np.float32)[rs.randint(0, 10, LENET_BATCH)])
+               for _ in range(LENET_BATCHES)]
+    flops = 3.0 * _sequential_flops(net, LENET_BATCH)
+    print(f"lenet: {net.num_params()} params, batch {LENET_BATCH}x784 "
+          f"float32, {LENET_BATCHES} host batches")
+    base = twin(net, True)
+    _, rows = fit_modes("lenet train", net, batches, {}, name_card,
+                        items=LENET_BATCH, flops=flops,
+                        peak=PEAK_OPS[torch.float32])
+    # where cuDNN's choices differ run to run, the comparison of
+    # fit_scanned with fit runs deterministic, as fit_modes' did
+    exact = rows["agree"] == "bit for bit"
+    torch.backends.cudnn.deterministic = not exact
+    eager, fitted, scanned = (twin(base, False), twin(base, True),
+                              twin(base, True))
+    del base
+
+    def per_batch(n):
+        for x, y in batches:
+            n.fit(x, y)
+
+    runs = {"eager fit": (eager, lambda: per_batch(eager)),
+            "captured fit": (fitted, lambda: per_batch(fitted)),
+            "fit_scanned": (scanned, lambda: scanned.fit_scanned(
+                batches, scan_steps=LENET_SCAN))}
+    ms, passes = {}, 3
+    try:
+        for label, (n, run) in runs.items():
+            # two passes first: the capture, and every slot of the pinned
+            # ring allocated
+            for _ in range(passes - 1):
+                run()
+            float(n.score_value)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            float(n.score_value)
+            ms[label] = (time.perf_counter() - t0) * 1e3 / LENET_BATCHES
+    finally:
+        torch.backends.cudnn.deterministic = False
+    gaps = state_gaps(scanned, fitted)
+    print(f"lenet: ms a step over {LENET_BATCHES} batches (third pass"
+          f"{'' if exact else ', cudnn.deterministic'}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; fit_scanned against captured fit: {len(gaps)} leaves "
+          f"differ, losses {scanned.score_value} vs {fitted.score_value}; "
+          f"captures {scanned._step_graphs.captures}, replays "
+          f"{scanned._step_graphs.replays} [{name_card}]")
+    check(scanned.iteration == fitted.iteration == passes * LENET_BATCHES,
+          "lenet: iterations")
+    check(not gaps and scanned.score_value == fitted.score_value,
+          f"lenet: fit_scanned == fit bit for bit ({sorted(gaps)[:4]})")
+    check(scanned._step_graphs.captures == 1, "lenet: one capture")
+    return ms
 
 
 def main() -> int:
@@ -1896,6 +2229,8 @@ def main() -> int:
     bn_launches = resnet_phase(name_card)
     torch.cuda.empty_cache()
     lrn_launches = alexnet_phase(name_card)
+    torch.cuda.empty_cache()
+    lenet_phase(name_card)
     d = rows["decode"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",

@@ -10,7 +10,9 @@ would report host numbers under the card's name.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import gc
+import threading
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -59,15 +61,57 @@ def compute_dtype(name: Optional[str]) -> torch.dtype:
             f"unsupported dtype '{name}'; known: {sorted(_DTYPES)}") from None
 
 
-def warm_on_side_stream(fn, device: torch.device) -> None:
-    """Run ``fn()`` once on a side stream of ``device`` and join it back:
+_side_streams: Dict[int, "torch.cuda.Stream"] = {}
+
+
+class _Capture(threading.local):
+    """Per thread: a capture lets other threads run on (its error mode is
+    ``thread_local``), so only the capturing thread sees its scratch."""
+
+    scratch: Optional[dict] = None     # the scratch of the capture under way
+
+
+_capture = _Capture()
+
+
+def side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """One side stream per device, made at first use: warm-ups reuse it,
+    so per-stream caches (BatchNorm's arrival counters) stay bounded."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    stream = _side_streams.get(index)
+    if stream is None:
+        stream = _side_streams[index] = torch.cuda.Stream(index)
+    return stream
+
+
+def warm_on_side_stream(fn, device: torch.device):
+    """Run ``fn()`` once on the device's side stream and join it back:
     the call before a capture, so that library handles and workspaces
-    come up outside the captured region."""
-    side = torch.cuda.Stream(device)
+    come up outside the captured region.  Returns what ``fn`` returned."""
+    side = side_stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
-        fn()
+        out = fn()
     torch.cuda.current_stream(device).wait_stream(side)
+    return out
+
+
+def capture_scratch(key, make, fits=None) -> Optional[torch.Tensor]:
+    """Inside a ``capture_graph``: the capture's scratch tensor ``key``,
+    made by ``make()`` at its first use in the capture (so that its
+    initialisation is a node of the graph, run at every replay) and made
+    again when ``fits(tensor)`` is false; every one made is kept alive as
+    long as the graph.  Outside a capture on this thread: None."""
+    scratch = _capture.scratch
+    if scratch is None:
+        return None
+    t = scratch.get(key)
+    if t is None or (fits is not None and not fits(t)):
+        t = scratch[key] = make()
+        scratch.setdefault(None, []).append(t)
+    return t
 
 
 def capture_graph(fn, pool=None):
@@ -75,9 +119,65 @@ def capture_graph(fn, pool=None):
     when given; the caller warms ``fn`` first (``warm_on_side_stream``).
     ``fn`` runs exactly once, inside the capture.  Returns (the graph,
     what the captured call returned: the tensors every replay rewrites).
-    A capture that fails raises."""
+    The graph keeps the capture's scratch tensors (``capture_scratch``)
+    as ``graph.scratch``.  A capture that fails raises.
+
+    The garbage collector is held off for the capture: a dropped net
+    lives on in a reference cycle with its captured graphs and pinned
+    staging buffers, and releasing them while a capture is under way
+    invalidates the capture (``tests/test_torch_cuda.py``,
+    ``test_a_collected_cycle_does_not_break_a_capture``)."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool,
-                          capture_error_mode="thread_local"):
-        out = fn()
+    _capture.scratch = scratch = {}
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        if collecting:
+            gc.enable()
+        graph.scratch, _capture.scratch = scratch.get(None, []), None
     return graph, out
+
+
+class PinnedRing:
+    """A ring of pinned host staging slots for copies that run ahead of
+    the host: a slot is handed out again only after the event recorded
+    behind its last copies has completed, so a queued host-to-device
+    copy never reads a buffer the host has already rewritten.  A slot
+    holds one pinned tensor per name, remade when the shape or type
+    changes.  ``event`` makes the events (``torch.cuda.Event``; a test
+    passes a fake)."""
+
+    def __init__(self, depth: int = 4, event=None):
+        self._slots = [{} for _ in range(depth)]
+        self._events = [None] * depth
+        self._next = 0
+        self._event = event
+
+    def acquire(self) -> int:
+        """The next slot, once its last copies are done."""
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        ev = self._events[i]
+        if ev is not None and not ev.query():
+            ev.synchronize()
+        self._events[i] = None
+        return i
+
+    def buffer(self, slot: int, name, shape, dtype) -> torch.Tensor:
+        """Slot ``slot``'s pinned tensor ``name`` of ``shape``/``dtype``."""
+        bufs = self._slots[slot]
+        t = bufs.get(name)
+        if t is None or tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            t = bufs[name] = torch.empty(tuple(shape), dtype=dtype,
+                                         pin_memory=True)
+        return t
+
+    def release(self, slot: int) -> None:
+        """Record an event behind the copies just queued from ``slot``."""
+        ev = (self._event or torch.cuda.Event)()
+        ev.record()
+        self._events[slot] = ev

@@ -39,6 +39,31 @@ def helpers_disabled():
         _enabled = was
 
 
+def enabled() -> bool:
+    """Whether helper discovery is on (a captured program is specialised
+    to it)."""
+    return _enabled
+
+
+def kernel_counts() -> Dict[str, object]:
+    """Every kernel wrapper's launch and plain-version counts
+    (``cuda_build.Counts``), by kernel name."""
+    from deeplearning4j_tpu_torch.helpers import (
+        batch_norm, flash_attention, fused_epilogue, lrn, paged_attention,
+    )
+
+    return {"flash_fwd": flash_attention.fwd_counts,
+            "flash_dq": flash_attention.dq_counts,
+            "flash_dkv": flash_attention.dkv_counts,
+            "prologue": fused_epilogue.counts,
+            "paged_decode": paged_attention.counts,
+            "bn_inference": batch_norm.inference_counts,
+            "bn_train_fwd": batch_norm.train_fwd_counts,
+            "bn_train_bwd": batch_norm.train_bwd_counts,
+            "lrn_fwd": lrn.fwd_counts,
+            "lrn_bwd": lrn.bwd_counts}
+
+
 def register_helper(kind: str, helper: object) -> None:
     _registry[kind] = helper
 

@@ -36,6 +36,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.backend.device import capture_scratch
 from deeplearning4j_tpu_torch.helpers import cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "batch_norm.cu"
@@ -204,7 +205,17 @@ def _arrival_counters(dev, stream: int, slices: int) -> torch.Tensor:
     """The reductions' arrival counters for ``stream`` on ``dev``: int32,
     one a channel slice, zeroed once; each call leaves them zero (the
     last block of a slice resets its counter), so one buffer serves every
-    call on the stream, and a captured call can be replayed."""
+    call on the stream.  Inside a CUDA-graph capture the buffer is the
+    capture's own (``capture_scratch``): zeroed by a node of the graph at
+    the start of every replay and read by that graph alone, whatever
+    stream replays it and whatever other graphs were captured on the
+    capture stream."""
+    scratch = capture_scratch(
+        ("bn_arrivals", dev.index),
+        lambda: torch.zeros(max(slices, 256), dtype=torch.int32, device=dev),
+        fits=lambda t: t.numel() >= slices)
+    if scratch is not None:
+        return scratch
     key = (dev.index, stream)
     buf = _arrivals.get(key)
     if buf is None or buf.numel() < slices:

@@ -187,14 +187,15 @@ class _DropResNorm(torch.autograd.Function):
 def dropout_residual_norm(h: torch.Tensor, res: Optional[torch.Tensor],
                           gamma: torch.Tensor, beta: torch.Tensor, *,
                           eps: float = 1e-5, rate: float = 0.0,
-                          generator: Optional[torch.Generator] = None,
+                          generator: Optional[rng_mod.Key] = None,
                           train: bool = False,
                           mask: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """``dropout(LayerNorm_affine(res + h))`` on [..., C]; ``res=None`` is
     the prologue form.  Dropout applies when ``mask`` is given (nonzero
     keeps), or when ``train`` and ``rate > 0`` (the mask is then drawn on
-    h's device from ``generator``, as ``Layer.maybe_dropout`` draws it)."""
+    h's device from ``generator``, a host or device key, as
+    ``Layer.maybe_dropout`` draws it)."""
     shape = h.shape
     c = shape[-1]
     keep = 1.0 - rate

@@ -1,8 +1,12 @@
 """What both facades share — counterpart of
 ``deeplearning4j_tpu/models/common.py``: nested-dict tree helpers, the
 lazy ``score_value``, the flat parameter vector and ``clone``, the checks
-before training, the SGD step (loss -> autograd -> updater -> in-place
-update -> new layer state), the stream caches of ``rnn_time_step`` and
+before training, the train step split into its host part
+(``train_step``: the step's key seed and updater scalars, then a
+captured graph's replay on the card or the body eagerly) and its device
+body (``sgd_step``: loss -> autograd -> updater -> in-place update ->
+layer state copied in place), ``infer`` for ``output``, the
+``fit_scanned`` windows, the stream caches of ``rnn_time_step`` and
 ``generate`` (seeding, the host-side capacity check) and the raise for
 what is not ported yet."""
 
@@ -11,7 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.backend import rng as rng_mod
 from deeplearning4j_tpu_torch.backend.device import compute_dtype
+from deeplearning4j_tpu_torch.models import capture as cap
 from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.optimize import updaters as upd
 
@@ -26,11 +32,25 @@ def cast_tree(tree, dtype: torch.dtype):
     return tree
 
 
+def tree_paths(tree, prefix=()):
+    """(key path, leaf) of every leaf of a nested dict, in sorted-key
+    order; a None leaf (an absent mask) is skipped."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in tree_paths(tree[k], prefix + (k,))]
+    return [] if tree is None else [(prefix, tree)]
+
+
 def tree_leaves(tree):
     """The tensors of a nested dict, in sorted-key order."""
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def tree_map(fn, tree):
+    """``tree``'s shape with ``fn(leaf)`` at every leaf; None stays None."""
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
 
 
 def _tree_like(template, leaves):
@@ -225,12 +245,32 @@ def check_trainable(net) -> None:
         raise RuntimeError("call init() (or load a model) before fit()")
 
 
-def sgd_step(net, loss_of) -> torch.Tensor:
-    """One step of ``net``: ``loss_of(params) -> (loss, new_net_state)``,
-    gradients of the trainable leaves, the updater (with each layer's
-    ``learning_rate`` override), the update applied in place, and the new
-    layer state written back.  Returns the loss as a device scalar (no
-    host sync)."""
+def copy_tree_(dst, src) -> None:
+    """Write ``src``'s tensors into ``dst``'s (same nested-dict shape) in
+    place: a captured step reads and writes the tensors it captured.  A
+    subtree or leaf that ``dst`` lacks is inserted."""
+    for k, v in src.items():
+        d = dst.get(k)
+        if d is None:
+            dst[k] = v
+        elif isinstance(v, dict):
+            copy_tree_(d, v)
+        elif d is not v:
+            d.copy_(v)
+
+
+def lr_overrides(net):
+    return {l.name: l.learning_rate for l in net.layers
+            if l.learning_rate is not None}
+
+
+def sgd_step(net, loss_of, scalars) -> torch.Tensor:
+    """The device body of one step of ``net``: ``loss_of(params) ->
+    (loss, new_net_state)``, gradients of the trainable leaves, the
+    updater (``scalars``: ``updaters.step_scalars``' values as 0-d
+    tensors), the update subtracted in place, and the new updater and
+    layer state copied into the old tensors.  Returns the loss as a
+    device scalar (no host sync)."""
     train = trainable(net.params)
     leaves = tree_leaves(train)
     for p in leaves:
@@ -243,15 +283,124 @@ def sgd_step(net, loss_of) -> torch.Tensor:
             p.requires_grad_(False)
     grads = _tree_like(train, [torch.zeros_like(p) if g is None else g
                                for p, g in zip(leaves, grads)])
-    lr_overrides = {l.name: l.learning_rate for l in net.layers
-                    if l.learning_rate is not None}
     with torch.no_grad():
-        updates, net.updater_state = upd.update(
+        updates, new_ustate = upd.update(
             net.conf.updater, grads, net.updater_state, net.iteration,
-            lr_overrides, params=train)
+            params=train, scalars=scalars)
         upd.apply_updates_(net.params, updates)
-    net.net_state = new_state
+        copy_tree_(net.updater_state, new_ustate)
+        copy_tree_(net.net_state, new_state)
     return loss.detach()
+
+
+def _scalar_dtype(net) -> torch.dtype:
+    """float64 when the trainable params are, else float32."""
+    leaves = tree_leaves(trainable(net.params))
+    return (torch.float64 if leaves and leaves[0].dtype == torch.float64
+            else torch.float32)
+
+
+def _step_scalars(net, iteration):
+    return upd.step_scalars(net.conf.updater, iteration,
+                            list(trainable(net.params)), lr_overrides(net))
+
+
+def _on(tree, device):
+    return tree_map(lambda t: torch.as_tensor(t, device=device), tree)
+
+
+def train_step(net, body, inputs) -> None:
+    """The host part of one step: the step's key seed from the net's key
+    stream and its updater scalars from ``net.iteration``, then
+    ``body(**inputs, key=, scalars=)`` — through the net's captured graph
+    on the card (the inputs staged into its static tensors), eagerly on
+    the CPU or with ``net._capture`` off.  Records the step:
+    ``score_value`` a copy of the loss on the device (a replay's static
+    loss is rewritten by the next), ``iteration`` one further."""
+    seed = rng_mod.seed_of(net._keys.next())
+    vals = _step_scalars(net, net.iteration)
+    dtype = _scalar_dtype(net)
+
+    def record(loss):
+        net.score_value = loss.clone()   # fetched lazily on read
+        net.iteration += 1
+
+    if cap.captures(net):
+        graphs = cap.step_graphs(net)
+        inputs = tree_map(cap.host_or_device, inputs)
+        prog = graphs.program("train", body, inputs, len(vals), dtype)
+        prog.scalar_names = list(vals)
+        graphs.stage(prog, inputs, seed, list(vals.values()))
+        graphs.run(prog, record)
+        return
+    dev = net.device
+    sc = torch.tensor(list(vals.values()), dtype=dtype, device=dev)
+    record(body(**_on(inputs, dev), key=rng_mod.device_key(seed, dev),
+                scalars=dict(zip(vals, sc.unbind(0)))))
+
+
+def infer(net, body, inputs):
+    """``body(**inputs)`` at inference: a captured graph's replay on the
+    card (a copy of its output to the caller), eagerly otherwise."""
+    if cap.captures(net):
+        graphs = cap.step_graphs(net)
+        inputs = tree_map(cap.host_or_device, inputs)
+        prog = graphs.program("output", body, inputs)
+        graphs.stage(prog, inputs)
+        out = graphs.run(prog)
+        return ([o.clone() for o in out] if isinstance(out, list)
+                else out.clone())
+    with torch.no_grad():
+        return body(**_on(inputs, net.device), key=None, scalars=None)
+
+
+def check_scannable(net, scan_steps: int) -> None:
+    """``fit_scanned``'s guards (reference ``sequential.py:356-368``)."""
+    conf = net.conf
+    if scan_steps < 1:
+        raise ValueError(f"scan_steps={scan_steps} must be >= 1")
+    if conf.optimization_algo != "stochastic_gradient_descent":
+        raise ValueError("fit_scanned requires SGD optimization")
+    if conf.backprop_type == "truncated_bptt":
+        raise ValueError("fit_scanned does not support TBPTT")
+    if conf.num_iterations != 1:
+        # fit() repeats each batch num_iterations times; a window runs
+        # each batch once
+        raise ValueError("fit_scanned requires num_iterations == 1 "
+                         f"(got {conf.num_iterations})")
+    check_trainable(net)
+
+
+def fit_scanned(net, batches, scan_steps: int, epochs: int, unpack,
+                one_step) -> None:
+    """Consecutive same-shape batches in windows of ``scan_steps``
+    (reference ``fit_scanned``): ``unpack(batch) -> (inputs dict,
+    fmask, lmask)``; a mask raises before its window runs, a shape change
+    closes the window, and each batch of a window runs through
+    ``one_step(inputs)``, the per-batch step (a replay of the captured
+    step on the card): the same updates and key stream as ``fit``."""
+    check_scannable(net, scan_steps)
+
+    def shapes(inputs):
+        return [(path, np.shape(t)) for path, t in tree_paths(inputs)]
+
+    def flush(window):
+        for inputs in window:
+            one_step(inputs)
+        window.clear()
+
+    for _ in range(epochs):
+        window = []
+        for batch in batches:
+            inputs, fm, lm = unpack(batch)
+            if fm is not None or lm is not None:
+                raise ValueError("fit_scanned does not support masks")
+            if window and shapes(inputs) != shapes(window[0]):
+                flush(window)
+            window.append(inputs)
+            if len(window) == scan_steps:
+                flush(window)
+        flush(window)
 
 
 def unpack_batch(batch):

@@ -28,6 +28,9 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.backend.device import (
     capture_graph, warm_on_side_stream,
 )
+from deeplearning4j_tpu_torch.models.capture import (  # noqa: F401
+    GRAPH_CACHE_SIZE, cached,
+)
 from deeplearning4j_tpu_torch.models.common import (
     check_cache_capacity, seed_stream_caches, tree_leaves,
 )
@@ -178,10 +181,6 @@ def build_decode_fn(net, steps: int, *, temperature: float = 1.0,
                     vocab_size, expand_ids)
 
 
-# captured loops kept on a net; the least recently used goes first
-GRAPH_CACHE_SIZE = 8
-
-
 def _static_params(net):
     """The net's parameters in the compute dtype at the addresses every
     cached loop of the net reads: one tree a net, shared by all its
@@ -296,7 +295,8 @@ def generate(net, prompt_ids, steps: int, *, temperature: float = 1.0,
     the linear caches: ``t_prompt + steps - 1`` positions, checked once
     on the host (rolling caches never overflow).  The captured loop is
     cached on the net per (steps, policy, encoding, batch, prompt
-    length; at most ``GRAPH_CACHE_SIZE``), so a repeated call captures
+    length), at most ``GRAPH_CACHE_SIZE`` loops in the net's one graph
+    cache (``capture.cached``), so a repeated call captures
     nothing; every loop reads the net's one shared parameter tree.
     Returns [B, steps] int64 ids."""
     named_layers = named_layers_of(net)
@@ -305,10 +305,8 @@ def generate(net, prompt_ids, steps: int, *, temperature: float = 1.0,
     b, t_prompt = prompt_ids.shape
     key = ("decode", steps, temperature, top_k, top_p, one_hot, vocab_size,
            b, t_prompt)
-    gen = net._graph_cache.pop(key, None)
-    if gen is None:
-        while len(net._graph_cache) >= GRAPH_CACHE_SIZE:
-            net._graph_cache.pop(next(iter(net._graph_cache)))
+
+    def make():
         carries = seed_stream_caches(named_layers, {}, b,
                                      net.conf.compute_dtype, net.device)
         # the final token is never fed back, so the caches hold
@@ -317,6 +315,7 @@ def generate(net, prompt_ids, steps: int, *, temperature: float = 1.0,
         fn = build_decode_fn(net, steps, temperature=temperature,
                              top_k=top_k, top_p=top_p, one_hot=one_hot,
                              vocab_size=vocab_size)
-        gen = _Generation(net, fn, carries, b)
-    net._graph_cache[key] = gen     # the most recently used goes last
+        return _Generation(net, fn, carries, b)
+
+    gen = cached(net, key, make)
     return gen.run(prompt_ids, 0 if rng is None else int(rng))

@@ -13,7 +13,10 @@ from ``set_input_types``, ``init``, the forward (the compute-dtype cast
 inside the graph, one key per node, output nodes stopping at their
 pre-output), the loss (float32), the SGD train step with per-layer
 learning rates, ``fit`` over a pair, an iterable or a dict of inputs,
-``output``, ``feed_forward``, ``score``, the lazy ``score_value``,
+``fit_scanned`` (windows of same-shape batches), ``output`` (on the
+card ``fit``, ``fit_scanned`` and ``output`` replay captured CUDA
+graphs, ``models/capture.py``), ``feed_forward``, ``score``, the lazy
+``score_value``,
 ``num_params``, the flat parameter vector, ``clone``, YAML as well as
 JSON, ``save``/``load``, and streaming inference over attention nodes
 (``rnn_time_step``, ``rnn_clear_previous_state``: carries flow through
@@ -34,10 +37,11 @@ from deeplearning4j_tpu_torch.backend.device import (
     DeviceLike, compute_dtype, resolve_device,
 )
 from deeplearning4j_tpu_torch.backend.rng import KeyStream
+from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.models.common import (
     FlatParamsMixin, LazyScoreMixin, cast_tree, check_cache_capacity,
-    check_streamable, check_trainable, not_ported, seed_stream_caches,
-    sgd_step, trainable, unpack_batch,
+    check_streamable, check_trainable, infer, not_ported,
+    seed_stream_caches, sgd_step, train_step, trainable, unpack_batch,
 )
 from deeplearning4j_tpu_torch.models.sequential import init_net_state
 from deeplearning4j_tpu_torch.models.vertices import (
@@ -316,9 +320,16 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         self.output_nodes = [self.nodes[o] for o in conf.outputs]
         self._rnn_state: Dict[str, Any] = {}
         self._stream_pos: Optional[int] = 0
-        # generate's captured decode loops, by the reference's jit key
+        # the captured programs by the reference's jit key: generate's
+        # decode loops, and the train and output steps of fit,
+        # fit_scanned and output (models/capture.py)
         self._graph_cache: Dict[Any, Any] = {}
         self._graph_params = None     # the captured loops' parameters
+        # the step programs' staging ring and counts; _capture=False
+        # runs their bodies eagerly on the card (an internal switch for
+        # comparing the two)
+        self._step_graphs = None
+        self._capture = True
         # graph input -> the embedding that reads it as token ids
         self._id_consumers = {
             inp: n.layer for n in conf.nodes
@@ -439,13 +450,10 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         return torch.as_tensor(tree, device=self.device)
 
     # ------------------------------------------------------------ inference
-    def output(self, inputs, fmask=None):
-        """Inference forward; each output's activation, float32 under a
-        compute dtype; a list for a graph with several outputs."""
-        inputs = self._on_device(self._as_input_dict(inputs))
+    def _output_body(self, inputs, fmask, key=None, scalars=None):
         with torch.no_grad():
             acts, _, _ = self._forward(self.params, self.net_state, inputs,
-                                       fmask=self._on_device(fmask))
+                                       fmask=fmask)
             outs = []
             for node in self.output_nodes:
                 pre = acts[node.name]
@@ -453,6 +461,14 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
                     pre = pre.float()
                 outs.append(activations.get(node.layer.activation)(pre))
         return outs[0] if len(outs) == 1 else outs
+
+    def output(self, inputs, fmask=None):
+        """Inference forward; each output's activation, float32 under a
+        compute dtype; a list for a graph with several outputs.  On the
+        card a captured graph's replay."""
+        return infer(self, self._output_body,
+                     {"inputs": self._as_input_dict(inputs),
+                      "fmask": fmask})
 
     def feed_forward(self, inputs, train: bool = False, fmask=None):
         """Every vertex's activation (the inputs too) as a dict by name;
@@ -498,20 +514,19 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         return float(loss)
 
     # ----------------------------------------------------------- train step
-    def _train_step(self, inputs, labels, rng, fmask, lmask):
-        """One SGD step (``common.sgd_step``), the new net state written
-        back; the loss as a device scalar."""
+    def _train_body(self, inputs, labels, fmask, lmask, key, scalars):
+        """The step's device body (``common.sgd_step``)."""
         return sgd_step(self, lambda params: self._loss_fn(
-            params, self.net_state, inputs, labels, rng, fmask, lmask,
-            train=True))
+            params, self.net_state, inputs, labels, key, fmask, lmask,
+            train=True), scalars)
+
+    def _step(self, inputs) -> None:
+        train_step(self, self._train_body, inputs)
 
     def _one_step(self, x, y, fmask, lmask) -> None:
-        loss = self._train_step(
-            self._on_device(self._as_input_dict(x)),
-            self._on_device(self._as_label_dict(y)), self._keys.next(),
-            self._on_device(fmask), self._on_device(lmask))
-        self.score_value = loss  # device scalar; fetched lazily on read
-        self.iteration += 1
+        self._step({"inputs": self._as_input_dict(x),
+                    "labels": self._as_label_dict(y), "fmask": fmask,
+                    "lmask": lmask})
 
     def fit(self, data, labels=None, *, fmask=None,
             lmask=None) -> "ComputationGraph":
@@ -595,12 +610,63 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
             self._stream_pos += t_new
         return outs[0] if len(outs) == 1 else outs
 
-    # --------------------------------------------------------- not ported
-    def fit_scanned(self, *args, **kwargs):
-        not_ported("ComputationGraph", "fit_scanned", "PyTorch runs "
-                   "eagerly; CUDA-graph capture of the step is its "
-                   "counterpart, ROADMAP A2")
+    def _unpack_multi(self, batch):
+        """Positional features/labels lists of a MultiDataSet-like object
+        -> (input dict, label dict, features mask, labels masks)
+        (reference ``graph.py:822-844``)."""
+        if len(batch.features) != len(self.conf.inputs):
+            raise ValueError(
+                f"MultiDataSet has {len(batch.features)} feature arrays, "
+                f"graph declares {len(self.conf.inputs)} inputs")
+        if len(batch.labels) != len(self.conf.outputs):
+            raise ValueError(
+                f"MultiDataSet has {len(batch.labels)} label arrays, graph "
+                f"declares {len(self.conf.outputs)} outputs")
+        fm = None
+        if batch.features_masks is not None:
+            present = [m for m in batch.features_masks if m is not None]
+            if len(present) > 1:
+                raise ValueError("at most one features mask is supported")
+            fm = present[0] if present else None
+        lm = None
+        if batch.labels_masks is not None:
+            lm = {n: m for n, m in zip(self.conf.outputs,
+                                       batch.labels_masks)
+                  if m is not None} or None
+        return (dict(zip(self.conf.inputs, batch.features)),
+                dict(zip(self.conf.outputs, batch.labels)), fm, lm)
 
+    def fit_scanned(self, batches, scan_steps: int,
+                    epochs: int = 1) -> "ComputationGraph":
+        """Amortized training (reference ``fit_scanned``,
+        ``graph.py:629-716``): consecutive same-shape batches (arrays or
+        dicts by name, tuples, DataSet-like objects, or MultiDataSet-like
+        objects with positional ``features``/``labels`` lists),
+        ``scan_steps`` at a time, a shape change closing the window;
+        each batch one replay of the captured step on the card.  The
+        same per-batch updates and key stream as ``fit``; ``score_value``
+        is the window's last loss.  SGD only; no masks, TBPTT or
+        solvers."""
+        def unpack(batch):
+            if hasattr(batch, "features_masks"):
+                x, y, fm, lm = self._unpack_multi(batch)
+            elif hasattr(batch, "features"):
+                x, y, fm, lm = (batch.features, batch.labels,
+                                getattr(batch, "features_mask", None),
+                                getattr(batch, "labels_mask", None))
+            else:
+                x, y = batch[0], batch[1]
+                fm = batch[2] if len(batch) > 2 else None
+                lm = batch[3] if len(batch) > 3 else None
+            return ({"inputs": self._as_input_dict(x),
+                     "labels": self._as_label_dict(y), "fmask": None,
+                     "lmask": None}, fm, lm)
+
+        common.fit_scanned(self, batches, scan_steps, epochs, unpack,
+                           self._step)
+        return self
+
+    # --------------------------------------------------------- not ported
     def pretrain(self, *args, **kwargs):
         not_ported("ComputationGraph", "pretrain",
                    "AutoEncoder/RBM, ROADMAP A7")

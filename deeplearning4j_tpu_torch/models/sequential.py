@@ -9,12 +9,16 @@ inference over attention stacks (``rnn_time_step``,
 and training:
 ``_loss_fn`` (data loss + regularization, and the new layer state), the
 train step (loss -> autograd -> updater -> parameter update -> new
-state), ``fit`` over an (X, y) pair or an iterable of batches, ``score``
-and the lazy ``score_value``.  Params live in a nested dict
+state), ``fit`` over an (X, y) pair or an iterable of batches,
+``fit_scanned`` (windows of same-shape batches), ``score`` and the lazy
+``score_value``.  On the card ``fit``, ``fit_scanned`` and ``output``
+replay captured CUDA graphs (``models/capture.py``), the reference's
+jitted programs.  Params live in a nested dict
 ``{layer name: {param name: tensor}}`` with the reference's names and
 layouts, on ``self.device``; ``updater_state`` holds the updater's trees
 of the same shape, and ``net_state`` the float32 state of stateful layers
-(BatchNorm's running mean and var), which a train step replaces.  With a ``compute_dtype`` the forward casts the
+(BatchNorm's running mean and var); a train step updates all three in
+place.  With a ``compute_dtype`` the forward casts the
 float32 params to that type inside the differentiated graph, so the
 gradients land on the float32 params, and the loss runs in float32 — the
 reference's mixed-precision policy.
@@ -22,9 +26,8 @@ reference's mixed-precision policy.
 Not ported yet (later slices): TBPTT, the full-batch solvers,
 ``checkpoint_manager``/``retry_policy``, fit telemetry, the stability,
 introspection and numerics engines, and ``rnn_time_step`` over recurrent
-layers; ``fit_scanned``, ``pretrain``, ``set_listeners``,
-``add_listener`` and ``evaluate`` raise ``NotImplementedError`` naming
-their ROADMAP item.
+layers; ``pretrain``, ``set_listeners``, ``add_listener`` and
+``evaluate`` raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,10 +41,12 @@ from deeplearning4j_tpu_torch.backend.device import (
     DeviceLike, compute_dtype, resolve_device,
 )
 from deeplearning4j_tpu_torch.backend.rng import KeyStream
+from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.models.common import (  # noqa: F401 (re-exported)
     FlatParamsMixin, LazyScoreMixin, _tree_like, cast_tree,
-    check_cache_capacity, check_streamable, check_trainable, not_ported,
-    seed_stream_caches, sgd_step, trainable, tree_leaves, unpack_batch,
+    check_cache_capacity, check_streamable, check_trainable, infer,
+    not_ported, seed_stream_caches, sgd_step, train_step, trainable,
+    tree_leaves, unpack_batch,
 )
 from deeplearning4j_tpu_torch.nn import activations, losses
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
@@ -75,9 +80,16 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         self._keys = KeyStream(conf.seed)
         self._rnn_state: Dict[str, Any] = {}
         self._stream_pos = 0
-        # generate's captured decode loops, by the reference's jit key
+        # the captured programs by the reference's jit key: generate's
+        # decode loops, and the train and output steps of fit,
+        # fit_scanned and output (models/capture.py)
         self._graph_cache: Dict[Any, Any] = {}
         self._graph_params = None     # the captured loops' parameters
+        # the step programs' staging ring and counts; _capture=False
+        # runs their bodies eagerly on the card (an internal switch for
+        # comparing the two)
+        self._step_graphs = None
+        self._capture = True
 
     def init(self, device: DeviceLike = None,
              dtype=torch.float32) -> "MultiLayerNetwork":
@@ -144,14 +156,15 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
                 collect.append(h)
         return h, new_carries, new_state
 
+    def _output_body(self, x, fmask, key=None, scalars=None):
+        with torch.no_grad():
+            pre, _, _ = self._forward(self.params, x, fmask=fmask)
+            return activations.get(self.layers[-1].activation)(pre.float())
+
     def output(self, x, fmask=None) -> torch.Tensor:
         """Inference forward, masked by ``fmask`` where given; float32 at
-        the API boundary."""
-        x = torch.as_tensor(x, device=self.device)
-        with torch.no_grad():
-            pre, _, _ = self._forward(self.params, x,
-                                      fmask=self._as_device(fmask))
-            return activations.get(self.layers[-1].activation)(pre.float())
+        the API boundary.  On the card a captured graph's replay."""
+        return infer(self, self._output_body, {"x": x, "fmask": fmask})
 
     def feed_forward(self, x, train: bool = False):
         """Every layer's activation, in order (the output layer's is its
@@ -210,19 +223,16 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
     def _check_trainable(self) -> None:
         check_trainable(self)
 
-    def _train_step(self, x, y, rng, fmask, lmask) -> torch.Tensor:
-        """One SGD step (``common.sgd_step``); the loss as a device
-        scalar."""
+    def _train_body(self, x, y, fmask, lmask, key, scalars):
+        """The step's device body (``common.sgd_step``)."""
         return sgd_step(self, lambda params: self._loss_fn(
-            params, x, y, rng, fmask, lmask, train=True))
+            params, x, y, key, fmask, lmask, train=True), scalars)
+
+    def _step(self, inputs) -> None:
+        train_step(self, self._train_body, inputs)
 
     def _one_step(self, x, y, fmask, lmask) -> None:
-        rng = self._keys.next()
-        loss = self._train_step(
-            self._as_device(x), self._as_device(y), rng,
-            self._as_device(fmask), self._as_device(lmask))
-        self.score_value = loss  # device scalar; fetched lazily on read
-        self.iteration += 1
+        self._step({"x": x, "y": y, "fmask": fmask, "lmask": lmask})
 
     _unpack = staticmethod(unpack_batch)
 
@@ -291,12 +301,25 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         self._stream_pos += int(x.shape[1])
         return out[:, -1] if squeeze and out.ndim == 3 else out
 
-    # --------------------------------------------------------- not ported
-    def fit_scanned(self, *args, **kwargs):
-        not_ported("MultiLayerNetwork", "fit_scanned", "PyTorch runs "
-                   "eagerly; CUDA-graph capture of the step is its "
-                   "counterpart, ROADMAP A2")
+    def fit_scanned(self, batches, scan_steps: int,
+                    epochs: int = 1) -> "MultiLayerNetwork":
+        """Amortized training (reference ``fit_scanned``): consecutive
+        same-shape batches, ``scan_steps`` at a time, a shape change
+        closing the window; each batch one replay of the captured step
+        on the card (capture already removes the dispatch cost the
+        reference's scan amortises).  The same per-batch updates and key
+        stream as ``fit`` over the same batches; ``score_value`` is the
+        window's last loss.  SGD only: no masks, TBPTT, solvers or
+        ``num_iterations != 1``."""
+        def unpack(batch):
+            x, y, fm, lm = self._unpack(batch)
+            return {"x": x, "y": y, "fmask": None, "lmask": None}, fm, lm
 
+        common.fit_scanned(self, batches, scan_steps, epochs, unpack,
+                           self._step)
+        return self
+
+    # --------------------------------------------------------- not ported
     def pretrain(self, *args, **kwargs):
         not_ported("MultiLayerNetwork", "pretrain",
                    "AutoEncoder/RBM, ROADMAP A7")

@@ -10,8 +10,8 @@ tensors:
     transposes;
   - ``init(gen, dtype, device)`` -> parameter dict of tensors;
   - ``apply(params, x, *, train=False, rng=None)`` -> y; at train time
-    ``rng`` is the layer's key (a ``torch.Generator``, see
-    ``backend/rng.py``) for its input dropout;
+    ``rng`` is the layer's key (a ``torch.Generator`` or a device key,
+    see ``backend/rng.py``) for its input dropout;
   - ``init_state(device)`` -> the layer's non-trainable state ({} for
     most layers; BatchNorm's running mean and var).  A stateful layer
     also has ``apply_with_state(params, state, x, *, train, rng)`` ->

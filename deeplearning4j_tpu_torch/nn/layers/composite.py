@@ -103,7 +103,11 @@ class ResidualBlock(Layer):
             return x + h
 
         if self.remat and train:
-            return checkpoint(body, params, x, use_reentrant=False)
+            # masks come from the keys, never from torch's global RNG, so
+            # there is no RNG state to stash (and a CUDA graph capture
+            # could not read it)
+            return checkpoint(body, params, x, use_reentrant=False,
+                              preserve_rng_state=False)
         return body(params, x)
 
     def reg_score(self, params):

@@ -6,10 +6,13 @@ per-layer gradient normalization, ``init_state`` and ``update`` for SGD,
 no-op, Nesterov momentum, AdaGrad, RMSProp, AdaDelta, Adam and AdamW, and
 ``apply_updates``.  ``update`` returns (updates to subtract, new state) as
 the reference does; the train step then subtracts the updates from the
-parameters in place (``apply_updates_``).  Schedules are evaluated on the
-host from the integer iteration: PyTorch runs eagerly, so there is no
-traced program that needs them as device values.  The reference's
-``as_optax`` has no counterpart.
+parameters in place (``apply_updates_``) and copies the new state into
+the old state's tensors.  Schedules are evaluated on the host from the
+integer iteration (``step_scalars``: the learning rate of each layer,
+the momentum, Adam's bias corrections); ``update`` reads them from the
+dict it is given, whose values may be Python floats or 0-d device
+tensors that the host rewrites before each replay of a captured step.
+The reference's ``as_optax`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -189,28 +192,54 @@ def _bias_correction(beta: float, t: float) -> float:
     return float(np.float32(1.0) - np.float32(beta) ** np.float32(t))
 
 
+def step_scalars(cfg: UpdaterConfig, iteration, layers,
+                 lr_overrides: Optional[Dict[str, float]] = None
+                 ) -> Dict[object, float]:
+    """The step's host floats, by name, as ``update`` reads them: the
+    momentum ``"mu"``, Adam's bias corrections ``"bc1"`` and ``"bc2"``
+    (``_bias_correction``'s float32 arithmetic) and, for each layer name
+    in ``layers``, its learning rate ``("lr", layer)`` (schedule and
+    override applied) and, under adamw, ``("lr_wd", layer)``, the
+    learning rate times the weight decay."""
+    lr_overrides = lr_overrides or {}
+    t = float(iteration) + 1.0
+    out: Dict[object, float] = {
+        "mu": current_momentum(cfg, iteration),
+        "bc1": _bias_correction(cfg.adam_beta1, t),
+        "bc2": _bias_correction(cfg.adam_beta2, t)}
+    for lname in layers:
+        lr = current_lr(cfg, iteration, lr_overrides.get(lname))
+        out[("lr", lname)] = lr
+        if cfg.name == "adamw" and cfg.weight_decay:
+            out[("lr_wd", lname)] = lr * cfg.weight_decay
+    return out
+
+
 def update(cfg: UpdaterConfig, grads, state, iteration,
-           lr_overrides: Optional[Dict[str, float]] = None, params=None):
+           lr_overrides: Optional[Dict[str, float]] = None, params=None,
+           scalars: Optional[Dict] = None):
     """(updates to SUBTRACT from the params, new updater state).
 
     ``grads``/``params`` are {layer name: {param name: tensor}}, nested
     further for composite layers; gradient normalization is per layer;
-    ``lr_overrides`` maps layer name -> learning rate."""
-    lr_overrides = lr_overrides or {}
+    ``lr_overrides`` maps layer name -> learning rate.  ``scalars`` is
+    ``step_scalars``'s dict (floats or 0-d tensors); when None it is
+    computed here from ``iteration`` and ``lr_overrides``."""
     name = cfg.name
     if name == "adamw" and params is None:
         raise ValueError(
             "adamw applies decoupled weight decay to the parameters; pass "
             "params= to updaters.update()")
-    mu = current_momentum(cfg, iteration)
-    t = float(iteration) + 1.0
+    s = (step_scalars(cfg, iteration, grads, lr_overrides)
+         if scalars is None else scalars)
+    mu = s["mu"]
     new_state = {k: {} for k in state}
     updates = {}
     for lname, lgrads in grads.items():
         lgrads = normalize_gradients(cfg, _flat(lgrads))
         lparams = _flat(params[lname]) if params is not None else {}
         lstate = {k: _flat(state[k].get(lname, {})) for k in state}
-        lr = current_lr(cfg, iteration, lr_overrides.get(lname))
+        lr = s[("lr", lname)]
         lup = {}
         lns = {k: {} for k in state}
         for pname, g in lgrads.items():
@@ -246,12 +275,12 @@ def update(cfg: UpdaterConfig, grads, state, iteration,
                      + (1 - cfg.adam_beta1) * g)
                 v = (cfg.adam_beta2 * lstate["v"][pname]
                      + (1 - cfg.adam_beta2) * g * g)
-                mhat = m / _bias_correction(cfg.adam_beta1, t)
-                vhat = v / _bias_correction(cfg.adam_beta2, t)
+                mhat = m / s["bc1"]
+                vhat = v / s["bc2"]
                 u = lr * mhat / (torch.sqrt(vhat) + cfg.epsilon)
                 if name == "adamw" and cfg.weight_decay:
                     # decoupled decay acts on the parameter directly
-                    u = u + lr * cfg.weight_decay * lparams[pname]
+                    u = u + s[("lr_wd", lname)] * lparams[pname]
                 lns["m"][pname] = m
                 lns["v"][pname] = v
             else:

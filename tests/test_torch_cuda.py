@@ -610,13 +610,15 @@ def test_epilogue_wrapper_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float16"])
 def test_fit_step_goes_through_the_kernels(compute_dtype, cuda):
-    """One bfloat16 or float16 ``fit`` step of a small char-LM on the card
-    launches each flash kernel once per attention layer and the prologue
-    once per residual block, and never runs a plain version."""
+    """One bfloat16 or float16 eager ``fit`` step of a small char-LM on
+    the card launches each flash kernel once per attention layer and the
+    prologue once per residual block, and never runs a plain version (a
+    captured step's launches: ``test_captured_fit_equals_eager``)."""
     from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
 
     net = transformer_char_lm(vocab_size=29, d_model=64, n_heads=4,
                               layers=2, compute_dtype=compute_dtype)
+    net._capture = False    # eager: each step's launches tick the counts
     ids = np.random.default_rng(0).integers(0, 29, (2, 40))
     y = np.eye(29, dtype=np.float32)[np.roll(ids, -1, 1)]
     counts = (fa.fwd_counts, fa.dq_counts, fa.dkv_counts, fe.counts)
@@ -922,7 +924,7 @@ def test_batch_norm_layer_raises_for_float64_on_the_card(cuda):
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float16"])
 def test_resnet_goes_through_the_batch_norm_kernels(compute_dtype, cuda):
-    """A small ResNet in bfloat16 or float16 on the card: ``output``
+    """A small ResNet in bfloat16 or float16 on the card, eager: ``output``
     launches the inference kernel once per BatchNorm layer and ``fit`` the
     training kernels once each, with no plain-version call."""
     from deeplearning4j_tpu_torch.models.zoo import resnet50
@@ -930,6 +932,7 @@ def test_resnet_goes_through_the_batch_norm_kernels(compute_dtype, cuda):
     net = resnet50(height=16, width=16, channels=3, n_classes=4,
                    blocks=(1, 1), stem_stride=1, init_channels=8,
                    compute_dtype=compute_dtype)
+    net._capture = False    # eager: each call's launches tick the counts
     x = np.random.default_rng(0).random((4, 16, 16, 3)).astype(np.float32)
     y = np.eye(4, dtype=np.float32)[[0, 1, 2, 3]]
     counts = (bn.inference_counts, bn.train_fwd_counts, bn.train_bwd_counts)
@@ -1102,13 +1105,14 @@ def test_lrn_layer_raises_for_float64_on_the_card(cuda):
 
 @pytest.mark.parametrize("compute_dtype", ["bfloat16", "float16"])
 def test_alexnet_goes_through_the_lrn_kernels(compute_dtype, cuda):
-    """A small AlexNet on the card: ``output`` launches the forward kernel
-    once per LRN layer and ``fit`` both kernels once each, with no
+    """A small AlexNet on the card, eager: ``output`` launches the forward
+    kernel once per LRN layer and ``fit`` both kernels once each, with no
     plain-version call."""
     from deeplearning4j_tpu_torch.models.zoo import alexnet
 
     net = alexnet(height=67, width=67, n_classes=5,
                   compute_dtype=compute_dtype)
+    net._capture = False    # eager: each call's launches tick the counts
     x = np.random.default_rng(0).random((4, 67, 67, 3)).astype(np.float32)
     y = np.eye(5, dtype=np.float32)[[0, 1, 2, 3]]
     counts = (lrn.fwd_counts, lrn.bwd_counts)
@@ -1122,3 +1126,333 @@ def test_alexnet_goes_through_the_lrn_kernels(compute_dtype, cuda):
     assert [c.plain_calls for c in counts] == [0, 0]
     assert out.shape == (4, 5) and bool(torch.isfinite(out).all())
     assert np.isfinite(net.score_value)
+
+
+# ------------------------------------------------------ captured steps
+def _capture_net(name):
+    """The nets the captured-step tests train: a small char-LM in
+    bfloat16 (flash kernels, prologue), a conv net with BatchNorm and
+    LRN in bfloat16, and an MLP with dropout under Adam with a step
+    learning-rate schedule (the scalars and keys change every replay)."""
+    from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, ConvolutionLayer, DenseLayer,
+        LocalResponseNormalization, OutputLayer, SubsamplingLayer,
+    )
+
+    if name == "transformer":
+        return transformer_char_lm(vocab_size=29, d_model=64, n_heads=4,
+                                   layers=2, compute_dtype="bfloat16")
+    b = NeuralNetConfiguration.builder().seed(5)
+    if name == "conv":
+        conf = (b.updater("nesterovs", learning_rate=0.05).list()
+                .compute_dtype("bfloat16")
+                .layer(ConvolutionLayer(n_out=16, kernel_size=(3, 3),
+                                        activation="identity"))
+                .layer(BatchNormalization(activation="relu"))
+                .layer(LocalResponseNormalization(n=5))
+                .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+                .layer(DenseLayer(n_out=32, activation="relu"))
+                .layer(OutputLayer(n_out=4))
+                .set_input_type(InputType.convolutional(12, 12, 3)).build())
+    else:
+        conf = (b.updater("adam", learning_rate=0.02, lr_policy="step",
+                          lr_policy_decay_rate=0.5, lr_policy_steps=2.0)
+                .list()
+                .layer(DenseLayer(n_in=20, n_out=64, activation="relu",
+                                  dropout=0.5))
+                .layer(DenseLayer(n_in=64, n_out=64, activation="relu",
+                                  dropout=0.5))
+                .layer(OutputLayer(n_in=64, n_out=4)).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def _capture_batches(name, n, seed=0, batch=6):
+    rs = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        if name == "transformer":
+            ids = rs.integers(0, 29, (2, 40))
+            out.append((ids, np.eye(29, dtype=np.float32)[np.roll(ids, -1,
+                                                                   1)]))
+            continue
+        shape = (batch, 12, 12, 3) if name == "conv" else (batch, 20)
+        out.append((rs.random(shape, np.float32),
+                    np.eye(4, dtype=np.float32)[rs.integers(0, 4, batch)]))
+    return out
+
+
+def _eager_twin(net):
+    """A copy of ``net`` that runs its bodies eagerly, with the same key
+    stream position (``clone`` starts a fresh stream, as the
+    reference's)."""
+    twin = net.clone()
+    twin._keys._gen.set_state(net._keys._gen.get_state())
+    twin._capture = False
+    return twin
+
+
+def _all_state(net):
+    return (tree_leaves(net.params) + tree_leaves(net.updater_state)
+            + tree_leaves(net.net_state))
+
+
+def _assert_same_state(a, b):
+    for x, y in zip(_all_state(a), _all_state(b), strict=True):
+        assert torch.equal(x, y)
+
+
+CAPTURE_LAUNCHES = {
+    "transformer": {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2,
+                    "prologue": 4},
+    "conv": {"bn_train_fwd": 1, "bn_train_bwd": 1, "lrn_fwd": 1,
+             "lrn_bwd": 1},
+    "mlp": {},
+}
+
+
+@pytest.mark.parametrize("name", sorted(CAPTURE_LAUNCHES))
+def test_captured_fit_equals_eager(name, cuda):
+    """Six ``fit`` steps on distinct host batches, with no sync between
+    them (the pinned ring at work), through the captured graph and
+    eagerly from the same state: every loss, param, updater-state and
+    running-stat tensor equal bit for bit.  One capture, five replays;
+    the graph holds each kernel's launches of one step."""
+    a = _capture_net(name)
+    b = _eager_twin(a)
+    data = _capture_batches(name, 6)
+    losses = []
+    for x, y in data:
+        a.fit(x, y)
+        b.fit(x, y)
+        losses.append((a.score_value, b.score_value))
+    assert all(la == lb for la, lb in losses), losses
+    _assert_same_state(a, b)
+    graphs = a._step_graphs
+    assert (graphs.captures, graphs.replays) == (1, 5)
+    assert b._step_graphs is None
+    assert list(graphs.graph_launches().values()) == [CAPTURE_LAUNCHES[name]]
+
+
+def test_dropout_masks_change_from_replay_to_replay(cuda):
+    """Replays of one batch draw new masks from new keys: their losses
+    differ, and equal the eager steps' one for one."""
+    a = _capture_net("mlp")
+    b = _eager_twin(a)
+    x, y = _capture_batches("mlp", 1)[0]
+    got, want = [], []
+    for _ in range(4):
+        a.fit(x, y)
+        b.fit(x, y)
+        got.append(a.score_value)
+        want.append(b.score_value)
+    assert got == want and len(set(got)) == 4
+
+
+def test_fit_scanned_equals_fit_on_the_card(cuda):
+    """``fit_scanned`` over 10 batches in windows of 4 (two full windows
+    and a tail of two), each batch a replay of the captured step, equals
+    captured ``fit`` over the same batches bit for bit, with one capture
+    between them."""
+    a = _capture_net("mlp")
+    b = _eager_twin(a)
+    b._capture = True
+    data = _capture_batches("mlp", 10, seed=3)
+    for x, y in data:
+        a.fit(x, y)
+    b.fit_scanned(data, scan_steps=4)
+    assert b.iteration == a.iteration == 10
+    assert b.score_value == a.score_value
+    _assert_same_state(a, b)
+    assert b._step_graphs.captures == 1
+    assert b._step_graphs.replays == 9
+
+
+def test_steady_state_training_captures_nothing(cuda):
+    net = _capture_net("conv")
+    for x, y in _capture_batches("conv", 4):
+        net.fit(x, y)
+    graphs = net._step_graphs
+    assert (graphs.captures, graphs.replays) == (1, 3)
+    small = _capture_batches("conv", 2, batch=3)
+    for x, y in small:
+        net.fit(x, y)
+    assert graphs.captures == 2
+    for x, y in _capture_batches("conv", 2) + small:
+        net.fit(x, y)
+    assert (graphs.captures, graphs.replays) == (2, 8)
+
+
+def test_replaced_trees_are_recaptured_and_read(cuda):
+    """Replacing the params, the updater state or the layer state (new
+    tensors, as ``init``, a load or ``interop`` make) recaptures the step,
+    and the new graph reads the new tensors: the same as an eager twin
+    given the same replacement."""
+    from deeplearning4j_tpu_torch.models.common import tree_clone
+
+    a = _capture_net("conv")
+    b = _eager_twin(a)
+    other = _capture_net("conv")
+    for x, y in _capture_batches("conv", 2, seed=9):
+        other.fit(x, y)
+    data = _capture_batches("conv", 6, seed=4)
+    for i, (x, y) in enumerate(data):
+        if i == 2:
+            for net in (a, b):
+                net.params = tree_clone(other.params)
+        if i == 3:
+            for net in (a, b):
+                net.updater_state = tree_clone(other.updater_state)
+        if i == 4:
+            for net in (a, b):
+                net.net_state = tree_clone(other.net_state)
+        a.fit(x, y)
+        b.fit(x, y)
+        assert a.score_value == b.score_value
+    _assert_same_state(a, b)
+    assert a._step_graphs.captures == 4
+
+
+def test_captured_output_equals_eager(cuda):
+    """``output`` replays a captured inference graph on both facades: the
+    same values as the eager forward, a copy the next call does not
+    touch, and no new capture for new values of one shape."""
+    from deeplearning4j_tpu_torch.models.zoo import resnet50
+
+    for net, x in ((_capture_net("conv"), _capture_batches("conv", 2)),
+                   (resnet50(height=16, width=16, channels=3, n_classes=4,
+                             blocks=(1, 1), stem_stride=1, init_channels=8,
+                             compute_dtype="bfloat16"),
+                    [(np.random.default_rng(s).random((4, 16, 16, 3),
+                                                      np.float32), None)
+                     for s in range(2)])):
+        eager = _eager_twin(net)
+        first = net.output(x[0][0])
+        second = net.output(x[1][0])
+        again = net.output(x[0][0])
+        assert torch.equal(first, eager.output(x[0][0]))
+        assert torch.equal(second, eager.output(x[1][0]))
+        assert torch.equal(first, again) and not torch.equal(first, second)
+        assert (net._step_graphs.captures, net._step_graphs.replays) == \
+            (1, 2)
+
+
+def test_batch_norm_counters_under_replay(cuda):
+    """Each captured train graph owns its BatchNorm arrival counters,
+    zeroed by a node of the graph: after each replay they are zero and
+    the step equals the eager one; two nets' graphs (captured on the
+    shared capture stream) hold distinct buffers; warm-ups on the one
+    side stream do not grow the per-stream cache.  (Between a graph's
+    replays its counters may hold another graph's intermediates: the
+    graphs of one net share a memory pool, and each replay zeroes its
+    counters before their first use.)"""
+    from deeplearning4j_tpu_torch.models.zoo import resnet50
+
+    def tiny(seed):
+        return resnet50(height=16, width=16, channels=3, n_classes=4,
+                        blocks=(1, 1), stem_stride=1, init_channels=8,
+                        compute_dtype="bfloat16", seed=seed)
+
+    nets = [tiny(1), tiny(2)]
+    twins = [_eager_twin(net) for net in nets]
+    x = np.random.default_rng(0).random((6, 16, 16, 3)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[[0, 1, 2, 3, 0, 1]]
+    nets[0].fit(x, y)
+    twins[0].fit(x, y)
+    streams = len(bn._arrivals)
+    for net, twin in zip(nets, twins):
+        for b in (2, 3, 5, 6):      # new shapes: a warm-up each
+            for _ in range(2):      # then a replay
+                net.fit(x[:b], y[:b])
+                twin.fit(x[:b], y[:b])
+            assert net.score_value == twin.score_value
+            scratch = list(net._step_graphs.programs.values())[-1] \
+                .graph.scratch
+            assert scratch
+            assert all(int(t.abs().sum()) == 0 for t in scratch)
+        _assert_same_state(net, twin)
+    assert len(bn._arrivals) == streams
+    ptrs = [{t.data_ptr() for p in net._step_graphs.programs.values()
+             for t in p.graph.scratch} for net in nets]
+    assert len(ptrs[0]) == len(ptrs[1]) == 4
+    assert not ptrs[0] & ptrs[1]
+
+
+def test_a_collected_cycle_does_not_break_a_capture(cuda):
+    """A dropped net lives on in a reference cycle (net -> graph cache ->
+    program -> body -> net) holding its captured graph, its staging ring
+    and a pinned buffer last copied on the default stream, and would be
+    collected at the first allocation inside another capture's body,
+    which invalidates that capture.  The collector is held off for the
+    capture, so the net is freed after it, and the capture stands."""
+    import gc
+
+    from deeplearning4j_tpu_torch.backend.device import (
+        capture_graph, warm_on_side_stream,
+    )
+
+    x = torch.ones(1 << 16, device="cuda")
+    armed = []
+
+    def body():
+        if armed:
+            gc.set_threshold(1, 1, 1)   # collect at the next allocation
+        junk = [[] for _ in range(1000)]
+        return x * 2 + len(junk)
+
+    old = gc.get_threshold()
+    try:
+        for _ in range(3):
+            armed.clear()
+            warm_on_side_stream(body, x.device)
+            gc.collect()
+            # the dead net's objects stay in the youngest generation, so
+            # the first collection in the body takes them
+            gc.disable()
+            dead = _capture_net("conv")
+            for bx, by in _capture_batches("conv", 2):
+                dead.fit(bx, by)
+            dead.pinned = torch.ones(1 << 16, pin_memory=True)
+            x.copy_(dead.pinned, non_blocking=True)
+            assert dead._step_graphs.captures == 1
+            del dead, bx, by
+            gc.set_threshold(10 ** 6)   # nothing collected before the body
+            gc.enable()
+            armed.append(True)
+            graph, out = capture_graph(body)
+            gc.set_threshold(*old)
+            graph.replay()
+            assert torch.equal(out, torch.full_like(x, 1002.0))
+    finally:
+        gc.set_threshold(*old)
+        gc.enable()
+
+
+def test_a_failed_capture_raises(cuda):
+    """A body that syncs with the host cannot be captured: ``fit``
+    raises, and nothing carries on eagerly.  The warm-up before the
+    capture stands as the step it was: the iteration, loss and params
+    are those of one eager step, and the program leaves the cache, so a
+    retry is one more such step."""
+    net = _capture_net("mlp")
+    twin = _eager_twin(net)
+    body = net._train_body
+
+    def syncing(**kw):
+        loss = body(**kw)
+        float(loss)           # a device-to-host read inside the capture
+        return loss
+
+    net._train_body = syncing
+    for i, (x, y) in enumerate(_capture_batches("mlp", 2)):
+        with pytest.raises(RuntimeError):
+            net.fit(x, y)
+        twin.fit(x, y)
+        assert net.iteration == twin.iteration == i + 1
+        assert net.score_value == twin.score_value
+        _assert_same_state(net, twin)
+        assert not net._step_graphs.programs
+    assert net._step_graphs.captures == 0
