@@ -135,7 +135,30 @@ Phases (any failure exits non-zero; nothing is caught):
    pass timed (ms a step each); ``fit_scanned`` must equal captured
    ``fit`` bit for bit (under ``cudnn.deterministic`` if ``fit_modes``
    found the eager runs apart) with one capture.
-10. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+10. The GravesLSTM char-LM (zoo ``graves_lstm_char_lm``,
+   ``BASELINE.md:31``: 2x200, vocab 77, RMSProp at 0.1, TBPTT 50,
+   float32; batch 128, T 50, ``bench.py``'s batch: ``RandomState(0)``
+   characters, one-hot, the next character as label).  It reaches no
+   kernel of the port: its matmuls are cuBLAS's, the rest elementwise.
+   The first step's loss and per-layer gradients against the CPU's on
+   the same weights (full float32 matmuls on both); ``fit_modes`` (no
+   wrapper launches; captured equal to eager bit for bit); both modes
+   profiled over two steps and host-traced (``cudaLaunchKernel`` a step
+   eager against one ``cudaGraphLaunch``).  Two batches of T 210 (TBPTT
+   windows 50, 50, 50, 50, 10) captured and eager from one state: five
+   iterations a batch, two programs captured, bit for bit.  ``generate``
+   over 16 streams (prompt 16, 112 steps), greedy and sampled: the
+   captured loop (the LSTMs' (h, c) its graph state) equal to the eager
+   decode function, and to ``sample_sequence`` in at least 15 of 16
+   rows; ms a token each; ``rnn_time_step`` fed in chunks (16, 1, 47,
+   64 steps) against one ``output`` over the 128, on the zoo's fresh
+   weights (the trained ones' differences printed by timestep: the
+   recurrence carries a rounding difference of cuBLAS's shapes from
+   step to step).  Then the same
+   layers as a ``ComputationGraph`` whose head reads the last step
+   (``LastTimeStepVertex``): two ``fit`` steps captured and eager, bit
+   for bit.
+11. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -165,18 +188,30 @@ from deeplearning4j_tpu_torch.helpers import flash_attention as fa
 from deeplearning4j_tpu_torch.helpers import fused_epilogue as fe
 from deeplearning4j_tpu_torch.helpers import lrn
 from deeplearning4j_tpu_torch.helpers import paged_attention as pa
-from deeplearning4j_tpu_torch.models.decode import generate
-from deeplearning4j_tpu_torch.models.sequential import tree_leaves
-from deeplearning4j_tpu_torch.models.zoo import (
-    alexnet, lenet, resnet50, transformer_char_lm,
+from deeplearning4j_tpu_torch.models.common import seed_stream_caches
+from deeplearning4j_tpu_torch.models.decode import (
+    build_decode_fn, generate, named_layers_of,
 )
+from deeplearning4j_tpu_torch.models.graph import ComputationGraph
+from deeplearning4j_tpu_torch.models.interop import params_from_numpy
+from deeplearning4j_tpu_torch.models.sequential import tree_leaves
+from deeplearning4j_tpu_torch.models.vertices import LastTimeStepVertex
+from deeplearning4j_tpu_torch.models.zoo import (
+    alexnet, graves_lstm_char_lm, lenet, resnet50, transformer_char_lm,
+)
+from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.layers.attention import gather_pages
 from deeplearning4j_tpu_torch.nn.layers.convolution import ConvolutionLayer
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNormalization,
 )
-from deeplearning4j_tpu_torch.nn.layers.dense import DenseLayer, EmbeddingLayer
-from deeplearning4j_tpu_torch.utils.sampling import sample_sequence
+from deeplearning4j_tpu_torch.nn.layers.dense import (
+    DenseLayer, EmbeddingLayer, OutputLayer,
+)
+from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTM
+from deeplearning4j_tpu_torch.utils.sampling import (
+    sample_sequence, step_noise,
+)
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
@@ -246,6 +281,18 @@ ALEXNET_BATCH, ALEXNET_LRN_LAYERS = 128, 2
 ALEXNET_LOGITS_TOL, ALEXNET_ARGMAX_MISSES = 2e-2, 2
 # LeNet-MNIST (BASELINE.md:29): batch, host batches, fit_scanned's window
 LENET_BATCH, LENET_BATCHES, LENET_SCAN = 128, 24, 8
+# the GravesLSTM char-LM (BASELINE.md:31): 2x200, vocab 77, float32,
+# TBPTT windows of 50; batch 128 at T 50, and one batch of T 210 (four
+# windows of 50 and one of 10)
+LSTM_MODEL = dict(vocab_size=77, hidden=200, tbptt=50)
+LSTM_BATCH, LSTM_T, LSTM_T_LONG = 128, 50, 210
+# streaming and generate: streams, prompt, steps
+LSTM_STREAMS, LSTM_PROMPT, LSTM_STEPS = 16, 16, 112
+# the card's first step against the CPU's on the same weights, float32
+# with full float32 matmuls on both: loss and per-layer gradients
+LSTM_LOSS_RTOL, LSTM_GRAD_RTOL = 1e-5, 1e-4
+# chunked rnn_time_step against one output, probabilities (float32)
+LSTM_STREAM_TOL = 1e-5
 
 
 def card() -> str:
@@ -2200,6 +2247,242 @@ def lenet_phase(name_card):
     return ms
 
 
+def _lstm_batch(rs, t):
+    """``bench.py:379-382``'s batch: random characters, one-hot, labels
+    the next character (the sequence rolled by one), on the card."""
+    vocab = LSTM_MODEL["vocab_size"]
+    ids = rs.randint(0, vocab, (LSTM_BATCH, t))
+    eye = np.eye(vocab, dtype=np.float32)
+    return (torch.as_tensor(eye[ids], device="cuda"),
+            torch.as_tensor(eye[np.roll(ids, -1, 1)], device="cuda"))
+
+
+def _cpu_twin(net):
+    """``net``'s weights in a CPU network of the same configuration."""
+    return params_from_numpy(
+        net.conf, {k: {n: p.cpu().numpy() for n, p in v.items()}
+                   for k, v in net.params.items()}, device="cpu")
+
+
+def lstm_first_step(net, x, y):
+    """The first step's loss and per-layer gradients on the card against
+    the CPU's plain path on the same weights and batch (float32, full
+    float32 matmuls on both)."""
+    cpu = _cpu_twin(net)
+    c_loss, c_grads = _loss_and_grads(
+        net, lambda params: net._loss_fn(params, x, y, None))
+    h_loss, h_grads = _loss_and_grads(
+        cpu, lambda params: cpu._loss_fn(params, x.cpu(), y.cpu(), None))
+    loss_rel = abs(c_loss - h_loss) / abs(h_loss)
+    grad_rel = _rel_l2({k: g.cpu() for k, g in c_grads.items()}, h_grads)
+    print(f"lstm: first-step loss card {c_loss:.7f} vs CPU {h_loss:.7f} "
+          f"(rel {loss_rel:.3e}, tol {LSTM_LOSS_RTOL}); per-layer gradient "
+          f"rel L2 {', '.join(f'{k} {v:.3e}' for k, v in grad_rel.items())}"
+          f" (tol {LSTM_GRAD_RTOL})")
+    check(loss_rel <= LSTM_LOSS_RTOL, f"lstm first-step loss rel {loss_rel}")
+    check(all(r <= LSTM_GRAD_RTOL for r in grad_rel.values()),
+          f"lstm per-layer gradient rel L2 {grad_rel}")
+
+
+def lstm_profile(what, net, x, y, name_card):
+    """Two profiled steps (host wall, device busy, idle share) and a
+    host-traced one (``cudaLaunchKernel`` and ``cudaGraphLaunch``)."""
+    ev, wall_ms, busy_ms, _ = _profile_fit(net, x, y)
+    print(f"{what} step (profiled, {PROFILED_FIT_STEPS} steps): host wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}) in "
+          f"{sum(e.count for e in ev) / PROFILED_FIT_STEPS:.0f} device "
+          f"operations a step [{name_card}]")
+    n = PROFILED_FIT_STEPS
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  top: {e.self_device_time_total / 1e3 / n:9.3f} ms  "
+              f"x{e.count // n:<5d} {e.key[:90]}")
+    hev = _host_trace(what, net, x, y, name_card)
+    return dict(launches=sum(e.count for e in hev
+                             if e.key == "cudaLaunchKernel"),
+                graphs=sum(e.count for e in hev
+                           if e.key == "cudaGraphLaunch"))
+
+
+def lstm_tbptt(net, name_card):
+    """Two batches of T 210 (windows 50, 50, 50, 50, 10) captured and
+    eager from one state: five iterations a batch, two programs (one a
+    window length) captured once, equal bit for bit; ms a batch."""
+    rs = np.random.RandomState(1)
+    batches = [_lstm_batch(rs, LSTM_T_LONG) for _ in range(2)]
+    cap, eag = twin(net, True), twin(net, False)
+    it0 = cap.iteration
+    ms = {}
+    for label, n in (("captured", cap), ("eager", eag)):
+        for i, (x, y) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n.fit(x, y)
+            float(n.score_value)
+            ms[(label, i)] = (time.perf_counter() - t0) * 1e3
+            check(n.iteration == it0 + 5 * (i + 1),
+                  f"lstm tbptt [{label}]: iteration {n.iteration} after "
+                  f"batch {i}")
+    graphs = cap._step_graphs
+    gaps = state_gaps(cap, eag)
+    print(f"lstm tbptt: 2 batches of {LSTM_BATCH}x{LSTM_T_LONG}, windows "
+          f"of {LSTM_MODEL['tbptt']}: iteration {it0} -> {cap.iteration}; "
+          f"captures {graphs.captures}, replays {graphs.replays}; "
+          f"captured against eager: {len(gaps)} leaves differ, losses "
+          f"{cap.score_value} vs {eag.score_value}; second batch captured "
+          f"{ms[('captured', 1)]:.3f} ms, eager {ms[('eager', 1)]:.3f} ms "
+          f"(first, with the captures, {ms[('captured', 0)]:.3f}) "
+          f"[{name_card}]")
+    check(graphs.captures == 2, f"lstm tbptt: two programs captured "
+                                f"({graphs.captures})")
+    check(not gaps and cap.score_value == eag.score_value,
+          f"lstm tbptt: captured == eager bit for bit ({sorted(gaps)[:4]})")
+
+
+def lstm_stream(net, name_card):
+    """``generate`` (the captured loop, (h, c) as graph state) against the
+    eager decode function on the card, greedy and sampled, and against
+    ``sample_sequence`` (the host loop over ``rnn_time_step``); ms a
+    token.  Returns the prompt followed by the greedy ids."""
+    b, t, steps = LSTM_STREAMS, LSTM_PROMPT, LSTM_STEPS
+    vocab = LSTM_MODEL["vocab_size"]
+    prompt = np.random.default_rng(7).integers(0, vocab, (b, t))
+    for policy, kw in (("greedy", dict(temperature=0.0)),
+                       ("sampled", dict(temperature=0.8, top_k=20,
+                                        rng=11))):
+        got = generate(net, prompt, steps, **kw)       # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = generate(net, prompt, steps, **kw)
+        cap_ms = (time.perf_counter() - t0) * 1e3 / steps
+        fn = build_decode_fn(net, steps, one_hot=True, vocab_size=vocab,
+                             **{k: v for k, v in kw.items() if k != "rng"})
+        noise = (step_noise(kw["rng"], steps, b, vocab, "cuda")
+                 if "rng" in kw else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            carries = seed_stream_caches(named_layers_of(net), {}, b, None,
+                                         "cuda")
+            ids, _ = fn(net.compute_params(), carries,
+                        torch.as_tensor(prompt, device="cuda"), noise)
+            eager = ids.cpu().numpy()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / steps
+        loop = sample_sequence(net, prompt, steps, **kw)
+        rows = int((loop == got).all(axis=1).sum())
+        gen = net._graph_cache[("decode", steps, kw["temperature"],
+                                kw.get("top_k"), None, True, vocab, b, t)]
+        print(f"lstm generate [{policy}] {b} streams, prompt {t}, {steps} "
+              f"steps: captured {cap_ms:.4f} ms a token, eager "
+              f"{eager_ms:.4f} ms a token; captured == eager "
+              f"{np.array_equal(got, eager)}, == again "
+              f"{np.array_equal(got, again)}; sample_sequence: {rows} of "
+              f"{b} rows identical; captures {gen.captures}, replays "
+              f"{gen.replays} [{name_card}]")
+        check(np.array_equal(got, eager) and np.array_equal(got, again),
+              f"lstm generate [{policy}]: captured == eager")
+        check(gen.captures == 1, f"lstm generate [{policy}]: one capture")
+        check(rows >= b - 1, f"lstm generate [{policy}] == sample_sequence "
+                             f"in {rows} of {b} rows")
+        if policy == "greedy":
+            seq = np.concatenate([prompt, got], axis=1)
+    return seq
+
+
+def chunked_against_output(net, ids):
+    """``rnn_time_step`` fed ``ids`` (one-hot) in chunks of 16, 1, 47 and
+    the rest, against one ``output`` over all of them: the largest
+    difference of the probabilities at each timestep."""
+    x = np.eye(LSTM_MODEL["vocab_size"], dtype=np.float32)[ids]
+    full = net.output(x)
+    net.rnn_clear_previous_state()
+    parts, at = [], 0
+    for n in (16, 1, 47, ids.shape[1] - 64):
+        chunk = x[:, at] if n == 1 else x[:, at:at + n]
+        o = net.rnn_time_step(chunk)
+        parts.append(o[:, None] if o.ndim == 2 else o)
+        at += n
+    return (torch.cat(parts, 1) - full).abs().amax(dim=(0, 2)).cpu().numpy()
+
+
+def lstm_graph(name_card):
+    """The same model as a ``ComputationGraph`` whose head reads the last
+    step (``LastTimeStepVertex``): two ``fit`` steps captured (a capture
+    and a replay) and eager, equal bit for bit."""
+    vocab, hid = LSTM_MODEL["vocab_size"], LSTM_MODEL["hidden"]
+    conf = (NeuralNetConfiguration.builder().seed(12345)
+            .updater("rmsprop", learning_rate=0.1).graph().add_inputs("in")
+            .add_layer("l0", GravesLSTM(n_in=vocab, n_out=hid), "in")
+            .add_layer("l1", GravesLSTM(n_in=hid, n_out=hid), "l0")
+            .add_vertex("last", LastTimeStepVertex(), "l1")
+            .add_layer("out", OutputLayer(n_in=hid, n_out=vocab), "last")
+            .set_outputs("out").build())
+    net = ComputationGraph(conf).init(device="cuda")
+    x, y = _lstm_batch(np.random.RandomState(2), LSTM_T)
+    y = y[:, -1]
+    cap, eag = twin(net, True), twin(net, False)
+    for _ in range(2):
+        cap.fit(x, y)
+        eag.fit(x, y)
+    gaps = state_gaps(cap, eag)
+    print(f"lstm graph (LastTimeStepVertex head): 2 fit steps, captures "
+          f"{cap._step_graphs.captures}, replays {cap._step_graphs.replays}"
+          f"; captured against eager: {len(gaps)} leaves differ, losses "
+          f"{cap.score_value} vs {eag.score_value} [{name_card}]")
+    check(cap._step_graphs.captures == 1 and not gaps
+          and cap.score_value == eag.score_value,
+          f"lstm graph: captured == eager bit for bit ({sorted(gaps)[:4]})")
+
+
+def lstm_phase(name_card):
+    """The GravesLSTM char-LM (``BASELINE.md:31``; zoo
+    ``graves_lstm_char_lm``: 2x200, vocab 77, RMSProp at 0.1, TBPTT 50,
+    float32) at batch 128, T 50, on ``bench.py``'s batch: the first step
+    against the CPU, ``fit_modes``, profiles, TBPTT over T 210,
+    streaming and ``generate``, and the graph facade."""
+    t0 = time.perf_counter()
+    net = graves_lstm_char_lm(device="cuda", **LSTM_MODEL)
+    x, y = _lstm_batch(np.random.RandomState(0), LSTM_T)
+    chars = LSTM_BATCH * LSTM_T
+    print(f"lstm: {net.num_params()} params, batch {LSTM_BATCH}x{LSTM_T} "
+          f"one-hot of {LSTM_MODEL['vocab_size']}, float32, TBPTT "
+          f"{LSTM_MODEL['tbptt']}")
+    lstm_first_step(net, x, y)
+    eager, _ = fit_modes("lstm train", net, [(x, y)], {}, name_card,
+                         items=chars, unit="chars",
+                         flops=6.0 * _matmul_params(net) * chars,
+                         peak=PEAK_OPS[torch.float32])
+    prof = {label: lstm_profile(f"lstm train [{label}]", n, x, y, name_card)
+            for label, n in (("eager", eager), ("captured", net))}
+    print(f"lstm train: cudaLaunchKernel a step, eager "
+          f"{prof['eager']['launches']} against captured "
+          f"{prof['captured']['launches']} and "
+          f"{prof['captured']['graphs']} cudaGraphLaunch [{name_card}]")
+    check(prof["captured"]["graphs"] == 1, "lstm: one graph launch a step")
+    del eager
+    lstm_tbptt(net, name_card)
+    ids = lstm_stream(net, name_card)
+    # chunked streaming against one output: on the zoo's fresh weights
+    # (the same seed) within the tolerance; on the weights trained above
+    # (RMSProp at 0.1 drove the loss from 217 to over 1000) printed by
+    # timestep, to show how far the recurrence carries a difference
+    fresh = graves_lstm_char_lm(device="cuda", **LSTM_MODEL)
+    diff = chunked_against_output(fresh, ids)
+    trained = chunked_against_output(net, ids)
+    steps = [0, 15, 16, 17, 63, 64, 127]
+    print(f"lstm rnn_time_step in chunks of 16, 1, 47, {ids.shape[1] - 64} "
+          f"against one output over {ids.shape[1]} steps: fresh weights "
+          f"max_abs_diff {diff.max():.3e} (tol {LSTM_STREAM_TOL}); trained "
+          f"weights by step " + ", ".join(f"{i}: {trained[i]:.3e}"
+                                          for i in steps))
+    check(diff.max() <= LSTM_STREAM_TOL,
+          f"lstm chunked rnn_time_step {diff.max()}")
+    del net, fresh
+    torch.cuda.empty_cache()
+    lstm_graph(name_card)
+    print(f"lstm phase: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2231,6 +2514,8 @@ def main() -> int:
     lrn_launches = alexnet_phase(name_card)
     torch.cuda.empty_cache()
     lenet_phase(name_card)
+    torch.cuda.empty_cache()
+    lstm_phase(name_card)
     d = rows["decode"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",

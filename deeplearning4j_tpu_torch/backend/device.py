@@ -6,11 +6,17 @@ device through ``resolve_device``: ``cuda`` by default, the CPU only
 when the caller asks for it by name.  With no GPU and no explicit
 ``device="cpu"`` they raise — a run that silently fell back to the host
 would report host numbers under the card's name.
+
+``DTypePolicy`` is the reference's mixed-precision policy record with
+torch dtypes in place of jnp's; the process-wide default comes from
+``DL4J_TPU_DTYPE`` (``float32`` or ``bfloat16``), as in the reference.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+import os
 import threading
 from typing import Dict, Optional, Union
 
@@ -59,6 +65,46 @@ def compute_dtype(name: Optional[str]) -> torch.dtype:
     except KeyError:
         raise ValueError(
             f"unsupported dtype '{name}'; known: {sorted(_DTYPES)}") from None
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    """Mixed-precision policy (reference ``backend/device.py:161``):
+    params and optimizer state in ``param_dtype`` (float32 master
+    weights), activations cast to ``compute_dtype``, accumulation in
+    ``accum_dtype``; the float32 policy is the reference's exact one."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+    accum_dtype: torch.dtype = torch.float32
+
+    def cast_input(self, x):
+        """``x`` (a tensor, or dicts, lists and tuples of them) with every
+        floating tensor cast to ``compute_dtype``."""
+        if isinstance(x, dict):
+            return {k: self.cast_input(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(self.cast_input(v) for v in x)
+        if torch.is_tensor(x) and x.is_floating_point():
+            return x.to(self.compute_dtype)
+        return x
+
+
+_POLICIES = {
+    "float32": DTypePolicy(),
+    "bfloat16": DTypePolicy(compute_dtype=torch.bfloat16),
+}
+_current_policy = _POLICIES[os.environ.get("DL4J_TPU_DTYPE", "float32")]
+
+
+def dtype_policy() -> DTypePolicy:
+    return _current_policy
+
+
+def set_dtype_policy(name: str) -> DTypePolicy:
+    global _current_policy
+    _current_policy = _POLICIES[name]
+    return _current_policy
 
 
 _side_streams: Dict[int, "torch.cuda.Stream"] = {}

@@ -6,8 +6,12 @@ counterpart of the reference's jitted train step (``_make_train_step``,
 A program is one fixed-shape call of a facade's device body: the train
 step (forward, ``torch.autograd.grad``, the updater, the in-place
 parameter update and the layer-state copy) or the inference forward.
-Its inputs are static device tensors (features, labels, masks, the
-step's device key and its updater scalars); the host rewrites them
+Its inputs are static device tensors (features, labels, masks, a TBPTT
+window's carries, the step's device key and its updater scalars); the
+train body writes a window's new carries back into its static carries,
+so the next window of the same length replays on them as they are, and
+a window of another length (TBPTT's shorter last one, a program of its
+own) has them copied in on the device; the host rewrites the rest
 before each call, from pinned buffers (``PinnedRing``: ``fit`` does not
 sync between steps) or by device-to-device copies.  The first call of a
 new shape runs the body eagerly on a side stream — the genuine step —
@@ -220,9 +224,13 @@ class StepGraphs:
             self._slot = None
 
     def put(self, dst: torch.Tensor, src, name) -> None:
-        """``src`` into the static ``dst``: a device-to-device copy from the
-        card, else through the current slot's pinned buffer ``name``."""
+        """``src`` into the static ``dst``: nothing when ``src`` is ``dst``
+        (a TBPTT window's carries, which the program's last replay left in
+        its statics), a device-to-device copy from the card, else through
+        the current slot's pinned buffer ``name``."""
         src = host_or_device(src)
+        if src is dst:
+            return
         if src.device.type == "cuda":
             dst.copy_(src)
             return

@@ -6,9 +6,10 @@ before training, the train step split into its host part
 captured graph's replay on the card or the body eagerly) and its device
 body (``sgd_step``: loss -> autograd -> updater -> in-place update ->
 layer state copied in place), ``infer`` for ``output``, the
-``fit_scanned`` windows, the stream caches of ``rnn_time_step`` and
-``generate`` (seeding, the host-side capacity check) and the raise for
-what is not ported yet."""
+``fit_scanned`` windows, TBPTT's window loop (``fit_tbptt``), the stream
+caches and recurrent carries of ``rnn_time_step`` and ``generate``
+(seeding, the host-side capacity check) and the raise for what is not
+ported yet."""
 
 from __future__ import annotations
 
@@ -33,11 +34,15 @@ def cast_tree(tree, dtype: torch.dtype):
 
 
 def tree_paths(tree, prefix=()):
-    """(key path, leaf) of every leaf of a nested dict, in sorted-key
-    order; a None leaf (an absent mask) is skipped."""
+    """(key path, leaf) of every leaf of nested dicts and tuples (an LSTM's
+    (h, c) carry), in sorted-key order; a None leaf (an absent mask) is
+    skipped."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree)
                 for leaf in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, tuple):
+        return [leaf for i, v in enumerate(tree)
+                for leaf in tree_paths(v, prefix + (i,))]
     return [] if tree is None else [(prefix, tree)]
 
 
@@ -50,6 +55,8 @@ def tree_map(fn, tree):
     """``tree``'s shape with ``fn(leaf)`` at every leaf; None stays None."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v) for v in tree)
     return None if tree is None else fn(tree)
 
 
@@ -85,40 +92,52 @@ def not_ported(facade: str, what: str, where: str):
     raise NotImplementedError(f"{facade}.{what} is not ported yet ({where})")
 
 
-def _recurrent(layer) -> bool:
-    """A layer that carries state but has no stream cache: a recurrent
-    layer, or a block holding one."""
-    subs = getattr(layer, "layers", None)
-    if isinstance(subs, tuple):
-        return any(_recurrent(s) for s in subs)
-    return hasattr(layer, "apply_with_carry") and \
-        not hasattr(layer, "init_cache")
-
-
-def check_streamable(facade: str, named_layers) -> None:
-    """Raise for a stack that ``rnn_time_step`` cannot stream in the port
-    yet: recurrent state comes with the recurrent slice."""
-    for name, layer in named_layers:
-        if _recurrent(layer):
-            raise NotImplementedError(
-                f"{facade}.rnn_time_step: layer '{name}' "
-                f"({type(layer).__name__}) carries recurrent state, which is "
-                "not ported yet (the recurrent slice, ROADMAP A6)")
+def initial_carries(named_layers, batch, cdtype, device):
+    """{name: zero (h, c)} of every recurrent layer (one with an
+    ``initial_carry``) in the model's compute dtype on ``device``: the
+    state a sequence starts from (the reference's zero ``h0``/``c0``)."""
+    dtype = compute_dtype(cdtype)
+    return {name: layer.initial_carry(int(batch), dtype, device)
+            for name, layer in named_layers
+            if hasattr(layer, "initial_carry")}
 
 
 def seed_stream_caches(named_layers, rnn_state, batch, cdtype, device):
-    """The stream caches shared by both facades' ``rnn_time_step`` and
-    ``generate``: for every (name, layer) with an ``init_cache`` and no
-    carry in ``rnn_state``, a cache in the model's compute dtype on
-    ``device``.  Returns the carries (maybe empty)."""
+    """The carries shared by both facades' ``rnn_time_step`` and
+    ``generate``: for every (name, layer) with no carry in ``rnn_state``,
+    a stream cache where it has an ``init_cache`` and zero (h, c) where
+    it is recurrent, in the model's compute dtype on ``device`` (the
+    zeros compute what the reference's absent first carry does).
+    Returns the carries (maybe empty)."""
+    named_layers = list(named_layers)
     dtype = compute_dtype(cdtype)
-    carries = dict(rnn_state) if rnn_state else {}
+    carries = initial_carries(named_layers, batch, cdtype, device)
+    carries.update(rnn_state or {})
     for name, layer in named_layers:
         if hasattr(layer, "init_cache") and name not in carries:
             cache = layer.init_cache(int(batch), dtype, device)
             if cache is not None:
                 carries[name] = cache
     return carries
+
+
+def advance_carries_(carries, new) -> None:
+    """The forward's new carries into ``carries``, in place, so that a
+    captured loop finds its state at fixed addresses: each recurrent
+    (h, c) copied into the tensors held, a block's carries walked, a
+    carry ``carries`` lacks inserted; stream caches are updated in place
+    by their layers already."""
+    for name, nc in new.items():
+        old = carries.get(name)
+        if nc is None or old is nc:
+            continue
+        if old is None:
+            carries[name] = nc
+        elif isinstance(nc, tuple):
+            for dst, src in zip(old, nc):
+                dst.copy_(src)
+        else:
+            advance_carries_(old, nc)
 
 
 def check_cache_capacity(carries, t_new: int, pos: int | None = None) -> None:
@@ -233,10 +252,6 @@ def check_trainable(net) -> None:
             raise NotImplementedError(
                 f"conf.{name} is set: {what} is not ported yet (it comes "
                 "with the resilience and observability slice, ROADMAP A9)")
-    if conf.backprop_type == "truncated_bptt":
-        raise NotImplementedError(
-            "truncated BPTT is not ported yet (the recurrent slice, "
-            "ROADMAP A6)")
     if conf.optimization_algo != "stochastic_gradient_descent":
         raise NotImplementedError(
             f"optimization_algo={conf.optimization_algo!r}: the full-batch "
@@ -264,19 +279,23 @@ def lr_overrides(net):
             if l.learning_rate is not None}
 
 
-def sgd_step(net, loss_of, scalars) -> torch.Tensor:
+def sgd_step(net, loss_of, scalars, carries=None) -> torch.Tensor:
     """The device body of one step of ``net``: ``loss_of(params) ->
     (loss, new_net_state)``, gradients of the trainable leaves, the
     updater (``scalars``: ``updaters.step_scalars``' values as 0-d
     tensors), the update subtracted in place, and the new updater and
-    layer state copied into the old tensors.  Returns the loss as a
-    device scalar (no host sync)."""
+    layer state copied into the old tensors.  With ``carries`` (a TBPTT
+    window's {layer: (h, c)}), ``loss_of`` also returns the new carries,
+    which are written into ``carries``' tensors once the gradients are
+    taken: the backward pass reads the old ones, which autograd saved.
+    Returns the loss as a device scalar (no host sync)."""
     train = trainable(net.params)
     leaves = tree_leaves(train)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss, new_state = loss_of(net.params)
+        out = loss_of(net.params)
+        loss, new_state = out[0], out[1]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
@@ -290,6 +309,8 @@ def sgd_step(net, loss_of, scalars) -> torch.Tensor:
         upd.apply_updates_(net.params, updates)
         copy_tree_(net.updater_state, new_ustate)
         copy_tree_(net.net_state, new_state)
+        if carries is not None:
+            advance_carries_(carries, {k: out[2][k] for k in carries})
     return loss.detach()
 
 
@@ -309,19 +330,23 @@ def _on(tree, device):
     return tree_map(lambda t: torch.as_tensor(t, device=device), tree)
 
 
-def train_step(net, body, inputs) -> None:
+def train_step(net, body, inputs):
     """The host part of one step: the step's key seed from the net's key
     stream and its updater scalars from ``net.iteration``, then
     ``body(**inputs, key=, scalars=)`` — through the net's captured graph
     on the card (the inputs staged into its static tensors), eagerly on
     the CPU or with ``net._capture`` off.  Records the step:
     ``score_value`` a copy of the loss on the device (a replay's static
-    loss is rewritten by the next), ``iteration`` one further."""
+    loss is rewritten by the next), ``iteration`` one further.  Returns
+    what the body returned: the loss, or (loss, carries) for a TBPTT
+    window, whose carries (a replay's: the program's static carries,
+    rewritten in place) the next window starts from."""
     seed = rng_mod.seed_of(net._keys.next())
     vals = _step_scalars(net, net.iteration)
     dtype = _scalar_dtype(net)
 
-    def record(loss):
+    def record(out):
+        loss = out[0] if isinstance(out, tuple) else out
         net.score_value = loss.clone()   # fetched lazily on read
         net.iteration += 1
 
@@ -331,12 +356,33 @@ def train_step(net, body, inputs) -> None:
         prog = graphs.program("train", body, inputs, len(vals), dtype)
         prog.scalar_names = list(vals)
         graphs.stage(prog, inputs, seed, list(vals.values()))
-        graphs.run(prog, record)
-        return
+        return graphs.run(prog, record)
     dev = net.device
     sc = torch.tensor(list(vals.values()), dtype=dtype, device=dev)
-    record(body(**_on(inputs, dev), key=rng_mod.device_key(seed, dev),
-                scalars=dict(zip(vals, sc.unbind(0)))))
+    out = body(**_on(inputs, dev), key=rng_mod.device_key(seed, dev),
+               scalars=dict(zip(vals, sc.unbind(0))))
+    record(out)
+    return out
+
+
+def fit_tbptt(net, t_len: int, batch: int, window) -> None:
+    """Truncated BPTT over one batch of ``t_len`` timesteps (reference
+    ``doTruncatedBPTT``, ``sequential.py:620``, ``graph.py:907``): windows
+    of ``conf.tbptt_fwd_length`` (the last one shorter where ``t_len``
+    is not a multiple; the reference reads only the forward length), each
+    one step and one ``iteration``, so learning-rate schedules and bias
+    corrections count windows.  ``window(sl)`` gives the inputs of the
+    time slice ``sl`` for the facade's step (``net._step``, which returns
+    (loss, carries) for a window).  The first window starts from zero
+    carries (the reference's ``h0``/``c0``), each later one from the
+    carries the one before left, detached: its backward pass stops at
+    the window's start."""
+    length = net.conf.tbptt_fwd_length
+    carries = initial_carries(net._named_layers(), batch,
+                              net.conf.compute_dtype, net.device)
+    for t0 in range(0, t_len, length):
+        inputs = window(slice(t0, min(t0 + length, t_len)))
+        carries = net._step({**inputs, "carries": carries})[1]
 
 
 def infer(net, body, inputs):

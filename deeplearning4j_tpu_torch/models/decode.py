@@ -5,12 +5,14 @@ The reference runs a whole generation as ONE jitted XLA program: the
 prompt's prefill, then the token loop as a ``lax.scan``.  The port's
 counterpart of that compiled program is a captured CUDA graph: on the
 card, ``generate`` prefills eagerly and then replays one graph of the
-loop body (forward through the stream caches, the logits, the draw, the
-token fed back) once a token.  The fed-back token, the step index, the
-noise and the [B, steps] output live in static device buffers, and the
-host reads the ids once, at the end.  On the CPU the same body runs
-eagerly.  ``utils.sampling.sample_sequence`` (the host loop over
-``rnn_time_step``) is the oracle: greedy ids are the same through both.
+loop body (forward through the stream caches and the LSTM carries, the
+logits, the draw, the token fed back) once a token.  The fed-back token,
+the step index, the noise, the LSTMs' (h, c) (written back in place
+after each step's forward) and the [B, steps] output live in static
+device buffers, and the host reads the ids once, at the end.  On the
+CPU the same body runs eagerly.  ``utils.sampling.sample_sequence`` (the
+host loop over ``rnn_time_step``) is the oracle: greedy ids are the same
+through both.
 
 ``MultiLayerNetwork`` and single-input single-output ``ComputationGraph``
 are served; generation feeds back one token stream, so a multi-input
@@ -32,7 +34,7 @@ from deeplearning4j_tpu_torch.models.capture import (  # noqa: F401
     GRAPH_CACHE_SIZE, cached,
 )
 from deeplearning4j_tpu_torch.models.common import (
-    check_cache_capacity, seed_stream_caches, tree_leaves,
+    advance_carries_, check_cache_capacity, seed_stream_caches, tree_leaves,
 )
 from deeplearning4j_tpu_torch.nn.layers.attention import KPOS_EMPTY
 from deeplearning4j_tpu_torch.utils.sampling import (
@@ -130,7 +132,10 @@ class DecodeFn:
         return ids[..., None] if self.expand_ids else ids
 
     def _next(self, params, carries, x, noise):
-        pre, _ = self.fwd(params, x, carries)
+        pre, new = self.fwd(params, x, carries)
+        # recurrent state back into the carries' own tensors (the stream
+        # caches were written in place by their layers)
+        advance_carries_(carries, new)
         # the call's float32 logits stay on the device (in a captured
         # loop: the graph's buffer, which every replay overwrites)
         self.last_logits = pre[:, -1].float()
@@ -200,8 +205,13 @@ def _static_params(net):
 
 
 def _reset_caches(carries) -> None:
-    """Empty stream caches, in place: ``pos`` 0, rolling slots empty."""
+    """Empty stream caches and zero recurrent (h, c), in place: ``pos``
+    0, rolling slots empty."""
     for c in carries.values():
+        if isinstance(c, tuple):
+            for t in c:
+                t.zero_()
+            continue
         if not isinstance(c, dict):
             continue
         if "pos" in c and "k" in c:

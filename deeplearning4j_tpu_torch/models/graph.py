@@ -12,15 +12,17 @@ its cycle error, ``validate``), ``GraphBuilder`` with size inference
 from ``set_input_types``, ``init``, the forward (the compute-dtype cast
 inside the graph, one key per node, output nodes stopping at their
 pre-output), the loss (float32), the SGD train step with per-layer
-learning rates, ``fit`` over a pair, an iterable or a dict of inputs,
-``fit_scanned`` (windows of same-shape batches), ``output`` (on the
+learning rates, ``fit`` over a pair, an iterable or a dict of inputs
+(with truncated BPTT: windows of every sequence input, label and mask,
+the recurrent nodes' carries passed on detached), ``fit_scanned``
+(windows of same-shape batches), ``output`` (on the
 card ``fit``, ``fit_scanned`` and ``output`` replay captured CUDA
 graphs, ``models/capture.py``), ``feed_forward``, ``score``, the lazy
 ``score_value``,
 ``num_params``, the flat parameter vector, ``clone``, YAML as well as
-JSON, ``save``/``load``, and streaming inference over attention nodes
-(``rnn_time_step``, ``rnn_clear_previous_state``: carries flow through
-the forward).  What else the reference's graph does raises
+JSON, ``save``/``load``, and streaming inference over attention and
+recurrent nodes (``rnn_time_step``, ``rnn_clear_previous_state``:
+carries flow through the forward).  What else the reference's graph does raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -40,8 +42,8 @@ from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.models.common import (
     FlatParamsMixin, LazyScoreMixin, cast_tree, check_cache_capacity,
-    check_streamable, check_trainable, infer, not_ported,
-    seed_stream_caches, sgd_step, train_step, trainable, unpack_batch,
+    check_trainable, infer, not_ported, seed_stream_caches, sgd_step,
+    train_step, trainable, unpack_batch,
 )
 from deeplearning4j_tpu_torch.models.sequential import init_net_state
 from deeplearning4j_tpu_torch.models.vertices import (
@@ -263,10 +265,13 @@ class GraphBuilder:
             input_types=({k: v.to_dict() for k, v in
                           self._input_types.items()} or None),
             seed=p._seed,
+            optimization_algo=p._optimization_algo,
+            num_iterations=p._num_iterations,
             compute_dtype=self._compute_dtype,
             backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_back_length=self._tbptt_back,
+            **p._policies(),
         )
         conf.validate()
         if self._input_types:
@@ -362,8 +367,9 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
                  *, train=False, rng=None, fmask=None, carries=None):
         """Fold over the topological order.  Output-layer nodes stop at
         their pre-output (callers apply the loss or the activation).
-        Carry-capable nodes (attention, residual blocks) take their carry
-        from ``carries`` by node name.  Returns (activations by node name,
+        Carry-capable nodes (LSTMs, attention, residual blocks) take their
+        carry from ``carries`` by node name; a vertex that reads the
+        features mask (``LastTimeStepVertex``) gets ``fmask``.  Returns (activations by node name,
         new net state, new carries)."""
         acts: Dict[str, Any] = dict(inputs)
         new_state = dict(net_state)
@@ -384,7 +390,8 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
             xs = [acts[inp] for inp in node.inputs]
             layer = node.layer
             if layer is None:
-                acts[name] = node.vertex.apply(xs)
+                kw = {"mask": fmask} if node.vertex._TAKES_MASK else {}
+                acts[name] = node.vertex.apply(xs, **kw)
             elif isinstance(layer, OutputLayer) and name in out_names:
                 h = layer.maybe_dropout(xs[0], train=train, rng=rngs[i])
                 acts[name] = layer.pre_output(params[name], h)
@@ -403,16 +410,18 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         return acts, new_state, new_carries
 
     def _loss_fn(self, params, net_state, inputs, labels, rng=None,
-                 fmask=None, lmask=None, *, train=True):
+                 fmask=None, lmask=None, *, train=True, carries=None):
         """(sum over the outputs of each one's loss, in float32 under a
         compute dtype, + regularization; the new net state).  ``inputs``
         and ``labels`` are dicts by name, or single tensors for a graph
-        with one input or one output."""
+        with one input or one output.  With ``carries`` (a TBPTT
+        window's {node: (h, c)}) the forward starts from them, and the new
+        carries come third."""
         inputs = self._as_input_dict(inputs)
         labels = self._as_label_dict(labels)
-        acts, new_state, _ = self._forward(params, net_state, inputs,
-                                           train=train, rng=rng,
-                                           fmask=fmask)
+        acts, new_state, new_carries = self._forward(
+            params, net_state, inputs, train=train, rng=rng, fmask=fmask,
+            carries=carries)
         total = 0.0
         for node in self.output_nodes:
             layer = node.layer
@@ -426,6 +435,8 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         for n in self.conf.nodes:
             if n.layer is not None and n.layer.has_params():
                 total = total + n.layer.reg_score(params[n.name])
+        if carries is not None:
+            return total, new_state, new_carries
         return total, new_state
 
     def _as_input_dict(self, inputs):
@@ -514,32 +525,85 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         return float(loss)
 
     # ----------------------------------------------------------- train step
-    def _train_body(self, inputs, labels, fmask, lmask, key, scalars):
-        """The step's device body (``common.sgd_step``)."""
-        return sgd_step(self, lambda params: self._loss_fn(
+    def _train_body(self, inputs, labels, fmask, lmask, key, scalars,
+                    carries=None):
+        """The step's device body (``common.sgd_step``); a TBPTT window
+        (``carries``) returns (loss, its carries, now the new ones)."""
+        loss = sgd_step(self, lambda params: self._loss_fn(
             params, self.net_state, inputs, labels, key, fmask, lmask,
-            train=True), scalars)
+            train=True, carries=carries), scalars, carries)
+        return loss if carries is None else (loss, carries)
 
-    def _step(self, inputs) -> None:
-        train_step(self, self._train_body, inputs)
+    def _step(self, inputs):
+        return train_step(self, self._train_body, inputs)
 
     def _one_step(self, x, y, fmask, lmask) -> None:
         self._step({"inputs": self._as_input_dict(x),
                     "labels": self._as_label_dict(y), "fmask": fmask,
                     "lmask": lmask})
 
+    def _fit_one(self, x, y, fmask, lmask) -> None:
+        """One batch: one step, or TBPTT's windows."""
+        if self.conf.backprop_type == "truncated_bptt":
+            self._fit_tbptt(x, y, fmask, lmask)
+        else:
+            self._one_step(x, y, fmask, lmask)
+
+    def _batch_adv(self, x) -> int:
+        """How many iterations one batch advances (reference
+        ``graph.py:846``): one a TBPTT window of its longest sequence
+        input under SGD TBPTT, else 1."""
+        if (self.conf.optimization_algo == "stochastic_gradient_descent"
+                and self.conf.backprop_type == "truncated_bptt"):
+            temporal = [a.shape[1] for a in self._as_input_dict(x).values()
+                        if a.ndim >= 3]
+            if temporal:
+                return -(-max(temporal) // self.conf.tbptt_fwd_length)
+        return 1
+
+    def _fit_tbptt(self, x, y, fmask, lmask) -> None:
+        """Truncated BPTT over the DAG (reference ``graph.py:907``):
+        ``common.fit_tbptt``'s windows of every input, label and mask
+        along the time axis."""
+        x, y = self._as_input_dict(x), self._as_label_dict(y)
+        temporal = [a.shape[1] for a in x.values() if a.ndim >= 3]
+        if not temporal:
+            raise ValueError(
+                "TBPTT requires at least one rank-3 [batch, time, features] "
+                "input; use backprop_type='standard' for feed-forward "
+                "graphs")
+        common.fit_tbptt(
+            self, int(max(temporal)), int(next(iter(x.values())).shape[0]),
+            lambda sl: {"inputs": self._tbptt_slice_data(x, sl),
+                        "labels": self._tbptt_slice_data(y, sl),
+                        "fmask": self._tbptt_slice_mask(fmask, sl),
+                        "lmask": self._tbptt_slice_mask(lmask, sl)})
+
+    @staticmethod
+    def _tbptt_slice_data(tree, sl):
+        """The time slice of every sequence (rank 3 or more); rank-2
+        features and one-hot labels are static and pass whole."""
+        return common.tree_map(
+            lambda a: a[:, sl] if a.ndim >= 3 else a, tree)
+
+    @staticmethod
+    def _tbptt_slice_mask(tree, sl):
+        """Masks are [batch, time]: rank 2 is temporal here."""
+        return common.tree_map(
+            lambda a: a[:, sl] if a.ndim >= 2 else a, tree)
+
     def fit(self, data, labels=None, *, fmask=None,
             lmask=None) -> "ComputationGraph":
         """``fit(inputs, labels)`` (an array or a dict by input name, and
         an array or a dict by output name), or ``fit(iterable)`` of
-        (x, y[, fmask, lmask]) tuples or DataSets; one SGD step per batch,
-        as the reference."""
+        (x, y[, fmask, lmask]) tuples or DataSets; one SGD step per batch
+        (one a window under TBPTT), as the reference."""
         check_trainable(self)
         if labels is not None:
-            self._one_step(data, labels, fmask, lmask)
+            self._fit_one(data, labels, fmask, lmask)
             return self
         for batch in data:
-            self._one_step(*unpack_batch(batch))
+            self._fit_one(*unpack_batch(batch))
         return self
 
     # ------------------------------------------------- streaming rnnTimeStep
@@ -558,12 +622,11 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
 
     def rnn_time_step(self, inputs, fmask=None):
         """Stateful streaming inference (reference ``graph.py:1090``):
-        feed one timestep or a few; attention nodes keep a KV cache
-        between calls.  Id inputs (read by an embedding) follow
+        feed one timestep or a few; attention nodes keep a KV cache and
+        LSTM nodes their (h, c) between calls.  Id inputs (read by an embedding) follow
         ``MultiLayerNetwork.rnn_time_step``'s rules; a rank-2 feature
         input is one step.  Each output's activation, float32 under a
         compute dtype; a list for several outputs."""
-        check_streamable("ComputationGraph", self._named_layers())
         inputs = self._on_device(self._as_input_dict(inputs))
         squeeze = False
         expanded = {}

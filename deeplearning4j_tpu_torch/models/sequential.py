@@ -4,15 +4,17 @@ Ported: ``init``, the forward with input preprocessors, carries and
 layer state (``_forward``), ``output`` (with a features mask),
 ``feed_forward``, ``num_params``, the flat parameter vector
 (``params_to_vector``/``set_params_vector``), ``clone``, streaming
-inference over attention stacks (``rnn_time_step``,
-``rnn_clear_previous_state``: the stream caches, a host-side position),
-and training:
+inference over attention and recurrent stacks (``rnn_time_step``,
+``rnn_clear_previous_state``: the stream caches and the LSTM carries, a
+host-side position), and training:
 ``_loss_fn`` (data loss + regularization, and the new layer state), the
 train step (loss -> autograd -> updater -> parameter update -> new
-state), ``fit`` over an (X, y) pair or an iterable of batches,
-``fit_scanned`` (windows of same-shape batches), ``score`` and the lazy
-``score_value``.  On the card ``fit``, ``fit_scanned`` and ``output``
-replay captured CUDA graphs (``models/capture.py``), the reference's
+state), ``fit`` over an (X, y) pair or an iterable of batches, with
+truncated BPTT (``_fit_tbptt``: windows of the time axis, the LSTM
+carries passed on detached), ``fit_scanned`` (windows of same-shape
+batches), ``score`` and the lazy ``score_value``.  On the card ``fit``,
+``fit_scanned`` and ``output`` replay captured CUDA graphs
+(``models/capture.py``), the reference's
 jitted programs.  Params live in a nested dict
 ``{layer name: {param name: tensor}}`` with the reference's names and
 layouts, on ``self.device``; ``updater_state`` holds the updater's trees
@@ -23,11 +25,11 @@ float32 params to that type inside the differentiated graph, so the
 gradients land on the float32 params, and the loss runs in float32 — the
 reference's mixed-precision policy.
 
-Not ported yet (later slices): TBPTT, the full-batch solvers,
-``checkpoint_manager``/``retry_policy``, fit telemetry, the stability,
-introspection and numerics engines, and ``rnn_time_step`` over recurrent
-layers; ``pretrain``, ``set_listeners``, ``add_listener`` and
-``evaluate`` raise ``NotImplementedError`` naming their ROADMAP item.
+Not ported yet (later slices): the full-batch solvers,
+``checkpoint_manager``/``retry_policy``, fit telemetry, and the
+stability, introspection and numerics engines; ``pretrain``,
+``set_listeners``, ``add_listener`` and ``evaluate`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,9 +46,9 @@ from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.models.common import (  # noqa: F401 (re-exported)
     FlatParamsMixin, LazyScoreMixin, _tree_like, cast_tree,
-    check_cache_capacity, check_streamable, check_trainable, infer,
-    not_ported, seed_stream_caches, sgd_step, train_step, trainable,
-    tree_leaves, unpack_batch,
+    check_cache_capacity, check_trainable, infer, not_ported,
+    seed_stream_caches, sgd_step, train_step, trainable, tree_leaves,
+    unpack_batch,
 )
 from deeplearning4j_tpu_torch.nn import activations, losses
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
@@ -114,8 +116,9 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         """Forward through every layer, each after its input preprocessor
         (``conf.preprocessors``); the output layer stops at its
         pre-activation (after its input dropout).  Carry-capable layers
-        (attention, residual blocks) take their carry from ``carries`` by
-        layer name; stateful layers (BatchNorm) their state from
+        (LSTMs, attention, residual blocks) take their carry from
+        ``carries`` by layer name (an LSTM without one starts from
+        zeros); stateful layers (BatchNorm) their state from
         ``net_state`` (``self.net_state`` when None).  ``rng`` (the step's
         key) splits into one key per layer.  With a list as ``collect``,
         each layer's output is appended to it.  Returns (pre_output,
@@ -181,21 +184,26 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
 
     # ----------------------------------------------------------------- score
     def _loss_fn(self, params, x, y, rng=None, fmask=None, lmask=None, *,
-                 train=True, net_state=None):
+                 train=True, net_state=None, carries=None):
         """(data loss (float32 under a compute dtype) + regularization,
-        the new layer state)."""
+        the new layer state); with ``carries`` (a TBPTT window's
+        {layer: (h, c)}) the forward starts from them, and the new
+        carries come third."""
         out_layer = self.layers[-1]
         if not isinstance(out_layer, OutputLayer):
             raise ValueError(
                 "Last layer must be an OutputLayer/RnnOutputLayer for fit()")
-        pre, _, new_state = self._forward(params, x, train=train, rng=rng,
-                                          fmask=fmask, net_state=net_state)
+        pre, new_carries, new_state = self._forward(
+            params, x, train=train, rng=rng, fmask=fmask, carries=carries,
+            net_state=net_state)
         if self.conf.compute_dtype is not None:
             pre = pre.float()
         data = losses.score(out_layer.loss, y.to(pre.dtype), pre,
                             out_layer.activation, lmask)
         reg = sum(layer.reg_score(params[layer.name])
                   for layer in self.layers if layer.has_params())
+        if carries is not None:
+            return data + reg, new_state, new_carries
         return data + reg, new_state
 
     def _as_device(self, a):
@@ -223,16 +231,34 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
     def _check_trainable(self) -> None:
         check_trainable(self)
 
-    def _train_body(self, x, y, fmask, lmask, key, scalars):
-        """The step's device body (``common.sgd_step``)."""
-        return sgd_step(self, lambda params: self._loss_fn(
-            params, x, y, key, fmask, lmask, train=True), scalars)
+    def _train_body(self, x, y, fmask, lmask, key, scalars, carries=None):
+        """The step's device body (``common.sgd_step``); a TBPTT window
+        (``carries``) returns (loss, its carries, now the new ones)."""
+        loss = sgd_step(self, lambda params: self._loss_fn(
+            params, x, y, key, fmask, lmask, train=True, carries=carries),
+            scalars, carries)
+        return loss if carries is None else (loss, carries)
 
-    def _step(self, inputs) -> None:
-        train_step(self, self._train_body, inputs)
+    def _step(self, inputs):
+        return train_step(self, self._train_body, inputs)
 
     def _one_step(self, x, y, fmask, lmask) -> None:
         self._step({"x": x, "y": y, "fmask": fmask, "lmask": lmask})
+
+    def _named_layers(self):
+        return [(layer.name, layer) for layer in self.layers]
+
+    def _fit_tbptt(self, x, y, fmask, lmask) -> None:
+        """Truncated BPTT over one batch (reference ``sequential.py:620``):
+        ``common.fit_tbptt``'s windows of x, y and the masks along their
+        time axis."""
+        def cut(a, sl):
+            return None if a is None else a[:, sl]
+
+        common.fit_tbptt(
+            self, int(x.shape[1]), int(x.shape[0]),
+            lambda sl: {"x": cut(x, sl), "y": cut(y, sl),
+                        "fmask": cut(fmask, sl), "lmask": cut(lmask, sl)})
 
     _unpack = staticmethod(unpack_batch)
 
@@ -242,13 +268,16 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         (features, labels[, fmask, lmask]) batches for ``epochs`` passes;
         each batch is stepped ``conf.num_iterations`` times."""
         self._check_trainable()
+        one = (self._fit_tbptt
+               if self.conf.backprop_type == "truncated_bptt"
+               else self._one_step)
         batches = ([(data, labels, fmask, lmask)] if labels is not None
                    else None)
         for _ in range(1 if batches is not None else epochs):
             for batch in (batches if batches is not None else data):
                 x, y, fm, lm = self._unpack(batch)
                 for _ in range(self.conf.num_iterations):
-                    self._one_step(x, y, fm, lm)
+                    one(x, y, fm, lm)
         return self
 
     # ------------------------------------------------- streaming rnnTimeStep
@@ -264,15 +293,13 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
 
     def rnn_time_step(self, x) -> torch.Tensor:
         """Stateful streaming inference (reference ``sequential.py:727``):
-        feed one timestep or a few; attention layers keep a KV cache,
-        seeded on the first call, between calls.  Inputs: [B] ids (one
+        feed one timestep or a few; attention layers keep a KV cache and
+        LSTMs their (h, c), seeded on the first call, between calls.  Inputs: [B] ids (one
         step; also [B, 1] under ``collapse_column``), [B, T] ids, [B, F]
         features (one step) or [B, T, F].  One-step inputs give [B, V],
         the others [B, T, V]; float32 under a compute dtype.  The stream
         position is counted on the host, so the capacity check needs no
         sync."""
-        check_streamable("MultiLayerNetwork",
-                         ((l.name, l) for l in self.layers))
         x = torch.as_tensor(x, device=self.device)
         if self._embeds_ids():
             collapse = self.layers[0].collapse_column
@@ -290,8 +317,8 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         if not self._rnn_state:
             self._stream_pos = 0
         carries = seed_stream_caches(
-            ((l.name, l) for l in self.layers), self._rnn_state,
-            x.shape[0], self.conf.compute_dtype, self.device)
+            self._named_layers(), self._rnn_state, x.shape[0],
+            self.conf.compute_dtype, self.device)
         check_cache_capacity(carries, int(x.shape[1]), pos=self._stream_pos)
         with torch.no_grad():
             pre, new_carries, _ = self._forward(self.params, x,

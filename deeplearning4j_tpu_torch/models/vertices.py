@@ -1,11 +1,11 @@
 """Graph vertices — counterpart of ``deeplearning4j_tpu/models/vertices.py``.
 
 A vertex is a function of its input activations; its backward is
-autograd.  Ported: ``ElementWiseVertex`` (add, subtract, product,
-average, max), ``MergeVertex``, ``SubsetVertex``, ``ScaleVertex`` and
-``PreprocessorVertex``.  ``LastTimeStepVertex`` and
-``DuplicateToTimeSeriesVertex`` come with the recurrent slice; a config
-that names one raises when it is read.
+autograd.  All of the reference's vertices: ``ElementWiseVertex`` (add,
+subtract, product, average, max), ``MergeVertex``, ``SubsetVertex``,
+``ScaleVertex``, ``LastTimeStepVertex`` (which reads the features mask:
+``_TAKES_MASK``), ``DuplicateToTimeSeriesVertex`` and
+``PreprocessorVertex``.
 """
 
 from __future__ import annotations
@@ -19,10 +19,6 @@ from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.preprocessors import preproc_from_dict
 
 _VERTEX_REGISTRY: Dict[str, Type["GraphVertex"]] = {}
-_NOT_PORTED = {
-    "LastTimeStepVertex": "the recurrent slice (ROADMAP A6)",
-    "DuplicateToTimeSeriesVertex": "the recurrent slice (ROADMAP A6)",
-}
 
 
 def register_vertex(cls):
@@ -33,10 +29,6 @@ def register_vertex(cls):
 def vertex_from_dict(d: Dict[str, Any]) -> "GraphVertex":
     d = dict(d)
     type_name = d.pop("type")
-    if type_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{type_name} is not ported yet: it comes with "
-            f"{_NOT_PORTED[type_name]}")
     cls = _VERTEX_REGISTRY.get(type_name)
     if cls is None:
         raise ValueError(f"Unknown vertex type '{type_name}'; registered: "
@@ -46,6 +38,8 @@ def vertex_from_dict(d: Dict[str, Any]) -> "GraphVertex":
 
 @dataclasses.dataclass(frozen=True)
 class GraphVertex:
+    _TAKES_MASK = False        # apply() takes the features ``mask``
+
     def apply(self, inputs: List[torch.Tensor]) -> torch.Tensor:
         raise NotImplementedError
 
@@ -148,6 +142,48 @@ class ScaleVertex(GraphVertex):
 
     def output_type(self, input_types):
         return input_types[0]
+
+
+@register_vertex
+@dataclasses.dataclass(frozen=True)
+class LastTimeStepVertex(GraphVertex):
+    """[B, T, F] -> [B, F] at each example's last unmasked step (reference
+    ``rnn/LastTimeStepVertex.java``): with a mask [B, T], the step at
+    sum(mask) - 1 (clamped at 0), else the last."""
+
+    _TAKES_MASK = True
+
+    def apply(self, inputs, mask=None):
+        x = inputs[0]
+        if mask is None:
+            return x[:, -1]
+        idx = (mask.sum(dim=1).to(torch.int32) - 1).clamp_min(0)
+        return x[torch.arange(x.shape[0], device=x.device),
+                 idx.to(torch.int64)]
+
+    def output_type(self, input_types):
+        return InputType.feed_forward(input_types[0].size)
+
+
+@register_vertex
+@dataclasses.dataclass(frozen=True)
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """[B, F] -> [B, T, F], the features repeated at every timestep
+    (reference ``rnn/DuplicateToTimeSeriesVertex.java``); T is
+    ``timesteps``, or when unset the time axis of the second input."""
+
+    timesteps: Optional[int] = None
+
+    def apply(self, inputs):
+        x = inputs[0]
+        t = self.timesteps
+        if t is None and len(inputs) > 1:
+            t = inputs[1].shape[1]
+        return x[:, None, :].expand(x.shape[0], t, x.shape[-1])
+
+    def output_type(self, input_types):
+        return InputType.recurrent(input_types[0].flat_size(),
+                                   self.timesteps)
 
 
 @register_vertex

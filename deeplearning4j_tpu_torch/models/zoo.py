@@ -1,6 +1,6 @@
 """Model zoo — counterpart of ``deeplearning4j_tpu/models/zoo.py``
-(``lenet``, ``resnet50``, ``alexnet`` and ``transformer_char_lm`` so
-far).  Each builds the reference's config (and JSON) and seeded weights
+(``lenet``, ``resnet50``, ``alexnet``, ``graves_lstm_char_lm`` and
+``transformer_char_lm`` so far).  Each builds the reference's config (and JSON) and seeded weights
 on ``device``: ``cuda`` unless the caller passes ``device="cpu"``."""
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-    EmbeddingLayer, GlobalPoolingLayer, LayerNorm,
+    EmbeddingLayer, GlobalPoolingLayer, GravesLSTM, LayerNorm,
     LocalResponseNormalization, OutputLayer, ResidualBlock, RnnOutputLayer,
     SelfAttentionLayer, SubsamplingLayer,
 )
@@ -163,6 +163,29 @@ def alexnet(height: int = 224, width: int = 224, channels: int = 3,
                          activation="softmax"))
       .set_input_type(InputType.convolutional(height, width, channels)))
     return MultiLayerNetwork(b.build()).init(device)
+
+
+def graves_lstm_char_lm(vocab_size: int = 77, hidden: int = 200,
+                        seq_len: int = 64, layers: int = 2,
+                        seed: int = 12345, updater: str = "rmsprop",
+                        lr: float = 0.1, tbptt: int = 50,
+                        device: DeviceLike = None) -> MultiLayerNetwork:
+    """GravesLSTM character language model (the classic DL4J char-RNN
+    example; ``BASELINE.md:31``): ``layers`` GravesLSTMs of ``hidden``
+    over one-hot characters, a softmax head, truncated BPTT in windows of
+    ``tbptt``.  ``seq_len`` is the reference's argument, which it does
+    not read either."""
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(updater, learning_rate=lr).list())
+    n_in = vocab_size
+    for _ in range(layers):
+        b.layer(GravesLSTM(n_in=n_in, n_out=hidden, activation="tanh"))
+        n_in = hidden
+    b.layer(RnnOutputLayer(n_in=hidden, n_out=vocab_size, loss="mcxent",
+                           activation="softmax"))
+    conf = b.backprop_type("truncated_bptt", fwd_length=tbptt,
+                           back_length=tbptt).build()
+    return MultiLayerNetwork(conf).init(device)
 
 
 def transformer_char_lm(vocab_size: int = 77, d_model: int = 128,

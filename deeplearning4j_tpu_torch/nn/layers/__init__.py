@@ -14,12 +14,15 @@ from deeplearning4j_tpu_torch.nn.layers.dense import (
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNormalization, LayerNorm, LocalResponseNormalization,
 )
-from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    LSTM, GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer,
+)
 
 __all__ = [
     "ActivationLayer", "BatchNormalization", "ConvolutionLayer",
     "DenseLayer", "DropoutLayer", "EmbeddingLayer", "GlobalPoolingLayer",
-    "Layer", "LayerNorm", "LocalResponseNormalization", "OutputLayer",
+    "GravesBidirectionalLSTM", "GravesLSTM", "LSTM", "Layer", "LayerNorm",
+    "LocalResponseNormalization", "OutputLayer",
     "ResidualBlock", "RnnOutputLayer", "SelfAttentionLayer",
     "SubsamplingLayer", "layer_from_dict", "register_layer",
 ]

@@ -94,8 +94,9 @@ class ConvolutionLayer(_Windowed, Layer):
         return {"W": (kh, kw, self.n_in, self.n_out), "b": (self.n_out,)}
 
     def init(self, gen, dtype=torch.float32, device=None):
-        w = initializers.init(self.weight_init, gen,
-                              self.param_shapes()["W"], dtype, device)
+        w = initializers.init(
+            self.weight_init, gen, self.param_shapes()["W"], dtype, device,
+            distribution=initializers.distribution_from_dict(self.dist))
         b = torch.full((self.n_out,), self.bias_init, dtype=dtype,
                        device=device)
         return {"W": w, "b": b}

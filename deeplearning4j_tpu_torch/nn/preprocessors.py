@@ -143,7 +143,9 @@ def auto_preprocessor(prev: InputType, layer) -> Optional[Preprocessor]:
     from deeplearning4j_tpu_torch.nn.layers.normalization import (
         BatchNormalization, LocalResponseNormalization,
     )
-    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        GravesBidirectionalLSTM, GravesLSTM, RnnOutputLayer,
+    )
 
     if isinstance(layer, (BatchNormalization, LocalResponseNormalization,
                           ActivationLayer, DropoutLayer)):
@@ -155,9 +157,8 @@ def auto_preprocessor(prev: InputType, layer) -> Optional[Preprocessor]:
             return FeedForwardToCnn(prev.height, prev.width, prev.channels)
         raise ValueError(f"Cannot feed {prev} into convolutional layer; use "
                          f"InputType.convolutional_flat for image vectors")
-    # the recurrent layers (GravesLSTM, LSTM, bidirectional) join this
-    # tuple with the recurrent slice
-    if isinstance(layer, RnnOutputLayer):
+    if isinstance(layer, (GravesLSTM, GravesBidirectionalLSTM,
+                          RnnOutputLayer)):
         if prev.kind == "rnn":
             return None
         if prev.kind in ("ff", "cnn_flat"):

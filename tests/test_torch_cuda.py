@@ -1456,3 +1456,122 @@ def test_a_failed_capture_raises(cuda):
         _assert_same_state(net, twin)
         assert not net._step_graphs.programs
     assert net._step_graphs.captures == 0
+
+
+# ------------------------------------------------------------ recurrent
+def _lstm_lm(tbptt, hidden=32, vocab=29):
+    from deeplearning4j_tpu_torch.models.zoo import graves_lstm_char_lm
+
+    return graves_lstm_char_lm(vocab_size=vocab, hidden=hidden, tbptt=tbptt,
+                               lr=0.01)
+
+
+def _one_hot_batches(n, t, vocab=29, batch=6, seed=0):
+    rs = np.random.default_rng(seed)
+    eye = np.eye(vocab, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        ids = rs.integers(0, vocab, (batch, t))
+        out.append((eye[ids], eye[np.roll(ids, -1, 1)]))
+    return out
+
+
+@pytest.mark.parametrize("t,tbptt,captures,iterations", [
+    (50, 50, 1, 6), (21, 8, 2, 18)], ids=["one_window", "three_windows"])
+def test_captured_lstm_fit_equals_eager(t, tbptt, captures, iterations,
+                                        cuda):
+    """The GravesLSTM char-LM's ``fit``, one window a batch (T 50) and
+    TBPTT's 8 + 8 + 5 (a program for each window length, the carries
+    through their static buffers), captured and eager from one state:
+    every loss and state tensor equal bit for bit."""
+    a = _lstm_lm(tbptt)
+    b = _eager_twin(a)
+    for x, y in _one_hot_batches(6, t):
+        a.fit(x, y)
+        b.fit(x, y)
+        assert a.score_value == b.score_value
+    _assert_same_state(a, b)
+    graphs = a._step_graphs
+    assert a.iteration == b.iteration == iterations
+    assert (graphs.captures, graphs.replays) == (captures,
+                                                 iterations - captures)
+
+
+def test_captured_lstm_graph_fit_equals_eager(cuda):
+    """A ``ComputationGraph`` of two GravesLSTMs read by
+    ``LastTimeStepVertex`` into a dense head, with a features mask."""
+    from deeplearning4j_tpu_torch.models.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.models.vertices import LastTimeStepVertex
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, OutputLayer
+
+    conf = (NeuralNetConfiguration.builder().seed(3)
+            .updater("rmsprop", learning_rate=0.01).graph()
+            .add_inputs("in")
+            .add_layer("l0", GravesLSTM(n_in=29, n_out=32), "in")
+            .add_layer("l1", GravesLSTM(n_in=32, n_out=32), "l0")
+            .add_vertex("last", LastTimeStepVertex(), "l1")
+            .add_layer("out", OutputLayer(n_in=32, n_out=5), "last")
+            .set_outputs("out").build())
+    a = ComputationGraph(conf).init()
+    b = _eager_twin(a)
+    rs = np.random.default_rng(1)
+    for x, _ in _one_hot_batches(5, 12, seed=2):
+        y = np.eye(5, dtype=np.float32)[rs.integers(0, 5, 6)]
+        fm = (np.arange(12)[None] < rs.integers(3, 13, (6, 1))).astype(
+            np.float32)
+        a.fit(x, y, fmask=fm)
+        b.fit(x, y, fmask=fm)
+        assert a.score_value == b.score_value
+    _assert_same_state(a, b)
+    assert (a._step_graphs.captures, a._step_graphs.replays) == (1, 4)
+
+
+@pytest.mark.parametrize("name", ["GravesLSTM", "GravesBidirectionalLSTM"])
+def test_lstm_on_the_card_matches_the_cpu(name, cuda):
+    """The layer's forward (masked) and its gradients on the card against
+    the CPU on the same weights, float32 (full float32 matmuls)."""
+    from deeplearning4j_tpu_torch.backend.device import resolve_device
+    from deeplearning4j_tpu_torch.nn import layers
+
+    resolve_device("cuda")      # pins full float32
+    layer = getattr(layers, name)(n_in=77, n_out=200)
+    params = layer.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(16, 50, 77, generator=g)
+    w = torch.randn(16, 50, 200, generator=g)
+    mask = (torch.arange(50)[None] < torch.randint(
+        10, 51, (16, 1), generator=g)).float()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev, copy=True).requires_grad_(True)
+             for k, v in params.items()}
+        y = layer.apply(p, x.to(dev), mask=mask.to(dev))
+        (y * w.to(dev)).sum().backward()
+        out[dev] = (y.detach().cpu(), {k: v.grad.cpu() for k, v in p.items()})
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-4
+    for k, gc in out["cpu"][1].items():
+        err = (out["cuda"][1][k] - gc).abs().max().item()
+        assert err <= 1e-4 * max(1.0, gc.abs().max().item()), (k, err)
+
+
+def test_captured_lstm_generate_equals_eager(cuda):
+    """``generate`` over LSTM carries: the replayed loop (h, c as graph
+    state) against ``sample_sequence`` (eager ``rnn_time_step``), greedy
+    and sampled; a second call captures nothing."""
+    from deeplearning4j_tpu_torch.models.decode import generate
+    from deeplearning4j_tpu_torch.utils.sampling import sample_sequence
+
+    net = _lstm_lm(50)
+    prompt = np.random.default_rng(3).integers(0, 29, (4, 6))
+    got = generate(net, prompt, 30, temperature=0.0)
+    np.testing.assert_array_equal(
+        got, sample_sequence(net, prompt, 30, temperature=0.0))
+    (gen,) = net._graph_cache.values()
+    assert gen.captures == 1 and gen.replays == 29
+    np.testing.assert_array_equal(
+        generate(net, prompt, 30, temperature=0.0), got)
+    assert gen.captures == 1
+    a = generate(net, prompt, 30, temperature=0.9, top_k=7, rng=3)
+    np.testing.assert_array_equal(
+        sample_sequence(net, prompt, 30, temperature=0.9, top_k=7, rng=3), a)

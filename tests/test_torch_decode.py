@@ -1,13 +1,14 @@
 """The port's ``generate``, ``sample_sequence`` and engine sampler against
 the JAX package's, on the CPU.
 
-- ``generate`` (greedy) gives the JAX ``generate``'s ids for the
-  attention cases of the reference's ``tests/test_decode.py``: a linear
-  cache, a GQA rolling cache decoded past its window, a
-  ``ComputationGraph`` attention stack, a collapse-column embedding, and
-  one-hot inputs whose width comes from the input-side layer.  The
-  reference's LSTM variants of the last three take an attention stack
-  here: the recurrent layers are not ported yet.
+- ``generate`` (greedy) gives the JAX ``generate``'s ids for the cases
+  of the reference's ``tests/test_decode.py``: a linear cache, a GQA
+  rolling cache decoded past its window, the one-hot GravesLSTM char-LM
+  on both facades (``:50`` and ``:127``: the LSTM carries through the
+  loop), a ``ComputationGraph`` attention stack, a collapse-column
+  embedding, and one-hot inputs whose width comes from the input-side
+  layer (the reference's LSTM variants of the last three take an
+  attention stack here).
 - ``sample_sequence`` (the host loop over ``rnn_time_step``) equals
   ``generate`` greedily, as in the reference; the overflow is refused up
   front; a multi-input graph is refused with the reference's guidance.
@@ -34,10 +35,13 @@ from deeplearning4j_tpu.models.decode import generate as jax_generate
 from deeplearning4j_tpu.models.graph import ComputationGraph as JGraph
 from deeplearning4j_tpu.models.sequential import MultiLayerNetwork as JMLN
 from deeplearning4j_tpu.models.vertices import MergeVertex as JMerge
-from deeplearning4j_tpu.models.zoo import transformer_char_lm as jax_lm
+from deeplearning4j_tpu.models.zoo import (
+    graves_lstm_char_lm as jax_lstm_lm, transformer_char_lm as jax_lm,
+)
 from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JNNC
 from deeplearning4j_tpu.nn.layers import (
     DenseLayer as JDense, EmbeddingLayer as JEmbedding,
+    GravesLSTM as JGraves,
     LayerNorm as JLayerNorm, OutputLayer as JOutput,
     RnnOutputLayer as JRnnOutput, SelfAttentionLayer as JSelfAttention,
 )
@@ -98,6 +102,14 @@ def _cg_attention(vocab=13, d=16, collapse=False):
                            activation="softmax"), ("ln",))])
 
 
+def _cg_lstm(vocab=11, hidden=12):
+    """Reference ``test_decode.py:102`` (``_cg_lstm_char_lm``)."""
+    return _graph(5, ("in",), [
+        ("lstm", JGraves(n_in=vocab, n_out=hidden), ("in",)),
+        ("out", JRnnOutput(n_in=hidden, n_out=vocab, loss="mcxent",
+                           activation="softmax"), ("lstm",))])
+
+
 def _cg_one_hot(n_in=30, vocab=11):
     """One-hot input whose width is the input-side layer's n_in (30), not
     the head's n_out (11): reference ``test_decode.py:198``."""
@@ -125,6 +137,9 @@ GREEDY = {
     "gqa_rolling": (lambda: jax_lm(vocab_size=13, d_model=16, n_heads=4,
                                    layers=2, n_kv_heads=2, window=8),
                     1, 13, (2, 6), 20),
+    "mln_lstm": (lambda: jax_lstm_lm(vocab_size=11, hidden=12, tbptt=8),
+                 2, 11, (2, 4), 10),
+    "cg_lstm": (_cg_lstm, 3, 11, (2, 4), 10),
     "cg_attention": (_cg_attention, 4, 13, (3, 5), 12),
     "cg_collapse_column": (lambda: _cg_attention(vocab=11, collapse=True),
                            9, 11, (2, 4), 6),
@@ -148,9 +163,10 @@ def test_greedy_generate_matches_jax_and_the_host_loop(name):
     loop = sample_sequence(net, prompt, steps, temperature=0.0)
     np.testing.assert_array_equal(loop, got)
     # the eager function build_decode_fn returns is the same generation
-    fn = build_decode_fn(net, steps, temperature=0.0,
-                         one_hot=name.endswith("one_hot"),
-                         vocab_size=30 if name.endswith("one_hot") else None)
+    one_hot = name.endswith(("one_hot", "lstm"))
+    fn = build_decode_fn(net, steps, temperature=0.0, one_hot=one_hot,
+                         vocab_size=(30 if name.endswith("one_hot") else
+                                     vocab if one_hot else None))
     carries = seed_stream_caches(named_layers_of(net), {}, shape[0], None,
                                  "cpu")
     ids, _ = fn(net.compute_params(), carries, torch.as_tensor(prompt))

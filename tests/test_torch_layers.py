@@ -158,3 +158,114 @@ def test_residual_block_apply_with_carry():
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=ATOL)
     np.testing.assert_allclose(tc["sub1"]["pk"].numpy(),
                                np.asarray(jc["sub1"]["pk"]), atol=ATOL)
+
+
+# ----------------------------------------- activations and weight inits
+_ACTIVATIONS = ["identity", "linear", "sigmoid", "tanh", "relu", "leakyrelu",
+                "elu", "softplus", "softsign", "hardtanh", "hardsigmoid",
+                "cube", "rationaltanh", "softmax", "gelu", "swish"]
+
+
+@pytest.mark.parametrize("name", _ACTIVATIONS)
+def test_activation_matches_jax(name):
+    """Every reference activation on the same inputs (both sides of the
+    clips and kinks, large magnitudes for softplus)."""
+    from deeplearning4j_tpu.nn import activations as jact
+    from deeplearning4j_tpu_torch.nn import activations
+
+    x = np.concatenate([np.linspace(-6, 6, 97, dtype=np.float32),
+                        np.array([-30.0, -2.5, 0.0, 2.5, 30.0],
+                                 np.float32)]).reshape(6, 17)
+    ref = np.asarray(jact.get(name)(jnp.asarray(x)))
+    out = activations.get(name)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_activation_register_and_unknown_name():
+    from deeplearning4j_tpu.nn import activations as jact
+    from deeplearning4j_tpu_torch.nn import activations
+
+    activations.register("Doubled", lambda x: 2 * x)
+    assert torch.equal(activations.get("doubled")(torch.ones(2)),
+                       torch.full((2,), 2.0))
+    with pytest.raises(ValueError) as err:
+        activations.get("nope")
+    with pytest.raises(ValueError) as jerr:
+        jact.get("nope")
+    assert str(err.value).split(".")[0] == str(jerr.value).split(".")[0]
+
+
+_SCHEMES = ["uniform", "xavier", "xavier_uniform", "xavier_fan_in",
+            "xavier_legacy", "relu", "relu_uniform", "sigmoid_uniform",
+            "normal"]
+
+
+@pytest.mark.parametrize("fans", [None, (7, 300)])
+@pytest.mark.parametrize("shape", [(400, 300), (3, 3, 40, 60)])
+@pytest.mark.parametrize("scheme", _SCHEMES)
+def test_init_scheme_scale_matches_jax(scheme, shape, fans):
+    """The port's draws are its own; their scale is the reference's: the
+    standard deviation of 72,000+ draws within 3% of the JAX scheme's on
+    the same shape and fans, zero mean, and a uniform scheme's draws
+    inside the same bound."""
+    from deeplearning4j_tpu.nn import initializers as jinit
+    from deeplearning4j_tpu_torch.nn import initializers
+
+    kw = {} if fans is None else {"fan_in": fans[0], "fan_out": fans[1]}
+    ref = np.asarray(jinit.init(scheme, jax.random.PRNGKey(0), shape,
+                                jnp.float32, **kw))
+    got = initializers.init(scheme, torch.Generator().manual_seed(0), shape,
+                            **kw).numpy()
+    assert got.shape == shape and got.dtype == np.float32
+    np.testing.assert_allclose(got.std(), ref.std(), rtol=3e-2)
+    assert abs(got.mean()) < 0.05 * got.std()
+    if "uniform" in scheme:
+        bound = np.abs(ref).max()
+        assert np.abs(got).max() <= bound * 1.001
+        assert np.abs(got).max() > 0.99 * bound
+
+
+def test_constant_and_distribution_inits():
+    from deeplearning4j_tpu.nn import initializers as jinit
+    from deeplearning4j_tpu_torch.nn import initializers
+
+    gen = torch.Generator().manual_seed(1)
+    assert torch.equal(initializers.init("zero", gen, (2, 3)),
+                       torch.zeros(2, 3))
+    assert torch.equal(initializers.init("ones", gen, (4,)), torch.ones(4))
+    for d in ({"type": "normal", "mean": 1.0, "std": 0.5},
+              {"type": "uniform", "lower": 2.0, "upper": 3.0}):
+        dist = initializers.distribution_from_dict(d)
+        assert dist.to_dict() == d == \
+            jinit.distribution_from_dict(d).to_dict()
+        got = initializers.init("distribution", gen, (300, 200),
+                                distribution=dist).numpy()
+        ref = np.asarray(jinit.init("distribution", jax.random.PRNGKey(1),
+                                    (300, 200), jnp.float32,
+                                    distribution=jinit.distribution_from_dict(
+                                        d)))
+        np.testing.assert_allclose(got.mean(), ref.mean(), atol=0.01)
+        np.testing.assert_allclose(got.std(), ref.std(), rtol=3e-2)
+        if d["type"] == "uniform":
+            assert 2.0 <= got.min() and got.max() <= 3.0
+    assert initializers.distribution_from_dict(None) is None
+    for mod in (initializers, jinit):
+        with pytest.raises(ValueError, match="requires a distribution"):
+            mod.init("distribution", None if mod is initializers else
+                     jax.random.PRNGKey(0), (2, 2))
+        with pytest.raises(ValueError, match="Unknown distribution type"):
+            mod.distribution_from_dict({"type": "cauchy"})
+    with pytest.raises(ValueError, match="Unknown weight init"):
+        initializers.check("glorot")
+
+
+def test_dense_and_conv_layers_draw_from_their_distribution():
+    from deeplearning4j_tpu_torch.nn.layers import ConvolutionLayer, DenseLayer
+
+    dist = {"type": "uniform", "lower": 5.0, "upper": 6.0}
+    for layer in (DenseLayer(n_in=4, n_out=3, weight_init="distribution",
+                             dist=dist),
+                  ConvolutionLayer(n_in=2, n_out=3, kernel_size=(2, 2),
+                                   weight_init="distribution", dist=dist)):
+        w = layer.init(torch.Generator().manual_seed(0))["W"]
+        assert 5.0 <= w.min() and w.max() <= 6.0

@@ -1,6 +1,7 @@
 """Model-level parity of the port (``deeplearning4j_tpu_torch/models/``):
-the committed transformer checkpoints, weights carried across from a JAX
-network, the config JSON, and the port's own zip round trip.
+the committed transformer and GravesLSTM checkpoints, weights carried
+across from a JAX network, the zoo's config JSON, and the port's own zip
+round trip.
 
 Tolerances: the committed fixtures at ``rtol=1e-3, atol=1e-4`` (those of
 ``tests/test_regression.py``); same-weights parity at ``atol=1e-5``
@@ -17,7 +18,9 @@ import jax
 from deeplearning4j_tpu.models.serialization import (
     restore_multi_layer_network as jax_restore,
 )
-from deeplearning4j_tpu.models.zoo import transformer_char_lm as jax_lm
+from deeplearning4j_tpu.models.zoo import (
+    graves_lstm_char_lm as jax_lstm_lm, transformer_char_lm as jax_lm,
+)
 from deeplearning4j_tpu_torch.models import serialization, zoo
 from deeplearning4j_tpu_torch.models.interop import params_from_numpy
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
@@ -26,7 +29,7 @@ FIXTURES = Path(__file__).parent / "regression_fixtures"
 VOCAB = 29
 
 
-@pytest.mark.parametrize("name", ["transformer", "transformer_v2"])
+@pytest.mark.parametrize("name", ["transformer", "transformer_v2", "lstm"])
 def test_committed_checkpoint_matches_expected(name):
     net = serialization.restore_multi_layer_network(FIXTURES / f"{name}.zip",
                                                     device="cpu")
@@ -35,6 +38,42 @@ def test_committed_checkpoint_matches_expected(name):
     out = net.output(x)
     assert out.device.type == "cpu" and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), expected, rtol=1e-3, atol=1e-4)
+
+
+def test_lstm_zip_restores_rmsprop_state_and_resumes_as_jax():
+    """``lstm.zip`` (GravesLSTM, RMSProp, three steps) restores its
+    config, weights and RMSProp's ``ms`` on the port, and one more
+    ``fit`` step lands where the JAX package's does."""
+    path = FIXTURES / "lstm.zip"
+    net = serialization.restore_multi_layer_network(path, device="cpu")
+    jnet = jax_restore(path)
+    assert net.iteration == jnet.iteration == 3
+    ms = jax.device_get(jnet.updater_state["ms"])
+    assert sorted(net.updater_state) == ["ms"]
+    for layer, tree in ms.items():
+        for k, v in tree.items():
+            np.testing.assert_array_equal(
+                net.updater_state["ms"][layer][k].numpy(), v)
+    x = np.load(FIXTURES / "lstm_input.npy")
+    y = np.eye(4, dtype=np.float32)[np.arange(12).reshape(2, 6) % 4]
+    net.fit(x, y)
+    jnet.fit(x, y)
+    assert net.iteration == jnet.iteration == 4
+    want = jax.device_get(jnet.params)
+    for layer, tree in want.items():
+        for k, v in tree.items():
+            np.testing.assert_allclose(net.params[layer][k].numpy(), v,
+                                       rtol=1e-4, atol=1e-5)
+
+
+def test_zoo_lstm_config_json_matches_reference():
+    kw = dict(vocab_size=VOCAB, hidden=16, tbptt=12)
+    port = zoo.graves_lstm_char_lm(device="cpu", **kw)
+    assert port.conf.to_dict() == jax_lstm_lm(**kw).conf.to_dict()
+    assert port.conf.backprop_type == "truncated_bptt"
+    assert port.conf.tbptt_fwd_length == 12
+    assert port.conf.updater.name == "rmsprop"
+    assert port.params["layer_0"]["W"].shape == (VOCAB, 64)
 
 
 @pytest.fixture(scope="module")

@@ -261,32 +261,41 @@ def test_rnn_time_step_refuses_overflow_before_the_call():
 @register_layer
 @dataclasses.dataclass(frozen=True)
 class _CarriesState(Layer):
-    """A stand-in recurrent layer: it carries state and has no stream
-    cache."""
+    """A stand-in recurrent layer: the identity, carrying the count of
+    timesteps it has seen, with no stream cache and no params."""
+
+    def has_params(self) -> bool:
+        return False
 
     def apply_with_carry(self, params, x, carry, **kw):
-        return x, carry
+        return x, (0 if carry is None else carry) + x.shape[1]
 
 
 @pytest.mark.parametrize("facade", ["mln", "cg"])
 def test_rnn_time_step_over_a_recurrent_layer_names_a6(facade):
+    """A stack holding a layer that carries recurrent state (ROADMAP A6,
+    ported) streams: the layer's carry goes from call to call, and the
+    outputs are the stack's without it (the stand-in is the identity)."""
     from deeplearning4j_tpu_torch.models.graph import (
         ComputationGraph, GraphNode,
     )
     from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
 
     if facade == "mln":
-        _, net = _mln_pair(max_cache=8)
-        layers = net.conf.layers[:1] + (_CarriesState(name="rnn"),) \
-            + net.conf.layers[1:]
-        net = MultiLayerNetwork(dataclasses.replace(net.conf, layers=layers))
-        match = "MultiLayerNetwork.rnn_time_step"
+        _, base = _mln_pair(max_cache=8)
+        layers = base.conf.layers[:1] + (_CarriesState(name="rnn"),) \
+            + base.conf.layers[1:]
+        net = MultiLayerNetwork(dataclasses.replace(base.conf,
+                                                    layers=layers))
     else:
-        _, net = _cg_pair()
-        nodes = net.conf.nodes + (GraphNode("rnn", ("emb",),
-                                            layer=_CarriesState(name="rnn")),)
-        net = ComputationGraph(dataclasses.replace(net.conf, nodes=nodes))
-        match = "ComputationGraph.rnn_time_step"
-    with pytest.raises(NotImplementedError,
-                       match=f"{match}: layer 'rnn' .*ROADMAP A6"):
-        net.rnn_time_step(np.zeros((1, 2), np.int64))
+        _, base = _cg_pair()
+        nodes = base.conf.nodes + (GraphNode("rnn", ("emb",),
+                                             layer=_CarriesState(name="rnn")),)
+        net = ComputationGraph(dataclasses.replace(base.conf, nodes=nodes))
+    net.params = {**base.params, "rnn": {}}
+    net.device = base.device
+    ids = np.random.default_rng(5).integers(0, VOCAB, (1, 5))
+    for chunk in (ids[:, :2], ids[:, 2:]):
+        _close(net.rnn_time_step(chunk).numpy(),
+               base.rnn_time_step(chunk).numpy())
+    assert net._rnn_state["rnn"] == 5

@@ -211,3 +211,164 @@ def test_rnn_time_step_streams_the_committed_transformer():
     ids = _input("transformer")[:, :6]
     for feed in (ids[:, :4], ids[:, 4], ids[:, 5]):
         _close(net.rnn_time_step(feed).numpy(), jnet.rnn_time_step(feed))
+
+
+# ------------------------------------------------ the rest of the config DSL
+def _recipes():
+    """Builder calls (ROADMAP A13), each given the builder and its
+    package's ``nn.conf`` and ``nn.initializers`` modules."""
+    return {
+        "learning_rate": lambda b, c, i: b.learning_rate(0.05),
+        "momentum": lambda b, c, i: b.updater("nesterovs").momentum(0.8),
+        "lr_policy": lambda b, c, i: b.lr_policy("exponential",
+                                                 decay_rate=0.9),
+        "lr_policy_warmup": lambda b, c, i: b.lr_policy(
+            "warmup_cosine", warmup_steps=10, min_fraction=0.1, steps=50),
+        "lr_schedule": lambda b, c, i: b.lr_schedule({0: 0.1, 5: 0.01}),
+        "gradient_normalization": lambda b, c, i: b.gradient_normalization(
+            "clip_l2_per_layer", 2.0),
+        "training_stability": lambda b, c, i: b.training_stability(
+            loss_scaling="dynamic", check_every=10),
+        "training_stability_policy": lambda b, c, i: b.training_stability(
+            c.TrainingStability(check_every=5), spike_factor=3.0),
+        "training_stability_off": lambda b, c, i: b.training_stability(
+            True).training_stability(False),
+        "training_introspection": lambda b, c, i: b.training_introspection(
+            dead_eps=0.1),
+        "training_numerics": lambda b, c, i: b.training_numerics(
+            c.TrainingNumerics(interval=5)),
+        "optimization_algo": lambda b, c, i: b.optimization_algo("LBFGS"),
+        "iterations": lambda b, c, i: b.iterations(3),
+        "weight_init_distribution": lambda b, c, i: b.weight_init(
+            "distribution", dist=i.NormalDistribution(0.0, 0.5)),
+        "weight_init_dict": lambda b, c, i: b.weight_init(
+            "distribution", dist={"type": "uniform", "lower": -0.1,
+                                  "upper": 0.1}),
+        "weight_init": lambda b, c, i: b.weight_init("xavier_uniform"),
+        "activation": lambda b, c, i: b.activation("gelu"),
+    }
+
+
+def _built(pkg, recipe, graph):
+    import importlib
+
+    conf = importlib.import_module(f"{pkg}.nn.conf")
+    inits = importlib.import_module(f"{pkg}.nn.initializers")
+    layers = importlib.import_module(f"{pkg}.nn.layers")
+    b = recipe(conf.NeuralNetConfiguration.builder().seed(3), conf, inits)
+    dense = layers.DenseLayer(n_in=4, n_out=5)
+    out = layers.OutputLayer(n_in=5, n_out=2, loss="mcxent",
+                             activation="softmax")
+    if graph:
+        return (b.graph().add_inputs("in").add_layer("d", dense, "in")
+                .add_layer("out", out, "d").set_outputs("out").build()
+                .to_json())
+    return b.list().layer(dense).layer(out).build().to_json()
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("name", sorted(_recipes()))
+def test_global_builder_calls_build_the_jax_json(name, graph):
+    recipe = _recipes()[name]
+    import json
+
+    assert json.loads(_built("deeplearning4j_tpu_torch", recipe, graph)) \
+        == json.loads(_built("deeplearning4j_tpu", recipe, graph))
+
+
+@pytest.mark.parametrize("name", ["backprop_type", "pretrain", "backprop",
+                                  "layer_index"])
+def test_list_builder_calls_build_the_jax_json(name):
+    import importlib
+    import json
+
+    def make(pkg):
+        conf = importlib.import_module(f"{pkg}.nn.conf")
+        layers = importlib.import_module(f"{pkg}.nn.layers")
+        b = (conf.NeuralNetConfiguration.builder().list()
+             .layer(layers.GravesLSTM(n_in=3, n_out=4), 0)
+             .layer(layers.RnnOutputLayer(n_in=4, n_out=3)))
+        if name == "backprop_type":
+            b.backprop_type("truncated_bptt", 7, 5)
+        elif name == "pretrain":
+            b.pretrain(True)
+        elif name == "backprop":
+            b.backprop(False)
+        return json.loads(b.build().to_json())
+
+    assert make("deeplearning4j_tpu_torch") == make("deeplearning4j_tpu")
+
+
+@pytest.mark.parametrize("call", [
+    lambda b, L: b.training_stability(False, check_every=3),
+    lambda b, L: b.training_numerics("yes"),
+    lambda b, L: b.training_stability(loss_scaling="often"),
+    lambda b, L: b.training_introspection(dead_eps=-1.0),
+    lambda b, L: b.list().layer(L.DenseLayer(n_in=1, n_out=1), 3)])
+def test_builder_refusals_match_jax(call):
+    from deeplearning4j_tpu.nn import layers as jlayers
+    from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JNNC
+    from deeplearning4j_tpu_torch.nn import layers
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+
+    with pytest.raises(ValueError) as err:
+        call(NeuralNetConfiguration.builder(), layers)
+    with pytest.raises(ValueError) as jerr:
+        call(JNNC.builder(), jlayers)
+    assert str(err.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("what,item", [("stability", "A9"),
+                                       ("numerics", "A9"),
+                                       ("solver", "A8")])
+def test_configs_of_unported_engines_build_and_fit_raises(what, item):
+    """A config that sets a training policy or a full-batch solver
+    builds (the JSON of the JAX builder, above); its ``fit`` raises
+    naming the ROADMAP item that ports the engine."""
+    from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import OutputLayer
+
+    b = NeuralNetConfiguration.builder()
+    if what == "stability":
+        b.training_stability(loss_scaling="static")
+    elif what == "numerics":
+        b.training_numerics()
+    else:
+        b.optimization_algo("conjugate_gradient")
+    conf = b.list().layer(OutputLayer(n_in=3, n_out=2)).build()
+    net = MultiLayerNetwork(conf).init(device="cpu")
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        net.fit(np.zeros((2, 3), np.float32),
+                np.eye(2, dtype=np.float32))
+
+
+def test_dtype_policy_matches_jax(monkeypatch):
+    import subprocess
+    import sys
+
+    from deeplearning4j_tpu.backend import device as jdev
+    from deeplearning4j_tpu_torch.backend import device as dev
+
+    assert sorted(dev._POLICIES) == sorted(jdev._POLICIES)
+    for name, p in dev._POLICIES.items():
+        jp = jdev._POLICIES[name]
+        assert [str(getattr(p, f)).split(".")[-1] for f in
+                ("param_dtype", "compute_dtype", "accum_dtype")] == \
+            [np.dtype(getattr(jp, f)).name for f in
+             ("param_dtype", "compute_dtype", "accum_dtype")]
+    monkeypatch.setattr(dev, "_current_policy", dev.dtype_policy())
+    policy = dev.set_dtype_policy("bfloat16")
+    assert dev.dtype_policy() is policy
+    x = {"a": torch.ones(2), "ids": torch.arange(3), "t": (torch.ones(1),)}
+    cast = policy.cast_input(x)
+    assert cast["a"].dtype == torch.bfloat16
+    assert cast["ids"].dtype == torch.int64
+    assert cast["t"][0].dtype == torch.bfloat16
+    # the default comes from DL4J_TPU_DTYPE, read when the module loads
+    out = subprocess.run(
+        [sys.executable, "-c", "from deeplearning4j_tpu_torch.backend "
+         "import device; print(device.dtype_policy().compute_dtype)"],
+        env={**__import__("os").environ, "DL4J_TPU_DTYPE": "bfloat16"},
+        capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "torch.bfloat16"
