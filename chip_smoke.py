@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing is caught):
    cores' bound printed beside it), and the delta its dQ hands to dK/dV
    must match the torch reduction ``_row_delta``.  Paged decode runs at
    the engine's shapes and at contexts up to 4096 keys, where its split
-   over the key range has the most blocks to merge.
+   over the key range has the most blocks to merge, and at a prefix
+   hit's suffix prefill (16 queries over 528 keys).
 3. Serve the transformer char-LM at full width (vocab 128, d_model 1024,
    8 heads, 8 layers, bfloat16, seeded random weights) through the port's
    ``GenerationEngine`` (16 slots, pages of 16, context 512): 16
@@ -33,8 +34,8 @@ Phases (any failure exits non-zero; nothing is caught):
    each).  Twice: through the captured CUDA graphs the engine runs by
    default (one for decode, one per prefill bucket, captured at start and
    never again: the capture count is checked after the warm-up and after
-   serving), and through ``GenerationPrograms(capture=False)``, the same
-   programs run eagerly.  Greedy and sampled tokens must be identical
+   serving), and through the engine's programs run eagerly (its internal
+   switch ``_capture = False``).  Greedy and sampled tokens must be identical
    between the two.  The captured engine serves the greedy requests once
    more, the counts at 0, under ``torch.profiler``, whose
    ``paged_decode_kernel`` launches must be layers x calls (the wrapper's
@@ -57,6 +58,30 @@ Phases (any failure exits non-zero; nothing is caught):
    a row may part where two perturbed scores lie within the rounding of
    log-probabilities against logits; a wrong noise slice parts every
    row.
+   Then bench.py's prefix-cache arm at its TPU-tier widths
+   (``bench.py:840-911``): the same model at context 640, prefill buckets
+   (16, 576), ``prefix_cache=True``; a 512-token system prefix, pinned,
+   then 40 requests of 24 new tokens, 9 in 10 of them hits (the prefix
+   plus a tail of 4-12 tokens; a miss is a random 512 plus a tail), one
+   at a time: hit and miss TTFT p50/p99; the four-turn pinned chat (each
+   turn's prefill only the new tokens), profiled (its paged launches
+   layers x calls, added to the kernels line's); nothing captured after
+   start; a cached page copied through the host tier into another page
+   and read back bit for bit; each hit's greedy ids against an engine
+   without the cache (equal, or parting where the cold path's top two
+   logits lie within ``LOGITS_TOL``: the suffix prefill's matmuls have
+   other shapes than the cold prefill's); the tree's stats; then the
+   spill drill (d 32, 2 layers, pages of 4, 13 pages, 2 slots): six
+   prompts twice, pages spilled to the host tier and restored, the
+   revisits' ids equal the first pass's.
+   Then the hot swap: 16 client threads keep greedy streams of 64 tokens
+   in flight while a second seed is deployed (retained), rolled back,
+   deployed again and committed: no stream dropped or short, each new
+   version captures one decode graph and one per prefill bucket at its
+   deploy and nothing after, the rollback serves the retained programs
+   without capturing; the longest gap between two tokens of any stream
+   during each deploy is printed; after the commit 16 requests give the
+   ids of a fresh engine on the new weights.
 4. Train the same model at full width (batch 8, T = 2048, Adam at 1e-3,
    ``bench.py``'s batch: random ids from ``RandomState(0)``, labels the
    one-hot of the ids rolled by one).  The first step's loss and
@@ -105,6 +130,20 @@ Phases (any failure exits non-zero; nothing is caught):
    steps, which must launch two BatchNorm kernels for each of those calls
    (212 a step: the reduction and the elementwise pass), split by pass
    (moments, grad sums, apply, dx).
+   Then the batch ``ServingEngine`` over a second ResNet-50 (the same
+   config) with bench_serving's policy and traffic
+   (``bench.py:1050-1158``): ``BucketPolicy(max_batch=64)`` (7 buckets,
+   one captured ``output`` graph each at warm-up, counted by the
+   version's detector), 8 client threads of 40 requests of 1-16 seeded
+   rows each: rows/s and latency p50/p99; a profiled 64-row dispatch
+   launches the BatchNorm inference kernel 53 times; nothing captured
+   after warm-up; a deploy of another seed (retained, its 7 graphs
+   captured while the first version serves) and a rollback under load
+   from 8 threads, no request failing; then every timed result against
+   the net's eager ``output`` on the same rows (logits as centred
+   log-probabilities, ``RESNET_LOGITS_TOL`` over the largest; argmax
+   differences allowed only on near-ties: a bucket's batch mixes rows of
+   several requests).
 7. Hold the two LRN kernels (forward, backward) against their plain
    versions at AlexNet's shapes (``[373248, 96]`` and ``[86528, 256]``
    in bfloat16; a float32, a float16, a ragged C = 130, a C = 3 < n and
@@ -182,7 +221,6 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch import helpers
 from deeplearning4j_tpu_torch.backend.device import pin_fp32_precision
 from deeplearning4j_tpu_torch.generation import GenerationEngine
-from deeplearning4j_tpu_torch.generation.programs import GenerationPrograms
 from deeplearning4j_tpu_torch.helpers import batch_norm as bn
 from deeplearning4j_tpu_torch.helpers import flash_attention as fa
 from deeplearning4j_tpu_torch.helpers import fused_epilogue as fe
@@ -281,6 +319,24 @@ ALEXNET_BATCH, ALEXNET_LRN_LAYERS = 128, 2
 ALEXNET_LOGITS_TOL, ALEXNET_ARGMAX_MISSES = 2e-2, 2
 # LeNet-MNIST (BASELINE.md:29): batch, host batches, fit_scanned's window
 LENET_BATCH, LENET_BATCHES, LENET_SCAN = 128, 24, 8
+# bench.py's prefix-cache arm at its TPU-tier widths (bench.py:840-911):
+# context 640, buckets (16, 576), a pinned 512-token system prefix, 40
+# requests of 24 new tokens (9 in 10 hits), a four-turn chat of 8 new
+# tokens a turn; the spill drill's tiny model and 13-page pool
+PREFIX_CONTEXT, PREFIX_LEN, PREFIX_REQUESTS, PREFIX_NEW = 640, 512, 40, 24
+PREFIX_ENGINE = dict(slots=16, page_size=16, max_context=PREFIX_CONTEXT,
+                     prefill_buckets=(16, 576), max_queue=4096,
+                     deadline_s=600.0)
+CHAT_TURNS, CHAT_NEW = 4, 8
+SPILL_MODEL = dict(vocab_size=128, d_model=32, n_heads=4, layers=2,
+                   max_cache=32)
+SPILL_ENGINE = dict(slots=2, page_size=4, max_context=32, num_pages=13)
+# hot swap: client threads keeping greedy streams in flight, their new
+# tokens, and the second version's seed
+SWAP_STREAMS, SWAP_NEW, SWAP_SEED = 16, 64, 777
+# bench_serving's policy and traffic (bench.py:1050-1158) over ResNet-50
+SERVE_MAX_BATCH, SERVE_THREADS, SERVE_PER_THREAD = 64, 8, 40
+SERVE_ROW, SERVE_CLASSES = (224, 224, 3), 1000
 # the GravesLSTM char-LM (BASELINE.md:31): 2x200, vocab 77, float32,
 # TBPTT windows of 50; batch 128 at T 50, and one batch of T 210 (four
 # windows of 50 and one of 10)
@@ -468,6 +524,12 @@ def kernel_phase(flush, name_card):
          None),
         ("decode_long", dict(b=16, t=1, hq=8, hkv=8, d=128, **long_table),
          torch.bfloat16, None),
+        # a prefix-cache hit's suffix prefill: 16 queries at positions
+        # 512..527 over 528 keys (the prefix phase's context of 640)
+        ("prefix_hit", dict(b=1, t=16, hq=8, hkv=8, d=128,
+                            maxp=PREFIX_CONTEXT // PS,
+                            pages=PREFIX_CONTEXT + 1), torch.bfloat16,
+         PREFIX_LEN),
     ]
     rows = {}
     for i, (name, shape, dtype, start) in enumerate(cases):
@@ -539,18 +601,24 @@ def serve(eng, prompts, sampled=False):
     return results, handles, wall
 
 
-def paged_profile(fn):
-    """``fn()`` under ``torch.profiler``; (its result, the paged kernel's
-    launches on the device, the profiler)."""
+def profiled_launches(fn, pattern=r"paged_decode_kernel", also=None):
+    """``fn()`` under ``torch.profiler``; (its result, the launches on the
+    device of the kernels whose names match ``pattern``: by default the
+    paged kernel).  With ``also`` (a pattern), a third item: its
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if "paged_decode_kernel" in e.key)
-    return out, n
+    ev = prof.key_averages()
+
+    def count(pat):
+        return sum(e.count for e in ev if re.search(pat, e.key))
+
+    return (out, count(pattern)) if also is None else (
+        out, count(pattern), count(also))
 
 
 def engine_mode(net, capture, prompts, name_card):
@@ -564,15 +632,10 @@ def engine_mode(net, capture, prompts, name_card):
     layers = MODEL["layers"]
     pa.counts.reset()
     eng = GenerationEngine(net, **ENGINE)
-    if not capture:
-        p = eng.programs
-        eng.programs = GenerationPrograms(
-            net, slots=p.slots, pages_per_slot=p.pages_per_slot,
-            page_size=p.page_size, num_pages=p.num_pages,
-            prefill_buckets=p.prefill_buckets, capture=False)
-    progs = eng.programs
+    eng._capture = None if capture else False   # internal: eager programs
     t_build = time.perf_counter()
     eng.start()
+    progs = eng.programs
     print(f"engine [{label}] start (warm-up and captures included): "
           f"{time.perf_counter() - t_build:.2f} s; captures "
           f"{progs.captures}, paged launches a graph "
@@ -605,7 +668,8 @@ def engine_mode(net, capture, prompts, name_card):
         # the counts at 0, and the launches counted by the profiler
         pa.counts.reset()
         calls0 = progs.prefill_calls + progs.decode_calls
-        (again, _, _), launches = paged_profile(lambda: serve(eng, prompts))
+        (again, _, _), launches = profiled_launches(
+            lambda: serve(eng, prompts))
         calls = progs.prefill_calls + progs.decode_calls - calls0
         print(f"engine [{label}], profiled serve: {calls} replays, "
               f"paged_decode_kernel launches {launches} (layers x calls "
@@ -846,6 +910,302 @@ def generate_phases(name_card):
           "sampled generate: the same seed gives the same ids")
     check(not np.array_equal(a, c), "another seed gives other ids")
     check(np.array_equal(top1, greedy), "top_k=1 == greedy")
+
+
+# ------------------------------------------------------- phase 3c, prefix
+def _last_logits(progs, seq):
+    """The net's float32 logits after ``seq``, by one eager forward over
+    fresh pools (the near-tie check of a hit against a cold prefill)."""
+    maxp = progs.pages_per_slot
+    block = np.zeros((1, maxp), np.int32)
+    block[0, :-(-len(seq) // progs.page_size)] = 1 + np.arange(
+        -(-len(seq) // progs.page_size))
+    with torch.no_grad():
+        pre = progs.forward(progs.fresh_pools(), block,
+                            np.zeros((1,), np.int32),
+                            np.asarray([seq], np.int32))
+    return pre[0, -1].float()
+
+
+def _hit_parity(progs, prompts, hits, cold):
+    """Each hit's greedy ids against the cold engine's for the same
+    prompt: equal, or parting first where the cold path's top two
+    logits lie within ``LOGITS_TOL`` (the suffix prefill's matmuls are
+    [16, d] where the cold prefill's are [576, d]).  Returns (equal,
+    near-tie partings)."""
+    equal, ties = 0, []
+    for prompt, a, b in zip(prompts, hits, cold):
+        if a == b:
+            equal += 1
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        top = torch.topk(_last_logits(progs, prompt + b[:j]), 2).values
+        gap = float(top[0] - top[1])
+        check(gap <= LOGITS_TOL, f"a hit parts from the cold ids at step "
+                                 f"{j} where the top two logits lie "
+                                 f"{gap:.4f} apart (> {LOGITS_TOL})")
+        ties.append((j, round(gap, 5)))
+    return equal, ties
+
+
+def prefix_phase(name_card):
+    """bench.py's prefix-cache arm at its TPU-tier widths
+    (``bench.py:840-911``), then the tight-pool spill drill.  Returns the
+    paged kernel's profiled launches."""
+    net = transformer_char_lm(device="cuda",
+                              **{**MODEL, "max_cache": PREFIX_CONTEXT})
+    layers = MODEL["layers"]
+    eng = GenerationEngine(net, prefix_cache=True, **PREFIX_ENGINE)
+    t0 = time.perf_counter()
+    eng.start()
+    progs = eng.programs
+    mv = eng.models.active("default")
+    captures = progs.captures
+    programs = len(PREFIX_ENGINE["prefill_buckets"]) + 1
+    print(f"prefix: engine start {time.perf_counter() - t0:.2f} s, "
+          f"captures {captures}, detector {mv.detector.compile_count}; "
+          f"one page's host bytes {progs.page_nbytes()}")
+    check(captures == programs and mv.detector.compile_count == programs,
+          f"prefix: one capture a program at start ({captures})")
+    vocab = MODEL["vocab_size"]
+    rs = np.random.RandomState(4242)
+    sys_prefix = rs.randint(0, vocab, PREFIX_LEN).tolist()
+
+    def prefix_prompt(hit):
+        tail = rs.randint(0, vocab, 4 + rs.randint(9)).tolist()
+        return (sys_prefix + tail if hit
+                else rs.randint(0, vocab, PREFIX_LEN).tolist() + tail)
+
+    eng.submit(prefix_prompt(True), PREFIX_NEW).result(timeout=600)
+    pin_id = eng.pin_prefix(sys_prefix)
+    prompts, ids, hit_t, miss_t, hit_of = [], [], [], [], []
+    t0 = time.perf_counter()
+    for i in range(PREFIX_REQUESTS):
+        prompts.append(prefix_prompt(i % 10 != 9))
+        h = eng.submit(prompts[-1], PREFIX_NEW)
+        ids.append(list(map(int, h.result(timeout=600))))
+        hit_of.append(h.shared_len > 0)
+        (hit_t if h.shared_len > 0 else miss_t).append(h.ttft_s * 1e3)
+    wall = time.perf_counter() - t0
+    check(sum(hit_of) == PREFIX_REQUESTS - PREFIX_REQUESTS // 10,
+          f"prefix: 9 in 10 requests hit ({sum(hit_of)})")
+    check(all(len(r) == PREFIX_NEW for r in ids), "prefix: every request "
+                                                  "returns its tokens")
+    print(f"prefix: {PREFIX_REQUESTS} requests of {PREFIX_NEW} tokens in "
+          f"{wall:.3f} s; TTFT hit p50 {np.percentile(hit_t, 50):.3f} ms "
+          f"p99 {np.percentile(hit_t, 99):.3f} ms ({len(hit_t)}), miss p50 "
+          f"{np.percentile(miss_t, 50):.3f} ms p99 "
+          f"{np.percentile(miss_t, 99):.3f} ms ({len(miss_t)}) [{name_card}]")
+
+    # the four-turn pinned chat, under the profiler: each turn's prefill
+    # covers only the new tokens over the pinned history
+    def chat():
+        turns, history = [], list(sys_prefix)
+        pin = eng.pin_prefix(history)
+        for turn in range(CHAT_TURNS):
+            h = eng.submit(history, CHAT_NEW)
+            toks = list(map(int, h.result(timeout=600)))
+            turns.append((len(history), h.shared_len,
+                          round(h.ttft_s * 1e3, 3)))
+            history = history + toks + rs.randint(0, vocab, 2).tolist()
+            fresh = eng.pin_prefix(history)
+            eng.unpin_prefix(pin)
+            pin = fresh
+        eng.unpin_prefix(pin)
+        return turns
+
+    calls0 = progs.prefill_calls + progs.decode_calls
+    turns, launches, drn = profiled_launches(chat, also=r"\bdrn_kernel")
+    calls = progs.prefill_calls + progs.decode_calls - calls0
+    print(f"prefix: chat turns (prompt tokens, shared tokens, TTFT ms) "
+          f"{turns}; {calls} replays, paged_decode_kernel launches "
+          f"{launches} (layers x calls {layers * calls}), fused prologue "
+          f"launches {drn}")
+    # a turn's history is cached up to the last full page of the turn
+    # before's prompt (decode pages are never cached), so the shared
+    # prefix grows every turn or two
+    check(all(b[1] >= a[1] for a, b in zip(turns, turns[1:]))
+          and 0 < turns[0][1] < turns[-1][1],
+          "prefix: the chat turns share the pinned history")
+    check(launches == layers * calls and drn == layers * calls,
+          f"prefix: profiled launches {launches} (paged), {drn} "
+          f"(prologue) == {layers} x {calls}")
+    eng.unpin_prefix(pin_id)
+    stats = eng.prefix_cache.stats()
+    print(f"prefix: tree stats hits {stats['hits']}, misses "
+          f"{stats['misses']}, resident pages {stats['resident_pages']}, "
+          f"host pages {stats['host_pages']}, spills "
+          f"{stats['offload_total']}, restores {stats['restore_total']}, "
+          f"evictions {stats['evictions_total']}")
+    eng.stop()
+    check(progs.captures == captures
+          and mv.detector.compile_count == programs,
+          f"prefix: nothing captured after start ({progs.captures})")
+
+    # a cached page through the host tier and back, bit for bit, into
+    # the live pools (the decode thread has stopped)
+    node = next(n for n in eng.prefix_cache._all if n.page is not None)
+    spare = eng.cache.alloc(1)[0]
+    payload = progs.read_page(node.page)
+    progs.write_page(spare, payload)
+    check(all(torch.equal(a[node.page], a[spare])
+              for a in tree_leaves(progs.pools))
+          and all(torch.equal(a, b) for a, b in
+                  zip(tree_leaves(payload),
+                      tree_leaves(progs.read_page(spare)))),
+          "prefix: a page round-trips the host tier bit for bit")
+    eng.cache.free([spare])
+
+    # each hit's greedy ids against an engine without the cache
+    hits = [(p, r) for p, r, h in zip(prompts, ids, hit_of) if h]
+    cold = GenerationEngine(net, **PREFIX_ENGINE).start()
+    try:
+        handles = [cold.submit(p, PREFIX_NEW) for p, _ in hits]
+        cold_ids = [list(map(int, h.result(timeout=600))) for h in handles]
+    finally:
+        cold.stop()
+    equal, ties = _hit_parity(cold.programs, [p for p, _ in hits],
+                              [r for _, r in hits], cold_ids)
+    print(f"prefix: hit ids equal a cold engine's in {equal} of "
+          f"{len(hits)} requests; near-tie partings (step, top-2 gap) "
+          f"{ties}")
+    del eng, cold, progs
+    torch.cuda.empty_cache()
+
+    # the spill drill: a 2-slot engine whose tree cannot stay resident
+    tiny = transformer_char_lm(device="cuda", seed=12345, **SPILL_MODEL)
+    teng = GenerationEngine(tiny, prefix_cache=True, **SPILL_ENGINE).start()
+    try:
+        rs2 = np.random.RandomState(77)
+        spill = [rs2.randint(0, vocab, 9).tolist() for _ in range(6)]
+        first = [teng.generate(p, 8).tolist() for p in spill]
+        again = [teng.generate(p, 8).tolist() for p in spill]
+        st = teng.prefix_cache.stats()
+    finally:
+        teng.stop()
+    print(f"prefix spill drill (d32, 2 layers, 13 pages): spills "
+          f"{st['offload_total']}, restores {st['restore_total']}, hits "
+          f"{st['hits']}, host pages {st['host_pages']}; revisits equal "
+          f"{again == first}")
+    check(st["offload_total"] > 0 and st["restore_total"] > 0,
+          "spill drill: pages went to the host tier and came back")
+    check(again == first, "spill drill: restored pages give the same ids")
+    return launches
+
+
+# --------------------------------------------------------- phase 3d, swap
+def _gaps_in(handles, t0, t1):
+    """The longest gap between two delivered tokens of any request
+    whose gap overlaps [t0, t1], from its submit time, TTFT and
+    inter-token latencies (one clock, ``perf_counter``)."""
+    worst = 0.0
+    for h in handles:
+        if h.ttft_s is None:
+            continue
+        t = h.submitted + h.ttft_s
+        for gap in h.itl_s:
+            if t < t1 and t + gap > t0:
+                worst = max(worst, gap)
+            t += gap
+    return worst
+
+
+def swap_phase(name_card):
+    """Hot-swap under load: ``SWAP_STREAMS`` client threads keep greedy
+    streams in flight while a second seed is deployed (retained),
+    rolled back, deployed again and committed."""
+    net1 = transformer_char_lm(device="cuda", **MODEL)
+    net2 = transformer_char_lm(device="cuda",
+                               **{**MODEL, "seed": SWAP_SEED})
+    eng = GenerationEngine(net1, **ENGINE, max_queue=256).start()
+    mv1, progs1 = eng.models.active("default"), eng.programs
+    want = len(ENGINE["prefill_buckets"]) + 1
+    vocab = MODEL["vocab_size"]
+    stop = threading.Event()
+    handles, errors = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        r = np.random.RandomState(c)
+        while not stop.is_set():
+            try:
+                h = eng.submit(r.randint(0, vocab, int(r.randint(4, 13)))
+                               .tolist(), SWAP_NEW)
+                with lock:
+                    handles.append(h)
+                check(len(h.result(timeout=600)) == SWAP_NEW,
+                      "a stream got all its tokens")
+            except Exception as e:          # reported below
+                errors.append(e)
+                return
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(SWAP_STREAMS)]
+    for th in threads:
+        th.start()
+    time.sleep(0.5)
+    t_dep = time.perf_counter()
+    mv2 = eng.deploy("default", net2, retain_old=True)
+    t_dep1 = time.perf_counter()
+    progs2 = eng.programs
+    time.sleep(0.3)
+    calls1 = progs1.decode_calls
+    eng.rollback()
+    time.sleep(0.3)
+    check(eng.programs is progs1 and progs1.decode_calls > calls1,
+          "rollback serves the retained version's programs")
+    check(progs1.captures == want, f"rollback captures nothing "
+                                   f"({progs1.captures})")
+    t_dep2 = time.perf_counter()
+    mv3 = eng.deploy("default", net2, retain_old=True)
+    t_dep3 = time.perf_counter()
+    progs3 = eng.programs
+    time.sleep(0.3)
+    eng.commit_swap()
+    time.sleep(0.3)
+    stop.set()
+    for th in threads:
+        th.join(600)
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"swap: client errors {errors!r}")
+    done = [h for h in handles if h.done.is_set()]
+    check(len(done) == len(handles)
+          and all(h.finish_reason == "length" for h in handles),
+          "swap: no stream dropped")
+    for name, mv, progs in (("v2", mv2, progs2), ("v3", mv3, progs3)):
+        check(progs.captures == want and mv.detector.compile_count == want,
+              f"swap: {name} captured one graph a program at deploy and "
+              f"nothing after ({progs.captures}, detector "
+              f"{mv.detector.compile_count})")
+    check(mv1.state == "retired" and mv2.state == "retired"
+          and eng.models.active("default") is mv3, "swap: v3 serves")
+    gap = _gaps_in(handles, t_dep, t_dep1)
+    gap2 = _gaps_in(handles, t_dep2, t_dep3)
+    itl = [g for h in handles for g in h.itl_s]
+    print(f"swap: {len(handles)} streams of {SWAP_NEW} tokens from "
+          f"{SWAP_STREAMS} clients, none dropped; deploys "
+          f"{(t_dep1 - t_dep) * 1e3:.1f} and {(t_dep3 - t_dep2) * 1e3:.1f} "
+          f"ms (captures {progs2.captures}, {progs3.captures}); longest "
+          f"decode-step gap during them {gap * 1e3:.3f} and "
+          f"{gap2 * 1e3:.3f} ms (inter-token p50 "
+          f"{np.median(itl) * 1e3:.3f} ms, p99 "
+          f"{np.percentile(itl, 99) * 1e3:.3f} ms) [{name_card}]")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, vocab, int(rng.integers(4, 13))).tolist()
+               for _ in range(ENGINE["slots"])]
+    got = [h.result(timeout=600) for h in
+           [eng.submit(p, SWAP_NEW) for p in prompts]]
+    eng.stop()
+    fresh = GenerationEngine(net2, **ENGINE).start()
+    try:
+        ref = [h.result(timeout=600) for h in
+               [fresh.submit(p, SWAP_NEW) for p in prompts]]
+    finally:
+        fresh.stop()
+    same = sum(a == b for a, b in zip(got, ref))
+    print(f"swap: after the commit {same} of {len(prompts)} requests give "
+          f"a fresh engine's ids on the new weights")
+    check(same == len(prompts), "swap: committed version == fresh engine")
 
 
 # ------------------------------------------------- phase 2, training kernels
@@ -1772,6 +2132,185 @@ def resnet_phase(name_card):
     return inf_launches, split["moments"][1], split["grad sums"][1]
 
 
+def _drive_serving(eng, threads, per_thread):
+    """bench.py's ``_drive_serving`` at ResNet-50's rows: ``threads``
+    clients of ``per_thread`` requests of 1-16 seeded rows each (made
+    before the clock starts).  Returns [(rows, result, trace id)], the
+    latencies in seconds and the wall seconds."""
+    feats = []
+    for tid in range(threads):
+        rs = np.random.RandomState(1000 + tid)
+        sizes = 1 + rs.randint(16, size=per_thread)
+        feats.append([rs.rand(int(s), *SERVE_ROW).astype(np.float32)
+                      for s in sizes])
+    results, lat, errors = [], [], []
+    lock = threading.Lock()
+
+    def client(tid):
+        try:
+            for i, x in enumerate(feats[tid]):
+                t0 = time.perf_counter()
+                out = eng.predict(x, trace_id=f"t{tid}r{i}")
+                dt = time.perf_counter() - t0
+                with lock:
+                    results.append((x, out, f"t{tid}r{i}"))
+                    lat.append(dt)
+        except Exception as e:              # reported below
+            errors.append(e)
+
+    ths = [threading.Thread(target=client, args=(t,), daemon=True)
+           for t in range(threads)]
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(900)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(th.is_alive() for th in ths),
+          f"serving: client errors {errors!r}")
+    return results, lat, wall
+
+
+def serving_phase(name_card):
+    """The batch ``ServingEngine`` over ResNet-50 bf16 ``output`` with
+    bench_serving's policy and traffic (``bench.py:1050-1158``): every
+    result against the net's eager ``output`` on the same rows, nothing
+    captured after warm-up, a profiled dispatch's BatchNorm launches,
+    and a deploy and a rollback under load."""
+    from deeplearning4j_tpu_torch.serving import BucketPolicy, ServingEngine
+
+    net = resnet50(device="cuda", **RESNET)
+    example = np.zeros(SERVE_ROW, np.float32)
+    eng = ServingEngine(net, policy=BucketPolicy(max_batch=SERVE_MAX_BATCH),
+                        max_wait_ms=1.0, max_queue=4096, example=example)
+    t0 = time.perf_counter()
+    eng.start()
+    mv = eng.models.active("default")
+    buckets = len(eng.policy.batch_buckets)
+    graphs = net._step_graphs
+    caps = graphs.captures
+    print(f"serving: warm-up of {buckets} buckets "
+          f"{list(eng.policy.batch_buckets)} {time.perf_counter() - t0:.2f}"
+          f" s; captures {caps}, detector {mv.detector.compile_count}")
+    check(mv.detector.compile_count == buckets and caps == buckets,
+          "serving: one capture a bucket at warm-up")
+    results, lat, wall = _drive_serving(eng, SERVE_THREADS,
+                                        SERVE_PER_THREAD)
+    rows = sum(len(x) for x, _, _ in results)
+    print(f"serving: {len(results)} requests, {rows} rows in {wall:.3f} s:"
+          f" {rows / wall:.1f} rows/s, p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1e3:.3f} ms [{name_card}]")
+    # where a request's time went: queue wait and its batch's execute
+    # (bucket padding, the output replay, the copies either side)
+    parts = [eng.request_breakdown(tid) for _, _, tid in results]
+    qw = [b["queue_wait_ms"] for b in parts]
+    ex = {(b["execute_ms"], b["batch_rows"]) for b in parts}
+    ex_ms = [e for e, _ in ex]
+    print(f"serving: queue wait p50 {np.percentile(qw, 50):.3f} ms, p99 "
+          f"{np.percentile(qw, 99):.3f} ms; {len(ex)} dispatches of "
+          f"{np.mean([r for _, r in ex]):.1f} rows on average, execute p50 "
+          f"{np.percentile(ex_ms, 50):.3f} ms, p99 "
+          f"{np.percentile(ex_ms, 99):.3f} ms")
+    # one full bucket: the output call alone (host wall, the staging
+    # copies and the read-back included), then one dispatch profiled
+    x64 = results[0][0][:1].repeat(SERVE_MAX_BATCH, axis=0)
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.output(x64).cpu()
+        walls.append(time.perf_counter() - t0)
+    print(f"serving: net.output on {SERVE_MAX_BATCH} rows (the bucket's "
+          f"replay) host wall median {np.median(walls) * 1e3:.3f} ms")
+    _, bn_n = profiled_launches(lambda: eng.predict(x64), BN_KERNEL_RE)
+    print(f"serving: a profiled {SERVE_MAX_BATCH}-row dispatch launches "
+          f"{bn_n} BatchNorm inference kernels")
+    check(bn_n == RESNET_BN_LAYERS, f"serving: {bn_n} BatchNorm launches "
+                                    f"a replay")
+    check(mv.detector.compile_count == buckets
+          and graphs.captures == caps,
+          "serving: nothing captured after warm-up")
+
+    # a deploy (another seed, retained) and a rollback under load
+    net2 = resnet50(device="cuda", **{**RESNET, "seed": SWAP_SEED})
+    stop, served, errors = threading.Event(), [0], []
+
+    def load(tid):
+        rs = np.random.RandomState(2000 + tid)
+        while not stop.is_set():
+            try:
+                x = rs.rand(1 + rs.randint(16), *SERVE_ROW).astype(
+                    np.float32)
+                out = eng.predict(x)
+                check(out.shape == (len(x), SERVE_CLASSES)
+                      and bool(np.isfinite(out).all()), "a finite result")
+                served[0] += 1
+            except Exception as e:          # reported below
+                errors.append(e)
+                return
+
+    ths = [threading.Thread(target=load, args=(t,), daemon=True)
+           for t in range(SERVE_THREADS)]
+    for th in ths:
+        th.start()
+    t0 = time.perf_counter()
+    mv2 = eng.deploy("default", net2, retain_old=True, example=example)
+    t_deploy = time.perf_counter() - t0
+    time.sleep(0.5)
+    eng.rollback("default")
+    time.sleep(0.5)
+    stop.set()
+    for th in ths:
+        th.join(600)
+    check(not errors and not any(th.is_alive() for th in ths),
+          f"serving: a request failed across deploy and rollback "
+          f"{errors!r}")
+    print(f"serving: deploy (warm-up included) {t_deploy:.2f} s, "
+          f"detector {mv2.detector.compile_count}; {served[0]} requests "
+          f"served across deploy and rollback, none failed; "
+          f"status counts {eng.status_counts('default')}")
+    check(eng.models.active("default") is mv
+          and mv.detector.compile_count == buckets
+          and graphs.captures == caps,
+          "serving: the rollback replays the retained graphs")
+    eng.stop()
+    del net2, mv2
+
+    # every result against the eager forward on its own rows: the
+    # logits (the output node's pre-activation, float32), whose softmax
+    # the served probabilities must match; a random-weight ResNet-50's
+    # logits span hundreds, so its softmax is one-hot in float32 and
+    # the argmax carries the comparison (differences allowed only where
+    # the top two logits lie within the tolerance)
+    worst, top, misses, ties, exact = 0.0, 0.0, 0, 0, 0
+    for x, out, _ in results:
+        with torch.no_grad():
+            acts, _, _ = net._forward(net.params, net.net_state, {
+                "input": torch.as_tensor(x, device="cuda")})
+        logit = acts["fc"].float()
+        ref = torch.softmax(logit, dim=-1).cpu().numpy()
+        logit = logit.cpu().numpy()
+        exact += int((out == ref).all(axis=1).sum())
+        top = max(top, float(np.abs(logit).max()))
+        two = -np.sort(-logit, axis=1)[:, :2]
+        near = (two[:, 0] - two[:, 1]) <= RESNET_LOGITS_TOL * np.abs(
+            logit).max()
+        differ = out.argmax(-1) != logit.argmax(-1)
+        misses += int((differ & ~near).sum())
+        ties += int((differ & near).sum())
+        if (~differ).any():
+            worst = max(worst, float(np.abs(out - ref)[~differ].max()))
+    print(f"serving: results vs the eager forward on the same rows: "
+          f"{exact} of {rows} rows bit for bit; probabilities max abs err "
+          f"{worst:.3e} where the argmax agrees (tol {RESNET_LOGITS_TOL}; "
+          f"max |logit| {top:.3f}); argmax differs on {ties} near-tied and "
+          f"{misses} other rows")
+    check(worst <= RESNET_LOGITS_TOL, f"serving probabilities {worst}")
+    check(misses == 0, f"serving: {misses} argmax differences off a "
+                       f"near-tie")
+
+
 def output_profile(what, call, kernel_re, label, name_card, per_call):
     """Where ``output``'s time goes, over ``PROFILED_FIT_STEPS`` calls:
     device busy against host wall, and the share of the kernels whose
@@ -2505,12 +3044,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     generate_phases(name_card)
     torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    launches += prefix_phase(name_card)
+    torch.cuda.empty_cache()
+    swap_phase(name_card)
+    torch.cuda.empty_cache()
+    t_new = time.perf_counter() - t_new
     train_launches = train_phase(name_card)
     torch.cuda.empty_cache()
     f32_launches = train_phase(name_card, TRAIN_MODEL_F32, "train_f32")
     torch.cuda.empty_cache()
     bn_launches = resnet_phase(name_card)
     torch.cuda.empty_cache()
+    t_serve = time.perf_counter()
+    serving_phase(name_card)
+    torch.cuda.empty_cache()
+    t_new += time.perf_counter() - t_serve
     lrn_launches = alexnet_phase(name_card)
     torch.cuda.empty_cache()
     lenet_phase(name_card)
@@ -2573,7 +3122,8 @@ def main() -> int:
             "launches": n, "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1], "library_ms": row["lib_ms"]})
-    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(f"total {time.perf_counter() - t0:.1f} s (the prefix, swap and "
+          f"serving phases {t_new:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,6 +119,13 @@ class _Capture(threading.local):
 
 _capture = _Capture()
 
+# Held for every capture, and by whoever drops captured graphs: a graph
+# released on one thread while another captures invalidates that
+# capture (see ``capture_graph``), and two captures share torch's one
+# capture stream.  Serving swaps capture a version's graphs on their own
+# thread while another thread replays the old ones.
+capture_lock = threading.RLock()
+
 
 def side_stream(device: torch.device) -> "torch.cuda.Stream":
     """One side stream per device, made at first use: warm-ups reuse it,
@@ -172,19 +179,21 @@ def capture_graph(fn, pool=None):
     lives on in a reference cycle with its captured graphs and pinned
     staging buffers, and releasing them while a capture is under way
     invalidates the capture (``tests/test_torch_cuda.py``,
-    ``test_a_collected_cycle_does_not_break_a_capture``)."""
+    ``test_a_collected_cycle_does_not_break_a_capture``), and the
+    capture holds ``capture_lock``."""
     graph = torch.cuda.CUDAGraph()
-    _capture.scratch = scratch = {}
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode="thread_local"):
-            out = fn()
-    finally:
-        if collecting:
-            gc.enable()
-        graph.scratch, _capture.scratch = scratch.get(None, []), None
+    with capture_lock:
+        _capture.scratch = scratch = {}
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
+            graph.scratch, _capture.scratch = scratch.get(None, []), None
     return graph, out
 
 

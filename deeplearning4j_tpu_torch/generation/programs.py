@@ -9,20 +9,32 @@ of ``deeplearning4j_tpu/generation/programs.py``.
   slots ride along pointed at the trash page with temperature 0; the
   scheduler ignores their outputs.
 
+- ``read_page`` / ``write_page``: one page's K/V slice out of / into
+  every pool — the prefix cache's host-tier transport.
+
 The reference compiles exactly these programs (``jax.jit``, one per
 prefill bucket and one for decode) and counts any recompile.  The
 port's counterpart of a compiled fixed-shape program is a captured CUDA
 graph: ``warm()`` captures one graph for decode and one per prefill
-bucket, each after a warm-up call on a side stream.  A program's inputs
-(tokens, block table, positions, the last real index, the sampling
-policy and its Gumbel noise) live in static device buffers, copied from
-pinned host buffers before each replay; the graph runs the forward, the
-paged KV write, the logits and the sampler (``sample_rows``), and the
-host reads the sampled ids after it.  ``captures`` and ``replays``
-count graphs captured and replayed (the reference's recompile
-detector): steady-state serving captures nothing.  The KV pools are the
-programs' own (``pools``, made by ``warm``), written in place at the
-addresses the graphs hold.
+bucket, each after a warm-up call on a side stream, through the
+version's ``RecompileDetector`` when one is given (``detector=``: a
+capture is its compile).  A program's inputs (tokens, block table,
+positions, the last real index, the sampling policy and its Gumbel
+noise) live in static device buffers, copied from pinned host buffers
+before each replay; the graph runs the forward, the paged KV write, the
+logits and the sampler (``sample_rows``), and the host reads the sampled
+ids after it.  ``captures`` and ``replays`` count graphs captured and
+replayed: steady-state serving captures nothing.
+
+The KV pools (``pools``) are the engine's, passed in (``pools=``) and
+shared by every model version's programs, so that a hot-swap keeps each
+in-flight stream's KV: the graphs hold their addresses, so a pool tensor
+is never replaced, only written in place (the paged writes, the page
+transport, a reset).  Without ``pools=`` the programs make their own at
+``warm``.  Warming writes only the trash page, so a version is warmed and
+captured over live pools while another version serves from them.  The
+page transport (``read_page``/``write_page``) copies one page's slices
+to host tensors and back in place, bit for bit; it is not a graph.
 
 On the CPU, or with ``capture=False`` (an internal switch for comparing
 the two on the card), the same bodies run eagerly on the same buffers.
@@ -31,7 +43,7 @@ A capture or a replay that fails raises; nothing falls back.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -116,7 +128,8 @@ class GenerationPrograms:
 
     def __init__(self, net, *, slots: int, pages_per_slot: int,
                  page_size: int, num_pages: int,
-                 prefill_buckets: Tuple[int, ...], capture=None):
+                 prefill_buckets: Tuple[int, ...], pools=None,
+                 detector=None, capture=None):
         self.net = net
         self.slots = int(slots)
         self.pages_per_slot = int(pages_per_slot)
@@ -139,16 +152,21 @@ class GenerationPrograms:
         self.decode_calls = 0
         self.captures = 0
         self.replays = 0
-        self.pools = None
+        self.detector = detector
+        self.pools = pools
         self._pool = None       # the graphs' shared memory pool
         self.last_logits = None
         self._programs: Dict[str, _Program] = {}
         # validate pageability eagerly (raises on recurrent stacks)
         seed_paged_pools(net, 2, page_size, self.cache_dtype, "cpu")
 
-    def fresh_pools(self):
+    def fresh_pools(self, device=None):
+        """New zeroed pools for this net's geometry (on ``device``, the
+        net's by default; ``"meta"`` gives their shapes and types without
+        memory)."""
         return seed_paged_pools(self.net, self.num_pages, self.page_size,
-                                self.cache_dtype, self.device)
+                                self.cache_dtype,
+                                self.device if device is None else device)
 
     def reset_pools(self) -> None:
         """Zero the live pools in place: the graphs hold their
@@ -253,6 +271,7 @@ class GenerationPrograms:
                top_ps) -> np.ndarray:
         """One token for every slot: host arrays [S] in, [S] int32 out."""
         prog = self._programs["decode"]
+        self._check("decode", tokens, pos, block)
         fill_row_noise(prog.host["noise"], keys, token_idx, temps)
         prog.stage(tokens=tokens, block=block, pos=pos, temps=temps,
                    top_ks=top_ks, top_ps=top_ps)
@@ -272,6 +291,7 @@ class GenerationPrograms:
             raise ValueError(f"prefill_{bucket} takes [1, {bucket}] tokens, "
                              f"got {np.shape(tokens)}")
         prog = self._programs[f"prefill_{bucket}"]
+        self._check(f"prefill_{bucket}", tokens, start, block)
         fill_row_noise(prog.host["noise"], keys, token_idx, temps)
         prog.stage(tokens=tokens, block=block, start=start,
                    last_idx=np.int64(last_idx), temps=temps, top_ks=top_ks,
@@ -281,25 +301,72 @@ class GenerationPrograms:
         self.prefill_calls += 1
         return out
 
+    def _check(self, name: str, *arrays, expected: bool = False,
+               captured: Optional[bool] = None) -> None:
+        """The call's signature through the version's detector; a replay
+        (or an eager call of a known signature) compiles nothing."""
+        if self.detector is not None:
+            if captured is None and self.capture:
+                captured = False
+            self.detector.check((name,) + arrays, {}, expected=expected,
+                                captured=captured)
+
+    # -------------------------------------------------- prefix-cache tier
+    def read_page(self, page: int) -> Dict:
+        """Device → host: one page's [page_size, Hkv, D] K/V slices of
+        every pool, as host tensors of the pools' type."""
+        def walk(c):
+            if isinstance(c, dict) and "pk" in c:
+                return {"pk": c["pk"][page].to("cpu", copy=True),
+                        "pv": c["pv"][page].to("cpu", copy=True)}
+            return {k: walk(v) for k, v in c.items()}
+        return {k: walk(v) for k, v in self.pools.items()}
+
+    def write_page(self, page: int, payload: Dict) -> None:
+        """Host → device: a ``read_page`` payload into page ``page`` of
+        every pool, in place (the graphs hold the pools' addresses)."""
+        def walk(c, p):
+            if isinstance(c, dict) and "pk" in c:
+                c["pk"][page].copy_(torch.as_tensor(p["pk"]))
+                c["pv"][page].copy_(torch.as_tensor(p["pv"]))
+                return
+            for k, v in c.items():
+                walk(v, p[k])
+        for k, v in self.pools.items():
+            walk(v, payload[k])
+
+    def page_nbytes(self) -> int:
+        """Host bytes one offloaded page costs (every pool's K+V slice)
+        — the unit of the prefix cache's host-tier budget."""
+        return sum(t[0].numel() * t.element_size()
+                   for t in tree_leaves(self.pools))
+
     def warm(self) -> int:
-        """Make the live pools, then one prefill per bucket and one decode
-        call on them (idle inputs: every write lands in the trash page),
-        capturing each program's graph on the card; the pools are zeroed
-        after.  Programs already captured are not captured again.
-        Returns the number of programs."""
+        """One prefill per bucket and one decode call on the pools (idle
+        inputs: every write lands in the trash page), capturing each
+        program's graph on the card; programs already captured are not
+        captured again.  Pools the programs made themselves are made
+        here and zeroed after; the engine's live pools are left as they
+        are.  Returns the number of programs."""
         s, maxp = self.slots, self.pages_per_slot
-        if self.pools is None:
+        made = self.pools is None
+        if made:
             self.pools = self.fresh_pools()
-            if self.capture:
-                self._pool = torch.cuda.graph_pool_handle()
+        if self.capture and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
         names = [f"prefill_{b}" for b in self.prefill_buckets] + ["decode"]
         for name in names:
-            prog = self._programs.get(name)
-            if prog is None:
+            if name not in self._programs:
                 prog = self._programs[name] = self._make(name)
+                host = prog.host
+                sig = (host["tokens"].numpy(),
+                       host["start" if "start" in host else "pos"].numpy(),
+                       host["block"].numpy())
                 if self.capture:
                     with torch.no_grad():
                         self._capture(prog)
+                self._check(name, *sig, expected=True,
+                            captured=True if self.capture else None)
         for b in self.prefill_buckets:
             self.prefill(b, np.zeros((1, maxp), np.int32),
                          np.zeros((1,), np.int32), 0,
@@ -311,5 +378,6 @@ class GenerationPrograms:
                     np.zeros((s,), np.int32), np.zeros((s, 2), np.uint32),
                     np.zeros((s,), np.int32), np.zeros((s,), np.float32),
                     np.zeros((s,), np.int32), np.ones((s,), np.float32))
-        self.reset_pools()
+        if made:
+            self.reset_pools()
         return len(names)

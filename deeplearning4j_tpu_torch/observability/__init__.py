@@ -1,1 +1,45 @@
-"""Observability pieces the port needs (counterpart of ``deeplearning4j_tpu.observability``)."""
+"""Telemetry core (counterpart of ``deeplearning4j_tpu.observability``):
+metrics registry, span tracing, recompile (capture) detection,
+device-memory gauges, phase timers, the serving and decode metric
+bundles, the decode SLO tracker and the flight recorder.
+
+The reference's profiling, sharding, fit-telemetry, health,
+introspection and numerics modules, and the fleet's publisher and
+aggregator, come with ROADMAP A9, A10 and A11.
+"""
+
+from deeplearning4j_tpu_torch.observability.metrics import (
+    DEFAULT_BUCKETS, Counter, Gauge, Histogram, MetricFamily,
+    MetricsRegistry, get_registry, set_registry,
+)
+from deeplearning4j_tpu_torch.observability.tracing import (
+    Span, SpanTracer, get_tracer, new_trace_id, set_tracer,
+)
+from deeplearning4j_tpu_torch.observability.recompile import (
+    RecompileDetector, compile_counter, fingerprint,
+)
+from deeplearning4j_tpu_torch.observability.memory import (
+    DeviceMemoryMonitor, device_memory_stats, sample_once,
+)
+from deeplearning4j_tpu_torch.observability.phases import PhaseTimers
+from deeplearning4j_tpu_torch.observability.fleet import SLOTracker
+from deeplearning4j_tpu_torch.observability.servingmetrics import (
+    GenerationMetrics, ServingMetrics,
+)
+from deeplearning4j_tpu_torch.observability.flightrecorder import (
+    FlightEvent, FlightRecorder, StepWatchdog, crash_dump,
+    dump_flight_report, get_flight_recorder, get_watchdog,
+    read_flight_report, set_flight_recorder, step_guard,
+)
+
+__all__ = [
+    "DEFAULT_BUCKETS", "Counter", "Gauge", "Histogram", "MetricFamily",
+    "MetricsRegistry", "get_registry", "set_registry",
+    "Span", "SpanTracer", "get_tracer", "new_trace_id", "set_tracer",
+    "RecompileDetector", "compile_counter", "fingerprint",
+    "DeviceMemoryMonitor", "device_memory_stats", "sample_once",
+    "PhaseTimers", "SLOTracker", "GenerationMetrics", "ServingMetrics",
+    "FlightEvent", "FlightRecorder", "StepWatchdog", "crash_dump",
+    "dump_flight_report", "get_flight_recorder", "get_watchdog",
+    "read_flight_report", "set_flight_recorder", "step_guard",
+]

@@ -137,24 +137,32 @@ def _paged_launches(fn):
                     if "paged_decode_kernel" in e.key)
 
 
-def _small_engine(capture=None, slots=4):
+def _small_net(seed=12345):
+    from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
+
+    return transformer_char_lm(vocab_size=29, d_model=64, n_heads=4,
+                               layers=2, compute_dtype="bfloat16",
+                               seed=seed)
+
+
+def _small_engine(capture=None, slots=4, net=None, **kw):
     from deeplearning4j_tpu_torch.generation import GenerationEngine
+
+    eng = GenerationEngine(net or _small_net(), slots=slots, page_size=16,
+                           max_context=64, prefill_buckets=(16, 32), **kw)
+    eng._capture = capture     # internal: False runs the programs eagerly
+    return eng
+
+
+def _small_programs(capture):
+    """The small engine's programs on their own pools, not started."""
     from deeplearning4j_tpu_torch.generation.programs import (
         GenerationPrograms,
     )
-    from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
 
-    net = transformer_char_lm(vocab_size=29, d_model=64, n_heads=4,
-                              layers=2, compute_dtype="bfloat16")
-    eng = GenerationEngine(net, slots=slots, page_size=16, max_context=64,
-                           prefill_buckets=(16, 32))
-    if capture is not None:
-        p = eng.programs
-        eng.programs = GenerationPrograms(
-            net, slots=p.slots, pages_per_slot=p.pages_per_slot,
-            page_size=p.page_size, num_pages=p.num_pages,
-            prefill_buckets=p.prefill_buckets, capture=capture)
-    return eng
+    return GenerationPrograms(_small_net(), slots=4, pages_per_slot=4,
+                              page_size=16, num_pages=17,
+                              prefill_buckets=(16, 32), capture=capture)
 
 
 def test_engine_goes_through_the_kernel(cuda):
@@ -204,7 +212,7 @@ def test_captured_programs_equal_eager_programs_bitwise(cuda):
     steps."""
     runs = {}
     for capture in (True, False):
-        progs = _small_engine(capture).programs
+        progs = _small_programs(capture)
         progs.warm()
         rng = np.random.default_rng(0)
         toks, logits = [], []
@@ -287,6 +295,179 @@ def test_engine_error_path_reseeds_pools_in_place_and_serves(cuda):
         assert progs.captures == len(progs.prefill_buckets) + 1
     finally:
         eng.stop()
+
+
+def _keep_serving(eng, stop, errors, n=12):
+    """Client load until ``stop``: the decode thread replays its graphs."""
+    import threading
+
+    def client(i):
+        while not stop.is_set():
+            try:
+                out = eng.generate([1 + i, 2, 3], n)
+                assert len(out) == n
+            except Exception as e:          # reported by the test
+                errors.append(e)
+                return
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    return threads
+
+
+def test_page_transport_round_trips_beside_a_replaying_decode(cuda):
+    """``read_page``/``write_page`` copy a page bit for bit into the live
+    pools, in place, while the decode thread replays its captured graph
+    over the same pools; the two pages are held out of the allocator."""
+    import threading
+
+    eng = _small_engine(num_pages=4 * 4 + 3)
+    held = eng.cache.alloc(2)            # before the decode thread runs
+    eng.start()
+    stop, errors = threading.Event(), []
+    try:
+        progs = eng.programs
+        ptrs = [x.data_ptr() for x in tree_leaves(progs.pools)]
+        want = eng.generate([7, 8, 9], 12).tolist()
+        threads = _keep_serving(eng, stop, errors)
+        g = torch.Generator().manual_seed(0)
+
+        def noise(tree):
+            if isinstance(tree, dict):
+                return {k: noise(v) for k, v in tree.items()}
+            return torch.randn(tree.shape, generator=g).to(tree.dtype)
+
+        payload = noise(progs.read_page(held[0]))
+        for _ in range(20):
+            progs.write_page(held[0], payload)
+            back = progs.read_page(held[0])
+            progs.write_page(held[1], back)
+            again = progs.read_page(held[1])
+            for a, b, c in zip(tree_leaves(payload), tree_leaves(back),
+                               tree_leaves(again)):
+                assert torch.equal(a, b) and torch.equal(b, c)
+        stop.set()
+        for th in threads:
+            th.join(60)
+        assert not errors, errors
+        assert [x.data_ptr() for x in tree_leaves(progs.pools)] == ptrs
+        assert eng.generate([7, 8, 9], 12).tolist() == want
+        assert progs.captures == len(progs.prefill_buckets) + 1
+    finally:
+        stop.set()
+        eng.stop()
+
+
+def test_a_version_is_captured_while_another_replays(cuda):
+    """``deploy`` captures the new version's graphs on this thread while
+    the decode thread replays the old version's: no request fails, the
+    new version captures one graph a program, and it then serves the
+    tokens of an engine started on it."""
+    import threading
+
+    net_b = _small_net(seed=7)
+    eng = _small_engine()
+    eng.start()
+    stop, errors = threading.Event(), []
+    try:
+        old = eng.programs
+        threads = _keep_serving(eng, stop, errors)
+        long = [eng.submit([4, 5, 6], 40) for _ in range(3)]
+        mv = eng.deploy("default", net_b)
+        new = eng.programs
+        assert new is not old
+        assert new.captures == len(new.prefill_buckets) + 1
+        assert mv.detector.compile_count == new.captures
+        assert all(len(h.result(timeout=60)) == 40 for h in long)
+        stop.set()
+        for th in threads:
+            th.join(60)
+        assert not errors, errors
+        got = eng.generate([3, 1, 4], 10).tolist()
+        assert new.captures == len(new.prefill_buckets) + 1
+    finally:
+        stop.set()
+        eng.stop()
+    fresh = _small_engine(net=net_b).start()
+    try:
+        assert fresh.generate([3, 1, 4], 10).tolist() == got
+    finally:
+        fresh.stop()
+
+
+def test_paged_attention_at_the_prefix_hit_shape(cuda):
+    """A prefix hit's suffix prefill: 16 queries at positions 512..527
+    over 528 cached keys (bfloat16, pages of 16), against the plain
+    version; two calls give the same bits."""
+    rng = np.random.default_rng(3)
+    g = torch.Generator().manual_seed(3)
+    ps, maxp, pages = 16, 40, 16 * 40 + 1
+    q = torch.randn(1, 16, 8, 128, generator=g)
+    pk = torch.randn(pages * ps, 8, 128, generator=g)   # flattened pools
+    pv = torch.randn(pages * ps, 8, 128, generator=g)
+    block = np.zeros((1, maxp), np.int32)
+    block[0, :33] = rng.permutation(np.arange(1, pages))[:33]
+    qpos = (512 + np.arange(16, dtype=np.int32))[None]
+    args = ([x.to("cuda", torch.bfloat16) for x in (q, pk, pv)]
+            + [torch.from_numpy(block).cuda(), torch.from_numpy(qpos).cuda()])
+    out = pa.paged_decode_attention(*args, page_size=ps)
+    again = pa.paged_decode_attention(*args, page_size=ps)
+    ref = pa.paged_attention_plain(*args, ps)
+    assert torch.equal(out, again)
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        TOL[torch.bfloat16]
+
+
+def _serving_mlp():
+    from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.dense import (
+        DenseLayer, OutputLayer,
+    )
+
+    conf = (NeuralNetConfiguration.builder().seed(12345)
+            .updater("sgd", learning_rate=0.1).list()
+            .layer(DenseLayer(n_in=64, n_out=256, activation="relu"))
+            .layer(OutputLayer(n_in=256, n_out=10, loss="mcxent",
+                               activation="softmax")).build())
+    return MultiLayerNetwork(conf).init()
+
+
+@pytest.mark.parametrize("max_batch,buckets", [(8, 4), (512, 10)])
+def test_serving_engine_captures_nothing_after_warm_up(max_batch, buckets,
+                                                       cuda):
+    """The ServingEngine's warm-up captures one ``output`` graph a bucket
+    through the version's detector; traffic then replays them and
+    captures nothing.  A policy with more buckets than the net's graph
+    cache holds (8) recaptures on every pass of its LRU, and the
+    detector counts every one of those captures."""
+    from deeplearning4j_tpu_torch.models.capture import GRAPH_CACHE_SIZE
+    from deeplearning4j_tpu_torch.serving import ServingEngine
+
+    net = _serving_mlp()
+    eng = ServingEngine(net, max_batch=max_batch, max_wait_ms=0.5,
+                        example=np.zeros((64,), np.float32)).start()
+    rs = np.random.RandomState(0)
+    xs = [rs.rand(int(r), 64).astype(np.float32)
+          for r in (1, 3, 8, 5, 2, 7, 300, 129, 1, 8)]
+    try:
+        mv = eng.models.active("default")
+        assert mv.detector.compile_count == buckets
+        assert net._step_graphs.captures == buckets
+        outs = [eng.predict(x) for x in xs]
+        extra = net._step_graphs.captures - buckets
+        assert mv.detector.compile_count == buckets + extra
+    finally:
+        eng.stop()
+    if buckets <= GRAPH_CACHE_SIZE:
+        assert extra == 0
+    else:
+        assert extra > 0
+    net._capture = False
+    for x, out in zip(xs, outs):
+        np.testing.assert_allclose(out, net.output(x).cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("window", [None, 8], ids=["linear", "rolling"])
