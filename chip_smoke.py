@@ -197,7 +197,63 @@ Phases (any failure exits non-zero; nothing is caught):
    layers as a ``ComputationGraph`` whose head reads the last step
    (``LastTimeStepVertex``): two ``fit`` steps captured and eager, bit
    for bit.
-11. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+11. The HTTP server: the port's ``InferenceServer`` on localhost over a
+   ``ServingEngine`` (ResNet-50 bf16 ``output``, ``BucketPolicy(max_batch
+   =64)``, the model named ``resnet50``) and a ``GenerationEngine`` (the
+   char-LM of 3, its 16 slots and pages of 16, ``prefix_cache=True``).
+   16 client threads send 4 ``POST /generate`` each (16-token seeded
+   prompts, 64 new tokens, greedy, three in four with ``stream: true``,
+   read event by event), while 4 threads send 20 ``POST /predict`` each
+   (1-16 seeded rows in the NDArray envelope), one thread posts a zip of
+   ResNet-50 at a second seed to ``/models/resnet50`` (retained) and then
+   ``/models/resnet50/rollback``, and another scrapes ``/metrics``,
+   ``/health``, ``/healthz``, ``/models`` and ``/generation/cache``
+   throughout.  No request may fail; nothing is captured after warm-up
+   but the swap's seven buckets, and the rollback captures none; a
+   profiled window (one streamed request, one 16-row ``/predict``) must
+   launch paged decode, the prologue and 53 BatchNorm inference
+   kernels (added to the kernels line's).  Prints the HTTP TTFT
+   (send to first SSE event) beside the engine's ``ttft_s``, the SSE
+   inter-event p50/p99, the longest gap during the swap, ``/predict``
+   rows/s and latency.  Then every ``/generate`` result must equal
+   ``engine.generate``'s ids for its prompt (an engine without the
+   prefix cache: the same cold prefill), and every ``/predict`` argmax
+   the eager forward's of the version that served it, differences only
+   on near-ties.
+12. The in-step guard.  (a) ResNet-50 bf16 at batch 128 under
+   ``training_stability(loss_scaling="dynamic", check_every=2)``, 8
+   captured steps from host batches, ``FaultInjector.poison_gradients``
+   poisoning step 3 with NaN and step 5 with infinity before staging:
+   each poisoned step leaves every param, Nesterov and running-stat
+   tensor as it was bit for bit, the scale halves at each, the sentinel's
+   check after step 5 harvests a non-finite count of 2, the net holds
+   one train graph, and a profiled guarded step launches BatchNorm's
+   reductions 53 times each (added to the kernels line's).  Then 7 steps
+   each, from one state: unguarded twice, guarded without scaling, and
+   guarded with dynamic scaling; the guarded run without scaling must
+   equal the unguarded one bit for bit (all four again under
+   ``cudnn.deterministic`` if the two unguarded runs differ); the medians
+   of 5 steps after 2 warm-up are the guard's cost.  (b) The char-LM of 4
+   in float16 under dynamic scaling from 2^32 (``loss_scale_max`` 2^32,
+   factor 16, growth after 2 finite steps): over 10 steps the scale must
+   follow the rule (divided at each non-finite step, multiplied after
+   two finite ones), fall at least once and grow at least once, and no
+   step may leave a non-finite param; the guarded and unguarded medians;
+   a profiled guarded step's flash and prologue launches (added to the
+   kernels line's).
+13. Resume: ResNet-50 bf16 at batch 128 with a ``CheckpointManager`` in
+   a temporary directory (a save every 2 steps, the async writer) over 6
+   device batches.  A runs uninterrupted; B takes a fatal fault at step 3
+   and raises, then a fresh net's ``fit`` resumes from step 2 and
+   finishes, and apart the crashed net (its captured graph kept) is
+   restored in place and finishes; C takes a transient fault at step 4
+   under a ``RetryPolicy``; D is preempted (``PreemptionHandler.
+   trigger()``) before its fourth step and must commit a priority
+   checkpoint and return.  B's and C's params, updater state and running
+   stats must equal A's bit for bit.  Prints the snapshot ms on the
+   training thread, the commit ms off it, the bytes a save and the
+   restore ms.
+14. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -3022,6 +3078,733 @@ def lstm_phase(name_card):
     print(f"lstm phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------ the HTTP server, guard, resume
+# the server phase's traffic: generate clients, requests each, prompt
+# and new tokens (three in four streamed), predict clients and requests
+SERVER_GEN_CLIENTS, SERVER_GEN_PER = 16, 4
+SERVER_PROMPT, SERVER_NEW = 16, 64
+SERVER_PRED_CLIENTS, SERVER_PRED_PER = 4, 20
+# guard: ResNet-50 steps under dynamic scaling, the poisoned ones, and
+# the float16 char-LM's scale walk (from 2^32, beyond float16's range)
+GUARD_STEPS, GUARD_POISON, GUARD_CHECK = 8, {3: "nan", 5: "inf"}, 2
+WALK_STEPS = 10
+WALK = dict(loss_scaling="dynamic", loss_scale=2.0 ** 32,
+            loss_scale_max=2.0 ** 32, loss_scale_factor=16.0,
+            loss_scale_growth_interval=2, check_every=WALK_STEPS)
+# resume: ResNet-50 steps, a save every 2 (async), the fatal fault, the
+# transient one, and the preemption (before the fourth step)
+RESUME_STEPS, RESUME_EVERY = 6, 2
+RESUME_FATAL, RESUME_TRANSIENT, RESUME_PREEMPT = 3, 4, 3
+
+
+def profiled_counts(fn, patterns):
+    """``fn()`` under ``torch.profiler``: (its result, {name: launches of
+    the kernels matching ``patterns[name]``}, the events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    return out, {k: sum(e.count for e in ev if re.search(p, e.key))
+                 for k, p in patterns.items()}, ev
+
+
+def _pcts(vals):
+    return (float(np.percentile(vals, 50)) * 1e3,
+            float(np.percentile(vals, 99)) * 1e3)
+
+
+def _http_json(port, method, path, body=None, timeout=600):
+    """(status, parsed JSON or None, raw bytes) of one request."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read()
+        try:
+            obj = json.loads(raw)
+        except ValueError:
+            obj = None
+        return resp.status, obj, raw
+    finally:
+        conn.close()
+
+
+def _http_stream(port, body, timeout=600):
+    """POST /generate with ``stream: true``: (status, [(arrival time,
+    event)], send time), reading the SSE events as they come."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        events = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                events.append((time.perf_counter(), json.loads(line[6:])))
+                if events[-1][1].get("done"):
+                    break
+        return resp.status, events, t0
+    finally:
+        conn.close()
+
+
+def server_phase(name_card):
+    """The port's ``InferenceServer`` on localhost over a ``ServingEngine``
+    (ResNet-50 bf16 ``output``, bench_serving's policy) and a
+    ``GenerationEngine`` (the char-LM, the engine phase's geometry, the
+    prefix cache on): concurrent ``/generate`` (greedy, three in four
+    streamed as SSE) and ``/predict`` clients, a hot swap of the ResNet
+    over HTTP and its rollback, and scrapes of every GET endpoint
+    throughout.  Returns the profiled window's launches (paged decode,
+    prologue, BatchNorm inference)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.models import serialization
+    from deeplearning4j_tpu_torch.serving import BucketPolicy, ServingEngine
+    from deeplearning4j_tpu_torch.streaming import (
+        InferenceServer, array_to_base64, base64_to_array,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    zip_path = f"{tmp.name}/resnet50_v2.zip"
+    net2 = resnet50(device="cuda", **{**RESNET, "seed": SWAP_SEED})
+    net2.save(zip_path, save_updater=False)
+    net = resnet50(device="cuda", **RESNET)
+    lm = transformer_char_lm(device="cuda", **MODEL)
+    example = np.zeros(SERVE_ROW, np.float32)
+    eng = ServingEngine(net, policy=BucketPolicy(max_batch=SERVE_MAX_BATCH),
+                        max_wait_ms=1.0, max_queue=4096, example=example,
+                        default_model="resnet50")
+    gen = GenerationEngine(lm, **ENGINE, max_queue=256, prefix_cache=True)
+    server = InferenceServer(engine=eng, generation=gen, device="cuda")
+    try:
+        eng.start()
+        gen.start()
+        port = server.start()
+        mv1 = eng.models.active("resnet50")
+        buckets = len(eng.policy.batch_buckets)
+        caps = net._step_graphs.captures
+        gen_caps = gen.programs.captures
+        want = len(ENGINE["prefill_buckets"]) + 1
+        print(f"server: warm-up {time.perf_counter() - t_phase:.2f} s (the "
+              f"v2 zip included); ResNet-50 captures {caps}, generation "
+              f"captures {gen_caps}")
+        check(caps == buckets and gen_caps == want,
+              "server: one capture a bucket and a program at warm-up")
+
+        # the clients' requests, made before the clock starts
+        rs = np.random.RandomState(15)
+        prompts = [[rs.randint(0, MODEL["vocab_size"], SERVER_PROMPT)
+                    .tolist() for _ in range(SERVER_GEN_PER)]
+                   for _ in range(SERVER_GEN_CLIENTS)]
+        feats = []
+        for c in range(SERVER_PRED_CLIENTS):
+            r = np.random.RandomState(3000 + c)
+            feats.append([r.rand(1 + r.randint(16), *SERVE_ROW).astype(
+                np.float32) for _ in range(SERVER_PRED_PER)])
+        gens, preds, scrapes, errors = [], [], [], []
+        swap = {}
+        lock = threading.Lock()
+        stop = threading.Event()
+
+        def gen_client(c):
+            try:
+                for i, p in enumerate(prompts[c]):
+                    body = {"prompt": p, "max_tokens": SERVER_NEW}
+                    if i % 4 != 3:
+                        status, events, t0 = _http_stream(
+                            port, {**body, "stream": True})
+                        check(status == 200, f"SSE status {status}")
+                        done = events[-1][1]
+                        check(done.get("done") and "error" not in done,
+                              f"SSE stream ended {done}")
+                        toks = [e["token"] for _, e in events[:-1]]
+                        with lock:
+                            gens.append(dict(
+                                prompt=p, tokens=toks, t0=t0,
+                                times=[t for t, _ in events[:-1]],
+                                ttft_ms=done["ttft_ms"]))
+                    else:
+                        status, obj, raw = _http_json(
+                            port, "POST", "/generate", body)
+                        check(status == 200, f"generate {status} {raw!r}")
+                        with lock:
+                            gens.append(dict(prompt=p, tokens=obj["tokens"],
+                                             ttft_ms=obj["ttft_ms"]))
+            except Exception as e:          # reported below
+                errors.append(("generate", e))
+
+        def pred_client(c):
+            try:
+                for i, x in enumerate(feats[c]):
+                    t0 = time.perf_counter()
+                    status, obj, raw = _http_json(
+                        port, "POST", "/predict", array_to_base64(x))
+                    dt = time.perf_counter() - t0
+                    check(status == 200, f"predict {status} {raw[:200]!r}")
+                    with lock:
+                        preds.append(dict(x=x, out=base64_to_array(obj),
+                                          t0=t0, dt=dt))
+            except Exception as e:          # reported below
+                errors.append(("predict", e))
+
+        def scraper():
+            paths = ["/metrics", "/health", "/healthz", "/models",
+                     "/generation/cache"]
+            try:
+                while not stop.is_set():
+                    for path in paths:
+                        status, obj, raw = _http_json(port, "GET", path)
+                        with lock:
+                            scrapes.append((path, status, obj))
+                    time.sleep(0.05)
+            except Exception as e:          # reported below
+                errors.append(("scrape", e))
+
+        def swapper():
+            try:
+                time.sleep(0.3)
+                swap["t0"] = time.perf_counter()
+                status, obj, raw = _http_json(
+                    port, "POST", "/models/resnet50",
+                    {"path": zip_path, "retain_old": True})
+                swap["t1"] = time.perf_counter()
+                check(status == 200, f"swap {status} {raw!r}")
+                swap["mv2"] = eng.models.active("resnet50")
+                swap["swap"] = obj
+                time.sleep(0.5)
+                status, obj, raw = _http_json(
+                    port, "POST", "/models/resnet50/rollback", {})
+                swap["t2"] = time.perf_counter()
+                check(status == 200, f"rollback {status} {raw!r}")
+                swap["rollback"] = obj
+            except Exception as e:          # reported below
+                errors.append(("swap", e))
+
+        threads = ([threading.Thread(target=gen_client, args=(c,))
+                    for c in range(SERVER_GEN_CLIENTS)]
+                   + [threading.Thread(target=pred_client, args=(c,))
+                      for c in range(SERVER_PRED_CLIENTS)]
+                   + [threading.Thread(target=swapper)])
+        scrape_th = threading.Thread(target=scraper)
+        t0 = time.perf_counter()
+        scrape_th.start()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        stop.set()
+        scrape_th.join(60)
+        wall = time.perf_counter() - t0
+        check(not errors and not any(th.is_alive() for th in threads),
+              f"server: failed requests {errors!r}")
+        n_gen = SERVER_GEN_CLIENTS * SERVER_GEN_PER
+        check(len(gens) == n_gen and len(preds) == SERVER_PRED_CLIENTS
+              * SERVER_PRED_PER, "server: every request answered")
+        check(all(len(g["tokens"]) == SERVER_NEW for g in gens),
+              f"server: every /generate returns {SERVER_NEW} tokens")
+        bad = [(p, s) for p, s, o in scrapes
+               if s != 200 and not (p == "/health" and s == 503
+                                    and o is not None
+                                    and o.get("healthy") is False)]
+        unhealthy = sum(1 for p, s, _ in scrapes
+                        if p == "/health" and s != 200)
+        check(not bad, f"server: scrapes failed {bad[:4]}")
+        print(f"server: {n_gen} /generate ({sum('times' in g for g in gens)}"
+              f" streamed) and {len(preds)} /predict requests in "
+              f"{wall:.2f} s, none failed; {len(scrapes)} scrapes of the "
+              f"GET endpoints ({unhealthy} /health answers unhealthy)")
+
+        # captures: only the swap's own buckets; the rollback none
+        mv2 = swap["mv2"]
+        print(f"server: swap {swap['swap']} in "
+              f"{(swap['t1'] - swap['t0']) * 1e3:.1f} ms (v2 captures "
+              f"{mv2.detector.compile_count}); rollback "
+              f"{swap['rollback']} in "
+              f"{(swap['t2'] - swap['t1']) * 1e3 - 500:.1f} ms after the "
+              f"0.5 s hold")
+        check(mv2.detector.compile_count == buckets,
+              f"server: the swap captured one graph a bucket "
+              f"({mv2.detector.compile_count})")
+        check(eng.models.active("resnet50") is mv1
+              and net._step_graphs.captures == caps
+              and mv1.detector.compile_count == buckets,
+              "server: nothing captured after warm-up but the swap's; the "
+              "rollback serves the retained graphs")
+        check(gen.programs.captures == gen_caps,
+              f"server: generation captured nothing after warm-up "
+              f"({gen.programs.captures})")
+
+        # latency: HTTP TTFT (send to first SSE event) beside the
+        # engine's own, the SSE inter-event gaps, the longest gap during
+        # the swap, /predict rows/s
+        streamed = [g for g in gens if "times" in g]
+        http_ttft = [g["times"][0] - g["t0"] for g in streamed]
+        eng_ttft = [g["ttft_ms"] / 1e3 for g in gens]
+        gaps, swap_gap = [], 0.0
+        for g in streamed:
+            ts = g["times"]
+            for a, b in zip(ts, ts[1:]):
+                gaps.append(b - a)
+                if a < swap["t1"] and b > swap["t0"]:
+                    swap_gap = max(swap_gap, b - a)
+        rows = sum(len(p["x"]) for p in preds)
+        p_wall = (max(p["t0"] + p["dt"] for p in preds)
+                  - min(p["t0"] for p in preds))
+        lat = [p["dt"] for p in preds]
+        print(f"server: HTTP TTFT p50 {_pcts(http_ttft)[0]:.3f} ms, p99 "
+              f"{_pcts(http_ttft)[1]:.3f} ms (streamed, send to first "
+              f"event) vs the engine's ttft_s p50 {_pcts(eng_ttft)[0]:.3f}"
+              f" ms, p99 {_pcts(eng_ttft)[1]:.3f} ms; SSE inter-event p50 "
+              f"{_pcts(gaps)[0]:.3f} ms, p99 {_pcts(gaps)[1]:.3f} ms; "
+              f"longest gap during the swap {swap_gap * 1e3:.3f} ms "
+              f"[{name_card}]")
+        print(f"server: /predict {rows} rows in {p_wall:.3f} s: "
+              f"{rows / p_wall:.1f} rows/s, latency p50 "
+              f"{_pcts(lat)[0]:.3f} ms, p99 {_pcts(lat)[1]:.3f} ms "
+              f"[{name_card}]")
+
+        # a profiled window: one streamed /generate and one /predict
+        x16 = feats[0][0][:1].repeat(16, axis=0)
+
+        def window():
+            status, events, _ = _http_stream(
+                port, {"prompt": prompts[0][0], "max_tokens": 8,
+                       "stream": True})
+            check(status == 200 and events[-1][1].get("done"),
+                  "profiled SSE request")
+            status, _, _ = _http_json(port, "POST", "/predict",
+                                      array_to_base64(x16))
+            check(status == 200, "profiled /predict")
+
+        _, counts, ev = profiled_counts(window, {
+            "paged": r"paged_decode_kernel", "prologue": r"\bdrn_kernel"})
+        counts["bn_inference"] = bn_passes(ev).get("inference", (0, 0))[1]
+        print(f"server: a profiled window (one streamed /generate of 8 "
+              f"tokens, one 16-row /predict) launches {counts}")
+        check(counts["paged"] > 0 and counts["prologue"] > 0
+              and counts["bn_inference"] == RESNET_BN_LAYERS,
+              f"server: rows 4, 5 and 8 launch ({counts})")
+    finally:
+        server.stop()
+        gen.stop()
+        eng.stop()
+
+    # every /generate against engine.generate without HTTP (an engine
+    # without the prefix cache: the same cold prefill of each prompt)
+    ref_eng = GenerationEngine(lm, **ENGINE, max_queue=256).start()
+    try:
+        handles = [ref_eng.submit(g["prompt"], SERVER_NEW) for g in gens]
+        ref = [h.result(timeout=600) for h in handles]
+    finally:
+        ref_eng.stop()
+    same = sum(g["tokens"] == r for g, r in zip(gens, ref))
+    print(f"server: {same} of {len(gens)} /generate results equal "
+          f"engine.generate's ids")
+    check(same == len(gens), "server: /generate ids == engine.generate")
+
+    # every /predict against the eager forward of the version that
+    # served it: argmax, differences only on near-ties
+    net2 = serialization.load_model(zip_path, device="cuda")
+    misses, ties, by_v2 = 0, 0, 0
+    for p in preds:
+        x, out = p["x"], p["out"]
+        fits = []
+        for n in (net, net2):
+            with torch.no_grad():
+                acts, _, _ = n._forward(n.params, n.net_state, {
+                    "input": torch.as_tensor(x, device="cuda")})
+            logit = acts["fc"].float().cpu().numpy()
+            two = -np.sort(-logit, axis=1)[:, :2]
+            near = (two[:, 0] - two[:, 1]) <= RESNET_LOGITS_TOL * np.abs(
+                logit).max()
+            differ = out.argmax(-1) != logit.argmax(-1)
+            fits.append((int((differ & ~near).sum()),
+                         int((differ & near).sum())))
+        m, t = min(fits)
+        by_v2 += int(fits[1] < fits[0])
+        misses += m
+        ties += t
+    print(f"server: /predict argmax vs the eager forward: {misses} "
+          f"differences off a near-tie, {ties} on near-ties ({by_v2} "
+          f"requests matched the swapped-in version)")
+    check(misses == 0, f"server: {misses} argmax differences")
+    tmp.cleanup()
+    del net, net2, lm
+    print(f"server: phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def _stab_of(net, name):
+    return float(net.updater_state["__stability__"][name])
+
+
+def _with_policy(net, capture=True, **policy):
+    """A twin of ``net`` under ``training_stability(**policy)`` (none when
+    no policy is given)."""
+    from deeplearning4j_tpu_torch.nn.conf import TrainingStability
+
+    t = twin(net, capture)
+    if policy:
+        t.conf = dataclasses.replace(
+            net.conf, stability=TrainingStability(**policy).to_dict())
+    return t
+
+
+def _gaps_by_name(a, b):
+    """``state_gaps`` of two nets whose trees differ by the guard's state:
+    the leaves of ``a`` that ``b`` holds under the same name, and every
+    other leaf of either as a gap."""
+    nb = dict(named_state(b))
+    na = dict(named_state(a))
+    gaps = {n: float("inf") for n in set(na) ^ set(nb)
+            if "__stability__" not in n}
+    gaps.update({n: (x.float() - nb[n].float()).abs().max().item()
+                 for n, x in na.items()
+                 if n in nb and not torch.equal(x, nb[n])})
+    return gaps
+
+
+def _timed(net, batches, steps):
+    _, secs, _ = fit_steps(net, batches, steps)
+    return float(np.median(secs[WARM_STEPS:])) * 1e3
+
+
+def guard_phase(name_card):
+    """The in-step guard on the card: (a) poisoned steps on ResNet-50
+    under dynamic scaling, bit-exact no-ops in the one train graph; a
+    guarded healthy run against an unguarded one; (b) the float16
+    char-LM's scale walk from 2^32; the guard's cost on both.  Returns
+    the profiled launches of a guarded step of each (flash forward, dQ,
+    dK/dV, prologue; BatchNorm's two reductions) and whether ResNet-50's
+    runs needed ``cudnn.deterministic`` to agree."""
+    from deeplearning4j_tpu_torch.resilience import (
+        FaultInjector, inject_faults,
+    )
+
+    t_phase = time.perf_counter()
+    base = resnet50(device="cuda", **RESNET)
+    rs = np.random.RandomState(0)
+    xh = rs.rand(RESNET_BATCH, *SERVE_ROW).astype(np.float32)
+    yh = np.eye(SERVE_CLASSES, dtype=np.float32)[
+        rs.randint(0, SERVE_CLASSES, RESNET_BATCH)]
+    x, y = torch.as_tensor(xh, device="cuda"), torch.as_tensor(
+        yh, device="cuda")
+
+    # (a) poisoned steps; host batches, poisoned before staging
+    net = _with_policy(base, loss_scaling="dynamic",
+                       check_every=GUARD_CHECK)
+    inj = FaultInjector()
+    for step, mode in GUARD_POISON.items():
+        inj.poison_gradients("0", at_step=step, until_step=step + 1,
+                             mode=mode)
+    scales = []
+    # the first sentinel check at or after the last poisoned step (one
+    # check each GUARD_CHECK fit calls)
+    first_check = next(s for s in range(max(GUARD_POISON), GUARD_STEPS)
+                       if (s + 1) % GUARD_CHECK == 0)
+    with inject_faults(inj):
+        for step in range(GUARD_STEPS):
+            poisoned = step in GUARD_POISON
+            if poisoned:
+                before = [t.clone() for n, t in named_state(net)
+                          if "__stability__" not in n]
+                s0 = _stab_of(net, "loss_scale")
+            net.fit(xh, yh)
+            scales.append(_stab_of(net, "loss_scale"))
+            if poisoned:
+                after = [t for n, t in named_state(net)
+                         if "__stability__" not in n]
+                same = all(torch.equal(a, b) for a, b in zip(before, after))
+                check(same, f"guard: poisoned step {step} wrote state")
+                check(scales[-1] == s0 / 2,
+                      f"guard: the scale halved at step {step}")
+                del before
+            if step == first_check:
+                got = net._stab_rt._harvested_nonfinite
+                print(f"guard: the check after step {step} harvests "
+                      f"nonfinite_total {got}")
+                check(got == 2.0, f"guard: nonfinite_total reads {got} at "
+                                  f"the check after the last poison")
+    trains = [k for k in net._step_graphs.programs if k[0] == "train"]
+    print(f"guard: ResNet-50 {GUARD_STEPS} steps, poisoned "
+          f"{GUARD_POISON}: each a bit-exact no-op; scale {scales}; "
+          f"nonfinite_total {_stab_of(net, 'nonfinite_total')}; train "
+          f"graphs {len(trains)}, captures {net._step_graphs.captures}")
+    check(len(trains) == 1 and net._step_graphs.captures == 1,
+          "guard: one train graph")
+    check(bool(np.isfinite(net.params_to_vector()).all()),
+          "guard: params finite")
+    _, counts, ev = profiled_counts(lambda: net.fit(x, y), {})
+    split = bn_passes(ev)
+    launches = {"bn_train_fwd": split.get("moments", (0, 0))[1],
+                "bn_train_bwd": split.get("grad sums", (0, 0))[1]}
+    print(f"guard: a profiled guarded ResNet-50 step launches {launches}")
+    check(launches["bn_train_fwd"] == RESNET_BN_LAYERS
+          and launches["bn_train_bwd"] == RESNET_BN_LAYERS,
+          "guard: BatchNorm's reductions in the guarded step")
+    del net
+    torch.cuda.empty_cache()
+
+    # a guarded healthy run (no scaling) against an unguarded one; the
+    # guard's cost: medians of 5 steps after 2 warm-up
+    steps = WARM_STEPS + TIMED_STEPS
+
+    def healthy():
+        runs = {}
+        for label, pol in (("unguarded", {}), ("unguarded again", {}),
+                           ("guarded, no scaling",
+                            {"loss_scaling": "none", "check_every": 100}),
+                           ("guarded, dynamic",
+                            {"loss_scaling": "dynamic",
+                             "check_every": 100})):
+            n = _with_policy(base, **pol)
+            ms = _timed(n, [(x, y)], steps)
+            runs[label] = (n, ms)
+        return runs
+
+    runs = healthy()
+    det = "off"
+    if state_gaps(runs["unguarded"][0], runs["unguarded again"][0]):
+        print("guard: two unguarded ResNet-50 runs differ; again with "
+              "cudnn.deterministic")
+        det = "on"
+        del runs
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = healthy()
+        finally:
+            torch.backends.cudnn.deterministic = False
+    u, g = runs["unguarded"][0], runs["guarded, no scaling"][0]
+    again = not state_gaps(u, runs["unguarded again"][0])
+    gaps = _gaps_by_name(u, g)
+    print(f"guard: two unguarded ResNet-50 runs agree bit for bit: "
+          f"{again} (cudnn.deterministic {det}); the guarded run without "
+          f"scaling against the unguarded: {len(gaps)} leaves differ")
+    check(again and not gaps, "guard: guarded healthy == unguarded bit "
+                              "for bit")
+    print("guard: ResNet-50 step median (5 after 2 warm-up): " + ", ".join(
+        f"{k} {ms:.3f} ms" for k, (_, ms) in runs.items())
+        + f" [{name_card}]")
+    del runs, u, g, base
+    torch.cuda.empty_cache()
+
+    # (b) the float16 char-LM's scale walk from 2^32
+    model = {**TRAIN_MODEL, "compute_dtype": "float16"}
+    lm = transformer_char_lm(device="cuda", **model)
+    ids = np.random.RandomState(0).randint(0, model["vocab_size"],
+                                           (TRAIN_BATCH, TRAIN_T))
+    lx = torch.as_tensor(ids, device="cuda")
+    ly = torch.as_tensor(np.eye(model["vocab_size"], dtype=np.float32)[
+        np.roll(ids, -1, 1)], device="cuda")
+    plain = twin(lm, True)
+    walk = _with_policy(lm, **WALK)
+    scale, streak, nf = WALK["loss_scale"], 0, 0.0
+    seq, grew, halved = [], 0, 0   # the scale after each step
+    for step in range(WALK_STEPS):
+        walk.fit(lx, ly)
+        got, nf2 = _stab_of(walk, "loss_scale"), _stab_of(
+            walk, "nonfinite_total")
+        if nf2 > nf:            # the rule: divide on a non-finite step
+            scale, streak = max(scale / WALK["loss_scale_factor"], 1.0), 0
+            halved += 1
+        else:                   # grow after the interval's finite steps
+            streak += 1
+            if streak >= WALK["loss_scale_growth_interval"]:
+                scale = min(scale * WALK["loss_scale_factor"],
+                            WALK["loss_scale_max"])
+                streak, grew = 0, grew + 1
+        nf = nf2
+        seq.append(got)
+        check(got == scale, f"walk: step {step} scale {got} != {scale}")
+        check(all(bool(torch.isfinite(p).all())
+                  for p in tree_leaves(walk.params)),
+              f"walk: step {step} wrote a non-finite param")
+    print(f"guard: float16 char-LM scale over {WALK_STEPS} steps from "
+          f"2^32: {seq}; {halved} non-finite steps "
+          f"(scale / {WALK['loss_scale_factor']:.0f}), {grew} growths "
+          f"(x{WALK['loss_scale_factor']:.0f} after "
+          f"{WALK['loss_scale_growth_interval']} finite steps); params "
+          f"finite after every step")
+    check(halved >= 1 and grew >= 1,
+          "walk: the scale fell until finite and then grew")
+    g_ms = _timed(walk, [(lx, ly)], steps)
+    p_ms = _timed(plain, [(lx, ly)], steps)
+    print(f"guard: float16 char-LM step median (5 after 2 warm-up): "
+          f"guarded (dynamic) {g_ms:.3f} ms, unguarded {p_ms:.3f} ms "
+          f"[{name_card}]")
+    _, lm_counts, _ = profiled_counts(lambda: walk.fit(lx, ly), {
+        "flash_fwd": r"flash_fwd_", "flash_dq": r"flash_dq_",
+        "flash_dkv": r"flash_dkv_", "prologue": r"\bdrn_kernel"})
+    layers = model["layers"]
+    print(f"guard: a profiled guarded float16 char-LM step launches "
+          f"{lm_counts}")
+    check(lm_counts == {"flash_fwd": layers, "flash_dq": layers,
+                        "flash_dkv": layers, "prologue": 2 * layers},
+          "guard: flash and prologue launches in the guarded step")
+    del walk, plain, lm
+    torch.cuda.empty_cache()
+    print(f"guard: phase {time.perf_counter() - t_phase:.1f} s")
+    return {**lm_counts, **launches}, det == "on"
+
+
+def resume_phase(name_card, deterministic=False):
+    """ResNet-50 under a ``CheckpointManager`` (a save every 2 steps,
+    async): an uninterrupted run (A); a fatal fault at step 3, resumed
+    by a fresh net and, apart, restored into the crashed net's captured
+    tensors (B); a transient fault retried (C); a preemption (D); under
+    ``cudnn.deterministic`` when the guard phase found two unguarded runs
+    apart."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.observability import MetricsRegistry
+    from deeplearning4j_tpu_torch.parallel import snapshot_trees
+    from deeplearning4j_tpu_torch.resilience import (
+        CheckpointManager, FaultInjector, InjectedFault, PreemptionHandler,
+        RetryPolicy, inject_faults,
+    )
+
+    t_phase = time.perf_counter()
+    base = resnet50(device="cuda", **RESNET)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    batches = [(torch.rand(RESNET_BATCH, *SERVE_ROW, generator=g,
+                           device="cuda"),
+                F.one_hot(torch.randint(
+                    0, SERVE_CLASSES, (RESNET_BATCH,), generator=g,
+                    device="cuda"), SERVE_CLASSES).float())
+               for _ in range(RESUME_STEPS)]
+    tmp = tempfile.TemporaryDirectory()
+    reg = MetricsRegistry()
+    torch.backends.cudnn.deterministic = deterministic
+
+    def manager(name):
+        return CheckpointManager(f"{tmp.name}/{name}", keep=3,
+                                 save_every_steps=RESUME_EVERY,
+                                 registry=reg)
+
+    def same(a, b, what):
+        gaps = state_gaps(a, b)
+        check(not gaps, f"resume: {what} == A bit for bit "
+                        f"({sorted(gaps)[:4]})")
+        return "bit for bit"
+
+    try:
+        cm_a = manager("a")
+        a = twin(base, True)
+        a.fit(batches, checkpoint_manager=cm_a)
+        cm_a.wait_idle()
+        check(a.iteration == RESUME_STEPS
+              and cm_a.latest_step() == RESUME_STEPS, "resume: A ran")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            snap = snapshot_trees(a)
+        snap_ms = (time.perf_counter() - t0) / 3 * 1e3
+        nbytes = sum(v.nbytes for v in snap["arrays"].values())
+        del snap
+
+        # B: a fatal fault; a fresh net resumes; the crashed net restores
+        cm_b = manager("b")
+        b = twin(base, True)
+        with inject_faults(FaultInjector().fail_at_step(
+                RESUME_FATAL, component="ComputationGraph",
+                transient=False)):
+            try:
+                b.fit(batches, checkpoint_manager=cm_b)
+                check(False, "resume: B raised")
+            except InjectedFault:
+                pass
+        cm_b.wait_idle()
+        latest = cm_b.latest_step()
+        check(b.iteration == RESUME_FATAL and latest == RESUME_EVERY,
+              f"resume: B stopped at {b.iteration}, latest {latest}")
+        fresh = twin(base, True)
+        fresh.fit(batches, checkpoint_manager=cm_b)
+        check(fresh.iteration == RESUME_STEPS, "resume: B finished")
+        b_fresh = same(fresh, a, "B (a fresh net resumed)")
+        del fresh
+        leaves = [t for _, t in named_state(b)]
+        caps = b._step_graphs.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cm_b.restore(b, step=RESUME_EVERY)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        in_place = all(x is y for x, (_, y) in zip(leaves, named_state(b)))
+        b.fit(batches[RESUME_EVERY:])
+        check(b._step_graphs.captures == caps and in_place,
+              "resume: the restore wrote into the captured tensors")
+        b_live = same(b, a, "B (restored into the crashed net)")
+        del b, leaves
+
+        # C: a transient fault, retried with the key stream set back
+        c = twin(base, True)
+        rp = RetryPolicy(max_retries=2, base_delay_s=0.0, jitter=0.0,
+                         registry=reg)
+        with inject_faults(FaultInjector().fail_at_step(
+                RESUME_TRANSIENT, component="ComputationGraph",
+                transient=True)):
+            c.fit(batches, retry_policy=rp)
+        check(rp.retries == 1 and c.iteration == RESUME_STEPS,
+              "resume: C retried once")
+        c_same = same(c, a, "C (retried)")
+        del c
+
+        # D: a preemption before the fourth step
+        cm_d = manager("d")
+        d = twin(base, True)
+        with PreemptionHandler(cm_d, registry=reg) as handler:
+            def stream():
+                for i, bt in enumerate(batches):
+                    if i == RESUME_PREEMPT:
+                        handler.trigger()
+                    yield bt
+
+            d.fit(stream(), checkpoint_manager=cm_d)
+            check(handler.stop_requested, "resume: D was preempted")
+        cm_d.wait_idle()
+        commit = cm_d.read_commit(cm_d.latest())
+        check(d.iteration == RESUME_PREEMPT
+              and cm_d.latest_step() == RESUME_PREEMPT
+              and commit["trigger"] in ("priority", "preempt"),
+              f"resume: D committed a priority checkpoint at "
+              f"{cm_d.latest_step()} ({commit['trigger']})")
+        del d
+        save = reg.get("dl4j_checkpoint_save_seconds").get()
+        print(f"resume: A {RESUME_STEPS} steps; B resumed from step "
+              f"{latest}: a fresh net {b_fresh}, the crashed net restored "
+              f"in place (its graph kept, no capture) {b_live}; C retried "
+              f"step {RESUME_TRANSIENT} once, {c_same}; D stopped at "
+              f"{RESUME_PREEMPT} with a {commit['trigger']} commit")
+        print(f"resume: snapshot {snap_ms:.3f} ms on the training thread; "
+              f"commit {save.sum / save.count * 1e3:.3f} ms mean off it "
+              f"({save.count} commits); {nbytes} bytes a save "
+              f"({reg.get_value('dl4j_checkpoint_last_bytes'):.0f} on "
+              f"disk); restore {restore_ms:.3f} ms [{name_card}]")
+        for cm in (cm_a, cm_b, cm_d):
+            cm.close()
+    finally:
+        tmp.cleanup()
+        torch.backends.cudnn.deterministic = False
+    del a, base
+    torch.cuda.empty_cache()
+    print(f"resume: phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3065,6 +3848,21 @@ def main() -> int:
     lenet_phase(name_card)
     torch.cuda.empty_cache()
     lstm_phase(name_card)
+    torch.cuda.empty_cache()
+    t_slice = time.perf_counter()
+    served = server_phase(name_card)
+    torch.cuda.empty_cache()
+    guarded, deterministic = guard_phase(name_card)
+    resume_phase(name_card, deterministic)
+    t_slice = time.perf_counter() - t_slice
+    # the new phases' profiled launches join the kernels line's
+    launches += served["paged"]
+    train_launches = [n + guarded[k] for n, k in zip(
+        train_launches, ("flash_fwd", "flash_dq", "flash_dkv", "prologue"))]
+    train_launches[3] += served["prologue"]
+    bn_launches = (bn_launches[0] + served["bn_inference"],
+                   bn_launches[1] + guarded["bn_train_fwd"],
+                   bn_launches[2] + guarded["bn_train_bwd"])
     d = rows["decode"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -3123,7 +3921,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1], "library_ms": row["lib_ms"]})
     print(f"total {time.perf_counter() - t0:.1f} s (the prefix, swap and "
-          f"serving phases {t_new:.1f} s)")
+          f"serving phases {t_new:.1f} s; the server, guard and resume "
+          f"phases {t_slice:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

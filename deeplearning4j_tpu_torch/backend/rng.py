@@ -54,6 +54,14 @@ class KeyStream:
         sub = int(torch.randint(0, _SEED_MAX, (1,), generator=self._gen))
         return torch.Generator().manual_seed(sub)
 
+    def get_state(self) -> torch.Tensor:
+        """The stream's position (the root generator's state, a CPU byte
+        tensor): ``set_state`` of it replays the same keys from here."""
+        return self._gen.get_state()
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self._gen.set_state(state)
+
 
 def _signed(v: int) -> int:
     """A 64-bit pattern as the int64 that holds it."""

@@ -6,7 +6,8 @@ before training, the train step split into its host part
 captured graph's replay on the card or the body eagerly) and its device
 body (``sgd_step``: loss -> autograd -> updater -> in-place update ->
 layer state copied in place), ``infer`` for ``output``, the
-``fit_scanned`` windows, TBPTT's window loop (``fit_tbptt``), the stream
+``fit_scanned`` windows, ``fit``'s batch loop with its resilience and
+stability duties (``fit_loop``), TBPTT's window loop (``fit_tbptt``), the stream
 caches and recurrent carries of ``rnn_time_step`` and ``generate``
 (seeding, the host-side capacity check) and the raise for what is not
 ported yet."""
@@ -21,6 +22,13 @@ from deeplearning4j_tpu_torch.backend.device import compute_dtype
 from deeplearning4j_tpu_torch.models import capture as cap
 from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.optimize import updaters as upd
+from deeplearning4j_tpu_torch.observability.flightrecorder import crash_dump
+from deeplearning4j_tpu_torch.resilience import stability
+from deeplearning4j_tpu_torch.resilience.faults import get_fault_injector
+from deeplearning4j_tpu_torch.resilience.integration import FitResilience
+from deeplearning4j_tpu_torch.resilience.preemption import (
+    preemption_requested,
+)
 
 
 def cast_tree(tree, dtype: torch.dtype):
@@ -244,20 +252,19 @@ class LazyScoreMixin:
 def check_trainable(net) -> None:
     """Raise for what ``fit`` does not run yet in the port."""
     conf = net.conf
-    for name, what in (("stability", "the stability guard and loss "
-                        "scaling"),
-                       ("introspection", "training introspection"),
+    for name, what in (("introspection", "training introspection"),
                        ("numerics", "the numerics ledger")):
         if getattr(conf, name) is not None:
             raise NotImplementedError(
                 f"conf.{name} is set: {what} is not ported yet (it comes "
-                "with the resilience and observability slice, ROADMAP A9)")
+                "with the rest of observability, ROADMAP A9)")
     if conf.optimization_algo != "stochastic_gradient_descent":
         raise NotImplementedError(
             f"optimization_algo={conf.optimization_algo!r}: the full-batch "
             "solvers are not ported yet (ROADMAP A8)")
     if net.device is None:
         raise RuntimeError("call init() (or load a model) before fit()")
+    stability.ensure_state(net)
 
 
 def copy_tree_(dst, src) -> None:
@@ -288,7 +295,13 @@ def sgd_step(net, loss_of, scalars, carries=None) -> torch.Tensor:
     window's {layer: (h, c)}), ``loss_of`` also returns the new carries,
     which are written into ``carries``' tensors once the gradients are
     taken: the backward pass reads the old ones, which autograd saved.
-    Returns the loss as a device scalar (no host sync)."""
+    Under ``conf.stability`` the loss is scaled before the gradients and
+    the tail is the guard's (``resilience/stability.py``
+    ``guarded_update_``: a non-finite step writes nothing but the
+    stability state).  Returns the loss as a device scalar (no host
+    sync)."""
+    policy = stability.policy_of(net.conf)
+    stab = net.updater_state.get(stability.STATE_KEY) if policy else None
     train = trainable(net.params)
     leaves = tree_leaves(train)
     for p in leaves:
@@ -296,13 +309,20 @@ def sgd_step(net, loss_of, scalars, carries=None) -> torch.Tensor:
     try:
         out = loss_of(net.params)
         loss, new_state = out[0], out[1]
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        target = loss if stab is None else loss * stab["loss_scale"]
+        grads = torch.autograd.grad(target, leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
     grads = _tree_like(train, [torch.zeros_like(p) if g is None else g
                                for p, g in zip(leaves, grads)])
     with torch.no_grad():
+        if stab is not None:
+            stability.guarded_update_(
+                net, policy, loss.detach(), grads, train, new_state, scalars,
+                carries, None if carries is None
+                else {k: out[2][k] for k in carries})
+            return loss.detach()
         updates, new_ustate = upd.update(
             net.conf.updater, grads, net.updater_state, net.iteration,
             params=train, scalars=scalars)
@@ -330,6 +350,19 @@ def _on(tree, device):
     return tree_map(lambda t: torch.as_tensor(t, device=device), tree)
 
 
+def _poisoned(net, inputs):
+    """``inputs`` with the features (``"x"`` or ``"inputs"``) poisoned
+    on the host, before staging, when the fault injector holds a live
+    poison rule for worker ``"0"`` at this iteration (the reference's
+    single-device hook); the labels are left alone."""
+    inj = get_fault_injector()
+    if inj is None or not inj.has_poison():
+        return inputs
+    name = "x" if "x" in inputs else "inputs"
+    x, _ = inj.poison_batch("0", net.iteration, inputs[name], None)
+    return {**inputs, name: x}
+
+
 def train_step(net, body, inputs):
     """The host part of one step: the step's key seed from the net's key
     stream and its updater scalars from ``net.iteration``, then
@@ -341,6 +374,7 @@ def train_step(net, body, inputs):
     what the body returned: the loss, or (loss, carries) for a TBPTT
     window, whose carries (a replay's: the program's static carries,
     rewritten in place) the next window starts from."""
+    inputs = _poisoned(net, inputs)
     seed = rng_mod.seed_of(net._keys.next())
     vals = _step_scalars(net, net.iteration)
     dtype = _scalar_dtype(net)
@@ -365,7 +399,7 @@ def train_step(net, body, inputs):
     return out
 
 
-def fit_tbptt(net, t_len: int, batch: int, window) -> None:
+def fit_tbptt(net, t_len: int, batch: int, window, run) -> None:
     """Truncated BPTT over one batch of ``t_len`` timesteps (reference
     ``doTruncatedBPTT``, ``sequential.py:620``, ``graph.py:907``): windows
     of ``conf.tbptt_fwd_length`` (the last one shorter where ``t_len``
@@ -376,13 +410,81 @@ def fit_tbptt(net, t_len: int, batch: int, window) -> None:
     (loss, carries) for a window).  The first window starts from zero
     carries (the reference's ``h0``/``c0``), each later one from the
     carries the one before left, detached: its backward pass stops at
-    the window's start."""
+    the window's start.  ``run(fn)`` runs each window's step (the
+    resilience scope, ``FitResilience.step``: a retry is a window's)."""
     length = net.conf.tbptt_fwd_length
     carries = initial_carries(net._named_layers(), batch,
                               net.conf.compute_dtype, net.device)
     for t0 in range(0, t_len, length):
         inputs = window(slice(t0, min(t0 + length, t_len)))
-        carries = net._step({**inputs, "carries": carries})[1]
+
+        def one(inputs=inputs, carries=carries):
+            return net._step({**inputs, "carries": carries})
+
+        carries = run(one)[1]
+
+
+def fit_loop(net, component: str, batches, *, epochs: int, unpack,
+             batch_adv, fit_one, checkpoint_manager=None,
+             retry_policy=None) -> None:
+    """Both facades' ``fit`` over ``batches`` for ``epochs`` passes, with
+    the reference's resilience and stability duties (``_fit_batches``,
+    ``sequential.py:513-560``): with ``checkpoint_manager=`` the net
+    resumes from its newest committed checkpoint ahead of it (written
+    into its tensors in place) and the batches that checkpoint covers
+    are skipped (``batch_adv(x)``: the iterations a batch advances);
+    before each batch a preemption request commits a priority checkpoint
+    and stops the fit cleanly; ``fit_one(x, y, fmask, lmask, run)`` runs
+    the batch's steps, each through ``run`` (the retry and fault scope
+    with the key stream set back, or a plain call); after it the manager
+    saves when a trigger is due, and the stability runtime polls every
+    ``check_every`` batches.  An exception leaves a flight-recorder
+    report (``crash_dump``); the stability runtime's final harvest runs
+    in every case."""
+    check_trainable(net)
+    res = None
+    if checkpoint_manager is not None or retry_policy is not None:
+        res = FitResilience(component, checkpoint_manager, retry_policy,
+                            net=net)
+    policy = stability.policy_of(net.conf)
+    rt = None
+    if policy is not None:
+        rt = getattr(net, "_stab_rt", None)
+        created = rt is None
+        if created:
+            rt = net._stab_rt = stability.StabilityRuntime(component,
+                                                           policy)
+        if created or (res is not None and res.resumed_from is not None):
+            # a restored nonfinite_total is history, not fresh evidence
+            rt.baseline_from(net.updater_state.get(stability.STATE_KEY))
+
+    def run(fn):
+        if res is None:
+            return fn()
+        return res.step(fn, net.iteration, net=net)
+
+    try:
+        for _ in range(epochs):
+            for batch in batches:
+                x, y, fm, lm = unpack(batch)
+                if res is not None and res.skip_window(batch_adv(x)):
+                    continue
+                if preemption_requested():
+                    if res is not None:
+                        res.on_preempt(net)
+                    return
+                fit_one(x, y, fm, lm, run)
+                if res is not None:
+                    res.after_step(net)
+                if rt is not None:
+                    rt.poll_net(net, res)
+    except Exception as e:
+        crash_dump("fit_exception", model=component,
+                   iteration=net.iteration, error=repr(e))
+        raise
+    finally:
+        if rt is not None:
+            rt.flush(net)
 
 
 def infer(net, body, inputs):

@@ -22,8 +22,10 @@ graphs, ``models/capture.py``), ``feed_forward``, ``score``, the lazy
 ``num_params``, the flat parameter vector, ``clone``, YAML as well as
 JSON, ``save``/``load``, and streaming inference over attention and
 recurrent nodes (``rnn_time_step``, ``rnn_clear_previous_state``:
-carries flow through the forward).  What else the reference's graph does raises
-``NotImplementedError`` naming its ROADMAP item.
+carries flow through the forward), and ``fit`` with ``checkpoint_manager=``
+and ``retry_policy=`` and the stability guard (``common.fit_loop``).
+What else the reference's graph does raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.models.common import (
     FlatParamsMixin, LazyScoreMixin, cast_tree, check_cache_capacity,
-    check_trainable, infer, not_ported, seed_stream_caches, sgd_step,
+    infer, not_ported, seed_stream_caches, sgd_step,
     train_step, trainable, unpack_batch,
 )
 from deeplearning4j_tpu_torch.models.sequential import init_net_state
@@ -94,8 +96,9 @@ class GraphConfiguration:
     optimization_algo: str = "stochastic_gradient_descent"
     num_iterations: int = 1
     compute_dtype: Optional[str] = None
-    # the reference's training policies, carried as plain dicts (their
-    # engines come with ROADMAP A9)
+    # the reference's training policies, carried as plain dicts (the
+    # stability guard reads its own; introspection and numerics come
+    # with ROADMAP A9)
     stability: Optional[dict] = None
     introspection: Optional[dict] = None
     numerics: Optional[dict] = None
@@ -335,6 +338,7 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         # comparing the two)
         self._step_graphs = None
         self._capture = True
+        self._stab_rt = None          # the stability sentinel, once fit
         # graph input -> the embedding that reads it as token ids
         self._id_consumers = {
             inp: n.layer for n in conf.nodes
@@ -542,12 +546,13 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
                     "labels": self._as_label_dict(y), "fmask": fmask,
                     "lmask": lmask})
 
-    def _fit_one(self, x, y, fmask, lmask) -> None:
-        """One batch: one step, or TBPTT's windows."""
+    def _fit_one(self, x, y, fmask, lmask, run) -> None:
+        """One batch: one step, or TBPTT's windows, each through
+        ``run``."""
         if self.conf.backprop_type == "truncated_bptt":
-            self._fit_tbptt(x, y, fmask, lmask)
+            self._fit_tbptt(x, y, fmask, lmask, run)
         else:
-            self._one_step(x, y, fmask, lmask)
+            run(lambda: self._one_step(x, y, fmask, lmask))
 
     def _batch_adv(self, x) -> int:
         """How many iterations one batch advances (reference
@@ -561,7 +566,7 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
                 return -(-max(temporal) // self.conf.tbptt_fwd_length)
         return 1
 
-    def _fit_tbptt(self, x, y, fmask, lmask) -> None:
+    def _fit_tbptt(self, x, y, fmask, lmask, run) -> None:
         """Truncated BPTT over the DAG (reference ``graph.py:907``):
         ``common.fit_tbptt``'s windows of every input, label and mask
         along the time axis."""
@@ -577,7 +582,8 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
             lambda sl: {"inputs": self._tbptt_slice_data(x, sl),
                         "labels": self._tbptt_slice_data(y, sl),
                         "fmask": self._tbptt_slice_mask(fmask, sl),
-                        "lmask": self._tbptt_slice_mask(lmask, sl)})
+                        "lmask": self._tbptt_slice_mask(lmask, sl)},
+            run)
 
     @staticmethod
     def _tbptt_slice_data(tree, sl):
@@ -592,18 +598,24 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         return common.tree_map(
             lambda a: a[:, sl] if a.ndim >= 2 else a, tree)
 
-    def fit(self, data, labels=None, *, fmask=None,
-            lmask=None) -> "ComputationGraph":
+    def fit(self, data, labels=None, *, fmask=None, lmask=None,
+            checkpoint_manager=None,
+            retry_policy=None) -> "ComputationGraph":
         """``fit(inputs, labels)`` (an array or a dict by input name, and
         an array or a dict by output name), or ``fit(iterable)`` of
         (x, y[, fmask, lmask]) tuples or DataSets; one SGD step per batch
-        (one a window under TBPTT), as the reference."""
-        check_trainable(self)
-        if labels is not None:
-            self._fit_one(data, labels, fmask, lmask)
-            return self
-        for batch in data:
-            self._fit_one(*unpack_batch(batch))
+        (one a window under TBPTT), as the reference.  The single pair is
+        one batch with the same duties: ``checkpoint_manager=`` and
+        ``retry_policy=`` as in ``MultiLayerNetwork.fit``
+        (``common.fit_loop``), and the stability guard under
+        ``conf.stability``."""
+        single = labels is not None
+        common.fit_loop(
+            self, "ComputationGraph",
+            [(data, labels, fmask, lmask)] if single else data, epochs=1,
+            unpack=unpack_batch, batch_adv=self._batch_adv,
+            fit_one=self._fit_one, checkpoint_manager=checkpoint_manager,
+            retry_policy=retry_policy)
         return self
 
     # ------------------------------------------------- streaming rnnTimeStep

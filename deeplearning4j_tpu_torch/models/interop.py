@@ -27,9 +27,11 @@ from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.optimize import updaters as upd
 
 # updater-state subtrees of the reference's training engines (stability
-# guard, introspection, numerics ledger); read and ignored until those
-# engines are ported
+# guard, introspection, numerics ledger); the stability guard's is carried
+# across, the other two are read and ignored until their engines are
+# ported
 RESERVED_STATE_KEYS = ("__stability__", "__introspect__", "__numerics__")
+STABILITY_KEY = "__stability__"
 
 
 def _convert(want: Mapping[str, Any], got: Mapping[str, Any], path: str,
@@ -60,15 +62,25 @@ def _shapes(tree):
 def updater_state_from_numpy(net, tree: Mapping[str, Any]) -> dict:
     """The updater state of ``tree`` ({slot: {layer: {param: array}}}) as
     float32 tensors on ``net.device``, checked against ``net``'s updater
-    and trainable params.  The reserved subtrees are skipped."""
+    and trainable params.  The stability guard's scalars
+    (``__stability__``: loss scale, growth streak, LR multiplier,
+    non-finite count) come across as float32 scalars; the other
+    reserved subtrees are skipped."""
     slots = upd.state_slots(net.conf.updater)
     got = {k: v for k, v in tree.items() if k not in RESERVED_STATE_KEYS}
     if set(got) != set(slots):
         raise ValueError(f"updater '{net.conf.updater.name}' keeps state "
                          f"{sorted(slots)}, got {sorted(got)}")
     want = _shapes(net._trainable(net.params))
-    return {slot: _convert(want, got[slot], slot, net.device)
-            for slot in slots}
+    out = {slot: _convert(want, got[slot], slot, net.device)
+           for slot in slots}
+    stab = tree.get(STABILITY_KEY)
+    if stab:
+        out[STABILITY_KEY] = {
+            k: torch.tensor(np.asarray(v), dtype=torch.float32,
+                            device=net.device).reshape(())
+            for k, v in stab.items()}
+    return out
 
 
 def net_state_from_numpy(layers, tree: Optional[Mapping[str, Any]],

@@ -25,9 +25,12 @@ float32 params to that type inside the differentiated graph, so the
 gradients land on the float32 params, and the loss runs in float32 — the
 reference's mixed-precision policy.
 
-Not ported yet (later slices): the full-batch solvers,
-``checkpoint_manager``/``retry_policy``, fit telemetry, and the
-stability, introspection and numerics engines; ``pretrain``,
+``fit`` takes ``checkpoint_manager=`` and ``retry_policy=``
+(``common.fit_loop``), and under ``conf.stability`` every step is
+guarded inside its captured graph (``resilience/stability.py``).
+
+Not ported yet (later slices): the full-batch solvers, fit telemetry,
+and the introspection and numerics engines; ``pretrain``,
 ``set_listeners``, ``add_listener`` and ``evaluate`` raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -92,6 +95,7 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         # comparing the two)
         self._step_graphs = None
         self._capture = True
+        self._stab_rt = None          # the stability sentinel, once fit
 
     def init(self, device: DeviceLike = None,
              dtype=torch.float32) -> "MultiLayerNetwork":
@@ -228,9 +232,6 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         return float(loss)
 
     # ------------------------------------------------------------ train step
-    def _check_trainable(self) -> None:
-        check_trainable(self)
-
     def _train_body(self, x, y, fmask, lmask, key, scalars, carries=None):
         """The step's device body (``common.sgd_step``); a TBPTT window
         (``carries``) returns (loss, its carries, now the new ones)."""
@@ -248,36 +249,60 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
     def _named_layers(self):
         return [(layer.name, layer) for layer in self.layers]
 
-    def _fit_tbptt(self, x, y, fmask, lmask) -> None:
+    def _fit_tbptt(self, x, y, fmask, lmask, run) -> None:
         """Truncated BPTT over one batch (reference ``sequential.py:620``):
         ``common.fit_tbptt``'s windows of x, y and the masks along their
-        time axis."""
+        time axis, each window's step through ``run``."""
         def cut(a, sl):
             return None if a is None else a[:, sl]
 
         common.fit_tbptt(
             self, int(x.shape[1]), int(x.shape[0]),
             lambda sl: {"x": cut(x, sl), "y": cut(y, sl),
-                        "fmask": cut(fmask, sl), "lmask": cut(lmask, sl)})
+                        "fmask": cut(fmask, sl), "lmask": cut(lmask, sl)},
+            run)
 
     _unpack = staticmethod(unpack_batch)
 
+    def _batch_adv(self, x) -> int:
+        """Iterations one batch advances: ``num_iterations``, times its
+        TBPTT window count for a sequence fit (the resume-skip unit)."""
+        windows = 1
+        if self.conf.backprop_type == "truncated_bptt":
+            windows = -(-int(x.shape[1]) // self.conf.tbptt_fwd_length)
+        return self.conf.num_iterations * windows
+
+    def _fit_batch(self, x, y, fm, lm, run) -> None:
+        """One batch: ``num_iterations`` steps (or TBPTT passes), each
+        step through ``run``."""
+        for _ in range(self.conf.num_iterations):
+            if self.conf.backprop_type == "truncated_bptt":
+                self._fit_tbptt(x, y, fm, lm, run)
+            else:
+                run(lambda: self._one_step(x, y, fm, lm))
+
     def fit(self, data, labels=None, *, fmask=None, lmask=None,
-            epochs: int = 1) -> "MultiLayerNetwork":
+            epochs: int = 1, checkpoint_manager=None,
+            retry_policy=None) -> "MultiLayerNetwork":
         """Train on one (X, y) pair (``labels`` given) or on an iterable of
-        (features, labels[, fmask, lmask]) batches for ``epochs`` passes;
-        each batch is stepped ``conf.num_iterations`` times."""
-        self._check_trainable()
-        one = (self._fit_tbptt
-               if self.conf.backprop_type == "truncated_bptt"
-               else self._one_step)
-        batches = ([(data, labels, fmask, lmask)] if labels is not None
-                   else None)
-        for _ in range(1 if batches is not None else epochs):
-            for batch in (batches if batches is not None else data):
-                x, y, fm, lm = self._unpack(batch)
-                for _ in range(self.conf.num_iterations):
-                    one(x, y, fm, lm)
+        (features, labels[, fmask, lmask]) batches or DataSets for
+        ``epochs`` passes; each batch is stepped ``conf.num_iterations``
+        times.  ``checkpoint_manager=`` resumes from the newest committed
+        checkpoint ahead of the net (the batches it covers skipped),
+        saves on the manager's triggers and stops cleanly on preemption;
+        ``retry_policy=`` retries a step that an injected transient fault
+        stopped before it began (``common.fit_loop``,
+        ``resilience/integration.py``).  Under ``conf.stability`` the
+        steps are guarded and the sentinel polls every ``check_every``
+        batches."""
+        single = labels is not None
+        common.fit_loop(
+            self, "MultiLayerNetwork",
+            [(data, labels, fmask, lmask)] if single else data,
+            epochs=1 if single else epochs, unpack=self._unpack,
+            batch_adv=self._batch_adv, fit_one=self._fit_batch,
+            checkpoint_manager=checkpoint_manager,
+            retry_policy=retry_policy)
         return self
 
     # ------------------------------------------------- streaming rnnTimeStep

@@ -7,8 +7,9 @@ and the iteration), ``configuration.json`` (the config JSON),
 there is any) and ``updaterState.npz`` (the updater's trees,
 ``"slot/layer/sub/name"``).  Reading goes through ``models.interop``, so
 a zip the JAX package wrote loads and resumes training here, and a zip
-written here loads there.  The reader accepts the reference's reserved
-updater subtrees (stability, introspection, numerics) and ignores them.
+written here loads there.  The reader carries the stability guard's
+updater subtree across and ignores the reference's other reserved ones
+(introspection, numerics).
 ``load_model`` dispatches on the manifest's ``model_type``.
 """
 

@@ -8,8 +8,9 @@ The training policies (``stability``, ``introspection``, ``numerics``)
 are carried in a config as plain dicts, so a reference config keeps them
 through a round trip; the builder makes them from the policy dataclasses
 (``TrainingStability``, ``TrainingIntrospection``, ``TrainingNumerics``,
-copied from the reference with their checks), and the engines that read
-them come with ROADMAP A9.  With ``set_input_type`` the list builder
+copied from the reference with their checks).  The stability guard reads
+its policy (``resilience/stability.py``); the introspection and numerics
+engines come with ROADMAP A9.  With ``set_input_type`` the list builder
 infers each layer's input size and inserts the input preprocessors
 (``nn/preprocessors.py``) between layers, as the reference's
 ``ListBuilder.build`` does.  Every builder call makes the JSON the
@@ -433,8 +434,8 @@ class Builder:
                          f"{policy!r}")
 
     def training_stability(self, policy=True, **kwargs) -> "Builder":
-        """The stability guard's policy (its engine comes with A9: a
-        config that sets it builds, and ``fit`` raises)."""
+        """The stability guard's policy: ``fit`` guards every step inside
+        its captured graph (``resilience/stability.py``)."""
         self._stability = self._policy(TrainingStability,
                                        "training_stability", policy, kwargs)
         return self

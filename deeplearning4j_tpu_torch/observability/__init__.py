@@ -1,11 +1,10 @@
 """Telemetry core (counterpart of ``deeplearning4j_tpu.observability``):
 metrics registry, span tracing, recompile (capture) detection,
 device-memory gauges, phase timers, the serving and decode metric
-bundles, the decode SLO tracker and the flight recorder.
-
-The reference's profiling, sharding, fit-telemetry, health,
-introspection and numerics modules, and the fleet's publisher and
-aggregator, come with ROADMAP A9, A10 and A11.
+bundles, the decode SLO tracker, the flight recorder, and the health
+rules with the cluster aggregation.  The reference's profiling,
+sharding, fit-telemetry, introspection and numerics modules, and the
+fleet's publisher and aggregator, come with ROADMAP A9, A10 and A11.
 """
 
 from deeplearning4j_tpu_torch.observability.metrics import (
@@ -26,6 +25,11 @@ from deeplearning4j_tpu_torch.observability.fleet import SLOTracker
 from deeplearning4j_tpu_torch.observability.servingmetrics import (
     GenerationMetrics, ServingMetrics,
 )
+from deeplearning4j_tpu_torch.observability.health import (
+    ClusterStatsAggregator, HealthEvaluator, HealthRule, HealthVerdict,
+    StragglerDetector, WorkerTelemetry, default_serving_rules,
+    default_training_rules, histogram_quantile,
+)
 from deeplearning4j_tpu_torch.observability.flightrecorder import (
     FlightEvent, FlightRecorder, StepWatchdog, crash_dump,
     dump_flight_report, get_flight_recorder, get_watchdog,
@@ -39,6 +43,9 @@ __all__ = [
     "RecompileDetector", "compile_counter", "fingerprint",
     "DeviceMemoryMonitor", "device_memory_stats", "sample_once",
     "PhaseTimers", "SLOTracker", "GenerationMetrics", "ServingMetrics",
+    "ClusterStatsAggregator", "HealthEvaluator", "HealthRule",
+    "HealthVerdict", "StragglerDetector", "WorkerTelemetry",
+    "default_serving_rules", "default_training_rules", "histogram_quantile",
     "FlightEvent", "FlightRecorder", "StepWatchdog", "crash_dump",
     "dump_flight_report", "get_flight_recorder", "get_watchdog",
     "read_flight_report", "set_flight_recorder", "step_guard",

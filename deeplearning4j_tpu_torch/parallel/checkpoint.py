@@ -1,0 +1,306 @@
+"""Checkpoint directories — the single-process half of
+``deeplearning4j_tpu/parallel/checkpoint.py``.
+
+The files keep the reference's layout (``format_version`` 1): one
+``shards-<process>.npz`` holding every leaf under ``"p<proc>/<path>@<i>"``,
+one ``manifest-<process>.json`` recording each leaf's global shape,
+dtype, ``PartitionSpec`` (``[]`` here: nothing is sharded) and the
+slices its saved pieces cover, and ``checkpoint.json`` with the
+iteration.  So a step directory the JAX package wrote restores here, and
+one written here restores there.  Leaf paths are the trees' keys joined
+by ``/`` under ``params/``, ``updater_state/`` and ``net_state/``.
+
+The key stream: a threefry key means nothing in torch, so the port
+records its own stream's position under ``torch_key_state`` (the root
+generator's state, base64) beside the reference's ``rng_key``; a
+restore sets it, and a JAX checkpoint's ``rng_key`` is left unread.
+
+Save is two halves, as in the reference: ``snapshot_trees`` copies every
+leaf to host memory on the training thread (the port's step writes its
+tensors in place, so a snapshot that held them would be overwritten by
+the next step), and ``write_snapshot`` writes the host copy, safe off
+that thread.  ``restore_checkpoint`` with a net writes the saved values
+INTO the net's existing tensors (a captured step graph holds their
+addresses and replays on the restored values); only a leaf the net
+lacks, or one of another shape, is placed as a new tensor, and a leaf
+the checkpoint lacks is dropped — either replaces the tree, and the
+net's captured programs are then captured again (``models/capture.py``).
+
+Meshes wait for ROADMAP A10: ``mesh=`` and the resharded restore raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+MANIFEST = "manifest-{proc}.json"
+SHARDS = "shards-{proc}.npz"
+META = "checkpoint.json"
+KEY_STATE = "torch_key_state"
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (sharded save and the resharded restore) is not ported "
+            "yet (ROADMAP A10)")
+
+
+# --------------------------------------------------------------- tree <-> flat
+def _flatten(tree, prefix=""):
+    """Flatten nested dicts to {path: leaf}; path segments joined by '/'."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        p = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, p + "/"))
+        else:
+            out[p] = v
+    return out
+
+
+def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        cur = out
+        keys = path.split("/")
+        for k in keys[:-1]:
+            cur = cur.setdefault(k, {})
+        cur[keys[-1]] = v
+    return out
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf copied to host memory (``.cpu()`` waits for the copy;
+    bfloat16, which numpy lacks, is widened to float32)."""
+    if torch.is_tensor(leaf):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.to("cpu", copy=True).numpy()
+    return np.array(leaf, copy=True)
+
+
+# ------------------------------------------------------------------------ save
+def snapshot_trees(net, *, trees: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, Any]:
+    """Host-side snapshot of the facade's params / updater state / net
+    state (or explicit ``trees``) plus the iteration and the key
+    stream's position: the device-to-host half of a save, run on the
+    training thread at a step boundary.  What it returns is plain host
+    data, safe to hand to a writer thread."""
+    proc = 0
+    trees = trees if trees is not None else {
+        "params": net.params,
+        "updater_state": net.updater_state,
+        "net_state": net.net_state,
+    }
+    manifest: Dict[str, Any] = {"leaves": {}}
+    arrays: Dict[str, np.ndarray] = {}
+    for tname, tree in trees.items():
+        for path, leaf in _flatten(tree, f"{tname}/").items():
+            arr = _host(leaf)
+            key = f"p{proc}/{path}@0"
+            arrays[key] = arr
+            manifest["leaves"][path] = {
+                "shape": list(arr.shape),
+                "dtype": str(arr.dtype),
+                "spec": [],
+                "shards": [{"key": key,
+                            "index": [[0, d] for d in arr.shape]}],
+            }
+    iteration = int(getattr(net, "iteration", 0))
+    meta = {"format_version": 1, "iteration": iteration, "processes": 1}
+    keys = getattr(net, "_keys", None)
+    if keys is not None:
+        meta[KEY_STATE] = base64.b64encode(
+            keys.get_state().numpy().tobytes()).decode("ascii")
+    return {"proc": proc, "manifest": manifest, "arrays": arrays,
+            "meta": meta, "iteration": iteration}
+
+
+def write_snapshot(directory: str, snapshot: Dict[str, Any], *,
+                   fsync: bool = False, on_file=None) -> int:
+    """File half of a save: write a ``snapshot_trees`` result into
+    ``directory`` (shards first, then manifest, then meta — the order a
+    torn write is cheapest to detect in).  Pure host IO, safe off the
+    training thread.  ``on_file(path)`` fires after each file lands
+    (the ``FaultInjector`` crash-mid-save hook); with ``fsync`` every file
+    is flushed to disk before the call returns — the atomic-commit rename
+    in ``resilience.CheckpointManager`` relies on that ordering.  Returns
+    the bytes written."""
+    os.makedirs(directory, exist_ok=True)
+    proc = snapshot["proc"]
+    total = 0
+
+    def _land(path, write_fn, mode):
+        nonlocal total
+        with open(path, mode) as f:
+            write_fn(f)
+            if fsync:
+                f.flush()
+                os.fsync(f.fileno())
+        total += os.path.getsize(path)
+        if on_file is not None:
+            on_file(path)
+
+    _land(os.path.join(directory, SHARDS.format(proc=proc)),
+          lambda f: np.savez(f, **snapshot["arrays"]), "wb")
+    _land(os.path.join(directory, MANIFEST.format(proc=proc)),
+          lambda f: json.dump(snapshot["manifest"], f), "w")
+    if snapshot["meta"] is not None:
+        _land(os.path.join(directory, META),
+              lambda f: json.dump(snapshot["meta"], f), "w")
+    return total
+
+
+def save_checkpoint(directory: str, net, *,
+                    trees: Optional[Dict[str, Any]] = None) -> None:
+    """Write the facade's trees plus iteration and key stream straight
+    into ``directory``.  A crash mid-save leaves a torn checkpoint there;
+    production runs save through ``resilience.CheckpointManager``, which
+    stages the same files in ``step-N.tmp/`` and commits them
+    atomically."""
+    snapshot = snapshot_trees(net, trees=trees)
+    write_snapshot(directory, snapshot)
+    from deeplearning4j_tpu_torch.observability import get_flight_recorder
+
+    get_flight_recorder().record(
+        "checkpoint", directory=str(directory), process=snapshot["proc"],
+        iteration=snapshot["iteration"])
+
+
+# --------------------------------------------------------------------- restore
+def _saved_shards(entry, shard_files):
+    """Every saved piece of a leaf present in the loaded npz files, as
+    ``(ranges, npz, key)`` with ``ranges`` the global [start, stop) per
+    dim."""
+    out = []
+    for s in entry["shards"]:
+        for npz in shard_files:
+            if s["key"] in npz:
+                out.append((tuple((int(a), int(b)) for a, b in s["index"]),
+                            npz, s["key"]))
+                break
+    return out
+
+
+def _assemble(entry, shard_files) -> np.ndarray:
+    """A whole leaf from the saved pieces that cover it (a JAX
+    checkpoint of a sharded leaf holds several; the port's one)."""
+    dtype = np.dtype(entry["dtype"])
+    shape = tuple(int(d) for d in entry["shape"])
+    pieces = _saved_shards(entry, shard_files)
+    if not shape:
+        for _rg, npz, key in pieces:
+            return np.asarray(npz[key]).astype(dtype)
+    else:
+        out = np.zeros(shape, dtype)
+        filled = np.zeros(shape, bool)
+        for rg, npz, key in pieces:
+            dst = tuple(slice(a, b) for a, b in rg)
+            out[dst] = npz[key]
+            filled[dst] = True
+        if bool(filled.all()):
+            return out
+    raise ValueError(
+        f"checkpoint incomplete: leaf {entry} missing shard data "
+        f"(multi-host checkpoint restored without shared storage?)")
+
+
+def _write_into(live, saved: Dict[str, Any], device):
+    """``saved`` (nested dicts of numpy arrays) as the new tree: every
+    leaf that ``live`` holds at the same path and shape is written into
+    that tensor in place (its dtype kept); any other leaf becomes a new
+    tensor on ``device``."""
+    out = {}
+    for k, v in saved.items():
+        cur = live.get(k) if isinstance(live, dict) else None
+        if isinstance(v, dict):
+            out[k] = _write_into(cur if isinstance(cur, dict) else {}, v,
+                                 device)
+            continue
+        src = torch.from_numpy(np.array(v, order="C"))
+        if torch.is_tensor(cur) and tuple(cur.shape) == tuple(src.shape):
+            with torch.no_grad():
+                cur.copy_(src)
+            out[k] = cur
+        else:
+            out[k] = src.to(device)
+    for k, v in (live.items() if isinstance(live, dict) else ()):
+        # a subtree without leaves (a layer with no params) has nothing
+        # saved: it stays, so the tree keeps every layer
+        if k not in out and isinstance(v, dict) and not _flatten(v):
+            out[k] = v
+    return out
+
+
+def read_checkpoint(directory: str
+                    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(every leaf as nested dicts of numpy arrays under ``params``,
+    ``updater_state`` and ``net_state``, the meta) of a step
+    directory."""
+    manifests = []
+    shard_files = []
+    for fn in sorted(os.listdir(directory)):
+        if fn.startswith("manifest-"):
+            with open(os.path.join(directory, fn)) as f:
+                manifests.append(json.load(f))
+        elif fn.startswith("shards-"):
+            shard_files.append(np.load(os.path.join(directory, fn)))
+    if not manifests:
+        raise FileNotFoundError(f"no checkpoint manifests in {directory}")
+    merged: Dict[str, Any] = {}
+    for man in manifests:
+        for path, entry in man["leaves"].items():
+            if path not in merged:
+                merged[path] = {k: entry[k] for k in ("shape", "dtype",
+                                                      "spec")}
+                merged[path]["shards"] = list(entry["shards"])
+            else:
+                have = {s["key"] for s in merged[path]["shards"]}
+                merged[path]["shards"] += [s for s in entry["shards"]
+                                           if s["key"] not in have]
+    try:
+        leaves = {path: _assemble(entry, shard_files)
+                  for path, entry in merged.items()}
+    finally:
+        for npz in shard_files:
+            npz.close()
+    with open(os.path.join(directory, META)) as f:
+        meta = json.load(f)
+    return _unflatten(leaves), meta
+
+
+def restore_checkpoint(directory: str, net=None, *, mesh=None):
+    """(params, updater_state, net_state, iteration) of a step directory.
+    With ``net`` given, restores in place: the values written into its
+    existing tensors (module docstring), the iteration and the key
+    stream's position set; the returned trees are then the net's.
+    Without a net the trees hold numpy arrays."""
+    _no_mesh(mesh)
+    full, meta = read_checkpoint(directory)
+    params = full.get("params", {})
+    upd = full.get("updater_state", {})
+    ns = full.get("net_state", {})
+    iteration = int(meta.get("iteration", 0))
+    if net is not None:
+        dev = net.device
+        net.params = _write_into(net.params, params, dev)
+        net.updater_state = _write_into(net.updater_state, upd, dev)
+        net.net_state = _write_into(net.net_state, ns, dev)
+        net.iteration = iteration
+        keys = getattr(net, "_keys", None)
+        if KEY_STATE in meta and keys is not None:
+            keys.set_state(torch.from_numpy(np.frombuffer(
+                base64.b64decode(meta[KEY_STATE]), np.uint8).copy()))
+        params, upd, ns = net.params, net.updater_state, net.net_state
+    return params, upd, ns, iteration

@@ -1,7 +1,7 @@
 """Production serving subsystem (counterpart of ``deeplearning4j_tpu.serving``):
 shape-bucketed dynamic batching, warm-up (on the card: one captured
 graph per bucket), model registry with zero-drop hot-swap, and admission
-control.  The HTTP front ends come with ROADMAP A9.
+control.  The HTTP front end over it is ``streaming.InferenceServer``.
 """
 
 from deeplearning4j_tpu_torch.serving.admission import (

@@ -412,8 +412,15 @@ class ServingEngine:
         retained version from an earlier retaining swap is committed
         first — at most one rollback target exists per name.  A
         checkpoint is restored onto ``device`` (the card unless the
-        caller asks for the CPU)."""
+        caller asks for the CPU).  Without ``example`` the version it
+        replaces lends its example row to the warm-up."""
         with self._swap_lock:   # serialize swaps per engine
+            if example is None and name in self.models.names():
+                # the incoming version takes the rows the serving one
+                # takes: warm it on the same example (a checkpoint posted
+                # over HTTP carries none, and a conv or graph model's row
+                # shape cannot be read from its config)
+                example = self.models.active(name).example
             if isinstance(model_or_path, (str, bytes, os.PathLike)):
                 mv = load_version_from_checkpoint(
                     self.models, name, model_or_path, example=example,

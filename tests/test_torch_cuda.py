@@ -1756,3 +1756,154 @@ def test_captured_lstm_generate_equals_eager(cuda):
     a = generate(net, prompt, 30, temperature=0.9, top_k=7, rng=3)
     np.testing.assert_array_equal(
         sample_sequence(net, prompt, 30, temperature=0.9, top_k=7, rng=3), a)
+
+
+# ------------------------------------------- the guard, resume and server
+def _guarded_conv(**stab):
+    """The ``conv`` capture net (bf16, BatchNorm, LRN, Nesterov) under
+    ``training_stability(**stab)``."""
+    from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, ConvolutionLayer, DenseLayer,
+        LocalResponseNormalization, OutputLayer, SubsamplingLayer,
+    )
+
+    conf = (NeuralNetConfiguration.builder().seed(5)
+            .updater("nesterovs", learning_rate=0.05)
+            .training_stability(**stab).list()
+            .compute_dtype("bfloat16")
+            .layer(ConvolutionLayer(n_out=16, kernel_size=(3, 3),
+                                    activation="identity"))
+            .layer(BatchNormalization(activation="relu"))
+            .layer(LocalResponseNormalization(n=5))
+            .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=32, activation="relu"))
+            .layer(OutputLayer(n_out=4))
+            .set_input_type(InputType.convolutional(12, 12, 3)).build())
+    return MultiLayerNetwork(conf).init()
+
+
+def test_poisoned_step_replays_the_guarded_graph(cuda):
+    """A poisoned batch (same shape and type) replays the guarded graph
+    without a capture, and the step is a bit-exact no-op on params,
+    updater state and running stats; the scale halves on the device and
+    the eager twin agrees bit for bit."""
+    from deeplearning4j_tpu_torch.resilience import (
+        FaultInjector, inject_faults,
+    )
+
+    a = _guarded_conv(loss_scaling="dynamic", loss_scale=2.0 ** 8,
+                      loss_scale_growth_interval=100, check_every=100)
+    b = _eager_twin(a)
+    data = _capture_batches("conv", 5)
+    for x, y in data[:3]:
+        a.fit(x, y)
+        b.fit(x, y)
+    key = "__stability__"
+    before = [t.clone() for t in tree_leaves(a.params)
+              + tree_leaves({k: v for k, v in a.updater_state.items()
+                             if k != key}) + tree_leaves(a.net_state)]
+    with inject_faults(FaultInjector().poison_gradients(
+            "0", at_step=3, until_step=4)):
+        a.fit(*data[3])
+    with inject_faults(FaultInjector().poison_gradients(
+            "0", at_step=3, until_step=4)):
+        b.fit(*data[3])
+    after = (tree_leaves(a.params)
+             + tree_leaves({k: v for k, v in a.updater_state.items()
+                            if k != key}) + tree_leaves(a.net_state))
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+    st = a.updater_state[key]
+    assert float(st["nonfinite_total"]) == 1.0
+    assert float(st["loss_scale"]) == 2.0 ** 7
+    assert (a._step_graphs.captures, a._step_graphs.replays) == (1, 3)
+    a.fit(*data[4])
+    b.fit(*data[4])
+    _assert_same_state(a, b)
+
+
+def test_restore_into_a_captured_net_then_replay(cuda, tmp_path):
+    """A restore writes the checkpoint into the tensors a captured graph
+    holds: the replays that follow equal the uninterrupted run bit for
+    bit, with no capture after the first."""
+    from deeplearning4j_tpu_torch.resilience import CheckpointManager
+
+    a = _capture_net("conv")
+    ref = _eager_twin(a)
+    ref._capture = True
+    data = _capture_batches("conv", 6, seed=2)
+    cm = CheckpointManager(str(tmp_path), save_every_steps=2,
+                           async_save=False)
+    a.fit(data[:4], checkpoint_manager=cm)
+    leaves = _all_state(a)
+    a.fit(data[4:])                  # steps 5 and 6, to be undone
+    assert cm.restore(a)[3] == 4 and a.iteration == 4
+    assert all(x is y for x, y in zip(_all_state(a), leaves, strict=True))
+    a.fit(data[4:])
+    ref.fit(data)
+    _assert_same_state(a, ref)
+    assert a.score_value == ref.score_value
+    assert a._step_graphs.captures == 1
+    cm.close()
+
+
+def test_retried_step_equals_an_unfailed_one(cuda):
+    """A transient fault before step 2 retries it with the key stream
+    set back: dropout masks and all, the captured run equals an unfailed
+    captured run bit for bit."""
+    from deeplearning4j_tpu_torch.resilience import (
+        FaultInjector, RetryPolicy, inject_faults,
+    )
+
+    a = _capture_net("mlp")
+    ref = _eager_twin(a)
+    ref._capture = True
+    data = _capture_batches("mlp", 5, seed=6)
+    rp = RetryPolicy(max_retries=2, base_delay_s=0.0, jitter=0.0)
+    with inject_faults(FaultInjector().fail_at_step(
+            2, component="MultiLayerNetwork", transient=True)):
+        a.fit(data, retry_policy=rp)
+    ref.fit(data)
+    assert rp.retries == 1 and a.iteration == 5
+    _assert_same_state(a, ref)
+    assert a.score_value == ref.score_value
+
+
+def test_inference_server_sse_ids_equal_engine_generate(cuda):
+    """``POST /generate`` with ``stream: true`` on the card: one SSE event
+    a token, ids equal to ``engine.generate`` without HTTP."""
+    import json
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
+    from deeplearning4j_tpu_torch.serving import ServingEngine
+    from deeplearning4j_tpu_torch.streaming import InferenceServer
+
+    lm = transformer_char_lm(vocab_size=29, d_model=64, n_heads=4, layers=2,
+                             compute_dtype="bfloat16", max_cache=64)
+    gen = GenerationEngine(lm, slots=4, page_size=16, max_context=64,
+                           prefill_buckets=(16,)).start()
+    eng = ServingEngine(_capture_net("mlp"), max_batch=4,
+                        example=np.zeros(20, np.float32))
+    server = InferenceServer(engine=eng, generation=gen)
+    try:
+        eng.start()
+        url = f"http://127.0.0.1:{server.start()}/generate"
+        prompts = np.random.default_rng(8).integers(0, 29, (4, 9)).tolist()
+        for p in prompts:
+            req = urllib.request.Request(url, data=json.dumps(
+                {"prompt": p, "max_tokens": 20, "stream": True}).encode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                events = [json.loads(line[6:]) for line in
+                          r.read().decode().split("\n\n")
+                          if line.startswith("data: ")]
+            assert events[-1]["done"] is True
+            got = [e["token"] for e in events[:-1]]
+            assert got == gen.generate(p, 20).tolist()
+    finally:
+        server.stop()
+        eng.stop()
+        gen.stop()

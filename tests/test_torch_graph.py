@@ -382,9 +382,10 @@ def test_unported_parts_raise():
                  lambda: net.set_listeners()):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    net.conf = dataclasses.replace(net.conf, stability={"on": True})
+    # the stability guard is ported (ROADMAP A9); introspection is not
+    net.conf = dataclasses.replace(net.conf, introspection={"on": True})
     x, y = _batch(5)
-    with pytest.raises(NotImplementedError, match="stability"):
+    with pytest.raises(NotImplementedError, match="introspection"):
         net.fit(x, y)
 
 

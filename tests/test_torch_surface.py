@@ -324,7 +324,9 @@ def test_builder_refusals_match_jax(call):
 def test_configs_of_unported_engines_build_and_fit_raises(what, item):
     """A config that sets a training policy or a full-batch solver
     builds (the JSON of the JAX builder, above); its ``fit`` raises
-    naming the ROADMAP item that ports the engine."""
+    naming the ROADMAP item that ports the engine.  The stability
+    guard's engine is ported (A9): that config's ``fit`` runs the
+    guarded step and leaves the guard's state on the net."""
     from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.layers import OutputLayer
@@ -338,6 +340,11 @@ def test_configs_of_unported_engines_build_and_fit_raises(what, item):
         b.optimization_algo("conjugate_gradient")
     conf = b.list().layer(OutputLayer(n_in=3, n_out=2)).build()
     net = MultiLayerNetwork(conf).init(device="cpu")
+    if what == "stability":
+        net.fit(np.zeros((2, 3), np.float32), np.eye(2, dtype=np.float32))
+        assert float(net.updater_state["__stability__"]["loss_scale"]) \
+            == 2.0 ** 15
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         net.fit(np.zeros((2, 3), np.float32),
                 np.eye(2, dtype=np.float32))

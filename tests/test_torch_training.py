@@ -318,7 +318,8 @@ def test_reserved_updater_subtrees_are_ignored(tmp_path):
     with zipfile.ZipFile(tmp_path / "m.zip") as zf:
         entries = {n: zf.read(n) for n in zf.namelist()}
     state = dict(np.load(io.BytesIO(entries["updaterState.npz"])))
-    state["__stability__/loss_scale"] = np.float32(1.0)
+    state["__stability__/loss_scale"] = np.float32(4.0)
+    state["__introspect__/steps"] = np.float32(1.0)
     buf = io.BytesIO()
     np.savez(buf, **state)
     entries["updaterState.npz"] = buf.getvalue()
@@ -327,17 +328,24 @@ def test_reserved_updater_subtrees_are_ignored(tmp_path):
             zf.writestr(n, data)
     back = serialization.restore_multi_layer_network(tmp_path / "r.zip",
                                                      device="cpu")
-    assert set(back.updater_state) == {"m", "v"}
+    # the stability guard's subtree is carried across (its engine is
+    # ported); the introspection engine's is still ignored
+    assert set(back.updater_state) == {"m", "v", "__stability__"}
+    assert float(back.updater_state["__stability__"]["loss_scale"]) == 4.0
 
 
 def test_unported_training_engines_raise():
     net = _port_of(_small_lm())
     x, y = _batch(2)
-    for field in ("stability", "introspection", "numerics"):
+    for field in ("introspection", "numerics"):
         net.conf = dataclasses.replace(net.conf, **{field: {"on": True}})
         with pytest.raises(NotImplementedError, match=field):
             net.fit(x, y)
         net.conf = dataclasses.replace(net.conf, **{field: None})
+    # the stability guard is ported (ROADMAP A9): its policy trains
+    net.conf = dataclasses.replace(net.conf, stability={})
+    net.fit(x, y)
+    assert "__stability__" in net.updater_state
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
