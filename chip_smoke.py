@@ -253,7 +253,43 @@ Phases (any failure exits non-zero; nothing is caught):
    stats must equal A's bit for bit.  Prints the snapshot ms on the
    training thread, the commit ms off it, the bytes a save and the
    restore ms.
-14. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+14. Online learning: a ResNet-50 trainer (bf16, Nesterov 0.1, captured
+   ``fit``, ``conf.introspection`` set) fed by a ``MessageBroker`` topic
+   of ``dataset_to_json`` records of 16 images, windows of 4, beside a
+   second ResNet-50 ``ServingEngine`` (max batch 64) that 4 client
+   threads query throughout; ``default_gate_rules(max_loss_regression=
+   0.05)`` over 64 held-out images, a canary of a quarter of the traffic,
+   a retaining swap and a 1 s watch.  Four windows: the held-out images
+   with their labels twice, the same images with every label moved by
+   one class, and the held-out images again with a trainer crash at the
+   window's second step (``FaultInjector.fail_at_step``).  The outcomes
+   must be promoted, promoted, rejected (the registry untouched, the
+   trainer reverted into its own tensors), promoted after a replay whose
+   params equal an uncrashed twin's bit for bit (under the guard phase's
+   ``cudnn.deterministic`` choice); every evaluation has its accuracy; no
+   client request fails; the trainer captures nothing after window 1;
+   ``torch.cuda.memory_allocated()`` after window 4 within 5 % of window
+   2's.  Prints each window's freshness, its split in ms (fit, save, zip
+   write, candidate load, evaluate, canary, swap, watch), both held-out
+   losses and the memory.
+15. Introspection: the training char-LM (batch 8 x 2048, bf16, Adam)
+   captured four ways — no policy, introspection, the numerics ledger,
+   both — 12 steps each with a ``StatsListener`` reporting every 10:
+   params bit for bit the no-policy run's, no capture after the 2
+   warm-up steps (two programs under the ledger's interval: collecting
+   and skipping), and the last step's harvested gradient, update and
+   parameter norms within 1e-3 of a float64 recomputation from that
+   step's gradients (computed eagerly beforehand) and parameters.
+   Prints each run's step median and each policy's overhead.
+16. Kernel trust: ``observability.kerneldiff`` on the card, every forward
+   kernel against the float64 numpy references at the reference sweep's
+   full grid and at the path's shapes (the char-LM's flash forward in
+   bf16 and float32, the engine's decode, the prologue, AlexNet's first
+   LRN, ResNet-50's stem BatchNorm); a kernel's error propagates.
+   Prints max-abs, max-rel, the ULP spread and the class for each kernel
+   and dtype; each forward kernel's path max-rel joins its entry on the
+   kernels line as ``f64_max_rel``.
+17. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -3805,6 +3841,381 @@ def resume_phase(name_card, deterministic=False):
     print(f"resume: phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------ phase 15, online learning
+ONLINE_ROWS, ONLINE_WINDOW, ONLINE_HOLDOUT = 16, 4, 64
+ONLINE_CLIENTS, ONLINE_MAX_BATCH, ONLINE_GATE = 4, 64, 0.05
+ONLINE_CRASH_AT = 1         # the crashed window's step (0-based) that fails
+# steps on the held-out images before the loop starts: at Nesterov 0.1 and
+# batch 16 the first steps of a random ResNet are unstable and its
+# BatchNorm running statistics lag its batch statistics, so a window's
+# inference-mode held-out loss only tracks its training after these
+ONLINE_PRIME_STEPS = 48
+ONLINE_OUTCOMES = ["promoted", "promoted", "rejected", "promoted"]
+ONLINE_MEMORY_RTOL = 0.05
+
+
+def _records(images, labels, ts):
+    """One window of ``dataset_to_json`` records of ONLINE_ROWS images."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.streaming import dataset_to_json
+
+    return [dataset_to_json(DataSet(images[i:i + ONLINE_ROWS],
+                                    labels[i:i + ONLINE_ROWS]),
+                            meta={"ts": ts})
+            for i in range(0, len(images), ONLINE_ROWS)]
+
+
+def online_phase(name_card, deterministic=False):
+    """Online learning on the card: a ResNet-50 trainer (full width, bf16,
+    Nesterov 0.1, captured ``fit``, ``conf.introspection`` set) trains
+    from a ``MessageBroker`` topic in windows of 4 records of 16 images,
+    beside a second ResNet-50 ``ServingEngine`` (max batch 64) that 4
+    client threads query throughout; each window's candidate walks the
+    promotion state machine (``default_gate_rules`` at 5 % over the 64
+    held-out images, canary, retaining swap, watch).  Windows: healthy,
+    healthy, poisoned (labels moved by one class), and one whose trainer
+    crashes at its second step (``resilience.faults``).  Returns the
+    kernels' wrapper launches of the phase."""
+    import gc
+    import tempfile
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import TrainingIntrospection
+    from deeplearning4j_tpu_torch.observability import (
+        MetricsRegistry, introspection,
+    )
+    from deeplearning4j_tpu_torch.online import (
+        OnlineLearningPipeline, PromotionManager, default_gate_rules,
+    )
+    from deeplearning4j_tpu_torch.resilience import (
+        CheckpointManager, FaultInjector, inject_faults,
+    )
+    from deeplearning4j_tpu_torch.serving import BucketPolicy, ServingEngine
+    from deeplearning4j_tpu_torch.streaming import MessageBroker
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = deterministic
+    for c in helpers.kernel_counts().values():
+        c.reset()
+    rs = np.random.RandomState(42)
+    images = rs.rand(ONLINE_HOLDOUT, *SERVE_ROW).astype(np.float32)
+    classes = rs.randint(0, SERVE_CLASSES, ONLINE_HOLDOUT)
+    eye = np.eye(SERVE_CLASSES, dtype=np.float32)
+    labels, shifted = eye[classes], eye[(classes + 1) % SERVE_CLASSES]
+    holdout = DataSet(images, labels)
+
+    trainer = resnet50(device="cuda", **RESNET)
+    trainer.conf = dataclasses.replace(
+        trainer.conf, introspection=TrainingIntrospection().to_dict())
+    prime = [(images[i:i + ONLINE_ROWS], labels[i:i + ONLINE_ROWS])
+             for i in range(0, ONLINE_HOLDOUT, ONLINE_ROWS)]
+    trainer.fit(prime * (ONLINE_PRIME_STEPS // len(prime)))
+    served = trainer.clone()          # the second ResNet-50, same weights
+    print(f"online: trainer primed {trainer.iteration} steps, held-out "
+          f"loss {served.score(images, labels):.6f}")
+    reg = MetricsRegistry()
+    eng = ServingEngine(served, policy=BucketPolicy(
+        max_batch=ONLINE_MAX_BATCH), max_wait_ms=1.0, max_queue=4096,
+        example=np.zeros(SERVE_ROW, np.float32), registry=reg).start()
+    broker = MessageBroker(registry=reg)
+    tmp = tempfile.TemporaryDirectory()
+    cm = CheckpointManager(f"{tmp.name}/ckpt", keep=3, async_save=False,
+                           registry=reg)
+    pm = PromotionManager(
+        eng, eval_set=holdout, registry=reg,
+        gate_rules=default_gate_rules(max_loss_regression=ONLINE_GATE),
+        canary_fraction=0.25, canary_min_requests=8, canary_timeout_s=60.0,
+        watch_window_s=1.0, watch_poll_s=0.05, probe_deadline_s=60.0)
+    pipe = OnlineLearningPipeline(
+        trainer, eng, topic="train", broker=broker, checkpoint_manager=cm,
+        promotion=pm, window_size=ONLINE_WINDOW, poll_timeout_s=5.0,
+        registry=reg)
+
+    stop, failures, served_n = threading.Event(), [], [0]
+
+    def client(tid):
+        crs = np.random.RandomState(3000 + tid)
+        while not stop.is_set():
+            x = crs.rand(1 + crs.randint(16), *SERVE_ROW).astype(np.float32)
+            try:
+                out = eng.predict(x, deadline_s=120.0)
+                if out.shape != (len(x), SERVE_CLASSES) \
+                        or not np.isfinite(out).all():
+                    failures.append(f"bad output {out.shape}")
+                served_n[0] += 1
+            except Exception as e:          # reported below
+                failures.append(repr(e))
+
+    clients = [threading.Thread(target=client, args=(t,), daemon=True)
+               for t in range(ONLINE_CLIENTS)]
+    for th in clients:
+        th.start()
+    memory, captures, rows = [], [], []
+    try:
+        for w, window_labels in enumerate([labels, labels, shifted,
+                                           labels]):
+            for rec in _records(images, window_labels, time.time()):
+                broker.publish("train", rec)
+            twin_net = inj = None
+            if w == 3:
+                # the uncrashed twin from the window boundary
+                twin_net = twin(trainer, True)
+                inj = FaultInjector(seed=3).fail_at_step(
+                    trainer.iteration + ONLINE_CRASH_AT,
+                    component="ComputationGraph", transient=False)
+                with inject_faults(inj):
+                    pipe.run(max_windows=1)
+                check([e for e in inj.injected
+                       if e["kind"] == "step_fault"], "online: the crash "
+                      "fired in window 4")
+                twin_net.fit([(images[i:i + ONLINE_ROWS],
+                               labels[i:i + ONLINE_ROWS])
+                              for i in range(0, ONLINE_HOLDOUT,
+                                             ONLINE_ROWS)])
+                gaps = [g for g in state_gaps(trainer, twin_net)
+                        if g.startswith("params")]
+                check(not gaps, f"online: the replayed window's params "
+                      f"equal the uncrashed twin's bit for bit ({len(gaps)}"
+                      f" leaves differ: {gaps[:3]})")
+                del twin_net
+            else:
+                pipe.run(max_windows=1)
+            rec = pipe.results[-1]
+            rows.append(rec)
+            gc.collect()
+            torch.cuda.synchronize()
+            memory.append(torch.cuda.memory_allocated())
+            captures.append(trainer._step_graphs.captures)
+            rep = rec["promotion"]["report"]
+            split = rec["split_ms"]
+            print(f"online window {w + 1}: {rec['outcome']}, freshness "
+                  f"{rec['freshness_s']} s, held-out loss "
+                  f"{rep.get('loss'):.6f} (active "
+                  f"{rep.get('active_loss'):.6f}), accuracy "
+                  f"{rep.get('accuracy')}; split ms "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                  + f"; memory_allocated {memory[-1]} B; trainer "
+                  f"captures {captures[-1]} [{name_card}]")
+    finally:
+        stop.set()
+        for th in clients:
+            th.join(300)
+        eng.stop()
+        cm.close()
+    outcomes = [r["outcome"] for r in rows]
+    check(outcomes == ONLINE_OUTCOMES, f"online: outcomes {outcomes}")
+    check(reg.get_value("dl4j_online_windows_total", status="retried") == 1,
+          "online: the crashed window was replayed")
+    check(all("accuracy" in r["promotion"]["report"] for r in rows),
+          "online: every evaluation report has its accuracy")
+    check(not failures and served_n[0] > 0,
+          f"online: {len(failures)} client requests failed "
+          f"({failures[:3]}) of {served_n[0]}")
+    check(captures[1:] == captures[:1] * 3,
+          f"online: the trainer captured after window 1 ({captures})")
+    check(abs(memory[3] - memory[1]) <= ONLINE_MEMORY_RTOL * memory[1],
+          f"online: memory after window 4 {memory[3]} vs window 2 "
+          f"{memory[1]}")
+    h = introspection.harvest_model(trainer)
+    check(h is not None and all(np.isfinite(e["norm"])
+                                for e in h["gradient_stats"].values()),
+          "online: the trainer's introspection ran on the card")
+    launches = {n: c.launches for n, c in helpers.kernel_counts().items()}
+    print(f"online: {served_n[0]} client requests, none failed; "
+          f"outcomes {outcomes}; wrapper launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    for k in ("bn_train_fwd", "bn_train_bwd", "bn_inference"):
+        check(launches[k] > 0, f"online: {k} launched")
+    torch.backends.cudnn.deterministic = False
+    tmp.cleanup()
+    return launches
+
+
+# ------------------------------------------ phase 16, in-step introspection
+INTRO_STEPS, INTRO_WARM, INTRO_REPORT = 12, 2, 10
+INTRO_NORM_RTOL = 1e-3
+INTRO_POLICIES = [("off", {}),
+                  ("introspection", {"introspection": {}}),
+                  ("numerics", {"numerics": {}}),
+                  ("both", {"introspection": {}, "numerics": {}})]
+
+
+def _float64_norms(trees):
+    """{layer: sqrt(sum x^2)} in float64 on the host over each layer's
+    leaves."""
+    return {name: float(np.sqrt(sum(
+        float((t.detach().double().cpu() ** 2).sum())
+        for t in tree_leaves(tuple(tree) if isinstance(tree, list)
+                             else tree))))
+        for name, tree in trees.items()}
+
+
+def introspection_phase(name_card):
+    """The full-width char-LM (batch 8 x 2048, bf16, Adam) captured four
+    ways — policy off, introspection, numerics, both — each with a
+    ``StatsListener`` reporting every 10 steps: parameters bit for bit
+    the off run's, nothing captured after the warm-up, and the last
+    step's harvested norms against a float64 recomputation from that
+    step's gradients and parameters.  Returns the wrapper launches."""
+    from deeplearning4j_tpu_torch.models.common import tree_clone, trainable
+    from deeplearning4j_tpu_torch.observability import (
+        introspection, numerics,
+    )
+    from deeplearning4j_tpu_torch.ui import (
+        InMemoryStatsStorage, StatsListener, StatsUpdateConfiguration,
+    )
+
+    t_phase = time.perf_counter()
+    for c in helpers.kernel_counts().values():
+        c.reset()
+    vocab = TRAIN_MODEL["vocab_size"]
+    ids = np.random.RandomState(0).randint(0, vocab, (TRAIN_BATCH, TRAIN_T))
+    x = torch.as_tensor(ids, device="cuda")
+    y = torch.as_tensor(np.eye(vocab, dtype=np.float32)[np.roll(ids, -1, 1)],
+                        device="cuda")
+    base, medians = None, {}
+    for what, pol in INTRO_POLICIES:
+        net = transformer_char_lm(device="cuda", **TRAIN_MODEL, **pol)
+        storage = InMemoryStatsStorage()
+        net.set_listeners(StatsListener(
+            storage, session_id=what, config=StatsUpdateConfiguration(
+                reporting_frequency=INTRO_REPORT)))
+        _, secs, caps = fit_steps(net, [(x, y)], INTRO_STEPS - 1)
+        # the last step: its gradients recomputed eagerly beforehand
+        before = tree_clone(trainable(net.params))
+        grads = None
+        if "introspection" in pol:
+            leaves = tree_leaves(before)
+            for p in leaves:
+                p.requires_grad_(True)
+            loss, _ = net._loss_fn({**net.params, **before}, x, y, None,
+                                   train=True)
+            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for p in leaves:
+                p.requires_grad_(False)
+            it = iter(g)
+            grads = {k: [next(it) for _ in tree_leaves(v)]
+                     for k, v in sorted(before.items())}
+        _, last, caps2 = fit_steps(net, [(x, y)], 1)
+        secs, caps = secs + last, caps + caps2
+        medians[what] = float(np.median(secs[INTRO_WARM:])) * 1e3
+        check(caps[-1] == caps[INTRO_WARM - 1],
+              f"introspection [{what}]: captured after warm-up {caps}")
+        ups = storage.get_updates(what)
+        check(len(ups) == INTRO_STEPS // INTRO_REPORT,
+              f"introspection [{what}]: {len(ups)} reports")
+        if base is None:
+            base = [t.clone() for t in tree_leaves(net.params)]
+        else:
+            same = all(torch.equal(a, b) for a, b in
+                       zip(tree_leaves(net.params), base))
+            check(same, f"introspection [{what}]: params equal the off "
+                        f"run's bit for bit")
+        line = (f"introspection [{what}]: step median {medians[what]:.3f}"
+                f" ms, captures {caps[-1]}")
+        if grads is not None:
+            h = introspection.harvest_model(net)
+            check(h["iteration"] == INTRO_STEPS - 1,
+                  f"introspection [{what}]: harvested iteration "
+                  f"{h['iteration']}")
+            want_g = _float64_norms({k: v for k, v in grads.items()})
+            want_p = _float64_norms(before)
+            want_u = _float64_norms({
+                k: [a.double() - b.double() for a, b in zip(
+                    tree_leaves(before[k]), tree_leaves(net.params[k]))]
+                for k in before})
+            worst = 0.0
+            for name in h["gradient_stats"]:
+                for got, want in (
+                        (h["gradient_stats"][name]["norm"], want_g[name]),
+                        (h["update_stats"][name]["param_norm"],
+                         want_p[name]),
+                        (h["update_stats"][name]["norm"], want_u[name])):
+                    worst = max(worst, abs(got - want) / max(want, 1e-30))
+            check(worst <= INTRO_NORM_RTOL,
+                  f"introspection [{what}]: norms within {INTRO_NORM_RTOL}"
+                  f" of float64 (worst {worst:.3g})")
+            line += f"; norms vs float64 worst rel {worst:.3g}"
+        if "numerics" in pol:
+            nh = numerics.harvest_model(net)
+            check(nh is not None and nh["iteration"] == INTRO_REPORT,
+                  f"introspection [{what}]: the ledger's snapshot")
+            risky = sum(not e["verdicts"]["bfloat16"]
+                        for comp in ("gradients", "moments", "activations")
+                        for e in nh[comp].values())
+            line += (f"; the collecting step (iteration {INTRO_REPORT}) "
+                     f"{secs[INTRO_REPORT] * 1e3:.3f} ms; ledger "
+                     f"bf16-risky blocks {risky}")
+        print(line + f" [{name_card}]")
+        del net, storage
+        torch.cuda.empty_cache()
+    off = medians["off"]
+    print("introspection: overhead against off " + ", ".join(
+        f"{k} {(v / off - 1) * 100:+.2f}%" for k, v in medians.items()
+        if k != "off") + " (the reference's target is under 5 %)")
+    launches = {n: c.launches for n, c in helpers.kernel_counts().items()}
+    for k in ("flash_fwd", "flash_dq", "flash_dkv", "prologue"):
+        check(launches[k] > 0, f"introspection: {k} launched")
+    print(f"introspection: wrapper launches {launches}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ------------------------------------------------ phase 17, kernel trust
+def _kerneldiff_path_configs():
+    """The path's shapes, by registry kernel: the char-LM's flash forward
+    (its float64 reference over the first batch row), the engine's
+    decode, the prologue, AlexNet's first LRN and ResNet-50's stem
+    BatchNorm."""
+    rows, c = TRAIN_BATCH * TRAIN_T, 1024
+    flash = [{"shape": [TRAIN_BATCH, TRAIN_T, 8, 128], "dtype": dt,
+              "causal": True, "window": None, "ref_rows": 1, "path": True}
+             for dt in ("bfloat16", "float32")]
+    paged = [{"pages": PAGES, "page_size": PS, "maxp": MAXP, "hq": 8,
+              "hkv": 8, "d": 128, "b": ENGINE["slots"], "t": 1,
+              "dtype": "bfloat16", "path": True}]
+    prologue = [{"shape": [rows, c], "dtype": "bfloat16",
+                 "variant": "norm_only", "path": True}]
+    n, h, w, ch = LRN_CASES[0][1]
+    lrn_cfg = [{"shape": [n * h * w, ch], "dtype": "bfloat16",
+                "path": True}]
+    n, h, w, ch = BN_CASES[0][1]
+    bn_cfg = [{"shape": [n * h * w, ch], "dtype": "bfloat16", "path": True}]
+    return {"flash_attention_fwd": flash, "paged_decode_attention": paged,
+            "dropout_residual_norm": prologue, "lrn_fwd": lrn_cfg,
+            "batch_norm_inference": bn_cfg, "batch_norm_train_fwd": bn_cfg}
+
+
+def kerneldiff_phase(name_card):
+    """Every kernel of ``kerneldiff.KERNELS`` on the card against the
+    float64 numpy references, at the reference sweep's full grid and at
+    the path's shapes; a kernel's error propagates.  Returns the report
+    and the worst max-rel by (kernel, dtype) over the path's configs."""
+    from deeplearning4j_tpu_torch.observability import kerneldiff
+
+    t_phase = time.perf_counter()
+    report = kerneldiff.run_sweep(full=True, device="cuda",
+                                  extra=_kerneldiff_path_configs())
+    print(kerneldiff.format_report(report) + f" [{name_card}]")
+    path_rel = {}
+    for name, k in report["kernels"].items():
+        for cfg in k["configs"]:
+            if cfg.get("path"):
+                key = (name, cfg["dtype"])
+                path_rel[key] = max(path_rel.get(key, 0.0),
+                                    cfg["max_rel_error"])
+                print(f"kerneldiff path {name} {cfg['dtype']} "
+                      f"{cfg.get('shape') or [cfg['b'], cfg['t']]}: "
+                      f"max_abs {cfg['max_abs_error']:.3g}, max_rel "
+                      f"{cfg['max_rel_error']:.3g}, ulp p99 "
+                      f"{cfg['ulp_p99']:g}, {cfg['status']}")
+    check(report["summary"]["untrusted"] == [],
+          f"kerneldiff: untrusted {report['summary']['untrusted']}")
+    print(f"kerneldiff: {sum(len(k['configs']) for k in report['kernels'].values())}"
+          f" configs in {time.perf_counter() - t_phase:.1f} s")
+    return report, path_rel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3855,6 +4266,14 @@ def main() -> int:
     guarded, deterministic = guard_phase(name_card)
     resume_phase(name_card, deterministic)
     t_slice = time.perf_counter() - t_slice
+    torch.cuda.empty_cache()
+    t_online = time.perf_counter()
+    online = online_phase(name_card, deterministic)
+    torch.cuda.empty_cache()
+    intro = introspection_phase(name_card)
+    torch.cuda.empty_cache()
+    _, f64_rel = kerneldiff_phase(name_card)
+    t_online = time.perf_counter() - t_online
     # the new phases' profiled launches join the kernels line's
     launches += served["paged"]
     train_launches = [n + guarded[k] for n, k in zip(
@@ -3863,6 +4282,12 @@ def main() -> int:
     bn_launches = (bn_launches[0] + served["bn_inference"],
                    bn_launches[1] + guarded["bn_train_fwd"],
                    bn_launches[2] + guarded["bn_train_bwd"])
+    # the online and introspection phases' wrapper launches (counted
+    # where a launch is made or recorded into a graph)
+    train_launches = [n + intro[k] for n, k in zip(
+        train_launches, ("flash_fwd", "flash_dq", "flash_dkv", "prologue"))]
+    bn_launches = tuple(n + online[k] for n, k in zip(
+        bn_launches, ("bn_inference", "bn_train_fwd", "bn_train_bwd")))
     d = rows["decode"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -3920,9 +4345,23 @@ def main() -> int:
             "launches": n, "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
             "bound_by": row["bound"][1], "library_ms": row["lib_ms"]})
+    # each forward kernel's max-rel against the float64 references at
+    # its path's shapes (the backward kernels: held against their plain
+    # versions only, as in the reference's sweep)
+    f64 = {"paged_decode_attention": ("paged_decode_attention", "bfloat16"),
+           "flash_attention_fwd": ("flash_attention_fwd", "bfloat16"),
+           "flash_attention_fwd_f32": ("flash_attention_fwd", "float32"),
+           "dropout_residual_norm": ("dropout_residual_norm", "bfloat16"),
+           "batch_norm_inference": ("batch_norm_inference", "bfloat16"),
+           "batch_norm_train_fwd": ("batch_norm_train_fwd", "bfloat16"),
+           "lrn_fwd": ("lrn_fwd", "bfloat16")}
+    for k in kernels:
+        k["f64_max_rel"] = (f64_rel.get(f64[k["name"]])
+                            if k["name"] in f64 else None)
     print(f"total {time.perf_counter() - t0:.1f} s (the prefix, swap and "
           f"serving phases {t_new:.1f} s; the server, guard and resume "
-          f"phases {t_slice:.1f} s)")
+          f"phases {t_slice:.1f} s; the online, introspection and "
+          f"kerneldiff phases {t_online:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

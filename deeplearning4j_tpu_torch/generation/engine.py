@@ -42,8 +42,8 @@ Minimal use::
     engine.deploy("default", new_net)   # hot-swap between steps
     engine.stop()
 
-Not ported yet: ``kv_numerics`` (ROADMAP A9, ``observability/numerics.py``)
-and ``fleet_publisher`` (ROADMAP A11); both raise.
+``kv_numerics`` reads the pools' page ledger between decode steps.  Not
+ported yet: ``fleet_publisher`` (ROADMAP A11) raises.
 """
 
 from __future__ import annotations
@@ -156,6 +156,10 @@ class GenerationEngine:
         # on the card
         self._capture = None
         self._swap_lock = threading.Lock()
+        # held by the decode thread across each iteration's prefill and
+        # decode replays (they write the pools in place): a reader of the
+        # pools (kv_numerics) takes it to read between two steps
+        self._step_lock = threading.Lock()
         self._stop_event = threading.Event()
         self._drain = True
         self._thread: Optional[threading.Thread] = None
@@ -409,7 +413,8 @@ class GenerationEngine:
             with self.phases.phase("schedule"):
                 self.scheduler.purge_pending()
             try:
-                with self.models.lease(self.default_model) as mv:
+                with self.models.lease(self.default_model) as mv, \
+                        self._step_lock:
                     progs = self._programs[mv.key]
                     if (self.prefix_cache is not None
                             and self.prefix_cache.version != mv.key):
@@ -554,11 +559,23 @@ class GenerationEngine:
             itl_p50_ms=req.itl_p50_ms(), slo_ok=req.slo_ok)
 
     def kv_numerics(self, allocated_only: bool = True) -> dict:
-        """The live pools' per-page dynamic-range ledger (reference
-        ``observability.numerics.kv_page_ledger``): not ported yet."""
-        raise NotImplementedError(
-            "kv_numerics needs observability/numerics.py, which the port "
-            "does not have yet (ROADMAP A9)")
+        """Per-page dynamic-range ledger over the live KV pools
+        (``observability.numerics.kv_page_ledger``): the int8-KV
+        quantization-readiness evidence.  The port's replays write the
+        pools in place, so they are read between two decode steps, under
+        the engine's step lock (the copy to the host queues behind the
+        last replay and before the next)."""
+        from deeplearning4j_tpu_torch.observability import numerics
+
+        if self._pools is None:
+            return {}
+        with self._step_lock:
+            allocated = None
+            if allocated_only:
+                allocated = [p for p in range(1, self.cache.num_pages)
+                             if self.cache.refcount(p) > 0]
+            return numerics.kv_page_ledger(
+                self._pools, self.cache.page_size, allocated=allocated)
 
     def fleet_publisher(self, worker_id: str, **kw):
         """A ``TelemetryPublisher`` wired to this engine: not ported yet."""

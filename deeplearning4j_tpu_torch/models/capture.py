@@ -48,7 +48,7 @@ import torch
 
 from deeplearning4j_tpu_torch import helpers
 from deeplearning4j_tpu_torch.backend.device import (
-    PinnedRing, capture_graph, warm_on_side_stream,
+    PinnedRing, capture_graph, capture_lock, warm_on_side_stream,
 )
 from deeplearning4j_tpu_torch.models import common
 
@@ -160,12 +160,16 @@ class StepGraphs:
                 if isinstance(p, Program)}
 
     def program(self, kind: str, body: Callable, inputs: Dict[str, Any],
-                n_scalars: int = 0, scalar_dtype=torch.float32) -> Program:
-        """The cached program for ``kind`` at ``inputs``' signature (made,
-        not yet captured, when there is none or the cached one is
-        stale)."""
+                n_scalars: int = 0, scalar_dtype=torch.float32,
+                variant=None) -> Program:
+        """The cached program for ``kind`` at ``inputs``' signature and
+        ``variant`` (a host choice that changes the body, such as the
+        numerics ledger's collect flag), made, not yet captured, when
+        there is none or the cached one is stale."""
         net = self.net
         key = (kind, signature(inputs), helpers.enabled())
+        if variant is not None:
+            key += (variant,)
         return cached(
             net, key, lambda: Program(key, body, inputs, net.device,
                                       n_scalars, scalar_dtype),
@@ -273,3 +277,17 @@ def captures(net) -> bool:
     unless the internal switch ``net._capture`` is off."""
     return net.device is not None and net.device.type == "cuda" \
         and getattr(net, "_capture", True)
+
+
+def release(net) -> None:
+    """Drop every captured program of ``net`` (its graph cache, the
+    loops' parameter copy and the staging ring) under ``capture_lock``,
+    so their graphs and memory pool go back now rather than whenever the
+    cyclic garbage collector finds the net (a program's body refers to
+    the net).  A later call captures again."""
+    if getattr(net, "_graph_cache", None) is None:
+        return
+    with capture_lock:
+        net._graph_cache.clear()
+        net._graph_params = None
+        net._step_graphs = None

@@ -7,12 +7,16 @@ captured graph's replay on the card or the body eagerly) and its device
 body (``sgd_step``: loss -> autograd -> updater -> in-place update ->
 layer state copied in place), ``infer`` for ``output``, the
 ``fit_scanned`` windows, ``fit``'s batch loop with its resilience and
-stability duties (``fit_loop``), TBPTT's window loop (``fit_tbptt``), the stream
-caches and recurrent carries of ``rnn_time_step`` and ``generate``
-(seeding, the host-side capacity check) and the raise for what is not
-ported yet."""
+stability duties, its telemetry and its listeners (``fit_loop``),
+TBPTT's window loop (``fit_tbptt``), the in-step introspection and
+numerics collection (``StepWatch``), the stream caches and recurrent
+carries of ``rnn_time_step`` and ``generate`` (seeding, the host-side
+capacity check) and the raise for what is not ported yet."""
 
 from __future__ import annotations
+
+import functools
+import time
 
 import numpy as np
 import torch
@@ -22,6 +26,8 @@ from deeplearning4j_tpu_torch.backend.device import compute_dtype
 from deeplearning4j_tpu_torch.models import capture as cap
 from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.optimize import updaters as upd
+from deeplearning4j_tpu_torch.observability import introspection, numerics
+from deeplearning4j_tpu_torch.observability.fitmetrics import fit_telemetry
 from deeplearning4j_tpu_torch.observability.flightrecorder import crash_dump
 from deeplearning4j_tpu_torch.resilience import stability
 from deeplearning4j_tpu_torch.resilience.faults import get_fault_injector
@@ -250,14 +256,10 @@ class LazyScoreMixin:
 
 
 def check_trainable(net) -> None:
-    """Raise for what ``fit`` does not run yet in the port."""
+    """Raise for what ``fit`` does not run yet in the port, and give the
+    net the state subtrees its training policies keep (stability guard,
+    introspection, numerics ledger)."""
     conf = net.conf
-    for name, what in (("introspection", "training introspection"),
-                       ("numerics", "the numerics ledger")):
-        if getattr(conf, name) is not None:
-            raise NotImplementedError(
-                f"conf.{name} is set: {what} is not ported yet (it comes "
-                "with the rest of observability, ROADMAP A9)")
     if conf.optimization_algo != "stochastic_gradient_descent":
         raise NotImplementedError(
             f"optimization_algo={conf.optimization_algo!r}: the full-batch "
@@ -265,6 +267,83 @@ def check_trainable(net) -> None:
     if net.device is None:
         raise RuntimeError("call init() (or load a model) before fit()")
     stability.ensure_state(net)
+    introspection.ensure_state(net)
+    numerics.ensure_state(net)
+
+
+def observed_plans(net):
+    """(introspection plan, numerics plan) of the net's configuration,
+    each None when its policy is unset; kept on the net while its
+    configuration object is the same."""
+    cached = getattr(net, "_observed", None)
+    if cached is None or cached[0] is not net.conf:
+        cached = (net.conf, introspection.plan_for(net),
+                  numerics.plan_for(net))
+        net._observed = cached
+    return cached[1], cached[2]
+
+
+class StepWatch:
+    """One step's introspection and numerics collection, a pass of its
+    own beside the update (reference: ``introspection.attach`` and
+    ``numerics.attach`` in the step cores): the layers' activations are
+    summarised right after the forward, the gradients (loss-scaled under
+    the guard, unscaled by ``1 / loss_scale`` read before the guard can
+    change it) and a copy of the pre-update parameters are kept, and
+    after the update the statistics are written into the
+    ``__introspect__`` and ``__numerics__`` vectors in place.  Nothing of
+    it enters the update, so the parameters are bit for bit those of the
+    same net without the policies.  ``now`` is the numerics ledger's
+    collect flag (None: every step; False: a skipping step)."""
+
+    def __init__(self, iplan, nplan, iteration, now):
+        self.iplan, self.nplan, self.now = iplan, nplan, now
+        self.iteration = iteration
+        self.acts = ([] if numerics.wants_acts(iplan, nplan, now)
+                     else None)
+        self.act_stats = {}
+        self.grads = self.old = self.scale = None
+
+    @staticmethod
+    def of(net, scalars, now=None):
+        """The step's watch, or None when neither policy is set."""
+        iplan, nplan = observed_plans(net)
+        if iplan is None and nplan is None:
+            return None
+        return StepWatch(iplan, nplan, scalars["iteration"], now)
+
+    def summarise(self) -> None:
+        """Reduce the collected (name, activation) pairs to their stat
+        vectors and drop the references."""
+        if self.acts is None:
+            return
+        named, self.acts = self.acts, None
+        with torch.no_grad():
+            if self.iplan is not None and self.iplan.collect_acts:
+                self.act_stats.update(introspection.act_summary(
+                    named, dead_eps=self.iplan.policy.dead_eps))
+            if (self.nplan is not None and self.nplan.collect_acts
+                    and self.now is not False):
+                self.act_stats.update(numerics.act_ranges(
+                    named, policy=self.nplan.policy))
+
+    def before_update(self, grads, train, stab) -> None:
+        self.grads = grads
+        if stab is not None:
+            self.scale = 1.0 / stab["loss_scale"]
+        if self.iplan is not None:
+            self.old = tree_clone(train)
+
+    def after_update(self, net) -> None:
+        introspection.attach_(
+            net.updater_state, self.iplan, grads=self.grads,
+            params=self.old, new_params=trainable(net.params),
+            iteration=self.iteration, act_stats=self.act_stats,
+            grad_scale=self.scale)
+        numerics.attach_(
+            net.updater_state, self.nplan, now=self.now, grads=self.grads,
+            iteration=self.iteration, act_stats=self.act_stats,
+            grad_scale=self.scale)
 
 
 def copy_tree_(dst, src) -> None:
@@ -286,9 +365,13 @@ def lr_overrides(net):
             if l.learning_rate is not None}
 
 
-def sgd_step(net, loss_of, scalars, carries=None) -> torch.Tensor:
-    """The device body of one step of ``net``: ``loss_of(params) ->
-    (loss, new_net_state)``, gradients of the trainable leaves, the
+def sgd_step(net, loss_of, scalars, carries=None,
+             numerics_now=None) -> torch.Tensor:
+    """The device body of one step of ``net``: ``loss_of(params,
+    collect) -> (loss, new_net_state)`` (``collect``: None, or a list the
+    forward extends with each layer's (name, activation) for the
+    introspection and numerics policies, ``StepWatch``), gradients of
+    the trainable leaves, the
     updater (``scalars``: ``updaters.step_scalars``' values as 0-d
     tensors), the update subtracted in place, and the new updater and
     layer state copied into the old tensors.  With ``carries`` (a TBPTT
@@ -302,13 +385,17 @@ def sgd_step(net, loss_of, scalars, carries=None) -> torch.Tensor:
     sync)."""
     policy = stability.policy_of(net.conf)
     stab = net.updater_state.get(stability.STATE_KEY) if policy else None
+    watch = StepWatch.of(net, scalars, numerics_now)
     train = trainable(net.params)
     leaves = tree_leaves(train)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        out = loss_of(net.params)
+        out = loss_of(net.params,
+                      None if watch is None else watch.acts)
         loss, new_state = out[0], out[1]
+        if watch is not None:
+            watch.summarise()
         target = loss if stab is None else loss * stab["loss_scale"]
         grads = torch.autograd.grad(target, leaves, allow_unused=True)
     finally:
@@ -317,20 +404,24 @@ def sgd_step(net, loss_of, scalars, carries=None) -> torch.Tensor:
     grads = _tree_like(train, [torch.zeros_like(p) if g is None else g
                                for p, g in zip(leaves, grads)])
     with torch.no_grad():
+        if watch is not None:
+            watch.before_update(grads, train, stab)
         if stab is not None:
             stability.guarded_update_(
                 net, policy, loss.detach(), grads, train, new_state, scalars,
                 carries, None if carries is None
                 else {k: out[2][k] for k in carries})
-            return loss.detach()
-        updates, new_ustate = upd.update(
-            net.conf.updater, grads, net.updater_state, net.iteration,
-            params=train, scalars=scalars)
-        upd.apply_updates_(net.params, updates)
-        copy_tree_(net.updater_state, new_ustate)
-        copy_tree_(net.net_state, new_state)
-        if carries is not None:
-            advance_carries_(carries, {k: out[2][k] for k in carries})
+        else:
+            updates, new_ustate = upd.update(
+                net.conf.updater, grads, upd.inner_state(net.updater_state),
+                net.iteration, params=train, scalars=scalars)
+            upd.apply_updates_(net.params, updates)
+            copy_tree_(net.updater_state, new_ustate)
+            copy_tree_(net.net_state, new_state)
+            if carries is not None:
+                advance_carries_(carries, {k: out[2][k] for k in carries})
+        if watch is not None:
+            watch.after_update(net)
     return loss.detach()
 
 
@@ -378,6 +469,16 @@ def train_step(net, body, inputs):
     seed = rng_mod.seed_of(net._keys.next())
     vals = _step_scalars(net, net.iteration)
     dtype = _scalar_dtype(net)
+    iplan, nplan = observed_plans(net)
+    variant = None
+    if iplan is not None or nplan is not None:
+        # the statistics' iteration stamp, a device scalar like the rest
+        vals["iteration"] = float(net.iteration)
+        now = numerics.collect_now(nplan, net.iteration)
+        if now is not None:
+            # interval-gated ledger: a collecting and a skipping program
+            body = functools.partial(body, numerics_now=now)
+            variant = ("numerics", now)
 
     def record(out):
         loss = out[0] if isinstance(out, tuple) else out
@@ -387,7 +488,8 @@ def train_step(net, body, inputs):
     if cap.captures(net):
         graphs = cap.step_graphs(net)
         inputs = tree_map(cap.host_or_device, inputs)
-        prog = graphs.program("train", body, inputs, len(vals), dtype)
+        prog = graphs.program("train", body, inputs, len(vals), dtype,
+                              variant=variant)
         prog.scalar_names = list(vals)
         graphs.stage(prog, inputs, seed, list(vals.values()))
         return graphs.run(prog, record)
@@ -397,6 +499,31 @@ def train_step(net, body, inputs):
                scalars=dict(zip(vals, sc.unbind(0))))
     record(out)
     return out
+
+
+def notify_listeners(model, batch_size=None) -> None:
+    """Fire ``iteration_done`` on the model's listeners, first wiring the
+    actual minibatch size into any listener that wants it (reference
+    ``models/common.py:39``).  Also mirrors it as
+    ``model.last_batch_size``.  Runs on the host after the step's
+    replay; nothing here reads the device."""
+    if batch_size is not None:
+        model.last_batch_size = int(batch_size)
+    for lst in getattr(model, "listeners", ()):
+        if batch_size is not None:
+            setter = getattr(lst, "set_batch_size", None)
+            if setter is not None:
+                setter(int(batch_size))
+        lst.iteration_done(model, model.iteration)
+
+
+def batch_rows(x):
+    """The batch size of a batch's features (an array, a tensor or a
+    dict of them by input name), or None."""
+    if isinstance(x, dict):
+        x = next(iter(x.values()), None)
+    shape = getattr(x, "shape", None)
+    return int(shape[0]) if shape else None
 
 
 def fit_tbptt(net, t_len: int, batch: int, window, run) -> None:
@@ -438,7 +565,11 @@ def fit_loop(net, component: str, batches, *, epochs: int, unpack,
     the batch's steps, each through ``run`` (the retry and fault scope
     with the key stream set back, or a plain call); after it the manager
     saves when a trigger is due, and the stability runtime polls every
-    ``check_every`` batches.  An exception leaves a flight-recorder
+    ``check_every`` batches.  Each step is timed on the host around its
+    replay (``fit_telemetry``: ``last_step_seconds`` and
+    ``last_samples_per_second`` stamped on the net, the score gauge
+    holding the device loss, so no sync) and then the net's listeners
+    run (``notify_listeners``).  An exception leaves a flight-recorder
     report (``crash_dump``); the stability runtime's final harvest runs
     in every case."""
     check_trainable(net)
@@ -458,15 +589,24 @@ def fit_loop(net, component: str, batches, *, epochs: int, unpack,
             # a restored nonfinite_total is history, not fresh evidence
             rt.baseline_from(net.updater_state.get(stability.STATE_KEY))
 
+    tel = fit_telemetry(component)
+    rows = [None]
+
     def run(fn):
-        if res is None:
-            return fn()
-        return res.step(fn, net.iteration, net=net)
+        t0 = time.perf_counter()
+        with tel.span(net.iteration):
+            out = fn() if res is None else res.step(fn, net.iteration,
+                                                    net=net)
+        tel.record_step(time.perf_counter() - t0, rows[0], net._score,
+                        model=net)
+        notify_listeners(net, rows[0])
+        return out
 
     try:
         for _ in range(epochs):
             for batch in batches:
                 x, y, fm, lm = unpack(batch)
+                rows[0] = batch_rows(x)
                 if res is not None and res.skip_window(batch_adv(x)):
                     continue
                 if preemption_requested():
@@ -526,15 +666,28 @@ def fit_scanned(net, batches, scan_steps: int, epochs: int, unpack,
     fmask, lmask)``; a mask raises before its window runs, a shape change
     closes the window, and each batch of a window runs through
     ``one_step(inputs)``, the per-batch step (a replay of the captured
-    step on the card): the same updates and key stream as ``fit``."""
+    step on the card): the same updates and key stream as ``fit``.  The
+    telemetry and the listeners run once a window (reference
+    ``_flush_window``)."""
     check_scannable(net, scan_steps)
 
     def shapes(inputs):
         return [(path, np.shape(t)) for path, t in tree_paths(inputs)]
 
+    tel = fit_telemetry(type(net).__name__)
+
     def flush(window):
-        for inputs in window:
-            one_step(inputs)
+        if not window:
+            return
+        t0 = time.perf_counter()
+        with tel.span(net.iteration):
+            for inputs in window:
+                one_step(inputs)
+        rows = batch_rows(next(iter(window[0].values())))
+        tel.record_step(time.perf_counter() - t0, rows, net._score,
+                        steps=len(window), model=net)
+        # listeners fire once per window, with the window's samples
+        notify_listeners(net, None if rows is None else rows * len(window))
         window.clear()
 
     for _ in range(epochs):

@@ -23,9 +23,10 @@ graphs, ``models/capture.py``), ``feed_forward``, ``score``, the lazy
 JSON, ``save``/``load``, and streaming inference over attention and
 recurrent nodes (``rnn_time_step``, ``rnn_clear_previous_state``:
 carries flow through the forward), and ``fit`` with ``checkpoint_manager=``
-and ``retry_policy=`` and the stability guard (``common.fit_loop``).
-What else the reference's graph does raises ``NotImplementedError``
-naming its ROADMAP item.
+and ``retry_policy=`` and the stability guard (``common.fit_loop``), its
+telemetry and listeners (``set_listeners``), ``evaluate``, and the
+introspection and numerics policies collected inside the step.
+``pretrain`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -339,6 +340,7 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         self._step_graphs = None
         self._capture = True
         self._stab_rt = None          # the stability sentinel, once fit
+        self.listeners = []           # notified after every fit step
         # graph input -> the embedding that reads it as token ids
         self._id_consumers = {
             inp: n.layer for n in conf.nodes
@@ -414,18 +416,24 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         return acts, new_state, new_carries
 
     def _loss_fn(self, params, net_state, inputs, labels, rng=None,
-                 fmask=None, lmask=None, *, train=True, carries=None):
+                 fmask=None, lmask=None, *, train=True, carries=None,
+                 collect=None):
         """(sum over the outputs of each one's loss, in float32 under a
         compute dtype, + regularization; the new net state).  ``inputs``
         and ``labels`` are dicts by name, or single tensors for a graph
         with one input or one output.  With ``carries`` (a TBPTT
         window's {node: (h, c)}) the forward starts from them, and the new
-        carries come third."""
+        carries come third.  With a list as ``collect``, every layer
+        node's (name, activation) is appended to it in node order (the
+        introspection and numerics policies' activations)."""
         inputs = self._as_input_dict(inputs)
         labels = self._as_label_dict(labels)
         acts, new_state, new_carries = self._forward(
             params, net_state, inputs, train=train, rng=rng, fmask=fmask,
             carries=carries)
+        if collect is not None:
+            collect.extend((n.name, acts[n.name]) for n in self.conf.nodes
+                           if n.layer is not None)
         total = 0.0
         for node in self.output_nodes:
             layer = node.layer
@@ -530,12 +538,13 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
 
     # ----------------------------------------------------------- train step
     def _train_body(self, inputs, labels, fmask, lmask, key, scalars,
-                    carries=None):
+                    carries=None, numerics_now=None):
         """The step's device body (``common.sgd_step``); a TBPTT window
         (``carries``) returns (loss, its carries, now the new ones)."""
-        loss = sgd_step(self, lambda params: self._loss_fn(
+        loss = sgd_step(self, lambda params, collect=None: self._loss_fn(
             params, self.net_state, inputs, labels, key, fmask, lmask,
-            train=True, carries=carries), scalars, carries)
+            train=True, carries=carries, collect=collect), scalars, carries,
+            numerics_now)
         return loss if carries is None else (loss, carries)
 
     def _step(self, inputs):
@@ -741,18 +750,40 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
                            self._step)
         return self
 
+    # ------------------------------------------------ listeners, evaluate
+    def set_listeners(self, *listeners) -> None:
+        """The iteration listeners ``fit`` and ``fit_scanned`` notify after
+        each step (window) on the host."""
+        self.listeners = list(listeners)
+
+    def evaluate(self, iterator, evaluation=None):
+        """Classification metrics over a DataSet or MultiDataSet iterator
+        through ``output`` (reference ``ComputationGraph.evaluate``,
+        single-output graphs); each batch's output is copied to the host
+        once."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+
+        if len(self.conf.outputs) != 1:
+            raise ValueError("evaluate() supports single-output graphs; use "
+                             "output() + per-head Evaluation for "
+                             "multi-output")
+        ev = evaluation or Evaluation()
+        for batch in iterator:
+            if hasattr(batch, "features_masks"):  # MultiDataSet
+                x, y, fm, lm = self._unpack_multi(batch)
+                lm = None if lm is None else next(iter(lm.values()))
+                y = y[self.conf.outputs[0]]
+            else:
+                x, y = batch.features, batch.labels
+                fm, lm = batch.features_mask, batch.labels_mask
+            out = self.output(x, fmask=fm)
+            ev.eval(y, out.detach().cpu().numpy(), mask=lm)
+        return ev
+
     # --------------------------------------------------------- not ported
     def pretrain(self, *args, **kwargs):
         not_ported("ComputationGraph", "pretrain",
                    "AutoEncoder/RBM, ROADMAP A7")
-
-    def set_listeners(self, *listeners):
-        not_ported("ComputationGraph", "set_listeners",
-                   "listeners, ROADMAP A8")
-
-    def evaluate(self, *args, **kwargs):
-        not_ported("ComputationGraph", "evaluate",
-                   "evaluation/, ROADMAP A8")
 
     # ---------------------------------------------------------- checkpoints
     def save(self, path, save_updater: bool = True) -> None:

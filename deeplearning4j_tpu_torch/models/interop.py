@@ -23,15 +23,16 @@ import torch
 
 from deeplearning4j_tpu_torch.backend.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
+from deeplearning4j_tpu_torch.observability import introspection, numerics
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.optimize import updaters as upd
 
-# updater-state subtrees of the reference's training engines (stability
-# guard, introspection, numerics ledger); the stability guard's is carried
-# across, the other two are read and ignored until their engines are
-# ported
-RESERVED_STATE_KEYS = ("__stability__", "__introspect__", "__numerics__")
+# of the updater state's reserved subtrees (``updaters.RESERVED_KEYS``)
+# the stability guard's is carried across, and the introspection and
+# numerics vectors where the configuration sets their policy
 STABILITY_KEY = "__stability__"
+_OBSERVED = {introspection.STATE_KEY: "introspection",
+             numerics.STATE_KEY: "numerics"}
 
 
 def _convert(want: Mapping[str, Any], got: Mapping[str, Any], path: str,
@@ -64,10 +65,11 @@ def updater_state_from_numpy(net, tree: Mapping[str, Any]) -> dict:
     float32 tensors on ``net.device``, checked against ``net``'s updater
     and trainable params.  The stability guard's scalars
     (``__stability__``: loss scale, growth streak, LR multiplier,
-    non-finite count) come across as float32 scalars; the other
-    reserved subtrees are skipped."""
+    non-finite count) come across as float32 scalars; the introspection
+    and numerics vectors (``packed``) where the net's configuration sets
+    that policy, else they are skipped."""
     slots = upd.state_slots(net.conf.updater)
-    got = {k: v for k, v in tree.items() if k not in RESERVED_STATE_KEYS}
+    got = upd.inner_state(tree)
     if set(got) != set(slots):
         raise ValueError(f"updater '{net.conf.updater.name}' keeps state "
                          f"{sorted(slots)}, got {sorted(got)}")
@@ -80,6 +82,13 @@ def updater_state_from_numpy(net, tree: Mapping[str, Any]) -> dict:
             k: torch.tensor(np.asarray(v), dtype=torch.float32,
                             device=net.device).reshape(())
             for k, v in stab.items()}
+    for key, policy in _OBSERVED.items():
+        sub = tree.get(key)
+        if (isinstance(sub, Mapping) and "packed" in sub
+                and getattr(net.conf, policy, None) is not None):
+            out[key] = {"packed": torch.tensor(
+                np.asarray(sub["packed"]), dtype=torch.float32,
+                device=net.device)}
     return out
 
 

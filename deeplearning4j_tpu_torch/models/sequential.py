@@ -29,10 +29,14 @@ reference's mixed-precision policy.
 (``common.fit_loop``), and under ``conf.stability`` every step is
 guarded inside its captured graph (``resilience/stability.py``).
 
-Not ported yet (later slices): the full-batch solvers, fit telemetry,
-and the introspection and numerics engines; ``pretrain``,
-``set_listeners``, ``add_listener`` and ``evaluate`` raise
-``NotImplementedError`` naming their ROADMAP item.
+``fit`` records its telemetry (``observability/fitmetrics.py``) and
+notifies the listeners (``set_listeners``, ``add_listener``) after each
+step; ``evaluate`` runs an iterator through ``output``.  Under
+``conf.introspection`` and ``conf.numerics`` the step collects its
+statistics inside the captured graph (``common.StepWatch``).
+
+Not ported yet (later slices): the full-batch solvers; ``pretrain``
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -96,6 +100,7 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         self._step_graphs = None
         self._capture = True
         self._stab_rt = None          # the stability sentinel, once fit
+        self.listeners = []           # notified after every fit step
 
     def init(self, device: DeviceLike = None,
              dtype=torch.float32) -> "MultiLayerNetwork":
@@ -188,18 +193,23 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
 
     # ----------------------------------------------------------------- score
     def _loss_fn(self, params, x, y, rng=None, fmask=None, lmask=None, *,
-                 train=True, net_state=None, carries=None):
+                 train=True, net_state=None, carries=None, collect=None):
         """(data loss (float32 under a compute dtype) + regularization,
         the new layer state); with ``carries`` (a TBPTT window's
         {layer: (h, c)}) the forward starts from them, and the new
-        carries come third."""
+        carries come third.  With a list as ``collect``, each layer's
+        (name, activation) is appended to it (the introspection and
+        numerics policies' activations)."""
         out_layer = self.layers[-1]
         if not isinstance(out_layer, OutputLayer):
             raise ValueError(
                 "Last layer must be an OutputLayer/RnnOutputLayer for fit()")
+        acts = [] if collect is not None else None
         pre, new_carries, new_state = self._forward(
             params, x, train=train, rng=rng, fmask=fmask, carries=carries,
-            net_state=net_state)
+            net_state=net_state, collect=acts)
+        if collect is not None:
+            collect.extend(zip((l.name for l in self.layers), acts))
         if self.conf.compute_dtype is not None:
             pre = pre.float()
         data = losses.score(out_layer.loss, y.to(pre.dtype), pre,
@@ -232,12 +242,13 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         return float(loss)
 
     # ------------------------------------------------------------ train step
-    def _train_body(self, x, y, fmask, lmask, key, scalars, carries=None):
+    def _train_body(self, x, y, fmask, lmask, key, scalars, carries=None,
+                    numerics_now=None):
         """The step's device body (``common.sgd_step``); a TBPTT window
         (``carries``) returns (loss, its carries, now the new ones)."""
-        loss = sgd_step(self, lambda params: self._loss_fn(
-            params, x, y, key, fmask, lmask, train=True, carries=carries),
-            scalars, carries)
+        loss = sgd_step(self, lambda params, collect=None: self._loss_fn(
+            params, x, y, key, fmask, lmask, train=True, carries=carries,
+            collect=collect), scalars, carries, numerics_now)
         return loss if carries is None else (loss, carries)
 
     def _step(self, inputs):
@@ -371,22 +382,34 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
                            self._step)
         return self
 
+    # ------------------------------------------------ listeners, evaluate
+    def set_listeners(self, *listeners) -> None:
+        """The iteration listeners ``fit`` and ``fit_scanned`` notify after
+        each step (window) on the host (``optimize/listeners.py``,
+        ``ui/stats.py``)."""
+        self.listeners = list(listeners)
+
+    def add_listener(self, listener) -> None:
+        self.listeners.append(listener)
+
+    def evaluate(self, iterator, evaluation=None):
+        """Run the iterator through ``output`` (a captured graph's replay
+        on the card) and accumulate classification metrics (reference
+        ``MultiLayerNetwork.evaluate(DataSetIterator)``); each batch's
+        output is copied to the host once."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+
+        ev = evaluation or Evaluation()
+        for ds in iterator:
+            out = self.output(ds.features, fmask=ds.features_mask)
+            ev.eval(ds.labels, out.detach().cpu().numpy(),
+                    mask=ds.labels_mask)
+        return ev
+
     # --------------------------------------------------------- not ported
     def pretrain(self, *args, **kwargs):
         not_ported("MultiLayerNetwork", "pretrain",
                    "AutoEncoder/RBM, ROADMAP A7")
-
-    def set_listeners(self, *listeners):
-        not_ported("MultiLayerNetwork", "set_listeners",
-                   "listeners, ROADMAP A8")
-
-    def add_listener(self, listener):
-        not_ported("MultiLayerNetwork", "add_listener",
-                   "listeners, ROADMAP A8")
-
-    def evaluate(self, *args, **kwargs):
-        not_ported("MultiLayerNetwork", "evaluate",
-                   "evaluation/, ROADMAP A8")
 
     # ----------------------------------------------------------- checkpoints
     def save(self, path, save_updater: bool = True) -> None:

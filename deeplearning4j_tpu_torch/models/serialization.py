@@ -8,8 +8,8 @@ there is any) and ``updaterState.npz`` (the updater's trees,
 ``"slot/layer/sub/name"``).  Reading goes through ``models.interop``, so
 a zip the JAX package wrote loads and resumes training here, and a zip
 written here loads there.  The reader carries the stability guard's
-updater subtree across and ignores the reference's other reserved ones
-(introspection, numerics).
+updater subtree across, and the introspection and numerics vectors where
+the configuration sets their policy.
 ``load_model`` dispatches on the manifest's ``model_type``.
 """
 

@@ -198,15 +198,26 @@ def transformer_char_lm(vocab_size: int = 77, d_model: int = 128,
                         n_kv_heads: Optional[int] = None,
                         window: Optional[int] = None,
                         max_cache: int = 1024,
+                        stability=None, introspection=None, numerics=None,
                         device: DeviceLike = None) -> MultiLayerNetwork:
     """Causal transformer char-LM: embedding, ``layers`` pre-norm blocks
     of (LayerNorm -> self-attention) and (LayerNorm -> Dense relu ->
     Dense), final LayerNorm and a per-timestep softmax head — the same
     config (and JSON) the reference builds, with seeded weights on
     ``device``.  ``remat=True`` recomputes each block in the backward
-    pass."""
-    b = (NeuralNetConfiguration.builder().seed(seed)
-         .updater(updater, learning_rate=lr).list())
+    pass.  ``stability``, ``introspection`` and ``numerics`` set the
+    training policies (``True``, a policy or its keyword dict), as the
+    reference's arguments do (``zoo.py:345-382``)."""
+    nb = (NeuralNetConfiguration.builder().seed(seed)
+          .updater(updater, learning_rate=lr))
+    for set_policy, policy in ((nb.training_stability, stability),
+                               (nb.training_introspection, introspection),
+                               (nb.training_numerics, numerics)):
+        if isinstance(policy, dict):
+            set_policy(**policy)
+        elif policy is not None:
+            set_policy(policy)
+    b = nb.list()
     if compute_dtype:
         b.compute_dtype(compute_dtype)
     # collapse_column off: ids are [B, T] sequences; a length-1 prompt

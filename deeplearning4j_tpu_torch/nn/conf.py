@@ -9,8 +9,9 @@ are carried in a config as plain dicts, so a reference config keeps them
 through a round trip; the builder makes them from the policy dataclasses
 (``TrainingStability``, ``TrainingIntrospection``, ``TrainingNumerics``,
 copied from the reference with their checks).  The stability guard reads
-its policy (``resilience/stability.py``); the introspection and numerics
-engines come with ROADMAP A9.  With ``set_input_type`` the list builder
+its policy (``resilience/stability.py``), and so do the introspection
+and numerics engines (``observability/introspection.py``,
+``observability/numerics.py``).  With ``set_input_type`` the list builder
 infers each layer's input size and inserts the input preprocessors
 (``nn/preprocessors.py``) between layers, as the reference's
 ``ListBuilder.build`` does.  Every builder call makes the JSON the

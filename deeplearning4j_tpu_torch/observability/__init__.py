@@ -2,9 +2,12 @@
 metrics registry, span tracing, recompile (capture) detection,
 device-memory gauges, phase timers, the serving and decode metric
 bundles, the decode SLO tracker, the flight recorder, and the health
-rules with the cluster aggregation.  The reference's profiling,
-sharding, fit-telemetry, introspection and numerics modules, and the
-fleet's publisher and aggregator, come with ROADMAP A9, A10 and A11.
+rules with the cluster aggregation, the fit telemetry, the in-step
+introspection and numerics engines (``introspection``, ``numerics``:
+their host halves, and the monitors) and the float64 kernel-trust
+sweep (``kerneldiff``).  The reference's profiling, regression and
+sharding modules, and the fleet's publisher and aggregator, come with
+ROADMAP A9, A10 and A11.
 """
 
 from deeplearning4j_tpu_torch.observability.metrics import (
@@ -35,6 +38,16 @@ from deeplearning4j_tpu_torch.observability.flightrecorder import (
     dump_flight_report, get_flight_recorder, get_watchdog,
     read_flight_report, set_flight_recorder, step_guard,
 )
+from deeplearning4j_tpu_torch.observability.fitmetrics import (
+    FitTelemetry, fit_telemetry,
+)
+from deeplearning4j_tpu_torch.observability import (  # noqa: E402
+    introspection, kerneldiff, numerics,
+)
+from deeplearning4j_tpu_torch.observability.introspection import (
+    AnomalyMonitor,
+)
+from deeplearning4j_tpu_torch.observability.numerics import NumericsMonitor
 
 __all__ = [
     "DEFAULT_BUCKETS", "Counter", "Gauge", "Histogram", "MetricFamily",
@@ -49,4 +62,6 @@ __all__ = [
     "FlightEvent", "FlightRecorder", "StepWatchdog", "crash_dump",
     "dump_flight_report", "get_flight_recorder", "get_watchdog",
     "read_flight_report", "set_flight_recorder", "step_guard",
+    "FitTelemetry", "fit_telemetry", "introspection", "kerneldiff",
+    "numerics", "AnomalyMonitor", "NumericsMonitor",
 ]

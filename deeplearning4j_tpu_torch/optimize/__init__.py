@@ -1,1 +1,1 @@
-"""Optimizers (the updaters so far)."""
+"""Optimizers: the updaters, and the iteration listeners (``listeners.py``)."""

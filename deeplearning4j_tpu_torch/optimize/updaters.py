@@ -150,6 +150,18 @@ def state_slots(cfg: UpdaterConfig):
     raise ValueError(f"Unknown updater '{cfg.name}'")
 
 
+# updater-state subtrees that no updater owns: the stability guard's
+# scalars (``resilience.stability``) and the introspection and numerics
+# vectors (``observability.introspection``, ``observability.numerics``)
+RESERVED_KEYS = ("__stability__", "__introspect__", "__numerics__")
+
+
+def inner_state(state):
+    """The updater state without its reserved subtrees: what ``update``
+    understands."""
+    return {k: v for k, v in state.items() if k not in RESERVED_KEYS}
+
+
 def init_state(cfg: UpdaterConfig, params):
     """Per-leaf optimizer state (reference updater stateViewArray)."""
     return {slot: _zeros_like(params) for slot in state_slots(cfg)}

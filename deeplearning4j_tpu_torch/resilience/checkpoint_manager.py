@@ -105,12 +105,15 @@ class CheckpointError(RuntimeError):
 
 
 class _Job:
-    __slots__ = ("step", "snapshot", "trigger", "done", "error", "bytes")
+    __slots__ = ("step", "snapshot", "trigger", "replace", "done", "error",
+                 "bytes")
 
-    def __init__(self, step: int, snapshot: Dict[str, Any], trigger: str):
+    def __init__(self, step: int, snapshot: Dict[str, Any], trigger: str,
+                 replace: bool = False):
         self.step = step
         self.snapshot = snapshot
         self.trigger = trigger
+        self.replace = replace
         self.done = threading.Event()
         self.error: Optional[BaseException] = None
         self.bytes = 0
@@ -329,9 +332,14 @@ class CheckpointManager:
 
     # ----------------------------------------------------------------- save
     def save(self, net, *, trigger: str = "explicit",
-             block: Optional[bool] = None, trees=None) -> _Job:
+             block: Optional[bool] = None, trees=None,
+             replace: bool = False) -> _Job:
         """Snapshot now (device->host on this thread), commit async (or
-        inline when ``async_save=False`` / ``block=True`` waits)."""
+        inline when ``async_save=False`` / ``block=True`` waits).  A step
+        already committed is kept as it is (the same step of one run holds
+        the same state) unless ``replace``: a state written back over the
+        run's (the online pipeline's revert of a rejected window) then
+        takes the step's place."""
         if self._closed:
             raise CheckpointError("CheckpointManager is closed")
         try:
@@ -343,7 +351,7 @@ class CheckpointManager:
                 "write = staging/commit on the writer)",
                 labels=("stage",)).inc(stage="snapshot")
             raise
-        job = _Job(snapshot["iteration"], snapshot, trigger)
+        job = _Job(snapshot["iteration"], snapshot, trigger, replace)
         with self._lock:
             self._last_mark_step = job.step
             self._last_mark_time = time.monotonic()
@@ -469,7 +477,7 @@ class CheckpointManager:
     def _commit(self, job: _Job) -> int:
         final = self._step_dir(job.step)
         if os.path.isdir(final):
-            if self._valid(final):
+            if self._valid(final) and not job.replace:
                 return 0    # an identical step is already committed
             shutil.rmtree(final)
         tmp = final + ".tmp"

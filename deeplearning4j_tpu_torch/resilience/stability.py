@@ -49,6 +49,7 @@ from typing import Dict, Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf import TrainingStability
+from deeplearning4j_tpu_torch.optimize import updaters as upd
 
 STATE_KEY = "__stability__"
 
@@ -94,8 +95,7 @@ def ensure_state(net) -> None:
 def split_state(upd_state):
     """(stability subtree, the rest of the updater state): the rest is
     what ``updaters.update`` understands."""
-    return (upd_state[STATE_KEY],
-            {k: v for k, v in upd_state.items() if k != STATE_KEY})
+    return upd_state[STATE_KEY], upd.inner_state(upd_state)
 
 
 def _leaves(tree):

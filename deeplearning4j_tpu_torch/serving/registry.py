@@ -24,6 +24,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from deeplearning4j_tpu_torch.backend.device import capture_lock
+from deeplearning4j_tpu_torch.models import capture as cap
 from deeplearning4j_tpu_torch.observability.recompile import RecompileDetector
 from deeplearning4j_tpu_torch.serving.admission import ModelNotFoundError
 
@@ -215,8 +216,10 @@ class ModelRegistry:
             mv.state = RETIRED
             model, mv.model = mv.model, None
         with capture_lock:
-            # the last reference may hold captured graphs: freed here,
-            # never in the middle of another thread's capture
+            # the version's captured graphs are freed here, never in the
+            # middle of another thread's capture (and not left to the
+            # cyclic collector: a program's body refers to its net)
+            cap.release(model)
             del model
         return True
 

@@ -1907,3 +1907,61 @@ def test_inference_server_sse_ids_equal_engine_generate(cuda):
         server.stop()
         eng.stop()
         gen.stop()
+
+
+# ------------------------------------------ introspection, numerics, kerneldiff
+def _with_policies(net, **policies):
+    import dataclasses
+
+    net.conf = dataclasses.replace(net.conf, **policies)
+    return net
+
+
+@pytest.mark.parametrize("name", ["transformer", "conv"])
+@pytest.mark.parametrize("policies", [
+    {"introspection": {}},
+    {"introspection": {}, "numerics": {"interval": 2}}])
+def test_captured_introspection_step_equals_eager(name, policies, cuda):
+    """With introspection (and the interval-gated ledger) on, the
+    captured step equals the eager one bit for bit — params, updater
+    state and the statistics vectors — and equals the same net without
+    the policies in its parameters; after the warm-up of each program
+    (one, or two with the ledger's skip) nothing is captured."""
+    plain = _capture_net(name)
+    a = _with_policies(plain.clone(), **policies)
+    a._keys._gen.set_state(plain._keys._gen.get_state())
+    b = _eager_twin(a)
+    data = _capture_batches(name, 6)
+    for x, y in data:
+        a.fit(x, y)
+        b.fit(x, y)
+        plain.fit(x, y)
+    # bit for bit, NaN included (the ledger's loss-scale slot is NaN
+    # without the guard)
+    for x, y in zip(_all_state(a), _all_state(b), strict=True):
+        assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32
+                           else x, y.view(torch.int32)
+                           if y.dtype == torch.float32 else y)
+    for x, y in zip(tree_leaves(a.params), tree_leaves(plain.params)):
+        assert torch.equal(x, y)
+    want = 2 if "numerics" in policies else 1
+    assert a._step_graphs.captures == want
+    from deeplearning4j_tpu_torch.observability import introspection
+
+    h = introspection.harvest_model(a)
+    assert h["iteration"] == 5
+    assert all(np.isfinite(e["norm"]) for e in h["gradient_stats"].values())
+
+
+def test_kerneldiff_sweep_on_the_card(cuda):
+    """Every kernel of the registry on the card against the float64
+    references over the reference's full grid: within the dtype budgets
+    (a kernel's error propagates and fails the test)."""
+    from deeplearning4j_tpu_torch.observability import kerneldiff
+
+    report = kerneldiff.run_sweep(full=True, device="cuda")
+    assert report["summary"]["untrusted"] == [], \
+        kerneldiff.format_report(report)
+    for k in report["kernels"].values():
+        assert all(c["status"] in ("pass", "tolerance_only")
+                   for c in k["configs"])

@@ -377,16 +377,27 @@ def test_fit_scanned_trains_the_tiny_resnet_like_fit():
 
 
 def test_unported_parts_raise():
+    """``pretrain`` still raises naming ROADMAP A7; ``evaluate``,
+    ``set_listeners`` and the introspection policy, which raised until
+    the online slice, now run on the ResNet graph."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.observability import introspection
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener,
+    )
+
     net = zoo.resnet50(device="cpu", **TINY)
-    for call in (lambda: net.pretrain([]), lambda: net.evaluate(None),
-                 lambda: net.set_listeners()):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-    # the stability guard is ported (ROADMAP A9); introspection is not
-    net.conf = dataclasses.replace(net.conf, introspection={"on": True})
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        net.pretrain([])
+    net.conf = dataclasses.replace(net.conf, introspection={})
+    scores = CollectScoresIterationListener()
+    net.set_listeners(scores)
     x, y = _batch(5)
-    with pytest.raises(NotImplementedError, match="introspection"):
-        net.fit(x, y)
+    net.fit(x, y)
+    assert [i for i, _ in scores.scores] == [1]
+    assert introspection.harvest_model(net)["iteration"] == 0
+    ev = net.evaluate([DataSet(x, y)])
+    assert ev.confusion.matrix.sum() == len(x)
 
 
 def test_resnet50_needs_a_card_unless_asked_for_the_cpu():

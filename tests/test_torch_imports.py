@@ -60,3 +60,23 @@ def test_importing_every_module_loads_no_jax(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.strip()) > 20
+
+
+def test_every_module_of_the_online_and_observability_slice_is_walked():
+    """The modules of the online-learning slice are among those the
+    poisoned-jax import above loads (a package without ``__init__``
+    would be skipped by ``walk_packages``)."""
+    import pkgutil
+
+    import deeplearning4j_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    new = ["datasets.iterator", "evaluation", "evaluation.evaluation",
+           "evaluation.regression", "observability.fitmetrics",
+           "observability.introspection", "observability.numerics",
+           "observability.kerneldiff", "optimize.listeners", "ui",
+           "ui.stats", "ui.storage", "online", "online.consumer",
+           "online.promotion", "online.pipeline"]
+    assert sorted(f"deeplearning4j_tpu_torch.{n}" for n in new
+                  if f"deeplearning4j_tpu_torch.{n}" not in walked) == []

@@ -185,23 +185,52 @@ def test_fit_scanned_equals_fit_on_the_committed_zips(name):
     np.testing.assert_allclose(b.score_value, a.score_value, rtol=1e-6)
 
 
+def _surface_call(net, jnet, name, method):
+    """``method`` on the port's facade; the A8 methods (ported with the
+    online slice) against the JAX facade's."""
+    from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener,
+    )
+
+    if method in ("set_listeners", "add_listener"):
+        lst = CollectScoresIterationListener()
+        getattr(net, method)(lst)
+        assert net.listeners == [lst]
+        return
+    x = _input(name)
+    c = np.asarray(jnet.output(x)).shape[-1]
+    y = np.eye(c, dtype=np.float32)[np.arange(4) % c]
+    ev, jev = net.evaluate([DataSet(x, y)]), jnet.evaluate([JDataSet(x, y)])
+    np.testing.assert_array_equal(ev.confusion.matrix, jev.confusion.matrix)
+
+
 @pytest.mark.parametrize("method, item", [
     ("pretrain", "A7"), ("set_listeners", "A8"), ("add_listener", "A8"),
     ("evaluate", "A8")])
 def test_unported_sequential_methods_name_their_item(method, item):
+    """``pretrain`` still raises naming its item; the A8 methods are
+    ported (the online slice) and agree with the JAX facade."""
     net = _port("mlp")
-    with pytest.raises(NotImplementedError,
-                       match=f"MultiLayerNetwork.{method} .*ROADMAP {item}"):
-        getattr(net, method)(None)
+    if item != "A8":
+        with pytest.raises(NotImplementedError, match=(
+                f"MultiLayerNetwork.{method} .*ROADMAP {item}")):
+            getattr(net, method)(None)
+        return
+    _surface_call(net, _jax("mlp"), "mlp", method)
 
 
 @pytest.mark.parametrize("method, item", [
     ("pretrain", "A7"), ("set_listeners", "A8"), ("evaluate", "A8")])
 def test_unported_graph_methods_name_their_item(method, item):
     net = _port("graph")
-    with pytest.raises(NotImplementedError,
-                       match=f"ComputationGraph.{method} .*ROADMAP {item}"):
-        getattr(net, method)(None)
+    if item != "A8":
+        with pytest.raises(NotImplementedError, match=(
+                f"ComputationGraph.{method} .*ROADMAP {item}")):
+            getattr(net, method)(None)
+        return
+    _surface_call(net, _jax("graph"), "graph", method)
 
 
 def test_rnn_time_step_streams_the_committed_transformer():
@@ -323,10 +352,10 @@ def test_builder_refusals_match_jax(call):
                                        ("solver", "A8")])
 def test_configs_of_unported_engines_build_and_fit_raises(what, item):
     """A config that sets a training policy or a full-batch solver
-    builds (the JSON of the JAX builder, above); its ``fit`` raises
-    naming the ROADMAP item that ports the engine.  The stability
-    guard's engine is ported (A9): that config's ``fit`` runs the
-    guarded step and leaves the guard's state on the net."""
+    builds (the JSON of the JAX builder, above); the solver's ``fit``
+    raises naming the ROADMAP item that ports it.  The stability guard's
+    and the numerics ledger's engines are ported (A9): those configs'
+    ``fit`` runs and leaves the engine's state on the net."""
     from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.layers import OutputLayer
@@ -344,6 +373,11 @@ def test_configs_of_unported_engines_build_and_fit_raises(what, item):
         net.fit(np.zeros((2, 3), np.float32), np.eye(2, dtype=np.float32))
         assert float(net.updater_state["__stability__"]["loss_scale"]) \
             == 2.0 ** 15
+        return
+    if what == "numerics":
+        # ported with the online slice (A9): the ledger collects
+        net.fit(np.zeros((2, 3), np.float32), np.eye(2, dtype=np.float32))
+        assert float(net.updater_state["__numerics__"]["packed"][0]) == 0.0
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         net.fit(np.zeros((2, 3), np.float32),

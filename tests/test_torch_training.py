@@ -328,21 +328,28 @@ def test_reserved_updater_subtrees_are_ignored(tmp_path):
             zf.writestr(n, data)
     back = serialization.restore_multi_layer_network(tmp_path / "r.zip",
                                                      device="cpu")
-    # the stability guard's subtree is carried across (its engine is
-    # ported); the introspection engine's is still ignored
+    # the stability guard's subtree is carried across; the introspection
+    # subtree is ignored (this net's configuration sets no such policy)
     assert set(back.updater_state) == {"m", "v", "__stability__"}
     assert float(back.updater_state["__stability__"]["loss_scale"]) == 4.0
 
 
 def test_unported_training_engines_raise():
+    """The three training engines that raised until they were ported
+    (ROADMAP A9) now train the JAX zip's net: the stability guard, and
+    since the online slice introspection and the numerics ledger, each
+    leaving its state subtree on the net; an unknown policy key still
+    raises, as the reference's policy dataclass does."""
     net = _port_of(_small_lm())
     x, y = _batch(2)
-    for field in ("introspection", "numerics"):
+    for field, key in (("introspection", "__introspect__"),
+                       ("numerics", "__numerics__")):
         net.conf = dataclasses.replace(net.conf, **{field: {"on": True}})
-        with pytest.raises(NotImplementedError, match=field):
+        with pytest.raises(TypeError, match="on"):
             net.fit(x, y)
-        net.conf = dataclasses.replace(net.conf, **{field: None})
-    # the stability guard is ported (ROADMAP A9): its policy trains
+        net.conf = dataclasses.replace(net.conf, **{field: {}})
+        net.fit(x, y)
+        assert key in net.updater_state
     net.conf = dataclasses.replace(net.conf, stability={})
     net.fit(x, y)
     assert "__stability__" in net.updater_state
