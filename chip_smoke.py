@@ -289,7 +289,50 @@ Phases (any failure exits non-zero; nothing is caught):
    Prints max-abs, max-rel, the ULP spread and the class for each kernel
    and dtype; each forward kernel's path max-rel joins its entry on the
    kernels line as ``f64_max_rel``.
-17. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+17. The fleet (``fleet/``): a broker, a ``FleetAggregator`` over its
+   URL, and a ``ReplicaSupervisor`` spawning two replicas of the serving
+   char-LM (``python -m deeplearning4j_tpu_torch.fleet.replica_main``:
+   the same seed, so the same weights; each its own process, CUDA
+   context, pools and graphs on the one card) behind a ``FleetRouter``
+   and its HTTP ``FleetFrontend``; four clients send ``/generate``,
+   streamed and unary, 4 in 10 on one shared 16-token page (the
+   router's affinity unit).  A session pinned on one replica keeps its
+   requests there; drill A SIGKILLs that replica while a burst of the
+   session's streams is on it (queued ones fail over to the survivor,
+   those in flight end in a terminal SSE error event, the session is
+   pinned again on the survivor); drill B SIGKILLs a replica in the
+   middle of a 256-token stream.  The supervisor restarts each, which
+   rejoins under a fresh publisher epoch; the aggregator's ``/fleet``
+   names both live.  Every completed request's ids equal a single
+   in-process engine's for its prompt; every failed one is a killed
+   stream whose tokens are a prefix of those ids.  Then a
+   ``FleetRollout`` over two in-process engines under load: a candidate
+   promoted (canary, wave, commit), a forced watch regression rolled
+   back on both (the rolled-back version's graphs released), each
+   engine then serving the promoted weights' ids.  Prints spawn and
+   warm-up seconds, failover latency (kill to a retried request's first
+   token), the restart's time and the survivor's longest token gap
+   meanwhile, TTFT p50/p99 through the frontend against the single
+   engine's, fleet tokens/s (two replicas time-sharing one card: not a
+   scaling number) and ``nvidia-smi``'s per-process memory.
+18. The step profiler: ``StepProfiler(capture_step=3)`` over the bf16
+   char-LM's captured ``fit`` (batch 8 x 2048) and ResNet-50's (batch
+   128), each beside an unprofiled twin: one capture named in the
+   flight recorder with a ``torch.profiler`` Chrome trace naming the
+   flash (BatchNorm) kernels and the ``fit_step`` host span, flops > 0
+   and an unclamped MFU in (0, 1] over the CUDA-event span of the step,
+   one compile of the train step, parameters bit for bit the twin's; the
+   char-LM's counted flops within 15 % of the hand count (6 x matmul
+   parameters x tokens + causal attention).  A fatal fault injected
+   into the captured ``fit`` leaves a flight report whose memory
+   attribution adds up to the parameters plus the updater state within
+   1 %, with the card's peak allocation.  kerneldiff's sweep written
+   with ``--out`` and compared with ``--baseline``: exit 0, and 1
+   against a baseline doctored to tighten one kernel's max-rel.  Prints
+   each model's MFU beside the hand count's, the step median with the
+   profiler installed and idle against without, the capture step's
+   time and the traces' size.
+19. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -540,19 +583,10 @@ def bound_ms(q, pk, block, qpos, ps=PS):
     """Least time: the live K/V the call must read (keys up to each row's
     highest position), q, positions and block table read once, the output
     written once — or the 4*D flops per (query, key) pair at the peak rate
-    of the input type — whichever is larger."""
-    esz = q.element_size()
-    b, t, hq, d = q.shape
-    hkv = pk.shape[1]
-    cap = block.shape[1] * ps
-    keys = torch.clamp(qpos.max(dim=1).values + 1, max=cap)
-    nbytes = (int(keys.sum()) * hkv * d * esz * 2 + 2 * q.numel() * esz
-              + (block.numel() + qpos.numel()) * 4)
-    pairs = int(torch.clamp(qpos + 1, max=cap).sum()) * hq
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = pairs * 4 * d / PEAK_OPS[q.dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    of the input type — whichever is larger (the wrapper's own count,
+    ``pa.work``)."""
+    ops, nbytes = pa.work(q, pk, block, qpos, ps)
+    return _bound(nbytes, ops, q.dtype)
 
 
 def time_ms(fn, flush, iters=30, warm=3):
@@ -1323,15 +1357,6 @@ def _bound(nbytes, ops, dtype, peak=None):
                                        else "operations")
 
 
-def _live_pairs(t, causal, window):
-    """(query, key) pairs inside the mask of one (b, h)."""
-    if not causal:
-        return t * t
-    q = np.arange(t)
-    seen = q + 1 if window is None else np.minimum(q + 1, window)
-    return int(seen.sum())
-
-
 def _sdpa_mask(t, causal, window):
     if not causal or window is None:
         return None
@@ -1423,15 +1448,10 @@ def flash_case(name, seed, shape, dtype, causal, window, flush, name_card):
         print(f"flash[{name}] SDPA bwd kernels: {names}")
     del out, qs, ks, vs
 
-    esz = q.element_size()
-    pairs = _live_pairs(t, causal, window) * b * h
-    tensor_bytes = q.numel() * esz
-    row_bytes = b * h * t * 4                         # lse or delta, f32
-    # q, k, v, dO and O read, dq written; lse read, delta written
-    work = {"fwd": (4 * tensor_bytes + row_bytes, 4 * d * pairs),
-            "dq": (6 * tensor_bytes + 2 * row_bytes,
-                   6 * d * pairs + 2 * d * b * h * t),
-            "dkv": (6 * tensor_bytes + 2 * row_bytes, 8 * d * pairs)}
+    # (bytes, operations) of each kernel: the wrapper's own count (q, k,
+    # v, dO and O read, dq written; lse read, delta written)
+    work = {kn: (nbytes, ops)
+            for kn, (ops, nbytes) in fa.work(q, causal, window).items()}
     # at the rate of the route's products: 3xTF32 on tf32x3
     bounds = {kn: _bound(*work[kn], dtype,
                          TF32X3_OPS if paths[kn] == "tf32x3" else None)
@@ -1495,10 +1515,7 @@ def prologue_case(name, seed, rows, c, dtype, has_res, has_mask, flush,
                        iters=KERNEL_ITERS)
     lib_ms = time_ms(lambda: F.layer_norm(h, (c,), gamma, beta, 1e-5),
                      flush)
-    esz = h.element_size()
-    nbytes = (2 + has_res) * h.numel() * esz + 2 * c * esz + (
-        rows * c if has_mask else 0)
-    bms, by = _bound(nbytes, 0, dtype)
+    bms, by = _bound(fe.work(h, res, gamma, mask), 0, dtype)
     print(f"prologue[{name}] [{rows}, {c}] {str(dtype)[6:]} res={has_res} "
           f"mask={has_mask}: err {err:.3e} (tol {TOL[dtype]:g}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.layer_norm {lib_ms:.4f} "
@@ -1998,12 +2015,8 @@ def bn_case(name, seed, shape, dtype, adt, flush, name_card):
     }
     del out, xl, gl, bl
 
-    esz, asz = x.element_size(), gamma.element_size()
-    bounds = {"fwd": _bound(2 * m * c * esz + 2 * c * asz + 3 * c * 4, 0,
-                            dtype),
-              "bwd": _bound(3 * m * c * esz + c * asz + 4 * c * 4, 0, dtype),
-              "inf": _bound(2 * m * c * esz + 2 * c * asz + 2 * c * 4, 0,
-                            dtype)}
+    bounds = {k: _bound(bn.work(x, gamma, k), 0, dtype)
+              for k in ("fwd", "bwd", "inf")}
     print(f"batch_norm[{name}] [{m}, {c}] {str(dtype)[6:]} (gamma, beta "
           f"{str(adt)[6:]}): err train fwd "
           f"{errs['fwd']:.3e}, train bwd {errs['bwd']:.3e}, inference "
@@ -2488,11 +2501,11 @@ def lrn_bounds(m, c, esz, n):
     float32 operations (the window's 2n+1 products and sums, the power
     and the scaling: 2(2h+1) + 6 forward, 3(2h+1) + 14 backward) at the
     float32 rate whatever x's type, whichever is larger."""
-    win = 2 * (n // 2) + 1
-    return {"fwd": _bound(2 * m * c * esz, m * c * (2 * win + 6),
-                          torch.float32),
-            "bwd": _bound(3 * m * c * esz, m * c * (3 * win + 14),
-                          torch.float32)}
+    out = {}
+    for kind in ("fwd", "bwd"):
+        ops, nbytes = lrn.work(m * c, esz, n, kind)
+        out[kind] = _bound(nbytes, ops, torch.float32)
+    return out
 
 
 def lrn_library(x, gy, shape, prm, ry, flush, iters=30):
@@ -3172,9 +3185,10 @@ def _http_json(port, method, path, body=None, timeout=600):
         conn.close()
 
 
-def _http_stream(port, body, timeout=600):
+def _http_stream(port, body, timeout=600, on_event=None):
     """POST /generate with ``stream: true``: (status, [(arrival time,
-    event)], send time), reading the SSE events as they come."""
+    event)], send time), reading the SSE events as they come;
+    ``on_event(event)`` sees each one as it arrives."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
@@ -3190,6 +3204,8 @@ def _http_stream(port, body, timeout=600):
                 break
             if line.startswith(b"data: "):
                 events.append((time.perf_counter(), json.loads(line[6:])))
+                if on_event is not None:
+                    on_event(events[-1][1])
                 if events[-1][1].get("done"):
                     break
         return resp.status, events, t0
@@ -4216,6 +4232,761 @@ def kerneldiff_phase(name_card):
     return report, path_rel
 
 
+# ---------------------------------------------------- phase 17, the fleet
+FLEET_IDS = ("f0", "f1")
+FLEET_CLIENTS = 4
+FLEET_NEW = 32              # new tokens a client request
+FLEET_BURST = 24            # session requests at the first kill: 16 slots
+FLEET_LONG = 256            # the stream killed in its middle
+# one page (16 tokens): the unit of the router's affinity; a prompt of
+# at most one page never hits a replica's prefix cache (a hit leaves a
+# token to prefill), so every request's ids are a cold engine's
+FLEET_SHARED = [(7 * i + 3) % MODEL["vocab_size"] for i in range(16)]
+FLEET_STEADY_S = 5.0        # mixed traffic before the drills
+FLEET_REJOIN_S = 600.0
+FLEET_SINGLE_REQUESTS = 32  # the single engine's TTFT yardstick
+
+
+def _fleet_prompt(rng):
+    """The shared page 4 times in 10, else 4-16 random tokens."""
+    if rng.random() < 0.4:
+        return list(FLEET_SHARED)
+    return rng.integers(0, MODEL["vocab_size"],
+                        int(rng.integers(4, 17))).tolist()
+
+
+def _fleet_request(port, prompt, n, stream, session=None, on_event=None):
+    """One ``/generate`` through the frontend: a record of its prompt,
+    tokens, error, replica, failovers and (streamed) token times."""
+    body = {"prompt": prompt, "max_tokens": n, "stream": stream}
+    if session is not None:
+        body["session_id"] = session
+    rec = {"kind": "stream" if stream else "unary", "prompt": prompt,
+           "n": n, "session": session}
+    if stream:
+        status, events, t0 = _http_stream(port, body, on_event=on_event)
+        toks = [(t, e) for t, e in events if "token" in e]
+        last = events[-1][1] if events else {}
+        rec.update(status=status, t_send=t0, tokens=[e["token"]
+                                                     for _, e in toks],
+                   times=[t for t, _ in toks],
+                   terminal=last if last.get("done") else None,
+                   error=(last.get("error") if last.get("done")
+                          else "stream ended without a terminal event"),
+                   replica=last.get("replica"),
+                   failovers=last.get("failovers"))
+    else:
+        t0 = time.perf_counter()
+        status, obj, _raw = _http_json(port, "POST", "/generate", body)
+        obj = obj or {}
+        rec.update(status=status, t_send=t0, times=[],
+                   tokens=obj.get("tokens", []) if status == 200 else [],
+                   error=None if status == 200 else obj,
+                   replica=obj.get("replica"),
+                   failovers=obj.get("failovers"))
+    rec["t_done"] = time.perf_counter()
+    return rec
+
+
+class _FleetClients:
+    """``FLEET_CLIENTS`` threads sending ``/generate`` through the
+    frontend until stopped, streamed and unary in turn — streamed only
+    while ``streams_only`` is set, across the kills: a unary request
+    cut by a kill cannot tell its client whether tokens had flowed."""
+
+    def __init__(self, port):
+        self.port = port
+        self.records = []
+        self.lock = threading.Lock()
+        self.stop = threading.Event()
+        self.streams_only = threading.Event()
+        self.unary_in_flight = 0
+        self.threads = [threading.Thread(target=self._run, args=(c,),
+                                         daemon=True)
+                        for c in range(FLEET_CLIENTS)]
+
+    def _run(self, c):
+        rng = np.random.default_rng(100 + c)
+        i = 0
+        while not self.stop.is_set():
+            with self.lock:
+                stream = self.streams_only.is_set() or i % 2 == 0
+                self.unary_in_flight += not stream
+            rec = _fleet_request(self.port, _fleet_prompt(rng), FLEET_NEW,
+                                 stream)
+            with self.lock:
+                self.records.append(rec)
+                self.unary_in_flight -= not stream
+            i += 1
+
+    def streams_from_now(self):
+        """Streamed requests only, once the unary ones in flight are
+        done."""
+        with self.lock:
+            self.streams_only.set()
+        _wait_until(lambda: self.unary_in_flight == 0,
+                    "the unary requests in flight finish", timeout=600)
+
+    def start(self):
+        for th in self.threads:
+            th.start()
+        return self
+
+    def join(self):
+        self.stop.set()
+        for th in self.threads:
+            th.join(600)
+        check(not any(th.is_alive() for th in self.threads),
+              "fleet: the client threads finished")
+
+
+def _longest_gap(records, t0, t1, replica):
+    """The longest gap between two tokens that reached a client of
+    ``replica`` overlapping [t0, t1]."""
+    worst = 0.0
+    for r in records:
+        if r["replica"] != replica:
+            continue
+        for a, b in zip(r["times"], r["times"][1:]):
+            if a < t1 and b > t0:
+                worst = max(worst, b - a)
+    return worst
+
+
+def _replica_args():
+    return {"vocab": MODEL["vocab_size"], "d_model": MODEL["d_model"],
+            "n_heads": MODEL["n_heads"], "layers": MODEL["layers"],
+            "model_seed": MODEL["seed"],
+            "compute_dtype": MODEL["compute_dtype"],
+            "slots": ENGINE["slots"], "page_size": ENGINE["page_size"],
+            "max_context": ENGINE["max_context"],
+            "prefill_buckets": ",".join(
+                str(b) for b in ENGINE["prefill_buckets"]),
+            "max_queue": 256, "interval_s": 0.25}
+
+
+def _wait_until(cond, what, timeout=FLEET_REJOIN_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return time.perf_counter()
+        time.sleep(0.05)
+    check(False, f"fleet: {what} within {timeout:.0f} s")
+
+
+def _kill_after_first_token(sup, victim, done, on_kill):
+    """An SSE callback: SIGKILL ``victim`` once, at the first token any
+    stream it is given to sees."""
+    import signal
+
+    def on_event(ev):
+        if "token" in ev and not done.is_set():
+            done.set()
+            on_kill(time.perf_counter())
+            sup.kill(victim(), sig=signal.SIGKILL, restart=True)
+    return on_event
+
+
+def fleet_phase(name_card):
+    """Two subprocess replicas of the full-width char-LM behind the
+    router and its HTTP frontend, under four clients, through two
+    SIGKILL drills and their restarts; then an in-process rollout over
+    two engines.  Returns the paged-decode and prologue launches: the
+    replicas' replays (their published counts) and the in-process
+    engines' (counted where a launch is made or recorded)."""
+    from deeplearning4j_tpu_torch.fleet import (
+        FleetFrontend, FleetRouter, ReplicaSupervisor,
+    )
+    from deeplearning4j_tpu_torch.observability import MetricsRegistry
+    from deeplearning4j_tpu_torch.observability.fleet import FleetAggregator
+    from deeplearning4j_tpu_torch.streaming import MessageBroker
+
+    # the single engine: the ids every completed request must give, and
+    # the TTFT yardstick under the same four clients
+    single = GenerationEngine(transformer_char_lm(device="cuda", **MODEL),
+                              **ENGINE, max_queue=256,
+                              prefix_cache=True).start()
+    ttft_single, lock = [], threading.Lock()
+
+    def single_client(c):
+        rng = np.random.default_rng(200 + c)
+        for _ in range(FLEET_SINGLE_REQUESTS // FLEET_CLIENTS):
+            h = single.submit(_fleet_prompt(rng), FLEET_NEW)
+            h.result(timeout=600)
+            with lock:
+                ttft_single.append(h.ttft_s)
+
+    threads = [threading.Thread(target=single_client, args=(c,))
+               for c in range(FLEET_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+
+    broker = MessageBroker()
+    burl = f"http://127.0.0.1:{broker.serve(port=0)}"
+    agg = FleetAggregator(url=burl, expire_after_s=3.0,
+                          registry=MetricsRegistry()).start()
+    agg_port = agg.serve(port=0)
+    sup = ReplicaSupervisor(broker_url=burl, warmup_timeout_s=FLEET_REJOIN_S,
+                            registry=MetricsRegistry(),
+                            replica_args=_replica_args()).start()
+    front = clients = None
+    try:
+        spawn = {}
+
+        def start(wid):
+            t0 = time.perf_counter()
+            sup.start_replica(wid)
+            spawn[wid] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=start, args=(w,))
+                   for w in FLEET_IDS]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(FLEET_REJOIN_S)
+        check(sorted(spawn) == sorted(FLEET_IDS), "fleet: both replicas "
+              "spawned and warmed")
+        print(f"fleet: replicas spawned and warm (model built, kernels "
+              f"loaded, graphs captured, /healthz 200) in "
+              + ", ".join(f"{w} {spawn[w]:.1f} s" for w in FLEET_IDS)
+              + f" [{name_card}]")
+        router = FleetRouter(aggregator=agg, page_size=ENGINE["page_size"],
+                             seed=7, refresh_interval_s=0.1,
+                             registry=MetricsRegistry())
+        for h in sup.handles(timeout=600).values():
+            router.attach(h)
+
+        def live(wid=None):
+            rows = {r["replica"]: r["live"] for r in router.replicas()}
+            return rows.get(wid, False) if wid else sum(rows.values())
+
+        _wait_until(lambda: live() == 2, "both replicas live")
+
+        def rejoined(wid, epoch):
+            """The restarted ``wid`` publishes under a new epoch, is
+            fresh, and the router places on it again."""
+            return live(wid) and any(
+                r["worker"] == wid and r["epoch"] != epoch[wid]
+                and not r["stale"] for r in agg.workers())
+        front = FleetFrontend(router)
+        port = front.start()
+        launches = {}
+
+        def bank(wid):
+            """The replica's last published replay launches, before it
+            is killed (its counts die with it)."""
+            for row in agg.workers():
+                if row["worker"] == wid:
+                    for k, n in ((row.get("state") or {}).get(
+                            "replayed_launches") or {}).items():
+                        launches[k] = launches.get(k, 0) + n
+
+        # the session: pinned on one replica, its requests stick there
+        pinned = router.pin_session("chat", FLEET_SHARED)
+        survivor = next(w for w in FLEET_IDS if w != pinned)
+        stuck = [_fleet_request(port, FLEET_SHARED, FLEET_NEW, False,
+                                session="chat") for _ in range(4)]
+        check(all(r["replica"] == pinned and r["error"] is None
+                  for r in stuck), f"fleet: the session's requests stay on "
+              f"{pinned}: {[r['replica'] for r in stuck]}")
+
+        clients = _FleetClients(port).start()
+        time.sleep(FLEET_STEADY_S)
+        t_steady = time.perf_counter()
+        with clients.lock:
+            steady = [r for r in clients.records
+                      if r["error"] is None and r["t_done"] <= t_steady]
+        first_send = min(r["t_send"] for r in steady)
+        steady_tokens = sum(len(r["tokens"]) for r in steady)
+        tps = steady_tokens / (t_steady - first_send)
+
+        # drill A: the session's replica killed while its requests queue
+        clients.streams_from_now()
+        epoch = {r["worker"]: r["epoch"] for r in agg.workers()}
+        bank(pinned)
+        killed_a, t_kill = threading.Event(), []
+        on_event = _kill_after_first_token(sup, lambda: pinned, killed_a,
+                                           t_kill.append)
+        burst = [None] * FLEET_BURST
+
+        def burst_one(i):
+            burst[i] = _fleet_request(port, FLEET_SHARED, FLEET_NEW, True,
+                                      session="chat", on_event=on_event)
+
+        threads = [threading.Thread(target=burst_one, args=(i,))
+                   for i in range(FLEET_BURST)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        check(killed_a.is_set(), "fleet: drill A killed the replica")
+        t_kill = t_kill[0]
+        after = [_fleet_request(port, FLEET_SHARED, FLEET_NEW, True,
+                                session="chat") for _ in range(4)]
+        check(all(r["replica"] == survivor and r["error"] is None
+                  for r in after) and router.session_replica("chat")
+              == survivor, "fleet: the session is pinned again on the "
+              f"survivor: {[r['replica'] for r in after]}")
+        t_rejoin = _wait_until(lambda: rejoined(pinned, epoch),
+                               f"{pinned} rejoins under a fresh epoch")
+        restart_s = t_rejoin - t_kill
+        with clients.lock:
+            during = list(clients.records) + burst + after
+        gap = _longest_gap(during, t_kill, t_rejoin, survivor)
+        failed_over = [r for r in burst if r["error"] is None
+                       and (r["failovers"] or 0) >= 1]
+        check(failed_over, "fleet: queued requests failed over")
+        fo_ms = sorted((r["times"][0] - t_kill) * 1e3 for r in failed_over)
+        print(f"fleet drill A: {pinned} SIGKILLed with {FLEET_BURST} "
+              f"session streams on it; {len(failed_over)} queued ones "
+              f"failed over to {survivor} (first token after the kill "
+              f"{fo_ms[0]:.1f} / {fo_ms[len(fo_ms) // 2]:.1f} / "
+              f"{fo_ms[-1]:.1f} ms min/median/max), "
+              f"{sum(r['error'] is not None for r in burst)} in flight ended "
+              f"with an error event; {pinned} restarted and live again "
+              f"{restart_s:.1f} s after the kill (restarts "
+              f"{sup.processes()[pinned].restarts}); the survivor's longest "
+              f"token gap meanwhile {gap * 1e3:.1f} ms [{name_card}]")
+
+        # drill B: a replica killed in the middle of a long stream
+        victim = router.pin_session("long", FLEET_SHARED[:8])
+        bank(victim)
+        epoch = {r["worker"]: r["epoch"] for r in agg.workers()}
+        killed_b, t_kill_b = threading.Event(), []
+        long_rec = _fleet_request(
+            port, FLEET_SHARED[:8], FLEET_LONG, True, session="long",
+            on_event=_kill_after_first_token(sup, lambda: victim, killed_b,
+                                             t_kill_b.append))
+        check(killed_b.is_set() and long_rec["terminal"] is not None
+              and long_rec["error"] and 0 < len(long_rec["tokens"])
+              < FLEET_LONG, f"fleet drill B: the killed stream ended in a "
+              f"terminal error event after {len(long_rec['tokens'])} tokens")
+        other = next(w for w in FLEET_IDS if w != victim)
+        t_rejoin_b = _wait_until(lambda: rejoined(victim, epoch),
+                                 f"{victim} rejoins under a fresh epoch")
+        with clients.lock:
+            during = list(clients.records)
+        gap_b = _longest_gap(during, t_kill_b[0], t_rejoin_b, other)
+        print(f"fleet drill B: {victim} SIGKILLed mid-stream after "
+              f"{len(long_rec['tokens'])} of {FLEET_LONG} tokens: terminal "
+              f"event {long_rec['terminal']['type']}; restarted and live "
+              f"{t_rejoin_b - t_kill_b[0]:.1f} s later; {other}'s longest "
+              f"token gap meanwhile {gap_b * 1e3:.1f} ms [{name_card}]")
+
+        clients.streams_only.clear()
+        time.sleep(2.0)
+        clients.join()
+        table = _http_json(agg_port, "GET", "/fleet")[1]
+        rows = {w["worker"]: w for w in table["workers"]}
+        check(sorted(rows) == sorted(FLEET_IDS)
+              and not any(w["stale"] for w in rows.values()),
+              f"fleet: /fleet names both replicas live: {table}")
+        for wid in FLEET_IDS:
+            for k, n in ((rows[wid].get("state") or {}).get(
+                    "replayed_launches") or {}).items():
+                launches[k] = launches.get(k, 0) + n
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().replace("\n", "; ")
+    finally:
+        if clients is not None:
+            clients.stop.set()
+        if front is not None:
+            front.stop()
+        sup.stop_all()
+        agg.stop()
+        broker.stop()
+
+    # every request: the single engine's ids, or a killed stream's clean
+    # terminal error after the tokens it had
+    records = clients.records + stuck + burst + after + [long_rec]
+    prompts = {(tuple(r["prompt"]), r["n"]) for r in records}
+    ref = {}
+    keys = sorted(prompts)
+    for i in range(0, len(keys), ENGINE["slots"]):
+        chunk = keys[i:i + ENGINE["slots"]]
+        hs = [single.submit(list(p), n) for p, n in chunk]
+        for key, h in zip(chunk, hs):
+            ref[key] = h.result(timeout=600)
+    single.stop()
+    bad = [r for r in records if r["error"] is None
+           and r["tokens"] != ref[(tuple(r["prompt"]), r["n"])]]
+    check(not bad, f"fleet: {len(bad)} completed requests part from the "
+          f"single engine's ids")
+    failed = [r for r in records if r["error"] is not None]
+    unclean = [r for r in failed
+               if r["kind"] != "stream" or r["terminal"] is None
+               or not r["tokens"] or r["tokens"] != ref[
+                   (tuple(r["prompt"]), r["n"])][:len(r["tokens"])]]
+    check(not unclean, f"fleet: {len(unclean)} failed requests were not "
+          f"killed streams ending in a clean terminal event: "
+          f"{[(r['kind'], len(r['tokens']), r['error']) for r in unclean]}")
+    streamed = [r for r in records if r["error"] is None and r["times"]
+                and not r["failovers"]]
+    ttft = [r["times"][0] - r["t_send"] for r in streamed]
+    print(f"fleet: {len(records)} requests ({sum(r['kind'] == 'stream' for r in records)} "
+          f"streamed), {len(failed)} killed streams ended with a terminal "
+          f"event, none queued failed, every completed one the single "
+          f"engine's ids; TTFT through the frontend p50/p99 "
+          f"{_pcts(ttft)[0]:.3f}/{_pcts(ttft)[1]:.3f} ms against the "
+          f"single engine's {_pcts(ttft_single)[0]:.3f}/"
+          f"{_pcts(ttft_single)[1]:.3f} ms; fleet {tps:.1f} tokens/s over "
+          f"{t_steady - first_send:.1f} s of mixed traffic (two replicas "
+          f"time-share one card: not a scaling number); per-process "
+          f"memory (pid, MiB): {smi} [{name_card}]")
+    rollout = fleet_rollout(name_card)
+    return {k: launches.get(k, 0) + rollout.get(k, 0)
+            for k in ("paged_decode", "prologue")}
+
+
+def fleet_rollout(name_card):
+    """``FleetRollout`` over two in-process full-width engines under
+    load: a candidate promoted (canary, wave, commit) and then a forced
+    watch regression rolled back on both; each engine's ids are the
+    promoted weights' after each.  Returns the wrapper launches (the
+    deploys' captures)."""
+    from deeplearning4j_tpu_torch.fleet import (
+        FleetRollout, FleetRouter, InProcessReplica,
+    )
+    from deeplearning4j_tpu_torch.observability import MetricsRegistry
+
+    counts = helpers.kernel_counts()
+    for c in counts.values():
+        c.reset()
+    engines = {rid: GenerationEngine(
+        transformer_char_lm(device="cuda", **MODEL), **ENGINE,
+        max_queue=256).start() for rid in ("r0", "r1")}
+    router = FleetRouter(page_size=ENGINE["page_size"], seed=3,
+                         refresh_interval_s=0.0, registry=MetricsRegistry())
+    handles = {rid: InProcessReplica(rid, e) for rid, e in engines.items()}
+    for h in handles.values():
+        router.attach(h)
+    rng = np.random.default_rng(11)
+    probes = [rng.integers(0, MODEL["vocab_size"], int(rng.integers(4, 17)))
+              .tolist() for _ in range(ENGINE["slots"])]
+
+    def ids(eng):
+        hs = [eng.submit(p, FLEET_NEW) for p in probes]
+        return [h.result(timeout=600) for h in hs]
+
+    stop, errors = threading.Event(), []
+
+    def load():
+        r = np.random.default_rng(12)
+        while not stop.is_set():
+            try:
+                router.submit(_fleet_prompt(r), FLEET_NEW).result(timeout=600)
+            except Exception as e:      # reported below
+                errors.append(e)
+                return
+
+    cand_net = transformer_char_lm(device="cuda",
+                                   **{**MODEL, "seed": SWAP_SEED})
+    fresh = GenerationEngine(cand_net, **ENGINE).start()
+    want = ids(fresh)
+    fresh.stop()
+    del fresh
+    th = threading.Thread(target=load, daemon=True)
+    th.start()
+    try:
+        t0 = time.perf_counter()
+        ro = FleetRollout(router, handles, canary_fraction=0.5,
+                          canary_min_requests=4, canary_timeout_s=300,
+                          watch_window_s=1.0, watch_poll_s=0.05,
+                          registry=router.registry)
+        res = ro.consider(cand_net, "candidate")
+        t1 = time.perf_counter()
+        bad_net = transformer_char_lm(device="cuda",
+                                      **{**MODEL, "seed": SWAP_SEED + 1})
+        ro2 = FleetRollout(router, handles, canary_fraction=0.5,
+                           canary_min_requests=4, canary_timeout_s=300,
+                           watch_window_s=1.0, watch_poll_s=0.05,
+                           registry=router.registry,
+                           watch_extra_fn=lambda rid: {
+                               "probe_ok": False,
+                               "probe_detail": "forced regression"})
+        versions = {rid: e.models.active("default").version
+                    for rid, e in engines.items()}
+        res2 = ro2.consider(bad_net, "regression")
+        t2 = time.perf_counter()
+    finally:
+        stop.set()
+        th.join(600)
+    check(not errors, f"fleet rollout: load errors {errors!r}")
+    check(res.outcome == "promoted" and sorted(res.committed) == ["r0", "r1"],
+          f"fleet rollout: the candidate is promoted ({res.as_dict()})")
+    check(res2.outcome == "rolled_back"
+          and sorted(res2.rolled_back) == ["r0", "r1"]
+          and {rid: e.models.active("default").version
+               for rid, e in engines.items()} == versions,
+          f"fleet rollout: the regression rolled back both "
+          f"({res2.as_dict()})")
+    for rid, e in engines.items():
+        check(len(e._programs) == 1, f"fleet rollout: {rid} released the "
+              f"rolled-back version's graphs ({list(e._programs)})")
+        check(ids(e) == want, f"fleet rollout: {rid} serves the promoted "
+              f"weights' ids")
+    launches = {n: c.launches for n, c in counts.items()}
+    for e in engines.values():
+        e.stop()
+    print(f"fleet rollout: promoted in {t1 - t0:.2f} s (canary "
+          f"{res.canary['requests']} requests on {res.canary['replica']}, "
+          f"waves {[w['replica'] for w in res.waves]}), the forced "
+          f"regression rolled back {res2.rolled_back} in {t2 - t1:.2f} s; "
+          f"both engines give the promoted weights' ids [{name_card}]")
+    return launches
+
+
+# ------------------------------------------------- phase 18, the profiler
+PROFILE_STEPS = 7           # fit steps a run: 2 warm-up, then 5
+PROFILE_CAPTURE = 3         # the iteration StepProfiler captures
+PROFILE_IDLE = (2, 4, 5, 6)  # the steps timed with the profiler idle
+HAND_RTOL = 0.15            # the char-LM's counted flops against its hand count
+MEM_RTOL = 0.01             # memory attribution against the nets' own bytes
+
+
+def _synced_steps(net, x, y, steps):
+    """Host seconds of ``steps`` ``fit`` calls, each ending in the loss
+    read (which waits for it)."""
+    secs = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        net.score_value
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def _profile_run(what, net, x, y, hand_flops, kernel_re, name_card):
+    """``StepProfiler(capture_step=3)`` over ``PROFILE_STEPS`` captured
+    ``fit`` steps of ``net`` on a fresh registry, beside a twin from the
+    same state without it: one capture named in the flight recorder,
+    its Chrome traces (the kernels matching ``kernel_re`` by name, the
+    ``fit_step`` host span), its flops and unclamped MFU, one compile of
+    the train step, and the twin's parameters bit for bit.  Returns the
+    counted flops and the kernel launches of the profiled run."""
+    import os
+    import tempfile
+
+    from deeplearning4j_tpu_torch.observability import (
+        MetricsRegistry, StepProfiler, get_flight_recorder, get_registry,
+        set_registry,
+    )
+
+    kind = type(net).__name__
+    other = twin(net, True)
+    old = get_registry()
+    counts = helpers.kernel_counts()
+    for c in counts.values():
+        c.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            reg = set_registry(MetricsRegistry())
+            prof = StepProfiler(tmp, capture_step=PROFILE_CAPTURE).install()
+            secs = _synced_steps(net, x, y, PROFILE_STEPS)
+            prof.uninstall()
+            launches = {n: c.launches for n, c in counts.items()}
+            set_registry(MetricsRegistry())
+            plain = _synced_steps(other, x, y, PROFILE_STEPS)
+        finally:
+            set_registry(old)
+        caps = [e.to_dict() for e in get_flight_recorder().events()
+                if e.kind == "profile_capture"
+                and e.to_dict()["path"].startswith(tmp)]
+        check(len(caps) == 1 and caps[0]["reason"] == f"step:"
+              f"{PROFILE_CAPTURE}" and caps[0]["step"] == "fit_step",
+              f"{what} profile: one capture named in the flight recorder "
+              f"({caps})")
+        with open(os.path.join(caps[0]["path"], "capture.json")) as f:
+            meta = json.load(f)
+        with open(meta["torch_trace"]) as f:
+            trace = json.load(f)
+        kernels = {e.get("name", "") for e in trace["traceEvents"]
+                   if re.search(kernel_re, e.get("name", ""))}
+        with open(os.path.join(caps[0]["path"],
+                               "host_spans.trace.json")) as f:
+            spans = {e["name"] for e in json.load(f)["traceEvents"]
+                     if e["ph"] == "X"}
+        sizes = (os.path.getsize(meta["torch_trace"]),
+                 os.path.getsize(os.path.join(caps[0]["path"],
+                                              "host_spans.trace.json")))
+    check(bool(kernels) and "fit_step" in spans,
+          f"{what} profile: the Chrome trace names the kernels "
+          f"({sorted(kernels)[:4]}) and the fit_step span")
+    mfu = meta["mfu_unclamped"]
+    check(meta["flops"] > 0 and meta["timed_on"] == "cuda_events"
+          and mfu is not None and 0.0 < mfu <= 1.0,
+          f"{what} profile: flops {meta['flops']:.4e}, unclamped MFU "
+          f"{mfu} in (0, 1], timed on the card")
+    compiles = reg.get_value("dl4j_compiles_total", fn=f"{kind}.train_step")
+    check(compiles == 1, f"{what} profile: dl4j_compiles_total"
+          f"{{fn={kind}.train_step}} {compiles} after warm-up")
+    gaps = state_gaps(net, other)
+    check(not gaps, f"{what} profile: parameters bit for bit the "
+          f"unprofiled twin's ({sorted(gaps)[:4]})")
+    idle = float(np.median([secs[i] for i in PROFILE_IDLE])) * 1e3
+    base = float(np.median([plain[i] for i in PROFILE_IDLE])) * 1e3
+    last = reg.get_value("dl4j_model_flops_utilization_unclamped",
+                         component=kind)
+    peak = meta["peak_flops"]
+    cost = net._instrumented["train_step"].detector.last_cost
+    print(f"{what} profile: counted flops a step {meta['flops']:.6e} "
+          f"(the kernels' {cost['kernel_flops']:.4e} of them) "
+          f"against the hand count {hand_flops:.6e} "
+          f"({meta['flops'] / hand_flops - 1:+.2%}); MFU (counted flops "
+          f"over the device span, {peak / 1e12:.0f} TFLOP/s): captured "
+          f"step {mfu:.4f} ({meta['seconds'] * 1e3:.3f} ms under "
+          f"torch.profiler), last step {last:.4f}; the hand count's MFU "
+          f"over the synced step median {hand_flops / (idle / 1e3) / peak:.4f}"
+          f"; step median with the profiler installed and idle "
+          f"{idle:.3f} ms against {base:.3f} ms without; the capture step "
+          f"{secs[PROFILE_CAPTURE] * 1e3:.3f} ms; traces {sizes[0]} bytes "
+          f"(torch) + {sizes[1]} bytes (host spans); kernels seen "
+          f"{sorted(kernels)[:6]} [{name_card}]")
+    return meta, launches
+
+
+def _crash_drill(net, x, y, name_card):
+    """A fatal fault injected into the captured ``fit``
+    (``resilience.faults``): its flight report's memory attribution
+    names the net, its params plus updater bytes within ``MEM_RTOL`` of
+    the tensors' own, with the card's peak allocation."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.observability import (
+        StepProfiler, StepWatchdog, read_flight_report,
+    )
+    from deeplearning4j_tpu_torch.resilience import (
+        FaultInjector, InjectedFault, RetryPolicy, inject_faults,
+    )
+
+    kind = type(net).__name__
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = StepProfiler(tmp, use_torch_profiler=False).install()
+        wd = StepWatchdog(deadline_s=600.0, report_dir=tmp).install()
+        try:
+            with inject_faults(FaultInjector().fail_at_step(
+                    net.iteration + 1, component=kind, transient=False)):
+                try:
+                    net.fit([(x, y)] * 3,
+                            retry_policy=RetryPolicy(max_retries=0))
+                    check(False, f"{kind} crash drill: the fault fired")
+                except InjectedFault:
+                    pass
+            recs = read_flight_report(wd.dumps[-1])
+        finally:
+            wd.uninstall()
+            prof.uninstall()
+    mem = [r for r in recs if r["record"] == "memory_attribution"]
+    check(len(mem) == 1 and kind in mem[0].get("models", {}),
+          f"{kind} crash drill: the report attributes memory to the net")
+    br = mem[0]["models"][kind]
+    own = (sum(t.nbytes for t in tree_leaves(net.params))
+           + sum(t.nbytes for t in tree_leaves(net.updater_state)))
+    got = br["params_bytes"] + br["updater_state_bytes"]
+    peak = mem[0]["peak"]
+    check(abs(got - own) <= MEM_RTOL * own and peak["source"] == "torch.cuda"
+          and peak["peak_bytes"] > 0,
+          f"{kind} crash drill: attributed {got} bytes against {own}, "
+          f"peak {peak}")
+    print(f"{kind} crash drill: the flight report's memory attribution "
+          f"{got} bytes (params {br['params_bytes']}, updater "
+          f"{br['updater_state_bytes']}) against the tensors' {own}; live "
+          f"CUDA tensors {mem[0]['live_buffers']['total_bytes']} bytes in "
+          f"{mem[0]['live_buffers']['count']}; torch.cuda peak "
+          f"{peak['peak_bytes']} bytes [{name_card}]")
+
+
+def regression_check(name_card):
+    """kerneldiff's CLI on the card: the sweep written with ``--out`` to
+    a temporary path, then compared with ``--baseline`` against it (exit
+    0), and against a copy doctored to tighten one kernel's max-rel ten
+    times (exit 1)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from deeplearning4j_tpu_torch.observability import kerneldiff
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "trust.json")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_out = kerneldiff.main(["--out", base])
+            rc_same = kerneldiff.main(["--baseline", base])
+        with open(base) as f:
+            doc = json.load(f)
+        entry = next(e for e in doc["all"] if e["metric"]
+                     == "Kernel max rel error (flash_attention_fwd)")
+        entry["value"] /= 10.0
+        tight = os.path.join(tmp, "tight.json")
+        with open(tight, "w") as f:
+            json.dump(doc, f)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_tight = kerneldiff.main(["--baseline", tight])
+    check(rc_out == 0 and rc_same == 0 and rc_tight == 1
+          and "REGRESSED" in out.getvalue(),
+          f"kerneldiff --out/--baseline: exit {rc_out}, {rc_same}, and "
+          f"{rc_tight} against the doctored baseline")
+    print(f"kerneldiff --out then --baseline on the card: exit {rc_out}, "
+          f"{rc_same}; a baseline with flash_attention_fwd's max-rel "
+          f"tightened ten times: exit {rc_tight} (REGRESSED) [{name_card}]")
+
+
+def profiling_phase(name_card, deterministic=False):
+    """The step profiler over the bf16 char-LM's captured ``fit`` at
+    ``TRAIN_MODEL`` width and batch and ResNet-50's (``deterministic``:
+    cuDNN as the guard phase found ResNet-50 needs for bit-equal twins),
+    then the crash drill.  Returns the wrapper launches of the two
+    profiled runs."""
+    net = transformer_char_lm(device="cuda", **TRAIN_MODEL)
+    vocab = TRAIN_MODEL["vocab_size"]
+    ids = np.random.RandomState(0).randint(0, vocab, (TRAIN_BATCH, TRAIN_T))
+    x = torch.as_tensor(ids, device="cuda")
+    y = torch.as_tensor(np.eye(vocab, dtype=np.float32)[np.roll(ids, -1, 1)],
+                        device="cuda")
+    layers, heads = TRAIN_MODEL["layers"], TRAIN_MODEL["n_heads"]
+    d_model = TRAIN_MODEL["d_model"]
+    hand = (6.0 * _matmul_params(net) * TRAIN_BATCH * TRAIN_T
+            + 12.0 * layers * heads * TRAIN_T * TRAIN_T
+            * (d_model // heads) * TRAIN_BATCH * 0.5)
+    meta, lm_launches = _profile_run("char-LM", net, x, y, hand,
+                                     r"\bflash_(fwd|dq|dkv)", name_card)
+    check(abs(meta["flops"] - hand) <= HAND_RTOL * hand,
+          f"char-LM profile: counted flops {meta['flops']:.4e} within "
+          f"{HAND_RTOL:.0%} of the hand count {hand:.4e}")
+    _crash_drill(net, x, y, name_card)
+    del net, x, y
+    torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        net = resnet50(device="cuda", **RESNET)
+        rs = np.random.RandomState(0)
+        x = torch.as_tensor(rs.rand(RESNET_BATCH, 224, 224, 3).astype(
+            np.float32), device="cuda")
+        y = torch.as_tensor(np.eye(1000, dtype=np.float32)[
+            rs.randint(0, 1000, RESNET_BATCH)], device="cuda")
+        with torch.no_grad():
+            acts, _, _ = net._forward(net.params, net.net_state,
+                                      {"input": x})
+        hand = 3.0 * _forward_flops(net, acts)
+        del acts
+        _meta, rn_launches = _profile_run("resnet50", net, x, y, hand,
+                                          BN_KERNEL_RE, name_card)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    regression_check(name_card)
+    return {k: lm_launches.get(k, 0) + rn_launches.get(k, 0)
+            for k in lm_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4274,6 +5045,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, f64_rel = kerneldiff_phase(name_card)
     t_online = time.perf_counter() - t_online
+    torch.cuda.empty_cache()
+    t_fleet = time.perf_counter()
+    fleet = fleet_phase(name_card)
+    torch.cuda.empty_cache()
+    profiled = profiling_phase(name_card, deterministic)
+    torch.cuda.empty_cache()
+    t_fleet = time.perf_counter() - t_fleet
     # the new phases' profiled launches join the kernels line's
     launches += served["paged"]
     train_launches = [n + guarded[k] for n, k in zip(
@@ -4287,6 +5065,14 @@ def main() -> int:
     train_launches = [n + intro[k] for n, k in zip(
         train_launches, ("flash_fwd", "flash_dq", "flash_dkv", "prologue"))]
     bn_launches = tuple(n + online[k] for n, k in zip(
+        bn_launches, ("bn_inference", "bn_train_fwd", "bn_train_bwd")))
+    # the fleet's replicas' replays and its in-process engines' captures
+    # (paged decode, prologue); the profiled runs' wrapper launches
+    launches += fleet["paged_decode"]
+    train_launches[3] += fleet["prologue"]
+    train_launches = [n + profiled[k] for n, k in zip(
+        train_launches, ("flash_fwd", "flash_dq", "flash_dkv", "prologue"))]
+    bn_launches = tuple(n + profiled[k] for n, k in zip(
         bn_launches, ("bn_inference", "bn_train_fwd", "bn_train_bwd")))
     d = rows["decode"]
     kernels = [{
@@ -4361,7 +5147,8 @@ def main() -> int:
     print(f"total {time.perf_counter() - t0:.1f} s (the prefix, swap and "
           f"serving phases {t_new:.1f} s; the server, guard and resume "
           f"phases {t_slice:.1f} s; the online, introspection and "
-          f"kerneldiff phases {t_online:.1f} s)")
+          f"kerneldiff phases {t_online:.1f} s; the fleet and profiling "
+          f"phases {t_fleet:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,8 +42,9 @@ Minimal use::
     engine.deploy("default", new_net)   # hot-swap between steps
     engine.stop()
 
-``kv_numerics`` reads the pools' page ledger between decode steps.  Not
-ported yet: ``fleet_publisher`` (ROADMAP A11) raises.
+``kv_numerics`` reads the pools' page ledger between decode steps;
+``fleet_publisher`` streams the engine's host-side telemetry to a fleet
+aggregator.
 """
 
 from __future__ import annotations
@@ -578,10 +579,21 @@ class GenerationEngine:
                 self._pools, self.cache.page_size, allocated=allocated)
 
     def fleet_publisher(self, worker_id: str, **kw):
-        """A ``TelemetryPublisher`` wired to this engine: not ported yet."""
-        raise NotImplementedError(
-            "fleet_publisher needs the fleet's TelemetryPublisher, which "
-            "the port does not have yet (ROADMAP A11)")
+        """A ``TelemetryPublisher`` pre-wired to this engine: local
+        registry, SLO tracker, one-locked-snapshot prefix-cache stats,
+        and the scheduler state dict.  Caller supplies the transport
+        (``broker=`` or ``url=``) and calls ``start()``.  Reads only
+        host-side state — publishing never touches the device."""
+        from deeplearning4j_tpu_torch.observability.fleet import (
+            TelemetryPublisher,
+        )
+        kw.setdefault("registry", self.metrics.registry)
+        kw.setdefault("slo", self.slo)
+        if self.prefix_cache is not None:
+            kw.setdefault("prefix_cache", self.prefix_cache)
+        kw.setdefault("state_fn",
+                      lambda: {"scheduler": self.scheduler.as_dict()})
+        return TelemetryPublisher(worker_id, **kw)
 
     # ----------------------------------------------------------------- stats
     def stats(self) -> dict:

@@ -52,7 +52,7 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.backend.device import (
     capture_graph, compute_dtype, warm_on_side_stream,
 )
-from deeplearning4j_tpu_torch.helpers import paged_attention as pa
+from deeplearning4j_tpu_torch import helpers
 from deeplearning4j_tpu_torch.models.common import tree_leaves
 from deeplearning4j_tpu_torch.models.decode import (
     _ids_need_time_axis, _last_logits_fwd, head_width, named_layers_of,
@@ -111,6 +111,8 @@ class _Program:
         self.graph = None
         self.out = None
         self.launches = 0     # paged-kernel launches the graph holds
+        self.kernels: Dict[str, int] = {}   # every kernel's, by name
+        self.replays = 0
 
     def stage(self, **arrays) -> None:
         """Host arrays into the host buffers (``noise`` is written in
@@ -244,9 +246,12 @@ class GenerationPrograms:
             return prog.body(**prog.dev)
 
         warm_on_side_stream(call, self.device)
-        before = pa.counts.launches
+        before = {n: c.launches for n, c in helpers.kernel_counts().items()}
         prog.graph, prog.out = capture_graph(call, self._pool)
-        prog.launches = pa.counts.launches - before
+        prog.kernels = {n: c.launches - before[n]
+                        for n, c in helpers.kernel_counts().items()
+                        if c.launches != before[n]}
+        prog.launches = prog.kernels.get("paged_decode", 0)
         self.captures += 1
 
     def _run(self, prog: _Program) -> np.ndarray:
@@ -257,10 +262,21 @@ class GenerationPrograms:
         if prog.graph is not None:
             prog.graph.replay()
             self.replays += 1
+            prog.replays += 1
             ids, self.last_logits = prog.out
         else:
             ids, self.last_logits = prog.body(**prog.dev)
         return ids.cpu().numpy()
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Kernel launches the graphs' replays made, by kernel name (each
+        graph's launches times its replays; host counts, no sync)."""
+        out: Dict[str, int] = {}
+        # a snapshot: the engine's thread adds programs as it captures
+        for p in list(self._programs.values()):
+            for name, n in p.kernels.items():
+                out[name] = out.get(name, 0) + n * p.replays
+        return out
 
     def graph_launches(self) -> Dict[str, int]:
         """Paged-kernel launches each captured graph holds, by program."""

@@ -37,7 +37,7 @@ from typing import Dict, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.backend.device import capture_scratch
-from deeplearning4j_tpu_torch.helpers import cuda_build
+from deeplearning4j_tpu_torch.helpers import cost, cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "batch_norm.cu"
 
@@ -356,26 +356,41 @@ def _route(x, counts):
     return True
 
 
+def work(x, gamma, kind: str) -> int:
+    """Bytes a call on [M, C] x must move: x read (with the gradient for
+    the backward) and the output written once, gamma and beta in their
+    own type, the float32 per-channel statistics (``kind``: ``fwd``,
+    ``bwd`` or ``inf``)."""
+    m, c = x.shape
+    esz, asz = x.element_size(), gamma.element_size()
+    return {"fwd": 2 * m * c * esz + 2 * c * asz + 3 * c * 4,
+            "bwd": 3 * m * c * esz + c * asz + 4 * c * 4,
+            "inf": 2 * m * c * esz + 2 * c * asz + 2 * c * 4}[kind]
+
+
 def bn_train_fwd_2d(x, gamma, beta, eps: float):
     """(y, mean, var, inv) on [rows, C]: the kernel on CUDA tensors, its
     plain version on CPU tensors (no autograd)."""
-    if _route(x, train_fwd_counts):
-        return _launch_train_fwd(x, gamma, beta, eps)
-    return bn_train_fwd_plain(x, gamma, beta, eps)
+    with cost.kernel_cost(lambda: (0, work(x, gamma, "fwd"))):
+        if _route(x, train_fwd_counts):
+            return _launch_train_fwd(x, gamma, beta, eps)
+        return bn_train_fwd_plain(x, gamma, beta, eps)
 
 
 def bn_train_bwd_2d(x, g, gamma, mean, inv):
     """(dx, dgamma, dbeta) on [rows, C], as ``bn_train_fwd_2d``."""
-    if _route(x, train_bwd_counts):
-        return _launch_train_bwd(x, g, gamma, mean, inv)
-    return bn_train_bwd_plain(x, g, gamma, mean, inv)
+    with cost.kernel_cost(lambda: (0, work(x, gamma, "bwd"))):
+        if _route(x, train_bwd_counts):
+            return _launch_train_bwd(x, g, gamma, mean, inv)
+        return bn_train_bwd_plain(x, g, gamma, mean, inv)
 
 
 def bn_inference_2d(x, mean, var, gamma, beta, eps: float):
     """y on [rows, C], as ``bn_train_fwd_2d``."""
-    if _route(x, inference_counts):
-        return _launch_inference(x, mean, var, gamma, beta, eps)
-    return bn_inference_plain(x, mean, var, gamma, beta, eps)
+    with cost.kernel_cost(lambda: (0, work(x, gamma, "inf"))):
+        if _route(x, inference_counts):
+            return _launch_inference(x, mean, var, gamma, beta, eps)
+        return bn_inference_plain(x, mean, var, gamma, beta, eps)
 
 
 class _BNTrain(torch.autograd.Function):

@@ -40,7 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from deeplearning4j_tpu_torch.helpers import cuda_build
+from deeplearning4j_tpu_torch.helpers import cost, cuda_build
 from deeplearning4j_tpu_torch.nn.layers.attention import check_window
 
 NEG_INF = -1e30
@@ -295,16 +295,31 @@ def _row_delta(o, do):
         return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def work(q, causal: bool, window: Optional[int]):
+    """(operations, bytes) of the forward, dQ and dK/dV kernels on
+    [B, T, H, D] q: 4D operations a live (query, key) pair forward, 6D
+    plus delta's 2D a row for dQ, 8D for dK/dV; each of q, k, v, dO, O,
+    dQ (dK, dV) and the float32 row statistics moved once."""
+    b, t, h, d = q.shape
+    pairs = cost.live_pairs(t, causal, window) * b * h
+    tensor = q.numel() * q.element_size()
+    rows = b * h * t * 4
+    return {"fwd": (4 * d * pairs, 4 * tensor + rows),
+            "dq": (6 * d * pairs + 2 * d * b * h * t, 6 * tensor + 2 * rows),
+            "dkv": (8 * d * pairs, 6 * tensor + 2 * rows)}
+
+
 def flash_fwd(q, k, v, *, causal: bool = False,
               window: Optional[int] = None) -> Tuple[torch.Tensor,
                                                      torch.Tensor]:
     """(o, lse): the forward kernel on CUDA tensors, its plain version on
     CPU tensors."""
     check_window(causal, window)
-    if q.device.type == "cpu":
-        fwd_counts.plain_calls += 1
-        return flash_attention_plain_fwd(q, k, v, causal, window)
-    return _launch_fwd(q, k, v, causal, window)
+    with cost.kernel_cost(lambda: work(q, causal, window)["fwd"]):
+        if q.device.type == "cpu":
+            fwd_counts.plain_calls += 1
+            return flash_attention_plain_fwd(q, k, v, causal, window)
+        return _launch_fwd(q, k, v, causal, window)
 
 
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool = False,
@@ -312,13 +327,20 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     """(dq, dk, dv): the dQ and dK/dV kernels on CUDA tensors, the plain
     backward on CPU tensors."""
     check_window(causal, window)
-    if q.device.type == "cpu":
-        dq_counts.plain_calls += 1
-        dkv_counts.plain_calls += 1
-        return flash_attention_plain_bwd(q, k, v, o, lse, do, causal, window)
-    dq, delta = _launch_dq(q, k, v, do, o, lse, causal, window)
-    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, window)
-    return dq, dk, dv
+
+    def bwd_work():
+        w = work(q, causal, window)
+        return tuple(a + b for a, b in zip(w["dq"], w["dkv"]))
+
+    with cost.kernel_cost(bwd_work):
+        if q.device.type == "cpu":
+            dq_counts.plain_calls += 1
+            dkv_counts.plain_calls += 1
+            return flash_attention_plain_bwd(q, k, v, o, lse, do, causal,
+                                             window)
+        dq, delta = _launch_dq(q, k, v, do, o, lse, causal, window)
+        dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, window)
+        return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
-from deeplearning4j_tpu_torch.helpers import cuda_build
+from deeplearning4j_tpu_torch.helpers import cost, cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_epilogue.cu"
 
@@ -140,13 +140,24 @@ def dropout_residual_norm_2d(h, res, gamma, beta, mask, eps: float,
                              keep: float) -> torch.Tensor:
     """The kernel on CUDA tensors, its plain version on CPU tensors, both
     on [rows, C] (no autograd)."""
-    if h.device.type == "cpu":
-        counts.plain_calls += 1
-        return dropout_residual_norm_plain(h, res, gamma, beta, mask, eps,
-                                           keep)
-    if h.device.type != "cuda":
-        raise ValueError(f"unsupported device {h.device}")
-    return _launch(h, res, gamma, beta, mask, eps, keep)
+    with cost.kernel_cost(lambda: (0, work(h, res, gamma, mask))):
+        if h.device.type == "cpu":
+            counts.plain_calls += 1
+            return dropout_residual_norm_plain(h, res, gamma, beta, mask,
+                                               eps, keep)
+        if h.device.type != "cuda":
+            raise ValueError(f"unsupported device {h.device}")
+        return _launch(h, res, gamma, beta, mask, eps, keep)
+
+
+def work(h, res, gamma, mask) -> int:
+    """Bytes the kernel must move: h (and res) read and the output
+    written once, gamma and beta read, the dropout mask's bytes read."""
+    esz = h.element_size()
+    return ((2 + (res is not None)) * h.numel() * esz
+            + 2 * gamma.numel() * esz
+            + (mask.numel() * mask.element_size() if mask is not None
+               else 0))
 
 
 class _DropResNorm(torch.autograd.Function):

@@ -41,7 +41,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.helpers import cuda_build
+from deeplearning4j_tpu_torch.helpers import cost, cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lrn.cu"
 
@@ -209,19 +209,37 @@ def _use_kernel(x, counts):
     return True
 
 
+def work(elems: int, esz: int, n: int, kind: str):
+    """(operations, bytes) of a call on ``elems`` elements of ``esz``
+    bytes (``kind``: ``fwd`` or ``bwd``): each tensor read or written
+    once, and the kernels' float32 operations — the window's 2n+1
+    products and sums, the power and the scaling: 2(2h+1) + 6 forward,
+    3(2h+1) + 14 backward."""
+    win = 2 * (n // 2) + 1
+    if kind == "fwd":
+        return elems * (2 * win + 6), 2 * elems * esz
+    return elems * (3 * win + 14), 3 * elems * esz
+
+
 def lrn_fwd_2d(x, k: float, n: int, alpha: float, beta: float):
     """y on [rows, C]: the kernel on CUDA tensors, its plain version on
     CPU tensors (no autograd)."""
-    if _use_kernel(x, fwd_counts):
-        return _launch("dl4j_lrn_fwd", fwd_counts, x, None, k, n, alpha, beta)
-    return lrn_fwd_plain(x, k, n, alpha, beta)
+    with cost.kernel_cost(lambda: work(x.numel(), x.element_size(), n,
+                                       "fwd")):
+        if _use_kernel(x, fwd_counts):
+            return _launch("dl4j_lrn_fwd", fwd_counts, x, None, k, n,
+                           alpha, beta)
+        return lrn_fwd_plain(x, k, n, alpha, beta)
 
 
 def lrn_bwd_2d(x, g, k: float, n: int, alpha: float, beta: float):
     """dx on [rows, C], as ``lrn_fwd_2d``."""
-    if _use_kernel(x, bwd_counts):
-        return _launch("dl4j_lrn_bwd", bwd_counts, x, g, k, n, alpha, beta)
-    return lrn_bwd_plain(x, g, k, n, alpha, beta)
+    with cost.kernel_cost(lambda: work(x.numel(), x.element_size(), n,
+                                       "bwd")):
+        if _use_kernel(x, bwd_counts):
+            return _launch("dl4j_lrn_bwd", bwd_counts, x, g, k, n, alpha,
+                           beta)
+        return lrn_bwd_plain(x, g, k, n, alpha, beta)
 
 
 class _LRN(torch.autograd.Function):

@@ -34,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-from deeplearning4j_tpu_torch.helpers import cuda_build
+from deeplearning4j_tpu_torch.helpers import cost, cuda_build
 
 NEG_INF = -1e30
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
@@ -195,13 +195,31 @@ def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
     """See module docstring.  CUDA tensors launch the kernel (or raise);
     CPU tensors run the plain version."""
     hkv, d = _check_shapes(q, pk, pv, block, q_positions, page_size)
-    if q.device.type == "cpu":
-        counts.plain_calls += 1
-        return paged_attention_plain(q, pk, pv, block, q_positions,
-                                     page_size)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, pk, pv, block, q_positions, page_size, hkv, d)
+    with cost.kernel_cost(lambda: work(q, pk, block, q_positions,
+                                       page_size)):
+        if q.device.type == "cpu":
+            counts.plain_calls += 1
+            return paged_attention_plain(q, pk, pv, block, q_positions,
+                                         page_size)
+        if q.device.type != "cuda":
+            raise ValueError(f"unsupported device {q.device}")
+        return _launch(q, pk, pv, block, q_positions, page_size, hkv, d)
+
+
+def work(q, pk, block, q_positions, page_size: int):
+    """(operations, bytes) of one call, from its positions (read from
+    the device): 4D operations a live (query, key) pair; the live K/V
+    (keys up to each row's highest position), q, the output, the
+    positions and the block table moved once."""
+    b, t, hq, d = q.shape
+    hkv = pk.shape[1]
+    cap = block.shape[1] * page_size
+    keys = torch.clamp(q_positions.max(dim=1).values + 1, max=cap)
+    esz = q.element_size()
+    nbytes = (int(keys.sum()) * hkv * d * esz * 2 + 2 * q.numel() * esz
+              + (block.numel() + q_positions.numel()) * 4)
+    pairs = int(torch.clamp(q_positions + 1, max=cap).sum()) * hq
+    return 4 * d * pairs, nbytes
 
 
 class PagedAttentionHelper:

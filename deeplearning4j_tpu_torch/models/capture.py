@@ -50,6 +50,7 @@ from deeplearning4j_tpu_torch import helpers
 from deeplearning4j_tpu_torch.backend.device import (
     PinnedRing, capture_graph, capture_lock, warm_on_side_stream,
 )
+from deeplearning4j_tpu_torch.helpers import cost
 from deeplearning4j_tpu_torch.models import common
 
 # captured programs of one kind kept on a net; the least recently used
@@ -197,7 +198,9 @@ class StepGraphs:
                     done(out)
                     done = None
                 before = kernel_launches()
-                prog.graph, prog.out = capture_graph(prog.call, self._pool())
+                with cost.paused():     # the warm-up was the counted run
+                    prog.graph, prog.out = capture_graph(prog.call,
+                                                         self._pool())
             except BaseException:
                 net._graph_cache.pop(prog.cache_key, None)
                 raise

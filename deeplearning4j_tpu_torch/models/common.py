@@ -28,7 +28,11 @@ from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.optimize import updaters as upd
 from deeplearning4j_tpu_torch.observability import introspection, numerics
 from deeplearning4j_tpu_torch.observability.fitmetrics import fit_telemetry
-from deeplearning4j_tpu_torch.observability.flightrecorder import crash_dump
+from deeplearning4j_tpu_torch.observability import profiling
+from deeplearning4j_tpu_torch.observability.flightrecorder import (
+    crash_dump, step_guard,
+)
+from deeplearning4j_tpu_torch.observability.recompile import instrument
 from deeplearning4j_tpu_torch.resilience import stability
 from deeplearning4j_tpu_torch.resilience.faults import get_fault_injector
 from deeplearning4j_tpu_torch.resilience.integration import FitResilience
@@ -501,6 +505,26 @@ def train_step(net, body, inputs):
     return out
 
 
+def instrumented_step(net, kind: str):
+    """The net's train step (``train_step`` on its ``_train_body``)
+    wrapped by ``recompile.instrument`` as ``"<facade>.<kind>"``: kind
+    ``train_step`` for ``fit``, ``scanned_step`` for ``fit_scanned``
+    (the reference's ``sequential.py:317,343``, ``graph.py:599,625``).
+    Made at its first use, so its detector counts into the registry
+    current then; on the card it counts captures, so it reads 1 after
+    the warm-up however many steps follow: the net's ``StepGraphs``
+    counters say whether a call captured or replayed."""
+    steps = net.__dict__.setdefault("_instrumented", {})
+    fn = steps.get(kind)
+    if fn is None:
+        fn = steps[kind] = instrument(
+            lambda inputs: train_step(net, net._train_body, inputs),
+            f"{type(net).__name__}.{kind}",
+            graphs=lambda: (cap.step_graphs(net) if cap.captures(net)
+                            else None))
+    return fn
+
+
 def notify_listeners(model, batch_size=None) -> None:
     """Fire ``iteration_done`` on the model's listeners, first wiring the
     actual minibatch size into any listener that wants it (reference
@@ -565,8 +589,10 @@ def fit_loop(net, component: str, batches, *, epochs: int, unpack,
     the batch's steps, each through ``run`` (the retry and fault scope
     with the key stream set back, or a plain call); after it the manager
     saves when a trigger is due, and the stability runtime polls every
-    ``check_every`` batches.  Each step is timed on the host around its
-    replay (``fit_telemetry``: ``last_step_seconds`` and
+    ``check_every`` batches.  Each step runs inside ``step_guard("fit_step")``
+    (flight events, the watchdog, an installed ``StepProfiler``'s frame;
+    the profiler also tracks the net for memory attribution), is timed
+    on the host around its replay (``fit_telemetry``: ``last_step_seconds`` and
     ``last_samples_per_second`` stamped on the net, the score gauge
     holding the device loss, so no sync) and then the net's listeners
     run (``notify_listeners``).  An exception leaves a flight-recorder
@@ -589,12 +615,16 @@ def fit_loop(net, component: str, batches, *, epochs: int, unpack,
             # a restored nonfinite_total is history, not fresh evidence
             rt.baseline_from(net.updater_state.get(stability.STATE_KEY))
 
+    prof = profiling.active_profiler()
+    if prof is not None:
+        prof.track_model(net, component)
     tel = fit_telemetry(component)
     rows = [None]
 
     def run(fn):
         t0 = time.perf_counter()
-        with tel.span(net.iteration):
+        with step_guard("fit_step", model=component,
+                        iteration=net.iteration), tel.span(net.iteration):
             out = fn() if res is None else res.step(fn, net.iteration,
                                                     net=net)
         tel.record_step(time.perf_counter() - t0, rows[0], net._score,
@@ -674,13 +704,19 @@ def fit_scanned(net, batches, scan_steps: int, epochs: int, unpack,
     def shapes(inputs):
         return [(path, np.shape(t)) for path, t in tree_paths(inputs)]
 
-    tel = fit_telemetry(type(net).__name__)
+    component = type(net).__name__
+    prof = profiling.active_profiler()
+    if prof is not None:
+        prof.track_model(net, component)
+    tel = fit_telemetry(component)
 
     def flush(window):
         if not window:
             return
         t0 = time.perf_counter()
-        with tel.span(net.iteration):
+        with step_guard("fit_window", model=component,
+                        iteration=net.iteration, steps=len(window)), \
+                tel.span(net.iteration):
             for inputs in window:
                 one_step(inputs)
         rows = batch_rows(next(iter(window[0].values())))

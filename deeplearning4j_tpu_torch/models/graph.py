@@ -45,8 +45,8 @@ from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.models.common import (
     FlatParamsMixin, LazyScoreMixin, cast_tree, check_cache_capacity,
-    infer, not_ported, seed_stream_caches, sgd_step,
-    train_step, trainable, unpack_batch,
+    infer, not_ported, seed_stream_caches, sgd_step, trainable,
+    unpack_batch,
 )
 from deeplearning4j_tpu_torch.models.sequential import init_net_state
 from deeplearning4j_tpu_torch.models.vertices import (
@@ -548,7 +548,7 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         return loss if carries is None else (loss, carries)
 
     def _step(self, inputs):
-        return train_step(self, self._train_body, inputs)
+        return common.instrumented_step(self, "train_step")(inputs)
 
     def _one_step(self, x, y, fmask, lmask) -> None:
         self._step({"inputs": self._as_input_dict(x),
@@ -747,7 +747,7 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
                      "lmask": None}, fm, lm)
 
         common.fit_scanned(self, batches, scan_steps, epochs, unpack,
-                           self._step)
+                           common.instrumented_step(self, "scanned_step"))
         return self
 
     # ------------------------------------------------ listeners, evaluate

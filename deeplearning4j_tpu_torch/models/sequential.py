@@ -252,7 +252,7 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         return loss if carries is None else (loss, carries)
 
     def _step(self, inputs):
-        return train_step(self, self._train_body, inputs)
+        return common.instrumented_step(self, "train_step")(inputs)
 
     def _one_step(self, x, y, fmask, lmask) -> None:
         self._step({"x": x, "y": y, "fmask": fmask, "lmask": lmask})
@@ -379,7 +379,7 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
             return {"x": x, "y": y, "fmask": None, "lmask": None}, fm, lm
 
         common.fit_scanned(self, batches, scan_steps, epochs, unpack,
-                           self._step)
+                           common.instrumented_step(self, "scanned_step"))
         return self
 
     # ------------------------------------------------ listeners, evaluate

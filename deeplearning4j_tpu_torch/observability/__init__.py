@@ -5,9 +5,10 @@ bundles, the decode SLO tracker, the flight recorder, and the health
 rules with the cluster aggregation, the fit telemetry, the in-step
 introspection and numerics engines (``introspection``, ``numerics``:
 their host halves, and the monitors) and the float64 kernel-trust
-sweep (``kerneldiff``).  The reference's profiling, regression and
-sharding modules, and the fleet's publisher and aggregator, come with
-ROADMAP A9, A10 and A11.
+sweep (``kerneldiff``), the step profiler with its cost and memory
+attribution (``profiling``), the bench regression sentinel
+(``regression``), and the fleet's telemetry publisher and aggregator.
+The reference's sharding statistics come with ROADMAP A10.
 """
 
 from deeplearning4j_tpu_torch.observability.metrics import (
@@ -17,14 +18,21 @@ from deeplearning4j_tpu_torch.observability.metrics import (
 from deeplearning4j_tpu_torch.observability.tracing import (
     Span, SpanTracer, get_tracer, new_trace_id, set_tracer,
 )
+from deeplearning4j_tpu_torch.observability.profiling import (
+    PEAK_FLOPS, StepProfiler, active_profiler, live_buffer_snapshot,
+    memory_attribution, model_memory_breakdown, peak_flops_for,
+    peak_memory_snapshot,
+)
 from deeplearning4j_tpu_torch.observability.recompile import (
-    RecompileDetector, compile_counter, fingerprint,
+    RecompileDetector, compile_counter, fingerprint, instrument,
 )
 from deeplearning4j_tpu_torch.observability.memory import (
     DeviceMemoryMonitor, device_memory_stats, sample_once,
 )
 from deeplearning4j_tpu_torch.observability.phases import PhaseTimers
-from deeplearning4j_tpu_torch.observability.fleet import SLOTracker
+from deeplearning4j_tpu_torch.observability.fleet import (
+    FleetAggregator, SLOTracker, TelemetryPublisher,
+)
 from deeplearning4j_tpu_torch.observability.servingmetrics import (
     GenerationMetrics, ServingMetrics,
 )
@@ -42,7 +50,7 @@ from deeplearning4j_tpu_torch.observability.fitmetrics import (
     FitTelemetry, fit_telemetry,
 )
 from deeplearning4j_tpu_torch.observability import (  # noqa: E402
-    introspection, kerneldiff, numerics,
+    introspection, kerneldiff, numerics, regression,
 )
 from deeplearning4j_tpu_torch.observability.introspection import (
     AnomalyMonitor,
@@ -53,9 +61,13 @@ __all__ = [
     "DEFAULT_BUCKETS", "Counter", "Gauge", "Histogram", "MetricFamily",
     "MetricsRegistry", "get_registry", "set_registry",
     "Span", "SpanTracer", "get_tracer", "new_trace_id", "set_tracer",
-    "RecompileDetector", "compile_counter", "fingerprint",
+    "PEAK_FLOPS", "StepProfiler", "active_profiler", "live_buffer_snapshot",
+    "memory_attribution", "model_memory_breakdown", "peak_flops_for",
+    "peak_memory_snapshot",
+    "RecompileDetector", "compile_counter", "fingerprint", "instrument",
     "DeviceMemoryMonitor", "device_memory_stats", "sample_once",
-    "PhaseTimers", "SLOTracker", "GenerationMetrics", "ServingMetrics",
+    "PhaseTimers", "FleetAggregator", "SLOTracker", "TelemetryPublisher",
+    "GenerationMetrics", "ServingMetrics",
     "ClusterStatsAggregator", "HealthEvaluator", "HealthRule",
     "HealthVerdict", "StragglerDetector", "WorkerTelemetry",
     "default_serving_rules", "default_training_rules", "histogram_quantile",
@@ -63,5 +75,5 @@ __all__ = [
     "dump_flight_report", "get_flight_recorder", "get_watchdog",
     "read_flight_report", "set_flight_recorder", "step_guard",
     "FitTelemetry", "fit_telemetry", "introspection", "kerneldiff",
-    "numerics", "AnomalyMonitor", "NumericsMonitor",
+    "numerics", "regression", "AnomalyMonitor", "NumericsMonitor",
 ]

@@ -2,12 +2,12 @@
 
 Copied from ``deeplearning4j_tpu/observability/flightrecorder.py`` with its
 imports pointed at the port's own copies.  The report's ``device_memory``
-section reads ``observability/memory.py`` (``torch.cuda``'s counters).
-Its ``memory_attribution`` and ``sharding_ledger`` sections read
-``observability/profiling.py`` and ``shardstats.py``, which the port does
-not have yet (ROADMAP A9 and A10): until they come, those sections are
-the best-effort error records the reference itself writes when a
-backend is missing, and ``step_guard`` and ``dump`` notify no profiler.
+section reads ``observability/memory.py`` (``torch.cuda``'s counters),
+its ``memory_attribution`` section ``observability/profiling.py``.  Its
+``sharding_ledger`` section reads ``shardstats.py``, which the port does
+not have yet (ROADMAP A10): until it comes, that section is the
+best-effort error record the reference itself writes when a backend is
+missing.
 
 When an 8-worker training run (or a serving dispatcher) stops making
 progress, a Prometheus scrape tells you *that* it is stuck, not *where*.
@@ -300,6 +300,14 @@ class StepWatchdog:
             "(hang) and crash paths (exception)", labels=("reason",)
         ).inc(reason=reason)
         self.dumps.append(path)
+        try:
+            # capture-on-watchdog: arm the installed profiler so the next
+            # step that runs after this dump gets a full trace capture
+            from deeplearning4j_tpu_torch.observability import profiling
+
+            profiling.notify_watchdog(reason)
+        except Exception:
+            pass
         return path
 
     # ------------------------------------------------------------ lifecycle
@@ -347,18 +355,30 @@ def step_guard(name: str, **attrs):
     """The one hook fit loops, masters, and the serving dispatcher wrap
     their step/dispatch in: records ``step_begin``/``step_end`` (or
     ``step_error``) flight events and arms the installed watchdog for
-    the duration.  (The reference also opens a ``StepProfiler`` frame
-    here; the port's profiler comes with ROADMAP A9.)  Dump-on-exception
-    lives in ``crash_dump`` (called once at the fit-loop level) so a
-    failing step is recorded here but reported exactly once there."""
+    the duration, and — when a ``StepProfiler`` is installed — opens the
+    per-step attribution frame that turns dispatched FLOPs into
+    MFU/roofline gauges (and trace captures on trigger).  Dump-on-
+    exception lives in ``crash_dump`` (called once at the fit-loop level)
+    so a failing step is recorded here but reported exactly once there."""
     rec = get_flight_recorder()
     rec.record("step_begin", name=name, **attrs)
     wd = _active_watchdog
     token = wd.arm(name, **attrs) if wd is not None else None
+    prof = frame = None
+    try:
+        from deeplearning4j_tpu_torch.observability import profiling
+
+        prof = profiling.active_profiler()
+        if prof is not None:
+            frame = prof.on_step_begin(name, attrs)
+    except Exception:   # a broken profiler must never break training
+        prof = frame = None
     t0 = time.perf_counter()
+    err = None
     try:
         yield
     except BaseException as e:
+        err = e
         rec.record("step_error", name=name, error=repr(e), **attrs)
         raise
     else:
@@ -367,6 +387,12 @@ def step_guard(name: str, **attrs):
     finally:
         if wd is not None:
             wd.disarm(token)
+        if prof is not None and frame is not None:
+            try:
+                prof.on_step_end(name, time.perf_counter() - t0, attrs,
+                                 frame, error=err)
+            except Exception:
+                pass
 
 
 def crash_dump(reason: str, **context) -> Optional[str]:

@@ -25,9 +25,8 @@ telemetry core:
 Everything here reads metrics the hot loops already record; nothing in
 this module runs on the dispatch path.
 
-Port: a copy of ``deeplearning4j_tpu/observability/health.py`` with its imports
-rewritten to the port. The straggler verdict's hook into the step profiler waits for
-``profiling.py`` (ROADMAP A9).
+Port: a copy of ``deeplearning4j_tpu/observability/health.py`` with its
+imports rewritten to the port.
 """
 
 from __future__ import annotations
@@ -169,6 +168,18 @@ class StragglerDetector:
             if should_warn:
                 self._last_warn[worker] = now
         self._m_stragglers.inc(component=self.component, worker=worker)
+        if should_warn:
+            try:
+                # performance attribution: a straggler verdict arms the
+                # installed StepProfiler to capture the next step, so the
+                # trace shows what the degraded window actually did.
+                # Gated on the rate-limited warning path: a persistently
+                # slow worker must not re-arm a capture every window.
+                from deeplearning4j_tpu_torch.observability import profiling
+
+                profiling.notify_straggler(self.component, worker)
+            except Exception:
+                pass
         if should_warn:
             breakdown = ""
             if phases:

@@ -31,7 +31,13 @@ Metric family: ``dl4j_kernel_max_rel_error{kernel}``.
 CLI::
 
     python -m deeplearning4j_tpu_torch.observability.kerneldiff \
-        [--device cpu] [--full] [--kernels a,b] [--json PATH]
+        [--device cpu] [--full] [--kernels a,b] [--out PATH] \
+        [--baseline PATH]
+
+``--out`` writes the report to a path the caller gives; ``--baseline``
+compares the sweep with such a report under
+``regression.KERNEL_TRUST_RULES`` (exit 1 on a regression).  Neither
+accepts ``kernel_trust.json``.
 """
 
 from __future__ import annotations
@@ -527,19 +533,39 @@ def main(argv=None) -> int:
     ap.add_argument("--full", action="store_true", help="the full grid")
     ap.add_argument("--kernels", default=None,
                     help="comma-separated subset of kernels")
-    ap.add_argument("--json", default=None, metavar="PATH",
+    ap.add_argument("--out", default=None, metavar="PATH",
                     help="write the report as JSON")
+    ap.add_argument("--baseline", default=None, metavar="PATH",
+                    help="compare against a report written by --out with "
+                         "regression.KERNEL_TRUST_RULES")
     args = ap.parse_args(argv)
-    if args.json and os.path.basename(args.json) == "kernel_trust.json":
-        ap.error("the port's sweep is not written into kernel_trust.json")
+    for path in (args.out, args.baseline):
+        if path and os.path.basename(path) == "kernel_trust.json":
+            ap.error("the port's sweep is neither written into nor "
+                     "compared with kernel_trust.json")
     names = args.kernels.split(",") if args.kernels else None
     report = run_sweep(kernels=names, full=args.full, device=args.device)
     publish_metrics(report)
     print(format_report(report))
-    if args.json:
-        with open(args.json, "w") as f:
+    if args.out:
+        with open(args.out, "w") as f:
             json.dump(report, f, indent=1, sort_keys=True)
-    return 1 if report["summary"]["untrusted"] else 0
+        print(f"wrote {args.out}")
+    rc = 0
+    if args.baseline:
+        from deeplearning4j_tpu_torch.observability import regression
+
+        with open(args.baseline) as f:
+            base = json.load(f)
+        rep = regression.compare(base, report,
+                                 regression.KERNEL_TRUST_RULES)
+        print(rep.format())
+        rc = rep.exit_code
+    if report["summary"]["untrusted"]:
+        print(f"UNTRUSTED kernels: {report['summary']['untrusted']}",
+              file=sys.stderr)
+        rc = rc or 1
+    return rc
 
 
 if __name__ == "__main__":

@@ -1965,3 +1965,157 @@ def test_kerneldiff_sweep_on_the_card(cuda):
     for k in report["kernels"].values():
         assert all(c["status"] in ("pass", "tolerance_only")
                    for c in k["configs"])
+
+
+# ------------------------------------------------ the step profiler, fleet
+def _profiled_lm(device):
+    from deeplearning4j_tpu_torch.models.zoo import transformer_char_lm
+
+    return transformer_char_lm(vocab_size=29, d_model=64, n_heads=4,
+                               layers=2, compute_dtype="bfloat16", seed=7,
+                               device=device)
+
+
+def _lm_batch(seed=0, b=2, t=40):
+    ids = np.random.default_rng(seed).integers(0, 29, (b, t))
+    return ids, np.eye(29, dtype=np.float32)[np.roll(ids, -1, 1)]
+
+
+def test_captured_step_cost_equals_the_cpu_count(cuda, tmp_path):
+    """A captured step's cost is taken in its warm-up run (the genuine
+    first step, before the capture), kernels included, and equals the
+    CPU count of the same net: the matmuls through the dispatcher, the
+    flash kernels as their wrappers report them once."""
+    from deeplearning4j_tpu_torch.observability import StepProfiler
+
+    costs = []
+    for device in ("cuda", "cpu"):
+        net = _profiled_lm(device)
+        with StepProfiler(str(tmp_path / device), use_torch_profiler=False):
+            for _ in range(3):
+                net.fit(*_lm_batch())
+        costs.append(net._instrumented["train_step"].detector.last_cost)
+        if device == "cuda":
+            assert net._step_graphs.captures == 1
+    card, host = costs
+    assert card["flops"] > 0 and card["kernel_flops"] > 0
+    assert card["flops"] == host["flops"]
+    assert card["kernel_flops"] == host["kernel_flops"]
+
+
+def test_profiler_installed_after_the_capture_on_the_card(cuda, tmp_path):
+    """A profiler installed after the step was captured sees replays
+    only: no cost and no flops for them, one flight record saying why;
+    after ``capture.release`` the next capture counts the step: the
+    flops of a net profiled from its first step."""
+    from deeplearning4j_tpu_torch.models import capture
+    from deeplearning4j_tpu_torch.observability import (
+        StepProfiler, get_flight_recorder,
+    )
+
+    early = _profiled_lm("cuda")
+    with StepProfiler(str(tmp_path / "early"), use_torch_profiler=False):
+        early.fit(*_lm_batch())
+    want = early._instrumented["train_step"].detector.last_cost
+    net = _profiled_lm("cuda")
+    for _ in range(2):
+        net.fit(*_lm_batch())
+    step = net._instrumented["train_step"]
+    step.detector.warn = lambda msg: None
+    with StepProfiler(str(tmp_path / "late"), use_torch_profiler=False):
+        net.fit(*_lm_batch())
+        assert step.detector.last_cost is None
+        capture.release(net)
+        net.fit(*_lm_batch())
+        net.fit(*_lm_batch())
+    torch.cuda.synchronize()
+    evs = [e for e in get_flight_recorder().events()
+           if e.kind == "profile_cost_unavailable"
+           and e.to_dict()["fn"] == "MultiLayerNetwork.train_step"]
+    assert len(evs) >= 1
+    assert net._step_graphs.captures == 1
+    got = step.detector.last_cost
+    assert got["flops"] == want["flops"] > 0
+    assert got["kernel_flops"] == want["kernel_flops"] > 0
+
+
+def test_event_timed_step_under_the_profiler(cuda, tmp_path):
+    """On the card the profiled step is timed by CUDA events around its
+    replay: the capture's MFU is unclamped in (0, 1], its Chrome trace
+    names the flash kernels replayed from the graph, and the train step
+    counts one compile (its capture) however many steps follow."""
+    import json
+    import os
+    import re
+
+    from deeplearning4j_tpu_torch.observability import (
+        MetricsRegistry, StepProfiler, get_flight_recorder, set_registry,
+    )
+
+    old = set_registry(MetricsRegistry())
+    try:
+        net = _profiled_lm("cuda")
+        prof = StepProfiler(str(tmp_path), capture_step=4).install()
+        for _ in range(6):
+            net.fit(*_lm_batch())
+        prof.uninstall()
+        from deeplearning4j_tpu_torch.observability import get_registry
+
+        assert get_registry().get_value(
+            "dl4j_compiles_total", fn="MultiLayerNetwork.train_step") == 1
+        caps = [e.to_dict() for e in get_flight_recorder().events()
+                if e.kind == "profile_capture" and e.to_dict()[
+                    "path"].startswith(str(tmp_path))]
+        assert len(caps) == 1 and caps[0]["reason"] == "step:4"
+        meta = json.load(open(os.path.join(caps[0]["path"],
+                                           "capture.json")))
+        assert meta["timed_on"] == "cuda_events"
+        assert meta["flops"] > 0 and 0.0 < meta["mfu_unclamped"] <= 1.0
+        assert meta["seconds"] > 0
+        trace = json.load(open(meta["torch_trace"]))
+        names = {e.get("name", "") for e in trace["traceEvents"]}
+        # demangled: "void (anonymous namespace)::flash_fwd_wgmma<...>"
+        assert any(re.search(r"\bflash_(fwd|dq|dkv)", n) for n in names)
+    finally:
+        set_registry(old)
+
+
+def test_subprocess_replica_on_cuda_answers_generate(cuda):
+    """One supervisor-spawned replica on the card (its own CUDA context,
+    weights, pools and graphs) answers ``/generate`` with the ids of an
+    in-process engine on the same seed.  The in-process engine builds
+    the kernels first; the replica loads them."""
+    import json
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.fleet import ReplicaSupervisor
+    from deeplearning4j_tpu_torch.generation import GenerationEngine
+    from deeplearning4j_tpu_torch.observability import MetricsRegistry
+
+    eng = GenerationEngine(_profiled_lm("cuda"), slots=4, page_size=16,
+                           max_context=64, prefill_buckets=(16,),
+                           prefix_cache=True).start()
+    prompt = list(range(1, 13))
+    try:
+        want = eng.submit(prompt, 8).result(timeout=120)
+    finally:
+        eng.stop(drain=False)
+    sup = ReplicaSupervisor(
+        warmup_timeout_s=300, registry=MetricsRegistry(),
+        replica_args={"vocab": 29, "d_model": 64, "n_heads": 4,
+                      "layers": 2, "model_seed": 7,
+                      "compute_dtype": "bfloat16", "slots": 4,
+                      "page_size": 16, "max_context": 64,
+                      "prefill_buckets": "16"})
+    try:
+        rp = sup.start_replica("g0")
+        body = json.dumps({"prompt": prompt, "max_tokens": 8}).encode()
+        req = urllib.request.Request(
+            f"{rp.url}/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            env = json.loads(resp.read().decode())
+        assert env["replica"] == "g0"
+        assert env["tokens"] == want
+    finally:
+        sup.stop_all()

@@ -80,3 +80,39 @@ def test_every_module_of_the_online_and_observability_slice_is_walked():
            "online.promotion", "online.pipeline"]
     assert sorted(f"deeplearning4j_tpu_torch.{n}" for n in new
                   if f"deeplearning4j_tpu_torch.{n}" not in walked) == []
+
+
+def test_every_module_of_the_fleet_and_profiling_slice_is_walked():
+    """The fleet's, the profiler's and the regression sentinel's modules
+    are among those the poisoned-jax import above loads."""
+    import pkgutil
+
+    import deeplearning4j_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    new = ["fleet", "fleet.placement", "fleet.router", "fleet.replica",
+           "fleet.supervisor", "fleet.replica_main", "fleet.frontend",
+           "fleet.rollout", "observability.profiling",
+           "observability.regression", "observability.fleet",
+           "helpers.cost"]
+    assert sorted(f"deeplearning4j_tpu_torch.{n}" for n in new
+                  if f"deeplearning4j_tpu_torch.{n}" not in walked) == []
+
+
+def test_replica_main_help_imports_no_jax(tmp_path):
+    """``python -m deeplearning4j_tpu_torch.fleet.replica_main --help``
+    (what the supervisor spawns) runs with ``jax`` poisoned."""
+    poison = tmp_path / "poison"
+    poison.mkdir()
+    for name in ("jax", "jaxlib"):
+        (poison / f"{name}.py").write_text(
+            "raise ImportError('the port must not import jax')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{poison}{os.pathsep}{REPO}"
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.fleet.replica_main",
+         "--help"], cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "--device" in proc.stdout and "--compute-dtype" in proc.stdout

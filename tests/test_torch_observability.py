@@ -247,9 +247,13 @@ def test_step_guard_records_and_the_watchdog_dumps(tmp_path):
 
 def test_flight_report_has_every_section(tmp_path):
     """The report's sections: meta, events, live spans, the registry,
-    device memory (empty without a card) and, until the port has the
-    modules they read, error records for memory attribution and the
-    sharding ledger — the reference's own best-effort form."""
+    device memory (empty without a card), the memory attribution (live
+    tensors and the peak; no profiler, so no models) and, until the port
+    has the module it reads (A10), an error record for the sharding
+    ledger — the reference's own best-effort form."""
+    import torch
+
+    keep = torch.ones(64, 64)      # a live tensor the section must see
     rec = flightrecorder.FlightRecorder()
     rec.record("swap", model="default", version=2)
     tr = tracing.SpanTracer()
@@ -279,7 +283,16 @@ def test_flight_report_has_every_section(tmp_path):
     assert "event" in kinds and "live_span" in kinds
     assert "registry" in kinds and "device_memory" in kinds
     errors = {r["section"] for r in recs if r["record"] == "error"}
-    assert errors == {"memory_attribution", "sharding_ledger"}
+    assert errors == {"sharding_ledger"}
+    mem = [r for r in recs if r["record"] == "memory_attribution"]
+    assert len(mem) == 1 and "models" not in mem[0]
+    live = mem[0]["live_buffers"]
+    assert live["device"] == "cpu" and live["count"] > 0
+    assert live["total_bytes"] >= sum(g["bytes"] for g in live["top"])
+    assert live["total_bytes"] >= keep.nbytes
+    assert mem[0]["peak"] == {"source": "live_buffers_estimate",
+                              "peak_bytes": mem[0]["peak"]["peak_bytes"]}
+    assert mem[0]["peak"]["peak_bytes"] > 0
     assert memory.device_memory_stats() == {}
     assert memory.sample_once(reg) == {}
 
