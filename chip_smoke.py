@@ -332,7 +332,28 @@ Phases (any failure exits non-zero; nothing is caught):
    each model's MFU beside the hand count's, the step median with the
    profiler installed and idle against without, the capture step's
    time and the traces' size.
-19. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+19. The rest of the conv zoo, pretraining, the solvers and the MoE layer
+   (no port kernel on these paths: the kernels line is unchanged).
+   VGG-16 (a MultiLayerNetwork, 138,357,544 parameters) and GoogLeNet (a
+   ComputationGraph of nine inception modules) at 224x224x3, 1000
+   classes, batch 128, bfloat16: ``output`` eager against captured bit
+   for bit, float32 logits of two images on the card against a CPU twin,
+   ``fit_modes`` (images/s, analytic-FLOP utilisation) and two profiled
+   captured steps.  Zoo ``dbn`` (784 -> 500 -> 250 -> 100 -> 10, float32,
+   24 host batches of 128): layerwise CD-1 pretraining for two epochs,
+   captured (one program a RBM) against eager bit for bit, each RBM's
+   held-out reconstruction error lower; an ``EarlyStoppingTrainer``
+   fine-tune whose best model's recomputed score equals the result's;
+   an L-BFGS ``fit`` (10 iterations) whose loss does not rise, its
+   captured value/grad program against eager bit for bit, ms an
+   evaluation.  The reference's MoE test net at the char-LM's width
+   (Dense 1024, 8 experts of hidden 4096, capacity factor 1.25, 128
+   classes, bfloat16, Adam) over 16384 rows: the routing against a
+   numpy recount (loads within C = 2560, exact int32 positions, the
+   dropped count), ``output`` eager against captured bit for bit, 2048
+   rows in float32 against a CPU twin, ``fit_modes`` with the peak
+   memory.
+20. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -366,11 +387,17 @@ from deeplearning4j_tpu_torch.models.decode import (
     build_decode_fn, generate, named_layers_of,
 )
 from deeplearning4j_tpu_torch.models.graph import ComputationGraph
-from deeplearning4j_tpu_torch.models.interop import params_from_numpy
-from deeplearning4j_tpu_torch.models.sequential import tree_leaves
+from deeplearning4j_tpu_torch.models.common import cast_tree
+from deeplearning4j_tpu_torch.models.interop import (
+    graph_params_from_numpy, params_from_numpy,
+)
+from deeplearning4j_tpu_torch.models.sequential import (
+    MultiLayerNetwork, tree_leaves,
+)
 from deeplearning4j_tpu_torch.models.vertices import LastTimeStepVertex
 from deeplearning4j_tpu_torch.models.zoo import (
-    alexnet, graves_lstm_char_lm, lenet, resnet50, transformer_char_lm,
+    alexnet, dbn, googlenet, graves_lstm_char_lm, lenet, resnet50,
+    transformer_char_lm, vgg16,
 )
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.layers.attention import gather_pages
@@ -381,6 +408,8 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import (
 from deeplearning4j_tpu_torch.nn.layers.dense import (
     DenseLayer, EmbeddingLayer, OutputLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.autoencoder import RBM
+from deeplearning4j_tpu_torch.nn.layers.moe import MoELayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import GravesLSTM
 from deeplearning4j_tpu_torch.utils.sampling import (
     sample_sequence, step_noise,
@@ -2903,9 +2932,11 @@ def _lstm_batch(rs, t):
 
 def _cpu_twin(net):
     """``net``'s weights in a CPU network of the same configuration."""
-    return params_from_numpy(
-        net.conf, {k: {n: p.cpu().numpy() for n, p in v.items()}
-                   for k, v in net.params.items()}, device="cpu")
+    tree = {k: {n: p.cpu().numpy() for n, p in v.items()}
+            for k, v in net.params.items()}
+    if isinstance(net, ComputationGraph):
+        return graph_params_from_numpy(net.conf, tree, device="cpu")
+    return params_from_numpy(net.conf, tree, device="cpu")
 
 
 def lstm_first_step(net, x, y):
@@ -4987,6 +5018,402 @@ def profiling_phase(name_card, deterministic=False):
             for k in lm_launches}
 
 
+# --------------------------- the conv zoo, pretraining, solvers and MoE
+CONV_ZOO = dict(compute_dtype="bfloat16", seed=12345)   # 224x224x3, 1000
+CONV_BATCH, CONV_HW = 128, 224
+VGG16_PARAMS = 138357544
+GOOGLENET_PARAMS = 6998552   # tests/test_torch_zoo_conv.py pins it (JAX's)
+CPU_ROWS = 2                 # images (rows) held against a CPU twin
+CPU_TOL = 1e-4               # float32 card against CPU, over max |ref|
+DBN_BATCH, DBN_BATCHES, DBN_HELD = 128, 24, 4
+DBN_EPOCHS = 2
+DBN_LBFGS = 10               # the solver fit's iterations
+MOE = dict(d=1024, experts=8, hidden=4096, cf=1.25, classes=128)
+MOE_ROWS = 8 * 2048          # the char-LM's tokens a batch
+MOE_CPU_ROWS = 2048
+
+
+def _top_kernels(ev, steps, n=4) -> str:
+    """The ``n`` device operations that took the most time, ms a step."""
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:n]
+    return "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f}"
+                     for e in top)
+
+
+def profiled_step(what, net, x, y, name_card):
+    """Two profiled captured steps: host wall, device busy, idle share
+    and the top device operations."""
+    ev, wall_ms, busy_ms, _ = _profile_fit(net, x, y)
+    print(f"{what} [captured] step (profiled, {PROFILED_FIT_STEPS} steps): "
+          f"host wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
+          f"share {1 - busy_ms / wall_ms:.3f}); top device ms a step: "
+          f"{_top_kernels(ev, PROFILED_FIT_STEPS)} [{name_card}]")
+
+
+def _logits(net, inputs):
+    """The head's pre-activation of ``inputs`` (no gradient), float32."""
+    with torch.no_grad():
+        if isinstance(net, ComputationGraph):
+            acts, _, _ = net._forward(net.params, net.net_state, inputs)
+            return acts[net.conf.outputs[0]].float()
+        return net._forward(net.params, inputs)[0].float()
+
+
+def card_against_cpu(what, net, inputs, rows=CPU_ROWS):
+    """The first ``rows`` of ``inputs`` in float32 compute on the card and
+    on a CPU twin with the same weights: the logits within ``CPU_TOL`` of
+    the largest, and the argmax equal except on a near-tie (top two
+    within the paths' difference)."""
+    def head(t):
+        return {k: v[:rows] for k, v in t.items()} if isinstance(t, dict) \
+            else t[:rows]
+
+    conf = net.conf
+    net.conf = dataclasses.replace(conf, compute_dtype=None)
+    try:
+        cpu = _cpu_twin(net)
+        got = _logits(net, head(inputs)).cpu()
+    finally:
+        net.conf = conf
+    want = _logits(cpu, _on_cpu(head(inputs)))
+    err = _scaled_err(got, want)
+    diff = (got - want).abs().max().item()
+    gcls, wcls = got.argmax(-1), want.argmax(-1)
+    gap = want.max(-1).values - want.gather(1, gcls[:, None])[:, 0]
+    ties = ((gcls != wcls) & (gap <= diff)).sum().item()
+    agree = (gcls == wcls).sum().item()
+    print(f"{what}: float32 logits of {rows} rows, card against CPU: max abs "
+          f"err {diff:.3e} over max |logit| {want.abs().max().item():.3f} = "
+          f"{err:.3e} (tol {CPU_TOL:g}); argmax agrees on {agree}/{rows}, "
+          f"{ties} near-ties")
+    check(err <= CPU_TOL, f"{what} card against CPU {err}")
+    check(agree + ties == rows, f"{what} argmax card against CPU")
+    del cpu
+
+
+def _on_cpu(t):
+    return ({k: v.cpu() for k, v in t.items()} if isinstance(t, dict)
+            else t.cpu())
+
+
+def conv_zoo_phase(what, make, n_params, name_card):
+    """VGG-16 or GoogLeNet from the zoo at full width (224x224x3, 1000
+    classes, batch 128, bfloat16, Nesterov, ``RandomState(0)`` images in
+    [0, 1) and one-hot labels): the parameter count; ``output`` eager
+    against captured, bit for bit, one capture; float32 logits on the
+    card against a CPU twin; ``fit_modes``' 7 steps a mode (no port
+    kernel on the path: the wrappers count nothing), images/s and the
+    analytic-FLOP utilisation (3 x the forward's convolutions and dense
+    layers); two profiled captured steps."""
+    net = make(device="cuda", **CONV_ZOO)
+    graph = isinstance(net, ComputationGraph)
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.rand(CONV_BATCH, CONV_HW, CONV_HW, 3).astype(
+        np.float32), device="cuda")
+    y = torch.as_tensor(np.eye(1000, dtype=np.float32)[
+        rs.randint(0, 1000, CONV_BATCH)], device="cuda")
+    inputs, labels = ({"input": x}, {"fc": y}) if graph else (x, y)
+    got = net.num_params()
+    print(f"{what}: {got} params ({'ComputationGraph' if graph else 'MultiLayerNetwork'}), "
+          f"batch {CONV_BATCH}x{CONV_HW}x{CONV_HW}x3 bf16")
+    check(got == n_params, f"{what} params {got} == {n_params}")
+
+    eager = twin(net, False)
+    probs = eager.output(inputs)
+    check(tuple(probs.shape) == (CONV_BATCH, 1000)
+          and bool(torch.isfinite(probs).all())
+          and (probs.sum(-1) - 1).abs().max().item() < 1e-3,
+          f"{what} output: finite probabilities of shape "
+          f"[{CONV_BATCH}, 1000]")
+    cap_probs = [net.output(inputs), net.output(inputs)]
+    check(all(torch.equal(p, probs) for p in cap_probs)
+          and net._step_graphs.captures == 1,
+          f"{what} output: captured == eager bit for bit, one capture")
+    print(f"{what} output: captured == eager bit for bit; captures "
+          f"{net._step_graphs.captures}, replays {net._step_graphs.replays}")
+    del eager, cap_probs, probs
+    card_against_cpu(what, net, inputs)
+
+    if graph:
+        with torch.no_grad():
+            acts, _, _ = net._forward(net.params, net.net_state, inputs)
+        fwd = _forward_flops(net, acts)
+        del acts
+    else:
+        fwd = _sequential_flops(net, CONV_BATCH)
+    _, rows = fit_modes(f"{what} train", net, [(inputs, labels)], {},
+                        name_card, items=CONV_BATCH, flops=3.0 * fwd,
+                        peak=PEAK_OPS[torch.bfloat16])
+    profiled_step(what, net, inputs, labels, name_card)
+    return rows
+
+
+def vgg16_phase(name_card):
+    return conv_zoo_phase("vgg16", vgg16, VGG16_PARAMS, name_card)
+
+
+def googlenet_phase(name_card):
+    return conv_zoo_phase("googlenet", googlenet, GOOGLENET_PARAMS,
+                          name_card)
+
+
+def _rbm_errors(net, params, v):
+    """Each RBM's reconstruction error of its input from ``v`` (the
+    trained earlier layers feeding it), with the weights of ``params``."""
+    out = {}
+    for i, layer in enumerate(net.layers):
+        if isinstance(layer, RBM):
+            h = net._pretrain_feed(i)(v)
+            out[layer.name] = float(layer.reconstruction_error(
+                params[layer.name], h))
+    return out
+
+
+def dbn_phase(name_card):
+    """Zoo ``dbn`` at full width (784 -> 500 -> 250 -> 100 -> 10, float32,
+    batch 128, 24 host batches of ``RandomState`` rows in [0, 1)):
+    pretraining for two epochs eagerly and through the captured programs
+    (one a RBM) from one state, bit for bit; every RBM's weights moved
+    and its reconstruction error on a held-out batch fell.  Then an
+    ``EarlyStoppingTrainer`` fine-tune (at most 6 epochs, patience 2, the
+    loss over 4 held-out batches, the best model in memory, whose
+    recomputed score must equal the result's), and one ``fit`` under
+    L-BFGS (10 iterations) whose loss must not rise, captured against
+    eager bit for bit, with the ms an evaluation of each."""
+    from deeplearning4j_tpu_torch import earlystopping as es
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.common import tree_clone
+
+    net = dbn(device="cuda")
+    rs = np.random.RandomState(0)
+    rows = rs.rand(DBN_BATCHES * DBN_BATCH, 784).astype(np.float32)
+    labels = np.eye(10, dtype=np.float32)[
+        rs.randint(0, 10, DBN_BATCHES * DBN_BATCH)]
+    held = rs.rand(DBN_HELD * DBN_BATCH, 784).astype(np.float32)
+    held_y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, len(held))]
+    batches = [rows[i * DBN_BATCH:(i + 1) * DBN_BATCH]
+               for i in range(DBN_BATCHES)]
+    print(f"dbn: {net.num_params()} params, {DBN_BATCHES} host batches of "
+          f"{DBN_BATCH}x784 float32")
+    init = tree_clone(net.params)
+    eager = twin(net, False)
+    secs = {}
+    for label, n in (("eager", eager), ("captured", net)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n.pretrain(batches, epochs=DBN_EPOCHS)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+    gaps = state_gaps(net, eager)
+    graphs = net._step_graphs
+    steps = len([l for l in net.layers if isinstance(l, RBM)]) \
+        * DBN_EPOCHS * DBN_BATCHES
+    print(f"dbn pretrain: {steps} CD-1 steps, eager {secs['eager'] * 1e3:.1f}"
+          f" ms, captured {secs['captured'] * 1e3:.1f} ms (captures "
+          f"included); captured against eager: {len(gaps)} leaves differ; "
+          f"captures {graphs.captures}, replays {graphs.replays} "
+          f"[{name_card}]")
+    check(not gaps, f"dbn pretrain: captured == eager bit for bit "
+                    f"({sorted(gaps)[:4]})")
+    check(graphs.captures == 3 and graphs.replays == steps - 3,
+          "dbn pretrain: one capture a RBM")
+    v = torch.as_tensor(held[:DBN_BATCH], device="cuda")
+    before, after = _rbm_errors(net, init, v), _rbm_errors(net, net.params, v)
+    moved = {k: (net.params[k]["W"] - init[k]["W"]).abs().max().item()
+             for k in before}
+    print(f"dbn pretrain: held-out reconstruction error before -> after "
+          + ", ".join(f"{k} {before[k]:.4f} -> {after[k]:.4f}"
+                      for k in before)
+          + f"; max |dW| {moved}")
+    check(all(m > 0 for m in moved.values()), "dbn: every RBM moved")
+    check(all(after[k] < before[k] for k in before),
+          "dbn: every RBM's reconstruction error fell")
+    del eager, init
+
+    # supervised fine-tuning under early stopping, through captured fit
+    train = ListDataSetIterator(DataSet(rows, labels), DBN_BATCH)
+    val = ListDataSetIterator(DataSet(held, held_y), DBN_BATCH)
+    cfg = (es.EarlyStoppingConfiguration.Builder()
+           .epoch_termination_conditions(
+               es.MaxEpochsTerminationCondition(6),
+               es.ScoreImprovementEpochTerminationCondition(2))
+           .score_calculator(es.DataSetLossCalculator(val))
+           .model_saver(es.InMemoryModelSaver()).build())
+    t0 = time.perf_counter()
+    result = es.EarlyStoppingTrainer(cfg, net, train).fit()
+    t_es = time.perf_counter() - t0
+    best = result.best_model
+    again = es.DataSetLossCalculator(val).calculate_score(best)
+    print(f"dbn early stopping: {result.termination_reason.value} "
+          f"({result.termination_details}) after {result.total_epochs} "
+          f"epochs in {t_es:.2f} s; scores "
+          f"{[round(v, 6) for v in result.score_vs_epoch.values()]}; best "
+          f"epoch {result.best_model_epoch}, score "
+          f"{result.best_model_score:.6f}, recomputed {again:.6f}; "
+          f"captures {net._step_graphs.captures} [{name_card}]")
+    check(result.termination_reason
+          == es.TerminationReason.EPOCH_TERMINATION_CONDITION,
+          "dbn early stopping: an epoch condition ended it")
+    check(best is not None and abs(again - result.best_model_score)
+          <= 1e-6 * abs(result.best_model_score),
+          "dbn early stopping: the best model's score reproduces")
+
+    # one full-batch L-BFGS fit of the fine-tuned net, captured and eager
+    net.conf = dataclasses.replace(net.conf, optimization_algo="lbfgs",
+                                   num_iterations=DBN_LBFGS)
+    eager = twin(net, False)
+    xb, yb = batches[0], labels[:DBN_BATCH]
+    x2, y2 = batches[1], labels[DBN_BATCH:2 * DBN_BATCH]
+    s0 = net.score(xb, yb)
+    ms = {}
+    for label, n in (("eager", eager), ("captured", net)):
+        n.fit(xb, yb)
+        first = n.score_value
+        graphs = cap_counts(n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n.fit(x2, y2)
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3
+        if label == "captured":
+            evals = cap_counts(n)[1] - graphs[1]
+        if label == "eager":
+            e_first, e_second = first, n.score_value
+    gaps = state_gaps(net, eager)
+    print(f"dbn lbfgs: loss {s0:.6f} -> {first:.6f} ({DBN_LBFGS} "
+          f"iterations), then {net.score_value:.6f} on the next batch; "
+          f"{evals} evaluations: {ms['captured'] / evals:.4f} ms each "
+          f"captured, {ms['eager'] / evals:.4f} eager; captured against "
+          f"eager {len(gaps)} leaves differ, losses "
+          f"{'equal' if (first, net.score_value) == (e_first, e_second) else 'differ'}"
+          f"; solver captures {cap_counts(net)[0]} [{name_card}]")
+    check(first <= s0, "dbn lbfgs: the loss did not rise")
+    check(not gaps and (first, net.score_value) == (e_first, e_second),
+          "dbn lbfgs: captured value/grad == eager bit for bit")
+    check(cap_counts(net)[0] == 1, "dbn lbfgs: one solver capture")
+    solver_split(net, ms["captured"] / evals, name_card)
+    return ms
+
+
+def solver_split(net, per_eval_ms, name_card, reps=20):
+    """Where an L-BFGS evaluation's time goes: the captured value/grad
+    program's replay on the card (CUDA events), the loss and float64
+    gradient's copy to the host after it, and the rest (the host's
+    float64 line search and two-loop recursion, the vector's staging)."""
+    prog = next(p for k, p in net._graph_cache.items() if k[0] == "solver")
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    prog.graph.replay()
+    s.record()
+    for _ in range(reps):
+        prog.graph.replay()
+    e.record()
+    e.synchronize()
+    replay_ms = s.elapsed_time(e) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        float(prog.out[0])
+        prog.out[1].to("cpu", torch.float64)
+    copy_ms = (time.perf_counter() - t0) * 1e3 / reps
+    print(f"dbn lbfgs evaluation: {per_eval_ms:.4f} ms, of which the "
+          f"replay {replay_ms:.4f} ms on the card, the loss and "
+          f"{prog.out[1].numel()}-float gradient to the host {copy_ms:.4f} "
+          f"ms, the host's solver math and staging the remaining "
+          f"{per_eval_ms - replay_ms - copy_ms:.4f} ms [{name_card}]")
+
+
+def cap_counts(net):
+    """(captures, replays) of the net's solver programs."""
+    g = net._step_graphs
+    if g is None:
+        return 0, 0
+    n = sum(1 for k, p in g.programs.items()
+            if k[0] == "solver" and p.graph is not None)
+    return n, g.replays
+
+
+def moe_phase(name_card):
+    """The reference's MoE test net (``tests/test_model_parallel.py:112``)
+    at the char-LM's width: Dense(1024 -> 1024, relu), MoELayer(1024, 8
+    experts, hidden 4096, capacity factor 1.25), Output(1024 -> 128), in
+    bfloat16 under Adam, over the char-LM's 8 x 2048 = 16384 rows
+    (``RandomState(0)`` normal features, random one-hot labels).  The
+    routing on the card: every expert's kept load at most C = 2560, the
+    int32 positions equal numpy's count of the router's choices, the
+    dropped tokens equal numpy's recount.  ``output`` eager against
+    captured, bit for bit; the first 2048 rows (routed on their own) in
+    float32 on the card against a CPU twin; ``fit_modes``, with the peak
+    memory."""
+    m = MOE
+    b = (NeuralNetConfiguration.builder().seed(12345)
+         .updater("adam", learning_rate=1e-3).list())
+    b.compute_dtype("bfloat16")
+    conf = (b.layer(DenseLayer(n_in=m["d"], n_out=m["d"], activation="relu"))
+            .layer(MoELayer(n_in=m["d"], n_out=m["d"],
+                            num_experts=m["experts"], hidden=m["hidden"],
+                            capacity_factor=m["cf"]))
+            .layer(OutputLayer(n_in=m["d"], n_out=m["classes"],
+                               loss="mcxent", activation="softmax"))
+            .build())
+    net = MultiLayerNetwork(conf).init("cuda")
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.randn(MOE_ROWS, m["d"]).astype(np.float32),
+                        device="cuda")
+    y = torch.as_tensor(np.eye(m["classes"], dtype=np.float32)[
+        rs.randint(0, m["classes"], MOE_ROWS)], device="cuda")
+    layer = net.layers[1]
+    C = layer.capacity(MOE_ROWS)
+    print(f"moe: {net.num_params()} params, {m['experts']} experts of "
+          f"{m['d']} -> {m['hidden']}, {MOE_ROWS} rows bf16, capacity {C}")
+
+    # the routing, on the MoE layer's own bfloat16 input
+    h = net.feed_forward(x)[0].to(torch.bfloat16)
+    p = cast_tree(net.params[layer.name], torch.bfloat16)
+    r = layer.route(p, h)
+    e = r.expert.cpu().numpy()
+    exact = (np.cumsum(np.eye(m["experts"], dtype=np.int64)[e], 0) - 1)[
+        np.arange(MOE_ROWS), e]
+    load = np.bincount(e, minlength=m["experts"])
+    kept = np.bincount(e[r.kept.cpu().numpy()], minlength=m["experts"])
+    dropped = int(np.maximum(load - C, 0).sum())
+    print(f"moe routing: loads {load.tolist()}, kept {kept.tolist()} (C "
+          f"{C}), dropped {int((~r.kept).sum())} (numpy {dropped}), "
+          f"positions int32 {r.pos.dtype == torch.int32}")
+    check(r.capacity == C == 2560 and int(kept.max()) <= C,
+          "moe: every expert's load within its capacity")
+    check(np.array_equal(r.pos.cpu().numpy(), exact),
+          "moe: positions equal numpy's exact count")
+    check(int((~r.kept).sum()) == dropped
+          and np.array_equal(r.kept.cpu().numpy(), exact < C),
+          "moe: the dropped tokens equal numpy's recount")
+    del h, p, r
+
+    eager = twin(net, False)
+    probs = eager.output(x)
+    cap_probs = [net.output(x), net.output(x)]
+    check(bool(torch.isfinite(probs).all())
+          and all(torch.equal(q, probs) for q in cap_probs)
+          and net._step_graphs.captures == 1,
+          "moe output: captured == eager bit for bit, one capture")
+    print("moe output: captured == eager bit for bit, one capture")
+    del eager, cap_probs, probs
+    card_against_cpu("moe", net, x, rows=MOE_CPU_ROWS)
+
+    dense = 2 * m["d"] * (m["d"] + m["classes"] + m["experts"])
+    experts = 2 * 2 * m["d"] * m["hidden"] * m["experts"] * C
+    fwd = dense * MOE_ROWS + experts
+    _, rows = fit_modes("moe train", net, [(x, y)], {}, name_card,
+                        items=MOE_ROWS, flops=3.0 * fwd,
+                        peak=PEAK_OPS[torch.bfloat16], unit="rows")
+    profiled_step("moe", net, x, y, name_card)
+    print(f"moe: peak memory captured {rows['captured']['peak_gb']:.2f} GB, "
+          f"eager {rows['eager']['peak_gb']:.2f} GB [{name_card}]")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5052,6 +5479,11 @@ def main() -> int:
     profiled = profiling_phase(name_card, deterministic)
     torch.cuda.empty_cache()
     t_fleet = time.perf_counter() - t_fleet
+    t_zoo = time.perf_counter()
+    for phase in (vgg16_phase, googlenet_phase, dbn_phase, moe_phase):
+        phase(name_card)
+        torch.cuda.empty_cache()
+    t_zoo = time.perf_counter() - t_zoo
     # the new phases' profiled launches join the kernels line's
     launches += served["paged"]
     train_launches = [n + guarded[k] for n, k in zip(
@@ -5148,7 +5580,8 @@ def main() -> int:
           f"serving phases {t_new:.1f} s; the server, guard and resume "
           f"phases {t_slice:.1f} s; the online, introspection and "
           f"kerneldiff phases {t_online:.1f} s; the fleet and profiling "
-          f"phases {t_fleet:.1f} s)")
+          f"phases {t_fleet:.1f} s; the vgg16, googlenet, dbn and moe "
+          f"phases {t_zoo:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,9 @@ seed on the device (``device_key``).  A train step captured in a CUDA
 graph reads its key from a static device key that the host rewrites
 before each replay, so the graph draws new masks every step.
 
-Splits and masks are counter-based functions of (seed, index): the
+Splits, masks, draws against a tensor of probabilities
+(``bernoulli_probs``) and normal noise (``normal``) are counter-based
+functions of (seed, index): the
 splitmix64 finalizer in wrapping int64 arithmetic, evaluated in Python
 for a generator's children and in int64 tensor ops for a device key's
 and for every mask element.  So a generator and a device key with one
@@ -39,6 +41,7 @@ _GOLDEN = 0x9E3779B97F4A7C15
 _M1 = 0xBF58476D1CE4E5B9
 _M2 = 0x94D049BB133111EB
 _MASK_SALT = 0x6A09E667F3BCC909   # a mask's stream is apart from splits'
+_NORMAL_SALT = 0xBB67AE8584CAA73B  # and a normal draw's from both
 _MASK_BITS = 24                   # a mask element's uniform: 24 bits
 
 Key = Union[torch.Generator, torch.Tensor]
@@ -123,13 +126,49 @@ def bernoulli(key: Key, p: float, shape, device) -> torch.Tensor:
     ``device`` from ``key``'s seed (``jax.random.bernoulli``): element i
     is True when the top 24 bits of splitmix64 of (the key's mask seed,
     i) fall below ``p`` · 2^24."""
-    device = torch.device(device)
     shape = tuple(shape)
     n = math.prod(shape)
+    return (_bits(key, _MASK_SALT, n, torch.device(device))
+            < math.ceil(p * 2 ** _MASK_BITS)).reshape(shape)
+
+
+def _bits(key: Key, salt: int, n: int, device) -> torch.Tensor:
+    """The top 24 bits of splitmix64 of (the key's seed salted by
+    ``salt``, i) for i in 1..n, as int64 on ``device``."""
     if torch.is_tensor(key):
-        base = _finalize_t(key.to(device) ^ _signed(_MASK_SALT))
+        base = _finalize_t(key.to(device) ^ _signed(salt))
     else:
-        base = _signed(_finalize(key.initial_seed() ^ _MASK_SALT))
+        base = _signed(_finalize(key.initial_seed() ^ salt))
     idx = torch.arange(1, n + 1, dtype=torch.int64, device=device)
-    bits = _srl(_finalize_t(idx * _signed(_GOLDEN) + base), 64 - _MASK_BITS)
-    return (bits < math.ceil(p * 2 ** _MASK_BITS)).reshape(shape)
+    return _srl(_finalize_t(idx * _signed(_GOLDEN) + base), 64 - _MASK_BITS)
+
+
+def uniform(key: Key, shape, device) -> torch.Tensor:
+    """float32 uniforms in [0, 1) of ``shape``: element i is the mask
+    stream's 24 bits over 2^24 (exact in float32), so
+    ``bernoulli_probs`` draws ``uniform(key) < probs``."""
+    shape = tuple(shape)
+    bits = _bits(key, _MASK_SALT, math.prod(shape), torch.device(device))
+    return (bits.float() * (1.0 / 2 ** _MASK_BITS)).reshape(shape)
+
+
+def bernoulli_probs(key: Key, probs: torch.Tensor) -> torch.Tensor:
+    """Samples of ``probs``' type and shape, 1 where ``uniform(key)`` falls
+    below the element's probability (``jax.random.bernoulli(key, probs)``
+    cast to the probabilities' type); nothing flows back to ``probs``."""
+    u = uniform(key, probs.shape, probs.device)
+    return (u < probs.detach().float()).to(probs.dtype)
+
+
+def normal(key: Key, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """Standard normal noise of ``shape`` (``jax.random.normal``) by
+    Box-Muller: element i takes the 24-bit uniforms 2i and 2i + 1 of the
+    key's normal stream, each shifted into (0, 1) as (bits + 0.5) / 2^24
+    so that the logarithm never sees 0."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    bits = _bits(key, _NORMAL_SALT, 2 * n, torch.device(device))
+    u = (bits.float() + 0.5) * (1.0 / 2 ** _MASK_BITS)
+    u1, u2 = u[0::2], u[1::2]
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    return z.reshape(shape).to(dtype)

@@ -11,7 +11,9 @@ stability duties, its telemetry and its listeners (``fit_loop``),
 TBPTT's window loop (``fit_tbptt``), the in-step introspection and
 numerics collection (``StepWatch``), the stream caches and recurrent
 carries of ``rnn_time_step`` and ``generate`` (seeding, the host-side
-capacity check) and the raise for what is not ported yet."""
+capacity check), the solver path of ``fit`` (``fit_solver``) and the
+layerwise pretraining of AutoEncoder and RBM layers
+(``pretrain_layer``)."""
 
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from deeplearning4j_tpu_torch.backend import rng as rng_mod
 from deeplearning4j_tpu_torch.backend.device import compute_dtype
 from deeplearning4j_tpu_torch.models import capture as cap
 from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
+from deeplearning4j_tpu_torch.nn.layers.autoencoder import RBM, AutoEncoder
 from deeplearning4j_tpu_torch.optimize import updaters as upd
 from deeplearning4j_tpu_torch.observability import introspection, numerics
 from deeplearning4j_tpu_torch.observability.fitmetrics import fit_telemetry
@@ -104,10 +107,6 @@ def tree_clone(tree):
     if torch.is_tensor(tree):
         return tree.detach().clone()
     return tree
-
-
-def not_ported(facade: str, what: str, where: str):
-    raise NotImplementedError(f"{facade}.{what} is not ported yet ({where})")
 
 
 def initial_carries(named_layers, batch, cdtype, device):
@@ -260,14 +259,9 @@ class LazyScoreMixin:
 
 
 def check_trainable(net) -> None:
-    """Raise for what ``fit`` does not run yet in the port, and give the
-    net the state subtrees its training policies keep (stability guard,
+    """Raise when the net has no parameters yet, and give the net the
+    state subtrees its training policies keep (stability guard,
     introspection, numerics ledger)."""
-    conf = net.conf
-    if conf.optimization_algo != "stochastic_gradient_descent":
-        raise NotImplementedError(
-            f"optimization_algo={conf.optimization_algo!r}: the full-batch "
-            "solvers are not ported yet (ROADMAP A8)")
     if net.device is None:
         raise RuntimeError("call init() (or load a model) before fit()")
     stability.ensure_state(net)
@@ -575,6 +569,76 @@ def fit_tbptt(net, t_len: int, batch: int, window, run) -> None:
         carries = run(one)[1]
 
 
+def solver(net) -> bool:
+    """Whether ``net`` trains through a full-batch solver (LineGD, CG,
+    L-BFGS: ``optimize/solvers.py``) rather than the SGD step."""
+    return net.conf.optimization_algo != "stochastic_gradient_descent"
+
+
+def fit_solver(net, loss_fn, inputs) -> None:
+    """One batch of a solver fit (reference ``_fit_solver``,
+    ``sequential.py:570-589``, ``graph.py:962``): ``conf.num_iterations``
+    iterations of ``conf.optimization_algo`` over the full batch
+    (``inputs``, by the names ``loss_fn(params, key, **inputs)``
+    takes)."""
+    from deeplearning4j_tpu_torch.optimize import solvers
+
+    solvers.fit_model_with_solver(net, loss_fn, inputs,
+                                  net.conf.optimization_algo,
+                                  net.conf.num_iterations)
+
+
+def pretrainable(layer) -> bool:
+    return isinstance(layer, (AutoEncoder, RBM))
+
+
+def pretrain_layer(net, name: str, layer, feed, batches,
+                   epochs: int) -> None:
+    """Layerwise pretraining of one AutoEncoder or RBM (reference
+    ``sequential.py:772-809``, ``graph.py:1160-1197``): for ``epochs``
+    passes over ``batches`` (each the features in the structure ``feed``
+    takes), ``feed(**batch)`` gives the layer's input (the layers before
+    it in test mode, outside autograd), and the layer's parameters take
+    one plain step ``p - lr · grad`` of its ``pretrain_loss``, in place:
+    ``lr`` the layer's learning rate, else the updater's; no updater
+    state, regularization or listeners, as in the reference.  Each batch
+    takes one key from the net's stream.  On the card a batch is a
+    replay of the layer's captured program for the batch's signature:
+    the features staged from the pinned ring, the key a device key the
+    host rewrites."""
+    lr = layer.learning_rate or net.conf.updater.learning_rate
+
+    def body(key, scalars=None, **batch):
+        h = feed(**batch)
+        params = net.params[name]
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = layer.pretrain_loss(params, h, key)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        with torch.no_grad():
+            for p, g in zip(leaves, grads):
+                p.sub_(g * lr)
+        return loss.detach()
+
+    graphs = cap.step_graphs(net) if cap.captures(net) else None
+    for _ in range(epochs):
+        for batch in batches:
+            seed = rng_mod.seed_of(net._keys.next())
+            if graphs is None:
+                body(rng_mod.device_key(seed, net.device),
+                     **_on(batch, net.device))
+                continue
+            staged = tree_map(cap.host_or_device, batch)
+            prog = graphs.program("pretrain", body, staged, variant=name)
+            graphs.stage(prog, staged, seed)
+            graphs.run(prog)
+
+
 def fit_loop(net, component: str, batches, *, epochs: int, unpack,
              batch_adv, fit_one, checkpoint_manager=None,
              retry_policy=None) -> None:
@@ -586,10 +650,12 @@ def fit_loop(net, component: str, batches, *, epochs: int, unpack,
     are skipped (``batch_adv(x)``: the iterations a batch advances);
     before each batch a preemption request commits a priority checkpoint
     and stops the fit cleanly; ``fit_one(x, y, fmask, lmask, run)`` runs
-    the batch's steps, each through ``run`` (the retry and fault scope
+    the batch's SGD steps, each through ``run`` (the retry and fault scope
     with the key stream set back, or a plain call); after it the manager
     saves when a trigger is due, and the stability runtime polls every
-    ``check_every`` batches.  Each step runs inside ``step_guard("fit_step")``
+    ``check_every`` batches.  Under a full-batch solver each batch is one
+    solve (``net._fit_solver``) in that same scope instead.  Each step
+    runs inside ``step_guard("fit_step")``
     (flight events, the watchdog, an installed ``StepProfiler``'s frame;
     the profiler also tracks the net for memory attribution), is timed
     on the host around its replay (``fit_telemetry``: ``last_step_seconds`` and
@@ -632,18 +698,27 @@ def fit_loop(net, component: str, batches, *, epochs: int, unpack,
         notify_listeners(net, rows[0])
         return out
 
+    def fit_batch(x, y, fm, lm):
+        if solver(net):
+            # one solve a batch, through the same scope as a step; the
+            # solve advances the iteration once, after it ends
+            run(lambda: net._fit_solver(x, y, fm, lm))
+        else:
+            fit_one(x, y, fm, lm, run)
+
     try:
         for _ in range(epochs):
             for batch in batches:
                 x, y, fm, lm = unpack(batch)
                 rows[0] = batch_rows(x)
-                if res is not None and res.skip_window(batch_adv(x)):
+                if res is not None and res.skip_window(
+                        1 if solver(net) else batch_adv(x)):
                     continue
                 if preemption_requested():
                     if res is not None:
                         res.on_preempt(net)
                     return
-                fit_one(x, y, fm, lm, run)
+                fit_batch(x, y, fm, lm)
                 if res is not None:
                     res.after_step(net)
                 if rt is not None:

@@ -25,8 +25,10 @@ recurrent nodes (``rnn_time_step``, ``rnn_clear_previous_state``:
 carries flow through the forward), and ``fit`` with ``checkpoint_manager=``
 and ``retry_policy=`` and the stability guard (``common.fit_loop``), its
 telemetry and listeners (``set_listeners``), ``evaluate``, and the
-introspection and numerics policies collected inside the step.
-``pretrain`` raises ``NotImplementedError`` naming its ROADMAP item.
+introspection and numerics policies collected inside the step; a
+full-batch ``optimization_algo`` runs one solve a batch
+(``optimize/solvers.py``), and ``pretrain`` trains the AutoEncoder and
+RBM vertices layerwise.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.models.common import (
     FlatParamsMixin, LazyScoreMixin, cast_tree, check_cache_capacity,
-    infer, not_ported, seed_stream_caches, sgd_step, trainable,
+    infer, seed_stream_caches, sgd_step, trainable,
     unpack_batch,
 )
 from deeplearning4j_tpu_torch.models.sequential import init_net_state
@@ -555,6 +557,16 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
                     "labels": self._as_label_dict(y), "fmask": fmask,
                     "lmask": lmask})
 
+    def _fit_solver(self, x, y, fm, lm) -> None:
+        """A batch under a full-batch solver (reference ``_fit_solver``,
+        ``graph.py:962``)."""
+        common.fit_solver(
+            self, lambda params, key, inputs, labels, fmask, lmask:
+            self._loss_fn(params, self.net_state, inputs, labels, key,
+                          fmask, lmask, train=True),
+            {"inputs": self._as_input_dict(x),
+             "labels": self._as_label_dict(y), "fmask": fm, "lmask": lm})
+
     def _fit_one(self, x, y, fmask, lmask, run) -> None:
         """One batch: one step, or TBPTT's windows, each through
         ``run``."""
@@ -780,10 +792,40 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
             ev.eval(y, out.detach().cpu().numpy(), mask=lm)
         return ev
 
-    # --------------------------------------------------------- not ported
-    def pretrain(self, *args, **kwargs):
-        not_ported("ComputationGraph", "pretrain",
-                   "AutoEncoder/RBM, ROADMAP A7")
+    # ------------------------------------------------------------ pretrain
+    def _pretrain_features(self, batch):
+        """The input dict of a pretraining batch: a MultiDataSet-like
+        object, a DataSet-like one, a tuple (features first) or bare
+        features (reference ``graph.py:1181-1188``)."""
+        if hasattr(batch, "features_masks"):
+            x = self._unpack_multi(batch)[0]
+        elif hasattr(batch, "features"):
+            x = batch.features
+        else:
+            x = batch[0] if isinstance(batch, (tuple, list)) else batch
+        return self._as_input_dict(x)
+
+    def pretrain(self, batches, epochs: int = 1) -> "ComputationGraph":
+        """Layerwise unsupervised pretraining of the AutoEncoder and RBM
+        layer vertices in topological order (reference
+        ``ComputationGraph.pretrain``, ``graph.py:1160``): each trained
+        on the DAG activation that feeds it, from the whole forward in
+        test mode (``common.pretrain_layer``; on the card a captured
+        program per vertex and batch signature)."""
+        xs = [{"inputs": self._pretrain_features(b)} for b in batches]
+        for name in self.topo:
+            node = self.nodes[name]
+            if node.layer is None or not common.pretrainable(node.layer):
+                continue
+
+            def feed(inputs, _src=node.inputs[0]):
+                with torch.no_grad():
+                    acts, _, _ = self._forward(self.params, self.net_state,
+                                               inputs)
+                return acts[_src]
+
+            common.pretrain_layer(self, name, node.layer, feed, xs, epochs)
+        return self
 
     # ---------------------------------------------------------- checkpoints
     def save(self, path, save_updater: bool = True) -> None:

@@ -35,8 +35,10 @@ step; ``evaluate`` runs an iterator through ``output``.  Under
 ``conf.introspection`` and ``conf.numerics`` the step collects its
 statistics inside the captured graph (``common.StepWatch``).
 
-Not ported yet (later slices): the full-batch solvers; ``pretrain``
-raises ``NotImplementedError`` naming its ROADMAP item.
+Under a full-batch ``optimization_algo`` (LineGD, CG, L-BFGS) ``fit``
+runs one solve a batch over the flat parameter vector
+(``optimize/solvers.py``).  ``pretrain`` trains the AutoEncoder and RBM
+layers layerwise (``common.pretrain_layer``).
 """
 
 from __future__ import annotations
@@ -53,9 +55,8 @@ from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.models.common import (  # noqa: F401 (re-exported)
     FlatParamsMixin, LazyScoreMixin, _tree_like, cast_tree,
-    check_cache_capacity, check_trainable, infer, not_ported,
-    seed_stream_caches, sgd_step, train_step, trainable, tree_leaves,
-    unpack_batch,
+    check_cache_capacity, check_trainable, infer, seed_stream_caches,
+    sgd_step, train_step, trainable, tree_leaves, unpack_batch,
 )
 from deeplearning4j_tpu_torch.nn import activations, losses
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
@@ -283,6 +284,15 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
             windows = -(-int(x.shape[1]) // self.conf.tbptt_fwd_length)
         return self.conf.num_iterations * windows
 
+    def _fit_solver(self, x, y, fm, lm) -> None:
+        """A batch under a full-batch solver (reference ``_fit_solver``,
+        ``sequential.py:570-589``): ``num_iterations`` iterations of
+        ``conf.optimization_algo`` over the flat parameter vector."""
+        common.fit_solver(
+            self, lambda params, key, x, y, fmask, lmask: self._loss_fn(
+                params, x, y, key, fmask, lmask, train=True),
+            {"x": x, "y": y, "fmask": fm, "lmask": lm})
+
     def _fit_batch(self, x, y, fm, lm, run) -> None:
         """One batch: ``num_iterations`` steps (or TBPTT passes), each
         step through ``run``."""
@@ -406,10 +416,50 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
                     mask=ds.labels_mask)
         return ev
 
-    # --------------------------------------------------------- not ported
-    def pretrain(self, *args, **kwargs):
-        not_ported("MultiLayerNetwork", "pretrain",
-                   "AutoEncoder/RBM, ROADMAP A7")
+    # ------------------------------------------------------------ pretrain
+    def _pretrain_feed(self, i: int):
+        """``layers[i]``'s input from the net's features: the layers before
+        it in test mode, each after its preprocessor, then ``i``'s own
+        preprocessor, outside autograd (reference ``sequential.py:796-805``:
+        no compute-dtype cast)."""
+        pre = self.conf.preprocessors
+
+        def feed(x):
+            h = x
+            with torch.no_grad():
+                for j, layer in enumerate(self.layers[:i]):
+                    if j in pre:
+                        h = pre[j](h)
+                    p = self.params[layer.name]
+                    if hasattr(layer, "apply_with_state"):
+                        h, _ = layer.apply_with_state(
+                            p, self.net_state.get(layer.name, {}), h)
+                    elif hasattr(layer, "apply_with_carry"):
+                        h, _ = layer.apply_with_carry(p, h, None)
+                    else:
+                        h = layer.apply(p, h)
+                if i in pre:
+                    h = pre[i](h)
+            return h
+
+        return feed
+
+    def pretrain(self, batches, epochs: int = 1) -> "MultiLayerNetwork":
+        """Layerwise unsupervised pretraining (reference ``pretrain``,
+        ``sequential.py:772``; ``MultiLayerNetwork.java:164``): each
+        AutoEncoder or RBM layer in order, for ``epochs`` passes over
+        ``batches`` (feature arrays, or (x, y) pairs and DataSets whose
+        labels are ignored), fed by the layers before it
+        (``common.pretrain_layer``; on the card a captured program per
+        layer and batch signature)."""
+        batches = list(batches)
+        xs = [{"x": b if hasattr(b, "ndim") else self._unpack(b)[0]}
+              for b in batches]
+        for i, layer in enumerate(self.layers):
+            if common.pretrainable(layer):
+                common.pretrain_layer(self, layer.name, layer,
+                                      self._pretrain_feed(i), xs, epochs)
+        return self
 
     # ----------------------------------------------------------- checkpoints
     def save(self, path, save_updater: bool = True) -> None:

@@ -1,6 +1,6 @@
 """Model zoo — counterpart of ``deeplearning4j_tpu/models/zoo.py``
-(``lenet``, ``resnet50``, ``alexnet``, ``graves_lstm_char_lm`` and
-``transformer_char_lm`` so far).  Each builds the reference's config (and JSON) and seeded weights
+(``lenet``, ``resnet50``, ``alexnet``, ``vgg16``, ``googlenet``,
+``dbn``, ``graves_lstm_char_lm`` and ``transformer_char_lm``).  Each builds the reference's config (and JSON) and seeded weights
 on ``device``: ``cuda`` unless the caller passes ``device="cpu"``."""
 
 from __future__ import annotations
@@ -10,11 +10,13 @@ from typing import Optional, Sequence
 from deeplearning4j_tpu_torch.backend.device import DeviceLike
 from deeplearning4j_tpu_torch.models.graph import ComputationGraph
 from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
-from deeplearning4j_tpu_torch.models.vertices import ElementWiseVertex
+from deeplearning4j_tpu_torch.models.vertices import (
+    ElementWiseVertex, MergeVertex,
+)
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
-    ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
+    RBM, ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
     EmbeddingLayer, GlobalPoolingLayer, GravesLSTM, LayerNorm,
     LocalResponseNormalization, OutputLayer, ResidualBlock, RnnOutputLayer,
     SelfAttentionLayer, SubsamplingLayer,
@@ -162,6 +164,127 @@ def alexnet(height: int = 224, width: int = 224, channels: int = 3,
       .layer(OutputLayer(n_out=n_classes, loss="mcxent",
                          activation="softmax"))
       .set_input_type(InputType.convolutional(height, width, channels)))
+    return MultiLayerNetwork(b.build()).init(device)
+
+
+def vgg16(height: int = 224, width: int = 224, channels: int = 3,
+          n_classes: int = 1000, seed: int = 12345,
+          updater: str = "nesterovs", lr: float = 0.01,
+          compute_dtype: Optional[str] = None,
+          device: DeviceLike = None) -> MultiLayerNetwork:
+    """VGG-16 (13 conv 3x3 + 3 fc; the DL4J model-zoo config): five
+    blocks of 3x3 convolutions, each closed by a 2x2 max pool, two dense
+    layers of 4096 with input dropout 0.5 and the softmax head; l2 5e-4
+    under Nesterov."""
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(updater, learning_rate=lr)
+         .regularization(True).l2(5e-4).list())
+    if compute_dtype:
+        b.compute_dtype(compute_dtype)
+    for n_convs, ch in [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]:
+        for _ in range(n_convs):
+            b.layer(ConvolutionLayer(n_out=ch, kernel_size=(3, 3),
+                                     stride=(1, 1), padding=(1, 1),
+                                     activation="relu"))
+        b.layer(SubsamplingLayer(pooling_type="max", kernel_size=(2, 2),
+                                 stride=(2, 2)))
+    (b.layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+      .layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+      .layer(OutputLayer(n_out=n_classes, loss="mcxent",
+                         activation="softmax"))
+      .set_input_type(InputType.convolutional(height, width, channels)))
+    return MultiLayerNetwork(b.build()).init(device)
+
+
+def _inception(g, name: str, in_name: str, c1: int, c3r: int, c3: int,
+               c5r: int, c5: int, cp: int) -> str:
+    """GoogLeNet's inception module: four parallel branches (1x1 |
+    1x1->3x3 | 1x1->5x5 | maxpool->1x1) concatenated on channels by a
+    ``MergeVertex``."""
+    def conv(n, k, pad=(0, 0)):
+        return ConvolutionLayer(n_out=n, kernel_size=(k, k), padding=pad,
+                                activation="relu", weight_init="relu")
+
+    g.add_layer(f"{name}_b1", conv(c1, 1), in_name)
+    g.add_layer(f"{name}_b2r", conv(c3r, 1), in_name)
+    g.add_layer(f"{name}_b2", conv(c3, 3, (1, 1)), f"{name}_b2r")
+    g.add_layer(f"{name}_b3r", conv(c5r, 1), in_name)
+    g.add_layer(f"{name}_b3", conv(c5, 5, (2, 2)), f"{name}_b3r")
+    g.add_layer(f"{name}_b4p", SubsamplingLayer(
+        pooling_type="max", kernel_size=(3, 3), stride=(1, 1),
+        padding=(1, 1)), in_name)
+    g.add_layer(f"{name}_b4", conv(cp, 1), f"{name}_b4p")
+    g.add_vertex(f"{name}_cat", MergeVertex(), f"{name}_b1", f"{name}_b2",
+                 f"{name}_b3", f"{name}_b4")
+    return f"{name}_cat"
+
+
+def googlenet(height: int = 224, width: int = 224, channels: int = 3,
+              n_classes: int = 1000, seed: int = 12345,
+              updater: str = "nesterovs", lr: float = 0.01,
+              compute_dtype: Optional[str] = None,
+              device: DeviceLike = None) -> ComputationGraph:
+    """GoogLeNet (Inception-v1) as a ComputationGraph: the stem, nine
+    inception modules joined by ``MergeVertex``, 3x3 max pools with
+    padding 1, global average pooling and a softmax head with input
+    dropout 0.4; l2 2e-4 under Nesterov."""
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(updater, learning_rate=lr)
+         .regularization(True).l2(2e-4).graph()
+         .add_inputs("input")
+         .set_input_types(input=InputType.convolutional(height, width,
+                                                        channels)))
+    if compute_dtype:
+        b.compute_dtype(compute_dtype)
+    pool = dict(pooling_type="max", kernel_size=(3, 3), stride=(2, 2),
+                padding=(1, 1))
+    b.add_layer("stem1", ConvolutionLayer(
+        n_out=64, kernel_size=(7, 7), stride=(2, 2), padding=(3, 3),
+        activation="relu", weight_init="relu"), "input")
+    b.add_layer("pool1", SubsamplingLayer(**pool), "stem1")
+    b.add_layer("stem2r", ConvolutionLayer(
+        n_out=64, kernel_size=(1, 1), activation="relu", weight_init="relu"),
+        "pool1")
+    b.add_layer("stem2", ConvolutionLayer(
+        n_out=192, kernel_size=(3, 3), padding=(1, 1), activation="relu",
+        weight_init="relu"), "stem2r")
+    b.add_layer("pool2", SubsamplingLayer(**pool), "stem2")
+    # (c1, c3r, c3, c5r, c5, cp) a module: the published v1 table
+    prev = _inception(b, "i3a", "pool2", 64, 96, 128, 16, 32, 32)
+    prev = _inception(b, "i3b", prev, 128, 128, 192, 32, 96, 64)
+    b.add_layer("pool3", SubsamplingLayer(**pool), prev)
+    prev = _inception(b, "i4a", "pool3", 192, 96, 208, 16, 48, 64)
+    prev = _inception(b, "i4b", prev, 160, 112, 224, 24, 64, 64)
+    prev = _inception(b, "i4c", prev, 128, 128, 256, 24, 64, 64)
+    prev = _inception(b, "i4d", prev, 112, 144, 288, 32, 64, 64)
+    prev = _inception(b, "i4e", prev, 256, 160, 320, 32, 128, 128)
+    b.add_layer("pool4", SubsamplingLayer(**pool), prev)
+    prev = _inception(b, "i5a", "pool4", 256, 160, 320, 32, 128, 128)
+    prev = _inception(b, "i5b", prev, 384, 192, 384, 48, 128, 128)
+    b.add_layer("gap", GlobalPoolingLayer(pooling_type="avg"), prev)
+    b.add_layer("fc", OutputLayer(n_out=n_classes, loss="mcxent",
+                                  activation="softmax", weight_init="xavier",
+                                  dropout=0.4), "gap")
+    return ComputationGraph(b.set_outputs("fc").build()).init(device)
+
+
+def dbn(n_in: int = 784, hidden: Sequence[int] = (500, 250, 100),
+        n_classes: int = 10, seed: int = 12345, updater: str = "nesterovs",
+        lr: float = 0.1, k: int = 1,
+        device: DeviceLike = None) -> MultiLayerNetwork:
+    """Deep Belief Network: stacked RBMs (CD-``k``) and a softmax head,
+    trained by layerwise ``pretrain`` then supervised ``fit``.  The
+    first RBM sees real-valued inputs (gaussian visible units), the
+    deeper ones sigmoid activations in [0, 1] (binary)."""
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(updater, learning_rate=lr).list())
+    prev = n_in
+    for li, h in enumerate(hidden):
+        b.layer(RBM(n_in=prev, n_out=h, hidden_unit="binary",
+                    visible_unit="gaussian" if li == 0 else "binary", k=k))
+        prev = h
+    b.layer(OutputLayer(n_in=prev, n_out=n_classes, loss="mcxent",
+                        activation="softmax"))
     return MultiLayerNetwork(b.build()).init(device)
 
 

@@ -1,6 +1,7 @@
 """Layer classes (importing this module registers every ported layer type)."""
 
 from deeplearning4j_tpu_torch.nn.layers.attention import SelfAttentionLayer
+from deeplearning4j_tpu_torch.nn.layers.autoencoder import RBM, AutoEncoder
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer, layer_from_dict, register_layer,
 )
@@ -11,6 +12,7 @@ from deeplearning4j_tpu_torch.nn.layers.convolution import (
 from deeplearning4j_tpu_torch.nn.layers.dense import (
     ActivationLayer, DenseLayer, DropoutLayer, EmbeddingLayer, OutputLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.moe import MoELayer
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNormalization, LayerNorm, LocalResponseNormalization,
 )
@@ -19,10 +21,10 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
 )
 
 __all__ = [
-    "ActivationLayer", "BatchNormalization", "ConvolutionLayer",
+    "RBM", "ActivationLayer", "AutoEncoder", "BatchNormalization", "ConvolutionLayer",
     "DenseLayer", "DropoutLayer", "EmbeddingLayer", "GlobalPoolingLayer",
     "GravesBidirectionalLSTM", "GravesLSTM", "LSTM", "Layer", "LayerNorm",
-    "LocalResponseNormalization", "OutputLayer",
+    "LocalResponseNormalization", "MoELayer", "OutputLayer",
     "ResidualBlock", "RnnOutputLayer", "SelfAttentionLayer",
     "SubsamplingLayer", "layer_from_dict", "register_layer",
 ]

@@ -2119,3 +2119,104 @@ def test_subprocess_replica_on_cuda_answers_generate(cuda):
         assert env["tokens"] == want
     finally:
         sup.stop_all()
+
+
+# ------------------------------------------- pretraining, MoE, solvers
+@pytest.mark.parametrize("shape", [(7,), (128, 500), (33, 17, 5)])
+def test_device_key_draws_equal_the_generators(shape, cuda):
+    """``bernoulli_probs`` and ``normal`` from a device key on the card
+    equal the generator's draws on the CPU: the Bernoulli samples except
+    where the uniform lies within 1e-6 of the probability (none in
+    practice: the uniforms are exact), the normals to float32 rounding of
+    ``log`` and ``cos``."""
+    from deeplearning4j_tpu_torch.backend import rng as rng_mod
+
+    g = torch.Generator().manual_seed(4)
+    probs = torch.rand(shape, generator=g)
+    host = torch.Generator().manual_seed(991)
+    key = rng_mod.device_key(991, cuda)
+    s_cpu = rng_mod.bernoulli_probs(host, probs)
+    s_gpu = rng_mod.bernoulli_probs(key, probs.to(cuda)).cpu()
+    u = rng_mod.uniform(host, shape, "cpu")
+    far = (u - probs).abs() >= 1e-6
+    assert torch.equal(s_cpu[far], s_gpu[far])
+    z_cpu = rng_mod.normal(host, shape, "cpu")
+    z_gpu = rng_mod.normal(key, shape, cuda).cpu()
+    assert (z_cpu - z_gpu).abs().max().item() <= 1e-5
+
+
+def test_captured_pretrain_equals_eager(cuda):
+    """A DBN's layerwise pretraining through the captured programs (one a
+    RBM) equals the eager run bit for bit from the same key stream."""
+    from deeplearning4j_tpu_torch.models.zoo import dbn
+
+    kw = dict(n_in=64, hidden=(48, 32), n_classes=4, device="cuda")
+    net, eager = dbn(**kw), dbn(**kw)
+    eager._capture = False
+    rs = np.random.RandomState(0)
+    batches = [rs.rand(32, 64).astype(np.float32) for _ in range(3)]
+    net.pretrain(batches, epochs=2)
+    eager.pretrain(batches, epochs=2)
+    for a, b in zip(tree_leaves(net.params), tree_leaves(eager.params)):
+        assert torch.equal(a, b)
+    assert net._step_graphs.captures == 2
+    assert net._step_graphs.replays == 2 * (2 * 3 - 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_equals_a_one_hot_einsum(dtype, cuda):
+    """The MoE forward's scatter and gather on the card against the
+    one-hot dispatch and combine in float32 over the same routing and
+    weights (exact routing: bfloat16 tokens, float32 einsums)."""
+    from deeplearning4j_tpu_torch.nn.layers import MoELayer
+
+    layer = MoELayer(n_in=64, n_out=64, num_experts=4, hidden=128,
+                     capacity_factor=1.0, name="moe")
+    p = {k: v.to(cuda, dtype) for k, v in layer.init(
+        torch.Generator().manual_seed(3)).items()}
+    for k in ("b_up", "b_down"):
+        p[k] = 0.1 * torch.randn(p[k].shape, generator=torch.Generator(
+        ).manual_seed(5)).to(cuda, dtype)
+    x = torch.randn(2048, 64, generator=torch.Generator().manual_seed(6)
+                    ).to(cuda, dtype)
+    r = layer.route(p, x)
+    E, C = 4, r.capacity
+    slot = torch.zeros(2048, E, C, device=cuda)
+    kept = r.kept.nonzero()[:, 0]
+    slot[kept, r.expert[kept], r.pos[kept].long()] = 1.0
+    f = {k: v.float() for k, v in p.items()}
+    ein = torch.einsum("tec,td->ecd", slot, x.float())
+    hdn = torch.relu(torch.einsum("ecd,edh->ech", ein, f["W_up"])
+                     + f["b_up"][:, None])
+    out = torch.einsum("ech,eho->eco", hdn, f["W_down"]) + f["b_down"][:, None]
+    want = torch.einsum("tec,eco->to", slot, out) * r.gate.float()[:, None] \
+        + x.float()
+    got = layer.apply(p, x).float()
+    tol = TOL[dtype] * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+    assert int((~r.kept).sum()) > 0       # some tokens were dropped
+
+
+def test_captured_solver_value_grad_equals_eager(cuda):
+    """A solver ``fit`` (L-BFGS, 10 iterations) through the captured
+    value/grad program equals the eager evaluation's bit for bit: loss,
+    parameters, and one capture for two solves."""
+    from deeplearning4j_tpu_torch.models.zoo import dbn
+    import dataclasses
+
+    kw = dict(n_in=64, hidden=(48,), n_classes=4, device="cuda")
+    net, eager = dbn(**kw), dbn(**kw)
+    for n in (net, eager):
+        n.conf = dataclasses.replace(n.conf, optimization_algo="lbfgs",
+                                     num_iterations=10)
+    eager._capture = False
+    rs = np.random.RandomState(1)
+    for _ in range(2):
+        x = rs.rand(64, 64).astype(np.float32)
+        y = np.eye(4, dtype=np.float32)[rs.randint(0, 4, 64)]
+        net.fit(x, y)
+        eager.fit(x, y)
+        assert net.score_value == eager.score_value
+    for a, b in zip(tree_leaves(net.params), tree_leaves(eager.params)):
+        assert torch.equal(a, b)
+    assert net._step_graphs.captures == 1

@@ -377,9 +377,11 @@ def test_fit_scanned_trains_the_tiny_resnet_like_fit():
 
 
 def test_unported_parts_raise():
-    """``pretrain`` still raises naming ROADMAP A7; ``evaluate``,
-    ``set_listeners`` and the introspection policy, which raised until
-    the online slice, now run on the ResNet graph."""
+    """What raised until later slices now runs on the ResNet graph:
+    ``pretrain`` (ROADMAP A7, the pretraining slice: the graph has no
+    AutoEncoder or RBM vertex, so its parameters and key stream stay as
+    they are), and ``evaluate``, ``set_listeners`` and the introspection
+    policy (the online slice)."""
     from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.observability import introspection
     from deeplearning4j_tpu_torch.optimize.listeners import (
@@ -387,8 +389,12 @@ def test_unported_parts_raise():
     )
 
     net = zoo.resnet50(device="cpu", **TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        net.pretrain([])
+    before = [t.clone() for t in tree_leaves(net.params)]
+    keys = net._keys.get_state()
+    assert net.pretrain([_batch(4)[0]], epochs=2) is net
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, tree_leaves(net.params)))
+    assert torch.equal(net._keys.get_state(), keys)
     net.conf = dataclasses.replace(net.conf, introspection={})
     scores = CollectScoresIterationListener()
     net.set_listeners(scores)

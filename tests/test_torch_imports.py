@@ -100,6 +100,22 @@ def test_every_module_of_the_fleet_and_profiling_slice_is_walked():
                   if f"deeplearning4j_tpu_torch.{n}" not in walked) == []
 
 
+def test_every_module_of_the_pretraining_slice_is_walked():
+    """The pretraining slice's modules (the AutoEncoder and RBM layers,
+    the MoE layer, the full-batch solvers, early stopping) are among
+    those the poisoned-jax import above loads."""
+    import pkgutil
+
+    import deeplearning4j_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    new = ["nn.layers.autoencoder", "nn.layers.moe", "optimize.solvers",
+           "earlystopping"]
+    assert sorted(f"deeplearning4j_tpu_torch.{n}" for n in new
+                  if f"deeplearning4j_tpu_torch.{n}" not in walked) == []
+
+
 def test_replica_main_help_imports_no_jax(tmp_path):
     """``python -m deeplearning4j_tpu_torch.fleet.replica_main --help``
     (what the supervisor spawns) runs with ``jax`` poisoned."""

@@ -2,8 +2,9 @@
 committed fixtures (``tests/regression_fixtures/``): ``output`` with a
 features mask, ``feed_forward``, ``num_params``, the flat parameter
 vector, ``clone``, the configurations' YAML, ``rnn_time_step``,
-``fit_scanned`` against ``fit``, and the named raise of what either
-facade does not port yet.
+``fit_scanned`` against ``fit``, and the methods and configurations
+that once raised naming a ROADMAP item (``pretrain``, the full-batch
+solvers, the listeners, ``evaluate``) against the JAX facades.
 
 Tolerances: outputs and activations at ``rtol=1e-4, atol=1e-5`` (float32,
 the same weights, different summation orders); parameter vectors
@@ -186,8 +187,11 @@ def test_fit_scanned_equals_fit_on_the_committed_zips(name):
 
 
 def _surface_call(net, jnet, name, method):
-    """``method`` on the port's facade; the A8 methods (ported with the
-    online slice) against the JAX facade's."""
+    """``method`` on the port's facade against the JAX facade's: the A8
+    methods (ported with the online slice) and ``pretrain`` (A7, ported
+    with the pretraining slice: on a net without AutoEncoder or RBM
+    layers it leaves the parameters and the key stream as they are, as
+    the reference's does)."""
     from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
     from deeplearning4j_tpu_torch.datasets import DataSet
     from deeplearning4j_tpu_torch.optimize.listeners import (
@@ -200,6 +204,15 @@ def _surface_call(net, jnet, name, method):
         assert net.listeners == [lst]
         return
     x = _input(name)
+    if method == "pretrain":
+        keys = net._keys.get_state()
+        assert net.pretrain([x], epochs=2) is net
+        jnet.pretrain([x], epochs=2)
+        np.testing.assert_array_equal(net.params_to_vector(),
+                                      np.asarray(jnet.params_to_vector()))
+        assert torch.equal(net._keys.get_state(), keys)
+        _close(net.output(x).numpy(), jnet.output(x))
+        return
     c = np.asarray(jnet.output(x)).shape[-1]
     y = np.eye(c, dtype=np.float32)[np.arange(4) % c]
     ev, jev = net.evaluate([DataSet(x, y)]), jnet.evaluate([JDataSet(x, y)])
@@ -210,27 +223,16 @@ def _surface_call(net, jnet, name, method):
     ("pretrain", "A7"), ("set_listeners", "A8"), ("add_listener", "A8"),
     ("evaluate", "A8")])
 def test_unported_sequential_methods_name_their_item(method, item):
-    """``pretrain`` still raises naming its item; the A8 methods are
-    ported (the online slice) and agree with the JAX facade."""
-    net = _port("mlp")
-    if item != "A8":
-        with pytest.raises(NotImplementedError, match=(
-                f"MultiLayerNetwork.{method} .*ROADMAP {item}")):
-            getattr(net, method)(None)
-        return
-    _surface_call(net, _jax("mlp"), "mlp", method)
+    """The methods these cases once pinned as raises are ported (A8 with
+    the online slice, ``pretrain`` (A7) with the pretraining slice) and
+    agree with the JAX facade."""
+    _surface_call(_port("mlp"), _jax("mlp"), "mlp", method)
 
 
 @pytest.mark.parametrize("method, item", [
     ("pretrain", "A7"), ("set_listeners", "A8"), ("evaluate", "A8")])
 def test_unported_graph_methods_name_their_item(method, item):
-    net = _port("graph")
-    if item != "A8":
-        with pytest.raises(NotImplementedError, match=(
-                f"ComputationGraph.{method} .*ROADMAP {item}")):
-            getattr(net, method)(None)
-        return
-    _surface_call(net, _jax("graph"), "graph", method)
+    _surface_call(_port("graph"), _jax("graph"), "graph", method)
 
 
 def test_rnn_time_step_streams_the_committed_transformer():
@@ -352,10 +354,11 @@ def test_builder_refusals_match_jax(call):
                                        ("solver", "A8")])
 def test_configs_of_unported_engines_build_and_fit_raises(what, item):
     """A config that sets a training policy or a full-batch solver
-    builds (the JSON of the JAX builder, above); the solver's ``fit``
-    raises naming the ROADMAP item that ports it.  The stability guard's
-    and the numerics ledger's engines are ported (A9): those configs'
-    ``fit`` runs and leaves the engine's state on the net."""
+    builds (the JSON of the JAX builder, above) and its ``fit`` runs:
+    the stability guard's and the numerics ledger's engines (A9) leave
+    their state on the net, and the solver (A8, ported with the
+    pretraining slice) gives the JAX facade's parameters on the same
+    weights."""
     from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.layers import OutputLayer
@@ -379,9 +382,23 @@ def test_configs_of_unported_engines_build_and_fit_raises(what, item):
         net.fit(np.zeros((2, 3), np.float32), np.eye(2, dtype=np.float32))
         assert float(net.updater_state["__numerics__"]["packed"][0]) == 0.0
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        net.fit(np.zeros((2, 3), np.float32),
-                np.eye(2, dtype=np.float32))
+    from deeplearning4j_tpu.models.sequential import (
+        MultiLayerNetwork as JNet,
+    )
+    from deeplearning4j_tpu.nn.conf import MultiLayerConfiguration as JConf
+
+    jnet = JNet(JConf.from_json(conf.to_json())).init()
+    net.set_params_vector(np.asarray(jnet.params_to_vector()))
+    x = np.arange(6, dtype=np.float32).reshape(2, 3) / 6.0
+    y = np.eye(2, dtype=np.float32)
+    net.fit(x, y)
+    jnet.fit(x, y)
+    assert net.iteration == jnet.iteration == 1
+    np.testing.assert_allclose(net.params_to_vector(),
+                               np.asarray(jnet.params_to_vector()),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(net.score_value, jnet.score_value,
+                               rtol=1e-3, atol=1e-4)
 
 
 def test_dtype_policy_matches_jax(monkeypatch):
