@@ -4,7 +4,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. Build every CUDA kernel of the serving and training paths from the
    sources in this checkout (``nvcc``, one process per source, all
-   started together), and print each kernel's registers and shared
+   started together, beside the native C++ data path's ``g++`` build),
+   and print each kernel's registers and shared
    memory as ``ptxas`` reports them; the float32 flash forward, paged
    decode, BatchNorm's two reductions and LRN's vector kernels must spill
    nothing.
@@ -353,7 +354,36 @@ Phases (any failure exits non-zero; nothing is caught):
    dropped count), ``output`` eager against captured bit for bit, 2048
    rows in float32 against a CPU twin, ``fit_modes`` with the peak
    memory.
-20. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+20. The data path into LeNet (etl_lenet): a full-size MNIST (60000
+   train, 10000 t10k synthetic glyphs) written as IDX files, read by
+   ``MnistDataSetIterator`` through the native IDX parser (seconds, and
+   the images' parse against the plain decode, bit for bit), batched by
+   ``NativeBatchDataSetIterator`` (128, shuffled: 468 full batches and a
+   padded one of 96 under a labels mask) into captured ``fit`` for two
+   epochs, four nets from one seed: with a ``StatsListener`` into a
+   ``FileStatsStorage`` while a ``UIServer`` serves one SSE client and
+   one ``/train/overview`` poller; without them; fed by the plain
+   batcher; and fed the epoch's batches already on the card.  Epoch
+   walls and ms a step of each (fit call to last loss), the listener's
+   host ms a report; the four nets equal bit for bit after each epoch
+   (under ``cudnn.deterministic`` where the lenet phase needed it), two
+   captures each (full and masked) and none in the second epoch, SSE
+   events equal to the stored reports, every overview poll answered 200
+   and one after the fit seeing every report, t10k accuracy above 0.85.
+21. ResNet-50 fed from files (etl_resnet): 8 batches of 128x224x224x3
+   float32 written by ``export_datasets`` (``D4JT``), read back alone
+   (GB/s), then through ``FileDataSetIterator`` behind an
+   ``AsyncDataSetIterator`` into captured bf16 ``fit`` for two passes,
+   against twins fed the same batches from host memory and from the
+   card's memory: losses and state bit for bit; ms a step of the three
+   feeds, each pass timed from its fit call to its last loss, and a
+   profiled pass each (idle share); the BatchNorm training kernels'
+   launches (warm-up and capture) join the kernels line's.
+22. Native CSV into a two-input, two-output graph (multidataset): a
+   100000-row CSV parsed natively (rows/s) and equal to the plain parse,
+   then ``RecordReaderMultiDataSetIterator`` feeds a ``ComputationGraph``
+   8 captured steps of 12500 rows, equal to an eager twin bit for bit.
+23. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -374,7 +404,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch import helpers
+from deeplearning4j_tpu_torch import helpers, native
 from deeplearning4j_tpu_torch.backend.device import pin_fp32_precision
 from deeplearning4j_tpu_torch.generation import GenerationEngine
 from deeplearning4j_tpu_torch.helpers import batch_norm as bn
@@ -530,8 +560,12 @@ def check(ok: bool, what: str) -> None:
 # ------------------------------------------------------------------ phase 1
 def build_kernels():
     modules = [pa, fa, fe, bn, lrn]
-    with ThreadPoolExecutor(len(modules)) as ex:
+    with ThreadPoolExecutor(len(modules) + 1) as ex:
+        host = ex.submit(native.build)      # the C++ data path, with g++
         built = list(ex.map(lambda m: m.build(), modules))
+        host = host.result()
+    print(f"build {native.loader.SOURCE.name} (g++): {host.build_s:.1f} s "
+          f"-> {host.path.name}")
     usage = {}      # kernel -> [registers, spill bytes], from ptxas
     for m, b in zip(modules, built):
         print(f"build {m.SOURCE.name}: {b.build_s:.1f} s -> {b.path.name}")
@@ -1882,17 +1916,19 @@ def train_phase(name_card, model=TRAIN_MODEL, what="train"):
 PROFILED_FIT_STEPS = 2      # fit steps under the profiler, each mode
 
 
-def _profile_fit(net, x, y, steps=PROFILED_FIT_STEPS):
-    """``steps`` fit calls under the CUDA profiler: (events with device
-    time, host wall ms a step, device busy ms a step)."""
+def _profile_fit(net, *feed, steps=PROFILED_FIT_STEPS, warmup=True):
+    """``steps`` calls of ``net.fit(*feed)`` (after one unprofiled call
+    under ``warmup``) under the CUDA profiler: (events with device time,
+    host wall ms a call, device busy ms a call, the profile)."""
     from torch.profiler import ProfilerActivity, profile
 
-    net.fit(x, y)
+    if warmup:
+        net.fit(*feed)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            net.fit(x, y)
+            net.fit(*feed)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -1929,7 +1965,7 @@ def train_profile(net, x, y, name_card, what, paths, layers):
     and the like), ``layers`` times a step, and the prologue twice that.
     Returns the profiled launches (fwd, dQ, dK/dV, prologue)."""
     n = PROFILED_FIT_STEPS
-    ev, wall_ms, busy_ms, _ = _profile_fit(net, x, y, n)
+    ev, wall_ms, busy_ms, _ = _profile_fit(net, x, y, steps=n)
     ours = {"flash fwd": "flash_fwd_", "flash dQ": "flash_dq_",
             "flash dK/dV": "flash_dkv_", "prologue": "drn_kernel"}
     share = {k: sum(e.self_device_time_total for e in ev if pat in e.key)
@@ -2487,7 +2523,7 @@ def step_profile(what, net, x, y, kernel_re, label, name_card, split=None,
     returned), copy kernels, then the host's operations in a traced
     step."""
     n = PROFILED_FIT_STEPS
-    ev, wall_ms, busy_ms, prof = _profile_fit(net, x, y, n)
+    ev, wall_ms, busy_ms, prof = _profile_fit(net, x, y, steps=n)
     ours = [e for e in ev if re.search(kernel_re, e.key)]
     ours_ms = sum(e.self_device_time_total for e in ours) / 1e3 / n
     copies = [e for e in ev if "copy" in e.key.lower()]
@@ -2917,7 +2953,7 @@ def lenet_phase(name_card):
     check(not gaps and scanned.score_value == fitted.score_value,
           f"lenet: fit_scanned == fit bit for bit ({sorted(gaps)[:4]})")
     check(scanned._step_graphs.captures == 1, "lenet: one capture")
-    return ms
+    return ms, exact
 
 
 def _lstm_batch(rs, t):
@@ -5414,6 +5450,479 @@ def moe_phase(name_card):
     return rows
 
 
+# --------------------------------------------- phases 20-22, the data path
+ETL_TRAIN, ETL_TEST = 60000, 10000      # MNIST's split (LeCun's files)
+ETL_SEED = 7                            # the batchers' shuffle seed
+ETL_EPOCHS = 2
+ETL_ACCURACY = 0.85
+ETL_RESNET_BATCHES, ETL_RESNET_PASSES = 8, 2
+CSV_ROWS, CSV_BATCH = 100_000, 12_500   # 8 batches of the whole file
+CSV_WIDTH = 256
+
+
+def _sse_client(port, sid, stop, connected, seen):
+    """Count the ``data:`` events of ``/train/stream?sid=`` until
+    ``stop``; ``connected`` is set once the server has registered the
+    stream (its headers come after ``add_listener``)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", f"/train/stream?sid={sid}")
+        resp = conn.getresponse()
+        connected.set()
+        while not stop.is_set():
+            line = resp.fp.readline()     # heartbeats come every second
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                seen["events"] += 1
+    finally:
+        conn.close()
+
+
+class _Timed:
+    """A callable's calls, counted and timed on the host."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+    def ms(self):
+        return self.seconds * 1e3 / max(self.calls, 1)
+
+
+def _poller(port, sid, stop, seen, every_s=0.25):
+    """Poll ``/train/overview?sid=`` until ``stop``, keeping each answer's
+    status (and the iterations a 200 saw) and any exception in ``seen``;
+    it never raises, so the phase checks them after the join."""
+    while not stop.wait(every_s):
+        try:
+            status, obj, _ = _http_json(
+                port, "GET", f"/train/overview?sid={sid}", timeout=30)
+            seen["statuses"].append(status)
+            if status == 200:
+                seen["latest"] = len(obj["iterations"])
+        except Exception as e:
+            seen["errors"].append(repr(e))
+            return
+
+
+def etl_lenet_phase(name_card, exact):
+    """LeNet-MNIST through the data path: a full-size MNIST (60000 train,
+    10000 t10k synthetic glyphs) written as IDX files with ``write_idx``,
+    read by ``MnistDataSetIterator`` (the native IDX parser), batched by
+    ``NativeBatchDataSetIterator`` (128, shuffled: 468 full batches and
+    one of 96 padded under a labels mask) into captured ``fit`` for two
+    epochs, four nets from one seed: with a ``StatsListener`` into a
+    ``FileStatsStorage`` while a ``UIServer`` on it serves one SSE client
+    on ``/train/stream`` and one poller on ``/train/overview``; without
+    them; fed by the batcher's plain version; and fed the same epoch's
+    batches already on the card (``resident``).  Each epoch of each net
+    is timed the same way, from its ``fit`` call to its last loss.  The
+    four end each epoch bit for bit equal (``cudnn.deterministic`` where
+    the lenet phase needed it), each captures the full and the masked
+    signature in its first epoch and nothing in its second, the SSE
+    events equal the stored reports, every overview poll answers 200 and
+    a last one sees every report, and ``evaluate`` on t10k exceeds
+    0.85."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import (
+        MnistDataSetIterator, NativeBatchDataSetIterator, mnist,
+    )
+    from deeplearning4j_tpu_torch.ui import (
+        FileStatsStorage, StatsListener, UIServer,
+    )
+
+    root = Path(tempfile.mkdtemp(prefix="etl_lenet_"))
+    stop = threading.Event()
+    ui, threads = None, []
+    try:
+        t0 = time.perf_counter()
+        for split, n, seed in (("train", ETL_TRAIN, 123),
+                               ("t10k", ETL_TEST, 124)):
+            imgs, labels = mnist._synthetic_mnist(n, seed)
+            mnist.write_idx(root / f"{split}-images-idx3-ubyte",
+                            np.round(imgs * 255.0).astype(np.uint8))
+            mnist.write_idx(root / f"{split}-labels-idx1-ubyte",
+                            labels.astype(np.uint8))
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = MnistDataSetIterator(LENET_BATCH, data_dir=str(root))
+        parse_s = time.perf_counter() - t0
+        test = MnistDataSetIterator(LENET_BATCH, train=False,
+                                    data_dir=str(root))
+        data = train.dataset()
+        check(not train.is_synthetic and not test.is_synthetic,
+              "etl_lenet: the IDX files were read, not synthesized")
+        check(data.features.shape == (ETL_TRAIN, 784)
+              and test.dataset().features.shape == (ETL_TEST, 784),
+              "etl_lenet: MNIST's shapes")
+        raw = (root / "train-images-idx3-ubyte").read_bytes()
+        t0 = time.perf_counter()
+        native.parse_idx_images(raw)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = native.parse_idx_images(raw, force_python=True)
+        plain_s = time.perf_counter() - t0
+        check(np.array_equal(plain, data.features),
+              "etl_lenet: native IDX parse == plain bit for bit")
+        del plain, raw
+        print(f"etl_lenet: glyphs and IDX files {gen_s:.2f} s; "
+              f"MnistDataSetIterator (read and native parse of "
+              f"{ETL_TRAIN} images and labels) {parse_s:.3f} s; the images "
+              f"alone "
+              f"native {nat_s * 1e3:.1f} ms ({ETL_TRAIN / nat_s:.0f} "
+              f"images/s, {data.features.nbytes / nat_s / 1e9:.2f} GB/s "
+              f"of float32) against plain {plain_s * 1e3:.1f} ms "
+              f"[{name_card}]")
+
+        storage = FileStatsStorage(str(root / "stats.jsonl"))
+        sid = "etl_lenet"
+        nets = {k: lenet(device="cuda")
+                for k in ("dashboard", "native", "plain", "resident")}
+        check(not state_gaps(nets["dashboard"], nets["plain"]),
+              "etl_lenet: the three nets start equal")
+        # the dashboard's host time: the listener's report, and of it the
+        # storage's JSON line, write and fan-out to the SSE stream
+        listener = StatsListener(storage, session_id=sid)
+        listener.iteration_done = report = _Timed(listener.iteration_done)
+        storage.put_update = stored_ms = _Timed(storage.put_update)
+        nets["dashboard"].set_listeners(listener)
+        feeds = {k: NativeBatchDataSetIterator(
+            data, LENET_BATCH, seed=ETL_SEED, force_python=(k == "plain"))
+            for k in nets}
+        ui = UIServer(storage)
+        port = ui.start()
+        connected = threading.Event()
+        seen = {"events": 0, "statuses": [], "errors": [], "latest": 0}
+        threads = [threading.Thread(target=_sse_client, daemon=True,
+                                    args=(port, sid, stop, connected, seen)),
+                   threading.Thread(target=_poller, daemon=True,
+                                    args=(port, sid, stop, seen))]
+        for t in threads:
+            t.start()
+        check(connected.wait(30), "etl_lenet: the SSE client connected")
+        steps = -(-ETL_TRAIN // LENET_BATCH)
+        walls = {k: [] for k in nets}
+        caps = {k: [] for k in nets}
+        torch.backends.cudnn.deterministic = not exact
+        try:
+            for epoch in range(ETL_EPOCHS):
+                for k, net in nets.items():
+                    feed = feeds[k]
+                    if k == "resident":     # this epoch's batches, on the card
+                        feed = [tuple(None if a is None else
+                                      torch.as_tensor(a, device="cuda")
+                                      for a in (b.features, b.labels,
+                                                b.features_mask,
+                                                b.labels_mask))
+                                for b in feed]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    net.fit(feed)
+                    float(net.score_value)      # waits for the last step
+                    walls[k].append(time.perf_counter() - t0)
+                    caps[k].append(net._step_graphs.captures)
+                for k in ("native", "plain", "resident"):
+                    gaps = state_gaps(nets["dashboard"], nets[k])
+                    check(not gaps and nets[k].score_value
+                          == nets["dashboard"].score_value,
+                          f"etl_lenet epoch {epoch}: {k} == dashboard bit "
+                          f"for bit ({sorted(gaps)[:4]})")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        stored = len(storage.get_updates(sid))
+        deadline = time.perf_counter() + 30
+        while seen["events"] < stored and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        stop.set()
+        for t in threads:
+            t.join(timeout=40)
+        check(not any(t.is_alive() for t in threads),
+              "etl_lenet: the SSE client and the poller ended")
+        status, obj, _ = _http_json(port, "GET",
+                                    f"/train/overview?sid={sid}", timeout=30)
+        last = len(obj["iterations"]) if status == 200 else None
+        ui.stop()
+        ev = nets["dashboard"].evaluate(test)
+        acc = ev.accuracy()
+        ms = {k: [w * 1e3 / steps for w in v] for k, v in walls.items()}
+        print(f"etl_lenet: {ETL_EPOCHS} epochs of {steps} steps (batch "
+              f"{LENET_BATCH}, the last {ETL_TRAIN % LENET_BATCH} rows "
+              f"padded) each net; epoch walls (s) "
+              + "; ".join(f"{k} " + ", ".join(f"{w:.3f}" for w in v)
+                          for k, v in walls.items())
+              + f" [{name_card}]")
+        print(f"etl_lenet: ms a step, second epoch: with the listener and "
+              f"dashboard {ms['dashboard'][-1]:.4f}, without "
+              f"{ms['native'][-1]:.4f} (the dashboard's cost "
+              f"{ms['dashboard'][-1] - ms['native'][-1]:+.4f}), the plain "
+              f"batcher {ms['plain'][-1]:.4f}, the epoch's batches on the "
+              f"card before the epoch {ms['resident'][-1]:.4f}; the "
+              f"listener's report {report.ms():.4f} ms on the host "
+              f"({report.calls} reports), of it the storage's "
+              f"put_update {stored_ms.ms():.4f} [{name_card}]")
+        print(f"etl_lenet: captures after each epoch {caps}; reports "
+              f"stored {stored}, SSE events received {seen['events']}; "
+              f"overview polls {len(seen['statuses'])} answered "
+              f"{sorted(set(seen['statuses']))}, errors {seen['errors']}, "
+              f"the last during the fit saw {seen['latest']} iterations, "
+              f"the one after it {last}; t10k accuracy {acc:.4f} over "
+              f"{ETL_TEST} images")
+        for k, c in caps.items():
+            check(c == [2] * ETL_EPOCHS, f"etl_lenet {k}: the full and the "
+                                         f"masked signature only ({c})")
+        check(stored == ETL_EPOCHS * steps, f"etl_lenet: {stored} reports")
+        check(seen["events"] == stored,
+              f"etl_lenet: SSE events {seen['events']} == reports {stored}")
+        check(seen["statuses"] and not seen["errors"]
+              and all(c == 200 for c in seen["statuses"]),
+              f"etl_lenet: every overview poll answered 200 "
+              f"({sorted(set(seen['statuses']))}, {seen['errors']})")
+        check(last == stored, f"etl_lenet: the overview after the fit "
+                              f"saw {last} of {stored} reports")
+        check(acc > ETL_ACCURACY, f"etl_lenet: t10k accuracy {acc}")
+        for f in feeds.values():
+            f.close()
+        return dict(ms=ms, parse_s=parse_s, accuracy=acc)
+    finally:
+        stop.set()
+        if ui is not None:
+            ui.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class _Losses:
+    """A listener keeping each step's loss on the device (no sync)."""
+
+    def __init__(self):
+        self.losses = []
+
+    def iteration_done(self, model, iteration):
+        self.losses.append(model._score)
+
+
+def etl_resnet_phase(name_card, deterministic):
+    """ResNet-50 (bf16, batch 128) fed from files: 8 batches of
+    128x224x224x3 float32 written by ``export_datasets`` as ``D4JT``
+    files, read back by ``FileDataSetIterator`` (as NHWC images) behind
+    an ``AsyncDataSetIterator`` into captured ``fit`` for two passes;
+    twins from the same state fed the same batches from host memory and
+    from the card's memory end with the same per-step losses and state
+    bit for bit.  Each feed's pass is timed the same way (fit call to
+    last loss) and profiled once more (idle share).  Returns the
+    BatchNorm training kernels' wrapper launches of the file-fed run."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from deeplearning4j_tpu_torch.datasets import (
+        AsyncDataSetIterator, DataSet, FileDataSetIterator,
+        ListDataSetIterator, export_datasets,
+    )
+
+    class ImageFiles(FileDataSetIterator):
+        """The exported batches as NHWC images (the container keeps each
+        row flat; the reshape is a view)."""
+
+        def next(self):
+            ds = super().next()
+            return DataSet(ds.features.reshape(-1, 224, 224, 3), ds.labels,
+                           ds.features_mask, ds.labels_mask)
+
+    n = ETL_RESNET_BATCHES * RESNET_BATCH
+    root = Path(tempfile.mkdtemp(prefix="etl_resnet_"))
+    try:
+        gen = np.random.default_rng(1)
+        x = gen.random((n, 224, 224, 3), dtype=np.float32)
+        y = np.eye(1000, dtype=np.float32)[gen.integers(0, 1000, n)]
+        t0 = time.perf_counter()
+        paths = export_datasets(ListDataSetIterator(DataSet(x, y),
+                                                    RESNET_BATCH), root)
+        write_s = time.perf_counter() - t0
+        size = sum(p.stat().st_size for p in paths)
+        check(len(paths) == ETL_RESNET_BATCHES, "etl_resnet: 8 files")
+        t0 = time.perf_counter()
+        for p in paths:
+            native.read_dataset(p)
+        read_s = time.perf_counter() - t0
+        print(f"etl_resnet: export_datasets wrote {len(paths)} D4JT files, "
+              f"{size / 1e6:.1f} MB, in {write_s:.3f} s "
+              f"({size / write_s / 1e9:.2f} GB/s); read_dataset alone "
+              f"{read_s * 1e3 / len(paths):.1f} ms a file "
+              f"({size / read_s / 1e9:.2f} GB/s, warm page cache) "
+              f"[{name_card}]")
+        net = resnet50(device="cuda", **RESNET)
+        nets = {"files": net, "memory": twin(net, True),
+                "device": twin(net, True)}
+        batches = [(x[i * RESNET_BATCH:(i + 1) * RESNET_BATCH],
+                    y[i * RESNET_BATCH:(i + 1) * RESNET_BATCH])
+                   for i in range(ETL_RESNET_BATCHES)]
+        logs = {k: _Losses() for k in nets}
+        for k, m in nets.items():
+            m.set_listeners(logs[k])
+        feeds = {"files": AsyncDataSetIterator(ImageFiles(root), 2),
+                 "memory": batches,
+                 "device": [tuple(torch.as_tensor(a, device="cuda")
+                                  for a in b) for b in batches]}
+        walls = {k: [] for k in feeds}
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            for k, m in nets.items():
+                if k == "files":
+                    for c in helpers.kernel_counts().values():
+                        c.reset()
+                for _ in range(ETL_RESNET_PASSES):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m.fit(feeds[k])
+                    float(m.score_value)
+                    walls[k].append(time.perf_counter() - t0)
+                if k == "files":
+                    counts = _launch_counts()
+            losses = {k: torch.stack(v.losses).float().cpu()
+                      for k, v in logs.items()}
+            gaps = {k: state_gaps(net, nets[k]) for k in ("memory", "device")}
+            prof = {k: _profile_fit(m, feeds[k], steps=1, warmup=False)[1:3]
+                    for k, m in nets.items()}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        steps = ETL_RESNET_BATCHES
+        print(f"etl_resnet: {ETL_RESNET_PASSES} passes of {steps} steps a "
+              f"feed, each pass timed from its fit call to its last loss; "
+              f"pass walls (s) "
+              + "; ".join(f"{k} " + ", ".join(f"{w:.3f}" for w in v)
+                          for k, v in walls.items())
+              + "; ms a step (second pass) "
+              + ", ".join(f"{k} {walls[k][-1] * 1e3 / steps:.3f}"
+                          for k in walls)
+              + f" (device: the batches on the card before the pass) "
+              f"[{name_card}]")
+        print("etl_resnet: profiled pass, host wall / device busy ms a step "
+              "(idle share): " + "; ".join(
+                  f"{k} {w / steps:.3f} / {b / steps:.3f} ({1 - b / w:.3f})"
+                  for k, (w, b) in prof.items()) + f" [{name_card}]")
+        print(f"etl_resnet: losses files {losses['files'].tolist()}; "
+              f"leaves differing from the file-fed net: "
+              f"{ {k: len(g) for k, g in gaps.items()} }; captures "
+              f"{ {k: m._step_graphs.captures for k, m in nets.items()} }; "
+              f"wrapper launches {dict((k, v[0]) for k, v in counts.items() if v[0])}")
+        check(losses["files"].shape[0] == steps * ETL_RESNET_PASSES,
+              "etl_resnet: a loss a step")
+        for k in ("memory", "device"):
+            check(torch.equal(losses["files"], losses[k]) and not gaps[k],
+                  f"etl_resnet: files == {k} bit for bit "
+                  f"({sorted(gaps[k])[:4]})")
+        check(all(m._step_graphs.captures == 1 for m in nets.values()),
+              "etl_resnet: one capture a net")
+        check(all(p == 0 for _, p in counts.values()),
+              f"etl_resnet: plain-version calls {counts}")
+        want = {"bn_train_fwd": 2 * RESNET_BN_LAYERS,
+                "bn_train_bwd": 2 * RESNET_BN_LAYERS}
+        got = {k: l for k, (l, _) in counts.items() if l}
+        check(got == want, f"etl_resnet: launches {got} == {want}")
+        return got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def multidataset_phase(name_card):
+    """Native CSV parsing into a two-input, two-output graph: a CSV of
+    100000 rows (4 + 3 features, a class of 3, 2 targets) parsed by the
+    native parser (rows/s) and equal to the plain parse; then
+    ``RecordReaderMultiDataSetIterator`` over a ``CSVRecordReader`` of
+    it feeds a ``ComputationGraph`` (two dense branches of 256, merged;
+    softmax and mse heads) 8 captured steps of 12500 rows, equal to an
+    eager twin fed the same batches bit for bit."""
+    import io
+
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.datasets import (
+        RecordReaderMultiDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.datavec import CSVRecordReader
+    from deeplearning4j_tpu_torch.models.vertices import MergeVertex
+
+    rs = np.random.RandomState(5)
+    table = np.concatenate([rs.randn(CSV_ROWS, 7), rs.randint(
+        0, 3, (CSV_ROWS, 1)), rs.randn(CSV_ROWS, 2)], 1)
+    buf = io.BytesIO()
+    np.savetxt(buf, table, fmt="%.6g", delimiter=",")
+    data = b"a0,a1,a2,a3,b0,b1,b2,cls,r0,r1\n" + buf.getvalue()
+    t0 = time.perf_counter()
+    m = native.csv_to_matrix(data, skip_lines=1)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = native.csv_to_matrix(data, skip_lines=1, force_python=True)
+    plain_s = time.perf_counter() - t0
+    check(m.shape == (CSV_ROWS, 10) and np.array_equal(m, plain),
+          "multidataset: native CSV == plain bit for bit")
+    print(f"multidataset: CSV of {CSV_ROWS} rows, {len(data) / 1e6:.2f} MB: "
+          f"native {nat_s * 1e3:.1f} ms ({CSV_ROWS / nat_s:.0f} rows/s), "
+          f"plain {plain_s * 1e3:.1f} ms ({CSV_ROWS / plain_s:.0f} rows/s) "
+          f"[{name_card}]")
+
+    def records():
+        reader = CSVRecordReader(skip_lines=1).initialize(data)
+        return (RecordReaderMultiDataSetIterator.builder(CSV_BATCH)
+                .add_reader("csv", reader)
+                .add_input("csv", 0, 3).add_input("csv", 4, 6)
+                .add_output_one_hot("csv", 7, 3).add_output("csv", 8, 9)
+                .build())
+
+    conf = (NeuralNetConfiguration.builder().seed(3)
+            .updater("adam", learning_rate=1e-3).graph()
+            .add_inputs("a", "b")
+            .add_layer("da", DenseLayer(n_in=4, n_out=CSV_WIDTH,
+                                        activation="relu"), "a")
+            .add_layer("db", DenseLayer(n_in=3, n_out=CSV_WIDTH,
+                                        activation="relu"), "b")
+            .add_vertex("m", MergeVertex(), "da", "db")
+            .add_layer("cls", OutputLayer(n_in=2 * CSV_WIDTH, n_out=3,
+                                          loss="mcxent",
+                                          activation="softmax"), "m")
+            .add_layer("reg", OutputLayer(n_in=2 * CSV_WIDTH, n_out=2,
+                                          loss="mse", activation="identity"),
+                       "m")
+            .set_outputs("cls", "reg").build())
+    net = ComputationGraph(conf).init(device="cuda")
+    eager = twin(net, False)
+    t0 = time.perf_counter()
+    net.fit(records())
+    loss = net.score_value
+    fed_s = time.perf_counter() - t0
+    steps = CSV_ROWS // CSV_BATCH
+    batches = list(records())
+    eager.fit(batches)
+    gaps = state_gaps(net, eager)
+    graphs = net._step_graphs
+    print(f"multidataset: {steps} captured steps of {CSV_BATCH} rows "
+          f"through RecordReaderMultiDataSetIterator in {fed_s:.3f} s "
+          f"({CSV_ROWS / fed_s:.0f} rows/s, iterator and steps), last loss "
+          f"{loss:.6f}; captures {graphs.captures}, replays "
+          f"{graphs.replays}; against the eager twin {len(gaps)} leaves "
+          f"differ [{name_card}]")
+    check(len(batches) == steps and net.iteration == steps,
+          "multidataset: 8 batches, 8 steps")
+    check(graphs.captures == 1 and graphs.replays == steps - 1,
+          "multidataset: one capture")
+    check(np.isfinite(loss) and not gaps
+          and loss == eager.score_value,
+          f"multidataset: captured == eager bit for bit ({sorted(gaps)[:4]})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5454,7 +5963,7 @@ def main() -> int:
     t_new += time.perf_counter() - t_serve
     lrn_launches = alexnet_phase(name_card)
     torch.cuda.empty_cache()
-    lenet_phase(name_card)
+    _, lenet_exact = lenet_phase(name_card)
     torch.cuda.empty_cache()
     lstm_phase(name_card)
     torch.cuda.empty_cache()
@@ -5484,6 +5993,14 @@ def main() -> int:
         phase(name_card)
         torch.cuda.empty_cache()
     t_zoo = time.perf_counter() - t_zoo
+    t_etl = time.perf_counter()
+    etl_lenet_phase(name_card, lenet_exact)
+    torch.cuda.empty_cache()
+    etl_bn = etl_resnet_phase(name_card, deterministic)
+    torch.cuda.empty_cache()
+    multidataset_phase(name_card)
+    torch.cuda.empty_cache()
+    t_etl = time.perf_counter() - t_etl
     # the new phases' profiled launches join the kernels line's
     launches += served["paged"]
     train_launches = [n + guarded[k] for n, k in zip(
@@ -5506,6 +6023,9 @@ def main() -> int:
         train_launches, ("flash_fwd", "flash_dq", "flash_dkv", "prologue"))]
     bn_launches = tuple(n + profiled[k] for n, k in zip(
         bn_launches, ("bn_inference", "bn_train_fwd", "bn_train_bwd")))
+    # the file-fed ResNet-50's wrapper launches (its warm-up and capture)
+    bn_launches = (bn_launches[0], bn_launches[1] + etl_bn["bn_train_fwd"],
+                   bn_launches[2] + etl_bn["bn_train_bwd"])
     d = rows["decode"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -5581,7 +6101,8 @@ def main() -> int:
           f"phases {t_slice:.1f} s; the online, introspection and "
           f"kerneldiff phases {t_online:.1f} s; the fleet and profiling "
           f"phases {t_fleet:.1f} s; the vgg16, googlenet, dbn and moe "
-          f"phases {t_zoo:.1f} s)")
+          f"phases {t_zoo:.1f} s; the etl_lenet, etl_resnet and "
+          f"multidataset phases {t_etl:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
 """Datasets (counterpart of ``deeplearning4j_tpu.datasets``).
 
-Ported: ``DataSet`` and the iterators (``iterator.py``: list, iterator
-re-batching, multiple epochs, sampling, the async prefetch; the native
-batcher raises until the port builds it).  The multi-dataset and the
-mnist/iris/cifar/lfw/curves/datavec/export readers come with ROADMAP A8.
+``DataSet`` and ``MultiDataSet``; the iterators (list, iterator
+re-batching, multiple epochs, sampling, the async prefetch, and
+``NativeBatchDataSetIterator`` over the port's own native batcher,
+``deeplearning4j_tpu_torch/native``); the multi-dataset and record-reader
+iterators (``multidataset.py``, ``datavec.py``: CSV through the native
+parser); the exported ``D4JT`` batch files (``export.py``); and the
+mnist, iris, cifar, lfw and curves readers.  Every iterator hands out
+numpy arrays: a batch reaches the card in the training step.
 """
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
@@ -16,8 +20,30 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
     NativeBatchDataSetIterator,
     SamplingDataSetIterator,
 )
+from deeplearning4j_tpu_torch.datasets.multidataset import (
+    AsyncMultiDataSetIterator,
+    ListMultiDataSetIterator,
+    MultiDataSet,
+    MultiDataSetIterator,
+    RecordReaderMultiDataSetIterator,
+)
+from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+from deeplearning4j_tpu_torch.datasets.iris import IrisDataSetIterator
+from deeplearning4j_tpu_torch.datasets.cifar import CifarDataSetIterator
+from deeplearning4j_tpu_torch.datasets.curves import CurvesDataSetIterator
+from deeplearning4j_tpu_torch.datasets.lfw import LFWDataSetIterator
+from deeplearning4j_tpu_torch.datasets.export import (
+    FileDataSetIterator, export_datasets,
+)
+from deeplearning4j_tpu_torch.datasets import datavec
 
 __all__ = ["DataSet", "AsyncDataSetIterator", "DataSetIterator",
            "IteratorDataSetIterator", "ListDataSetIterator",
            "MultipleEpochsIterator", "NativeBatchDataSetIterator",
-           "SamplingDataSetIterator"]
+           "SamplingDataSetIterator", "AsyncMultiDataSetIterator",
+           "ListMultiDataSetIterator", "MultiDataSet",
+           "MultiDataSetIterator", "RecordReaderMultiDataSetIterator",
+           "MnistDataSetIterator", "IrisDataSetIterator",
+           "CifarDataSetIterator", "CurvesDataSetIterator",
+           "LFWDataSetIterator", "FileDataSetIterator", "export_datasets",
+           "datavec"]

@@ -11,8 +11,8 @@ imports rewritten.  Every iterator hands out numpy ``DataSet``s; the
 producer thread of ``AsyncDataSetIterator`` touches no tensor and no
 CUDA stream: a batch reaches the card on the training thread, staged
 through the captured step's pinned ring (``models/capture.py``).
-``NativeBatchDataSetIterator`` raises until the port builds its own
-native batcher (ROADMAP A8).
+``NativeBatchDataSetIterator`` runs the port's own native batcher
+(``deeplearning4j_tpu_torch/native``).
 """
 
 from __future__ import annotations
@@ -94,6 +94,11 @@ class ListDataSetIterator(DataSetIterator):
 
     def total_examples(self):
         return len(self._data)
+
+    def dataset(self) -> DataSet:
+        """The whole DataSet this iterator batches (to hand to another
+        iterator, e.g. ``NativeBatchDataSetIterator``)."""
+        return self._data
 
     def input_columns(self):
         return int(np.prod(self._data.features.shape[1:]))
@@ -210,17 +215,77 @@ class SamplingDataSetIterator(DataSetIterator):
 
 
 class NativeBatchDataSetIterator(DataSetIterator):
-    """The reference's shuffled minibatch iterator over the native C++
-    pipeline (``deeplearning4j_tpu/native``).  The port has no native
-    build of its own yet, so constructing one raises; use
-    ``ListDataSetIterator`` (wrapped in ``AsyncDataSetIterator`` for a
-    prefetch thread) meanwhile."""
+    """Shuffled minibatch iterator over an in-memory DataSet, backed by the
+    port's native C++ pipeline (producer thread + reusable buffer pool,
+    ``deeplearning4j_tpu_torch/native``): batch assembly happens off the
+    Python thread; a short final batch arrives zero-padded with a
+    synthesized labels mask (static shapes, so the captured step keeps
+    one signature for full batches and one for the padded one).  Each
+    ``reset`` draws a new permutation (seed + resets).
+    ``force_python=True`` feeds from the batcher's plain version (the
+    same batches, bit for bit)."""
 
     def __init__(self, data: DataSet, batch_size: int, shuffle: bool = True,
-                 seed: int = 1, drop_last: bool = False):
-        raise NotImplementedError(
-            "NativeBatchDataSetIterator needs the port's own build of the "
-            "native batcher, which is not ported yet (ROADMAP A8)")
+                 seed: int = 1, drop_last: bool = False,
+                 force_python: bool = False):
+        from deeplearning4j_tpu_torch import native
+
+        if data.features_mask is not None or data.labels_mask is not None:
+            raise ValueError("masked DataSets are not supported; use "
+                             "ListDataSetIterator")
+        self._data = data
+        self._batch_size = batch_size
+        self._seed = seed
+        self._resets = 0
+        self._batcher = native.Batcher(data.features, data.labels, batch_size,
+                                       shuffle=shuffle, seed=seed,
+                                       drop_last=drop_last,
+                                       force_python=force_python)
+        self._pending: Optional[DataSet] = None
+        self._advance()
+
+    def _advance(self):
+        out = self._batcher.next()
+        if out is None:
+            self._pending = None
+            return
+        feat, lab, n_valid = out
+        lmask = None
+        if n_valid < self._batch_size:
+            # batch already zero-padded by the batcher; just mark valid rows
+            shape = ((self._batch_size,) if lab.ndim == 2
+                     else (self._batch_size, lab.shape[1]))
+            lmask = np.zeros(shape, np.float32)
+            lmask[:n_valid] = 1.0
+        self._pending = DataSet(feat, lab, None, lmask)
+
+    def has_next(self):
+        return self._pending is not None
+
+    def next(self):
+        out = self._pending
+        if out is None:
+            raise StopIteration
+        self._advance()
+        return out
+
+    def reset(self):
+        # new permutation each epoch (deterministic given the base seed)
+        self._resets += 1
+        self._batcher.reset(self._seed + self._resets)
+        self._advance()
+
+    def batch(self):
+        return self._batch_size
+
+    def total_examples(self):
+        return len(self._data)
+
+    def async_supported(self):
+        return False  # already asynchronous
+
+    def close(self):
+        self._batcher.close()
 
 
 _SENTINEL = object()

@@ -624,9 +624,11 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
             retry_policy=None) -> "ComputationGraph":
         """``fit(inputs, labels)`` (an array or a dict by input name, and
         an array or a dict by output name), or ``fit(iterable)`` of
-        (x, y[, fmask, lmask]) tuples or DataSets; one SGD step per batch
-        (one a window under TBPTT), as the reference.  The single pair is
-        one batch with the same duties: ``checkpoint_manager=`` and
+        (x, y[, fmask, lmask]) tuples, DataSets or MultiDataSets (whose
+        positional features and labels map onto ``conf.inputs`` and
+        ``conf.outputs``, reference ``graph.py:786-795``); one SGD step
+        per batch (one a window under TBPTT), as the reference.  The
+        single pair is one batch with the same duties: ``checkpoint_manager=`` and
         ``retry_policy=`` as in ``MultiLayerNetwork.fit``
         (``common.fit_loop``), and the stability guard under
         ``conf.stability``."""
@@ -634,7 +636,7 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         common.fit_loop(
             self, "ComputationGraph",
             [(data, labels, fmask, lmask)] if single else data, epochs=1,
-            unpack=unpack_batch, batch_adv=self._batch_adv,
+            unpack=self._unpack_fit, batch_adv=self._batch_adv,
             fit_one=self._fit_one, checkpoint_manager=checkpoint_manager,
             retry_policy=retry_policy)
         return self
@@ -705,6 +707,11 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
         if self._stream_pos is not None:
             self._stream_pos += t_new
         return outs[0] if len(outs) == 1 else outs
+
+    def _unpack_fit(self, batch):
+        if hasattr(batch, "features_masks"):
+            return self._unpack_multi(batch)
+        return unpack_batch(batch)
 
     def _unpack_multi(self, batch):
         """Positional features/labels lists of a MultiDataSet-like object

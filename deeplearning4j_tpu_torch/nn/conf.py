@@ -459,8 +459,10 @@ class Builder:
                                 ("numerics", self._numerics))}
 
     def optimization_algo(self, algo: str) -> "Builder":
-        """The solver; anything but SGD builds, and its ``fit`` raises
-        (the full-batch solvers come with A8)."""
+        """The solver: ``"stochastic_gradient_descent"`` (the default) or
+        a full-batch one (``"lbfgs"``, ``"conjugate_gradient"``,
+        ``"line_gradient_descent"``), which ``fit`` runs once a batch
+        through ``optimize/solvers.py``."""
         self._optimization_algo = algo.lower()
         return self
 

@@ -2220,3 +2220,71 @@ def test_captured_solver_value_grad_equals_eager(cuda):
     for a, b in zip(tree_leaves(net.params), tree_leaves(eager.params)):
         assert torch.equal(a, b)
     assert net._step_graphs.captures == 1
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """LeNet's cuDNN weight gradients differ run to run unless cuDNN is
+    deterministic (``chip_smoke.py``'s lenet phase)."""
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("n", [40, 48], ids=["padded", "whole"])
+def test_native_fed_captured_fit_equals_its_plain_twin(n, cuda,
+                                                       deterministic_cudnn):
+    """LeNet's captured ``fit`` over two epochs fed by
+    ``NativeBatchDataSetIterator`` (the C++ batcher) against a twin fed by
+    the batcher's plain version: the same batches, so the same parameters,
+    updater state and losses bit for bit; one capture for the full batch
+    signature and one for the padded, masked batch (40 rows in batches of
+    16), and none in the second epoch."""
+    from deeplearning4j_tpu_torch.datasets import (
+        DataSet, NativeBatchDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.zoo import lenet
+
+    rs = np.random.RandomState(3)
+    data = DataSet(rs.rand(n, 784).astype(np.float32),
+                   np.eye(10, dtype=np.float32)[rs.randint(0, 10, n)])
+    nets = [lenet(device="cuda"), lenet(device="cuda")]
+    its = [NativeBatchDataSetIterator(data, 16, seed=5),
+           NativeBatchDataSetIterator(data, 16, seed=5, force_python=True)]
+    caps = []
+    for _ in range(2):
+        for net, it in zip(nets, its):
+            net.fit(it)
+        caps.append(nets[0]._step_graphs.captures)
+        assert nets[0].score_value == nets[1].score_value
+    assert caps == ([2, 2] if n == 40 else [1, 1])
+    assert nets[1]._step_graphs.captures == caps[-1]
+    for part in ("params", "updater_state"):
+        for a, b in zip(tree_leaves(getattr(nets[0], part)),
+                        tree_leaves(getattr(nets[1], part))):
+            assert torch.equal(a, b)
+
+
+def test_convolution_listener_on_a_captured_fit(cuda, deterministic_cudnn,
+                                                tmp_path):
+    """``ConvolutionalIterationListener`` rendering every second step of
+    LeNet's captured ``fit`` adds no capture and leaves the run equal to
+    one without it bit for bit."""
+    from deeplearning4j_tpu_torch.models.zoo import lenet
+    from deeplearning4j_tpu_torch.ui import ConvolutionalIterationListener
+
+    net, plain = lenet(device="cuda"), lenet(device="cuda")
+    rs = np.random.RandomState(4)
+    listener = ConvolutionalIterationListener(
+        rs.rand(1, 784).astype(np.float32), tmp_path, frequency=2)
+    net.set_listeners(listener)
+    for _ in range(6):
+        x = rs.rand(32, 784).astype(np.float32)
+        y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, 32)]
+        net.fit(x, y)
+        plain.fit(x, y)
+        assert net.score_value == plain.score_value
+    assert net._step_graphs.captures == 1 and net._step_graphs.replays == 5
+    assert len(listener.rendered) == 3
+    for a, b in zip(tree_leaves(net.params), tree_leaves(plain.params)):
+        assert torch.equal(a, b)

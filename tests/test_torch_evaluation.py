@@ -6,8 +6,8 @@ JAX package on the same arrays.
   same DataSet (list, re-batching, multiple epochs, sampling with a
   seed, the async prefetch); ``AsyncDataSetIterator`` surfaces a
   producer error on the consumer side and resets cleanly; the native
-  batcher raises naming ROADMAP A8.  Both facades' ``fit`` take a
-  ``DataSetIterator``.
+  batcher (the port's own build since its A8 slice) gives the reference
+  iterator's batches.  Both facades' ``fit`` take a ``DataSetIterator``.
 - ``Evaluation`` (top-N, time-series masks, metadata) and
   ``RegressionEvaluation`` against the reference: counts exact, metrics
   to 1e-12.
@@ -150,9 +150,20 @@ def test_async_iterator_reset_replays_and_hands_out_numpy():
 
 
 def test_native_iterator_names_its_item():
+    """Once a raise naming ROADMAP A8; the item is ported, so the port's
+    native batcher gives the reference iterator's batches: 23 rows in 6
+    batches of 4, the last padded under a labels mask of 3 rows."""
     x, y = _data()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        it_mod.NativeBatchDataSetIterator(DataSet(x, y), 4)
+    ours = list(it_mod.NativeBatchDataSetIterator(DataSet(x, y), 4, seed=2))
+    theirs = list(jit_mod.NativeBatchDataSetIterator(JaxDataSet(x, y), 4,
+                                                     seed=2))
+    assert len(ours) == len(theirs) == 6
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a.features, b.features)
+        np.testing.assert_array_equal(a.labels, b.labels)
+    assert ours[-1].labels_mask.tolist() == [1.0, 1.0, 1.0, 0.0]
+    np.testing.assert_array_equal(ours[-1].labels_mask,
+                                  theirs[-1].labels_mask)
 
 
 @pytest.mark.parametrize("facade", ["sequential", "graph"])

@@ -116,6 +116,29 @@ def test_every_module_of_the_pretraining_slice_is_walked():
                   if f"deeplearning4j_tpu_torch.{n}" not in walked) == []
 
 
+def test_every_module_of_the_data_and_dashboard_slice_is_walked():
+    """The data path's and the dashboard's modules (the native loader,
+    the dataset readers, the multi-dataset and record iterators, export,
+    the UI server, components and renders) are among those the
+    poisoned-jax import above loads, and the native source they build is
+    the port's own."""
+    import pkgutil
+
+    import deeplearning4j_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    new = ["native", "native.loader", "datasets.multidataset",
+           "datasets.datavec", "datasets.export", "datasets.mnist",
+           "datasets.cifar", "datasets.lfw", "datasets.curves",
+           "datasets.iris", "ui.components", "ui.render", "ui.server"]
+    assert sorted(f"deeplearning4j_tpu_torch.{n}" for n in new
+                  if f"deeplearning4j_tpu_torch.{n}" not in walked) == []
+    assert (PORT / "native" / "src" / "dl4j_tpu_native.cpp").is_file()
+    loader = (PORT / "native" / "loader.py").read_text()
+    assert "deeplearning4j_tpu/" not in loader
+
+
 def test_replica_main_help_imports_no_jax(tmp_path):
     """``python -m deeplearning4j_tpu_torch.fleet.replica_main --help``
     (what the supervisor spawns) runs with ``jax`` poisoned."""
