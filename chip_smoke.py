@@ -383,7 +383,54 @@ Phases (any failure exits non-zero; nothing is caught):
    100000-row CSV parsed natively (rows/s) and equal to the plain parse,
    then ``RecordReaderMultiDataSetIterator`` feeds a ``ComputationGraph``
    8 captured steps of 12500 rows, equal to an eager twin bit for bit.
-23. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+23. Data parallelism over slots of the card (``backend/mesh.py``:
+   ``default_mesh(data=4, devices=["cuda"] * 4)``), parallel_wrapper:
+   the flash trio and the prologue first held against their plain
+   versions at a replica's shapes (``[2, 2048, 8, 128]``, ``[4096,
+   1024]``); then ``ParallelWrapper(net, workers=4)`` on the full-width
+   bf16 char-LM, Adam, a replica a 2 x 2048 batch (a window step covers
+   the bench's 8 x 2048), ``averaging_frequency`` 1 and 3, two windows
+   each, captured (one window graph holding F x 4 replicas' launches:
+   8 of each flash kernel and 16 prologue a replica and minibatch) and
+   eager, equal bit for bit; held against four single nets' ``fit`` on
+   the same batches, averaged each window (the reference's
+   ``test_parallel.py`` oracle), on the float32 master weights within
+   ``rtol=1e-5, atol=1e-6``; ms a window, tokens/s, and the window
+   capture's growth of its graph pool against one single-net step's
+   peak (the pool reuses one replica's activations for the next).
+24. zero: the wrapper with ``update_sharding="zero"`` over the same two
+   windows, within the reference's ``test_zero.py`` tolerance of the
+   replicated run; the sharding ledger's updater replication 4 -> 1; the
+   peak allocated bytes against replicated's; the window's collective
+   census (on one card a census of what four cards would move, not link
+   traffic).
+25. checkpoint_sharded: the ZeRO wrapper (two windows in) saved with
+   ``mesh=`` (every slot's block, its spec), restored onto a two-slot
+   mesh and into a single net (bit for bit); a fresh ZeRO wrapper on the
+   restored net takes the third window, equal bit for bit to the
+   uninterrupted run's.
+26. elastic: replica 1 dies at step 2 and comes back at step 4
+   (``FaultInjector.kill_worker``), slow by 1 ms: evicted and
+   readmitted, the windows without it equal to the single-net oracle
+   with its weight 0; lockstep pays its barrier stall every window,
+   degraded mode only while it is active (counted stalls); then a
+   poisoned replica under a stability policy is weighted out and named
+   by a ``replica_poisoned`` flight event.
+27. sync_master: ``SyncTrainingMaster`` over four slots on the global 8 x
+   2048 batch, float32 (tf32x3 flash), SGD at 1e-4: two steps within the
+   reference's ``rtol=2e-5, atol=1e-6`` of the single net's ``fit``, and
+   each params leaf's change within 1e-2 of the single net's, relative
+   in norm (``CHANGE_LIMIT``).
+28. sequence_parallel: ``SequenceParallelTrainingMaster`` over (data 2,
+   seq 4) slots, the char-LM with ``seq_axis="seq"`` at T 2048, float32,
+   SGD at 1e-5: two steps within the reference's ``rtol=1e-4,
+   atol=1e-5`` and ``CHANGE_LIMIT`` of the single net with its
+   attention in float32 on the built-in path (the ring's arithmetic; the gap to the single net on
+   the tf32x3 flash kernels printed beside); ring and Ulysses attention at
+   ``[8, 2048, 8, 128]`` bf16, causal and windowed (512), against the
+   flash kernel on the whole sequence (Ulysses' forward launches join
+   the kernels line's).
+29. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -392,7 +439,9 @@ available or the port's package is not beside this script.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -790,6 +839,16 @@ def serve(eng, prompts, sampled=False):
     return results, handles, wall
 
 
+def _tracing_live():
+    """One small kernel, waited for, at the start of a profiled window:
+    a graph replayed at once after the profiler starts has lost its
+    first kernels' records on the H100 (a guarded step counted 7 of its
+    8 flash forwards and 15 of its 16 prologues once in two runs).  The
+    kernel matches no counted name."""
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def profiled_launches(fn, pattern=r"paged_decode_kernel", also=None):
     """``fn()`` under ``torch.profiler``; (its result, the launches on the
     device of the kernels whose names match ``pattern``: by default the
@@ -799,6 +858,7 @@ def profiled_launches(fn, pattern=r"paged_decode_kernel", also=None):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _tracing_live()
         out = fn()
         torch.cuda.synchronize()
     ev = prof.key_averages()
@@ -3220,6 +3280,7 @@ def profiled_counts(fn, patterns):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _tracing_live()
         out = fn()
         torch.cuda.synchronize()
     ev = prof.key_averages()
@@ -5923,6 +5984,788 @@ def multidataset_phase(name_card):
           f"multidataset: captured == eager bit for bit ({sorted(gaps)[:4]})")
 
 
+# ------------------------------------------------------------ the A10 slice
+# Data and sequence parallelism over slots of the one card
+# (backend/mesh.py): the wrapper's replicas each take a 2 x 2048 batch,
+# so a window step covers the bench's 8 x 2048.
+PW_WORKERS, PW_BATCH, PW_WINDOWS = 4, 2, 2
+# float32 master weights against the single-net oracle
+PW_TOL = dict(rtol=1e-5, atol=1e-6)
+SYNC_TOL = dict(rtol=2e-5, atol=1e-6)      # tests/test_parallel.py
+ZERO_TOL = dict(rtol=1e-5, atol=1e-7)      # tests/test_zero.py
+SP_TOL = dict(rtol=1e-4, atol=1e-5)        # tests/test_sequence_parallel.py
+SP_MESH = dict(data=2, seq=4)
+SP_WINDOW = 512                            # the windowed attention case
+# the float32 sync and sequence-parallel phases train with SGD (rounding
+# stays linear in the gradient, as the reference's equivalence tests keep
+# it) at 1e-4: their loss sums a sequence's 2048 timesteps, so at the
+# zoo's 1e-3 one step moves some weights by about their own size, and the
+# float32 reassociation of the weight-gradient GEMMs (four slots of 4096
+# rows against one of 16384) then reaches the weights at that size
+PARALLEL_SGD_LR = 1e-4
+# sequence parallel: the ring's online softmax and the built-in softmax
+# round apart by about 1e-6 of a term, and the embedding bias's gradient
+# sums 16384 positions' terms of hundreds with much cancellation, so its
+# step carries about 3e-5 of its size: at 1e-5 that stays below the
+# reference's atol (at 1e-4, 1.854e-05 against 1e-05 on the H100)
+SP_SGD_LR = 1e-5
+# the float32 oracles also hold each leaf's change against the single
+# net's, ||d_master - d_single|| / ||d_single||: the absolute tolerance
+# above shrinks with the step, this ratio does not.  On the H100 the
+# right code gives at most 4.7e-05 (sync) and 6.4e-04 (SP) at the rates
+# above; one slot's gradient left out of the sync sum gives 0.44, the
+# ring's RoPE offset at 0 1.1, the last seq slot's labels dropped 0.45
+# (PERF.md §6, the oracles' planted faults)
+CHANGE_LIMIT = 1e-2
+ELASTIC_WINDOWS = 6
+ELASTIC_DELAY = 0.001                      # replica 1's injected delay, s
+PARALLEL_TIMED = 3                         # windows or steps timed
+
+
+def _slots(**axes):
+    from deeplearning4j_tpu_torch.backend.mesh import default_mesh
+
+    n = int(np.prod(list(axes.values())))
+    return default_mesh(devices=["cuda"] * n, **axes)
+
+
+def _lm_batches(n, b, seed, vocab=128, t=TRAIN_T):
+    """``n`` host (x, y) batches of ``b`` rows: random ids and the
+    one-hot of the ids rolled by one (the bench's form)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = rs.randint(0, vocab, (b, t))
+        out.append(DataSet(ids, np.eye(vocab, dtype=np.float32)[
+            np.roll(ids, -1, 1)]))
+    return out
+
+
+def _events_since(t_ns, kind_prefix):
+    from deeplearning4j_tpu_torch.observability import get_flight_recorder
+
+    return [e for e in get_flight_recorder().events()
+            if e.mono_ns >= t_ns and e.kind.startswith(kind_prefix)]
+
+
+def _counts_zero():
+    for c in helpers.kernel_counts().values():
+        c.reset()
+
+
+def _state_of(net):
+    return [t for _, t in named_state(net)]
+
+
+def _mean_into(dst, snaps, weights):
+    """The wrapper's average (``data_parallel._wavg_``): per leaf
+    ``sum(stack * w) / sum(w)``, written into ``dst``."""
+    w = torch.tensor(weights, dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        for i, t in enumerate(dst):
+            stack = torch.stack([s[i] for s in snaps])
+            wk = w.reshape((-1,) + (1,) * (stack.ndim - 1)).to(stack.dtype)
+            t.copy_(((stack * wk).sum(0, keepdim=True) / w.sum())[0]
+                    .to(t.dtype))
+
+
+def replica_oracle(base, batches, K, F, weights_of=lambda w: None):
+    """The wrapper's windows replayed by one single net (``fit``): each
+    window every replica starts from the window's averaged state and
+    fits its F batches (replica r takes batch ``f*K + r`` of the
+    window), and the weighted mean of params, updater and layer state
+    (``weights_of(window)``, default all ones) becomes the next window's
+    state.  Returns the net holding the final average."""
+    single = twin(base, True)
+    leaves = _state_of(single)
+    state = [t.clone() for t in leaves]
+    it = base.iteration
+    n_win = len(batches) // (K * F)
+    for w in range(n_win):
+        frame = batches[w * K * F:(w + 1) * K * F]
+        snaps = []
+        for r in range(K):
+            with torch.no_grad():
+                for t, s in zip(leaves, state):
+                    t.copy_(s)
+            single.iteration = it
+            for f in range(F):
+                ds = frame[f * K + r]
+                single.fit(ds.features, ds.labels)
+            snaps.append([t.clone() for t in leaves])
+        _mean_into(state, snaps, weights_of(w) or [1.0] * K)
+        it += F
+        del snaps
+    with torch.no_grad():
+        for t, s in zip(leaves, state):
+            t.copy_(s)
+    single.iteration = it
+    return single
+
+
+def _close(what, a, b, tol, hold=True):
+    """``a``'s float32 params against ``b``'s within ``tol`` (held unless
+    ``hold`` is false); returns the largest absolute difference."""
+    va, vb = a.params_to_vector(), b.params_to_vector()
+    err = float(np.abs(va - vb).max())
+    ok = np.allclose(va, vb, **tol)
+    # each leaf's worst excess over the tolerance, and its scale
+    worst = sorted(((float(((x - y).abs() - tol["rtol"] * y.abs()).max()),
+                     n, float((x - y).abs().max()), float(y.abs().max()))
+                    for (n, x), (_, y) in zip(named_state(a), named_state(b))
+                    if n.startswith("params")), reverse=True)[:3]
+    print(f"{what}: params max abs err {err:.3e} "
+          f"(rtol {tol['rtol']:g}, atol {tol['atol']:g}): "
+          f"{'holds' if ok else 'FAILS'}; leaves nearest the bound "
+          + "; ".join(f"{n} err {e:.3e} of max |{m:.3e}|"
+                      for _, n, e, m in worst))
+    if hold:
+        check(ok, f"{what} within {tol}")
+    return err
+
+
+def _param_snapshot(net):
+    """Every params leaf, in float64 on the host, by name."""
+    return {n: t.detach().double().cpu() for n, t in named_state(net)
+            if n.startswith("params")}
+
+
+def _change_close(what, a, b, p0, limit, hold=True):
+    """Each params leaf's change from ``p0`` in ``a`` against its change
+    in ``b``: the largest ``||da - db|| / ||db||`` over the leaves, held
+    within ``limit`` unless ``hold`` is false.  Unlike a tolerance on the
+    weights, it scales with the step: no learning rate is small enough
+    to pass it with a wrong gradient.  Returns the largest ratio."""
+    rows = []
+    for (n, x), (_, y) in zip(named_state(a), named_state(b)):
+        if not n.startswith("params"):
+            continue
+        da = x.detach().double().cpu() - p0[n]
+        db = y.detach().double().cpu() - p0[n]
+        num, den = float((da - db).norm()), float(db.norm())
+        rows.append((num / den if den else (0.0 if num == 0 else math.inf),
+                     n, den))
+    rows.sort(reverse=True)
+    top = rows[0][0]
+    print(f"{what}: the change's largest relative error {top:.3e} over "
+          f"{len(rows)} leaves (limit {limit:g}): "
+          f"{'holds' if top <= limit else 'FAILS'}; "
+          + "; ".join(f"{n} {r:.3e} of |change| {d:.3e}"
+                      for r, n, d in rows[:3]))
+    if hold:
+        check(top <= limit, f"{what}: change within {limit}")
+    return top
+
+
+def _bitwise(what, a, b):
+    gaps = state_gaps(a, b)
+    print(f"{what}: {len(gaps)} of {len(named_state(a))} leaves differ "
+          f"{sorted(gaps.items(), key=lambda kv: -kv[1])[:3]}")
+    check(not gaps, f"{what} bit for bit")
+
+
+def _release(pw):
+    from deeplearning4j_tpu_torch.models import capture as cap
+
+    if pw._staged is not None:
+        cap.release(pw._staged)
+    pw._staged = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _drop(net):
+    """Free a net's captured graphs and their pool now."""
+    from deeplearning4j_tpu_torch.models import capture as cap
+
+    cap.release(net)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _wrapper_fit(net, batches, mesh, F, **kw):
+    """A ParallelWrapper over ``mesh`` fit on ``batches``: (wrapper, the
+    wrapper counts of that fit, its seconds, the peak allocated bytes
+    above what was allocated when the fit began: the wrapper's staged
+    state and its window's working set)."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    pw = ParallelWrapper(net, workers=PW_WORKERS, mesh=mesh,
+                         averaging_frequency=F, **kw)
+    _counts_zero()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pw.fit(iter(batches))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _launch_counts()
+    check(all(p == 0 for _, p in counts.values()),
+          f"plain-version calls {counts}")
+    return pw, {k: l for k, (l, _) in counts.items() if l}, secs, \
+        torch.cuda.max_memory_allocated() - base
+
+
+def _timed_windows(pw, batches, n_windows):
+    """ms a window over ``n_windows`` more windows (replays when
+    captured), to the last loss."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pw.fit(iter(batches[:n_windows * len(batches) // PW_WINDOWS]))
+    float(pw.net.score_value)
+    return (time.perf_counter() - t0) * 1e3 / n_windows
+
+
+def parallel_wrapper_phase(name_card):
+    """``ParallelWrapper(net, workers=4)`` over four slots of the card,
+    the full-width bf16 char-LM, Adam, each replica a 2 x 2048 batch;
+    averaging_frequency 1 and 3, captured and eager; two windows each,
+    against the single-net oracle.  Returns (the wrapper counts of the
+    captured and eager runs, the F=1 replicated run's peak bytes, its
+    params, its ledger)."""
+    from deeplearning4j_tpu_torch.observability import shardstats
+
+    t_phase = time.perf_counter()
+    # the kernels at the replica's shapes, against their plain versions
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    flash_case("replica_bf16", 700, (PW_BATCH, TRAIN_T, 8, 128),
+               torch.bfloat16, True, None, flush, name_card)
+    prologue_case("replica_prologue_bf16", 710, PW_BATCH * TRAIN_T, 1024,
+                  torch.bfloat16, False, False, flush, name_card)
+    del flush
+    mesh = _slots(data=PW_WORKERS)
+    base = transformer_char_lm(device="cuda", **TRAIN_MODEL)
+    layers = TRAIN_MODEL["layers"]
+    per_mb = {"flash_fwd": PW_WORKERS * layers,
+              "flash_dq": PW_WORKERS * layers,
+              "flash_dkv": PW_WORKERS * layers,
+              "prologue": PW_WORKERS * 2 * layers}
+    total = {k: 0 for k in per_mb}
+    out = {}
+    for F in (1, 3):
+        batches = _lm_batches(PW_WINDOWS * PW_WORKERS * F, PW_BATCH,
+                              seed=100 + F)
+        nets = {}
+        for mode in ("captured", "eager"):
+            net = twin(base, mode == "captured")
+            pw, got, secs, peak = _wrapper_fit(net, batches, mesh, F)
+            want = {k: (2 if mode == "captured" else PW_WINDOWS) * F * v
+                    for k, v in per_mb.items()}
+            print(f"parallel_wrapper [F={F}, {mode}]: {PW_WINDOWS} windows "
+                  f"in {secs:.3f} s (the first's warm-up and capture "
+                  f"included); wrapper launches {got}, expected {want}")
+            check(got == want, f"wrapper launches {got} == {want}")
+            for k in total:
+                total[k] += got.get(k, 0)
+            if mode == "captured":
+                from deeplearning4j_tpu_torch.models import capture as cap
+
+                graphs = cap.step_graphs(pw._staged)
+                held = list(graphs.graph_launches().values())
+                print(f"parallel_wrapper [F={F}]: captures "
+                      f"{graphs.captures}, replays {graphs.replays}; the "
+                      f"window graph holds {held}")
+                check(graphs.captures == 1 and held == [
+                    {k: F * v for k, v in per_mb.items()}],
+                    "one window graph holding F x 4 replicas' launches")
+                if F == 1:
+                    out["peak_bytes"] = peak
+                    out["capture_bytes"] = pw.capture_pool_bytes()
+                    out["ledger"] = shardstats.latest_ledgers()[
+                        "parallel_wrapper"]
+                    out["params"] = net.params_to_vector()
+            nets[mode] = (net, pw)
+        _bitwise(f"parallel_wrapper [F={F}] captured against eager",
+                 nets["captured"][0], nets["eager"][0])
+        t_or = time.perf_counter()
+        oracle = replica_oracle(base, batches, PW_WORKERS, F)
+        _close(f"parallel_wrapper [F={F}] against four single nets' fit, "
+               f"averaged each window", nets["captured"][0], oracle, PW_TOL)
+        print(f"parallel_wrapper [F={F}]: oracle "
+              f"{time.perf_counter() - t_or:.1f} s")
+        tokens = PW_WORKERS * F * PW_BATCH * TRAIN_T
+        for mode, (net, pw) in nets.items():
+            ms = _timed_windows(pw, batches, PW_WINDOWS)
+            print(f"parallel_wrapper [F={F}, {mode}]: {ms:.3f} ms a window "
+                  f"({PW_WORKERS} replicas x {F} minibatches of "
+                  f"{PW_BATCH} x {TRAIN_T}), {tokens / ms * 1e3:.1f} "
+                  f"tokens/s [{name_card}]")
+            _release(pw)
+        if F == 1:
+            single = twin(base, True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            b0 = torch.cuda.memory_allocated()
+            single.fit(batches[0].features, batches[0].labels)
+            torch.cuda.synchronize()
+            one = torch.cuda.max_memory_allocated() - b0
+            cap_b = out["capture_bytes"]
+            check(cap_b is not None, "the window's capture was measured")
+            cap_b = cap_b or 0
+            print(f"parallel_wrapper: the window's capture added "
+                  f"{cap_b / 1e9:.3f} GB to its graph pool, one "
+                  f"single-net step at {PW_BATCH} x {TRAIN_T} "
+                  f"{one / 1e9:.3f} GB above its state; the fit's peak "
+                  f"{out['peak_bytes'] / 1e9:.3f} GB above what was "
+                  f"allocated before it [{name_card}]")
+            check(cap_b < 2 * one, "the window's pool reuses one replica's "
+                  "activations for the next (not K times them)")
+            _drop(single)
+        _drop(oracle)
+        del nets, oracle
+        torch.cuda.empty_cache()
+    print(f"parallel_wrapper: phase {time.perf_counter() - t_phase:.1f} s")
+    return base, total, out
+
+
+def zero_phase(name_card, base, rep):
+    """The wrapper with ``update_sharding="zero"`` against the replicated
+    F=1 run of ``parallel_wrapper_phase``: the same two windows from
+    the same state; params within the reference's ZeRO tolerance, the
+    ledger's updater replication 4 -> 1, and the peak allocated bytes.
+    Returns (the ZeRO wrapper, still live, its net, the batches, its
+    wrapper counts)."""
+    from deeplearning4j_tpu_torch.observability import shardstats
+
+    t_phase = time.perf_counter()
+    mesh = _slots(data=PW_WORKERS)
+    batches = _lm_batches(3 * PW_WORKERS, PW_BATCH, seed=101)
+    net = twin(base, True)
+    pw, got, secs, peak = _wrapper_fit(net, batches[:2 * PW_WORKERS], mesh,
+                                       1, update_sharding="zero")
+    layers = TRAIN_MODEL["layers"]
+    want = {"flash_fwd": 2 * PW_WORKERS * layers,
+            "flash_dq": 2 * PW_WORKERS * layers,
+            "flash_dkv": 2 * PW_WORKERS * layers}
+    print(f"zero: two windows in {secs:.3f} s; wrapper launches {got}")
+    check({k: got.get(k) for k in want} == want and got.get("prologue"),
+          f"zero launches {got}")
+    vec = net.params_to_vector()
+    err = float(np.abs(vec - rep["params"]).max())
+    ok = np.allclose(vec, rep["params"], **ZERO_TOL)
+    print(f"zero: params against the replicated wrapper's, max abs err "
+          f"{err:.3e} (rtol {ZERO_TOL['rtol']:g}, atol "
+          f"{ZERO_TOL['atol']:g}): {'holds' if ok else 'FAILS'}")
+    check(ok, "zero against replicated")
+    led = shardstats.latest_ledgers()["parallel_wrapper"]
+    rows = {m: {t: (l["trees"][t]["replication_factor"],
+                    l["trees"][t]["per_device_bytes"])
+                for t in ("params", "updater_state")}
+            for m, l in (("replicated", rep["ledger"]), ("zero", led))}
+    print(f"zero: ledger (replication factor, bytes a slot) {rows}")
+    check(rows["replicated"]["updater_state"][0] == 4.0
+          and rows["zero"]["updater_state"][0] <= 1.1,
+          "the updater's replication falls from 4 to 1")
+    print(f"zero: the fit's peak {peak / 1e9:.3f} GB above what was "
+          f"allocated before it (staged state and window), against the "
+          f"replicated wrapper's {rep['peak_bytes'] / 1e9:.3f} GB: "
+          f"{(rep['peak_bytes'] - peak) / 1e9:.3f} GB less; the window's "
+          f"capture added {(pw.capture_pool_bytes() or 0) / 1e9:.3f} GB to "
+          f"its graph pool against {(rep['capture_bytes'] or 0) / 1e9:.3f} "
+          f"[{name_card}]")
+    check(peak < rep["peak_bytes"], "ZeRO's peak below replicated's")
+    prog = shardstats.program_analysis("ParallelWrapper.fit_window_zero")
+    print("zero: window census (on one card the collectives' bytes are a "
+          "census of what four cards would move, not traffic over a "
+          "link): " + "; ".join(
+              f"{op} x{e['count']} {e['bytes'] / 1e9:.3f} GB"
+              for op, e in prog["collectives"].items())
+          + f"; projected over NVLink 900 GB/s "
+            f"{prog['comm_seconds_estimate'] * 1e3:.3f} ms a window")
+    ms = _timed_windows(pw, batches[:2 * PW_WORKERS], PW_WINDOWS)
+    print(f"zero: {ms:.3f} ms a window (captured) [{name_card}]")
+    print(f"zero: phase {time.perf_counter() - t_phase:.1f} s")
+    # the checkpoint phase continues this run from two windows
+    _release(pw)
+    net2 = twin(base, True)
+    pw2, got2, _, _ = _wrapper_fit(net2, batches[:2 * PW_WORKERS], mesh, 1,
+                                   update_sharding="zero")
+    for k, v in got2.items():
+        got[k] = got.get(k, 0) + v
+    return pw2, net2, batches, got
+
+
+def checkpoint_sharded_phase(name_card, pw, net, batches):
+    """Save the ZeRO wrapper (two windows in) with ``mesh=``: one
+    ``shards-0.npz`` with every slot's block; restore it onto a two-slot
+    mesh and into a single net; a fresh ZeRO wrapper on the restored net
+    takes the third window, equal bit for bit to the uninterrupted
+    run's."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.parallel import (
+        ParallelWrapper, restore_checkpoint, save_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="dl4j_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        save_checkpoint(d, net, trees=pw.state_trees(), mesh=pw.mesh)
+        t_save = time.perf_counter() - t0
+        with open(f"{d}/manifest-0.json") as f:
+            man = json.load(f)
+        w = max((e for p, e in man["leaves"].items()
+                 if p.startswith("params")),
+                key=lambda e: int(np.prod(e["shape"])))
+        print(f"checkpoint_sharded: saved in {t_save:.2f} s, "
+              f"{sum(len(e['shards']) for e in man['leaves'].values())} "
+              f"pieces of {len(man['leaves'])} leaves; e.g. spec "
+              f"{w['spec']}, {len(w['shards'])} pieces")
+        check(man["mesh"]["shape"][0] == PW_WORKERS, "the saving mesh")
+        two = _slots(data=2)
+        t0 = time.perf_counter()
+        params, _, _, it = restore_checkpoint(d, mesh=two)
+        t_two = time.perf_counter() - t0
+        gaps = [p for p, t in named_state(net) if p.startswith("params")
+                and not torch.equal(
+                    _leaf(params, p[len("params/"):]).full(), t)]
+        print(f"checkpoint_sharded: onto two slots in {t_two:.2f} s: "
+              f"{len(gaps)} params differ")
+        check(not gaps and it == net.iteration, "two-slot restore")
+        fresh = transformer_char_lm(device="cuda",
+                                    **{**TRAIN_MODEL, "seed": 999})
+        t0 = time.perf_counter()
+        restore_checkpoint(d, fresh, mesh=pw.mesh)
+        print(f"checkpoint_sharded: into a single net in "
+              f"{time.perf_counter() - t0:.2f} s")
+        _bitwise("checkpoint_sharded: restored net against the saver",
+                 fresh, net)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    third = batches[2 * PW_WORKERS:]
+    _counts_zero()
+    pw.fit(iter(third))
+    resumed = ParallelWrapper(fresh, workers=PW_WORKERS, mesh=pw.mesh,
+                              update_sharding="zero")
+    resumed.fit(iter(third))
+    counts = {k: l for k, (l, _) in _launch_counts().items() if l}
+    _bitwise("checkpoint_sharded: the next window, resumed against "
+             "uninterrupted", fresh, net)
+    _release(resumed)
+    _release(pw)
+    print(f"checkpoint_sharded: phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def _leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def sync_master_oracle(lr=PARALLEL_SGD_LR, hold=True):
+    """``SyncTrainingMaster`` over four slots on the global 8 x 2048
+    batch, float32 compute, SGD at ``lr``, two steps against the single
+    net's ``fit`` on the whole batch: the params within ``SYNC_TOL`` and
+    their change within ``CHANGE_LIMIT`` (held unless ``hold`` is
+    false).  Returns (the master's net, its DistributedNetwork, the two
+    batches, its wrapper counts, the two readings)."""
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedNetwork, SyncTrainingMaster,
+    )
+
+    net = transformer_char_lm(device="cuda", updater="sgd", lr=lr,
+                              **TRAIN_MODEL_F32)
+    single = twin(net, True)
+    p0 = _param_snapshot(net)
+    both = _lm_batches(2, TRAIN_BATCH, seed=7)
+    data = DataSet(np.concatenate([b.features for b in both]),
+                   np.concatenate([b.labels for b in both]))
+    master = SyncTrainingMaster(mesh=_slots(data=PW_WORKERS))
+    dist = DistributedNetwork(net, master)
+    _counts_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.fit(ListDataSetIterator(data, TRAIN_BATCH))
+    float(net.score_value)
+    secs = time.perf_counter() - t0
+    counts = {k: l for k, (l, _) in _launch_counts().items() if l}
+    layers = TRAIN_MODEL["layers"]
+    want = {"flash_fwd": 2 * PW_WORKERS * layers,
+            "flash_dq": 2 * PW_WORKERS * layers,
+            "flash_dkv": 2 * PW_WORKERS * layers,
+            "prologue": 2 * PW_WORKERS * 2 * layers}
+    print(f"sync_master: two steps in {secs:.3f} s (warm-up and capture "
+          f"included); wrapper launches {counts}, expected {want}")
+    check(counts == want, "sync launches")
+    for b in both:
+        single.fit(b.features, b.labels)
+    what = f"sync_master (SGD {lr:g}) against the single net's fit on " \
+           f"the whole batch"
+    err = _close(what, net, single, SYNC_TOL, hold=False)
+    rel = _change_close(what, net, single, p0, CHANGE_LIMIT, hold=False)
+    if hold:
+        check(np.allclose(net.params_to_vector(),
+                          single.params_to_vector(), **SYNC_TOL),
+              f"{what} within {SYNC_TOL}")
+        check(rel <= CHANGE_LIMIT, f"{what}: change within {CHANGE_LIMIT}")
+    _drop(single)
+    return net, dist, both, counts, (err, rel)
+
+
+def sync_master_phase(name_card):
+    """The sync master's oracle at ``PARALLEL_SGD_LR``, then its step
+    timed.  Returns its wrapper counts."""
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    t_phase = time.perf_counter()
+    net, dist, both, counts, _ = sync_master_oracle()
+    ms = []
+    for _ in range(PARALLEL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.fit(ListDataSetIterator(DataSet(both[0].features,
+                                             both[0].labels), TRAIN_BATCH))
+        float(net.score_value)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(ms))
+    print(f"sync_master: step median {med:.3f} ms over {PARALLEL_TIMED} "
+          f"(4 slots of 2 x 2048, float32), "
+          f"{TRAIN_BATCH * TRAIN_T / med * 1e3:.1f} tokens/s [{name_card}]")
+    _drop(net)
+    del net, dist
+    print(f"sync_master: phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def elastic_phase(name_card, base):
+    """Replica 1 of the four dies at step 2 and comes back at step 4
+    (``FaultInjector.kill_worker``), slow by 1 ms while active: the
+    windows without it average the three healthy replicas (the
+    single-net oracle with its weight 0), it is readmitted holding the
+    average, and the barrier stalls of degraded mode are counted against
+    lockstep.  Then a NaN-poisoned replica under a stability policy:
+    weighted out, named by a ``replica_poisoned`` flight event.  Returns
+    the wrapper counts."""
+    from deeplearning4j_tpu_torch.parallel import ElasticConfig
+    from deeplearning4j_tpu_torch.resilience import (
+        FaultInjector, inject_faults,
+    )
+
+    t_phase = time.perf_counter()
+    mesh = _slots(data=PW_WORKERS)
+    batches = _lm_batches(ELASTIC_WINDOWS * PW_WORKERS, PW_BATCH, seed=31)
+    total = {}
+
+    def faults():
+        return (FaultInjector(seed=0)
+                .kill_worker("1", at_step=2, until_step=4)
+                .delay_worker("1", ELASTIC_DELAY))
+
+    stalls = {}
+    for label, cfg in (("degraded", ElasticConfig(evict_after_flags=None,
+                                                  hang_stall_s=0.0)),
+                       ("lockstep", ElasticConfig(degraded_mode=False,
+                                                  hang_stall_s=0.0))):
+        net = twin(base, True)
+        t_ns = time.monotonic_ns()
+        with inject_faults(faults()):
+            pw, got, secs, _ = _wrapper_fit(net, batches, mesh, 1,
+                                            elastic=cfg)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        stalls[label] = (pw.elastic.barrier_stalls,
+                         pw.elastic.barrier_stall_seconds)
+        events = [(e.kind, e.attrs.get("worker"), e.attrs.get("step"),
+                   e.attrs.get("reason"))
+                  for e in _events_since(t_ns, "elastic_")]
+        print(f"elastic [{label}]: {ELASTIC_WINDOWS} windows in "
+              f"{secs:.3f} s; events {events}; barrier stalls "
+              f"{stalls[label][0]} ({stalls[label][1] * 1e3:.1f} ms)")
+        if label == "degraded":
+            check(("elastic_eviction", "1", 2, "dead") in events
+                  and any(k == "elastic_readmission" and w == "1"
+                          for k, w, _, _ in events)
+                  and pw.elastic.evicted_workers == [],
+                  "replica 1 evicted at step 2 and readmitted")
+            st = pw._staged
+            same = all(torch.equal(a[1], a[0])
+                       for a in tree_leaves(st.params))
+            check(same, "every slot holds the average")
+            oracle = replica_oracle(
+                base, batches, PW_WORKERS, 1,
+                weights_of=lambda w: [1.0, 0.0 if w in (2, 3) else 1.0,
+                                      1.0, 1.0])
+            _close("elastic: the windows without replica 1 average the "
+                   "healthy three (single-net oracle)", net, oracle, PW_TOL)
+            _drop(oracle)
+            del oracle
+        _release(pw)
+        del net
+    print(f"elastic: counted barrier stalls, lockstep {stalls['lockstep'][0]}"
+          f" against degraded {stalls['degraded'][0]}")
+    check(stalls["lockstep"][0] == ELASTIC_WINDOWS
+          and stalls["degraded"][0] == ELASTIC_WINDOWS - 2,
+          "degraded mode stops paying replica 1's stall while it is out")
+    # a poisoned replica under a stability policy
+    stab = transformer_char_lm(device="cuda", stability=dict(check_every=1),
+                               **TRAIN_MODEL)
+    one = batches[:PW_WORKERS]
+    net = twin(stab, True)
+    t_ns = time.monotonic_ns()
+    inj = FaultInjector(seed=1).poison_gradients("2", at_step=0,
+                                                 until_step=1)
+    with inject_faults(inj):
+        pw, got, _, _ = _wrapper_fit(net, one, mesh, 1)
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    named = [e.attrs for e in _events_since(t_ns, "replica_poisoned")]
+    print(f"elastic [poisoned]: flight events {named}")
+    check(any(a.get("worker") == "2" for a in named),
+          "a replica_poisoned event names replica 2")
+    oracle = replica_oracle(stab, one, PW_WORKERS, 1,
+                            weights_of=lambda w: [1.0, 1.0, 0.0, 1.0])
+    _close("elastic [poisoned]: replica 2 weighted out (the healthy "
+           "three's mean)", net, oracle, PW_TOL)
+    _release(pw)
+    _drop(oracle)
+    _drop(net)
+    del net, oracle, stab
+    torch.cuda.empty_cache()
+    print(f"elastic: phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def sequence_parallel_oracle(name_card, lr=SP_SGD_LR, hold=True):
+    """``SequenceParallelTrainingMaster`` over (data=2, seq=4) slots: the
+    char-LM built with ``seq_axis="seq"`` at T = 2048, float32, SGD at
+    ``lr``, two steps (then ``PARALLEL_TIMED`` more, timed) against the
+    single net's ``fit`` with its attention on the built-in float32 path
+    (the ring's arithmetic): the params within ``SP_TOL`` and their
+    change within ``CHANGE_LIMIT`` (held unless ``hold`` is false).
+    Returns (the wrapper counts, the two readings)."""
+    from deeplearning4j_tpu_torch.parallel import (
+        SequenceParallelTrainingMaster,
+    )
+
+    mesh = _slots(**SP_MESH)
+    net = transformer_char_lm(device="cuda", updater="sgd", seq_axis="seq",
+                              lr=lr, **TRAIN_MODEL_F32)
+    single = transformer_char_lm(device="cuda", updater="sgd", lr=lr,
+                                 **TRAIN_MODEL_F32)
+    p0 = _param_snapshot(single)
+    _bitwise("sequence_parallel: the seq_axis net's initial state against "
+             "the single net's", net, single)
+    both = _lm_batches(2, TRAIN_BATCH, seed=9)
+    master = SequenceParallelTrainingMaster(mesh)
+    _counts_zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    master.execute_training(net, both)
+    float(net.score_value)
+    secs = time.perf_counter() - t0
+    counts = {k: l for k, (l, _) in _launch_counts().items() if l}
+    layers = TRAIN_MODEL["layers"]
+    print(f"sequence_parallel: two steps in {secs:.3f} s (warm-up and "
+          f"capture included), peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; wrapper "
+          f"launches {counts} (ring attention is plain torch)")
+    check(counts == {"prologue": 2 * 2 * layers}, "SP launches")
+    snap = twin(net, False)          # the two steps' state, held below
+    ms = []
+    for _ in range(PARALLEL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        master.execute_training(net, both[:1])
+        float(net.score_value)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(ms))
+    print(f"sequence_parallel: step median {med:.3f} ms (data=2 x seq=4 "
+          f"slots of 4 x 512), {TRAIN_BATCH * TRAIN_T / med * 1e3:.1f} "
+          f"tokens/s [{name_card}]")
+    _drop(net)
+    # the oracle computes attention as the ring does, exactly in float32
+    # (the built-in path, as the reference's single-device net in its
+    # test; eager: its [8, 8, 2048, 2048] scores are not kept in a
+    # graph's pool); the single net on the tf32x3 flash kernels is
+    # printed beside
+    flash_single = twin(single, True)
+    single._capture = False
+    with helpers.helpers_disabled():
+        for b in both:
+            single.fit(b.features, b.labels)
+    what = (f"sequence_parallel (SGD {lr:g}) against the single net's fit "
+            f"(attention in float32, the built-in path)")
+    err = _close(what, snap, single, SP_TOL, hold=False)
+    rel = _change_close(what, snap, single, p0, CHANGE_LIMIT, hold=False)
+    if hold:
+        check(np.allclose(snap.params_to_vector(),
+                          single.params_to_vector(), **SP_TOL),
+              f"{what} within {SP_TOL}")
+        check(rel <= CHANGE_LIMIT, f"{what}: change within {CHANGE_LIMIT}")
+    _drop(single)
+    for b in both:
+        flash_single.fit(b.features, b.labels)
+    va, vb = snap.params_to_vector(), flash_single.params_to_vector()
+    print(f"sequence_parallel against the single net on the tf32x3 flash "
+          f"kernels: params max abs err {float(np.abs(va - vb).max()):.3e}"
+          f" (printed, not held)")
+    _drop(flash_single)
+    del snap
+    return counts, (err, rel)
+
+
+def sequence_parallel_phase(name_card):
+    """The sequence-parallel master's oracle at ``SP_SGD_LR``; then ring
+    and Ulysses attention at [8, 2048, 8, 128] bf16, causal and windowed,
+    against the flash kernel on the whole sequence.  Returns the wrapper
+    counts (the SP steps' prologue; Ulysses' flash forward)."""
+    from deeplearning4j_tpu_torch.parallel import ring_self_attention
+
+    t_phase = time.perf_counter()
+    counts, _ = sequence_parallel_oracle(name_card)
+    seq = _slots(seq=SP_MESH["seq"])
+    shape = (TRAIN_BATCH, TRAIN_T, 8, 128)
+    q, k, v = (_randn(50 + i, shape, torch.bfloat16) for i in range(3))
+    flush = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    ulysses = 0
+    for causal, window in ((True, None), (True, SP_WINDOW)):
+        ref = fa.flash_attention(q, k, v, causal=causal, window=window)
+        line = []
+        for impl in ("ring", "ulysses"):
+            before = helpers.kernel_counts()["flash_fwd"].launches
+            got = ring_self_attention(q, k, v, seq, causal=causal,
+                                      window=window, impl=impl)
+            n = helpers.kernel_counts()["flash_fwd"].launches - before
+            check(n == (1 if impl == "ulysses" else 0),
+                  f"{impl}: {n} flash forward launches")
+            ulysses += n
+            # one bf16 rounding of outputs up to ~5, over the largest
+            err = _scaled_err(got, ref)
+            check(err < TOL[torch.bfloat16],
+                  f"{impl} window={window}: {err}")
+            t = time_ms(lambda: ring_self_attention(
+                q, k, v, seq, causal=causal, window=window, impl=impl),
+                flush, iters=5, warm=1)
+            line.append(f"{impl} {t:.3f} ms, err {err:.3e} of the largest "
+                        f"output")
+        tf = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                window=window), flush)
+        print(f"sequence_parallel attention {list(shape)} bf16 causal "
+              f"window={window}: " + "; ".join(line)
+              + f"; the flash kernel on the whole sequence {tf:.3f} ms "
+                f"[{name_card}]")
+    del flush
+    torch.cuda.empty_cache()
+    print(f"sequence_parallel: phase {time.perf_counter() - t_phase:.1f} s")
+    return counts, ulysses
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6001,6 +6844,23 @@ def main() -> int:
     multidataset_phase(name_card)
     torch.cuda.empty_cache()
     t_etl = time.perf_counter() - t_etl
+    t_a10 = time.perf_counter()
+    gc.collect()            # the earlier phases' nets and their graphs
+    torch.cuda.empty_cache()
+    base, pw_launches, rep = parallel_wrapper_phase(name_card)
+    torch.cuda.empty_cache()
+    pw_z, net_z, z_batches, zero_launches = zero_phase(name_card, base, rep)
+    ck_launches = checkpoint_sharded_phase(name_card, pw_z, net_z, z_batches)
+    del pw_z, net_z, rep
+    torch.cuda.empty_cache()
+    el_launches = elastic_phase(name_card, base)
+    del base
+    torch.cuda.empty_cache()
+    sync_launches = sync_master_phase(name_card)
+    torch.cuda.empty_cache()
+    sp_launches, ulysses = sequence_parallel_phase(name_card)
+    torch.cuda.empty_cache()
+    t_a10 = time.perf_counter() - t_a10
     # the new phases' profiled launches join the kernels line's
     launches += served["paged"]
     train_launches = [n + guarded[k] for n, k in zip(
@@ -6026,6 +6886,19 @@ def main() -> int:
     # the file-fed ResNet-50's wrapper launches (its warm-up and capture)
     bn_launches = (bn_launches[0], bn_launches[1] + etl_bn["bn_train_fwd"],
                    bn_launches[2] + etl_bn["bn_train_bwd"])
+    # the slot masters' wrapper launches (counted where a launch runs or
+    # is recorded into a window's graph): the bf16 replicas' rows 1-3 and
+    # 5, Ulysses' forward, the float32 sync master's tf32x3 rows, and the
+    # prologue of the float32 sync and sequence-parallel steps
+    names = ("flash_fwd", "flash_dq", "flash_dkv", "prologue")
+    for counts in (pw_launches, zero_launches, ck_launches, el_launches):
+        train_launches = [n + counts.get(k, 0)
+                          for n, k in zip(train_launches, names)]
+    train_launches[0] += ulysses
+    train_launches[3] += (sync_launches.get("prologue", 0)
+                          + sp_launches.get("prologue", 0))
+    f32_launches = [n + sync_launches.get(k, 0)
+                    for n, k in zip(f32_launches, names[:3])]
     d = rows["decode"]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -6102,7 +6975,9 @@ def main() -> int:
           f"kerneldiff phases {t_online:.1f} s; the fleet and profiling "
           f"phases {t_fleet:.1f} s; the vgg16, googlenet, dbn and moe "
           f"phases {t_zoo:.1f} s; the etl_lenet, etl_resnet and "
-          f"multidataset phases {t_etl:.1f} s)")
+          f"multidataset phases {t_etl:.1f} s; the parallel_wrapper, zero, "
+          f"checkpoint_sharded, elastic, sync_master and sequence_parallel "
+          f"phases {t_a10:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,6 +127,7 @@ class Program:
         self.leaves: Optional[List[torch.Tensor]] = None
         self.conf = None
         self.launches: Dict[str, int] = {}
+        self.pool_bytes: Optional[int] = None
 
     def call(self):
         """The body on the static inputs."""
@@ -198,9 +199,14 @@ class StepGraphs:
                     done(out)
                     done = None
                 before = kernel_launches()
+                reserved = torch.cuda.memory_reserved(net.device)
                 with cost.paused():     # the warm-up was the counted run
                     prog.graph, prog.out = capture_graph(prog.call,
                                                          self._pool())
+                # the shared pool's growth: what the capture's peak took
+                # beyond the blocks earlier graphs left free
+                prog.pool_bytes = (torch.cuda.memory_reserved(net.device)
+                                   - reserved)
             except BaseException:
                 net._graph_cache.pop(prog.cache_key, None)
                 raise

@@ -155,3 +155,41 @@ def graph_params_from_numpy(conf, params: Mapping[str, Any],
     _place(net, net.layers, params, net_state, resolve_device(device))
     net.params = {n.name: net.params.get(n.name, {}) for n in conf.nodes}
     return net
+
+
+def stacked_from_numpy(tree: Mapping[str, Any], device: DeviceLike = None):
+    """A JAX ``ParallelWrapper``'s stacked replica tree (``[K, ...]``
+    leaves as numpy arrays, ``jax.device_get`` of its staged trees) as
+    the port's stacked float32 tensors on ``device``: the same layout,
+    the wrapper's ``[K, ...]`` stacks."""
+    dev = resolve_device(device)
+
+    def one(v):
+        if isinstance(v, Mapping):
+            return {k: one(x) for k, x in v.items()}
+        return torch.tensor(np.asarray(v), dtype=torch.float32, device=dev)
+
+    return one(tree)
+
+
+def zero_blocks_from_numpy(tree: Mapping[str, Any], k: int,
+                           device: DeviceLike = None):
+    """A ZeRO layout's leaves (each the whole array, as ``np.asarray`` of
+    a JAX leaf sharded ``P('data')`` gives it) as the port's ``[K, n/K,
+    ...]`` blocks on ``device``; a leaf whose leading dimension does not
+    divide by ``k`` stays whole (replicated), as both layouts keep it."""
+    from deeplearning4j_tpu_torch.observability.shardstats import (
+        zero_shardable,
+    )
+
+    dev = resolve_device(device)
+
+    def one(v):
+        if isinstance(v, Mapping):
+            return {n: one(x) for n, x in v.items()}
+        a = np.asarray(v, dtype=np.float32)
+        if zero_shardable(a.shape, k):
+            a = a.reshape((k, a.shape[0] // k) + a.shape[1:])
+        return torch.tensor(a, device=dev)
+
+    return one(tree)

@@ -322,6 +322,7 @@ def transformer_char_lm(vocab_size: int = 77, d_model: int = 128,
                         window: Optional[int] = None,
                         max_cache: int = 1024,
                         stability=None, introspection=None, numerics=None,
+                        seq_axis: Optional[str] = None,
                         device: DeviceLike = None) -> MultiLayerNetwork:
     """Causal transformer char-LM: embedding, ``layers`` pre-norm blocks
     of (LayerNorm -> self-attention) and (LayerNorm -> Dense relu ->
@@ -330,7 +331,9 @@ def transformer_char_lm(vocab_size: int = 77, d_model: int = 128,
     ``device``.  ``remat=True`` recomputes each block in the backward
     pass.  ``stability``, ``introspection`` and ``numerics`` set the
     training policies (``True``, a policy or its keyword dict), as the
-    reference's arguments do (``zoo.py:345-382``)."""
+    reference's arguments do (``zoo.py:345-382``).  With
+    ``seq_axis='seq'`` every attention layer runs ring attention over
+    that axis's slots (``SequenceParallelTrainingMaster``)."""
     nb = (NeuralNetConfiguration.builder().seed(seed)
           .updater(updater, learning_rate=lr))
     for set_policy, policy in ((nb.training_stability, stability),
@@ -352,7 +355,8 @@ def transformer_char_lm(vocab_size: int = 77, d_model: int = 128,
             LayerNorm(n_in=d_model),
             SelfAttentionLayer(n_in=d_model, n_out=d_model, n_heads=n_heads,
                                causal=True, rope=rope, n_kv_heads=n_kv_heads,
-                               window=window, max_cache=max_cache),
+                               window=window, max_cache=max_cache,
+                               seq_axis=seq_axis),
         )))
         b.layer(ResidualBlock(remat=remat, layers=(
             LayerNorm(n_in=d_model),

@@ -9,8 +9,13 @@ the stream caches (``init_cache``, ``cache_overflow``: the linear and the
 rolling cache of ``rnn_time_step`` and ``generate``), ``init_paged_cache``
 and every branch of ``apply_with_carry``.  ``apply`` asks the helper seam
 for flash attention (``helpers/flash_attention.py``), the paged branch
-for the fused decode kernel (``helpers/paged_attention.py``).  Still to
-come: ring attention (``seq_axis``).
+for the fused decode kernel (``helpers/paged_attention.py``).  With
+``seq_axis`` set, ``apply`` runs ring attention over the sequence slots
+a ``SequenceParallelTrainingMaster`` step puts in force
+(``parallel/sequence_parallel.py``), RoPE positions offset by each
+slot's index × T/S (reference ``attention.py:480-494``); outside such a
+step, or where the axis has one slot, it takes the layer's ordinary
+route (RoPE from 0, then the flash helper).
 """
 
 from __future__ import annotations
@@ -162,8 +167,8 @@ def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class SelfAttentionLayer(Layer):
     """Multi-head self-attention over [B, T, F]; params ``Wq/Wk/Wv/Wo``
     ([n_in, n_out] kernels) and ``bq/bk/bv/bo``.  Every field of the
-    reference is kept so configs round-trip; ``seq_axis`` (ring
-    attention) is not ported yet and raises."""
+    reference is kept so configs round-trip; ``seq_axis`` names the mesh
+    axis whose slots hold the time shards (ring attention)."""
 
     n_in: Optional[int] = None
     n_out: Optional[int] = None
@@ -232,11 +237,10 @@ class SelfAttentionLayer(Layer):
         ``dot_product_attention``.  With the helpers on, a CUDA tensor on
         that route that the kernels do not take raises instead (float64
         on the card runs under ``helpers.helpers_disabled()``)."""
-        if self.seq_axis is not None:
-            raise NotImplementedError(
-                "ring attention (seq_axis) is not ported yet")
         x = self.maybe_dropout(x, train=train, rng=rng)
         q, k, v = self._qkv(params, x)
+        if self.seq_axis is not None and self._seq_slots() > 1:
+            return self._out(params, self._ring(q, k, v, mask))
         if self.rope:
             positions = torch.arange(q.shape[1], device=q.device)
             q = rope(q, positions, self.rope_theta)
@@ -258,6 +262,36 @@ class SelfAttentionLayer(Layer):
             o = dot_product_attention(q, k, v, causal=self.causal,
                                       window=self.window, mask=mask)
         return self._out(params, o)
+
+    def _seq_slots(self) -> int:
+        from deeplearning4j_tpu_torch.parallel import sequence_parallel as sp
+
+        return sp.slots_of(self.seq_axis)
+
+    def _ring(self, q, k, v, mask):
+        """Ring attention over the sequence slots in force: the rows are
+        ``[S*B, T/S]`` seq-major (``sequence_parallel.seq_slots``)."""
+        from deeplearning4j_tpu_torch.parallel import sequence_parallel as sp
+
+        s = self._seq_slots()
+        rows, tl = q.shape[0], q.shape[1]
+        b = rows // s
+        if self.rope:
+            # slot i holds global timesteps [i*T/S, (i+1)*T/S)
+            pos = (torch.arange(s, device=q.device)[:, None] * tl
+                   + torch.arange(tl, device=q.device))
+            pos = pos.repeat_interleave(b, dim=0)          # [S*B, T/S]
+            q = rope(q, pos, self.rope_theta)
+            k = rope(k, pos, self.rope_theta)
+
+        def slots(a):
+            return a.reshape((s, b) + tuple(a.shape[1:]))
+
+        o = sp.ring_attention(slots(q), slots(k), slots(v),
+                              None if mask is None else slots(mask),
+                              axis_name=self.seq_axis, causal=self.causal,
+                              window=self.window)
+        return o.reshape(q.shape)
 
     def init_cache(self, batch: int, dtype=torch.float32, device=None):
         """KV cache for streaming inference (``rnn_time_step``,

@@ -7,8 +7,9 @@ introspection and numerics engines (``introspection``, ``numerics``:
 their host halves, and the monitors) and the float64 kernel-trust
 sweep (``kerneldiff``), the step profiler with its cost and memory
 attribution (``profiling``), the bench regression sentinel
-(``regression``), and the fleet's telemetry publisher and aggregator.
-The reference's sharding statistics come with ROADMAP A10.
+(``regression``), the fleet's telemetry publisher and aggregator, and
+the sharding ledger with the slot programs' collective census
+(``shardstats``).
 """
 
 from deeplearning4j_tpu_torch.observability.metrics import (

@@ -3,11 +3,9 @@
 Copied from ``deeplearning4j_tpu/observability/flightrecorder.py`` with its
 imports pointed at the port's own copies.  The report's ``device_memory``
 section reads ``observability/memory.py`` (``torch.cuda``'s counters),
-its ``memory_attribution`` section ``observability/profiling.py``.  Its
-``sharding_ledger`` section reads ``shardstats.py``, which the port does
-not have yet (ROADMAP A10): until it comes, that section is the
-best-effort error record the reference itself writes when a backend is
-missing.
+its ``memory_attribution`` section ``observability/profiling.py``, its
+``sharding_ledger`` section ``observability/shardstats.py`` (the newest
+ledger of each master).
 
 When an 8-worker training run (or a serving dispatcher) stops making
 progress, a Prometheus scrape tells you *that* it is stuck, not *where*.

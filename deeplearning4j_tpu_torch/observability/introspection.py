@@ -42,8 +42,9 @@ Metric families (docs/observability.md): ``dl4j_layer_gradient_norm``,
 
 Port of ``deeplearning4j_tpu/observability/introspection.py``: the
 device half in torch (``models/common.sgd_step`` calls it), the host
-half copied.  The reference's per-replica ``[K, L]`` views come with its
-masters (ROADMAP A10); ``harvest`` keeps their branch.
+half copied.  A ``ParallelWrapper`` leaves the per-replica ``[K, N]``
+stack as ``net._introspect_live``, which ``harvest`` reads replica by
+replica (its master branch).
 """
 
 from __future__ import annotations

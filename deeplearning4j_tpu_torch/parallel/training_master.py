@@ -1,0 +1,683 @@
+"""Distributed training masters — the port's counterpart of
+``deeplearning4j_tpu/parallel/training_master.py``.
+
+- ``SyncTrainingMaster``: synchronous data parallelism over the slot
+  mesh's data axis.  The global batch is split into K contiguous row
+  blocks, one a slot; each slot's loss is weighted by its share of the
+  global normaliser, ``sum(mask_slot) / psum(sum(mask))`` (the
+  reference's ``training_master.py:393-410``), so the psum of the
+  slots' gradients is the global-batch gradient, masked normalisation
+  and regularisation included; one update follows (under
+  ``conf.introspection`` the global gradient's norms and the global
+  batch's activation statistics, merged from the slots' moments, are
+  written into ``__introspect__``).  Under
+  ``update_sharding="zero"`` the gradients are reduce-scattered into
+  ``[K, n/K, ...]`` blocks and the update runs on the blocks (views of
+  the net's own tensors: on one card the replicated layout holds one
+  physical copy too, and the ledger tells the two layouts apart).  The
+  step is one captured graph on the card.
+- ``ParameterAveragingTrainingMaster``: a ``ParallelWrapper`` an epoch
+  around one persistent elastic controller.
+- ``DistributedNetwork``: a net and a master; ``fit``, ``evaluate``
+  (each batch padded to a multiple of the data axis) and ``score``.
+
+``initialize_distributed`` keeps the reference's signature; more than one
+process raises ``NotImplementedError`` (ROADMAP A10's next slice, meshes
+across processes).  So do ``TensorParallelTrainingMaster``,
+``PipelineParallelTrainingMaster`` and ``split_stages``.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+from deeplearning4j_tpu_torch.backend import rng as rng_mod
+from deeplearning4j_tpu_torch.backend.mesh import AXIS_DATA, P, Sharded
+from deeplearning4j_tpu_torch.models import capture as cap
+from deeplearning4j_tpu_torch.models import common
+from deeplearning4j_tpu_torch.observability import (
+    PhaseTimers, WorkerTelemetry, crash_dump, introspection, shardstats,
+)
+from deeplearning4j_tpu_torch.observability.flightrecorder import step_guard
+from deeplearning4j_tpu_torch.observability.recompile import instrument
+from deeplearning4j_tpu_torch.optimize import updaters as upd
+from deeplearning4j_tpu_torch.parallel import zero as zero_mod
+from deeplearning4j_tpu_torch.parallel.data_parallel import (
+    _Staged, _tmap, loss_of,
+)
+from deeplearning4j_tpu_torch.parallel.elastic import (
+    ElasticConfig, ElasticController,
+)
+from deeplearning4j_tpu_torch.resilience import stability
+
+_NEXT = "ROADMAP A10, the next slice"
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None) -> None:
+    """Multi-process bring-up (reference: ``jax.distributed``).  One
+    process needs none; more raise until meshes across processes come."""
+    if num_processes is not None and int(num_processes) > 1:
+        raise NotImplementedError(
+            f"initialize_distributed over {num_processes} processes: "
+            f"meshes across processes are not ported yet ({_NEXT}, with "
+            "A12's provision/cluster.py)")
+
+
+def _rows(tree, sl):
+    return _tmap(lambda a: a[sl], tree) if isinstance(tree, dict) \
+        else tree[sl]
+
+
+def _nrows(tree) -> int:
+    return int(common.batch_rows(tree))
+
+
+def _act_moments(named, plan, moments):
+    """Each layer's activation sums (sum, sum of squares, dead count,
+    count) added to ``moments`` (``introspection.act_summary``'s moment
+    form), so the slots' blocks give the global batch's statistics."""
+    eps = plan.policy.dead_eps
+    out = []
+    for i, (_, a) in enumerate(named):
+        a = a.detach()
+        s1 = a.sum(dtype=torch.float32)
+        s2 = torch.linalg.vector_norm(a, dtype=torch.float32).square()
+        z = ((a.numel() - torch.count_nonzero(a)).float() if eps == 0
+             else (a.abs() <= eps).sum(dtype=torch.float32))
+        cur = [s1, s2, z, a.numel()]
+        out.append(cur if moments is None else
+                   [m + c for m, c in zip(moments[i], cur)])
+    return out
+
+
+def _act_stats(moments):
+    if moments is None:
+        return None
+    means, stds, zeros = [], [], []
+    for s1, s2, z, n in moments:
+        mean = s1 / n
+        means.append(mean)
+        stds.append(torch.sqrt(torch.clamp(s2 / n - mean.square(),
+                                           min=0.0)))
+        zeros.append(z / n)
+    return {"act_mean": torch.stack(means), "act_std": torch.stack(stds),
+            "act_zero": torch.stack(zeros)}
+
+
+class PhaseStats(PhaseTimers):
+    """Phase-timed distributed training stats (reference ``PhaseStats``):
+    ``phase()`` / ``steps`` / ``as_dict()``, mirrored into
+    ``dl4j_phase_seconds{component, phase}``."""
+
+    def __init__(self, enabled: bool = True,
+                 component: str = "training_master"):
+        super().__init__(component, enabled=enabled)
+
+
+class TrainingMaster:
+    """Strategy SPI (reference ``TrainingMaster.java:27``)."""
+
+    def execute_training(self, net, iterator) -> None:
+        raise NotImplementedError
+
+    def training_stats(self) -> Dict[str, Any]:
+        return {}
+
+
+class SyncTrainingMaster(TrainingMaster):
+    """Per-step synchronous data parallelism over the slot mesh (module
+    docstring).  Without ``mesh`` the mesh is the default one (one slot a
+    card)."""
+
+    def __init__(self, mesh=None, batch_size: Optional[int] = None,
+                 prefetch_size: int = 2, collect_stats: bool = False,
+                 checkpoint_manager=None, retry_policy=None, elastic=False,
+                 update_sharding: str = zero_mod.REPLICATED):
+        self.mesh = mesh or mesh_mod.default_mesh()
+        self.batch_size = batch_size
+        self.prefetch_size = prefetch_size
+        self.collect_stats = collect_stats
+        self.update_sharding = zero_mod.validate_mode(update_sharding,
+                                                      self.mesh)
+        self._zero_layout = (zero_mod.ZeroLayout(self.mesh)
+                             if self.update_sharding == zero_mod.ZERO
+                             else None)
+        self.K = self.mesh.shape[AXIS_DATA]
+        self._slots = [f"d{k}" for k in range(self.K)]
+        self._elastic: Optional[ElasticController] = None
+        if elastic is not False and elastic is not None:
+            ecfg = elastic if isinstance(elastic, ElasticConfig) \
+                else ElasticConfig()
+            self.collect_stats = True
+            self._elastic = ElasticController("sync_master", self._slots,
+                                              config=ecfg)
+        self.checkpoint_manager = checkpoint_manager
+        self.retry_policy = retry_policy
+        self._stats: Dict[str, Any] = {
+            "steps": 0, "step_time_ms": collections.deque(maxlen=1024)}
+        self._phases = PhaseStats(enabled=collect_stats,
+                                  component="sync_master")
+        self._workers: Optional[WorkerTelemetry] = None
+        self._step = None
+        self._holder = None
+        self._stab_rt = None
+
+    @property
+    def elastic(self) -> Optional[ElasticController]:
+        return self._elastic
+
+    def _evicted_labels_mask(self, ds, emask, K: int):
+        """The labels mask with the evicted slots' rows zeroed."""
+        B = len(ds)
+        rw = np.repeat(np.asarray(emask, np.float32), B // K)
+        lm = ds.labels_mask
+        if lm is None:
+            return rw.reshape((B,) + (1,) * (np.ndim(ds.labels) - 2))
+        lm = np.asarray(lm)
+        return lm * rw.reshape((B,) + (1,) * (lm.ndim - 1))
+
+    # ------------------------------------------------------------- build
+    def _stage(self, net):
+        """What the step reads and writes: the net itself (replicated),
+        or a holder whose params and inner updater slots are
+        ``[K, n/K, ...]`` views of the net's tensors (ZeRO)."""
+        if self._zero_layout is None:
+            return net
+        h = self._holder
+        leaves = cap.state_leaves(net)
+        if h is not None and h._of is net and all(
+                a is b for a, b in zip(h._bases, leaves)) and \
+                len(h._bases) == len(leaves):
+            return h
+        lay = self._zero_layout
+        self._pmask = lay.mask(net.params)
+
+        def view(t):
+            return (t.view((lay.k, t.shape[0] // lay.k) + tuple(t.shape[1:]))
+                    if lay.shardable(t) else t)
+
+        params = _tmap(view, net.params)
+        ustate = {slot: (tree if slot in
+                         shardstats.RESERVED_REPLICATED_SUBTREES
+                         else _tmap(view, tree))
+                  for slot, tree in net.updater_state.items()}
+        h = _Staged(net, params, ustate, net.net_state)
+        h._of, h._bases = net, leaves
+        h.iteration = net.iteration
+        self._holder = h
+        return h
+
+    def _body(self, x, y, fm, lm, key, scalars):
+        """One synchronous step over the K slots (module docstring).
+        Returns the global loss and, under a stability policy, the
+        ``[K]`` slot poison flags."""
+        net, K = self.net_, self.K
+        h = self._stage(net)
+        policy = stability.policy_of(net.conf)
+        row_ok = None
+        if policy is not None:
+            row_ok = stability.finite_rows(x, y)
+            x = stability.zero_nonfinite_rows(x, row_ok)
+            y = stability.zero_nonfinite_rows(y, row_ok)
+            lm = lm * row_ok.reshape((row_ok.shape[0],)
+                                     + (1,) * (lm.ndim - 1))
+        stab = h.updater_state.get(stability.STATE_KEY)
+        scale = stab["loss_scale"] if stab is not None else None
+        zero = self._zero_layout is not None
+        full = (zero_mod.all_gather_tree(h.params, self._pmask) if zero
+                else h.params)
+        full = _tmap(lambda a: a.detach(), full)
+        train = common.trainable(full)
+        leaves = common.tree_leaves(train)
+        B = _nrows(x)
+        per = B // K
+        if lm is not None:
+            denom = torch.stack([lm[k * per:(k + 1) * per].float().sum()
+                                 for k in range(K)])
+            n_total = mesh_mod.psum(denom)
+            ws = torch.where(n_total > 0, denom / n_total.clamp(min=1.0),
+                             torch.zeros_like(denom))
+        plan = common.observed_plans(net)[0]
+        acts = [] if plan is not None and plan.collect_acts else None
+        moments = None
+        stacked, wl, new_ns = None, [], []
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            for k in range(K):
+                sl = slice(k * per, (k + 1) * per)
+                loss, ns = loss_of(net, full, h.net_state, _rows(x, sl),
+                                   _rows(y, sl), key,
+                                   None if fm is None else _rows(fm, sl),
+                                   None if lm is None else lm[sl],
+                                   collect=acts)
+                if acts:
+                    moments = _act_moments(acts, plan, moments)
+                    acts.clear()
+                w = ws[k] if lm is not None else per / B
+                target = loss * w if scale is None else loss * (w * scale)
+                g = torch.autograd.grad(target, leaves, allow_unused=True)
+                with torch.no_grad():
+                    # each slot's gradient into one [K, ...] stack
+                    if stacked is None:
+                        stacked = [p.new_empty((K,) + p.shape)
+                                   for p in leaves]
+                    for dst, p, gi in zip(stacked, leaves, g):
+                        if gi is None:
+                            dst[k].zero_()
+                        else:
+                            dst[k].copy_(gi)
+                del g
+                wl.append(loss.detach().float() * w)
+                new_ns.append(ns)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        with torch.no_grad():
+            stacked = common._tree_like(train, stacked)
+            g = (zero_mod.reduce_scatter_tree(stacked, K) if zero
+                 else _tmap(mesh_mod.psum, stacked))
+            del stacked
+            gloss = mesh_mod.psum(torch.stack(wl))
+            ns = (_tmap(lambda *a: mesh_mod.pmean(torch.stack(a)), *new_ns)
+                  if new_ns and new_ns[0] else {})
+            target_train = common.trainable(h.params)
+            old = (common.tree_clone(target_train) if plan is not None
+                   else None)
+            if policy is not None:
+                stability.guarded_update_(
+                    h, policy, gloss, g, target_train, ns, scalars,
+                    extra_ok=row_ok.sum() > 0)
+                out = gloss, stability.slot_poison_flags(row_ok, K)
+            else:
+                updates, new_us = upd.update(
+                    net.conf.updater, g, upd.inner_state(h.updater_state),
+                    net.iteration, params=target_train, scalars=scalars)
+                upd.apply_updates_(h.params, updates)
+                common.copy_tree_(h.updater_state, new_us)
+                common.copy_tree_(h.net_state, ns)
+                out = gloss
+            if plan is not None:
+                # the global gradient and the global batch's activations:
+                # one cluster-wide value a layer, as the reference's
+                introspection.attach_(
+                    h.updater_state, plan, grads=g, params=old,
+                    new_params=common.trainable(h.params),
+                    iteration=scalars["iteration"],
+                    act_stats=_act_stats(moments),
+                    grad_scale=None if scale is None else 1.0 / scale)
+            return out
+
+    def _dispatch(self, x, y, fm, lm, net):
+        self.net_ = net
+        h = self._stage(net)
+        h.iteration = net.iteration
+        seed = rng_mod.seed_of(net._keys.next())
+        vals = common._step_scalars(net, net.iteration)
+        if common.observed_plans(net)[0] is not None:
+            vals["iteration"] = float(net.iteration)
+        dtype = common._scalar_dtype(net)
+        inputs = {"x": x, "y": y, "fm": fm, "lm": lm}
+        if cap.captures(h):
+            graphs = cap.step_graphs(h)
+            inputs = common.tree_map(cap.host_or_device, inputs)
+            prog = graphs.program("sync", self._body, inputs, len(vals),
+                                  dtype)
+            prog.scalar_names = list(vals)
+            graphs.stage(prog, inputs, seed, list(vals.values()))
+            with mesh_mod.census() as c:
+                fresh = prog.graph is None
+                out = graphs.run(prog)
+            if fresh:
+                self._record(prog.cache_key, c.counts, 2)
+            return out
+        dev = net.device
+        sc = torch.tensor(list(vals.values()), dtype=dtype, device=dev)
+        with mesh_mod.census() as c:
+            out = self._body(**{k: (None if v is None else
+                                    common._on(v, dev) if isinstance(v, dict)
+                                    else torch.as_tensor(v, device=dev))
+                                for k, v in inputs.items()},
+                             key=rng_mod.device_key(seed, dev),
+                             scalars=dict(zip(vals, sc.unbind(0))))
+        sig = cap.signature(common.tree_map(cap.host_or_device, inputs))
+        if sig not in self._seen:
+            self._seen.add(sig)
+            self._record(sig, c.counts, 1)
+        return out
+
+    def _record(self, sig, counts, runs) -> None:
+        counts = {op: {"count": e["count"] // runs,
+                       "bytes": e["bytes"] / runs,
+                       "group_sizes": e["group_sizes"]}
+                  for op, e in counts.items()}
+        shardstats.record_program(f"{type(self).__name__}.step", sig,
+                                  counts, device=self.mesh.device)
+
+    def _ledger_trees(self, net):
+        mesh = self.mesh
+        if self._zero_layout is None:
+            rep = lambda a: Sharded(a, P(), mesh, a.shape)  # noqa: E731
+            return {"params": _tmap(rep, net.params),
+                    "updater_state": _tmap(rep, net.updater_state),
+                    "net_state": _tmap(rep, net.net_state)}
+        h, lay = self._stage(net), self._zero_layout
+        rep = lambda a: Sharded(a, P(), mesh, a.shape)  # noqa: E731
+        ustate = {slot: (_tmap(rep, tree) if slot in
+                         shardstats.RESERVED_REPLICATED_SUBTREES
+                         else lay.as_sharded(tree, net.updater_state[slot]))
+                  for slot, tree in h.updater_state.items()}
+        return {"params": lay.as_sharded(h.params, net.params),
+                "updater_state": ustate,
+                "net_state": _tmap(rep, net.net_state)}
+
+    # --------------------------------------------------------------- fit
+    def execute_training(self, net, iterator):
+        from deeplearning4j_tpu_torch.datasets.iterator import (
+            AsyncDataSetIterator, DataSetIterator,
+        )
+        from deeplearning4j_tpu_torch.resilience import (
+            FitResilience, get_fault_injector, preemption_requested,
+        )
+
+        if net.device != self.mesh.device:
+            raise ValueError(f"the mesh's slots are on {self.mesh.device}, "
+                             f"the net on {net.device}")
+        if getattr(net.conf, "numerics", None) is not None:
+            raise ValueError("the numerics ledger is not carried by the "
+                             "port's SyncTrainingMaster")
+        common.check_trainable(net)
+        res = None
+        if self.checkpoint_manager is not None or self.retry_policy \
+                is not None:
+            res = FitResilience("sync_master", self.checkpoint_manager,
+                                self.retry_policy, net=net, mesh=self.mesh)
+        if isinstance(iterator, DataSetIterator) and \
+                iterator.async_supported():
+            iterator = AsyncDataSetIterator(iterator, self.prefetch_size)
+        policy = stability.policy_of(net.conf)
+        if policy is not None:
+            stability.ensure_state(net)
+            created = self._stab_rt is None
+            if created:
+                self._stab_rt = stability.StabilityRuntime(
+                    "sync_master", policy, worker_ids=self._slots)
+            if created or (res is not None and res.resumed_from is not None):
+                self._stab_rt.baseline_from(
+                    net.updater_state.get(stability.STATE_KEY))
+        stab_rt = self._stab_rt
+        if getattr(net.conf, "introspection", None) is not None:
+            introspection.ensure_state(net)
+        if self._step is None:
+            self._seen = set()
+            self._step = instrument(
+                self._dispatch, f"{type(self).__name__}.step",
+                argnums=(0, 1, 2, 3),
+                graphs=lambda: (cap.step_graphs(self._stage(self.net_))
+                                if cap.captures(self._stage(self.net_))
+                                else None))
+        self.net_ = net
+        K = self.K
+        shardstats.record_ledger(
+            "sync_master", self._ledger_trees(net), data_axis_size=K,
+            notes=(self._zero_layout.notes()
+                   if self._zero_layout is not None else None))
+        always_mask = (self._elastic is not None or stab_rt is not None
+                       or self._zero_layout is not None)
+        it = iter(iterator)
+        while True:
+            with self._phases.phase("fetch"):
+                try:
+                    ds = next(it)
+                except StopIteration:
+                    break
+            if res is not None and res.skip_batch():
+                continue
+            if preemption_requested():
+                if res is not None:
+                    res.on_preempt(net)
+                break
+            n_real = len(ds)
+            if len(ds) % K:
+                ds = ds.pad_batch(((len(ds) + K - 1) // K) * K)
+            emask = None
+            step0 = net.iteration
+            if self._elastic is not None:
+                emask = self._elastic.begin_window(step0)
+                if emask.min() >= 1.0:
+                    emask = None
+            feats = ds.features
+            inj = get_fault_injector()
+            if inj is not None and inj.has_poison():
+                feats = inj.poison_rows(self._slots, step0, feats, K)
+            t0 = time.perf_counter()
+            if not always_mask:
+                lm = ds.labels_mask
+            elif emask is not None:
+                lm = self._evicted_labels_mask(ds, emask, K)
+            elif ds.labels_mask is not None:
+                lm = ds.labels_mask
+            else:
+                # one program: the mask is always an array, so an
+                # eviction or a poisoned row changes values, not shapes
+                lm = np.ones((len(ds),) + (1,) * (np.ndim(ds.labels) - 2),
+                             np.float32)
+            with step_guard("sync_step", component="sync_master",
+                            iteration=net.iteration):
+                with self._phases.phase("dispatch"):
+                    def call(feats=feats, ds=ds, lm=lm):
+                        return self._step(feats, ds.labels,
+                                          ds.features_mask, lm, net)
+
+                    out = (res.step(call, net.iteration, net=net)
+                           if res is not None else call())
+                    if stab_rt is not None:
+                        loss, slot_poison = out
+                        stab_rt.accumulate(poison_flags=slot_poison)
+                    else:
+                        loss = out
+            net.score_value = loss.clone()
+            net.iteration += 1
+            if stab_rt is not None:
+                action = stab_rt.poll_master(
+                    step=net.iteration, losses=loss,
+                    stab_state=net.updater_state[stability.STATE_KEY],
+                    elastic=self._elastic,
+                    can_rewind=res is not None and res.cm is not None)
+                if action == "backoff":
+                    stability.apply_lr_backoff_(net.updater_state, policy)
+                elif action == "rewind":
+                    stab_rt.rewind(net, res.cm, mesh=self.mesh)
+            if res is not None and res.cm is not None:
+                trigger = res.cm.due(net.iteration)
+                if trigger is not None:
+                    res.cm.save(net, trigger=trigger)
+            if self.collect_stats:
+                if self._workers is None:
+                    self._workers = (
+                        self._elastic.cfg.make_worker_telemetry(
+                            "sync_master") if self._elastic is not None
+                        else WorkerTelemetry("sync_master"))
+                    if self._elastic is not None:
+                        self._elastic.attach_detector(
+                            self._workers.detector)
+                with self._phases.phase("device_sync"):
+                    if loss.is_cuda:
+                        torch.cuda.current_stream(loss.device).synchronize()
+                step_s = time.perf_counter() - t0
+                self._stats["step_time_ms"].append(step_s * 1e3)
+                per_dev = max(1, len(ds) // K)
+                for worker in self._slots:
+                    w_s = step_s + (inj.worker_delay(worker)
+                                    if inj is not None else 0.0)
+                    self._workers.observe(worker, w_s, batch=per_dev)
+            if self._elastic is not None:
+                self._elastic.window_barrier(step0)
+            self._stats["steps"] += 1
+            self._phases.steps += 1
+            common.notify_listeners(net, n_real)
+        if stab_rt is not None:
+            stab_rt.flush(net)
+
+    def training_stats(self):
+        out = dict(self._stats)
+        out["step_time_ms"] = list(out["step_time_ms"])
+        out.update(self._phases.as_dict())
+        if self._workers is not None:
+            out["cluster"] = self._workers.cluster_view()
+        if self._elastic is not None:
+            out["elastic"] = self._elastic.summary()
+        return out
+
+
+class ParameterAveragingTrainingMaster(TrainingMaster):
+    """Reference-semantics parameter averaging (reference
+    ``ParameterAveragingTrainingMaster``): a ``ParallelWrapper`` an epoch
+    around one persistent elastic controller."""
+
+    def __init__(self, workers: Optional[int] = None, batch_size: int = 32,
+                 averaging_frequency: int = 5, average_updaters: bool = True,
+                 prefetch_size: int = 2, repartition: str = "always",
+                 mesh=None, collect_stats: bool = False, elastic=False,
+                 update_sharding: str = zero_mod.REPLICATED):
+        self.mesh = mesh
+        self.workers = workers or (mesh.shape[AXIS_DATA] if mesh is not None
+                                   else None)
+        self.batch_size = batch_size
+        self.averaging_frequency = averaging_frequency
+        self.average_updaters = average_updaters
+        self.prefetch_size = prefetch_size
+        self.collect_stats = collect_stats
+        if mesh is not None:
+            zero_mod.validate_mode(update_sharding, mesh)
+        elif update_sharding not in zero_mod.MODES:
+            raise ValueError(f"update_sharding must be one of "
+                             f"{zero_mod.MODES}, got {update_sharding!r}")
+        self.update_sharding = update_sharding
+        if (update_sharding == zero_mod.ZERO
+                and self.averaging_frequency != 1):
+            raise ValueError(
+                "update_sharding='zero' requires averaging_frequency=1 "
+                f"(got {self.averaging_frequency}): local-SGD windows "
+                "need full per-replica updater state between averages")
+        self._elastic: Optional[ElasticController] = None
+        if elastic is not False and elastic is not None:
+            if self.workers is None:
+                raise ValueError("elastic= needs workers= or mesh=")
+            ecfg = elastic if isinstance(elastic, ElasticConfig) \
+                else ElasticConfig()
+            self._elastic = ElasticController(
+                "parallel_wrapper", [str(k) for k in range(self.workers)],
+                config=ecfg)
+        self._stats: Dict[str, Any] = {"windows": 0}
+        self._phases = PhaseStats(component="param_avg_master")
+
+    @property
+    def elastic(self) -> Optional[ElasticController]:
+        return self._elastic
+
+    def execute_training(self, net, iterator):
+        from deeplearning4j_tpu_torch.parallel.data_parallel import (
+            ParallelWrapper,
+        )
+
+        pw = ParallelWrapper(
+            net, workers=self.workers, prefetch_size=self.prefetch_size,
+            averaging_frequency=self.averaging_frequency,
+            average_updaters=self.average_updaters, mesh=self.mesh,
+            elastic=self._elastic if self._elastic is not None else False,
+            update_sharding=self.update_sharding)
+        with self._phases.phase("fit"):
+            pw.fit(iterator)
+        self._stats["windows"] += 1
+        self._phases.steps += pw.iteration
+
+    def training_stats(self):
+        out = dict(self._stats)
+        out.update(self._phases.as_dict())
+        if self._elastic is not None:
+            out["elastic"] = self._elastic.summary()
+        return out
+
+
+class DistributedNetwork:
+    """A net and a master (reference ``DistributedNetwork``)."""
+
+    def __init__(self, net, training_master: TrainingMaster):
+        self.net = net
+        self.master = training_master
+
+    def fit(self, iterator, epochs: int = 1):
+        try:
+            for _ in range(epochs):
+                if hasattr(iterator, "reset"):
+                    iterator.reset()
+                self.master.execute_training(self.net, iterator)
+        except Exception as e:
+            crash_dump("fit_exception",
+                       master=type(self.master).__name__, error=repr(e))
+            raise
+        return self.net
+
+    def evaluate(self, iterator, evaluation=None):
+        """Each batch padded to a multiple of the master's data axis and
+        run through ``output`` (the slots share the device, so one
+        forward covers their blocks); the metrics accumulate on the
+        host."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+
+        ev = evaluation or Evaluation()
+        mesh = getattr(self.master, "mesh", None)
+        pad_to = mesh.shape[AXIS_DATA] if mesh is not None else 1
+        for ds in iterator:
+            n = len(ds)
+            run = (ds.pad_batch(((n + pad_to - 1) // pad_to) * pad_to)
+                   if n % pad_to else ds)
+            out = self.net.output(run.features, fmask=run.features_mask)
+            ev.eval(ds.labels, out.detach().cpu().numpy()[:n],
+                    mask=ds.labels_mask)
+        return ev
+
+    def score(self, dataset):
+        return self.net.score(dataset.features, dataset.labels)
+
+    def training_stats(self):
+        return self.master.training_stats()
+
+
+class TensorParallelTrainingMaster(TrainingMaster):
+    """Not ported yet: ``model_parallel.py`` comes with the next A10
+    slice."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"TensorParallelTrainingMaster (model_parallel.py) is not "
+            f"ported yet ({_NEXT})")
+
+
+def tensor_parallel_spec(*args, **kwargs):
+    raise NotImplementedError(
+        f"tensor_parallel_spec (model_parallel.py) is not ported yet "
+        f"({_NEXT})")
+
+
+class PipelineParallelTrainingMaster(TrainingMaster):
+    """Not ported yet: ``pipeline.py`` comes with the next A10 slice."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"PipelineParallelTrainingMaster (pipeline.py) is not ported "
+            f"yet ({_NEXT})")
+
+
+def split_stages(*args, **kwargs):
+    raise NotImplementedError(
+        f"split_stages (pipeline.py) is not ported yet ({_NEXT})")

@@ -18,7 +18,8 @@ engine, for one process.
 - ``stability`` — the in-step non-finite guard and loss scaling (inside
   the captured step) and the divergence sentinel.
 
-The data-parallel masters' hooks come with ROADMAP A10.
+The data-parallel masters (``parallel/``) call the injector's worker
+hooks and the stability engine's master helpers.
 """
 
 from deeplearning4j_tpu_torch.resilience.checkpoint_manager import (

@@ -45,7 +45,8 @@ Port: a copy of ``deeplearning4j_tpu/resilience/checkpoint_manager.py`` with its
 rewritten to the port. It stages, commits and restores through
 the port's ``parallel/checkpoint.py``, whose snapshot copies every
 leaf to host memory on the training thread and whose restore writes
-into the net's live tensors; ``mesh=`` raises (ROADMAP A10).
+into the net's live tensors; with ``mesh=`` through the resharded
+restore (``parallel/checkpoint.py``).
 """
 
 from __future__ import annotations

@@ -41,8 +41,10 @@ Everything is seeded (``random.Random(seed)``) and counts deterministically
 
 Port: a copy of ``deeplearning4j_tpu/resilience/faults.py`` with its imports
 rewritten to the port. ``poison_batch`` also
-takes torch tensors (poisoned where they lie); the worker hooks' callers
-come with ROADMAP A10.
+takes torch tensors (poisoned where they lie); the worker hooks are
+called by the port's ``ParallelWrapper`` and ``SyncTrainingMaster``,
+and ``poison_replica_labels`` poisons a replica's labels where its
+features are token ids.
 """
 
 from __future__ import annotations
@@ -362,6 +364,27 @@ class FaultInjector:
                 out = np.array(xs, copy=True)
             out[:, k] = self._apply_poison(mode, out[:, k])
         return xs if out is None else out
+
+    def poison_replica_labels(self, worker_ids, step: int, xs, ys):
+        """ParallelWrapper hook beside ``poison_replica_slots``: where the
+        window's features ``xs`` are integer token ids, which cannot be
+        non-finite (the reference's hook leaves such a replica healthy),
+        replica ``k``'s labels ``ys[:, k]`` are poisoned instead, so a
+        token model's replica can be poisoned too.  Returns ``ys``, or a
+        poisoned copy."""
+        import numpy as np
+
+        if np.issubdtype(np.asarray(xs).dtype, np.floating):
+            return ys
+        out = None
+        for k, worker in enumerate(worker_ids):
+            mode = self.poison_mode(worker, step)
+            if mode is None:
+                continue
+            if out is None:
+                out = np.array(ys, copy=True)
+            out[:, k] = self._apply_poison(mode, out[:, k])
+        return ys if out is None else out
 
     def poison_rows(self, worker_ids, step: int, features, n_slots: int):
         """SyncTrainingMaster hook: data slot ``k`` owns the contiguous

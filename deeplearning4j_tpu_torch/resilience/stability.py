@@ -29,10 +29,16 @@ and escalates: skip (free, on the device) -> LR backoff (the device
 multiplier scaled in place) -> auto-rewind to the newest checkpoint of a
 ``CheckpointManager`` taken while the run was healthy.
 
-Waiting for ROADMAP A10: the data-parallel masters' helpers
-(``finite_rows``, ``zero_nonfinite_rows``, ``slot_poison_flags``,
-``StabilityRuntime.accumulate`` and ``poll_master``, the runtime's
-``worker_ids`` and the ``dl4j_poisoned_replica_windows_total`` family).
+**The data-parallel masters' half**: the sync master zeroes poisoned
+rows before the forward (``finite_rows``, ``zero_nonfinite_rows``) and
+folds them out of the labels mask, and reports which data slots held
+them (``slot_poison_flags``); the wrapper weights a poisoned replica out
+of its window average.  Both feed ``StabilityRuntime.accumulate`` with
+device tensors (adds, no sync) and poll ``poll_master`` at window
+boundaries, which publishes ``dl4j_poisoned_replica_windows_total{
+worker}`` for the runtime's ``worker_ids``, records a
+``replica_poisoned`` flight event naming the replica, and reports a
+repeat offender to the elastic controller.
 
 Metric families: ``dl4j_nonfinite_steps_total``, ``dl4j_loss_scale``,
 ``dl4j_stability_lr_scale``, ``dl4j_divergence_backoffs_total``,
@@ -46,6 +52,7 @@ import collections
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf import TrainingStability
@@ -58,6 +65,7 @@ _LOSS_SCALE = "dl4j_loss_scale"
 _LR_SCALE = "dl4j_stability_lr_scale"
 _BACKOFFS = "dl4j_divergence_backoffs_total"
 _REWINDS = "dl4j_divergence_rewinds_total"
+_POISONED = "dl4j_poisoned_replica_windows_total"
 
 
 def policy_of(conf) -> Optional[TrainingStability]:
@@ -156,32 +164,54 @@ def next_state(policy, stab, finite) -> Dict[str, torch.Tensor]:
             "nonfinite_total": stab["nonfinite_total"] + (1.0 - fin)}
 
 
+def unscale(loss, grads, loss_scale):
+    """``grads`` of the loss times ``loss_scale`` back to the loss's own,
+    and the verdict (0-d bool): the loss and every gradient finite."""
+    inv = 1.0 / loss_scale
+    grads = _map(lambda g: g * inv, grads)
+    return grads, all_finite(loss, grads)
+
+
+def fold_verdict(policy, finite, lr_scale, updates, new_state, old_state):
+    """The verdict folded into an update: under ``skip_nonfinite`` a
+    non-finite step's updates are exactly 0 and its updater state stays
+    ``old_state``; the updates are scaled by ``lr_scale`` either way.
+    Returns ``(updates, new_state)``."""
+    if not policy.skip_nonfinite:
+        return _map(lambda u: u * lr_scale, updates), new_state
+    scale = torch.where(finite, lr_scale, torch.zeros_like(lr_scale))
+    updates = _map(
+        lambda u: torch.where(finite, u, torch.zeros_like(u)) * scale,
+        updates)
+    return updates, select(finite, new_state, old_state)
+
+
 def guarded_update_(net, policy, loss, grads, train, new_net_state,
-                    scalars, carries=None, new_carries=None):
+                    scalars, carries=None, new_carries=None, extra_ok=None,
+                    cfg=None):
     """The guarded tail of a train step, in place: unscale the gradients
     (``grads`` of the loss times the scale), take the verdict, run the
     updater, fold the skip into the update, and write params, updater
     state, layer state, TBPTT carries and the stability state — every
-    choice made before its write.  Returns the verdict (0-d bool)."""
+    choice made before its write.  ``extra_ok`` (0-d bool) vetoes the
+    step besides the verdict (the sync master's all-rows-poisoned
+    batch); ``cfg`` overrides the updater configuration.  Returns the
+    verdict (0-d bool)."""
     from deeplearning4j_tpu_torch.models.common import (
         advance_carries_, copy_tree_,
     )
     from deeplearning4j_tpu_torch.optimize import updaters as upd
 
     stab, inner = split_state(net.updater_state)
-    inv = 1.0 / stab["loss_scale"]
-    grads = _map(lambda g: g * inv, grads)
-    finite = all_finite(loss, grads)
-    updates, new_inner = upd.update(net.conf.updater, grads, inner,
+    grads, finite = unscale(loss, grads, stab["loss_scale"])
+    if extra_ok is not None:
+        finite = finite & extra_ok
+    updates, new_inner = upd.update(cfg or net.conf.updater, grads, inner,
                                     net.iteration, params=train,
                                     scalars=scalars)
-    lr_scale = stab["lr_scale"]
+    updates, new_inner = fold_verdict(policy, finite, stab["lr_scale"],
+                                      updates, new_inner, inner)
     if policy.skip_nonfinite:
-        scale = torch.where(finite, lr_scale, torch.zeros_like(lr_scale))
-        updates = _map(
-            lambda u: torch.where(finite, u, torch.zeros_like(u)) * scale,
-            updates)
-        new_inner = select(finite, new_inner, inner)
         new_net_state = {k: (select(finite, v, net.net_state[k])
                              if k in net.net_state else v)
                          for k, v in new_net_state.items()}
@@ -189,8 +219,6 @@ def guarded_update_(net, policy, loss, grads, train, new_net_state,
             new_carries = {k: _map(
                 lambda n: torch.where(finite, n, torch.zeros_like(n)), v)
                 for k, v in new_carries.items()}
-    else:
-        updates = _map(lambda u: u * lr_scale, updates)
     new_stab = next_state(policy, stab, finite)
     upd.apply_updates_(net.params, updates)
     copy_tree_(net.updater_state, new_inner)
@@ -200,6 +228,41 @@ def guarded_update_(net, policy, loss, grads, train, new_net_state,
     if carries is not None:
         advance_carries_(carries, new_carries)
     return finite
+
+
+def finite_rows(x, y) -> torch.Tensor:
+    """``[B]`` float mask: 1 where every floating element of the
+    example's features and labels is finite (integer ids pass)."""
+    ok = None
+    for leaf in _leaves(x) + _leaves(y):
+        if not leaf.is_floating_point():
+            continue
+        lo = torch.isfinite(leaf).reshape(leaf.shape[0], -1).all(dim=1)
+        ok = lo if ok is None else ok & lo
+    if ok is None:
+        first = _leaves(x)[0]
+        return torch.ones((first.shape[0],), dtype=torch.float32,
+                          device=first.device)
+    return ok.float()
+
+
+def zero_nonfinite_rows(tree, row_ok):
+    """Poisoned rows of every floating leaf replaced by zeros before the
+    forward: NaN activations poison the backward even under a zero
+    cotangent."""
+    def clean(leaf):
+        if not leaf.is_floating_point():
+            return leaf
+        m = row_ok.reshape((leaf.shape[0],) + (1,) * (leaf.ndim - 1))
+        return torch.where(m > 0, leaf, torch.zeros_like(leaf))
+
+    return _map(clean, tree)
+
+
+def slot_poison_flags(row_ok, n_slots: int) -> torch.Tensor:
+    """``[K]`` flags: 1 where any row of the slot's contiguous block
+    ``[k*B/K, (k+1)*B/K)`` is poisoned."""
+    return 1.0 - row_ok.reshape(n_slots, -1).min(dim=1).values
 
 
 def apply_lr_backoff_(upd_state, policy) -> None:
@@ -227,9 +290,11 @@ class StabilityRuntime:
     ``policy.lr_backoff``; ``"rewind"`` restores the newest checkpoint
     committed while the run was healthy, then backs off."""
 
-    def __init__(self, component: str, policy, *, registry=None):
+    def __init__(self, component: str, policy, *, worker_ids=None,
+                 registry=None):
         self.component = component
         self.policy = policy
+        self.worker_ids = [str(w) for w in (worker_ids or [])]
         if registry is None:
             from deeplearning4j_tpu_torch.observability import get_registry
             registry = get_registry()
@@ -255,6 +320,14 @@ class StabilityRuntime:
             "checkpoint (params/updater/RNG/iteration restored; read by "
             "the max_divergence_rewinds health rule)",
             labels=("component",))
+        self._m_poisoned = registry.counter(
+            _POISONED, "Averaging windows in which the named replica's "
+            "gradients were non-finite and it was weighted out of the "
+            "window average", labels=("component", "worker"))
+        self._harvested_poison: Dict[str, float] = {}
+        # device accumulators the masters feed through accumulate()
+        self._nf_acc = None
+        self._poison_acc = None
         self._calls = 0
         self._checks = 0
         self._harvested_nonfinite = 0.0
@@ -269,9 +342,87 @@ class StabilityRuntime:
         """Anchor the harvest on an existing device counter: a restored
         ``nonfinite_total`` is history, not fresh evidence (one scalar
         sync, at fit entry or after a rewind)."""
-        if stab_state is None:
+        if stab_state is None or self._nf_acc is not None:
             return
         self._harvested_nonfinite = _scalar(stab_state["nonfinite_total"])
+
+    def accumulate(self, nonfinite_count=None, poison_flags=None) -> None:
+        """Fold one window's device verdicts into the runtime's device
+        accumulators (adds only; read at the next check).  The sync
+        master's counter lives in its stability state, so it passes only
+        ``poison_flags``."""
+        with torch.no_grad():
+            if nonfinite_count is not None:
+                self._nf_acc = (nonfinite_count.clone() if self._nf_acc
+                                is None else self._nf_acc + nonfinite_count)
+            if poison_flags is not None:
+                self._poison_acc = (
+                    poison_flags.clone() if self._poison_acc is None
+                    else self._poison_acc + poison_flags)
+
+    def poll_master(self, *, step: int, losses=None, stab_state=None,
+                    elastic=None, can_rewind: bool = True) -> Optional[str]:
+        """A master's boundary duty (reference ``poll_master``): every
+        ``check_every`` calls, harvest the accumulators (or the stability
+        state), publish per-replica poison verdicts, run the sentinel.
+        Returns None, ``"backoff"`` or ``"rewind"``; the caller applies
+        it to its live trees.  Without a checkpoint to rewind to a
+        rewind is a further backoff."""
+        self._calls += 1
+        if self._calls % self.policy.check_every:
+            return None
+        nonfinite_total = self._harvested_nonfinite
+        if self._nf_acc is not None:
+            nonfinite_total = _scalar(self._nf_acc)
+        elif stab_state is not None:
+            nonfinite_total = _scalar(stab_state["nonfinite_total"])
+        scale = 1.0
+        if stab_state is not None:
+            scale = _scalar(stab_state["loss_scale"])
+            self._lr_scale_host = _scalar(stab_state["lr_scale"])
+        self._publish(nonfinite_total, scale)
+        self._harvest_poison(step, elastic)
+        loss = None
+        if losses is not None:
+            arr = (losses.detach().double().cpu().numpy()
+                   if torch.is_tensor(losses) else np.asarray(losses,
+                                                              np.float64))
+            # poisoned replicas report NaN losses: judge the healthy ones
+            loss = (float(np.nanmean(arr)) if np.isfinite(arr).any()
+                    else float("nan"))
+        action = self._verdict(step, loss,
+                               nonfinite_total - self._harvested_nonfinite)
+        self._harvested_nonfinite = nonfinite_total
+        if action == "rewind" and not can_rewind:
+            action = "backoff"
+        if action == "backoff":
+            self._record_backoff(step)
+        return action
+
+    def _harvest_poison(self, step: int, elastic) -> None:
+        if self._poison_acc is None or not self.worker_ids:
+            return
+        from deeplearning4j_tpu_torch.observability import (
+            get_flight_recorder,
+        )
+
+        counts = self._poison_acc.double().cpu().numpy().reshape(-1)
+        for k, worker in enumerate(self.worker_ids):
+            total = float(counts[k]) if k < len(counts) else 0.0
+            prev = self._harvested_poison.get(worker, 0.0)
+            # only a count that advanced is evidence: a readmitted
+            # replica is not evicted again on its old total
+            if total <= prev:
+                continue
+            self._m_poisoned.inc(total - prev, component=self.component,
+                                 worker=worker)
+            get_flight_recorder().record(
+                "replica_poisoned", component=self.component,
+                worker=worker, windows=int(total), step=int(step))
+            self._harvested_poison[worker] = total
+            if (elastic is not None
+                    and total >= self.policy.poison_evict_after):
+                elastic.report_poisoned(worker, step)
 
     # ----------------------------------------------------------- polling
     def poll_net(self, net, res=None) -> Optional[str]:
@@ -309,12 +460,19 @@ class StabilityRuntime:
         gathered since the last check (no verdict)."""
         if stab_state is None and net is not None:
             stab_state = net.updater_state.get(STATE_KEY)
-        if stab_state is None:
+        nonfinite_total = (_scalar(self._nf_acc) if self._nf_acc is not None
+                           else None)
+        scale = 1.0
+        if stab_state is not None:
+            if nonfinite_total is None:
+                nonfinite_total = _scalar(stab_state["nonfinite_total"])
+            scale = _scalar(stab_state["loss_scale"])
+            self._lr_scale_host = _scalar(stab_state["lr_scale"])
+        if nonfinite_total is None:
             return
-        nonfinite_total = _scalar(stab_state["nonfinite_total"])
-        self._lr_scale_host = _scalar(stab_state["lr_scale"])
-        self._publish(nonfinite_total, _scalar(stab_state["loss_scale"]))
+        self._publish(nonfinite_total, scale)
         self._harvested_nonfinite = nonfinite_total
+        self._harvest_poison(int(getattr(net, "iteration", 0) or 0), None)
 
     # ------------------------------------------------------ sentinel core
     def _publish(self, nonfinite_total: float, loss_scale: float) -> None:

@@ -13,9 +13,10 @@ listener POSTs StatsReport JSON to ``/collect``.
 Port: a copy of ``deeplearning4j_tpu/ui/server.py`` with its imports
 rewritten; every endpoint answers the same JSON for the same storage.
 ``GET /memory`` keeps the reference's keys: ``device_memory`` is the
-card's ``torch.cuda`` statistics (``observability/memory.py``), and
-``ledgers`` and ``programs`` stay empty until the sharding ledger
-(``observability/shardstats.py``, ROADMAP A10) is ported.  The server's
+card's ``torch.cuda`` statistics (``observability/memory.py``),
+``ledgers`` and ``programs`` the sharding ledgers and the slot
+programs' collective censuses (``observability/shardstats.py``).  The
+server's
 threads touch no tensor: a training step is never waited on or
 disturbed by a client.
 """
@@ -479,14 +480,18 @@ class UIServer:
                     self.end_headers()
                     self.wfile.write(body)
                 elif path == "/memory":
-                    # the reference's keys: the sharding ledger and the
-                    # per-program accounting (empty until shardstats is
-                    # ported, ROADMAP A10) beside the card's memory
+                    # the reference's keys: the newest sharding ledger of
+                    # each component and each slot program's collective
+                    # census (shardstats) beside the card's memory
+                    from deeplearning4j_tpu_torch.observability import (
+                        shardstats,
+                    )
                     from deeplearning4j_tpu_torch.observability.memory import (
                         device_memory_stats,
                     )
 
-                    self._json({"ledgers": {}, "programs": {},
+                    self._json({"ledgers": shardstats.latest_ledgers(),
+                                "programs": shardstats.latest_programs(),
                                 "device_memory": device_memory_stats()})
                 elif path == "/generation/cache":
                     # a serving-side panel in the training UI: the

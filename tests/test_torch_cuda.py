@@ -2288,3 +2288,129 @@ def test_convolution_listener_on_a_captured_fit(cuda, deterministic_cudnn,
     assert len(listener.rendered) == 3
     for a, b in zip(tree_leaves(net.params), tree_leaves(plain.params)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 96),
+                                           (False, None)])
+def test_ulysses_through_the_flash_kernel_matches_plain(causal, window,
+                                                        cuda):
+    """Ulysses' local attention launches the flash forward kernel on the
+    card (once a call, the slots' head groups as one batch); it equals
+    the same call with the helpers off (the plain attention) and exact
+    attention on the whole sequence."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.backend import mesh as tmesh
+    from deeplearning4j_tpu_torch.nn.layers.attention import (
+        dot_product_attention,
+    )
+    from deeplearning4j_tpu_torch.parallel import ring_self_attention
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 512, 8, 64, generator=g).to(cuda,
+                                                           torch.bfloat16)
+               for _ in range(3))
+    mesh = tmesh.default_mesh(seq=4, devices=["cuda"] * 4)
+    before = helpers.kernel_counts()["flash_fwd"].launches
+    got = ring_self_attention(q, k, v, mesh, causal=causal, window=window,
+                              impl="ulysses")
+    torch.cuda.synchronize()
+    assert helpers.kernel_counts()["flash_fwd"].launches == before + 1
+    with helpers.helpers_disabled():
+        plain = ring_self_attention(q, k, v, mesh, causal=causal,
+                                    window=window, impl="ulysses")
+        exact = dot_product_attention(q, k, v, causal=causal, window=window)
+    tol = TOL[torch.bfloat16]
+    assert (got.float() - plain.float()).abs().max().item() < tol
+    assert (got.float() - exact.float()).abs().max().item() < tol
+
+
+def test_seq_axis_layer_outside_a_step_launches_flash(cuda):
+    """A seq_axis char-LM outside a sequence-parallel step has one slot:
+    its forward launches the flash kernel as the plain net's does (a
+    launch a layer, in the warm-up and in the capture), and their
+    outputs are equal."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.models import zoo
+
+    kw = dict(vocab_size=32, d_model=128, n_heads=2, layers=2,
+              compute_dtype="bfloat16", device=cuda)
+    a = zoo.transformer_char_lm(seq_axis="seq", **kw)
+    b = zoo.transformer_char_lm(**kw)
+    x = np.random.default_rng(0).integers(0, 32, (2, 256))
+
+    def launches_of(net):
+        before = helpers.kernel_counts()["flash_fwd"].launches
+        out = net.output(x)
+        torch.cuda.synchronize()
+        return out, helpers.kernel_counts()["flash_fwd"].launches - before
+
+    out_a, n_a = launches_of(a)
+    out_b, n_b = launches_of(b)
+    assert n_a == n_b >= 2            # a launch a layer at least
+    assert torch.equal(out_a, out_b)
+
+
+# the bf16 kernels' window against the plain versions': the change of
+# all the params, relative in norm (the four-slot case below).  On the
+# H100 it reads 1.472e-02; with the flash output zeroed 1.15, with it
+# 1 % high 2.0e-02 (within bf16's scale, so not caught)
+WRAPPER_CHANGE_RTOL = 5e-2
+
+
+def four_slot_window_change_error(cuda):
+    """A four-slot ParallelWrapper window of a small bf16 char-LM,
+    captured, eager and on the plain versions (helpers off), SGD:
+    asserts the captured window's launches and that it equals the eager
+    one bit for bit; returns ``||dc - dp|| / ||dp||``, ``dc`` and ``dp``
+    the params' change from their initial values on the kernels and on
+    the plain versions."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.backend import mesh as tmesh
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import capture as cap
+    from deeplearning4j_tpu_torch.models import zoo
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+
+    rng = np.random.default_rng(0)
+    batches = [DataSet(rng.integers(0, 32, (2, 128)),
+                       np.eye(32, dtype=np.float32)[
+                           rng.integers(0, 32, (2, 128))])
+               for _ in range(8)]
+    out, init = {}, None
+    for mode in ("captured", "eager", "plain"):
+        net = zoo.transformer_char_lm(vocab_size=32, d_model=128,
+                                      n_heads=2, layers=2, updater="sgd",
+                                      lr=1e-2, compute_dtype="bfloat16",
+                                      device=cuda)
+        if init is None:
+            init = net.params_to_vector().astype(np.float64)
+        net._capture = mode == "captured"
+        pw = ParallelWrapper(net, workers=4, mesh=tmesh.default_mesh(
+            data=4, devices=["cuda"] * 4))
+        if mode == "plain":
+            with helpers.helpers_disabled():
+                pw.fit(iter(batches))
+        else:
+            pw.fit(iter(batches))
+        out[mode] = net.params_to_vector().astype(np.float64)
+        if mode == "captured":
+            graphs = cap.step_graphs(pw._staged)
+            assert graphs.captures == 1 and graphs.replays == 1
+            launches = next(iter(graphs.graph_launches().values()))
+            assert launches["flash_fwd"] == 4 * 2
+            assert launches["prologue"] == 4 * 4
+    np.testing.assert_array_equal(out["captured"], out["eager"])
+    dc, dp = out["captured"] - init, out["plain"] - init
+    return float(np.linalg.norm(dc - dp) / np.linalg.norm(dp))
+
+
+def test_four_slot_wrapper_window_captured_equals_eager_and_plain(cuda):
+    """The four-slot window (``four_slot_window_change_error``): captured
+    equals eager bit for bit, launches the flash and prologue kernels for
+    every replica, and its change of the params agrees with the plain
+    versions' at bf16's scale.  SGD keeps the change linear in the
+    gradient, so a wrong kernel moves the ratio by its own size."""
+    rel = four_slot_window_change_error(cuda)
+    print(f"kernels' window against the plain versions': the change's "
+          f"relative error {rel:.3e}")
+    assert rel < WRAPPER_CHANGE_RTOL

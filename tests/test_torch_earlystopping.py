@@ -319,3 +319,47 @@ def test_computation_graph_trains_with_lbfgs():
     assert net.score(X, Y) < s0
     np.testing.assert_allclose(net.score(X, Y), float(jnet.score(X, Y)),
                                rtol=1e-3, atol=1e-4)
+
+
+def test_distributed_early_stopping_on_a_slot_mesh():
+    """``DistributedEarlyStoppingTrainer`` over a real ``DistributedNetwork``
+    (the sync master on 4 CPU slots; reference
+    ``tests/test_distributed_extras.py``): the same termination, epochs,
+    best epoch and scores as the JAX trainer over 4 virtual devices."""
+    from deeplearning4j_tpu import parallel as jpar
+    from deeplearning4j_tpu.backend import device as jbackend
+    from deeplearning4j_tpu_torch import parallel as tpar
+    from deeplearning4j_tpu_torch.backend import mesh as tmesh
+
+    net, jnet = make_nets(lr=0.5)
+    rs = np.random.RandomState(0)
+    x = rs.rand(64, 2).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[(x.sum(1) > 1).astype(int)]
+
+    def build(mod, it, rows):
+        return (mod.EarlyStoppingConfiguration.Builder()
+                .epoch_termination_conditions(
+                    mod.MaxEpochsTerminationCondition(3))
+                .score_calculator(mod.DataSetLossCalculator(it(rows, 16)))
+                .model_saver(mod.InMemoryModelSaver())
+                .build())
+
+    dist = tpar.DistributedNetwork(net, tpar.SyncTrainingMaster(
+        mesh=tmesh.default_mesh(data=4, devices=["cpu"] * 4)))
+    jdist = jpar.DistributedNetwork(jnet, jpar.SyncTrainingMaster(
+        mesh=jbackend.default_mesh(data=4, devices=jax.devices()[:4])))
+    r = es.DistributedEarlyStoppingTrainer(
+        build(es, lambda n, b: ListDataSetIterator(DataSet(x[:n], y[:n]), b),
+              32),
+        dist, ListDataSetIterator(DataSet(x, y), 16)).fit()
+    jr = jes.DistributedEarlyStoppingTrainer(
+        build(jes, lambda n, b: JListIterator(JDataSet(x[:n], y[:n]), b), 32),
+        jdist, JListIterator(JDataSet(x, y), 16)).fit()
+    assert r.termination_reason.value == jr.termination_reason.value
+    assert r.total_epochs == jr.total_epochs == 3
+    assert r.best_model_epoch == jr.best_model_epoch
+    assert r.best_model is not None
+    np.testing.assert_allclose(
+        [r.score_vs_epoch[k] for k in sorted(r.score_vs_epoch)],
+        [jr.score_vs_epoch[k] for k in sorted(jr.score_vs_epoch)],
+        rtol=RTOL, atol=ATOL)

@@ -155,3 +155,21 @@ def test_replica_main_help_imports_no_jax(tmp_path):
         timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "--device" in proc.stdout and "--compute-dtype" in proc.stdout
+
+
+def test_every_module_of_the_parallel_slice_is_walked():
+    """The data- and sequence-parallel slice's modules (the slot mesh,
+    the masters, ZeRO, elastic, the sharding ledger) are among those the
+    poisoned-jax import above loads."""
+    import pkgutil
+
+    import deeplearning4j_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    new = ["backend.mesh", "parallel", "parallel.data_parallel",
+           "parallel.training_master", "parallel.zero", "parallel.elastic",
+           "parallel.sequence_parallel", "parallel.checkpoint",
+           "observability.shardstats"]
+    assert sorted(f"deeplearning4j_tpu_torch.{n}" for n in new
+                  if f"deeplearning4j_tpu_torch.{n}" not in walked) == []

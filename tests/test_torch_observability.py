@@ -248,9 +248,8 @@ def test_step_guard_records_and_the_watchdog_dumps(tmp_path):
 def test_flight_report_has_every_section(tmp_path):
     """The report's sections: meta, events, live spans, the registry,
     device memory (empty without a card), the memory attribution (live
-    tensors and the peak; no profiler, so no models) and, until the port
-    has the module it reads (A10), an error record for the sharding
-    ledger — the reference's own best-effort form."""
+    tensors and the peak; no profiler, so no models) and the sharding
+    ledgers (``shardstats``, ported with A10: no error record now)."""
     import torch
 
     keep = torch.ones(64, 64)      # a live tensor the section must see
@@ -283,7 +282,8 @@ def test_flight_report_has_every_section(tmp_path):
     assert "event" in kinds and "live_span" in kinds
     assert "registry" in kinds and "device_memory" in kinds
     errors = {r["section"] for r in recs if r["record"] == "error"}
-    assert errors == {"sharding_ledger"}
+    assert errors == set()
+    assert "sharding_ledger" in kinds
     mem = [r for r in recs if r["record"] == "memory_attribution"]
     assert len(mem) == 1 and "models" not in mem[0]
     live = mem[0]["live_buffers"]

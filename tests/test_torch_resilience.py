@@ -233,10 +233,28 @@ class TestCheckpointManager:
         assert sa is not None and sb is not None and sa != sb
 
     def test_mesh_waits_for_a10(self, tmp_path):
+        """A10 is ported: ``mesh=`` restores onto a slot mesh (the values
+        into the net's own tensors), and a mesh across several devices
+        raises, naming the next A10 slice."""
+        import torch
+
+        from deeplearning4j_tpu_torch.backend import mesh as tmesh
+
         net = _mln()
         save_checkpoint(str(tmp_path), net)
+        other = _mln()
+        with torch.no_grad():
+            for layer in other.params.values():
+                for t in layer.values():
+                    t.zero_()
+        own = other.params["layer_0"]["W"]
+        restore_checkpoint(str(tmp_path), other,
+                           mesh=tmesh.default_mesh(devices=["cpu"] * 4))
+        assert other.params["layer_0"]["W"] is own
+        np.testing.assert_array_equal(other.params_to_vector(),
+                                      net.params_to_vector())
         with pytest.raises(NotImplementedError, match="A10"):
-            restore_checkpoint(str(tmp_path), net, mesh=object())
+            tmesh.default_mesh(devices=["cpu", "meta"])
 
 
 # ============================================================ crash-mid-save

@@ -179,11 +179,18 @@ def test_endpoints_answer_the_references_json(tmp_path, file_storage):
         assert page == _get(pt, "/")[2].replace(
             "deeplearning4j_tpu training UI",
             "deeplearning4j_tpu_torch training UI")
-        # /memory: the reference's keys; the ledger waits for shardstats
+        # /memory: the reference's keys; the ledgers and the slot
+        # programs' censuses are shardstats' (the JSON form of what this
+        # process recorded, empty or not)
+        from deeplearning4j_tpu_torch.observability import shardstats
+
         mem = json.loads(_get(po, "/memory")[2])
         assert sorted(mem) == sorted(json.loads(_get(pt, "/memory")[2])) \
             == ["device_memory", "ledgers", "programs"]
-        assert mem["ledgers"] == {} and mem["programs"] == {}
+        assert mem["ledgers"] == json.loads(json.dumps(
+            shardstats.latest_ledgers()))
+        assert mem["programs"] == json.loads(json.dumps(
+            shardstats.latest_programs()))
         assert mem["device_memory"] == {}        # no card here
         # the panels, once attached
         ours.attach_generation(_Engine())
