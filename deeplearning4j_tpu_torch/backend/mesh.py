@@ -19,8 +19,8 @@ census (``census``), which ``observability.shardstats`` reads per
 program.
 
 A mesh whose slots span several devices or processes raises
-``NotImplementedError``: that is the next A10 slice's (ROADMAP A10,
-meshes across processes and GPUs).  It is never folded onto one device.
+``NotImplementedError`` (ROADMAP A10, meshes across processes and
+GPUs).  It is never folded onto one device.
 
 ``Sharded`` is a leaf laid over a mesh by a ``PartitionSpec`` (``P``):
 what the sharded checkpoint saves piece by piece and the sharding ledger
@@ -46,9 +46,8 @@ AXIS_SEQ = "seq"
 AXES = (AXIS_DATA, AXIS_MODEL, AXIS_SEQ)
 
 _ACROSS = ("a mesh across several devices or processes is not ported yet "
-           "(ROADMAP A10, the next slice: meshes across processes and "
-           "GPUs, with initialize_distributed and A12's provision/"
-           "cluster.py)")
+           "(ROADMAP A10, meshes across processes and GPUs, with "
+           "initialize_distributed and A12's provision/cluster.py)")
 
 
 class P(tuple):

@@ -364,7 +364,7 @@ def lr_overrides(net):
 
 
 def sgd_step(net, loss_of, scalars, carries=None,
-             numerics_now=None) -> torch.Tensor:
+             numerics_now=None, extra_ok=None) -> torch.Tensor:
     """The device body of one step of ``net``: ``loss_of(params,
     collect) -> (loss, new_net_state)`` (``collect``: None, or a list the
     forward extends with each layer's (name, activation) for the
@@ -380,7 +380,8 @@ def sgd_step(net, loss_of, scalars, carries=None,
     the tail is the guard's (``resilience/stability.py``
     ``guarded_update_``: a non-finite step writes nothing but the
     stability state).  Returns the loss as a device scalar (no host
-    sync)."""
+    sync).  ``extra_ok`` (0-d bool) vetoes a guarded step besides the
+    verdict (the sync master's all-rows-poisoned batch)."""
     policy = stability.policy_of(net.conf)
     stab = net.updater_state.get(stability.STATE_KEY) if policy else None
     watch = StepWatch.of(net, scalars, numerics_now)
@@ -408,7 +409,7 @@ def sgd_step(net, loss_of, scalars, carries=None,
             stability.guarded_update_(
                 net, policy, loss.detach(), grads, train, new_state, scalars,
                 carries, None if carries is None
-                else {k: out[2][k] for k in carries})
+                else {k: out[2][k] for k in carries}, extra_ok=extra_ok)
         else:
             updates, new_ustate = upd.update(
                 net.conf.updater, grads, upd.inner_state(net.updater_state),

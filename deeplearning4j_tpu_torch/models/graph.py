@@ -40,6 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.backend.device import (
     DeviceLike, compute_dtype, resolve_device,
 )
@@ -398,23 +399,27 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
             xs = [acts[inp] for inp in node.inputs]
             layer = node.layer
             if layer is None:
+                # a vertex reads its inputs whole
                 kw = {"mask": fmask} if node.vertex._TAKES_MASK else {}
-                acts[name] = node.vertex.apply(xs, **kw)
-            elif isinstance(layer, OutputLayer) and name in out_names:
-                h = layer.maybe_dropout(xs[0], train=train, rng=rngs[i])
-                acts[name] = layer.pre_output(params[name], h)
+                acts[name] = node.vertex.apply(
+                    [slots.gather_act(x) for x in xs], **kw)
+                continue
+            p, h = slots.layer_in(layer, params[name], xs[0])
+            if isinstance(layer, OutputLayer) and name in out_names:
+                h = layer.maybe_dropout(h, train=train, rng=rngs[i])
+                acts[name] = layer.pre_output(p, h)
             elif hasattr(layer, "apply_with_state"):
                 acts[name], new_state[name] = layer.apply_with_state(
-                    params[name], net_state.get(name, {}), xs[0],
-                    train=train, rng=rngs[i])
+                    p, net_state.get(name, {}), h, train=train, rng=rngs[i])
             elif hasattr(layer, "apply_with_carry"):
                 acts[name], new_carries[name] = layer.apply_with_carry(
-                    params[name], xs[0], (carries or {}).get(name),
-                    train=train, rng=rngs[i], mask=fmask)
+                    p, h, (carries or {}).get(name), train=train,
+                    rng=rngs[i], mask=fmask)
             else:
                 kw = {"mask": fmask} if layer._TAKES_MASK else {}
-                acts[name] = layer.apply(params[name], xs[0], train=train,
-                                         rng=rngs[i], **kw)
+                acts[name] = layer.apply(p, h, train=train, rng=rngs[i],
+                                         **kw)
+            acts[name] = slots.layer_out(acts[name])
         return acts, new_state, new_carries
 
     def _loss_fn(self, params, net_state, inputs, labels, rng=None,
@@ -442,7 +447,7 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
             lm = lmask.get(node.name) if isinstance(lmask, dict) else lmask
             pre = acts[node.name]
             if self.conf.compute_dtype is not None:
-                pre = pre.float()
+                pre = slots.same_layout(pre, pre.float())
             total = total + losses.score(
                 layer.loss, labels[node.name].to(pre.dtype), pre,
                 layer.activation, lm)

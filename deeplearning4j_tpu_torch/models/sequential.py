@@ -48,6 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.backend.device import (
     DeviceLike, compute_dtype, resolve_device,
 )
@@ -149,7 +150,7 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         for i, layer in enumerate(self.layers):
             if i in pre:
                 h = pre[i](h)
-            p = params[layer.name]
+            p, h = slots.layer_in(layer, params[layer.name], h)
             if hasattr(layer, "apply_with_carry"):
                 h, nc = layer.apply_with_carry(
                     p, h, (carries or {}).get(layer.name), train=train,
@@ -165,6 +166,7 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
             else:
                 kw = {"mask": fmask} if layer._TAKES_MASK else {}
                 h = layer.apply(p, h, train=train, rng=rngs[i], **kw)
+            h = slots.layer_out(h)
             if collect is not None:
                 collect.append(h)
         return h, new_carries, new_state
@@ -212,7 +214,7 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
         if collect is not None:
             collect.extend(zip((l.name for l in self.layers), acts))
         if self.conf.compute_dtype is not None:
-            pre = pre.float()
+            pre = slots.same_layout(pre, pre.float())
         data = losses.score(out_layer.loss, y.to(pre.dtype), pre,
                             out_layer.activation, lmask)
         reg = sum(layer.reg_score(params[layer.name])

@@ -15,7 +15,12 @@ a ``SequenceParallelTrainingMaster`` step puts in force
 (``parallel/sequence_parallel.py``), RoPE positions offset by each
 slot's index × T/S (reference ``attention.py:480-494``); outside such a
 step, or where the axis has one slot, it takes the layer's ordinary
-route (RoPE from 0, then the flash helper).
+route (RoPE from 0, then the flash helper).  Under the model slots of a
+``TensorParallelTrainingMaster`` step, ``Wq``/``Wk``/``Wv`` held
+column-parallel give each slot its head group, the slots' groups side by
+side on the head axis of one flash call, and ``Wo`` row-parallel is
+psum'd (``backend/slots.py``); a kv projection whose blocks end inside a
+head (GQA with kv heads that the slots do not divide) is gathered.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Optional, Union
 
 import torch
 
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.helpers import get_helper
 from deeplearning4j_tpu_torch.nn import activations, initializers
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
@@ -184,6 +190,7 @@ class SelfAttentionLayer(Layer):
     window: Optional[int] = None
 
     _TAKES_MASK = True
+    _SLOT_AWARE = True
 
     @property
     def _kv_heads(self) -> int:
@@ -221,13 +228,23 @@ class SelfAttentionLayer(Layer):
                 for name, shape in self.param_shapes().items()}
 
     def _qkv(self, params, x):
-        q = split_heads(x @ params["Wq"] + params["bq"], self.n_heads)
-        k = split_heads(x @ params["Wk"] + params["bk"], self._kv_heads)
-        v = split_heads(x @ params["Wv"] + params["bv"], self._kv_heads)
+        hkv = self._kv_heads
+        kv_out = hkv * (self.n_out // self.n_heads)
+        wk, wv = params["Wk"], params["Wv"]
+        if hkv % slots.tp():
+            wk = slots.full_leaf(wk, (self.n_in, kv_out))
+            wv = slots.full_leaf(wv, (self.n_in, kv_out))
+        q = split_heads(slots.linear(x, params["Wq"], self.n_in, self.n_out)
+                        + params["bq"], self.n_heads)
+        k = split_heads(slots.linear(x, wk, self.n_in, kv_out)
+                        + params["bk"], hkv)
+        v = split_heads(slots.linear(x, wv, self.n_in, kv_out)
+                        + params["bv"], hkv)
         return q, k, v
 
     def _out(self, params, o):
-        y = merge_heads(o) @ params["Wo"] + params["bo"]
+        y = slots.linear(merge_heads(o), params["Wo"], self.n_out,
+                         self.n_out) + params["bo"]
         return activations.get(self.activation)(y)
 
     def apply(self, params, x, *, train=False, rng=None, mask=None):

@@ -71,6 +71,21 @@ class Layer:
     bias_init: float = 0.0
     _SUPPORTS_DROP_CONNECT = False     # Dense/Output layers mask W
     _TAKES_MASK = False                # apply() takes a padding ``mask``
+    # under the model slots (backend/slots.py): the layer has a sharded
+    # forward, its sharded leaves reaching it as [tp, ...] stacks; the
+    # layer passes a column-sharded activation on elementwise
+    _SLOT_AWARE = False
+    _SLOT_ELEMENTWISE = False
+
+    def slot_aware(self) -> bool:
+        """The layer computes on its sharded leaves' slot blocks (else
+        they are gathered whole at use)."""
+        return self._SLOT_AWARE
+
+    def slot_reads_blocks(self, params) -> bool:
+        """The layer reads a column-sharded input as the slots' blocks
+        (else it is gathered first)."""
+        return self._SLOT_ELEMENTWISE
 
     def validate(self) -> None:
         """Fail fast at build time on unknown activation / weight-init

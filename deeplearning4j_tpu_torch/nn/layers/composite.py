@@ -17,6 +17,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.backend.rng import KeyStream
 from deeplearning4j_tpu_torch.helpers import get_helper
 from deeplearning4j_tpu_torch.nn.layers.base import (
@@ -26,8 +27,9 @@ from deeplearning4j_tpu_torch.nn.layers.normalization import LayerNorm
 
 
 def _apply_sub(sub, params, h, *, train, rng, mask):
+    params, h = slots.layer_in(sub, params, h)
     kw = {"mask": mask} if mask is not None and sub._TAKES_MASK else {}
-    return sub.apply(params, h, train=train, rng=rng, **kw)
+    return slots.layer_out(sub.apply(params, h, train=train, rng=rng, **kw))
 
 
 @register_layer
@@ -36,6 +38,11 @@ class ResidualBlock(Layer):
     layers: Tuple[Layer, ...] = ()
     remat: bool = False
     _TAKES_MASK = True
+    # its sublayers meet the model slots one by one (``_apply_sub``)
+    _SLOT_AWARE = True
+
+    def slot_reads_blocks(self, params) -> bool:
+        return True
 
     def validate(self) -> None:
         for sub in self.layers:
@@ -89,7 +96,8 @@ class ResidualBlock(Layer):
                 # sub1's own key: the same mask the unfused path draws
                 rate = (sub1.dropout if train and sub1.dropout > 0.0
                         and not sub1.drop_connect else 0.0)
-                h = fused.prologue(h, params["sub0"]["gamma"],
+                h = fused.prologue(slots.gather_act(h),
+                                   params["sub0"]["gamma"],
                                    params["sub0"]["beta"], eps=ln.eps,
                                    rate=rate, generator=rngs[1], train=train)
                 sub1r = (dataclasses.replace(sub1, dropout=0.0)

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.nn import activations, initializers
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
@@ -71,6 +72,7 @@ class ConvolutionLayer(_Windowed, Layer):
     padding: Tuple[int, int] = (0, 0)
     activation: str = "identity"
     weight_init: str = "xavier"
+    _SLOT_AWARE = True
 
     def setup(self, input_type: InputType) -> "ConvolutionLayer":
         if self.n_in is None:
@@ -104,6 +106,10 @@ class ConvolutionLayer(_Windowed, Layer):
     def apply(self, params, x, *, train=False, rng=None):
         x = self.maybe_dropout(x, train=train, rng=rng)
         w = params["W"]
+        if slots.sharded_dim(w, self.param_shapes()["W"]) == 3:
+            # each model slot's output-channel block, the blocks side by
+            # side on the channel axis
+            w = slots.mark_sharded(slots.blocks_side_by_side(w, 3))
         z = F.conv2d(_nchw(x.to(w.dtype)), w.permute(3, 2, 0, 1),
                      params["b"], stride=self.stride, padding=self.padding)
         return activations.get(self.activation)(_nhwc(z))

@@ -12,16 +12,13 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.nn import activations, initializers, losses
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
 
 
-def _matmul(x, w):
-    if x.dtype != w.dtype:
-        dt = torch.promote_types(x.dtype, w.dtype)
-        x, w = x.to(dt), w.to(dt)
-    return x @ w
+_matmul = slots.matmul
 
 
 @register_layer
@@ -30,6 +27,16 @@ class DenseLayer(Layer):
     n_in: Optional[int] = None
     n_out: Optional[int] = None
     _SUPPORTS_DROP_CONNECT = True  # apply() masks W via maybe_drop_connect
+    _SLOT_AWARE = True
+
+    def slot_aware(self) -> bool:
+        # DropConnect draws its mask at the whole weight's shape
+        return not (self.drop_connect and self.dropout > 0.0)
+
+    def slot_reads_blocks(self, params) -> bool:
+        # a row-parallel product reads its input's feature blocks
+        return slots.sharded_dim(params.get("W"),
+                                 (self.n_in, self.n_out)) == 0
 
     def setup(self, input_type: InputType) -> "DenseLayer":
         if self.n_in is None:
@@ -55,10 +62,15 @@ class DenseLayer(Layer):
     def apply(self, params, x, *, train=False, rng=None):
         x = self.maybe_dropout(x, train=train, rng=rng)
         w = self.maybe_drop_connect(params["W"], train=train, rng=rng)
-        return activations.get(self.activation)(_matmul(x, w) + params["b"])
+        z = slots.linear(x, w, self.n_in, self.n_out) + params["b"]
+        return activations.get(self.activation)(
+            slots.before_activation(self.activation, z))
 
     def pre_output(self, params, x):
-        return _matmul(x, params["W"]) + params["b"]
+        """``x @ W + b``; under the model slots W may be held column- or
+        row-parallel (``backend.slots.linear``)."""
+        return slots.linear(x, params["W"], self.n_in, self.n_out) \
+            + params["b"]
 
 
 @register_layer
@@ -95,6 +107,8 @@ class OutputLayer(DenseLayer):
 class ActivationLayer(Layer):
     """Activation alone (reference ``nn/conf/layers/ActivationLayer``)."""
 
+    _SLOT_ELEMENTWISE = True
+
     def output_type(self, input_type: InputType) -> InputType:
         return input_type
 
@@ -108,7 +122,8 @@ class ActivationLayer(Layer):
         return {}
 
     def apply(self, params, x, *, train=False, rng=None):
-        return activations.get(self.activation)(x)
+        return activations.get(self.activation)(
+            slots.before_activation(self.activation, x))
 
 
 @register_layer
@@ -116,6 +131,8 @@ class ActivationLayer(Layer):
 class DropoutLayer(Layer):
     """Dropout alone (reference ``DropoutLayer``): ``maybe_dropout`` on its
     input at train time, the identity at inference."""
+
+    _SLOT_ELEMENTWISE = True
 
     def output_type(self, input_type: InputType) -> InputType:
         return input_type
@@ -145,6 +162,7 @@ class EmbeddingLayer(Layer):
     n_out: Optional[int] = None
     activation: str = "identity"
     collapse_column: bool = True
+    _SLOT_AWARE = True
 
     param_shapes = DenseLayer.param_shapes
     init = DenseLayer.init
@@ -153,5 +171,24 @@ class EmbeddingLayer(Layer):
         idx = x.to(torch.int64)
         if self.collapse_column and idx.ndim >= 2 and idx.shape[-1] == 1:
             idx = idx[..., 0]
-        z = params["W"][idx] + params["b"]
+        w = params["W"]
+        d = slots.sharded_dim(w, (self.n_in, self.n_out))
+        if d == 1:
+            # each model slot looks its feature block up, the blocks side
+            # by side
+            z = slots.mark_sharded(slots.blocks_side_by_side(w, 1)[idx]) \
+                + params["b"]
+        elif d == 0:
+            # each slot holds a vocab block: its ids' rows, zeros for the
+            # others' ids, psum'd
+            n, vb = w.shape[0], w.shape[1]
+            local = idx[None] - vb * torch.arange(
+                n, device=idx.device).reshape((n,) + (1,) * idx.ndim)
+            hit = (local >= 0) & (local < vb)
+            rows = w[torch.arange(n, device=idx.device).reshape(
+                (n,) + (1,) * idx.ndim), local.clamp(0, vb - 1)]
+            z = slots.psum(rows * hit[..., None].to(rows.dtype)) \
+                + params["b"]
+        else:
+            z = w[idx] + params["b"]
         return activations.get(self.activation)(z)

@@ -21,6 +21,13 @@ token's gate.  Two departures keep that function:
   row past the buffers, which nothing else reads.
 
 The expert FFNs are batched products over ``[E, C, ·]``.
+
+Under a slot master's step the routing counts over the global batch,
+every data slot's rows (``backend.slots.gather_rows``), as the
+reference's one program does; under the model slots of a
+``TensorParallelTrainingMaster`` the experts are sharded, each slot
+running its ``E/tp`` experts' FFNs and combining its own tokens, and the
+slots' combines are psum'd (``_combine_slots``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.nn import activations, initializers
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, register_layer
@@ -62,6 +70,7 @@ class MoELayer(Layer):
     capacity_factor: float = 1.25
     activation: str = "relu"
     residual: bool = True
+    _SLOT_AWARE = True
 
     def setup(self, input_type: InputType) -> "MoELayer":
         n_in = self.n_in if self.n_in is not None else input_type.flat_size()
@@ -115,7 +124,9 @@ class MoELayer(Layer):
         tokens before it that chose the same expert, an exact int32
         count)."""
         E = self.num_experts
-        gates = torch.softmax(tokens @ params["W_router"], dim=-1)
+        tokens = slots.gather_rows(tokens)
+        logits = slots.linear(tokens, params["W_router"], self.n_in, E)
+        gates = torch.softmax(slots.gather_act(logits), dim=-1)
         expert = torch.argmax(gates, dim=-1)
         gate = gates.gather(1, expert[:, None])[:, 0]
         # the one-hot as [E, T], so the count runs along the contiguous
@@ -142,13 +153,42 @@ class MoELayer(Layer):
         expert_in = buf.index_copy(0, slot, tokens)[:E * C].view(
             E, C, tokens.shape[-1])
         act = activations.get(self.activation)
-        hdn = act(torch.baddbmm(params["b_up"][:, None, :], expert_in,
-                                params["W_up"]))
-        out = torch.baddbmm(params["b_down"][:, None, :], hdn,
-                            params["W_down"])             # [E, C, o]
-        flat = torch.cat([out.reshape(E * C, self.n_out),
-                          out.new_zeros((1, self.n_out))])
-        combined = flat.index_select(0, slot) * r.gate[:, None]
+        if slots.sharded_dim(params["W_up"], (E, self.n_in,
+                                              self._hidden())) == 0:
+            combined = self._combine_slots(params, expert_in, slot, r, act)
+        else:
+            hdn = act(torch.baddbmm(params["b_up"][:, None, :], expert_in,
+                                    params["W_up"]))
+            out = torch.baddbmm(params["b_down"][:, None, :], hdn,
+                                params["W_down"])             # [E, C, o]
+            flat = torch.cat([out.reshape(E * C, self.n_out),
+                              out.new_zeros((1, self.n_out))])
+            combined = flat.index_select(0, slot) * r.gate[:, None]
         if self.residual:
             combined = combined + tokens
         return combined.reshape(tuple(lead) + (self.n_out,))
+
+    def _combine_slots(self, params, expert_in, slot, r, act):
+        """The experts sharded over the model slots: slot k runs experts
+        ``[k*E/tp, (k+1)*E/tp)`` on their buffers and reads back the
+        tokens routed to them (every other token reads its spare zero
+        row); the slots' combines are psum'd.  A token reads one slot's
+        expert, so the sum is exact."""
+        n = params["W_up"].shape[0]
+        E, C = self.num_experts, r.capacity
+        el = E // n
+        xin = expert_in.reshape(n, el, C, expert_in.shape[-1])
+        hdn = act(torch.matmul(xin, params["W_up"])
+                  + params["b_up"].reshape(n, el, 1, -1))
+        out = (torch.matmul(hdn, params["W_down"])
+               + params["b_down"].reshape(n, el, 1, -1))  # [tp, E/tp, C, o]
+        per = el * C + 1
+        flat = torch.cat([out.reshape(n, el * C, self.n_out),
+                          out.new_zeros((n, 1, self.n_out))], dim=1)
+        owner = torch.arange(n, device=slot.device)[:, None]
+        mine = (slot[None, :] // (el * C) == owner) & r.kept[None, :]
+        local = torch.where(mine, slot[None, :] - owner * (el * C),
+                            torch.full_like(slot[None, :], el * C))
+        got = flat.reshape(n * per, self.n_out).index_select(
+            0, (local + owner * per).reshape(-1)).reshape(n, -1, self.n_out)
+        return slots.psum(got * r.gate[None, :, None])

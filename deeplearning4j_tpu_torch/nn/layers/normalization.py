@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import helpers
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.helpers.lrn import window_sum
 from deeplearning4j_tpu_torch.nn import activations
 from deeplearning4j_tpu_torch.nn.inputs import InputType
@@ -100,6 +101,9 @@ class BatchNormalization(Layer):
                 "helpers (helpers.enable_helpers(False)) for the built-in "
                 "path")
         if train:
+            # the batch statistics of the whole batch: every data slot's
+            # rows (the reference's one global program)
+            x = slots.gather_rows(x)
             if use_helper:
                 gamma, beta = self._affine(params, x)
                 y, mean, var = helper.apply_training(x, gamma, beta, self.eps)

@@ -13,6 +13,7 @@ from typing import Callable, Dict
 
 import torch
 
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.nn import activations
 
 _EPS = 1e-8
@@ -124,7 +125,13 @@ def get(name: str) -> Callable:
 def score(name, labels, preout, activation, mask=None, mean=True):
     """Per-example scores summed over time, then the mean over the batch
     — or, with a mask, the sum over the number of unmasked steps."""
-    per = get(name)(labels, preout, activation, mask)
+    if (slots.is_sharded(preout) and activation == "softmax"
+            and name in ("mcxent", "negativeloglikelihood")):
+        # vocab-parallel logits (an output layer held column-parallel
+        # over the model slots)
+        per = _apply_mask(slots.vocab_parallel_mcxent(labels, preout), mask)
+    else:
+        per = get(name)(labels, slots.gather_act(preout), activation, mask)
     if per.ndim > 1:
         per = per.sum(dim=tuple(range(1, per.ndim)))
     if not mean:

@@ -5,11 +5,12 @@ Ported: ``ParallelWrapper`` (with ZeRO and elastic eviction), the
 ``SyncTrainingMaster`` and ``ParameterAveragingTrainingMaster``,
 ``DistributedNetwork``, sequence parallelism (ring and Ulysses
 attention, ``SequenceParallelTrainingMaster``) and the checkpoint's
-sharded save and resharded restore.  ``pipeline.py``,
-``model_parallel.py`` and meshes across processes or devices come with
-ROADMAP A10's next slice: ``TensorParallelTrainingMaster``,
-``PipelineParallelTrainingMaster`` and ``split_stages`` raise
-``NotImplementedError`` until then.
+sharded save and resharded restore, tensor and expert parallelism
+(``model_parallel.py``: ``TensorParallelTrainingMaster``,
+``tensor_parallel_spec``) and pipeline parallelism (``pipeline.py``:
+``PipelineParallelTrainingMaster``, ``split_stages``).  Meshes across
+processes or devices raise ``NotImplementedError`` (ROADMAP A10, meshes
+across processes and GPUs).
 """
 
 from deeplearning4j_tpu_torch.parallel.checkpoint import (
@@ -19,15 +20,20 @@ from deeplearning4j_tpu_torch.parallel.data_parallel import ParallelWrapper
 from deeplearning4j_tpu_torch.parallel.elastic import (
     ElasticConfig, ElasticController,
 )
+from deeplearning4j_tpu_torch.parallel.model_parallel import (
+    TensorParallelTrainingMaster, tensor_parallel_spec,
+)
+from deeplearning4j_tpu_torch.parallel.pipeline import (
+    PipelineParallelTrainingMaster, find_periodic_run,
+    measure_bubble_fraction, split_stages,
+)
 from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
     SequenceParallelTrainingMaster, ring_attention, ring_self_attention,
     ulysses_attention,
 )
 from deeplearning4j_tpu_torch.parallel.training_master import (
     DistributedNetwork, ParameterAveragingTrainingMaster,
-    PipelineParallelTrainingMaster, SyncTrainingMaster,
-    TensorParallelTrainingMaster, TrainingMaster, initialize_distributed,
-    split_stages, tensor_parallel_spec,
+    SyncTrainingMaster, TrainingMaster, initialize_distributed,
 )
 
 __all__ = [
@@ -35,7 +41,8 @@ __all__ = [
     "ParallelWrapper", "ParameterAveragingTrainingMaster",
     "PipelineParallelTrainingMaster", "SequenceParallelTrainingMaster",
     "SyncTrainingMaster", "TensorParallelTrainingMaster", "TrainingMaster",
-    "initialize_distributed", "restore_checkpoint", "ring_attention",
+    "find_periodic_run", "initialize_distributed",
+    "measure_bubble_fraction", "restore_checkpoint", "ring_attention",
     "ring_self_attention", "save_checkpoint", "snapshot_trees",
     "split_stages", "tensor_parallel_spec", "ulysses_attention",
     "write_snapshot",

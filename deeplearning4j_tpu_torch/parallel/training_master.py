@@ -2,34 +2,43 @@
 ``deeplearning4j_tpu/parallel/training_master.py``.
 
 - ``SyncTrainingMaster``: synchronous data parallelism over the slot
-  mesh's data axis.  The global batch is split into K contiguous row
-  blocks, one a slot; each slot's loss is weighted by its share of the
-  global normaliser, ``sum(mask_slot) / psum(sum(mask))`` (the
-  reference's ``training_master.py:393-410``), so the psum of the
-  slots' gradients is the global-batch gradient, masked normalisation
-  and regularisation included; one update follows (under
-  ``conf.introspection`` the global gradient's norms and the global
-  batch's activation statistics, merged from the slots' moments, are
-  written into ``__introspect__``).  Under
-  ``update_sharding="zero"`` the gradients are reduce-scattered into
-  ``[K, n/K, ...]`` blocks and the update runs on the blocks (views of
-  the net's own tensors: on one card the replicated layout holds one
-  physical copy too, and the ledger tells the two layouts apart).  The
-  step is one captured graph on the card.
+  mesh's data axis.  The global batch's rows are the K data slots'
+  contiguous row blocks side by side, and the step is one forward and
+  one backward over all of them under ``backend.slots.data_slots(K)``:
+  the reference's one global program (``training_master.py:245``), so
+  the layers that couple the rows of a batch, BatchNorm's statistics and
+  the MoE layer's routing, read the global batch, gathered across the
+  slots (``gather_rows``; on the card the BatchNorm kernels run on the
+  gathered rows).  The psum of the slots' gradients is the reduction
+  over their rows inside each weight gradient, recorded in the census as
+  each leaf's all-reduce of the K slots' contributions.  Then one update,
+  with the introspection policy's and the numerics ledger's statistics
+  from the global gradient and the global batch's activations, as the
+  single net's step (``common.sgd_step``).  Under
+  ``update_sharding="zero"`` the params and the inner updater slots are
+  ``[K, n/K, ...]`` views of the net's tensors, all-gathered for the
+  forward; the gradient arrives in blocks (the reduce-scatter) and the
+  update runs on the blocks.  The ledger's ``__numerics__`` subtree is
+  carried through a ZeRO step unchanged, as the reference's docstring
+  says.  The step is one captured graph on the card.
 - ``ParameterAveragingTrainingMaster``: a ``ParallelWrapper`` an epoch
-  around one persistent elastic controller.
+  around one persistent elastic controller (per-replica statistics, as
+  the reference's).
 - ``DistributedNetwork``: a net and a master; ``fit``, ``evaluate``
   (each batch padded to a multiple of the data axis) and ``score``.
 
+``TensorParallelTrainingMaster`` is in ``model_parallel.py``,
+``PipelineParallelTrainingMaster`` in ``pipeline.py``.
 ``initialize_distributed`` keeps the reference's signature; more than one
-process raises ``NotImplementedError`` (ROADMAP A10's next slice, meshes
-across processes).  So do ``TensorParallelTrainingMaster``,
-``PipelineParallelTrainingMaster`` and ``split_stages``.
+process raises ``NotImplementedError`` (ROADMAP A10, meshes across
+processes and GPUs).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import time
 from typing import Any, Dict, Optional
 
@@ -38,15 +47,16 @@ import torch
 
 from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.backend.mesh import AXIS_DATA, P, Sharded
 from deeplearning4j_tpu_torch.models import capture as cap
 from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.observability import (
-    PhaseTimers, WorkerTelemetry, crash_dump, introspection, shardstats,
+    PhaseTimers, WorkerTelemetry, crash_dump, introspection, numerics,
+    shardstats,
 )
 from deeplearning4j_tpu_torch.observability.flightrecorder import step_guard
 from deeplearning4j_tpu_torch.observability.recompile import instrument
-from deeplearning4j_tpu_torch.optimize import updaters as upd
 from deeplearning4j_tpu_torch.parallel import zero as zero_mod
 from deeplearning4j_tpu_torch.parallel.data_parallel import (
     _Staged, _tmap, loss_of,
@@ -56,7 +66,7 @@ from deeplearning4j_tpu_torch.parallel.elastic import (
 )
 from deeplearning4j_tpu_torch.resilience import stability
 
-_NEXT = "ROADMAP A10, the next slice"
+_NEXT = "ROADMAP A10, meshes across processes and GPUs"
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -66,50 +76,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     process needs none; more raise until meshes across processes come."""
     if num_processes is not None and int(num_processes) > 1:
         raise NotImplementedError(
-            f"initialize_distributed over {num_processes} processes: "
-            f"meshes across processes are not ported yet ({_NEXT}, with "
-            "A12's provision/cluster.py)")
-
-
-def _rows(tree, sl):
-    return _tmap(lambda a: a[sl], tree) if isinstance(tree, dict) \
-        else tree[sl]
-
-
-def _nrows(tree) -> int:
-    return int(common.batch_rows(tree))
-
-
-def _act_moments(named, plan, moments):
-    """Each layer's activation sums (sum, sum of squares, dead count,
-    count) added to ``moments`` (``introspection.act_summary``'s moment
-    form), so the slots' blocks give the global batch's statistics."""
-    eps = plan.policy.dead_eps
-    out = []
-    for i, (_, a) in enumerate(named):
-        a = a.detach()
-        s1 = a.sum(dtype=torch.float32)
-        s2 = torch.linalg.vector_norm(a, dtype=torch.float32).square()
-        z = ((a.numel() - torch.count_nonzero(a)).float() if eps == 0
-             else (a.abs() <= eps).sum(dtype=torch.float32))
-        cur = [s1, s2, z, a.numel()]
-        out.append(cur if moments is None else
-                   [m + c for m, c in zip(moments[i], cur)])
-    return out
-
-
-def _act_stats(moments):
-    if moments is None:
-        return None
-    means, stds, zeros = [], [], []
-    for s1, s2, z, n in moments:
-        mean = s1 / n
-        means.append(mean)
-        stds.append(torch.sqrt(torch.clamp(s2 / n - mean.square(),
-                                           min=0.0)))
-        zeros.append(z / n)
-    return {"act_mean": torch.stack(means), "act_std": torch.stack(stds),
-            "act_zero": torch.stack(zeros)}
+            f"initialize_distributed over {num_processes} processes is "
+            f"not ported yet ({_NEXT}, with A12's provision/cluster.py)")
 
 
 class PhaseStats(PhaseTimers):
@@ -215,106 +183,49 @@ class SyncTrainingMaster(TrainingMaster):
         self._holder = h
         return h
 
-    def _body(self, x, y, fm, lm, key, scalars):
+    def _full(self, params):
+        """The params tree the forward reads, from the step's leaves."""
+        if self._zero_layout is not None:
+            return zero_mod.all_gather_tree(params, self._pmask)
+        return params
+
+    def _model_slots(self):
+        return contextlib.nullcontext()
+
+    def _body(self, x, y, fm, lm, key, scalars, numerics_now=None):
         """One synchronous step over the K slots (module docstring).
         Returns the global loss and, under a stability policy, the
         ``[K]`` slot poison flags."""
         net, K = self.net_, self.K
         h = self._stage(net)
         policy = stability.policy_of(net.conf)
-        row_ok = None
+        row_ok = extra_ok = None
         if policy is not None:
             row_ok = stability.finite_rows(x, y)
             x = stability.zero_nonfinite_rows(x, row_ok)
             y = stability.zero_nonfinite_rows(y, row_ok)
             lm = lm * row_ok.reshape((row_ok.shape[0],)
                                      + (1,) * (lm.ndim - 1))
-        stab = h.updater_state.get(stability.STATE_KEY)
-        scale = stab["loss_scale"] if stab is not None else None
-        zero = self._zero_layout is not None
-        full = (zero_mod.all_gather_tree(h.params, self._pmask) if zero
-                else h.params)
-        full = _tmap(lambda a: a.detach(), full)
-        train = common.trainable(full)
-        leaves = common.tree_leaves(train)
-        B = _nrows(x)
-        per = B // K
-        if lm is not None:
-            denom = torch.stack([lm[k * per:(k + 1) * per].float().sum()
-                                 for k in range(K)])
-            n_total = mesh_mod.psum(denom)
-            ws = torch.where(n_total > 0, denom / n_total.clamp(min=1.0),
-                             torch.zeros_like(denom))
-        plan = common.observed_plans(net)[0]
-        acts = [] if plan is not None and plan.collect_acts else None
-        moments = None
-        stacked, wl, new_ns = None, [], []
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            for k in range(K):
-                sl = slice(k * per, (k + 1) * per)
-                loss, ns = loss_of(net, full, h.net_state, _rows(x, sl),
-                                   _rows(y, sl), key,
-                                   None if fm is None else _rows(fm, sl),
-                                   None if lm is None else lm[sl],
-                                   collect=acts)
-                if acts:
-                    moments = _act_moments(acts, plan, moments)
-                    acts.clear()
-                w = ws[k] if lm is not None else per / B
-                target = loss * w if scale is None else loss * (w * scale)
-                g = torch.autograd.grad(target, leaves, allow_unused=True)
-                with torch.no_grad():
-                    # each slot's gradient into one [K, ...] stack
-                    if stacked is None:
-                        stacked = [p.new_empty((K,) + p.shape)
-                                   for p in leaves]
-                    for dst, p, gi in zip(stacked, leaves, g):
-                        if gi is None:
-                            dst[k].zero_()
-                        else:
-                            dst[k].copy_(gi)
-                del g
-                wl.append(loss.detach().float() * w)
-                new_ns.append(ns)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
-        with torch.no_grad():
-            stacked = common._tree_like(train, stacked)
-            g = (zero_mod.reduce_scatter_tree(stacked, K) if zero
-                 else _tmap(mesh_mod.psum, stacked))
-            del stacked
-            gloss = mesh_mod.psum(torch.stack(wl))
-            ns = (_tmap(lambda *a: mesh_mod.pmean(torch.stack(a)), *new_ns)
-                  if new_ns and new_ns[0] else {})
-            target_train = common.trainable(h.params)
-            old = (common.tree_clone(target_train) if plan is not None
-                   else None)
-            if policy is not None:
-                stability.guarded_update_(
-                    h, policy, gloss, g, target_train, ns, scalars,
-                    extra_ok=row_ok.sum() > 0)
-                out = gloss, stability.slot_poison_flags(row_ok, K)
-            else:
-                updates, new_us = upd.update(
-                    net.conf.updater, g, upd.inner_state(h.updater_state),
-                    net.iteration, params=target_train, scalars=scalars)
-                upd.apply_updates_(h.params, updates)
-                common.copy_tree_(h.updater_state, new_us)
-                common.copy_tree_(h.net_state, ns)
-                out = gloss
-            if plan is not None:
-                # the global gradient and the global batch's activations:
-                # one cluster-wide value a layer, as the reference's
-                introspection.attach_(
-                    h.updater_state, plan, grads=g, params=old,
-                    new_params=common.trainable(h.params),
-                    iteration=scalars["iteration"],
-                    act_stats=_act_stats(moments),
-                    grad_scale=None if scale is None else 1.0 / scale)
-            return out
+            extra_ok = row_ok.sum() > 0
+
+        def loss_fn(params, collect=None):
+            return loss_of(net, self._full(params), h.net_state, x, y, key,
+                           fm, lm, collect=collect)
+
+        with slots.data_slots(K), self._model_slots():
+            loss = common.sgd_step(h, loss_fn, scalars,
+                                   numerics_now=numerics_now,
+                                   extra_ok=extra_ok)
+        # the K slots' gradient contributions, summed (a reduce-scatter
+        # into ZeRO's blocks), and their weighted losses
+        op = "reduce-scatter" if self._zero_layout is not None \
+            else "all-reduce"
+        for p in common.tree_leaves(common.trainable(h.params)):
+            mesh_mod.note(op, p.expand((K,) + tuple(p.shape)), K)
+        mesh_mod.note("all-reduce", loss.expand(K), K)
+        if policy is not None:
+            return loss, stability.slot_poison_flags(row_ok, K)
+        return loss
 
     def _dispatch(self, x, y, fm, lm, net):
         self.net_ = net
@@ -322,15 +233,32 @@ class SyncTrainingMaster(TrainingMaster):
         h.iteration = net.iteration
         seed = rng_mod.seed_of(net._keys.next())
         vals = common._step_scalars(net, net.iteration)
-        if common.observed_plans(net)[0] is not None:
+        iplan, nplan = common.observed_plans(net)
+        if h is not net:
+            # the holder's policies: the ledger is carried through a
+            # ZeRO step unchanged
+            h._observed = (net.conf, iplan,
+                           None if self._zero_layout is not None else nplan)
+            nplan = h._observed[2]
+        body, variant = self._body, None
+        if iplan is not None or nplan is not None:
             vals["iteration"] = float(net.iteration)
+            now = numerics.collect_now(nplan, net.iteration)
+            if now is not None:
+                # interval-gated ledger: a collecting and a skipping step
+                body = functools.partial(self._body, numerics_now=now)
+                variant = ("numerics", now)
         dtype = common._scalar_dtype(net)
         inputs = {"x": x, "y": y, "fm": fm, "lm": lm}
         if cap.captures(h):
             graphs = cap.step_graphs(h)
             inputs = common.tree_map(cap.host_or_device, inputs)
-            prog = graphs.program("sync", self._body, inputs, len(vals),
-                                  dtype)
+            # a master of another kind or mesh on the same net is
+            # another program
+            kind = (f"sync:{type(self).__name__}:"
+                    f"{sorted(self.mesh.shape.items())}")
+            prog = graphs.program(kind, body, inputs, len(vals), dtype,
+                                  variant=variant)
             prog.scalar_names = list(vals)
             graphs.stage(prog, inputs, seed, list(vals.values()))
             with mesh_mod.census() as c:
@@ -342,13 +270,15 @@ class SyncTrainingMaster(TrainingMaster):
         dev = net.device
         sc = torch.tensor(list(vals.values()), dtype=dtype, device=dev)
         with mesh_mod.census() as c:
-            out = self._body(**{k: (None if v is None else
-                                    common._on(v, dev) if isinstance(v, dict)
-                                    else torch.as_tensor(v, device=dev))
-                                for k, v in inputs.items()},
-                             key=rng_mod.device_key(seed, dev),
-                             scalars=dict(zip(vals, sc.unbind(0))))
+            out = body(**{k: (None if v is None else
+                              common._on(v, dev) if isinstance(v, dict)
+                              else torch.as_tensor(v, device=dev))
+                          for k, v in inputs.items()},
+                       key=rng_mod.device_key(seed, dev),
+                       scalars=dict(zip(vals, sc.unbind(0))))
         sig = cap.signature(common.tree_map(cap.host_or_device, inputs))
+        if variant is not None:
+            sig += (variant,)
         if sig not in self._seen:
             self._seen.add(sig)
             self._record(sig, c.counts, 1)
@@ -391,9 +321,6 @@ class SyncTrainingMaster(TrainingMaster):
         if net.device != self.mesh.device:
             raise ValueError(f"the mesh's slots are on {self.mesh.device}, "
                              f"the net on {net.device}")
-        if getattr(net.conf, "numerics", None) is not None:
-            raise ValueError("the numerics ledger is not carried by the "
-                             "port's SyncTrainingMaster")
         common.check_trainable(net)
         res = None
         if self.checkpoint_manager is not None or self.retry_policy \
@@ -416,6 +343,8 @@ class SyncTrainingMaster(TrainingMaster):
         stab_rt = self._stab_rt
         if getattr(net.conf, "introspection", None) is not None:
             introspection.ensure_state(net)
+        if getattr(net.conf, "numerics", None) is not None:
+            numerics.ensure_state(net)
         if self._step is None:
             self._seen = set()
             self._step = instrument(
@@ -651,33 +580,3 @@ class DistributedNetwork:
 
     def training_stats(self):
         return self.master.training_stats()
-
-
-class TensorParallelTrainingMaster(TrainingMaster):
-    """Not ported yet: ``model_parallel.py`` comes with the next A10
-    slice."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"TensorParallelTrainingMaster (model_parallel.py) is not "
-            f"ported yet ({_NEXT})")
-
-
-def tensor_parallel_spec(*args, **kwargs):
-    raise NotImplementedError(
-        f"tensor_parallel_spec (model_parallel.py) is not ported yet "
-        f"({_NEXT})")
-
-
-class PipelineParallelTrainingMaster(TrainingMaster):
-    """Not ported yet: ``pipeline.py`` comes with the next A10 slice."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"PipelineParallelTrainingMaster (pipeline.py) is not ported "
-            f"yet ({_NEXT})")
-
-
-def split_stages(*args, **kwargs):
-    raise NotImplementedError(
-        f"split_stages (pipeline.py) is not ported yet ({_NEXT})")

@@ -2414,3 +2414,164 @@ def test_four_slot_wrapper_window_captured_equals_eager_and_plain(cuda):
     print(f"kernels' window against the plain versions': the change's "
           f"relative error {rel:.3e}")
     assert rel < WRAPPER_CHANGE_RTOL
+
+
+# the tensor- and pipeline-parallel steps against the plain versions':
+# the change of all the params, relative in norm, at bf16's scale (the
+# four-slot window's bound above)
+SLOT_STEP_CHANGE_RTOL = WRAPPER_CHANGE_RTOL
+
+
+def _lm_batches(n, b, t=128, vocab=32, seed=0):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, vocab, (b, t))
+        out.append(DataSet(ids, np.eye(vocab, dtype=np.float32)[
+            np.roll(ids, -1, 1)]))
+    return out
+
+
+def _small_lm(cuda):
+    from deeplearning4j_tpu_torch.models import zoo
+
+    return zoo.transformer_char_lm(vocab_size=32, d_model=128, n_heads=2,
+                                   layers=2, updater="sgd", lr=1e-2,
+                                   compute_dtype="bfloat16", device=cuda)
+
+
+def slot_step_change_error(cuda, kind):
+    """Two steps of a small bf16 char-LM under the tensor-parallel master
+    (data 2 x model 2 slots) or the compiled pipeline (2 stages, 4
+    microbatches), captured, eager and on the plain versions (helpers
+    off), SGD: asserts the captured step's launches and that it equals
+    the eager one bit for bit; returns ``||dc - dp|| / ||dp||`` (the
+    params' change on the kernels and on the plain versions)."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.backend import mesh as tmesh
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models import capture as cap
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedNetwork, PipelineParallelTrainingMaster,
+        TensorParallelTrainingMaster,
+    )
+
+    batches = _lm_batches(2, 4)
+    out, init = {}, None
+    for mode in ("captured", "eager", "plain"):
+        net = _small_lm(cuda)
+        if init is None:
+            init = net.params_to_vector().astype(np.float64)
+        net._capture = mode == "captured"
+        if kind == "tp":
+            master = TensorParallelTrainingMaster(mesh=tmesh.default_mesh(
+                data=2, model=2, devices=["cuda"] * 4))
+
+            def run():
+                for ds in batches:
+                    DistributedNetwork(net, master).fit(
+                        ListDataSetIterator(ds, 4))
+        else:
+            master = PipelineParallelTrainingMaster(
+                n_stages=2, n_microbatches=4, devices=["cuda"] * 2)
+
+            def run():
+                master.execute_training(net, batches)
+        if mode == "plain":
+            with helpers.helpers_disabled():
+                run()
+        else:
+            run()
+        out[mode] = net.params_to_vector().astype(np.float64)
+        if mode == "captured":
+            # the tensor-parallel step's graph is the net's own (its
+            # sharded leaves are views of the net's tensors)
+            graphs = cap.step_graphs(net if kind == "tp" else master._h)
+            assert graphs.captures == 1 and graphs.replays == 1
+            launches = next(iter(graphs.graph_launches().values()))
+            # a flash call a layer (tp: the model slots' head groups side
+            # by side; pipeline: a call a microbatch), a prologue a block
+            per = 1 if kind == "tp" else 4
+            assert launches["flash_fwd"] == 2 * per
+            assert launches["flash_dq"] == 2 * per
+            assert launches["prologue"] == 4 * per
+            if kind == "pp":
+                assert master._compiled_kind == "periodic"
+    np.testing.assert_array_equal(out["captured"], out["eager"])
+    dc, dp = out["captured"] - init, out["plain"] - init
+    return float(np.linalg.norm(dc - dp) / np.linalg.norm(dp))
+
+
+@pytest.mark.parametrize("kind", ["tp", "pp"])
+def test_slot_master_step_captured_equals_eager_and_plain(kind, cuda):
+    """The tensor-parallel step and the compiled pipeline step
+    (``slot_step_change_error``): captured equals eager bit for bit, the
+    kernels launch as the design says, and the change of the params
+    agrees with the plain versions' at bf16's scale."""
+    rel = slot_step_change_error(cuda, kind)
+    print(f"{kind}: the change's relative error against the plain "
+          f"versions {rel:.3e}")
+    assert rel < SLOT_STEP_CHANGE_RTOL
+
+
+def test_sync_master_batch_norm_on_the_gathered_rows(cuda):
+    """The sync master's BatchNorm over four slots' rows: the training
+    kernels run once on the gathered rows (the global batch's moments),
+    and the step equals the plain version's and the single net's."""
+    from deeplearning4j_tpu_torch import helpers
+    from deeplearning4j_tpu_torch.backend import mesh as tmesh
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.models.sequential import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, DenseLayer, OutputLayer,
+    )
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedNetwork, SyncTrainingMaster,
+    )
+
+    def make():
+        return MultiLayerNetwork(
+            NeuralNetConfiguration.builder().seed(13)
+            .updater("sgd", learning_rate=0.1).list()
+            .layer(DenseLayer(n_in=6, n_out=64, activation="tanh"))
+            .layer(BatchNormalization(n_out=64))
+            .layer(OutputLayer(n_in=64, n_out=3)).build()).init(cuda)
+
+    rng = np.random.default_rng(3)
+    ds = DataSet(rng.standard_normal((256, 6)).astype(np.float32),
+                 np.eye(3, dtype=np.float32)[rng.integers(0, 3, 256)])
+    got = {}
+    for mode in ("kernels", "plain", "single"):
+        net = make()
+        net._capture = False
+        before = helpers.kernel_counts()["bn_train_fwd"].launches
+        if mode == "single":
+            net.fit(ds.features, ds.labels)
+        else:
+            master = SyncTrainingMaster(mesh=tmesh.default_mesh(
+                data=4, devices=["cuda"] * 4))
+            if mode == "plain":
+                with helpers.helpers_disabled():
+                    DistributedNetwork(net, master).fit(
+                        ListDataSetIterator(ds, 256))
+            else:
+                DistributedNetwork(net, master).fit(
+                    ListDataSetIterator(ds, 256))
+        torch.cuda.synchronize()
+        n = helpers.kernel_counts()["bn_train_fwd"].launches - before
+        assert n == (0 if mode == "plain" else 1), (mode, n)
+        got[mode] = (net.params_to_vector(),
+                     net.net_state["layer_1"]["mean"].cpu().numpy())
+    for mode in ("plain", "single"):
+        np.testing.assert_allclose(got["kernels"][0], got[mode][0],
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got["kernels"][1], got[mode][1],
+                                   rtol=1e-5, atol=1e-6)

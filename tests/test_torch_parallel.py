@@ -266,15 +266,13 @@ def test_captured_window_runs_the_same_body(monkeypatch):
 
 
 def test_not_yet_ported_masters_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tpar.TensorParallelTrainingMaster(mesh=tmesh_of(2))
-    with pytest.raises(NotImplementedError, match="A10"):
-        tpar.PipelineParallelTrainingMaster()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tpar.split_stages(None, 2)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError,
+                       match="A10, meshes across processes and GPUs"):
         tpar.initialize_distributed("localhost:1234", 2, 0)
     tpar.initialize_distributed()         # one process needs nothing
+    with pytest.raises(NotImplementedError,
+                       match="A10, meshes across processes and GPUs"):
+        tmesh.default_mesh(devices=["cpu", "meta"])
 
 
 def test_wrapper_validation_errors():
@@ -321,3 +319,267 @@ def test_sync_master_introspection_matches_jax(mode):
                     np.testing.assert_allclose(
                         h[sect][layer][key], v, rtol=1e-4, atol=1e-7,
                         err_msg=f"{sect}/{layer}/{key}")
+
+
+# ----------------------------------------------- rows coupled by the batch
+def _coupled(kind, updater="sgd", lr=0.1):
+    """Dense(6->8) then BatchNormalization or MoELayer(4 experts,
+    capacity 1.0), then the head: the layers whose forward couples the
+    rows of the batch."""
+    from deeplearning4j_tpu.models.sequential import MultiLayerNetwork
+    from deeplearning4j_tpu.nn import layers as jl
+    from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration
+
+    mid = (jl.BatchNormalization(n_out=8) if kind == "bn" else
+           jl.MoELayer(n_in=8, n_out=8, num_experts=4, capacity_factor=1.0))
+    return MultiLayerNetwork(
+        NeuralNetConfiguration.builder().seed(13)
+        .updater(updater, learning_rate=lr).list()
+        .layer(jl.DenseLayer(n_in=6, n_out=8, activation="tanh"))
+        .layer(mid)
+        .layer(jl.OutputLayer(n_in=8, n_out=3, loss="mcxent",
+                              activation="softmax")).build()).init()
+
+
+@pytest.mark.parametrize("mode", ["replicated", "zero"])
+@pytest.mark.parametrize("kind", ["bn", "moe"])
+def test_sync_master_couples_the_global_batch(kind, mode):
+    """BatchNorm's statistics and the MoE layer's routing over the global
+    batch, as the reference's one replicated program: the port's
+    replicated and ZeRO layouts equal the JAX replicated master (whose
+    own ZeRO layout normalises per shard, ROADMAP C2) and the single net
+    on the whole batch, BatchNorm's running statistics included."""
+    from tests._torch_parallel_common import port_of
+
+    K = 4
+    rs = np.random.RandomState(3)
+    x = rs.randn(32, 6).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 32)]
+    jn = _coupled(kind)
+    tn, single = port_of(jn), port_of(_coupled(kind))
+    jpar.DistributedNetwork(jn, jpar.SyncTrainingMaster(mesh=jmesh(K))).fit(
+        JListIt(JDataSet(x, y), 32), epochs=2)
+    tpar.DistributedNetwork(tn, tpar.SyncTrainingMaster(
+        mesh=tmesh_of(K), update_sharding=mode)).fit(
+        ListDataSetIterator(DataSet(x, y), 32), epochs=2)
+    single.fit(ListDataSetIterator(DataSet(x, y), 32), epochs=2)
+    np.testing.assert_allclose(tvec(tn), jvec(jn), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tvec(tn), tvec(single), rtol=RTOL,
+                               atol=ATOL)
+    if kind == "bn":
+        for k in ("mean", "var"):
+            np.testing.assert_allclose(
+                tn.net_state["layer_1"][k].numpy(),
+                np.asarray(jn.net_state["layer_1"][k]), rtol=RTOL,
+                atol=ATOL)
+
+
+def test_sync_master_couples_rows_in_one_recorded_gather():
+    """The coupled layer reads the data slots' rows gathered: one
+    all-gather over the K slots a forward, in the step's census."""
+    from tests._torch_parallel_common import port_of
+
+    K = 4
+    shardstats.clear_ledgers()
+    tn = port_of(_coupled("bn"))
+    x, y = data(32, 6, 3)
+    tpar.DistributedNetwork(tn, tpar.SyncTrainingMaster(
+        mesh=tmesh_of(K))).fit(ListDataSetIterator(DataSet(x, y), 32))
+    ag = shardstats.program_analysis("SyncTrainingMaster.step")[
+        "collectives"]["all-gather"]
+    assert ag["count"] == 1 and ag["group_sizes"] == [K]
+    assert ag["bytes"] == 32 * 8 * 4
+
+
+def test_sync_master_dropout_equals_the_single_net():
+    """Dropout under the sync master: one mask at the global batch's
+    shape, drawn from the step's key as the single net draws it, so the
+    replicated step equals the single net's on the whole batch."""
+    from tests._torch_parallel_common import port_of
+    from deeplearning4j_tpu.models.sequential import MultiLayerNetwork
+    from deeplearning4j_tpu.nn import layers as jl
+    from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration
+
+    def make():
+        return MultiLayerNetwork(
+            NeuralNetConfiguration.builder().seed(5)
+            .updater("sgd", learning_rate=0.1).list()
+            .layer(jl.DenseLayer(n_in=8, n_out=16, activation="tanh"))
+            .layer(jl.OutputLayer(n_in=16, n_out=4, dropout=0.5))
+            .build()).init()
+
+    x, y = data(32)
+    tn, single = port_of(make()), port_of(make())
+    tpar.DistributedNetwork(tn, tpar.SyncTrainingMaster(
+        mesh=tmesh_of(4))).fit(ListDataSetIterator(DataSet(x, y), 16))
+    single.fit(ListDataSetIterator(DataSet(x, y), 16))
+    np.testing.assert_array_equal(tvec(tn), tvec(single))
+
+
+# ------------------------------------------------------ the numerics ledger
+@pytest.mark.parametrize("interval", [1, 2])
+def test_sync_master_carries_the_numerics_ledger(interval):
+    """The ledger's blocks under the replicated sync master against the
+    JAX master's (from the global gradient and the global batch's
+    activations; interval 2: a collecting and a skipping program)."""
+    from deeplearning4j_tpu.observability import numerics as jnum
+    from deeplearning4j_tpu_torch.observability import numerics
+    from tests.test_torch_numerics import batch, make_jax_net, make_net
+
+    K = 4
+    jn = make_jax_net(seed=3, updater="adam", interval=interval, sample=0)
+    tn = make_net(seed=3, updater="adam", interval=interval, sample=0)
+    tn.set_params_vector(np.asarray(jn.params_to_vector()))
+    x, y = batch(seed=4, n=32)
+    jpar.DistributedNetwork(jn, jpar.SyncTrainingMaster(mesh=jmesh(K))).fit(
+        JListIt(JDataSet(x, y), 16), epochs=2)
+    tpar.DistributedNetwork(tn, tpar.SyncTrainingMaster(
+        mesh=tmesh_of(K))).fit(ListDataSetIterator(DataSet(x, y), 16),
+                               epochs=2)
+    np.testing.assert_allclose(tvec(tn), jvec(jn), rtol=RTOL, atol=ATOL)
+    h, jh = numerics.harvest_model(tn), jnum.harvest_model(jn)
+    assert h["iteration"] == jh["iteration"]
+    for comp in ("gradients", "moments", "activations"):
+        assert set(h[comp]) == set(jh[comp])
+        for layer, e in h[comp].items():
+            np.testing.assert_allclose(e["max_abs"],
+                                       jh[comp][layer]["max_abs"],
+                                       rtol=1e-4)
+            assert e["verdicts"] == jh[comp][layer]["verdicts"]
+
+
+def test_zero_sync_master_carries_the_ledger_through_unchanged():
+    """Under ZeRO the ``__numerics__`` subtree rides through the step
+    unchanged, as the reference's docstring says (and its ZeRO master
+    does)."""
+    from deeplearning4j_tpu.observability import numerics as jnum
+    from deeplearning4j_tpu_torch.observability import numerics
+    from tests.test_torch_numerics import batch, make_jax_net, make_net
+
+    jn = make_jax_net(seed=3, updater="adam", interval=1, sample=0)
+    tn = make_net(seed=3, updater="adam", interval=1, sample=0)
+    tn.set_params_vector(np.asarray(jn.params_to_vector()))
+    x, y = batch(seed=4, n=32)
+    import jax
+
+    from deeplearning4j_tpu_torch.models.common import tree_clone, tree_leaves
+
+    numerics.ensure_state(tn)
+    jnum.ensure_state(jn)
+    before = tree_clone(tn.updater_state[numerics.STATE_KEY])
+    jbefore = jax.tree_util.tree_leaves(jax.device_get(
+        jn.updater_state[jnum.STATE_KEY]))
+    jpar.DistributedNetwork(jn, jpar.SyncTrainingMaster(
+        mesh=jmesh(4), update_sharding="zero")).fit(
+        JListIt(JDataSet(x, y), 16))
+    tpar.DistributedNetwork(tn, tpar.SyncTrainingMaster(
+        mesh=tmesh_of(4), update_sharding="zero")).fit(
+        ListDataSetIterator(DataSet(x, y), 16))
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(tn.updater_state[numerics.STATE_KEY]),
+        tree_leaves(before)))
+    for a, b in zip(jax.tree_util.tree_leaves(jax.device_get(
+            jn.updater_state[jnum.STATE_KEY])), jbefore):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(tvec(tn), jvec(jn), rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------------- graph nets under masters
+def _graph_pair(make):
+    import jax
+
+    from deeplearning4j_tpu_torch.models.graph import GraphConfiguration
+    from deeplearning4j_tpu_torch.models.interop import (
+        graph_params_from_numpy,
+    )
+
+    jn = make()
+    conf = GraphConfiguration.from_json(jn.conf.to_json())
+    return jn, graph_params_from_numpy(conf, jax.device_get(jn.params),
+                                       jax.device_get(jn.net_state),
+                                       device="cpu")
+
+
+def _small_cg():
+    from deeplearning4j_tpu.models.graph import ComputationGraph
+    from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.layers import DenseLayer, OutputLayer
+
+    return ComputationGraph(
+        NeuralNetConfiguration.builder().seed(31)
+        .updater("sgd", learning_rate=0.2).graph()
+        .add_inputs("in")
+        .add_layer("d", DenseLayer(n_in=6, n_out=12, activation="tanh"), "in")
+        .add_layer("out", OutputLayer(n_in=12, n_out=3), "d")
+        .set_outputs("out").build()).init()
+
+
+def test_sync_dp_trains_computation_graph_resnet():
+    """``test_parallel.py:140``: a narrow ResNet (a ComputationGraph with
+    BatchNorm) under the sync master, three epochs, against the JAX
+    master (BatchNorm's statistics over the global batch in both)."""
+    from deeplearning4j_tpu.models.zoo import resnet50
+
+    def make():
+        return resnet50(height=16, width=16, n_classes=4, blocks=(1,),
+                        stem_stride=1, init_channels=8, lr=0.01)
+
+    jn, tn = _graph_pair(make)
+    rs = np.random.RandomState(5)
+    x = rs.rand(16, 16, 16, 3).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rs.randint(0, 4, 16)]
+    jpar.DistributedNetwork(jn, jpar.SyncTrainingMaster(mesh=jmesh(4))).fit(
+        JListIt(JDataSet(x, y), 16), epochs=3)
+    tpar.DistributedNetwork(tn, tpar.SyncTrainingMaster(
+        mesh=tmesh_of(4))).fit(ListDataSetIterator(DataSet(x, y), 16),
+                               epochs=3)
+    assert tn.iteration == jn.iteration == 3
+    assert np.isfinite(float(tn.score_value))
+    assert tn.output(x).shape == (16, 4)
+    np.testing.assert_allclose(tvec(tn), jvec(jn), rtol=1e-4, atol=1e-5)
+
+
+def test_sync_dp_cg_equals_single_device_math():
+    """``test_parallel.py:162``: a graph under sync DP == the same graph
+    trained serially, and == the JAX master."""
+    batches = _batches(4, 16, seed=9, n_in=6, n_out=3)
+    jn, tn = _graph_pair(_small_cg)
+    _, serial = _graph_pair(_small_cg)
+    for x, y in batches:
+        serial.fit(x, y)
+    xs = np.concatenate([b[0] for b in batches])
+    ys = np.concatenate([b[1] for b in batches])
+    jpar.DistributedNetwork(jn, jpar.SyncTrainingMaster(mesh=jmesh(4))).fit(
+        JListIt(JDataSet(xs, ys), 16))
+    tpar.DistributedNetwork(tn, tpar.SyncTrainingMaster(
+        mesh=tmesh_of(4))).fit(ListDataSetIterator(DataSet(xs, ys), 16))
+    np.testing.assert_allclose(tvec(tn), tvec(serial), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(tvec(tn), jvec(jn), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["replicated", "zero"])
+def test_computation_graph_under_wrapper_and_zero(mode):
+    """A graph under ``ParallelWrapper`` (averaging every 2 steps) and
+    under the ZeRO sync master, against the JAX counterparts."""
+    batches = _batches(4, 16, seed=11, n_in=6, n_out=3)
+    jn, tn = _graph_pair(_small_cg)
+    jpw = jpar.ParallelWrapper(jn, workers=2, mesh=jmesh(2),
+                               averaging_frequency=1 if mode == "zero"
+                               else 2, update_sharding=mode)
+    tpw = tpar.ParallelWrapper(tn, workers=2, mesh=tmesh_of(2),
+                               averaging_frequency=1 if mode == "zero"
+                               else 2, update_sharding=mode)
+    jpw.fit(iter([JDataSet(x, y) for x, y in batches]))
+    tpw.fit(iter([DataSet(x, y) for x, y in batches]))
+    np.testing.assert_allclose(tvec(tn), jvec(jn), rtol=RTOL, atol=ATOL)
+    if mode == "zero":
+        jz, tz = _graph_pair(_small_cg)
+        xs = np.concatenate([b[0] for b in batches])
+        ys = np.concatenate([b[1] for b in batches])
+        jpar.DistributedNetwork(jz, jpar.SyncTrainingMaster(
+            mesh=jmesh(4), update_sharding="zero")).fit(
+            JListIt(JDataSet(xs, ys), 16))
+        tpar.DistributedNetwork(tz, tpar.SyncTrainingMaster(
+            mesh=tmesh_of(4), update_sharding="zero")).fit(
+            ListDataSetIterator(DataSet(xs, ys), 16))
+        np.testing.assert_allclose(tvec(tz), jvec(jz), rtol=RTOL, atol=ATOL)
