@@ -459,7 +459,29 @@ Phases (any failure exits non-zero; nothing is caught):
    on the same 128 images (BatchNorm over the global batch, the training
    kernels launched once a layer on the gathered rows); the bf16 step
    timed, images/s.
-34. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+34. nlp: the NLP embedding stack (no port kernel on its path; its steps
+   are captured CUDA graphs, one a padded batch shape).  A corpus from
+   ``--seed`` (default 12345) with numpy: 1,000,000 tokens in sentences
+   of 10-30 words, Zipf (s = 1) over 71,290 word types (text8's
+   vocabulary at min count 5).  Each fit one epoch: (a) Word2Vec
+   skip-gram HS at the ``VectorsConfiguration`` defaults, run twice
+   from one seed (the max-abs between the two syn0 is printed:
+   ``index_add_`` on CUDA is not ordered); (b) CBOW with 25 negatives at
+   ``demo-word.sh``'s text8 settings; (c) ParagraphVectors DBOW over
+   10,000 sentences as labelled documents, then ``infer_vector`` and
+   ``predict`` on 100; (d) GloVe at its defaults on a 200,000-token cut,
+   in RAM and spilled; (e) ``DistributedWord2Vec`` at (a)'s settings
+   over four slots of ``cuda:0`` on the cut, within 1e-4 of the serial
+   fit of the cut; (f) 1,000 ``words_nearest`` queries on (a).  Each fit
+   prints words/s (fit call to the last loss read), ms a batch on the
+   host (pair building; staging and launch) and on the device (CUDA
+   events), the idle share, captures and replays.  Then each of the
+   five steps at its path's shapes against the same step on CPU
+   tensors, short fits captured against eager (``rtol=1e-5,
+   atol=1e-6``), the reference's two-topic quality protocol (purity
+   above 0.8, beside ``BASELINE.md``'s 0.97 / 1.00), and (a)'s
+   full-model zip read back on the CPU with equal vectors.
+35. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -467,6 +489,7 @@ available or the port's package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -482,7 +505,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch import helpers, native
+from deeplearning4j_tpu_torch import helpers, native, nlp
+from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+from deeplearning4j_tpu_torch.backend import rng as rng_mod
 from deeplearning4j_tpu_torch.backend.device import pin_fp32_precision
 from deeplearning4j_tpu_torch.generation import GenerationEngine
 from deeplearning4j_tpu_torch.helpers import batch_norm as bn
@@ -490,6 +515,7 @@ from deeplearning4j_tpu_torch.helpers import flash_attention as fa
 from deeplearning4j_tpu_torch.helpers import fused_epilogue as fe
 from deeplearning4j_tpu_torch.helpers import lrn
 from deeplearning4j_tpu_torch.helpers import paged_attention as pa
+from deeplearning4j_tpu_torch.models import capture as capture_mod
 from deeplearning4j_tpu_torch.models.common import seed_stream_caches
 from deeplearning4j_tpu_torch.models.decode import (
     build_decode_fn, generate, named_layers_of,
@@ -507,6 +533,8 @@ from deeplearning4j_tpu_torch.models.zoo import (
     alexnet, dbn, googlenet, graves_lstm_char_lm, lenet, resnet50,
     transformer_char_lm, vgg16,
 )
+from deeplearning4j_tpu_torch.nlp import distributed as nlp_dist
+from deeplearning4j_tpu_torch.nlp import learning as nlp_learning
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.layers.attention import gather_pages
 from deeplearning4j_tpu_torch.nn.layers.convolution import ConvolutionLayer
@@ -868,14 +896,36 @@ def serve(eng, prompts, sampled=False):
     return results, handles, wall
 
 
-def _tracing_live():
-    """One small kernel, waited for, at the start of a profiled window:
-    a graph replayed at once after the profiler starts has lost its
-    first kernels' records on the H100 (a guarded step counted 7 of its
-    8 flash forwards and 15 of its 16 prologues once in two runs).  The
-    kernel matches no counted name."""
-    torch.cuda._sleep(1000)
+TRACE_MARGIN_S = 0.02     # host seconds at each end of a profiled window
+
+
+@contextlib.contextmanager
+def traced(host=False):
+    """``torch.profiler`` over the device (with ``host`` also over the
+    host's operations), padded at each end.  The profiler keeps only the
+    records that fall inside its window by its own clock, and a kernel
+    that ran just after the window opened or just before it closed has
+    lost its record on the H100: a graph replayed at once after the
+    start counted 7 of a guarded step's 8 flash forwards and 15 of its
+    16 prologues once in two runs, and the prefix chat counted 254 of
+    its 256 paged and prologue launches once.  So the window opens with
+    one small kernel waited for (it matches no counted name; not with
+    ``host``, whose trace counts the host's launches) and
+    ``TRACE_MARGIN_S`` of host time, and closes with a synchronize and
+    the same margin.  Yields the profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host
+                                      else [])
     torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        if not host:
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
 
 
 def profiled_launches(fn, pattern=r"paged_decode_kernel", also=None):
@@ -883,13 +933,8 @@ def profiled_launches(fn, pattern=r"paged_decode_kernel", also=None):
     device of the kernels whose names match ``pattern``: by default the
     paged kernel).  With ``also`` (a pattern), a third item: its
     launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _tracing_live()
+    with traced() as prof:
         out = fn()
-        torch.cuda.synchronize()
     ev = prof.key_averages()
 
     def count(pat):
@@ -1036,8 +1081,6 @@ def decode_profile(progs, label, name_card):
     under ``torch.profiler``, the device's busy time per step against
     the host wall per step.  A captured step must launch the paged
     kernel once per layer."""
-    from torch.profiler import ProfilerActivity, profile
-
     s, maxp = progs.slots, progs.pages_per_slot
     block = (1 + np.arange(s * maxp, dtype=np.int32)).reshape(s, maxp)
     pos = np.random.default_rng(1).integers(8, 72, s).astype(np.int32)
@@ -1049,8 +1092,7 @@ def decode_profile(progs, label, name_card):
                      np.ones(s, np.float32))
 
     step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED_STEPS):
             step()
@@ -2009,12 +2051,9 @@ def _profile_fit(net, *feed, steps=PROFILED_FIT_STEPS, warmup=True):
     """``steps`` calls of ``net.fit(*feed)`` (after one unprofiled call
     under ``warmup``) under the CUDA profiler: (events with device time,
     host wall ms a call, device busy ms a call, the profile)."""
-    from torch.profiler import ProfilerActivity, profile
-
     if warmup:
         net.fit(*feed)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             net.fit(*feed)
@@ -2029,13 +2068,8 @@ def _profile_fit(net, *feed, steps=PROFILED_FIT_STEPS, warmup=True):
 def _host_trace(what, net, x, y, name_card):
     """One more step with the host's operations traced (the tracing adds
     its own cost to the host time it reports); the events."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced(host=True) as prof:
         net.fit(x, y)
-        torch.cuda.synchronize()
     ev = prof.key_averages()
     host_ms = sum(e.self_cpu_time_total for e in ev) / 1e3
     launch = [e for e in ev if e.key == "cudaLaunchKernel"]
@@ -2575,12 +2609,9 @@ def output_profile(what, call, kernel_re, label, name_card, per_call):
     device busy against host wall, and the share of the kernels whose
     names match ``kernel_re``, which must launch ``per_call`` times a
     call.  Returns their launches."""
-    from torch.profiler import ProfilerActivity, profile
-
     n = PROFILED_FIT_STEPS
     call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with traced() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             call()
@@ -3305,13 +3336,8 @@ RESUME_FATAL, RESUME_TRANSIENT, RESUME_PREEMPT = 3, 4, 3
 def profiled_counts(fn, patterns):
     """``fn()`` under ``torch.profiler``: (its result, {name: launches of
     the kernels matching ``patterns[name]``}, the events)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _tracing_live()
+    with traced() as prof:
         out = fn()
-        torch.cuda.synchronize()
     ev = prof.key_averages()
     return out, {k: sum(e.count for e in ev if re.search(p, e.key))
                  for k, p in patterns.items()}, ev
@@ -7325,7 +7351,444 @@ def sync_resnet_phase(name_card):
             for k in ("bn_train_fwd", "bn_train_bwd")}
 
 
-def main() -> int:
+# ------------------------------------------------------------ the nlp phase
+NLP_SEED = 12345            # the corpus's seed and every fit's (--seed)
+NLP_TOKENS = 1_000_000      # text8 has 17 M; the cut is PERF.md's section 4
+NLP_TYPES = 71290           # text8's vocabulary at min count 5
+NLP_SENTENCE = (10, 30)     # words a sentence, uniform
+NLP_CUT = 200_000           # GloVe's and the distributed fit's tokens
+NLP_DOCS = 10_000           # ParagraphVectors' documents (sentences)
+NLP_INFER = 100             # documents inferred and predicted
+NLP_QUERIES = 1000          # words_nearest queries on (a)'s model
+NLP_SLOTS = 4               # DistributedWord2Vec's slots of cuda:0
+NLP_SPILL_PAIRS = 250_000   # the spilled GloVe's pairs in RAM
+NLP_CHECK_SENTENCES = 2000  # the captured-against-eager fits' corpus
+NLP_TOL = dict(rtol=1e-5, atol=1e-6)
+NLP_DIST_ATOL = 1e-4        # tests/test_nlp_distributed.py:74
+NLP_PURITY = 0.8            # tests/test_glove_streaming.py:137-138
+NLP_BASELINE = (0.97, 1.00)     # BASELINE.md:35, Word2Vec / GloVe
+NLP_WEATHER = ["rain", "snow", "storm", "cloud", "wind", "sun"]
+NLP_FINANCE = ["bank", "money", "stock", "market", "trade", "price"]
+
+
+def nlp_corpus(seed, tokens=NLP_TOKENS, types=NLP_TYPES):
+    """``tokens`` words drawn by a Zipf law (s = 1) over ``types`` word
+    types, in sentences of 10-30 words (the last one what is left)."""
+    rs = np.random.RandomState(seed)
+    cdf = np.cumsum(1.0 / np.arange(1, types + 1))
+    ids = np.minimum(np.searchsorted(cdf / cdf[-1], rs.rand(tokens)),
+                     types - 1)
+    words = np.array([f"w{i}" for i in range(types)], dtype=object)[ids]
+    lens = rs.randint(NLP_SENTENCE[0], NLP_SENTENCE[1] + 1,
+                      tokens // NLP_SENTENCE[0] + 1)
+    ends = np.cumsum(lens)
+    ends = np.append(ends[ends < tokens], tokens)
+    starts = np.concatenate([[0], ends[:-1]])
+    return [" ".join(words[a:b]) for a, b in zip(starts, ends)]
+
+
+def _tokens_in(sentences):
+    return sum(s.count(" ") + 1 for s in sentences)
+
+
+def _cut(sentences, tokens):
+    """The first sentences holding ``tokens`` words."""
+    n = np.searchsorted(np.cumsum([s.count(" ") + 1 for s in sentences]),
+                        tokens) + 1
+    return sentences[:n]
+
+
+def two_topic_corpus(n=400, seed=7):
+    """The reference's quality corpus (``tests/test_glove_streaming.py``
+    ``synthetic_corpus``)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        topic = NLP_WEATHER if i % 2 == 0 else NLP_FINANCE
+        out.append(" ".join(rs.choice(topic, size=10)))
+    return out
+
+
+def cluster_purity(model, clusters, top_n=3):
+    """wordsNearest top-n neighbours that stay in the query's cluster
+    (``tests/test_glove_streaming.py::_cluster_purity``)."""
+    hits = total = 0
+    for cluster in clusters:
+        for w in cluster:
+            for n in model.words_nearest([w], top_n=top_n):
+                total += 1
+                hits += n in cluster
+    return hits / max(1, total)
+
+
+class _FitClock:
+    """One fit's split: host time inside the step calls (staging and the
+    replay's launch) and outside them (pair building, batch assembly),
+    and CUDA events around each program's run (the graph's replay on
+    the device, after its inputs were staged).  Installed over
+    ``StepPrograms.call`` and ``StepGraphs.run`` for the block."""
+
+    def __init__(self):
+        self.events, self.in_call = [], 0.0
+        self.first = self.last = None
+
+    def __enter__(self):
+        call, run = self._orig = (nlp_learning.StepPrograms.call,
+                                  capture_mod.StepGraphs.run)
+        clock = self
+
+        def timed_call(programs, *args, **kwargs):
+            t0 = time.perf_counter()
+            if clock.first is None:
+                clock.first = t0
+            out = call(programs, *args, **kwargs)
+            clock.last = time.perf_counter()
+            clock.in_call += clock.last - t0
+            return out
+
+        def timed_run(graphs, *args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = run(graphs, *args, **kwargs)
+            e1.record()
+            clock.events.append((e0, e1))
+            return out
+
+        nlp_learning.StepPrograms.call = timed_call
+        capture_mod.StepGraphs.run = timed_run
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        (nlp_learning.StepPrograms.call,
+         capture_mod.StepGraphs.run) = self._orig
+        return False
+
+    def report(self, what, model, words, name_card):
+        """Reads the loss (the fit's end: one sync), then prints words/s,
+        ms a batch on the host outside and inside the calls and on the
+        device, the idle share over the batches' span, and the program's
+        captures and replays.  Returns the numbers."""
+        loss = model.cum_loss
+        t_end = time.perf_counter()
+        n = len(self.events)
+        device_ms = sum(a.elapsed_time(b) for a, b in self.events)
+        span = t_end - self.first
+        wall = t_end - self.t0
+        caps = model.programs.counts()
+        out = dict(wall_s=wall, setup_s=self.first - self.t0, batches=n,
+                   words_per_s=words / wall,
+                   host_ms=((self.last - self.first) - self.in_call)
+                   * 1e3 / max(n - 1, 1),
+                   call_ms=self.in_call * 1e3 / n, device_ms=device_ms / n,
+                   idle=1.0 - device_ms / (span * 1e3), loss=loss, **caps)
+        print(f"nlp {what}: {words} words in {wall:.3f} s "
+              f"({out['words_per_s']:.1f} words/s, fit call to the last "
+              f"loss read; set-up {out['setup_s']:.3f} s); {n} batches: "
+              f"host {out['host_ms']:.4f} ms a batch building pairs, "
+              f"{out['call_ms']:.4f} ms staging and launching, device "
+              f"{out['device_ms']:.4f} ms (CUDA events around the "
+              f"replay), idle share "
+              f"{out['idle']:.4f}; {caps['captures']} captures, "
+              f"{caps['replays']} replays; cum_loss {loss:.6g} "
+              f"({name_card})")
+        check(math.isfinite(loss), f"nlp {what}: a finite loss")
+        check(caps["captures"] >= 1 and caps["replays"] + caps["captures"]
+              == n, f"nlp {what}: every batch a captured program: {caps}")
+        return out
+
+
+def _timed_fit(what, model, words, name_card):
+    with _FitClock() as clock:
+        model.fit()
+    return clock.report(what, model, words, name_card)
+
+
+def _w2v(sentences, device="cuda", **kw):
+    """Word2Vec at the ``VectorsConfiguration`` defaults (layer 100,
+    window 5, batch 512, lr 0.025, HS skip-gram, one epoch), ``kw``
+    applied to the Builder."""
+    b = nlp.Word2Vec.Builder().iterate(sentences).seed(NLP_SEED)
+    for k, v in kw.items():
+        getattr(b, k)(v)
+    return b.device(device).build()
+
+
+def _demo_word(sentences, device="cuda"):
+    """word2vec's ``demo-word.sh`` on text8: CBOW, 200 wide, window 8, 25
+    negatives, no hierarchical softmax, sampling 1e-4, alpha 0.05 (its
+    CBOW default), one epoch."""
+    return _w2v(sentences, device, layer_size=200, window_size=8,
+                negative_sample=25, use_hierarchic_softmax=False,
+                sampling=1e-4, learning_rate=0.05,
+                elements_learning_algorithm="cbow")
+
+
+def _glove(sentences, spill=None, device="cuda"):
+    """GloVe at its defaults (layer 100, window 15, batch 1024, lr 0.05,
+    x_max 100, alpha 0.75), one epoch."""
+    b = (nlp.Glove.Builder().iterate(sentences).epochs(1).seed(NLP_SEED)
+         .device(device))
+    if spill:
+        b.max_memory_pairs(spill)
+    return b.build()
+
+
+def _max_abs(a, b):
+    return float((a.detach().cpu().double() - b.detach().cpu().double())
+                 .abs().max())
+
+
+def _nlp_step_case(what, fn, mats, args, scalars, name_card, **kw):
+    """``fn`` on the card and on CPU copies of the same inputs: every
+    matrix and the loss within ``NLP_TOL``."""
+    card = [m.clone() for m in mats]
+    host = [m.cpu().clone() for m in mats]
+    lc = fn(*card, *args, *scalars, **kw)
+    lh = fn(*host, *[a.cpu() for a in args], *[s.cpu() for s in scalars],
+            **kw)
+    err = max(_max_abs(a, b) for a, b in zip(card, host))
+    ok = all(torch.allclose(a.cpu(), b, **NLP_TOL)
+             for a, b in zip(card, host))
+    print(f"nlp step {what}: card against CPU, max-abs {err:.3e}, loss "
+          f"{float(lc):.6g} against {float(lh):.6g} ({name_card})")
+    check(ok and math.isclose(float(lc), float(lh), rel_tol=NLP_TOL["rtol"],
+                              abs_tol=NLP_TOL["atol"]),
+          f"nlp step {what}: the card within {NLP_TOL} of the CPU")
+    return err
+
+
+def _first_batch(model):
+    """The first batch ``model``'s pair stream gives, padded as its step
+    pads it, on the card."""
+    batch = next(model._batches())
+    n = len(batch["targets"])
+    B = model._padded(n)
+    key = "inputs" if batch["kind"] == "sg" else "contexts"
+    cols = {"targets": model._pad(batch["targets"], B),
+            "mask": model._pad(np.ones(n, np.float32), B),
+            key: model._pad(batch[key], B, fill=-1 if key == "contexts"
+                            else 0)}
+    return {k: torch.as_tensor(v).cuda() for k, v in cols.items()}
+
+
+def nlp_step_checks(sg, cbow, glove_cut, name_card):
+    """Each of the five steps at its path's shapes: skip-gram on (a)'s
+    matrices and first batch (hierarchical softmax, and negative
+    sampling with demo-word's 25 negatives over (a)'s syn1 as the output
+    weights), CBOW on (b)'s matrices and batch (negative sampling) and on
+    (a)'s Huffman tree with (b)'s contexts (the two fits share a
+    vocabulary), GloVe on a fitted model's state and 1024 pairs counted
+    from the cut's first sentences."""
+    lr = torch.tensor(0.025, device="cuda")
+    a, b = sg.lookup, cbow.lookup
+    bs = _first_batch(sg)
+    pts, cds, cm = sg._path(bs["targets"])
+    _nlp_step_case("sg_hs", nlp_learning.sg_hs_step, [a.syn0, a.syn1],
+                   [bs["inputs"], pts, cds, cm, bs["mask"]], [lr], name_card)
+    negs = a.sample_negatives(rng_mod.device_key(NLP_SEED, "cuda"),
+                              (bs["targets"].shape[0], 25))
+    _nlp_step_case("sg_ns", nlp_learning.sg_ns_step, [a.syn0, a.syn1],
+                   [bs["inputs"], bs["targets"], negs, bs["mask"]], [lr],
+                   name_card)
+    bc = _first_batch(cbow)
+    ctx_mask = (bc["contexts"] >= 0).float()
+    negs = b.sample_negatives(rng_mod.device_key(NLP_SEED, "cuda"),
+                              (bc["targets"].shape[0], 25))
+    _nlp_step_case("cbow_ns", nlp_learning.cbow_ns_step,
+                   [b.syn0, b.syn1neg],
+                   [bc["contexts"], ctx_mask, bc["targets"], negs,
+                    bc["mask"]], [lr], name_card)
+    pts, cds, cm = sg._path(bc["targets"])
+    _nlp_step_case("cbow_hs", nlp_learning.cbow_hs_step, [a.syn0, a.syn1],
+                   [bc["contexts"], ctx_mask, pts, cds, cm, bc["mask"]],
+                   [lr], name_card)
+    g = _glove(glove_cut[:NLP_CHECK_SENTENCES])
+    g.fit()
+    cooc = nlp.CoOccurrences(g.vocab, g.window).fit_sentences(
+        s.split() for s in glove_cut[:200])
+    rows, cols, vals = cooc.as_arrays()
+    pick = np.random.RandomState(NLP_SEED).permutation(len(rows))[:1024]
+    batch = [torch.as_tensor(x[pick]).cuda() for x in (rows, cols, vals)]
+    batch.append(torch.ones(len(pick), device="cuda"))
+    _nlp_step_case("glove", nlp_learning.glove_step, list(g._state), batch,
+                   [torch.tensor(v, device="cuda")
+                    for v in (g.learning_rate, g.x_max, g.alpha)], name_card)
+
+
+def nlp_capture_checks(sentences, name_card):
+    """Short fits captured and eager (the models' internal ``_capture``
+    off) from one seed, within ``NLP_TOL``: (a)'s and (b)'s settings,
+    GloVe's and the distributed engine's."""
+    part = sentences[:NLP_CHECK_SENTENCES]
+
+    def slots():
+        return mesh_mod.default_mesh(data=NLP_SLOTS,
+                                     devices=["cuda"] * NLP_SLOTS)
+
+    def dist():
+        return (nlp_dist.DistributedWord2Vec.Builder().iterate(part)
+                .seed(NLP_SEED).mesh(slots()).build())
+
+    for what, make, names in (
+            ("sg_hs", lambda: _w2v(part), ("syn0", "syn1")),
+            ("cbow_ns", lambda: _demo_word(part), ("syn0", "syn1neg")),
+            ("glove", lambda: _glove(part), ("syn0",)),
+            ("distributed", dist, ("syn0", "syn1"))):
+        cap, eager = make(), make()
+        eager._capture = False
+        cap.fit()
+        eager.fit()
+        errs = [_max_abs(getattr(cap.lookup, n), getattr(eager.lookup, n))
+                for n in names]
+        ok = all(torch.allclose(getattr(cap.lookup, n),
+                                getattr(eager.lookup, n), **NLP_TOL)
+                 for n in names)
+        counts = cap.programs.counts()
+        print(f"nlp captured against eager, {what}: max-abs "
+              f"{max(errs):.3e}, cum_loss {cap.cum_loss:.9g} against "
+              f"{eager.cum_loss:.9g}; captured {counts}, eager "
+              f"{eager.programs.counts()} ({name_card})")
+        check(ok and counts["captures"] >= 1
+              and eager.programs.counts()["captures"] == 0,
+              f"nlp {what}: captured within {NLP_TOL} of eager")
+
+
+def nlp_quality(name_card):
+    """The reference's quality protocol on the card: wordsNearest top-3
+    purity on the two-topic corpus, HS skip-gram Word2Vec and spilled
+    GloVe at the reference test's settings."""
+    corpus = two_topic_corpus(400)
+    clusters = [NLP_WEATHER, NLP_FINANCE]
+    w = (nlp.Word2Vec.Builder().iterate(corpus).layer_size(24)
+         .window_size(4).epochs(8).min_word_frequency(2).seed(5)
+         .device("cuda").build().fit())
+    g = (nlp.Glove.Builder().iterate(corpus).layer_size(24).window_size(4)
+         .epochs(12).learning_rate(0.1).min_word_frequency(2).seed(3)
+         .max_memory_pairs(64).device("cuda").build().fit())
+    pw, pg = cluster_purity(w, clusters), cluster_purity(g, clusters)
+    print(f"nlp quality: wordsNearest top-3 purity Word2Vec {pw:.3f}, "
+          f"GloVe {pg:.3f} (BASELINE.md: {NLP_BASELINE[0]:.2f} / "
+          f"{NLP_BASELINE[1]:.2f}) ({name_card})")
+    check(pw > NLP_PURITY and pg > NLP_PURITY,
+          f"nlp quality: purity above {NLP_PURITY}")
+
+
+def nlp_phase(name_card, seed=NLP_SEED):
+    """The NLP embedding stack on the card (see the module docstring)."""
+    global NLP_SEED
+    NLP_SEED = seed
+    t0 = time.perf_counter()
+    sentences = nlp_corpus(seed)
+    cut = _cut(sentences, NLP_CUT)
+    n_words, n_cut = _tokens_in(sentences), _tokens_in(cut)
+    print(f"nlp corpus: {n_words} tokens in {len(sentences)} sentences, "
+          f"Zipf (s = 1) over {NLP_TYPES} types, seed {seed}; the cut "
+          f"{n_cut} tokens in {len(cut)} sentences; made in "
+          f"{time.perf_counter() - t0:.3f} s")
+    # (a), twice from one seed
+    sg = _w2v(sentences)
+    fits = {"a": _timed_fit("(a) Word2Vec skip-gram HS", sg, n_words,
+                            name_card)}
+    V = len(sg.vocab)
+    print(f"nlp (a): V {V}, syn0 {sg.lookup.syn0.nbytes} bytes, syn1 "
+          f"{sg.lookup.syn1.nbytes} bytes")
+    again = _w2v(sentences).fit()
+    gap = _max_abs(sg.syn0, again.syn0)
+    print(f"nlp (a) run twice from seed {seed}: syn0 max-abs {gap:.3e} "
+          f"(index_add_ on CUDA is not ordered; the reference's docstrings "
+          f"promise determinism given the seed) ({name_card})")
+    del again
+    # (b)
+    cbow = _demo_word(sentences)
+    fits["b"] = _timed_fit("(b) Word2Vec CBOW NS (demo-word)", cbow,
+                           n_words, name_card)
+    print(f"nlp (b): V {len(cbow.vocab)}, syn0 {cbow.lookup.syn0.nbytes} "
+          f"bytes, syn1neg {cbow.lookup.syn1neg.nbytes} bytes")
+    check(cbow.vocab.words() == sg.vocab.words(),
+          "nlp: (a) and (b) share one vocabulary")
+    # (c)
+    docs = [nlp.LabelledDocument(content=s, labels=[f"DOC_{i}"])
+            for i, s in enumerate(sentences[:NLP_DOCS])]
+    pv = (nlp.ParagraphVectors.Builder().iterate(docs).seed(seed)
+          .device("cuda").build())
+    fits["c"] = _timed_fit("(c) ParagraphVectors DBOW", pv,
+                           _tokens_in(sentences[:NLP_DOCS]), name_card)
+    t1 = time.perf_counter()
+    inferred = [pv.infer_vector(d.content) for d in docs[:NLP_INFER]]
+    t_infer = (time.perf_counter() - t1) * 1e3 / NLP_INFER
+    t1 = time.perf_counter()
+    predicted = [pv.predict(d.content) for d in docs[:NLP_INFER]]
+    t_predict = (time.perf_counter() - t1) * 1e3 / NLP_INFER
+    hits = sum(p == d.label for p, d in zip(predicted, docs))
+    print(f"nlp (c): infer_vector {t_infer:.3f} ms a document, predict "
+          f"{t_predict:.3f} ms; {hits} of {NLP_INFER} predicted as their "
+          f"own label ({name_card})")
+    check(all(v.shape == (pv.config.layer_size,) and np.isfinite(v).all()
+              for v in inferred) and all(p is not None for p in predicted),
+          "nlp (c): finite inferred vectors and a label for each")
+    # (d)
+    for what, spill in (("in RAM", None), ("spilled", NLP_SPILL_PAIRS)):
+        g = _glove(cut, spill)
+        fits["d " + what] = _timed_fit(f"(d) GloVe {what}", g, n_cut,
+                                       name_card)
+        check(bool(torch.isfinite(g.lookup.syn0).all()),
+              f"nlp (d) {what}: finite vectors")
+    # (e)
+    serial = _w2v(cut).fit()
+    mesh = mesh_mod.default_mesh(data=NLP_SLOTS, devices=["cuda"] * NLP_SLOTS)
+    dist = (nlp_dist.DistributedWord2Vec.Builder().iterate(cut).seed(seed)
+            .mesh(mesh).build())
+    with mesh_mod.census() as census:
+        fits["e"] = _timed_fit(f"(e) DistributedWord2Vec, {NLP_SLOTS} slots",
+                               dist, n_cut, name_card)
+    err = _max_abs(dist.syn0, serial.syn0)
+    red = census.counts.get("all-reduce", {})
+    print(f"nlp (e): syn0 max-abs {err:.3e} against the serial fit of the "
+          f"cut (atol {NLP_DIST_ATOL}); census {red.get('count')} "
+          f"all-reduces, {red.get('bytes', 0.0):.0f} bytes (counted at "
+          f"the warm-up and the capture) ({name_card})")
+    check(err <= NLP_DIST_ATOL, "nlp (e): the slots equal the serial fit")
+    # (f)
+    rs = np.random.RandomState(seed)
+    words = sg.vocab.words()
+    queries = [words[i] for i in rs.randint(0, V, NLP_QUERIES)]
+    times = []
+    for w in queries:
+        t1 = time.perf_counter()
+        near = sg.words_nearest(w, top_n=10)
+        times.append(time.perf_counter() - t1)
+        check(len(near) == 10 and w not in near,
+              f"nlp (f): ten neighbours of {w}")
+    print(f"nlp (f): {NLP_QUERIES} words_nearest queries, "
+          f"{np.mean(times) * 1e3:.4f} ms a query (median "
+          f"{np.median(times) * 1e3:.4f}) over V {V} ({name_card})")
+    # checks
+    nlp_step_checks(sg, cbow, cut, name_card)
+    nlp_capture_checks(sentences, name_card)
+    nlp_quality(name_card)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/a.zip"
+        nlp.WordVectorSerializer.write_full_model(sg, path)
+        back = nlp.WordVectorSerializer.read_full_model(path, device="cpu")
+    check(torch.equal(back.lookup.syn0, sg.syn0.cpu())
+          and torch.equal(back.lookup.syn1, sg.lookup.syn1.cpu())
+          and back.vocab.words() == sg.vocab.words(),
+          "nlp: the card's zip read back on the CPU, equal vectors")
+    print(f"nlp zip: (a)'s full model written from the card and read on "
+          f"the CPU, vectors equal; phase {time.perf_counter() - t0:.1f} s")
+    return fits
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="smoke run on one GPU")
+    parser.add_argument("--seed", type=int, default=NLP_SEED,
+                        help="the nlp phase's corpus and fits")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -7433,6 +7896,11 @@ def main() -> int:
     resnet_bn = sync_resnet_phase(name_card)
     torch.cuda.empty_cache()
     t_mp = time.perf_counter() - t_mp
+    t_nlp = time.perf_counter()
+    gc.collect()
+    nlp_phase(name_card, args.seed)
+    torch.cuda.empty_cache()
+    t_nlp = time.perf_counter() - t_nlp
     # the new phases' profiled launches join the kernels line's
     launches += served["paged"]
     train_launches = [n + guarded[k] for n, k in zip(
@@ -7564,7 +8032,7 @@ def main() -> int:
           f"checkpoint_sharded, elastic, sync_master and sequence_parallel "
           f"phases {t_a10:.1f} s; the tensor_parallel, expert_parallel, "
           f"pipeline, pipeline_hetero and sync_resnet phases {t_mp:.1f} "
-          f"s)")
+          f"s; the nlp phase {t_nlp:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2575,3 +2575,83 @@ def test_sync_master_batch_norm_on_the_gathered_rows(cuda):
                                    rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(got["kernels"][1], got[mode][1],
                                    rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------ the NLP embedding stack
+
+def _nlp_corpus(n=300, seed=7):
+    rs = np.random.RandomState(seed)
+    words = [f"w{i}" for i in range(40)]
+    return [" ".join(rs.choice(words, size=rs.randint(3, 12)))
+            for _ in range(n)]
+
+
+def _w2v(device, hs=True, negative=0, algo="skipgram", mesh=None):
+    from deeplearning4j_tpu_torch import nlp
+    from deeplearning4j_tpu_torch.nlp.distributed import DistributedWord2Vec
+
+    cls = nlp.Word2Vec if mesh is None else DistributedWord2Vec
+    b = (cls.Builder().iterate(_nlp_corpus()).layer_size(32).window_size(3)
+         .use_hierarchic_softmax(hs).negative_sample(negative)
+         .elements_learning_algorithm(algo).learning_rate(0.1).seed(3)
+         .batch_size(64))
+    if mesh is None:
+        b.device(device)
+    else:
+        b.mesh(mesh)
+    return b.build()
+
+
+@pytest.mark.parametrize("algo,hs,negative", [
+    ("skipgram", True, 0), ("skipgram", False, 5), ("cbow", True, 0),
+    ("cbow", False, 5)])
+def test_nlp_captured_fit_against_eager_and_the_cpu(algo, hs, negative,
+                                                    cuda):
+    """A fit's steps as captured graphs (one a padded batch shape) against
+    the same fit eager on the card and on the CPU (the same seeded
+    weights, pairs and, from the same keys, negatives): within rounding,
+    as ``index_add_`` on the card is not ordered."""
+    cap, eager = _w2v("cuda", hs, negative, algo), _w2v("cuda", hs,
+                                                        negative, algo)
+    eager._capture = False
+    host = _w2v("cpu", hs, negative, algo)
+    for m in (cap, eager, host):
+        m.fit()
+    counts = cap.programs.counts()
+    assert counts["captures"] >= 1 and counts["replays"] > 0
+    assert eager.programs.counts()["captures"] == 0
+    for n in ("syn0", "syn1", "syn1neg"):
+        a = getattr(cap.lookup, n)
+        if a is None:
+            continue
+        torch.testing.assert_close(a, getattr(eager.lookup, n), rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(a.cpu(), getattr(host.lookup, n),
+                                   rtol=1e-5, atol=1e-6)
+    assert abs(cap.cum_loss - host.cum_loss) <= 1e-5 * host.cum_loss
+
+
+def test_nlp_distributed_slots_on_the_card(cuda):
+    from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
+    serial = _w2v("cuda")
+    serial.fit()
+    dist = _w2v("cuda", mesh=mesh_mod.default_mesh(
+        data=4, devices=["cuda"] * 4))
+    dist.fit()
+    assert dist.programs.counts()["captures"] >= 1
+    torch.testing.assert_close(dist.syn0, serial.syn0, rtol=0, atol=1e-4)
+
+
+def test_nlp_glove_captured_against_the_cpu(cuda):
+    from deeplearning4j_tpu_torch import nlp
+
+    def glove(device):
+        return (nlp.Glove.Builder().iterate(_nlp_corpus()).layer_size(16)
+                .window_size(4).epochs(2).batch_size(128).seed(3)
+                .device(device).build().fit())
+
+    cap, host = glove("cuda"), glove("cpu")
+    assert cap.programs.counts()["captures"] == 1
+    torch.testing.assert_close(cap.lookup.syn0.cpu(), host.lookup.syn0,
+                               rtol=1e-5, atol=1e-6)

@@ -173,3 +173,21 @@ def test_every_module_of_the_parallel_slice_is_walked():
            "observability.shardstats"]
     assert sorted(f"deeplearning4j_tpu_torch.{n}" for n in new
                   if f"deeplearning4j_tpu_torch.{n}" not in walked) == []
+
+
+def test_every_module_of_the_nlp_slice_is_walked():
+    """Each of the JAX package's ``nlp/`` modules has its counterpart of
+    the same name in the port, and the poisoned-jax import above loads
+    it."""
+    import pkgutil
+
+    import deeplearning4j_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    reference = sorted(p.stem for p in (REPO / "deeplearning4j_tpu" / "nlp")
+                       .glob("*.py") if p.stem != "__init__")
+    assert len(reference) == 17
+    assert (PORT / "nlp" / "__init__.py").is_file()
+    assert [n for n in reference
+            if f"deeplearning4j_tpu_torch.nlp.{n}" not in walked] == []
