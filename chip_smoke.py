@@ -481,7 +481,39 @@ Phases (any failure exits non-zero; nothing is caught):
    atol=1e-6``), the reference's two-topic quality protocol (purity
    above 0.8, beside ``BASELINE.md``'s 0.97 / 1.00), and (a)'s
    full-model zip read back on the CPU with equal vectors.
-35. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
+35. graphs: DeepWalk on a planted-partition graph the size of
+   BlogCatalog (10,312 vertices, 333,983 undirected edges, 39 groups,
+   0.7 of the edges inside a group; from ``--seed``), at the DeepWalk
+   paper's settings (d 128, window 10, walks of 40, skip-gram HS, batch
+   512, lr 0.025, one epoch) with 2 walks a vertex (the paper's 80 cut:
+   845,584 tokens).  Prints the walks' host seconds, one pass of the
+   ``VocabWord`` objects the fit builds, the fit's words/s, set-up, host,
+   call and device ms a batch, idle share, captures and replays, and
+   ``vertices_nearest`` ms a query.  Oracles: the card's fit on the
+   first 2,000 walks against the CPU's (``rtol=1e-5, atol=1e-6``); mean
+   cosine within a group above across (``tests/test_graphs.py``'s
+   oracle), on that fit and on a second over the same walks at lr 1.0
+   (at lr 0.025 the vectors stay near their start: k-means on them is
+   at chance); k-means (K 39) on the second fit's unit vectors against
+   the planted groups, purity above ``GRAPH_PURITY``.
+36. clustering: (a) k-means on 70,000 x 784 float32 points of ten seeded
+   classes (MNIST's size), K 10, ``max_iterations`` 100, ``tol`` 1e-8:
+   ms an iteration, the iterations, the inertia against a float64
+   recomputation from its assignments (``rtol=1e-5``), and one Lloyd
+   iteration on the card against the CPU's from the same centres
+   (assignments equal apart from near-ties, counted; centres
+   ``rtol=1e-5, atol=1e-6``).  (b) Exact t-SNE at van der Maaten's
+   example size (2,500 points in 50 dims, ten seeded classes,
+   perplexity 30, 500 iterations, lr 200): P's host seconds, ms a
+   step, one capture and 499 replays, the KL, separation above 2.0, and
+   10 steps on the card against the CPU within 1e-5.  (c) Barnes-Hut on
+   the host (300 points, 50 iterations, theta 0.5), timed; its theta = 0
+   gradient against the card's exact one within 1e-5 relative in norm.
+   (d) Viterbi: the facade on 100,000 binary labels with 10 % flicker,
+   and ``viterbi_decode`` at T 10,000, S 64: ms, and the path and score
+   equal to the CPU's bit for bit.  (e) A CUDA tensor's round trip
+   through the interop.
+37. Print the kernels line, then ``{"ok": true, "device": ...}`` last.
 
 Exits non-zero without printing a result when no CUDA device is
 available or the port's package is not beside this script.
@@ -7782,12 +7814,488 @@ def nlp_phase(name_card, seed=NLP_SEED):
     return fits
 
 
+# ------------------------------------------- the graphs and clustering phases
+# BlogCatalog (Tang and Liu, KDD 2009; the DeepWalk paper's first set):
+# vertices, undirected edges, groups; the planted partition's share of
+# edges inside a group
+GRAPH_V, GRAPH_E, GRAPH_GROUPS, GRAPH_INSIDE = 10312, 333983, 39, 0.7
+# DeepWalk (Perozzi et al., KDD 2014): d 128, window 10, walks of 40;
+# gamma (walks a vertex) cut from 80 to 2 (PERF.md section 4)
+DEEPWALK = dict(vector_size=128, window_size=10, walk_length=40,
+                walks_per_vertex=2, learning_rate=0.025, batch_size=512,
+                epochs=1)
+GRAPH_CPU_WALKS = 2000      # the card's fit against the CPU's on these
+GRAPH_QUERIES = 1000        # vertices_nearest queries
+# At lr 0.025 one epoch over 2 walks a vertex leaves the vectors near
+# their start (the reference's step gives a row hit k times in a batch
+# the mean of its k updates, and every HS path crosses the tree's top):
+# k-means on them is at chance.  The quality fit trains on the same
+# walks at lr 1.0; its purity's bar comes from a CPU rehearsal at full
+# size (0.9232; PERF.md section 6)
+GRAPH_QUALITY_LR = 1.0
+GRAPH_PURITY = 0.8
+# MNIST's size (70000 x 784, ten classes), the JAX defaults
+KMEANS_N, KMEANS_D, KMEANS_K = 70000, 784, 10
+KMEANS_TOL = dict(rtol=1e-5, atol=1e-6)
+KMEANS_NEAR_TIE = 1e-5      # relative gap of a point's two nearest centres
+# van der Maaten's tsne.py example: 2500 MNIST digits reduced to 50 dims;
+# the JAX defaults (perplexity 30, 500 iterations, lr 200)
+TSNE_N, TSNE_D, TSNE_STEPS_CHECKED = 2500, 50, 10
+TSNE_ATOL = 1e-5
+TSNE_SEPARATION = 2.0       # tests/test_clustering.py:128-134
+BH_N, BH_ITERS, BH_THETA = 300, 50, 0.5
+BH_GRAD_RTOL = 1e-5
+VITERBI_LABELS, VITERBI_T, VITERBI_S = 100_000, 10_000, 64
+
+
+def planted_partition(seed, V=GRAPH_V, E=GRAPH_E, groups=GRAPH_GROUPS,
+                      inside=GRAPH_INSIDE):
+    """A planted-partition graph: ``V`` vertices in ``groups`` groups of
+    near-equal size, ``E`` distinct undirected edges (no self-loops),
+    ``inside`` of them between two vertices of one group.  Returns the
+    group of each vertex and the ``[E, 2]`` edges in insertion order."""
+    rs = np.random.RandomState(seed)
+    group = rs.permutation(np.arange(V) % groups)
+    members = np.argsort(group, kind="stable")
+    counts = np.bincount(group, minlength=groups)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+
+    def draw(n, same):
+        got = np.empty((0, 2), np.int64)
+        while len(got) < n:
+            m = int((n - len(got)) * 1.3) + 64
+            a = rs.randint(0, V, m)
+            if same:
+                g = group[a]
+                b = members[starts[g] + (rs.rand(m) * counts[g]).astype(
+                    np.int64)]
+            else:
+                b = rs.randint(0, V, m)
+            keep = (a != b) & ((group[a] == group[b]) == same)
+            pairs = np.stack([np.minimum(a, b), np.maximum(a, b)], 1)[keep]
+            got = np.unique(np.concatenate([got, pairs]), axis=0)
+        return got[rs.permutation(len(got))[:n]]
+
+    n_in = int(round(E * inside))
+    edges = np.concatenate([draw(n_in, True), draw(E - n_in, False)])
+    return group, edges[rs.permutation(E)]
+
+
+def _vertex_vectors(dw, V):
+    """DeepWalk's ``syn0`` rows in vertex order, unit length, on the
+    card."""
+    idx = torch.as_tensor([dw.vocab.index_of(str(v)) for v in range(V)],
+                          device=dw.lookup.syn0.device)
+    vecs = dw.lookup.syn0[idx]
+    return vecs / torch.linalg.norm(vecs, dim=1, keepdim=True).clamp_min(
+        1e-12)
+
+
+def group_cosines(vecs, group):
+    """Mean cosine over pairs of distinct vertices of one group and over
+    pairs of two groups, from the group sums of the unit vectors."""
+    V = vecs.shape[0]
+    onehot = F.one_hot(torch.as_tensor(group, device=vecs.device)).to(
+        torch.float64)
+    sums = onehot.T @ vecs.double()                    # [G, d]
+    total = vecs.double().sum(0)
+    n = np.bincount(group).astype(np.float64)
+    within = float((sums * sums).sum()) - V            # unit self-pairs
+    every = float(total @ total) - V
+    pairs_in = float((n * n).sum()) - V
+    pairs_all = float(V) * V - V
+    return within / pairs_in, (every - within) / (pairs_all - pairs_in)
+
+
+def cluster_purity_of(assign, group):
+    """Points in their cluster's most common group, over all points."""
+    hits = 0
+    for c in np.unique(assign):
+        hits += np.bincount(group[assign == c]).max()
+    return hits / len(assign)
+
+
+def graphs_phase(name_card, seed=NLP_SEED):
+    """DeepWalk on a BlogCatalog-sized planted-partition graph (see the
+    module docstring)."""
+    from deeplearning4j_tpu_torch import clustering, graphs
+    from deeplearning4j_tpu_torch.nlp.vocab import Sequence, VocabWord
+
+    t0 = time.perf_counter()
+    group, edges = planted_partition(seed)
+    t_edges = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    g = graphs.Graph(GRAPH_V)
+    for a, b in edges.tolist():
+        g.add_edge(a, b)
+    t_graph = time.perf_counter() - t1
+    inside = float(np.mean(group[edges[:, 0]] == group[edges[:, 1]]))
+    print(f"graphs: planted partition, {GRAPH_V} vertices, "
+          f"{g.num_edges() // 2} undirected edges ({inside:.4f} inside "
+          f"a group), {GRAPH_GROUPS} groups, seed {seed}; edges drawn in "
+          f"{t_edges:.3f} s, Graph built in {t_graph:.3f} s (host)")
+    check(g.num_edges() == 2 * GRAPH_E, "graphs: every edge in the graph")
+    t1 = time.perf_counter()
+    walks = graphs.generate_walks(g, DEEPWALK["walk_length"],
+                                  DEEPWALK["walks_per_vertex"], seed=seed)
+    t_walks = time.perf_counter() - t1
+    tokens = walks.size
+    t1 = time.perf_counter()
+    objects = 0
+    for row in walks:
+        seq = Sequence()
+        for v in row:
+            seq.add_element(VocabWord(label=str(int(v))))
+        objects += len(seq.elements)
+    t_objects = time.perf_counter() - t1
+    print(f"graphs: {len(walks)} walks of {walks.shape[1]} vertices "
+          f"({tokens} tokens) in {t_walks:.3f} s of host numpy; one pass "
+          f"turning them into {objects} VocabWord objects {t_objects:.3f} s "
+          f"(the fit makes two such passes: the vocabulary, then the "
+          f"pairs; both inside its set-up and host ms)")
+    dw = graphs.DeepWalk(seed=seed, device="cuda", **DEEPWALK)
+    with _FitClock() as clock:
+        dw.fit(g, walks=walks)
+    fit = clock.report("graphs DeepWalk (skip-gram HS)", dw, tokens,
+                       name_card)
+    # the card against the CPU on the first walks
+    part = walks[:GRAPH_CPU_WALKS]
+    card_dw = graphs.DeepWalk(seed=seed, device="cuda", **DEEPWALK).fit(
+        g, walks=part)
+    t1 = time.perf_counter()
+    host_dw = graphs.DeepWalk(seed=seed, device="cpu", **DEEPWALK).fit(
+        g, walks=part)
+    t_host = time.perf_counter() - t1
+    errs = [_max_abs(getattr(card_dw.lookup, n), getattr(host_dw.lookup, n))
+            for n in ("syn0", "syn1")]
+    ok = all(torch.allclose(getattr(card_dw.lookup, n).cpu(),
+                            getattr(host_dw.lookup, n), **NLP_TOL)
+             for n in ("syn0", "syn1"))
+    print(f"graphs: the card's fit on the first {GRAPH_CPU_WALKS} walks "
+          f"against the CPU's (same walks, tree, weights, pairs): syn0 "
+          f"max-abs {errs[0]:.3e}, syn1 {errs[1]:.3e}, cum_loss "
+          f"{card_dw.cum_loss:.9g} against {host_dw.cum_loss:.9g} (the CPU "
+          f"fit {t_host:.3f} s) ({name_card})")
+    check(ok, f"graphs: the card's DeepWalk within {NLP_TOL} of the CPU's")
+    del card_dw, host_dw
+    # the reference test's oracle and the planted groups, on the fit at
+    # the paper's lr and on the quality fit
+    chance = np.random.RandomState(seed).permutation(group)
+    quality = None
+    for what, model in (("lr 0.025", dw), ("lr 1.0", None)):
+        if model is None:
+            model = quality = graphs.DeepWalk(
+                seed=seed, device="cuda",
+                **dict(DEEPWALK, learning_rate=GRAPH_QUALITY_LR)).fit(
+                    g, walks=walks)
+        vecs = _vertex_vectors(model, GRAPH_V)
+        within, across = group_cosines(vecs, group)
+        t1 = time.perf_counter()
+        km = clustering.KMeansClustering(GRAPH_GROUPS, seed=seed,
+                                         device="cuda")
+        cs = km.apply_to(vecs)
+        t_km = time.perf_counter() - t1
+        purity = cluster_purity_of(cs.assignments, group)
+        print(f"graphs ({what}): mean cosine within a group {within:.4f}, "
+              f"across {across:.4f}; k-means (K {GRAPH_GROUPS}) on the unit "
+              f"vectors {km.iterations_} iterations, {t_km:.3f} s, purity "
+              f"against the planted groups {purity:.4f} (against shuffled "
+              f"groups {cluster_purity_of(cs.assignments, chance):.4f}) "
+              f"({name_card})")
+        check(within > across, f"graphs ({what}): within-group cosine "
+              "above across")
+    check(purity > GRAPH_PURITY, f"graphs: the quality fit's purity above "
+          f"{GRAPH_PURITY}")
+    rs = np.random.RandomState(seed)
+    queries = rs.randint(0, GRAPH_V, GRAPH_QUERIES)
+    times, same = [], 0
+    for v in queries.tolist():
+        t1 = time.perf_counter()
+        near = dw.vertices_nearest(v, top_n=10)
+        times.append(time.perf_counter() - t1)
+        check(len(near) == 10 and v not in near,
+              f"graphs: ten neighbours of {v}")
+        same += sum(group[u] == group[v]
+                    for u in quality.vertices_nearest(v, top_n=10))
+    print(f"graphs: {GRAPH_QUERIES} vertices_nearest queries, "
+          f"{np.mean(times) * 1e3:.4f} ms a query (median "
+          f"{np.median(times) * 1e3:.4f}); the quality fit's neighbours "
+          f"in the query's group {same / (10 * GRAPH_QUERIES):.4f}; "
+          f"similarity(0, 1) {dw.similarity(0, 1):.4f}; phase "
+          f"{time.perf_counter() - t0:.1f} s ({name_card})")
+    return fit
+
+
+def _mnist_like(seed, n, d, classes=10):
+    """``n`` points in [0, 1]^d from ``classes`` seeded prototypes (a
+    stroke mask shared by all, 0.8, and one of the class's own, 0.2),
+    scaled and noised, float32: k-means on them takes tens of
+    iterations to a purity near 0.6, as on MNIST."""
+    rs = np.random.RandomState(seed)
+    base = (rs.rand(d) < 0.2) * rs.uniform(0.5, 1.0, d)
+    own = (rs.rand(classes, d) < 0.2) * rs.uniform(0.5, 1.0, (classes, d))
+    proto = 0.8 * base + 0.2 * own
+    labels = rs.randint(0, classes, n)
+    x = proto[labels] * rs.uniform(0.6, 1.0, (n, 1)) \
+        + 0.3 * rs.randn(n, d)
+    return np.clip(x, 0.0, 1.0).astype(np.float32), labels
+
+
+def _inertia64(x, centers, assign, rows=8192):
+    total = 0.0
+    c = centers.astype(np.float64)
+    for i in range(0, len(x), rows):
+        diff = x[i:i + rows].astype(np.float64) - c[assign[i:i + rows]]
+        total += float((diff * diff).sum())
+    return total
+
+
+def kmeans_case(name_card, seed):
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, kmeans
+
+    t0 = time.perf_counter()
+    x, labels = _mnist_like(seed, KMEANS_N, KMEANS_D)
+    t_data = time.perf_counter() - t0
+    km = KMeansClustering(KMEANS_K, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cs = km.apply_to(x)
+    total = time.perf_counter() - t1
+    # the iterations alone, again from the same centres (CUDA events)
+    pts = torch.as_tensor(x).cuda()
+    c0 = pts[torch.as_tensor(kmeans._init_centers(x, KMEANS_K, seed),
+                             device="cuda")]
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    centers, _, inertia, its = kmeans._lloyd(pts, c0, km.max_iterations,
+                                             km.tol)
+    e1.record()
+    torch.cuda.synchronize()
+    loop_ms = e0.elapsed_time(e1)
+    check(its == km.iterations_ and torch.equal(centers.cpu(), torch.as_tensor(
+        cs.centers)), "clustering (a): the loop again gives the same centres")
+    purity = cluster_purity_of(cs.assignments, labels)
+    ref = _inertia64(x, cs.centers, cs.assignments)
+    rel = abs(cs.inertia - ref) / ref
+    print(f"clustering (a) k-means: {KMEANS_N} x {KMEANS_D} float32, K "
+          f"{KMEANS_K}, ten seeded classes (made in {t_data:.3f} s); "
+          f"{km.iterations_} iterations, {loop_ms / km.iterations_:.4f} ms "
+          f"an iteration (CUDA events around the loop and the final "
+          f"assignment, over the iterations), apply_to {total:.3f} s with "
+          f"the host's k-means++; inertia {cs.inertia:.8g} against "
+          f"{ref:.8g} in float64 numpy from its own assignments (rel "
+          f"{rel:.3e}); purity {purity:.4f} ({name_card})")
+    check(rel <= KMEANS_TOL["rtol"], "clustering (a): the inertia within "
+          f"rtol {KMEANS_TOL['rtol']} of the float64 sum")
+    # one iteration on the card against the CPU from the same centres
+    new_c, a_c, _ = kmeans._lloyd_step(pts, c0)
+    new_h, a_h, _ = kmeans._lloyd_step(torch.as_tensor(x), c0.cpu())
+    a_c = a_c.cpu()
+    differ = torch.nonzero(a_c != a_h).squeeze(1).numpy()
+    d = ((x[differ, None, :].astype(np.float64)
+          - c0.cpu().numpy()[None].astype(np.float64)) ** 2).sum(-1)
+    d.sort(1)
+    ties = int((d[:, 1] - d[:, 0] <= KMEANS_NEAR_TIE * d[:, 0]).sum())
+    if len(differ):     # the CPU's update from the card's assignments
+        onehot = F.one_hot(a_c, KMEANS_K).float()
+        cnt = onehot.sum(0)[:, None]
+        new_h = torch.where(cnt > 0, (onehot.T @ torch.as_tensor(x))
+                            / cnt.clamp(min=1.0), c0.cpu())
+    err = _max_abs(new_c, new_h)
+    print(f"clustering (a): one Lloyd iteration on the card against the "
+          f"CPU from the same centres: {len(differ)} assignments differ, "
+          f"{ties} of them near-ties (nearest two within "
+          f"{KMEANS_NEAR_TIE} relative); centres max-abs {err:.3e} "
+          f"({name_card})")
+    check(ties == len(differ), "clustering (a): assignments equal apart "
+          "from near-ties")
+    check(torch.allclose(new_c.cpu(), new_h, **KMEANS_TOL),
+          f"clustering (a): centres within {KMEANS_TOL} of the CPU's")
+    return dict(iterations=km.iterations_, ms=loop_ms / km.iterations_)
+
+
+def separation_score(emb, labels):
+    """Mean inter-class distance over mean intra-class distance, every
+    7th point (``tests/test_clustering.py::separation_score``)."""
+    intra, inter = [], []
+    for i in range(0, len(emb), 7):
+        for j in range(i + 1, len(emb), 7):
+            d = np.linalg.norm(emb[i] - emb[j])
+            (intra if labels[i] == labels[j] else inter).append(d)
+    return np.mean(inter) / np.mean(intra)
+
+
+def _classes(seed, n, d, classes=10):
+    """Ten seeded Gaussian classes in ``d`` dimensions (float64)."""
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(0, classes, n)
+    return (rs.randn(classes, d) * 3)[labels] + rs.randn(n, d), labels
+
+
+def tsne_case(name_card, seed):
+    from deeplearning4j_tpu_torch.clustering import BarnesHutTsne, Tsne, tsne
+
+    x, labels = _classes(seed, TSNE_N, TSNE_D)
+    ts = Tsne(seed=seed, device="cuda")
+    t0 = time.perf_counter()
+    P = tsne._joint_p(x, min(ts.perplexity, (TSNE_N - 1) / 3.0))
+    t_p = time.perf_counter() - t0
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t1 = time.perf_counter()
+    e0.record()
+    emb = ts.embed(P)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    step_ms = e0.elapsed_time(e1) / ts.n_iter
+    sep = separation_score(emb, labels)
+    print(f"clustering (b) exact t-SNE: {TSNE_N} x {TSNE_D}, ten seeded "
+          f"classes, perplexity {ts.perplexity}, {ts.n_iter} iterations, "
+          f"lr {ts.learning_rate}; P on the host {t_p:.3f} s; "
+          f"{step_ms:.4f} ms a step (CUDA events around embed: P's upload, "
+          f"the steps, y's read; over the steps), embed {wall:.3f} s; "
+          f"{ts.captures} capture, {ts.replays} replays; KL "
+          f"{ts.kl_divergence_:.6g}; separation {sep:.4f} (bar "
+          f"{TSNE_SEPARATION}) ({name_card})")
+    check(ts.captures == 1 and ts.replays == ts.n_iter - 1,
+          "clustering (b): one capture, a replay a later step")
+    check(np.isfinite(emb).all() and emb.shape == (TSNE_N, 2)
+          and math.isfinite(ts.kl_divergence_), "clustering (b): a finite "
+          "embedding and KL")
+    check(sep > TSNE_SEPARATION, f"clustering (b): separation above "
+          f"{TSNE_SEPARATION}")
+    # ten steps on the card against the CPU from the same P and state
+    rs = np.random.RandomState(seed)
+    y0 = torch.as_tensor((rs.randn(TSNE_N, 2) * 1e-2).astype(np.float32))
+    out = []
+    for dev in ("cuda", "cpu"):
+        Pd = torch.as_tensor(np.asarray(P * ts.early_exaggeration,
+                                        np.float32)).to(dev)
+        y = y0.clone().to(dev)
+        vel, gains = torch.zeros_like(y), torch.ones_like(y)
+        lr = torch.tensor(ts.learning_rate, device=dev)
+        mom = torch.tensor(ts.momentum, device=dev)
+        for _ in range(TSNE_STEPS_CHECKED):
+            kl = tsne.tsne_step_(Pd, y, vel, gains, lr, mom)
+        out.append([t.cpu() for t in (y, vel, gains)] + [float(kl)])
+    errs = [_max_abs(a, b) for a, b in zip(out[0][:3], out[1][:3])]
+    print(f"clustering (b): {TSNE_STEPS_CHECKED} steps on the card against "
+          f"the CPU from the same P and state: y max-abs {errs[0]:.3e}, vel "
+          f"{errs[1]:.3e}, gains {errs[2]:.3e}; KL {out[0][3]:.9g} against "
+          f"{out[1][3]:.9g} ({name_card})")
+    check(max(errs) <= TSNE_ATOL, f"clustering (b): the card within "
+          f"{TSNE_ATOL} of the CPU")
+    # (c) Barnes-Hut on the host, and its theta = 0 gradient
+    xb = x[:BH_N]
+    bh = BarnesHutTsne(theta=BH_THETA, n_iter=BH_ITERS, seed=seed)
+    t1 = time.perf_counter()
+    yb = bh.fit_transform(xb)
+    t_bh = time.perf_counter() - t1
+    Pb = tsne._joint_p(xb, min(bh.perplexity, (BH_N - 1) / 3.0))
+    t1 = time.perf_counter()
+    g_bh = BarnesHutTsne(theta=0.0)._gradient(Pb, yb)
+    t_g = time.perf_counter() - t1
+    g_card, _ = tsne._tsne_grad(
+        torch.as_tensor(np.asarray(Pb, np.float32)).cuda(),
+        torch.as_tensor(yb.astype(np.float32)).cuda())
+    rel = float(np.linalg.norm(g_card.cpu().double().numpy() - g_bh)
+                / np.linalg.norm(g_bh))
+    print(f"clustering (c) Barnes-Hut t-SNE: {BH_N} points, {BH_ITERS} "
+          f"iterations, theta {BH_THETA}: {t_bh:.3f} s on the host "
+          f"({t_bh / BH_ITERS * 1e3:.1f} ms an iteration), KL "
+          f"{bh.kl_divergence_:.6g}; its theta = 0 gradient at the final y "
+          f"({t_g:.3f} s) against the card's exact step's: {rel:.3e} "
+          f"relative in norm ({name_card})")
+    check(rel <= BH_GRAD_RTOL, f"clustering (c): within {BH_GRAD_RTOL}")
+    return dict(step_ms=step_ms, p_s=t_p)
+
+
+def viterbi_case(name_card, seed):
+    from deeplearning4j_tpu_torch.utils import Viterbi, viterbi, viterbi_decode
+
+    rs = np.random.RandomState(seed)
+    runs = rs.randint(20, 500, VITERBI_LABELS // 20)
+    truth = np.repeat(np.arange(len(runs)) % 2, runs)[:VITERBI_LABELS]
+    flick = rs.rand(VITERBI_LABELS) < 0.1
+    obs = np.where(flick, 1 - truth, truth)
+    cases = [("facade", VITERBI_LABELS,
+              lambda dev: Viterbi([0, 1], meta_stability=0.95, p_correct=0.9,
+                                  device=dev).decode(obs))]
+    em = np.log(rs.dirichlet(np.ones(VITERBI_S), VITERBI_T)).astype(
+        np.float32)
+    tr = np.log(rs.dirichlet(np.ones(VITERBI_S), VITERBI_S)).astype(
+        np.float32)
+    cases.append((f"viterbi_decode S {VITERBI_S}", VITERBI_T,
+                  lambda dev: viterbi_decode(em, tr, device=dev)))
+    for what, T, run in cases:
+        before = dict(viterbi.counts)
+        run("cuda")             # the first call's capture
+        mid = dict(viterbi.counts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path, score = run("cuda")
+        ms = (time.perf_counter() - t1) * 1e3
+        caps = {k: viterbi.counts[k] - mid[k] for k in mid}
+        t1 = time.perf_counter()
+        path_h, score_h = run("cpu")
+        ms_h = (time.perf_counter() - t1) * 1e3
+        print(f"clustering (d) Viterbi {what}, T {T}: {ms:.3f} ms on the "
+              f"card ({ms / T * 1e3:.3f} us a step, the host's backtrace "
+              f"included; {caps['captures']} capture of {viterbi.CHUNK} "
+              f"steps, {caps['replays']} replays), the CPU {ms_h:.3f} ms; "
+              f"score {score:.9g}" + (f"; {np.mean(path != truth):.4f} of "
+                                      f"the labels differ from the truth "
+                                      f"(observed {flick.mean():.4f})"
+                                      if what == "facade" else "")
+              + f" ({name_card})")
+        check(mid["captures"] - before["captures"] == 1
+              and caps["captures"] == 1, f"clustering (d) {what}: a "
+              "capture a call")
+        check(np.array_equal(np.asarray(path), np.asarray(path_h))
+              and score == score_h, f"clustering (d) {what}: the path and "
+              "the score equal the CPU's bit for bit")
+
+
+def interop_case(name_card):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.utils import interop
+
+    x = torch.randn(1000, 64, device="cuda")
+    arr = interop.from_torch(x)
+    back = interop.to_torch(arr)
+    labels = np.eye(10, dtype=np.float32)[np.arange(1000) % 10]
+    ds = interop.dataset_from_torch(interop.dataset_to_torch(
+        DataSet(arr, labels)))
+    ok = (torch.equal(back, x.cpu()) and back.data_ptr() == arr.ctypes.data
+          and np.array_equal(ds.features, arr)
+          and np.array_equal(ds.labels, labels))
+    print(f"clustering (e) interop: a [1000, 64] CUDA tensor to numpy, back "
+          f"to a CPU tensor sharing its memory, and through a "
+          f"TensorDataset and a DataSet: equal ({name_card})")
+    check(ok, "clustering (e): the round trip from a CUDA tensor")
+
+
+def clustering_phase(name_card, seed=NLP_SEED):
+    """k-means, exact and Barnes-Hut t-SNE, Viterbi and the interop (see
+    the module docstring)."""
+    t0 = time.perf_counter()
+    km = kmeans_case(name_card, seed)
+    torch.cuda.empty_cache()
+    ts = tsne_case(name_card, seed)
+    torch.cuda.empty_cache()
+    viterbi_case(name_card, seed)
+    interop_case(name_card)
+    print(f"clustering: phase {time.perf_counter() - t0:.1f} s")
+    return dict(kmeans=km, tsne=ts)
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description="smoke run on one GPU")
     parser.add_argument("--seed", type=int, default=NLP_SEED,
-                        help="the nlp phase's corpus and fits")
+                        help="the nlp, graphs and clustering phases' data "
+                        "and fits")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7901,6 +8409,13 @@ def main(argv=None) -> int:
     nlp_phase(name_card, args.seed)
     torch.cuda.empty_cache()
     t_nlp = time.perf_counter() - t_nlp
+    t_graphs = time.perf_counter()
+    gc.collect()
+    graphs_phase(name_card, args.seed)
+    torch.cuda.empty_cache()
+    clustering_phase(name_card, args.seed)
+    torch.cuda.empty_cache()
+    t_graphs = time.perf_counter() - t_graphs
     # the new phases' profiled launches join the kernels line's
     launches += served["paged"]
     train_launches = [n + guarded[k] for n, k in zip(
@@ -8032,7 +8547,8 @@ def main(argv=None) -> int:
           f"checkpoint_sharded, elastic, sync_master and sequence_parallel "
           f"phases {t_a10:.1f} s; the tensor_parallel, expert_parallel, "
           f"pipeline, pipeline_hetero and sync_resnet phases {t_mp:.1f} "
-          f"s; the nlp phase {t_nlp:.1f} s)")
+          f"s; the nlp phase {t_nlp:.1f} s; the graphs and clustering "
+          f"phases {t_graphs:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

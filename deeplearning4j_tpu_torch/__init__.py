@@ -11,8 +11,13 @@ Entry points (``MultiLayerNetwork.init``, ``models.zoo``,
 unless the caller passes ``device="cpu"``; with no GPU and no explicit
 CPU request they raise instead of quietly running on the host.
 
-Ported so far (slice 1, serving): the transformer char-LM's inference
-path and the continuous-batching ``generation.GenerationEngine``, whose
-paged decode attention is a hand-written CUDA kernel
-(``helpers/csrc/paged_attention.cu``).
+Ported so far: every module of the JAX package but ``provision/`` (the
+process-level cluster bootstrap).  The serving stack (the char-LM's
+inference path, ``generation`` and ``serving`` engines, HTTP, the fleet),
+the facades' training, the layer zoo, the data path and the dashboard,
+online learning, slot-mesh data, sequence, tensor, expert and pipeline
+parallelism, the NLP embedding stack, ``graphs`` (DeepWalk over the NLP engine), ``clustering`` (k-means and
+exact t-SNE on the device, the trees and Barnes-Hut t-SNE on the host),
+``utils.viterbi`` and ``utils.interop``.  Every Pallas kernel of the
+reference has a hand-written CUDA counterpart in ``helpers/csrc/``.
 """

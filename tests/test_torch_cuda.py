@@ -2655,3 +2655,107 @@ def test_nlp_glove_captured_against_the_cpu(cuda):
     assert cap.programs.counts()["captures"] == 1
     torch.testing.assert_close(cap.lookup.syn0.cpu(), host.lookup.syn0,
                                rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------- graphs, clustering, Viterbi
+
+def _planted(n=60, groups=3, edges=400, inside=0.8, seed=2, device="cpu"):
+    """A planted-partition graph (the smoke's BlogCatalog stand-in, small)."""
+    from deeplearning4j_tpu_torch import graphs
+
+    rs = np.random.RandomState(seed)
+    g = graphs.Graph(n)
+    group = np.arange(n) % groups
+    for _ in range(edges):
+        a = rs.randint(n)
+        pool = np.nonzero((group == group[a]) == (rs.rand() < inside))[0]
+        g.add_edge(int(a), int(rs.choice(pool)))
+    return g
+
+
+@pytest.mark.parametrize("window", [3, 10])
+def test_graphs_deepwalk_captured_fit_against_the_cpu(window, cuda):
+    """DeepWalk's batch steps as captured graphs on the card against the
+    same fit on the CPU (the same walks, tree, weights and pairs)."""
+    from deeplearning4j_tpu_torch import graphs
+
+    def fit(device):
+        return graphs.DeepWalk(vector_size=32, window_size=window,
+                               walk_length=20, walks_per_vertex=4,
+                               batch_size=128, seed=5,
+                               device=device).fit(_planted())
+
+    card, host = fit("cuda"), fit("cpu")
+    counts = card.programs.counts()
+    assert counts["captures"] >= 1 and counts["replays"] > 0
+    for n in ("syn0", "syn1"):
+        torch.testing.assert_close(getattr(card.lookup, n).cpu(),
+                                   getattr(host.lookup, n), rtol=1e-5,
+                                   atol=1e-6)
+    assert card.vertices_nearest(3, 5) == host.vertices_nearest(3, 5)
+
+
+def test_clustering_lloyd_iteration_against_the_cpu(cuda):
+    """One Lloyd iteration and a whole k-means on the card against the
+    CPU: equal assignments, centres within rtol 1e-5, atol 1e-6."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering, kmeans
+
+    rs = np.random.RandomState(0)
+    x = (rs.randn(8, 64) * 3)[rs.randint(0, 8, 5000)] + rs.randn(5000, 64)
+    pts = torch.as_tensor(x.astype(np.float32))
+    c0 = pts[:8]
+    card = kmeans._lloyd_step(pts.cuda(), c0.cuda())
+    host = kmeans._lloyd_step(pts, c0)
+    assert torch.equal(card[1].cpu(), host[1])
+    torch.testing.assert_close(card[0].cpu(), host[0], rtol=1e-5, atol=1e-6)
+    a = KMeansClustering(8, device="cuda").apply_to(x)
+    b = KMeansClustering(8, device="cpu").apply_to(x)
+    np.testing.assert_array_equal(a.assignments, b.assignments)
+    np.testing.assert_allclose(a.centers, b.centers, rtol=1e-5, atol=1e-6)
+
+
+def test_clustering_tsne_step_against_the_cpu(cuda):
+    """Ten exact t-SNE steps on the card against the CPU from the same P
+    and state, and the captured fit against the eager one on the card."""
+    from deeplearning4j_tpu_torch.clustering import Tsne, tsne
+
+    rs = np.random.RandomState(1)
+    x = (rs.randn(10, 20) * 3)[rs.randint(0, 10, 400)] + rs.randn(400, 20)
+    P = tsne._joint_p(x, 30.0)
+    y0 = torch.as_tensor((rs.randn(400, 2) * 1e-2).astype(np.float32))
+    states = []
+    for dev in ("cuda", "cpu"):
+        Pd = torch.as_tensor(np.asarray(P * 4, np.float32)).to(dev)
+        y = y0.clone().to(dev)
+        vel, gains = torch.zeros_like(y), torch.ones_like(y)
+        lr = torch.tensor(200.0, device=dev)
+        mom = torch.tensor(0.5, device=dev)
+        for _ in range(10):
+            kl = tsne.tsne_step_(Pd, y, vel, gains, lr, mom)
+        states.append((y.cpu(), vel.cpu(), gains.cpu(), float(kl)))
+    for a, b in zip(states[0][:3], states[1][:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    assert states[0][3] == pytest.approx(states[1][3], rel=1e-4)
+    cap = Tsne(n_iter=150, device="cuda")
+    eager = Tsne(n_iter=150, device="cuda")
+    eager._capture = False
+    yc, ye = cap.embed(P), eager.embed(P)
+    assert (cap.captures, cap.replays) == (1, 149)
+    np.testing.assert_allclose(yc, ye, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,S", [(1000, 8), (300, 64), (5, 3)])
+def test_viterbi_path_against_the_cpu(T, S, cuda):
+    """The card's recursion (captured chunks where T allows) against the
+    CPU's: the same path and score, bit for bit."""
+    from deeplearning4j_tpu_torch.utils import viterbi
+
+    rs = np.random.RandomState(T)
+    em = np.log(rs.dirichlet(np.ones(S), T)).astype(np.float32)
+    tr = np.log(rs.dirichlet(np.ones(S), S)).astype(np.float32)
+    before = dict(viterbi.counts)
+    pc, sc = viterbi.viterbi_decode(em, tr, device="cuda")
+    ph, sh = viterbi.viterbi_decode(em, tr, device="cpu")
+    assert np.array_equal(pc, ph) and sc == sh
+    chunks = (T - 1) // viterbi.CHUNK
+    assert viterbi.counts["captures"] - before["captures"] == int(chunks > 0)

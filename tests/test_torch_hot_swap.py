@@ -58,6 +58,16 @@ def _jax_ids(jnet, prompts, n):
         jeng.stop()
 
 
+def _wait_for(ready, what, timeout_s=60.0):
+    """Polls ``ready()`` until it holds; fails the test after
+    ``timeout_s`` seconds."""
+    deadline = time.monotonic() + timeout_s
+    while not ready():
+        if time.monotonic() > deadline:
+            pytest.fail(f"waited {timeout_s} s for {what}")
+        time.sleep(0.005)
+
+
 def test_hot_swap_zero_drops(v1, v2, rng):
     """Clients generate continuously while a new version is deployed:
     every stream completes with all its tokens, none errors, the
@@ -85,15 +95,24 @@ def test_hot_swap_zero_drops(v1, v2, rng):
                 with lock:
                     results.append(len(toks) == n)
 
+        def finished():
+            with lock:
+                return len(results) + len(errors)
+
         threads = [threading.Thread(target=client, args=(c,))
                    for c in range(3)]
         for t in threads:
             t.start()
+        _wait_for(lambda: finished() >= 6, "6 generations before the deploy")
         long = [eng.submit(rng.randint(0, VOCAB, 5).tolist(), 20)
                 for _ in range(2)]
-        time.sleep(0.2)
+        _wait_for(lambda: all(h.tokens for h in long),
+                  "the long streams' first tokens")
+        assert not any(h.done.is_set() for h in long)
+        before = finished()
         mv2 = eng.deploy("default", v2[1])
-        time.sleep(0.2)
+        _wait_for(lambda: finished() >= before + 6,
+                  "6 generations after the deploy")
         stop.set()
         for t in threads:
             t.join(30)

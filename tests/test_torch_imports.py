@@ -191,3 +191,40 @@ def test_every_module_of_the_nlp_slice_is_walked():
     assert (PORT / "nlp" / "__init__.py").is_file()
     assert [n for n in reference
             if f"deeplearning4j_tpu_torch.nlp.{n}" not in walked] == []
+
+
+def test_every_module_of_the_graphs_and_clustering_slice_is_walked(tmp_path):
+    """The graph, clustering, Viterbi and interop modules (the JAX
+    package's ``graphs/`` and ``clustering/`` whole, ``utils/viterbi.py``
+    and ``utils/interop.py``) have their counterparts of the same name in
+    the port, and a fresh interpreter where ``jax`` is poisoned imports
+    each of them."""
+    import pkgutil
+
+    import deeplearning4j_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    new = [f"{d}.{p.stem}" if p.stem != "__init__" else d
+           for d in ("graphs", "clustering")
+           for p in sorted((REPO / "deeplearning4j_tpu" / d).glob("*.py"))]
+    new += ["utils.viterbi", "utils.interop"]
+    assert len(new) == 11
+    names = [f"deeplearning4j_tpu_torch.{n}" for n in new]
+    assert [n for n in names if n not in walked] == []
+    poison = tmp_path / "poison"
+    poison.mkdir()
+    for name in ("jax", "jaxlib"):
+        (poison / f"{name}.py").write_text(
+            "raise ImportError('the port must not import jax')\n")
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}: importlib.import_module(n)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{poison}{os.pathsep}{REPO}"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
