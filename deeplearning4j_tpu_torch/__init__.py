@@ -11,8 +11,15 @@ Entry points (``MultiLayerNetwork.init``, ``models.zoo``,
 unless the caller passes ``device="cpu"``; with no GPU and no explicit
 CPU request they raise instead of quietly running on the host.
 
-Ported so far: every module of the JAX package but ``provision/`` (the
-process-level cluster bootstrap).  The serving stack (the char-LM's
+Every module of the JAX package is ported, ``provision/`` (the GPU
+hosts' command lines and ``bootstrap_distributed``) included.  Training
+runs across processes, one a card, joined by
+``parallel.initialize_distributed`` over ``torch.distributed`` (NCCL
+between cards, gloo on the CPU): the sync master (replicated and ZeRO),
+``DistributedNetwork`` and the sharded checkpoint; parameter averaging,
+the elastic masters, the model and seq axes, the distributed NLP fits
+and resilient checkpoints raise there, each naming its ROADMAP A14 item.
+The serving stack (the char-LM's
 inference path, ``generation`` and ``serving`` engines, HTTP, the fleet),
 the facades' training, the layer zoo, the data path and the dashboard,
 online learning, slot-mesh data, sequence, tensor, expert and pipeline

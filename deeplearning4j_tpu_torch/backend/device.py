@@ -40,9 +40,24 @@ def pin_fp32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+_process_device: Optional[torch.device] = None
+
+
+def set_process_device(device: Optional[torch.device]) -> None:
+    """The card this process drives (``parallel.initialize_distributed``:
+    ``cuda:{LOCAL_RANK % device_count}``, one process a card); None
+    forgets it."""
+    global _process_device
+    _process_device = None if device is None else torch.device(device)
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises without a GPU); anything else is taken
-    as given, and a CUDA device without a GPU raises too."""
+    """``None`` -> ``cuda`` (raises without a GPU), or the process's card
+    once a process group put one in force (``set_process_device``);
+    anything else is taken as given, and a CUDA device without a GPU
+    raises too."""
+    if device is None and _process_device is not None:
+        device = _process_device
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

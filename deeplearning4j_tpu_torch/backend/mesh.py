@@ -18,9 +18,28 @@ adds its op, payload bytes and group size to the process's collective
 census (``census``), which ``observability.shardstats`` reads per
 program.
 
-A mesh whose slots span several devices or processes raises
-``NotImplementedError`` (ROADMAP A10, meshes across processes and
-GPUs).  It is never folded onto one device.
+**Across processes.**  The port runs one process per card, the PyTorch
+idiom, joined into a ``torch.distributed`` process group by
+``parallel.initialize_distributed``.  A mesh made while a group is up
+spans its W processes: the data axis's K slots are laid out process by
+process (the reference's ``slice_mesh`` rule with a process in the place
+of a slice), so process r holds the global data slots ``r*K/W ...
+(r+1)*K/W - 1`` on its own device, and the model and seq axes stay
+inside a process.  ``Mesh.shape`` stays global; ``local_shape`` is the
+process's own.  A collective then has a second, cross-process half
+(``process_all_gather``, ``process_sum``): the W per-process partials
+are all-gathered into ``[W, ...]`` and summed over that dimension in
+rank order, so every rank holds the same bits whichever layout asked.
+Only ``all_gather`` is needed from the backend (gloo for CPU tensors
+and, through host memory in its own CUDA path, the card's; NCCL for the
+card's).  Each cross-process collective adds its bytes and seconds to
+the census beside the slot bytes (``process_bytes``, ``process_count``)
+and to ``process_totals()``.
+
+A mesh in one process whose slots name several devices raises
+``NotImplementedError`` (ROADMAP A10): its counterpart in the port is
+one process per card through ``initialize_distributed``.  It is never
+folded onto one device.
 
 ``Sharded`` is a leaf laid over a mesh by a ``PartitionSpec`` (``P``):
 what the sharded checkpoint saves piece by piece and the sharding ledger
@@ -33,6 +52,7 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,9 +65,55 @@ AXIS_MODEL = "model"
 AXIS_SEQ = "seq"
 AXES = (AXIS_DATA, AXIS_MODEL, AXIS_SEQ)
 
-_ACROSS = ("a mesh across several devices or processes is not ported yet "
-           "(ROADMAP A10, meshes across processes and GPUs, with "
-           "initialize_distributed and A12's provision/cluster.py)")
+_ACROSS = ("a mesh in one process over several devices is not ported "
+           "(ROADMAP A10, meshes across processes and GPUs: the port runs "
+           "one process per card, joined by "
+           "parallel.initialize_distributed, the PyTorch idiom)")
+
+
+# ------------------------------------------------------------- processes
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+# what still raises under a mesh that spans processes (ROADMAP A14)
+A14A = ("ROADMAP A14a: parameter averaging, ParallelWrapper and elastic "
+        "masters across processes")
+A14B = "ROADMAP A14b: the model and seq axes across processes"
+A14C = "ROADMAP A14c: DistributedWord2Vec and DistributedGlove across processes"
+A14E = ("ROADMAP A14e: the introspection policy, the numerics ledger and "
+        "resilient checkpoints across processes")
+
+
+def across_processes(what: str, item: str, mesh=None) -> None:
+    """Raise ``NotImplementedError`` naming ``item`` when ``mesh`` (or,
+    without one, this process) spans a process group: ``what`` would
+    otherwise train only this process's replicas without a word."""
+    spans = mesh.spans_processes if mesh is not None else processes_up()
+    if spans:
+        raise NotImplementedError(
+            f"{what} across processes is not ported yet ({item})")
+
+
+def processes_up() -> bool:
+    """A ``torch.distributed`` process group is up in this process
+    (``parallel.initialize_distributed``)."""
+    dist = _dist()
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_count() -> int:
+    return _dist().get_world_size() if processes_up() else 1
+
+
+def process_index() -> int:
+    return _dist().get_rank() if processes_up() else 0
+
+
+def process_backend() -> Optional[str]:
+    return str(_dist().get_backend()) if processes_up() else None
 
 
 class P(tuple):
@@ -65,9 +131,14 @@ class P(tuple):
 class Mesh:
     """Named axes over an array of slots (``devices``: an object array of
     ``torch.device``, one per slot).  ``shape`` maps axis name to size,
-    as the reference's ``Mesh.shape``."""
+    as the reference's ``Mesh.shape``.  ``processes`` (W, from the
+    process group: ``default_mesh`` passes it while one is up) makes the
+    mesh span W processes along its data axis (module docstring): this
+    process holds the data slots ``local_slots`` of ``shape``'s, and its
+    own slots must name one device."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str],
+                 processes: Optional[int] = None):
         arr = np.empty(np.shape(devices), dtype=object)
         flat = [torch.device(d) for d in np.asarray(devices,
                                                     dtype=object).reshape(-1)]
@@ -76,13 +147,32 @@ class Mesh:
         if arr.ndim != len(axis_names):
             raise ValueError(f"{arr.ndim}-d slot array for axes "
                              f"{tuple(axis_names)}")
-        if len({str(d) for d in flat}) > 1:
-            raise NotImplementedError(
-                f"slots on {sorted({str(d) for d in flat})}: " + _ACROSS)
         self.devices = arr
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, arr.shape))
-        self.device = flat[0]
+        self.spans_processes = processes is not None
+        self.process_count = int(processes or 1)
+        self.process_index = process_index() if self.spans_processes else 0
+        k = self.shape.get(AXIS_DATA, 1)
+        if k % self.process_count:
+            raise ValueError(
+                f"a data axis of {k} slots does not divide over "
+                f"{self.process_count} processes")
+        per = k // self.process_count
+        lo = self.process_index * per
+        self.local_slots = range(lo, lo + per)
+        self.local_shape = dict(self.shape)
+        if AXIS_DATA in self.shape:
+            self.local_shape[AXIS_DATA] = per
+            d = self.axis_names.index(AXIS_DATA)
+            mine = [torch.device(x) for x in np.take(
+                arr, list(self.local_slots), axis=d).reshape(-1)]
+        else:
+            mine = flat
+        if len({str(d) for d in mine}) > 1:
+            raise NotImplementedError(
+                f"slots on {sorted({str(d) for d in mine})}: " + _ACROSS)
+        self.device = mine[0]
 
     @property
     def size(self) -> int:
@@ -93,7 +183,10 @@ class Mesh:
         return math.prod(self.shape[n] for n in _names(names))
 
     def __repr__(self):
-        return f"Mesh({self.shape}, device={self.device})"
+        span = (f", processes={self.process_count}, "
+                f"process_index={self.process_index}"
+                if self.spans_processes else "")
+        return f"Mesh({self.shape}, device={self.device}{span})"
 
 
 def _names(entry) -> Tuple[str, ...]:
@@ -103,7 +196,10 @@ def _names(entry) -> Tuple[str, ...]:
 
 
 def local_devices() -> List[torch.device]:
-    """The cards of this process, or the CPU where there is none."""
+    """The cards of this process, or the CPU where there is none; under a
+    process group, the process's own card (one process a card)."""
+    if processes_up() and torch.cuda.is_available():
+        return [resolve_device(None)]
     if torch.cuda.is_available():
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
@@ -111,7 +207,8 @@ def local_devices() -> List[torch.device]:
 
 
 def device_count() -> int:
-    return len(local_devices())
+    """Every process's devices: under a process group one a process."""
+    return process_count() if processes_up() else len(local_devices())
 
 
 def default_mesh(n_devices: Optional[int] = None, *,
@@ -122,7 +219,9 @@ def default_mesh(n_devices: Optional[int] = None, *,
     ``devices`` names each slot's device (repeats allowed); without it
     the mesh has ``n_devices`` slots (default: ``data * model * seq``,
     else the card count) of the default device (``cuda``; raises without
-    a GPU)."""
+    a GPU).  While a process group is up the slots are global: the mesh
+    spans the group's processes, ``devices`` naming every slot (module
+    docstring)."""
     if devices is None:
         n = n_devices or ((data * model * seq) if data else device_count())
         devices = [resolve_device(None)] * n
@@ -139,7 +238,8 @@ def default_mesh(n_devices: Optional[int] = None, *,
     arr = np.empty(n, dtype=object)
     for i, d in enumerate(devices):
         arr[i] = torch.device(d)
-    return Mesh(arr.reshape(data, model, seq), AXES)
+    return Mesh(arr.reshape(data, model, seq), AXES,
+                processes=process_count() if processes_up() else None)
 
 
 def slice_mesh(n_slices: Optional[int] = None, *, model: int = 1,
@@ -299,6 +399,25 @@ class Sharded:
                            for d, b in enumerate(bs))
             yield ranges, x[idx] if idx else x
 
+    def owner(self, ranges) -> Optional[int]:
+        """The process that holds the block at ``ranges`` (``blocks()``'s)
+        on a mesh that spans processes: the one whose data slots it lies
+        in; None where every process holds it (no dimension sharded over
+        the data axis, or a mesh in one process)."""
+        if not self.mesh.spans_processes:
+            return None
+        bs = self.block_shape
+        for d, e in enumerate(self.spec):
+            names = _names(e)
+            if AXIS_DATA not in names:
+                continue
+            idx = ranges[d][0] // bs[d]
+            after = names[names.index(AXIS_DATA) + 1:]
+            coord = (idx // self.mesh.axis_size(after)) \
+                % self.mesh.shape[AXIS_DATA]
+            return coord // self.mesh.local_shape[AXIS_DATA]
+        return None
+
     def slot_bytes(self) -> int:
         """Bytes each slot holds: one block."""
         return math.prod(self.block_shape) * self.local.element_size()
@@ -336,13 +455,18 @@ def note(op: str, t: torch.Tensor, group: int) -> None:
         _add(_census.counts, op, 1, nbytes, [group])
 
 
-def _add(book, op, count, nbytes, groups):
+_PROCESS_KEYS = ("process_count", "process_bytes", "process_seconds")
+
+
+def _add(book, op, count, nbytes, groups, extra=None):
     e = book.setdefault(op, {"count": 0, "bytes": 0.0, "group_sizes": []})
     e["count"] += count
     e["bytes"] += nbytes
     for g in groups:
         if g not in e["group_sizes"]:
             e["group_sizes"].append(g)
+    for k, v in (extra or {}).items():
+        e[k] = e.get(k, 0) + v
 
 
 class census:
@@ -361,7 +485,8 @@ class census:
         if self._prev is not None:
             for op, e in self.counts.items():
                 _add(self._prev, op, e["count"], e["bytes"],
-                     e["group_sizes"])
+                     e["group_sizes"],
+                     {k: e[k] for k in _PROCESS_KEYS if k in e})
         return False
 
 
@@ -426,3 +551,183 @@ def ppermute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
     the ring permutation)."""
     note("collective-permute", x, x.shape[0])
     return torch.roll(x, shifts=shift, dims=0)
+
+
+# ------------------------------------------------- across processes
+_process_totals: Dict[str, float] = {"count": 0, "bytes": 0.0,
+                                     "seconds": 0.0}
+
+
+def process_totals() -> Dict[str, float]:
+    """Every cross-process collective this process ran: count, bytes it
+    sent, and host seconds (on NCCL the seconds to enqueue; gloo's calls
+    return when done)."""
+    with _lock:
+        return dict(_process_totals)
+
+
+def _note_process(op: str, nbytes: float, secs: float) -> None:
+    extra = {"process_count": 1, "process_bytes": nbytes,
+             "process_seconds": secs}
+    with _lock:
+        _add(_totals, op, 0, 0.0, [], extra)
+        for k, v in (("count", 1), ("bytes", nbytes), ("seconds", secs)):
+            _process_totals[k] += v
+    if _census.counts is not None:
+        _add(_census.counts, op, 0, 0.0, [], extra)
+
+
+# carried as their bytes: every backend takes uint8 (gloo builds refuse
+# some 16-bit types: "Invalid scalar type")
+_AS_BYTES = (torch.bfloat16, torch.float16, torch.bool)
+
+
+def process_all_gather(t: torch.Tensor, op: str = "all-gather"
+                       ) -> torch.Tensor:
+    """``t`` of every process, stacked in rank order: ``[W, *t.shape]``
+    on ``t``'s device (``t`` itself, unsqueezed, without a process
+    group).  Every rank receives the same tensor.  Not differentiable
+    (``process_gather_rows`` is).  ``op`` names the collective this
+    gather carries in the census."""
+    if not processes_up():
+        return t.unsqueeze(0)
+    dist = _dist()
+    world = dist.get_world_size()
+    t0 = time.perf_counter()
+    src = t.detach().contiguous()
+    as_bytes = src.dtype in _AS_BYTES
+    if as_bytes:
+        src = src.reshape(-1).view(torch.uint8)
+    if process_backend() == "nccl" and not src.is_cuda:
+        src = src.to(resolve_device(None))    # NCCL carries the card's
+    out = torch.empty((world,) + tuple(src.shape), dtype=src.dtype,
+                      device=src.device)
+    dist.all_gather(list(out.unbind(0)), src)
+    if out.device != t.device:
+        out = out.to(t.device)
+    if as_bytes:
+        out = out.view(t.dtype).reshape((world,) + tuple(t.shape))
+    _note_process(op, float(t.numel() * t.element_size()),
+                  time.perf_counter() - t0)
+    return out
+
+
+def process_sum(t: torch.Tensor, op: str = "all-reduce") -> torch.Tensor:
+    """The sum of ``t`` over the processes, in rank order: the same bits
+    on every rank (``t`` itself without a process group)."""
+    if not processes_up():
+        return t
+    return process_all_gather(t, op).sum(0)
+
+
+def process_sum_many(tensors: Sequence[torch.Tensor],
+                     op: str = "all-reduce") -> List[torch.Tensor]:
+    """``process_sum`` of each tensor, as one collective a dtype."""
+    if not processes_up():
+        return list(tensors)
+    return [g.sum(0) for g in process_all_gather_many(tensors, op)]
+
+
+def process_all_gather_many(tensors: Sequence[torch.Tensor],
+                            op: str = "all-gather") -> List[torch.Tensor]:
+    """``process_all_gather`` of each tensor (``[W, *shape]``), as one
+    collective a dtype (the tensors flattened into one buffer)."""
+    if not processes_up():
+        return [t.unsqueeze(0) for t in tensors]
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    by_type: Dict[Tuple[torch.dtype, torch.device], List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_type.setdefault((t.dtype, t.device), []).append(i)
+    for idx in by_type.values():
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        got = process_all_gather(flat, op)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = got[:, off:off + n].reshape(
+                (got.shape[0],) + tuple(tensors[i].shape))
+            off += n
+    return out
+
+
+def process_barrier() -> None:
+    """Every process reaches this point before any goes on (a one-word
+    all-gather, so that it needs nothing but ``all_gather``)."""
+    if processes_up():
+        dev = resolve_device(None) if process_backend() == "nccl" \
+            else torch.device("cpu")
+        process_all_gather(torch.zeros((1,), device=dev), "barrier")
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every process's rows in rank order.  What reads them ends in
+    ``own_rows``, whose backward hands every process the whole gradient,
+    so this backward keeps the process's own rows of it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.rows = x.shape[0]
+        got = process_all_gather(x)
+        return got.reshape((-1,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = process_index(), ctx.rows
+        return g[r * n:(r + 1) * n]
+
+
+class _OwnRows(torch.autograd.Function):
+    """This process's rows; the backward all-gathers every process's
+    gradient rows, so that what ran on the gathered rows runs its
+    backward on the whole gradient, the same bits in every process."""
+
+    @staticmethod
+    def forward(ctx, y):
+        n = y.shape[0] // process_count()
+        r = process_index()
+        return y[r * n:(r + 1) * n]
+
+    @staticmethod
+    def backward(ctx, g):
+        got = process_all_gather(g.contiguous())
+        return got.reshape((-1,) + tuple(g.shape[1:]))
+
+
+class _Once(torch.autograd.Function):
+    """A parameter that every process uses on the gathered rows: each
+    takes its whole gradient, so process 0's counts and the others'
+    are 0 (the exchange's sum is then process 0's, bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, p):
+        return p.view_as(p)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g if process_index() == 0 else torch.zeros_like(g)
+
+
+def process_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s rows of every process, in rank order (so in global slot
+    order), differentiable with ``own_rows``; ``x`` itself without a
+    process group."""
+    if not processes_up():
+        return x
+    return _GatherRows.apply(x)
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """This process's block of the rows of ``x`` (the inverse of
+    ``process_gather_rows``): rows ``[r*n/W, (r+1)*n/W)``."""
+    if not processes_up():
+        return x
+    return _OwnRows.apply(x)
+
+
+def counted_once(p: torch.Tensor) -> torch.Tensor:
+    """``p`` whose gradient process 0 alone contributes (a parameter read
+    on the gathered rows, between ``process_gather_rows`` and
+    ``own_rows``)."""
+    if not processes_up() or not torch.is_tensor(p):
+        return p
+    return _Once.apply(p)

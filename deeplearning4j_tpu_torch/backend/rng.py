@@ -121,25 +121,30 @@ def split(key: Key, n: int) -> List[Key]:
     return [torch.Generator().manual_seed(_mix(base, i)) for i in range(n)]
 
 
-def bernoulli(key: Key, p: float, shape, device) -> torch.Tensor:
+def bernoulli(key: Key, p: float, shape, device, offset: int = 0
+              ) -> torch.Tensor:
     """Boolean mask of ``shape``, True with probability ``p``, drawn on
     ``device`` from ``key``'s seed (``jax.random.bernoulli``): element i
     is True when the top 24 bits of splitmix64 of (the key's mask seed,
-    i) fall below ``p`` · 2^24."""
+    i) fall below ``p`` · 2^24.  ``offset`` starts the elements there:
+    the elements ``offset ...`` of a larger draw (a process's rows of the
+    global batch's mask)."""
     shape = tuple(shape)
     n = math.prod(shape)
-    return (_bits(key, _MASK_SALT, n, torch.device(device))
+    return (_bits(key, _MASK_SALT, n, torch.device(device), offset)
             < math.ceil(p * 2 ** _MASK_BITS)).reshape(shape)
 
 
-def _bits(key: Key, salt: int, n: int, device) -> torch.Tensor:
+def _bits(key: Key, salt: int, n: int, device, offset: int = 0
+          ) -> torch.Tensor:
     """The top 24 bits of splitmix64 of (the key's seed salted by
-    ``salt``, i) for i in 1..n, as int64 on ``device``."""
+    ``salt``, i) for i in offset+1..offset+n, as int64 on ``device``."""
     if torch.is_tensor(key):
         base = _finalize_t(key.to(device) ^ _signed(salt))
     else:
         base = _signed(_finalize(key.initial_seed() ^ salt))
-    idx = torch.arange(1, n + 1, dtype=torch.int64, device=device)
+    idx = torch.arange(offset + 1, offset + n + 1, dtype=torch.int64,
+                       device=device)
     return _srl(_finalize_t(idx * _signed(_GOLDEN) + base), 64 - _MASK_BITS)
 
 

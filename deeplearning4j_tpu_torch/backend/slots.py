@@ -9,7 +9,18 @@ the global batch.  Two kinds of slots shape what the layers do there:
   (BatchNorm's batch statistics, the MoE layer's routing) reads them
   gathered, as the reference's one global program does; the gather is a
   view, recorded as an ``all-gather`` over the k slots
-  (``gather_rows``).
+  (``gather_rows``).  Under a mesh that spans processes
+  (``data_slots(k, processes=True)``) each process holds only its own
+  slots' rows: ``gather_rows`` all-gathers every process's rows in rank
+  order, the layer keeps its own rows of what it computed (``own_rows``,
+  whose backward all-gathers the gradient's rows, so that the layer's
+  backward runs on the whole batch's gradient in every process, the
+  single net's computation bit for bit; ``gather_rows``' backward then
+  keeps the process's rows), its parameters' gradients count once
+  (``coupled_params``: process 0's), a dropout mask is the global batch's mask's rows of
+  the process (``row_offset``), the loss divides by the global batch's
+  count (``process_denominator``) and the regularization term is
+  counted once, by process 0 (``once``).
 - **Model slots** (``model_slots(tp)``): a parameter that the tensor
   parallel spec shards is held as a ``[tp, ...]`` stack of its slots'
   blocks (a view of the net's own tensor).  A layer that meets such a
@@ -58,6 +69,7 @@ _ROW_WISE = ("softmax", "logsoftmax", "log_softmax")
 
 class _Slots(threading.local):
     rows: int = 1
+    procs: bool = False        # the data slots span the group's processes
     tp: int = 1
     sharded: bool = False      # the running layer's activation so far
 
@@ -88,14 +100,20 @@ def same_layout(src, t):
 
 
 @contextlib.contextmanager
-def data_slots(k: int):
-    """Inside the block the batch's rows are ``k`` data slots' blocks."""
-    prev = _ctx.rows
-    _ctx.rows = int(k)
+def data_slots(k: int, processes: bool = False):
+    """Inside the block the batch's rows are ``k`` data slots' blocks;
+    with ``processes`` the slots span the process group's processes and
+    the rows here are this process's slots' (module docstring)."""
+    prev = (_ctx.rows, _ctx.procs)
+    _ctx.rows, _ctx.procs = int(k), bool(processes)
     try:
         yield
     finally:
-        _ctx.rows = prev
+        _ctx.rows, _ctx.procs = prev
+
+
+def spans_processes() -> bool:
+    return _ctx.procs
 
 
 @contextlib.contextmanager
@@ -115,11 +133,68 @@ def tp() -> int:
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
     """``x``'s rows, all the data slots' blocks, for a layer that couples
-    the rows of the batch: the blocks lie side by side already, so this
-    is ``x`` itself, recorded as the all-gather it stands for."""
+    the rows of the batch: in one process the blocks lie side by side
+    already, so this is ``x`` itself, recorded as the all-gather it
+    stands for; across processes every process's rows, in rank order
+    (``backend.mesh.process_gather_rows``).  The layer hands back its
+    own rows of what it computed from them (``own_rows``)."""
+    if _ctx.procs:
+        x = mesh_mod.process_gather_rows(x)
     if _ctx.rows > 1:
         mesh_mod.note("all-gather", x, _ctx.rows)
     return x
+
+
+def own_rows(y: torch.Tensor) -> torch.Tensor:
+    """This process's rows of ``y``, computed from ``gather_rows``' rows
+    (``y`` itself in one process)."""
+    return mesh_mod.own_rows(y) if _ctx.procs else y
+
+
+def coupled_params(params):
+    """A coupling layer's parameters, read on the gathered rows: across
+    processes each one's gradient counted once (process 0's; every
+    process computes the whole of it), else ``params`` itself."""
+    if not _ctx.procs:
+        return params
+    if isinstance(params, dict):
+        return {k: coupled_params(v) for k, v in params.items()}
+    return mesh_mod.counted_once(params)
+
+
+def row_offset(shape) -> int:
+    """Elements before this process's rows in a draw over the global
+    batch's rows, for a tensor of ``shape`` holding the process's rows
+    (0 in one process): a dropout mask drawn from this offset is the
+    global mask's rows that the process holds."""
+    if not _ctx.procs:
+        return 0
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return mesh_mod.process_index() * n
+
+
+def process_denominator(count: torch.Tensor) -> torch.Tensor:
+    """A loss's count (the mask's sum) over the global batch: summed over
+    the processes (``count`` itself in one process)."""
+    return mesh_mod.process_sum(count) if _ctx.procs else count
+
+
+def process_share() -> int:
+    """The processes a mean over the batch's rows is shared by: the
+    global batch's rows are this many times the process's (1 in one
+    process)."""
+    return mesh_mod.process_count() if _ctx.procs else 1
+
+
+def once(term):
+    """A term of the loss that every process computes whole (the
+    regularization), counted once over the processes: process 0's, 0 on
+    the others (``term`` itself in one process)."""
+    if not _ctx.procs or mesh_mod.process_index() == 0:
+        return term
+    return torch.zeros_like(term) if torch.is_tensor(term) else 0.0
 
 
 # ------------------------------------------------------------ model slots

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.helpers import cost, cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_epilogue.cu"
@@ -215,7 +216,8 @@ def dropout_residual_norm(h: torch.Tensor, res: Optional[torch.Tensor],
             raise ValueError(
                 "dropout_residual_norm: rate > 0 at train time requires a "
                 "generator (or an explicit mask)")
-        mask = rng_mod.bernoulli(generator, keep, shape, h.device)
+        mask = rng_mod.bernoulli(generator, keep, shape, h.device,
+                                 slots.row_offset(shape))
     m2 = None if mask is None else (mask != 0).reshape(-1, c).contiguous()
     r2 = None if res is None else res.reshape(-1, c).contiguous()
     out = _DropResNorm.apply(h.reshape(-1, c).contiguous(), r2,

@@ -364,7 +364,8 @@ def lr_overrides(net):
 
 
 def sgd_step(net, loss_of, scalars, carries=None,
-             numerics_now=None, extra_ok=None) -> torch.Tensor:
+             numerics_now=None, extra_ok=None, exchange=None
+             ) -> torch.Tensor:
     """The device body of one step of ``net``: ``loss_of(params,
     collect) -> (loss, new_net_state)`` (``collect``: None, or a list the
     forward extends with each layer's (name, activation) for the
@@ -381,7 +382,11 @@ def sgd_step(net, loss_of, scalars, carries=None,
     ``guarded_update_``: a non-finite step writes nothing but the
     stability state).  Returns the loss as a device scalar (no host
     sync).  ``extra_ok`` (0-d bool) vetoes a guarded step besides the
-    verdict (the sync master's all-rows-poisoned batch)."""
+    verdict (the sync master's all-rows-poisoned batch).  ``exchange``
+    (the sync master across processes) takes ``(grads, loss, extra_ok)``
+    once the gradients are taken and returns ``(net, trainable params,
+    grads, loss, extra_ok)`` for the update: the processes' sums, and
+    under ZeRO the holder of the process's own blocks."""
     policy = stability.policy_of(net.conf)
     stab = net.updater_state.get(stability.STATE_KEY) if policy else None
     watch = StepWatch.of(net, scalars, numerics_now)
@@ -402,6 +407,9 @@ def sgd_step(net, loss_of, scalars, carries=None,
             p.requires_grad_(False)
     grads = _tree_like(train, [torch.zeros_like(p) if g is None else g
                                for p, g in zip(leaves, grads)])
+    if exchange is not None:
+        net, train, grads, loss, extra_ok = exchange(grads, loss.detach(),
+                                                     extra_ok)
     with torch.no_grad():
         if watch is not None:
             watch.before_update(grads, train, stab)

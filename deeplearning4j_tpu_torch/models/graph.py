@@ -453,7 +453,8 @@ class ComputationGraph(FlatParamsMixin, LazyScoreMixin):
                 layer.activation, lm)
         for n in self.conf.nodes:
             if n.layer is not None and n.layer.has_params():
-                total = total + n.layer.reg_score(params[n.name])
+                total = total + slots.once(
+                    n.layer.reg_score(params[n.name]))
         if carries is not None:
             return total, new_state, new_carries
         return total, new_state

@@ -217,8 +217,8 @@ class MultiLayerNetwork(FlatParamsMixin, LazyScoreMixin):
             pre = slots.same_layout(pre, pre.float())
         data = losses.score(out_layer.loss, y.to(pre.dtype), pre,
                             out_layer.activation, lmask)
-        reg = sum(layer.reg_score(params[layer.name])
-                  for layer in self.layers if layer.has_params())
+        reg = slots.once(sum(layer.reg_score(params[layer.name])
+                             for layer in self.layers if layer.has_params()))
         if carries is not None:
             return data + reg, new_state, new_carries
         return data + reg, new_state

@@ -94,6 +94,7 @@ class DistributedWord2Vec(Word2Vec):
                  tokenizer_factory: Optional[TokenizerFactory] = None,
                  mesh: Optional[mesh_mod.Mesh] = None):
         mesh = mesh or mesh_mod.default_mesh()
+        mesh_mod.across_processes("DistributedWord2Vec", mesh_mod.A14C, mesh)
         super().__init__(config, sentence_iterator,
                          tokenizer_factory or DefaultTokenizerFactory(),
                          device=mesh.device)
@@ -197,6 +198,7 @@ class DistributedGlove(Glove):
 
     def __init__(self, *args, mesh: Optional[mesh_mod.Mesh] = None, **kw):
         mesh = mesh or mesh_mod.default_mesh()
+        mesh_mod.across_processes("DistributedGlove", mesh_mod.A14C, mesh)
         kw["device"] = mesh.device
         super().__init__(*args, **kw)
         self.mesh = mesh

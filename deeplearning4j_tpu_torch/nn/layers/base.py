@@ -34,6 +34,7 @@ from typing import Any, Dict, Optional, Type
 import torch
 
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
+from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.nn.inputs import InputType
 
 _LAYER_REGISTRY: Dict[str, Type["Layer"]] = {}
@@ -136,7 +137,9 @@ class Layer:
                 f"Layer {self.name}: dropout requires an rng key at train "
                 "time")
         keep = 1.0 - self.dropout
-        mask = rng_mod.bernoulli(rng, keep, x.shape, x.device)
+        # across processes: the global batch's mask's rows of this one
+        mask = rng_mod.bernoulli(rng, keep, x.shape, x.device,
+                                 slots.row_offset(x.shape))
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
     def maybe_drop_connect(self, w, *, train, rng):

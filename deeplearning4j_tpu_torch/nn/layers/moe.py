@@ -119,12 +119,12 @@ class MoELayer(Layer):
                           / self.num_experts))
 
     def route(self, params, tokens) -> Routing:
-        """The routing of ``tokens`` [T, d]: the softmax gates' argmax,
-        the token's gate, and its position in its expert's buffer (the
-        tokens before it that chose the same expert, an exact int32
-        count)."""
+        """The routing of ``tokens`` [T, d] (under a slot master the
+        global batch's, ``slots.gather_rows``): the softmax gates'
+        argmax, the token's gate, and its position in its expert's
+        buffer (the tokens before it that chose the same expert, an exact
+        int32 count)."""
         E = self.num_experts
-        tokens = slots.gather_rows(tokens)
         logits = slots.linear(tokens, params["W_router"], self.n_in, E)
         gates = torch.softmax(slots.gather_act(logits), dim=-1)
         expert = torch.argmax(gates, dim=-1)
@@ -141,7 +141,10 @@ class MoELayer(Layer):
     def apply(self, params, x, *, train=False, rng=None):
         x = self.maybe_dropout(x, train=train, rng=rng)
         lead = x.shape[:-1]
-        tokens = x.reshape(-1, x.shape[-1])              # [T, d]
+        # the routing counts over every data slot's tokens; across
+        # processes the layer hands back its own rows
+        tokens = slots.gather_rows(x.reshape(-1, x.shape[-1]))   # [T, d]
+        params = slots.coupled_params(params)
         E = self.num_experts
         r = self.route(params, tokens)
         C = r.capacity
@@ -166,7 +169,7 @@ class MoELayer(Layer):
             combined = flat.index_select(0, slot) * r.gate[:, None]
         if self.residual:
             combined = combined + tokens
-        return combined.reshape(tuple(lead) + (self.n_out,))
+        return slots.own_rows(combined).reshape(tuple(lead) + (self.n_out,))
 
     def _combine_slots(self, params, expert_in, slot, r, act):
         """The experts sharded over the model slots: slot k runs experts

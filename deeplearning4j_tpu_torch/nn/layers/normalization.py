@@ -102,12 +102,15 @@ class BatchNormalization(Layer):
                 "path")
         if train:
             # the batch statistics of the whole batch: every data slot's
-            # rows (the reference's one global program)
+            # rows (the reference's one global program); across processes
+            # the layer hands back its own rows
             x = slots.gather_rows(x)
+            params = slots.coupled_params(params)
             if use_helper:
                 gamma, beta = self._affine(params, x)
                 y, mean, var = helper.apply_training(x, gamma, beta, self.eps)
-                return act(y), self._moving(state, mean, var)
+                return (slots.own_rows(act(y)),
+                        self._moving(state, mean, var))
             axes = tuple(range(x.ndim - 1))
             mean = x.mean(dim=axes)
             var = x.var(dim=axes, unbiased=False)
@@ -125,7 +128,8 @@ class BatchNormalization(Layer):
             y = self.gamma * xhat + self.beta
         else:
             y = params["gamma"] * xhat + params["beta"]
-        return act(y), new_state
+        y = act(y)
+        return (slots.own_rows(y) if train else y), new_state
 
 
 @register_layer

@@ -137,5 +137,9 @@ def score(name, labels, preout, activation, mask=None, mean=True):
     if not mean:
         return per
     if mask is not None:
-        return per.sum() / torch.clamp(mask.sum(), min=1.0)
-    return per.mean()
+        return per.sum() / torch.clamp(
+            slots.process_denominator(mask.sum()), min=1.0)
+    # across processes the mean over the process's rows, over the
+    # processes' share: their sum is the global batch's mean
+    share = slots.process_share()
+    return per.mean() if share == 1 else per.mean() / share

@@ -16,7 +16,11 @@ counterpart of ``deeplearning4j_tpu/observability/shardstats.py``.
   — its op, payload bytes and group size — kept per program signature
   by the masters' ``recompile.instrument`` seam (``record_program``),
   with the bytes the captured graph's pool took (``torch.cuda``'s
-  allocator counters around the capture).
+  allocator counters around the capture).  Under a mesh that spans
+  processes the census also carries each collective's cross-process
+  half: ``process_count``, ``process_bytes`` (what this rank sent) and
+  ``process_seconds`` (measured host time), which ``record_program``
+  sums beside the slot bytes.
 - **A comm roofline**: ``LINK_BANDWIDTH`` turns censused bytes into
   estimated seconds per step.  On one card the slots share its memory
   and no collective crosses a link: the bytes are a census of what a
@@ -131,6 +135,14 @@ def record_program(fn: str, signature, census: Dict[str, Dict[str, Any]],
         "link_bandwidth": bw, "link_source": source,
         "one_device": True,
     }
+    # a mesh that spans processes: each collective's cross-process half
+    # (backend.mesh.process_all_gather), beside the slot bytes above
+    crossed = {k: sum(e.get(k, 0) for e in census.values())
+               for k in ("process_count", "process_bytes",
+                         "process_seconds")}
+    if crossed["process_count"]:
+        entry.update(crossed)
+        entry["one_device"] = False
     if pool_bytes is not None:
         entry["memory"] = {"graph_pool": int(pool_bytes)}
     with _prog_lock:

@@ -8,9 +8,15 @@ attention, ``SequenceParallelTrainingMaster``) and the checkpoint's
 sharded save and resharded restore, tensor and expert parallelism
 (``model_parallel.py``: ``TensorParallelTrainingMaster``,
 ``tensor_parallel_spec``) and pipeline parallelism (``pipeline.py``:
-``PipelineParallelTrainingMaster``, ``split_stages``).  Meshes across
-processes or devices raise ``NotImplementedError`` (ROADMAP A10, meshes
-across processes and GPUs).
+``PipelineParallelTrainingMaster``, ``split_stages``).
+
+Across processes (one a card, ``initialize_distributed`` over
+``torch.distributed``; ``provision`` launches them): the sync master,
+replicated and ZeRO, ``DistributedNetwork`` and the sharded checkpoint
+(each process its own slots' blocks).  Parameter averaging, the wrapper
+and elastic masters (ROADMAP A14a), the model and seq axes (A14b) and
+resilient fits (A14e) raise there.  A mesh in one process over several
+devices raises (A10: its counterpart is one process a card).
 """
 
 from deeplearning4j_tpu_torch.parallel.checkpoint import (
@@ -34,6 +40,7 @@ from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
 from deeplearning4j_tpu_torch.parallel.training_master import (
     DistributedNetwork, ParameterAveragingTrainingMaster,
     SyncTrainingMaster, TrainingMaster, initialize_distributed,
+    shutdown_distributed,
 )
 
 __all__ = [
@@ -43,7 +50,7 @@ __all__ = [
     "SyncTrainingMaster", "TensorParallelTrainingMaster", "TrainingMaster",
     "find_periodic_run", "initialize_distributed",
     "measure_bubble_fraction", "restore_checkpoint", "ring_attention",
-    "ring_self_attention", "save_checkpoint", "snapshot_trees",
-    "split_stages", "tensor_parallel_spec", "ulysses_attention",
+    "ring_self_attention", "save_checkpoint", "shutdown_distributed",
+    "snapshot_trees", "split_stages", "tensor_parallel_spec", "ulysses_attention",
     "write_snapshot",
 ]

@@ -95,6 +95,14 @@ def _spec_to_json(spec) -> list:
     return out
 
 
+def _np_dtype(leaf) -> str:
+    """The numpy type a leaf is saved in (bfloat16 widened to float32)."""
+    if torch.is_tensor(leaf):
+        dt = torch.float32 if leaf.dtype == torch.bfloat16 else leaf.dtype
+        return str(torch.empty((), dtype=dt).numpy().dtype)
+    return str(np.asarray(leaf).dtype)
+
+
 def _host(leaf) -> np.ndarray:
     """A leaf copied to host memory (``.cpu()`` waits for the copy;
     bfloat16, which numpy lacks, is widened to float32)."""
@@ -116,10 +124,17 @@ def snapshot_trees(net, *, trees: Optional[Dict[str, Any]] = None,
     ``Sharded`` leaf is saved a distinct block at a time with its spec;
     ``mesh`` (the slot mesh of the save) is recorded in the manifest and
     must be every sharded leaf's.  What it returns is plain host data,
-    safe to hand to a writer thread."""
+    safe to hand to a writer thread.
+
+    On a ``mesh`` that spans processes (``backend/mesh.py``) each
+    process snapshots the blocks of its own slots, a block every process
+    holds (a replicated leaf) only process 0, under process-qualified
+    keys, and only process 0 the meta, with ``"processes"`` the group's
+    size: the reference's multi-process layout."""
     from deeplearning4j_tpu_torch.backend.mesh import Sharded
 
-    proc = 0
+    xp = mesh is not None and mesh.spans_processes
+    proc = mesh.process_index if xp else 0
     trees = trees if trees is not None else {
         "params": net.params,
         "updater_state": net.updater_state,
@@ -142,33 +157,38 @@ def snapshot_trees(net, *, trees: Optional[Dict[str, Any]] = None,
                     "axis_names": list(leaf.mesh.axis_names),
                     "shape": [int(leaf.mesh.shape[a])
                               for a in leaf.mesh.axis_names]})
-                entry = {"shape": list(leaf.shape), "dtype": None,
+                entry = {"shape": list(leaf.shape),
+                         "dtype": _np_dtype(leaf.local),
                          "spec": _spec_to_json(leaf.spec), "shards": []}
                 for i, (ranges, block) in enumerate(leaf.blocks()):
-                    arr = _host(block)
+                    owner = leaf.owner(ranges)
+                    if (owner if owner is not None else 0) != proc:
+                        continue
                     key = f"p{proc}/{path}@{i}"
-                    arrays[key] = arr
-                    entry["dtype"] = str(arr.dtype)
+                    arrays[key] = _host(block)
                     entry["shards"].append(
                         {"key": key, "index": [list(r) for r in ranges]})
                 manifest["leaves"][path] = entry
                 continue
-            arr = _host(leaf)
-            key = f"p{proc}/{path}@0"
-            arrays[key] = arr
-            manifest["leaves"][path] = {
-                "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
-                "spec": [],
-                "shards": [{"key": key,
-                            "index": [[0, d] for d in arr.shape]}],
-            }
+            shape = list(np.shape(leaf))
+            entry = {"shape": shape, "dtype": _np_dtype(leaf), "spec": [],
+                     "shards": []}
+            if proc == 0:
+                # a leaf every process holds: process 0's copy
+                key = f"p{proc}/{path}@0"
+                arrays[key] = _host(leaf)
+                entry["shards"].append(
+                    {"key": key, "index": [[0, d] for d in shape]})
+            manifest["leaves"][path] = entry
     iteration = int(getattr(net, "iteration", 0))
-    meta = {"format_version": 1, "iteration": iteration, "processes": 1}
-    keys = getattr(net, "_keys", None)
-    if keys is not None:
-        meta[KEY_STATE] = base64.b64encode(
-            keys.get_state().numpy().tobytes()).decode("ascii")
+    meta = None
+    if proc == 0:
+        meta = {"format_version": 1, "iteration": iteration,
+                "processes": mesh.process_count if xp else 1}
+        keys = getattr(net, "_keys", None)
+        if keys is not None:
+            meta[KEY_STATE] = base64.b64encode(
+                keys.get_state().numpy().tobytes()).decode("ascii")
     return {"proc": proc, "manifest": manifest, "arrays": arrays,
             "meta": meta, "iteration": iteration}
 
@@ -216,9 +236,19 @@ def save_checkpoint(directory: str, net, *,
     into ``directory``.  A crash mid-save leaves a torn checkpoint there;
     production runs save through ``resilience.CheckpointManager``, which
     stages the same files in ``step-N.tmp/`` and commits them
-    atomically."""
+    atomically.  On a mesh that spans processes every process calls it:
+    each writes its shards and manifest, and after a barrier process 0
+    writes the meta, so a reader that finds ``checkpoint.json`` finds
+    every process's files."""
+    from deeplearning4j_tpu_torch.backend.mesh import process_barrier
+
     snapshot = snapshot_trees(net, trees=trees, mesh=mesh)
-    write_snapshot(directory, snapshot)
+    write_snapshot(directory, {**snapshot, "meta": None})
+    if mesh is not None and mesh.spans_processes:
+        process_barrier()
+    if snapshot["meta"] is not None:
+        with open(os.path.join(directory, META), "w") as f:
+            json.dump(snapshot["meta"], f)
     from deeplearning4j_tpu_torch.observability import get_flight_recorder
 
     get_flight_recorder().record(

@@ -265,6 +265,7 @@ class ParallelWrapper:
         if mesh is None:
             k = workers or mesh_mod.device_count()
             mesh = mesh_mod.default_mesh(data=k, devices=[net.device] * k)
+        mesh_mod.across_processes("ParallelWrapper", mesh_mod.A14A, mesh)
         if mesh.device != net.device:
             raise ValueError(f"the mesh's slots are on {mesh.device}, the "
                              f"net on {net.device}")

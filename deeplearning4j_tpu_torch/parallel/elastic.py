@@ -54,6 +54,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
 _EVICTIONS = "dl4j_elastic_evictions_total"
 _READMISSIONS = "dl4j_elastic_readmissions_total"
 _ACTIVE = "dl4j_elastic_active_replicas"
@@ -133,6 +135,9 @@ class ElasticController:
                  config: Optional[ElasticConfig] = None,
                  detector=None, registry=None,
                  aliases: Optional[Dict[str, List[str]]] = None):
+        # a replica's eviction would reach only this process's rows
+        mesh_mod.across_processes(f"an elastic controller ({component})",
+                                  mesh_mod.A14A)
         self.component = component
         self.workers = [str(w) for w in worker_ids]
         self.K = len(self.workers)

@@ -134,7 +134,12 @@ class TensorParallelTrainingMaster(SyncTrainingMaster):
                 "update_sharding='zero' composes only with the base "
                 "data-parallel param layout (replicated); "
                 "TensorParallelTrainingMaster overrides it")
-        super().__init__(mesh=mesh or mesh_mod.default_mesh(), **kw)
+        mesh = mesh or mesh_mod.default_mesh()
+        # the sync master's cross-process path is not this layout's
+        mesh_mod.across_processes(
+            "TensorParallelTrainingMaster (tensor and expert parallelism)",
+            mesh_mod.A14B, mesh)
+        super().__init__(mesh=mesh, **kw)
         if AXIS_MODEL not in self.mesh.shape:
             raise ValueError("mesh needs a model axis (default_mesh(model=N))")
         self.tp = self.mesh.shape[AXIS_MODEL]

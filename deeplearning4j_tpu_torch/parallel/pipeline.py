@@ -194,6 +194,8 @@ class PipelineParallelTrainingMaster(TrainingMaster):
                  remat: bool = False,
                  checkpoint_manager=None,
                  retry_policy=None):
+        mesh_mod.across_processes("PipelineParallelTrainingMaster",
+                                  mesh_mod.A14B)
         if schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"schedule={schedule!r}: use 'gpipe' or '1f1b'")
         if mode not in ("auto", "compiled", "orchestrated"):

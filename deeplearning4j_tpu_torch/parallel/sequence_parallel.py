@@ -214,6 +214,8 @@ class SequenceParallelTrainingMaster:
 
     def __init__(self, mesh=None, collect_stats: bool = False):
         self.mesh = mesh or mesh_mod.default_mesh()
+        mesh_mod.across_processes("SequenceParallelTrainingMaster",
+                                  mesh_mod.A14B, self.mesh)
         self.collect_stats = collect_stats
         self._stats: Dict[str, Any] = {
             "steps": 0, "step_time_ms": collections.deque(maxlen=1024)}

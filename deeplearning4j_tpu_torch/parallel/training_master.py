@@ -29,26 +29,53 @@
 
 ``TensorParallelTrainingMaster`` is in ``model_parallel.py``,
 ``PipelineParallelTrainingMaster`` in ``pipeline.py``.
-``initialize_distributed`` keeps the reference's signature; more than one
-process raises ``NotImplementedError`` (ROADMAP A10, meshes across
-processes and GPUs).
+
+**Across processes.**  ``initialize_distributed`` (the reference's
+signature; ``jax.distributed.initialize`` there) brings up a
+``torch.distributed`` process group: one process a card, NCCL between
+cards, gloo on the CPU.  A mesh made after it spans the processes
+(``backend/mesh.py``): process r holds the data slots ``r*K/W ...``.
+The sync master and ``DistributedNetwork`` then run with the reference's
+semantics, every process reading the same global batch and keeping its
+own rows (the reference ``device_put``s the whole batch onto the
+data-sharded layout): the loss divides by the global batch's count, the
+coupling layers gather every process's rows (``slots.gather_rows``), a
+dropout mask is the global mask's rows, the gradients (and the loss) are
+summed over the processes in rank order, so every rank and either layout
+hold the same bits, and the stability guard's verdict folds the summed
+gradient.  Under ZeRO a process holds and updates the updater-state
+blocks of its own slots (the net's updater-state tensors keep the other
+processes' blocks as they were: the sharded checkpoint saves each block
+from its owner), and the updated parameter blocks are all-gathered into
+every process's tensors.  That step runs eagerly (a
+gloo collective cannot be captured in a CUDA graph; a captured step over
+NCCL is ROADMAP A14d); its kernels launch on the card as ever.
+
+What still raises across processes, naming its ROADMAP item: elastic
+masters and parameter averaging (A14a), the model and seq axes (A14b),
+the introspection policy, the numerics ledger and resilient fits (A14e).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import datetime
 import functools
+import os
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.backend import device as device_mod
 from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
 from deeplearning4j_tpu_torch.backend import slots
-from deeplearning4j_tpu_torch.backend.mesh import AXIS_DATA, P, Sharded
+from deeplearning4j_tpu_torch.backend.mesh import (
+    A14A, A14E, AXIS_DATA, P, Sharded, across_processes,
+)
 from deeplearning4j_tpu_torch.models import capture as cap
 from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.observability import (
@@ -66,18 +93,77 @@ from deeplearning4j_tpu_torch.parallel.elastic import (
 )
 from deeplearning4j_tpu_torch.resilience import stability
 
-_NEXT = "ROADMAP A10, meshes across processes and GPUs"
+DEFAULT_TIMEOUT_S = 600.0
+_LAUNCHER = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def launched() -> bool:
+    """A launcher (torchrun) put this process in a world of more than one:
+    ``WORLD_SIZE`` > 1 with ``RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``."""
+    env = os.environ
+    return all(k in env for k in _LAUNCHER) and int(env["WORLD_SIZE"]) > 1
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None) -> None:
-    """Multi-process bring-up (reference: ``jax.distributed``).  One
-    process needs none; more raise until meshes across processes come."""
-    if num_processes is not None and int(num_processes) > 1:
-        raise NotImplementedError(
-            f"initialize_distributed over {num_processes} processes is "
-            f"not ported yet ({_NEXT}, with A12's provision/cluster.py)")
+                           process_id: Optional[int] = None, *,
+                           backend: Optional[str] = None,
+                           timeout: float = DEFAULT_TIMEOUT_S) -> None:
+    """Multi-process bring-up (reference: ``jax.distributed.initialize``):
+    this process joins a ``torch.distributed`` process group, after which
+    a mesh spans every process (module docstring).
+
+    The group comes from the explicit triple (``coordinator_address``
+    ``host:port``, whose process 0 serves the rendezvous) or, with no
+    arguments, from a launcher's environment (torchrun's ``WORLD_SIZE``,
+    ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); with neither it is a
+    no-op, since one process needs no group.  An explicit world of one is
+    a real group.  ``backend`` defaults to ``nccl`` where the process has
+    a card (``cuda:{LOCAL_RANK % device_count}``, its device from then on)
+    and ``gloo`` on the CPU.  A rank that does not arrive fails the call
+    within ``timeout`` seconds.  A second call in one process raises."""
+    explicit = (coordinator_address, num_processes, process_id)
+    if all(v is None for v in explicit):
+        if not launched():
+            return
+        init_method = "env://"
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    elif any(v is None for v in explicit):
+        missing = [n for n, v in zip(
+            ("coordinator_address", "num_processes", "process_id"),
+            explicit) if v is None]
+        raise ValueError(f"initialize_distributed needs coordinator_address, "
+                         f"num_processes AND process_id; missing: {missing}")
+    else:
+        init_method = f"tcp://{coordinator_address}"
+        world, rank = int(num_processes), int(process_id)
+    if mesh_mod.processes_up():
+        raise RuntimeError(
+            "initialize_distributed: this process already joined a process "
+            f"group (rank {mesh_mod.process_index()} of "
+            f"{mesh_mod.process_count()})")
+    import torch.distributed as dist
+
+    card = None
+    if torch.cuda.is_available():
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        card = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(card)
+    backend = backend or ("nccl" if card is not None else "gloo")
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout))
+    device_mod.set_process_device(card)
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (a no-op without one)."""
+    if mesh_mod.processes_up():
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    device_mod.set_process_device(None)
 
 
 class PhaseStats(PhaseTimers):
@@ -118,19 +204,29 @@ class SyncTrainingMaster(TrainingMaster):
         self._zero_layout = (zero_mod.ZeroLayout(self.mesh)
                              if self.update_sharding == zero_mod.ZERO
                              else None)
+        # the global data axis (the census's groups, the slot names, the
+        # batch's padding) and this process's own slots of it
         self.K = self.mesh.shape[AXIS_DATA]
+        self.K_local = self.mesh.local_shape[AXIS_DATA]
         self._slots = [f"d{k}" for k in range(self.K)]
         self._elastic: Optional[ElasticController] = None
         if elastic is not False and elastic is not None:
+            across_processes("elastic=", A14A, self.mesh)
             ecfg = elastic if isinstance(elastic, ElasticConfig) \
                 else ElasticConfig()
             self.collect_stats = True
             self._elastic = ElasticController("sync_master", self._slots,
                                               config=ecfg)
+        if checkpoint_manager is not None or retry_policy is not None:
+            across_processes("a resilient fit (checkpoint_manager=, "
+                             "retry_policy=)", A14E, self.mesh)
         self.checkpoint_manager = checkpoint_manager
         self.retry_policy = retry_policy
         self._stats: Dict[str, Any] = {
             "steps": 0, "step_time_ms": collections.deque(maxlen=1024)}
+        if self.mesh.spans_processes:
+            self._stats.update(exchange_seconds=0.0, exchange_bytes=0.0,
+                               exchange_count=0)
         self._phases = PhaseStats(enabled=collect_stats,
                                   component="sync_master")
         self._workers: Optional[WorkerTelemetry] = None
@@ -180,6 +276,21 @@ class SyncTrainingMaster(TrainingMaster):
         h = _Staged(net, params, ustate, net.net_state)
         h._of, h._bases = net, leaves
         h.iteration = net.iteration
+        h._local = None
+        if self.mesh.spans_processes:
+            # this process's blocks: what its update reads and writes
+            sl = self.mesh.local_slots
+
+            def mine(t):
+                return (view(t)[sl.start:sl.stop] if lay.shardable(t)
+                        else t)
+
+            h._local = _Staged(net, _tmap(mine, net.params), {
+                slot: (tree if slot in
+                       shardstats.RESERVED_REPLICATED_SUBTREES
+                       else _tmap(mine, tree))
+                for slot, tree in net.updater_state.items()},
+                net.net_state)
         self._holder = h
         return h
 
@@ -192,12 +303,53 @@ class SyncTrainingMaster(TrainingMaster):
     def _model_slots(self):
         return contextlib.nullcontext()
 
+    def _exchange(self, h, grads, loss, extra_ok):
+        """The cross-process half of the step (``common.sgd_step``'s
+        ``exchange``): the gradients and the loss summed over the
+        processes in rank order, one collective; under ZeRO the
+        process's own blocks of them, for the holder of its blocks, with
+        the guard's verdict folded over the whole summed gradient (so
+        that every rank, and either layout, takes the same branch)."""
+        train = common.trainable(h.params)
+        leaves = common.tree_leaves(grads)
+        summed = mesh_mod.process_sum_many(leaves + [loss])
+        grads, loss = common._tree_like(train, summed[:-1]), summed[-1]
+        hl = h._local if self._zero_layout is not None else None
+        if hl is None:
+            return h, train, grads, loss, extra_ok
+        if extra_ok is not None:
+            stab = h.updater_state[stability.STATE_KEY]
+            extra_ok = extra_ok & stability.unscale(
+                loss, grads, stab["loss_scale"])[1]
+        hl.iteration = h.iteration
+        local = common.trainable(hl.params)
+        sl = self.mesh.local_slots
+        mine = [g[sl.start:sl.stop] if l.shape != p.shape else g
+                for g, p, l in zip(common.tree_leaves(grads),
+                                   common.tree_leaves(train),
+                                   common.tree_leaves(local))]
+        return hl, local, common._tree_like(local, mine), loss, extra_ok
+
+    def _gather_blocks(self, h) -> None:
+        """ZeRO across processes: every process's updated parameter blocks
+        into every process's whole tensors (one all-gather a dtype)."""
+        pairs = [(f, l) for f, l in zip(
+            common.tree_leaves(common.trainable(h.params)),
+            common.tree_leaves(common.trainable(h._local.params)))
+            if f.shape != l.shape]
+        got = mesh_mod.process_all_gather_many([l for _, l in pairs])
+        with torch.no_grad():
+            for (f, _), g in zip(pairs, got):
+                f.copy_(g.reshape(f.shape))
+
     def _body(self, x, y, fm, lm, key, scalars, numerics_now=None):
-        """One synchronous step over the K slots (module docstring).
-        Returns the global loss and, under a stability policy, the
-        ``[K]`` slot poison flags."""
+        """One synchronous step over the K slots (module docstring); across
+        processes over this process's slots' rows.  Returns the global
+        loss and, under a stability policy, the ``[K]`` slot poison
+        flags."""
         net, K = self.net_, self.K
         h = self._stage(net)
+        xp = self.mesh.spans_processes
         policy = stability.policy_of(net.conf)
         row_ok = extra_ok = None
         if policy is not None:
@@ -206,16 +358,21 @@ class SyncTrainingMaster(TrainingMaster):
             y = stability.zero_nonfinite_rows(y, row_ok)
             lm = lm * row_ok.reshape((row_ok.shape[0],)
                                      + (1,) * (lm.ndim - 1))
-            extra_ok = row_ok.sum() > 0
+            kept = row_ok.sum()
+            extra_ok = (mesh_mod.process_sum(kept) if xp else kept) > 0
 
         def loss_fn(params, collect=None):
             return loss_of(net, self._full(params), h.net_state, x, y, key,
                            fm, lm, collect=collect)
 
-        with slots.data_slots(K), self._model_slots():
-            loss = common.sgd_step(h, loss_fn, scalars,
-                                   numerics_now=numerics_now,
-                                   extra_ok=extra_ok)
+        with slots.data_slots(K, processes=xp), self._model_slots():
+            loss = common.sgd_step(
+                h, loss_fn, scalars, numerics_now=numerics_now,
+                extra_ok=extra_ok,
+                exchange=(functools.partial(self._exchange, h) if xp
+                          else None))
+        if xp and self._zero_layout is not None:
+            self._gather_blocks(h)
         # the K slots' gradient contributions, summed (a reduce-scatter
         # into ZeRO's blocks), and their weighted losses
         op = "reduce-scatter" if self._zero_layout is not None \
@@ -224,7 +381,10 @@ class SyncTrainingMaster(TrainingMaster):
             mesh_mod.note(op, p.expand((K,) + tuple(p.shape)), K)
         mesh_mod.note("all-reduce", loss.expand(K), K)
         if policy is not None:
-            return loss, stability.slot_poison_flags(row_ok, K)
+            flags = stability.slot_poison_flags(row_ok, self.K_local)
+            if xp:
+                flags = mesh_mod.process_all_gather(flags).reshape(K)
+            return loss, flags
         return loss
 
     def _dispatch(self, x, y, fm, lm, net):
@@ -250,7 +410,9 @@ class SyncTrainingMaster(TrainingMaster):
                 variant = ("numerics", now)
         dtype = common._scalar_dtype(net)
         inputs = {"x": x, "y": y, "fm": fm, "lm": lm}
-        if cap.captures(h):
+        # across processes the step runs eagerly: a gloo collective cannot
+        # be captured in a CUDA graph (ROADMAP A14d)
+        if not self.mesh.spans_processes and cap.captures(h):
             graphs = cap.step_graphs(h)
             inputs = common.tree_map(cap.host_or_device, inputs)
             # a master of another kind or mesh on the same net is
@@ -292,6 +454,13 @@ class SyncTrainingMaster(TrainingMaster):
         shardstats.record_program(f"{type(self).__name__}.step", sig,
                                   counts, device=self.mesh.device)
 
+    def state_trees(self, net):
+        """The net's trees as ``Sharded`` leaves over the mesh (ZeRO's
+        blocks sharded over the data axis, the rest replicated): what
+        ``save_checkpoint(dir, net, trees=, mesh=)`` writes piece by
+        piece, each process its own slots' blocks across processes."""
+        return self._ledger_trees(net)
+
     def _ledger_trees(self, net):
         mesh = self.mesh
         if self._zero_layout is None:
@@ -322,6 +491,17 @@ class SyncTrainingMaster(TrainingMaster):
             raise ValueError(f"the mesh's slots are on {self.mesh.device}, "
                              f"the net on {net.device}")
         common.check_trainable(net)
+        xp = self.mesh.spans_processes
+        if xp:
+            for name, what in (("introspection", "the introspection policy"),
+                               ("numerics", "the numerics ledger")):
+                if getattr(net.conf, name, None) is not None:
+                    across_processes(f"{what} under the sync master",
+                                     A14E, self.mesh)
+            if (self._zero_layout is not None and
+                    net.conf.updater.gradient_normalization != "none"):
+                across_processes("ZeRO with gradient normalization", A14A,
+                                 self.mesh)
         res = None
         if self.checkpoint_manager is not None or self.retry_policy \
                 is not None:
@@ -377,6 +557,9 @@ class SyncTrainingMaster(TrainingMaster):
             n_real = len(ds)
             if len(ds) % K:
                 ds = ds.pad_batch(((len(ds) + K - 1) // K) * K)
+            # across processes every process reads the global batch and
+            # keeps its own slots' rows
+            own = (_process_rows(len(ds), self.mesh) if xp else None)
             emask = None
             step0 = net.iteration
             if self._elastic is not None:
@@ -399,12 +582,17 @@ class SyncTrainingMaster(TrainingMaster):
                 # eviction or a poisoned row changes values, not shapes
                 lm = np.ones((len(ds),) + (1,) * (np.ndim(ds.labels) - 2),
                              np.float32)
+            labels, fmask = ds.labels, ds.features_mask
+            if own is not None:
+                feats, labels, fmask, lm = (
+                    _rows(a, own) for a in (feats, labels, fmask, lm))
+                ex0 = mesh_mod.process_totals()
             with step_guard("sync_step", component="sync_master",
                             iteration=net.iteration):
                 with self._phases.phase("dispatch"):
-                    def call(feats=feats, ds=ds, lm=lm):
-                        return self._step(feats, ds.labels,
-                                          ds.features_mask, lm, net)
+                    def call(feats=feats, labels=labels, fmask=fmask,
+                             lm=lm):
+                        return self._step(feats, labels, fmask, lm, net)
 
                     out = (res.step(call, net.iteration, net=net)
                            if res is not None else call())
@@ -415,6 +603,12 @@ class SyncTrainingMaster(TrainingMaster):
                         loss = out
             net.score_value = loss.clone()
             net.iteration += 1
+            if own is not None:
+                ex1 = mesh_mod.process_totals()
+                for k, e in (("exchange_seconds", "seconds"),
+                             ("exchange_bytes", "bytes"),
+                             ("exchange_count", "count")):
+                    self._stats[k] += ex1[e] - ex0[e]
             if stab_rt is not None:
                 action = stab_rt.poll_master(
                     step=net.iteration, losses=loss,
@@ -467,6 +661,25 @@ class SyncTrainingMaster(TrainingMaster):
         return out
 
 
+def _process_rows(n: int, mesh) -> slice:
+    """This process's rows of a global batch of ``n`` rows: its data
+    slots' contiguous blocks."""
+    per = n // mesh.process_count
+    return slice(mesh.process_index * per, (mesh.process_index + 1) * per)
+
+
+def _rows(a, sl: slice):
+    """Rows ``sl`` of a batch leaf (arrays, tensors, dicts or lists of
+    them; None stays None)."""
+    if a is None:
+        return None
+    if isinstance(a, dict):
+        return {k: _rows(v, sl) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_rows(v, sl) for v in a)
+    return a[sl]
+
+
 class ParameterAveragingTrainingMaster(TrainingMaster):
     """Reference-semantics parameter averaging (reference
     ``ParameterAveragingTrainingMaster``): a ``ParallelWrapper`` an epoch
@@ -477,6 +690,8 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
                  prefetch_size: int = 2, repartition: str = "always",
                  mesh=None, collect_stats: bool = False, elastic=False,
                  update_sharding: str = zero_mod.REPLICATED):
+        if mesh is not None:
+            across_processes("ParameterAveragingTrainingMaster", A14A, mesh)
         self.mesh = mesh
         self.workers = workers or (mesh.shape[AXIS_DATA] if mesh is not None
                                    else None)
@@ -560,23 +775,49 @@ class DistributedNetwork:
         """Each batch padded to a multiple of the master's data axis and
         run through ``output`` (the slots share the device, so one
         forward covers their blocks); the metrics accumulate on the
-        host."""
+        host.  Across processes each process runs its own rows inside
+        the mesh's data slots (a layer that couples the rows, the MoE
+        router, reads the global batch's, as the reference's one
+        program) and the outputs are all-gathered in rank order, so
+        every rank counts the whole batch and returns the same
+        metrics."""
         from deeplearning4j_tpu_torch.evaluation import Evaluation
 
         ev = evaluation or Evaluation()
         mesh = getattr(self.master, "mesh", None)
         pad_to = mesh.shape[AXIS_DATA] if mesh is not None else 1
+        xp = mesh is not None and mesh.spans_processes
         for ds in iterator:
             n = len(ds)
             run = (ds.pad_batch(((n + pad_to - 1) // pad_to) * pad_to)
                    if n % pad_to else ds)
-            out = self.net.output(run.features, fmask=run.features_mask)
-            ev.eval(ds.labels, out.detach().cpu().numpy()[:n],
+            feats, fmask = run.features, run.features_mask
+            if not xp:
+                out = self.net.output(feats, fmask=fmask).detach()
+            else:
+                own = _process_rows(len(run), mesh)
+                with slots.data_slots(pad_to, processes=True):
+                    out = self.net.output(_rows(feats, own),
+                                          fmask=_rows(fmask, own)).detach()
+                out = mesh_mod.process_all_gather(out).reshape(
+                    (-1,) + tuple(out.shape[1:]))
+            ev.eval(ds.labels, out.cpu().numpy()[:n],
                     mask=ds.labels_mask)
         return ev
 
     def score(self, dataset):
-        return self.net.score(dataset.features, dataset.labels)
+        """The loss of ``dataset``; across processes the global batch's,
+        each process scoring its own rows."""
+        mesh = getattr(self.master, "mesh", None)
+        if (mesh is None or not mesh.spans_processes
+                or len(dataset) % mesh.process_count):
+            return self.net.score(dataset.features, dataset.labels)
+        own = _process_rows(len(dataset), mesh)
+        with slots.data_slots(mesh.shape[AXIS_DATA], processes=True):
+            part = self.net.score(_rows(dataset.features, own),
+                                  _rows(dataset.labels, own))
+        return float(mesh_mod.process_sum(
+            torch.tensor(part, dtype=torch.float64)))
 
     def training_stats(self):
         return self.master.training_stats()

@@ -343,6 +343,14 @@ class CheckpointManager:
         takes the step's place."""
         if self._closed:
             raise CheckpointError("CheckpointManager is closed")
+        from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
+        if mesh_mod.process_count() > 1:
+            # the reference's manager is single-controller too: a commit
+            # across processes needs a barrier around its rename
+            raise NotImplementedError(
+                "CheckpointManager's commit across processes is not ported "
+                f"yet ({mesh_mod.A14E})")
         try:
             snapshot = snapshot_trees(net, trees=trees)
         except BaseException:

@@ -1,7 +1,9 @@
-"""Runs phases of ``chip_smoke.py`` alone on one GPU, without the kernel
-builds and the other phases: the ones that take ``(name_card, seed)``.
+"""Runs phases of ``chip_smoke.py`` alone on one GPU, without the other
+phases: the ones that take ``(name_card, seed)``, and ``distributed``
+(which builds the kernels first: its children load them).
 
     python3 scripts/torch_smoke_phases.py graphs clustering [--seed 12345]
+    python3 scripts/torch_smoke_phases.py distributed
 
 Prints the card's name and power limit, each phase's lines, and the
 seconds each phase took; exits non-zero when a check fails or no CUDA
@@ -19,8 +21,15 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 
+def _distributed(name_card, seed):
+    """The distributed phase: its children load the kernels built here."""
+    chip_smoke.build_kernels()
+    return chip_smoke.distributed_phase(name_card)
+
+
 PHASES = {"nlp": chip_smoke.nlp_phase, "graphs": chip_smoke.graphs_phase,
-          "clustering": chip_smoke.clustering_phase}
+          "clustering": chip_smoke.clustering_phase,
+          "distributed": _distributed}
 
 
 def main(argv=None) -> int:

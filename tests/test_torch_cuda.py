@@ -2759,3 +2759,44 @@ def test_viterbi_path_against_the_cpu(T, S, cuda):
     assert np.array_equal(pc, ph) and sc == sh
     chunks = (T - 1) // viterbi.CHUNK
     assert viterbi.counts["captures"] - before["captures"] == int(chunks > 0)
+
+
+# ------------------------------------------------ the mesh across processes
+def _xchild():
+    """``tests/_torch_distributed_child.py`` by its own name (this file
+    runs with ``--noconftest`` on the card, where ``tests`` may name
+    another package); spawned children find it on the same path."""
+    import sys
+    from pathlib import Path
+
+    here = str(Path(__file__).resolve().parent)
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import _torch_distributed_child
+
+    return _torch_distributed_child
+
+
+def test_distributed_gloo_all_gather_of_cuda_tensors(cuda):
+    """Two processes on ``cuda:0`` over gloo: the mesh's cross-process
+    all-gather of tensors on the card (gloo's own CUDA path) equals the
+    same collective of the CPU tensors, in rank order, float32 and
+    bfloat16, and the census counts each gather's bytes."""
+    ranks = _xchild().spawn([{"name": "g", "kind": "cuda_gather"}],
+                         backend="gloo")
+    for res in ranks:
+        g = res["g"]
+        for dt in ("torch.float32", "torch.bfloat16"):
+            device, equal, got = g[dt]
+            assert device == "cuda" and equal
+            np.testing.assert_array_equal(got, ranks[0]["g"][dt][2])
+        # float32 and bfloat16 [3, 5], each on the card and on the CPU
+        assert g["bytes"] == 2 * (15 * 4 + 15 * 2)
+
+
+def test_distributed_nccl_world_of_one_psum(cuda):
+    """A world of one over NCCL: the slot psum's cross-process sum is the
+    slot psum bit for bit."""
+    (res,) = _xchild().spawn([{"name": "p", "kind": "nccl_psum"}],
+                             world=1)
+    assert res["p"] == {"equal": True, "backend": "nccl"}

@@ -228,3 +228,44 @@ def test_every_module_of_the_graphs_and_clustering_slice_is_walked(tmp_path):
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_every_module_of_the_provision_slice_is_walked(tmp_path):
+    """``provision/`` (the JAX package's, whole) has its counterparts of
+    the same name in the port, and a fresh interpreter where ``jax`` is
+    poisoned imports them and the backend and parallel modules this
+    slice changed."""
+    import pkgutil
+
+    import deeplearning4j_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                    pkg.__name__ + ".")}
+    new = [f"provision.{p.stem}" if p.stem != "__init__" else "provision"
+           for p in sorted((REPO / "deeplearning4j_tpu" / "provision")
+                           .glob("*.py"))]
+    assert sorted(new) == ["provision", "provision.cluster"]
+    changed = ["backend.device", "backend.mesh", "backend.slots",
+               "parallel.training_master", "parallel.checkpoint",
+               "parallel.zero", "parallel.data_parallel", "parallel.elastic",
+               "parallel.model_parallel", "parallel.pipeline",
+               "parallel.sequence_parallel", "nlp.distributed",
+               "observability.shardstats"]
+    names = [f"deeplearning4j_tpu_torch.{n}" for n in new + changed]
+    assert [n for n in names if n not in walked] == []
+    poison = tmp_path / "poison"
+    poison.mkdir()
+    for name in ("jax", "jaxlib"):
+        (poison / f"{name}.py").write_text(
+            "raise ImportError('the port must not import jax')\n")
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}: importlib.import_module(n)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = f"{poison}{os.pathsep}{REPO}"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

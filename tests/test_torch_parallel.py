@@ -266,9 +266,13 @@ def test_captured_window_runs_the_same_body(monkeypatch):
 
 
 def test_not_yet_ported_masters_raise():
-    with pytest.raises(NotImplementedError,
-                       match="A10, meshes across processes and GPUs"):
-        tpar.initialize_distributed("localhost:1234", 2, 0)
+    # a ParallelWrapper over a mesh that spans two processes (rank 0 of a
+    # group of two; the mesh reads the group's size and rank)
+    _, tn = pair()
+    span = tmesh.Mesh(np.asarray(["cpu"] * 4, dtype=object).reshape(4, 1, 1),
+                      tmesh.AXES, processes=2)
+    with pytest.raises(NotImplementedError, match="A14a"):
+        tpar.ParallelWrapper(tn, workers=4, mesh=span)
     tpar.initialize_distributed()         # one process needs nothing
     with pytest.raises(NotImplementedError,
                        match="A10, meshes across processes and GPUs"):
