@@ -30,11 +30,23 @@ process's own.  A collective then has a second, cross-process half
 (``process_all_gather``, ``process_sum``): the W per-process partials
 are all-gathered into ``[W, ...]`` and summed over that dimension in
 rank order, so every rank holds the same bits whichever layout asked.
-Only ``all_gather`` is needed from the backend (gloo for CPU tensors
-and, through host memory in its own CUDA path, the card's; NCCL for the
-card's).  Each cross-process collective adds its bytes and seconds to
-the census beside the slot bytes (``process_bytes``, ``process_count``)
-and to ``process_totals()``.
+A replica stack's cross-process half is ``process_gather_slots``: each
+process's ``[K/W, ...]`` slots gathered into the global ``[K, ...]`` in
+slot order, which the slot collective then reduces as in one process
+(``ParallelWrapper``'s average, its ZeRO window's gradients and
+blocks), so two processes of two slots give the one-process four-slot
+bits.  Only ``all_gather`` is needed from the backend (gloo for CPU
+tensors and, through host memory in its own CUDA path, the card's; NCCL
+for the card's).  Each cross-process collective adds its bytes and
+seconds to the census beside the slot bytes (``process_bytes``,
+``process_count``) and to ``process_totals()``.
+
+Under a mesh that spans processes the sync master, ``ParallelWrapper``
+(replicated at any averaging frequency, and ZeRO),
+``ParameterAveragingTrainingMaster`` and ``elastic=`` on each of them
+run.  What still raises names its ROADMAP item (``across_processes``):
+the model and seq axes (A14b), distributed Word2Vec and GloVe (A14c),
+the introspection policy, the numerics ledger and resilient fits (A14e).
 
 A mesh in one process whose slots name several devices raises
 ``NotImplementedError`` (ROADMAP A10): its counterpart in the port is
@@ -79,8 +91,6 @@ def _dist():
 
 
 # what still raises under a mesh that spans processes (ROADMAP A14)
-A14A = ("ROADMAP A14a: parameter averaging, ParallelWrapper and elastic "
-        "masters across processes")
 A14B = "ROADMAP A14b: the model and seq axes across processes"
 A14C = "ROADMAP A14c: DistributedWord2Vec and DistributedGlove across processes"
 A14E = ("ROADMAP A14e: the introspection policy, the numerics ledger and "
@@ -430,8 +440,11 @@ class Sharded:
 def replica_stack(t: torch.Tensor, mesh: Mesh, axis: str = AXIS_DATA
                   ) -> Sharded:
     """A ``[K, ...]`` replica stack as a leaf sharded over ``axis`` (each
-    slot holds its replica), for the ledger and the checkpoint."""
-    return Sharded(t, P(axis), mesh, t.shape)
+    slot holds its replica), for the ledger: on a mesh that spans
+    processes ``t`` holds this process's slots, and the leaf's shape is
+    the global stack's."""
+    shape = (mesh.shape[axis],) + tuple(t.shape[1:])
+    return Sharded(t, P(axis), mesh, shape)
 
 
 # --------------------------------------------------------------- collectives
@@ -580,6 +593,30 @@ def _note_process(op: str, nbytes: float, secs: float) -> None:
 # carried as their bytes: every backend takes uint8 (gloo builds refuse
 # some 16-bit types: "Invalid scalar type")
 _AS_BYTES = (torch.bfloat16, torch.float16, torch.bool)
+# gloo carries a collective over one TCP connection a peer, and one
+# connection's rate bounds it (about 0.35 GB/s over loopback in a
+# sandbox); a large gather is split over process groups of its own,
+# whose connections carry their chunks at once (four carried 256 MiB
+# about three times faster than one)
+GLOO_STREAMS = 4
+GLOO_CHUNK_MIN = 4 << 20        # bytes: smaller payloads go in one piece
+_streams: Dict[str, object] = {}
+
+
+def _gloo_streams(nbytes: int) -> List[Optional[object]]:
+    """The process groups a gloo gather of ``nbytes`` goes over (None:
+    the default group), made on first use on every rank alike (every
+    rank gathers the same sizes in the same order)."""
+    n = min(GLOO_STREAMS, nbytes // GLOO_CHUNK_MIN)
+    if process_backend() != "gloo" or n < 2:
+        return [None]
+    dist = _dist()
+    if _streams.get("world") is not dist.group.WORLD:
+        ranks = list(range(dist.get_world_size()))
+        _streams["groups"] = [dist.new_group(ranks, backend="gloo")
+                              for _ in range(GLOO_STREAMS)]
+        _streams["world"] = dist.group.WORLD
+    return _streams["groups"][:n]
 
 
 def process_all_gather(t: torch.Tensor, op: str = "all-gather"
@@ -602,7 +639,18 @@ def process_all_gather(t: torch.Tensor, op: str = "all-gather"
         src = src.to(resolve_device(None))    # NCCL carries the card's
     out = torch.empty((world,) + tuple(src.shape), dtype=src.dtype,
                       device=src.device)
-    dist.all_gather(list(out.unbind(0)), src)
+    groups = _gloo_streams(src.numel() * src.element_size())
+    if len(groups) == 1:
+        dist.all_gather(list(out.unbind(0)), src)
+    else:
+        flat, rows = src.reshape(-1), out.view(world, -1)
+        works = [dist.all_gather(list(o.unbind(0)), c, group=g,
+                                 async_op=True)
+                 for c, o, g in zip(flat.chunk(len(groups)),
+                                    rows.chunk(len(groups), dim=1),
+                                    groups)]
+        for w in works:
+            w.wait()
     if out.device != t.device:
         out = out.to(t.device)
     if as_bytes:
@@ -647,6 +695,30 @@ def process_all_gather_many(tensors: Sequence[torch.Tensor],
             out[i] = got[:, off:off + n].reshape(
                 (got.shape[0],) + tuple(tensors[i].shape))
             off += n
+    return out
+
+
+def process_gather_slots(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This process's slots of a stack (``[K/W, ...]`` along ``dim``)
+    and every other process's, in global slot order: ``[K, ...]`` (``t``
+    itself without a process group).  The same bits on every rank."""
+    return process_gather_slots_many([t], dim)[0]
+
+
+def process_gather_slots_many(tensors: Sequence[torch.Tensor],
+                              dim: int = 0) -> List[torch.Tensor]:
+    """``process_gather_slots`` of each tensor, as one collective a
+    dtype."""
+    if not processes_up():
+        return list(tensors)
+    out = []
+    for t, got in zip(tensors, process_all_gather_many(tensors,
+                                                       "all-gather")):
+        # [W, ..., K/W, ...] -> [..., W, K/W, ...] -> [..., K, ...]
+        got = got.movedim(0, dim)
+        shp = list(t.shape)
+        shp[dim] *= got.shape[dim]
+        out.append(got.reshape(shp))
     return out
 
 

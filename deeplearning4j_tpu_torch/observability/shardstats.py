@@ -146,7 +146,9 @@ def record_program(fn: str, signature, census: Dict[str, Dict[str, Any]],
     if pool_bytes is not None:
         entry["memory"] = {"graph_pool": int(pool_bytes)}
     with _prog_lock:
-        _programs.setdefault(str(fn), {})[signature] = entry
+        sigs = _programs.setdefault(str(fn), {})
+        sigs.pop(signature, None)    # the latest recorded comes last
+        sigs[signature] = entry
     reg = registry if registry is not None else get_registry()
     b = reg.counter(_COLL_BYTES, "Collective payload bytes of a slot "
                     "program's census, per function and op (recorded once "

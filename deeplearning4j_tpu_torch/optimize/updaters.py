@@ -17,7 +17,9 @@ The reference's ``as_optax`` has no counterpart.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -94,32 +96,69 @@ def _global_norm(grads: Dict) -> torch.Tensor:
     return torch.sqrt(sum((g * g).sum() for g in grads.values()))
 
 
-def normalize_gradients(cfg: UpdaterConfig, layer_grads: Dict):
-    """The configured normalization of ONE layer's flat gradient dict."""
+_PER_LAYER = ("renormalize_l2_per_layer", "clip_l2_per_layer")
+_PER_PARAM = ("renormalize_l2_per_param_type", "clip_l2_per_param_type")
+
+
+def layer_norms(cfg: UpdaterConfig, layer_grads: Dict) -> Dict:
+    """The L2 norms the configured normalization of ONE layer's flat
+    gradient dict divides or clips by: ``{None: the layer's}`` for the
+    per-layer kinds, ``{key: the leaf's}`` for the per-parameter ones,
+    else ``{}``."""
+    kind = cfg.gradient_normalization
+    if kind in _PER_LAYER:
+        return {None: _global_norm(layer_grads)}
+    if kind in _PER_PARAM:
+        return {k: _norm(g) for k, g in layer_grads.items()}
+    return {}
+
+
+def normalize_gradients(cfg: UpdaterConfig, layer_grads: Dict,
+                        norms: Optional[Dict] = None):
+    """The configured normalization of ONE layer's flat gradient dict;
+    ``norms`` (``layer_norms``' form) in place of its own when the dict
+    holds blocks of the layer's leaves (``given_norms``)."""
     kind = cfg.gradient_normalization
     t = cfg.gradient_normalization_threshold
     if kind == "none":
         return layer_grads
-    if kind == "renormalize_l2_per_layer":
-        norm = _global_norm(layer_grads)
-        return {k: g / (norm + 1e-12) for k, g in layer_grads.items()}
-    if kind == "renormalize_l2_per_param_type":
-        return {k: g / (_norm(g) + 1e-12) for k, g in layer_grads.items()}
     if kind == "clip_element_wise_absolute_value":
         return {k: g.clamp(-t, t) for k, g in layer_grads.items()}
-    if kind == "clip_l2_per_layer":
-        norm = _global_norm(layer_grads)
-        scale = torch.where(norm > t, t / (norm + 1e-12),
-                            torch.ones_like(norm))
-        return {k: g * scale for k, g in layer_grads.items()}
-    if kind == "clip_l2_per_param_type":
-        out = {}
-        for k, g in layer_grads.items():
-            norm = _norm(g)
+    if kind not in _PER_LAYER + _PER_PARAM:
+        raise ValueError(f"Unknown gradient normalization '{kind}'")
+    if norms is None:
+        norms = layer_norms(cfg, layer_grads)
+    out = {}
+    for k, g in layer_grads.items():
+        norm = norms[None] if kind in _PER_LAYER else norms[k]
+        if kind.startswith("renormalize"):
+            out[k] = g / (norm + 1e-12)
+        else:
             out[k] = g * torch.where(norm > t, t / (norm + 1e-12),
                                      torch.ones_like(norm))
-        return out
-    raise ValueError(f"Unknown gradient normalization '{kind}'")
+    return out
+
+
+class _GivenNorms(threading.local):
+    norms: Optional[Dict] = None
+
+
+_given = _GivenNorms()
+
+
+@contextlib.contextmanager
+def given_norms(norms: Optional[Dict]):
+    """Inside the block ``update`` normalizes layer ``name``'s gradient by
+    ``norms[name]`` (``layer_norms``' form, filled in before the update
+    runs) instead of by its own: the ZeRO sync master across processes
+    updates blocks of each leaf, normalized by the whole leaves' norms.
+    ``None`` changes nothing."""
+    prev = _given.norms
+    _given.norms = norms
+    try:
+        yield
+    finally:
+        _given.norms = prev
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +287,9 @@ def update(cfg: UpdaterConfig, grads, state, iteration,
     new_state = {k: {} for k in state}
     updates = {}
     for lname, lgrads in grads.items():
-        lgrads = normalize_gradients(cfg, _flat(lgrads))
+        lgrads = normalize_gradients(
+            cfg, _flat(lgrads),
+            None if _given.norms is None else _given.norms[lname])
         lparams = _flat(params[lname]) if params is not None else {}
         lstate = {k: _flat(state[k].get(lname, {})) for k in state}
         lr = s[("lr", lname)]

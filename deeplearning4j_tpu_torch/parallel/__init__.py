@@ -12,9 +12,13 @@ sharded save and resharded restore, tensor and expert parallelism
 
 Across processes (one a card, ``initialize_distributed`` over
 ``torch.distributed``; ``provision`` launches them): the sync master,
-replicated and ZeRO, ``DistributedNetwork`` and the sharded checkpoint
-(each process its own slots' blocks).  Parameter averaging, the wrapper
-and elastic masters (ROADMAP A14a), the model and seq axes (A14b) and
+replicated and ZeRO (with gradient normalization), ``ParallelWrapper``
+(replicated at any averaging frequency, and ZeRO),
+``ParameterAveragingTrainingMaster``, ``elastic=`` on each of them,
+``DistributedNetwork`` and the sharded checkpoint (each process its own
+slots' blocks); every rank ends each step or window holding the same
+bits.  The model and seq axes (ROADMAP A14b), distributed Word2Vec and
+GloVe (A14c), the introspection policy, the numerics ledger and
 resilient fits (A14e) raise there.  A mesh in one process over several
 devices raises (A10: its counterpart is one process a card).
 """

@@ -46,6 +46,29 @@ whole ``[F*K*B]`` slabs, ``_native_windows``) or from the
 ``_WindowAssembler`` thread; a ragged tail's pad-filled replicas are
 weighted out (``_pad_weights``).  With ``elastic=`` an evicted replica
 gets weight 0 and its slot the average (the readmission's catch-up).
+
+**Across processes** (a mesh made after ``initialize_distributed``,
+``backend/mesh.py``): process r holds the global slots ``r*K/W ...
+(r+1)*K/W - 1``, its stacks ``[K/W, ...]``.  Every process reads the
+same global window and keeps its own slots; replica k's dropout key is
+child ``f*K + k`` with k global.  The average gathers every process's
+slot values into the global ``[K, ...]`` stack in slot order
+(``mesh.process_gather_slots``) and reduces it with the one-process
+formula, so two processes of two slots equal the one-process four-slot
+wrapper bit for bit, and every rank ends each window holding the same
+bits.  The stability guard's finite flags, the window's losses and its
+non-finite count are gathered before use, so every rank weights out the
+same replicas.  On the card the local part, the F x K/W replica steps,
+is one captured graph with no collective inside; the exchange and the
+average run eagerly between replays (a gloo collective cannot be
+captured: ROADMAP A14d).  The ZeRO window runs eagerly across processes:
+each process holds every parameter block, updates the parameter and
+moment blocks of its own slots from every replica's gradient (gathered
+across processes), and the updated blocks are gathered into every rank.
+Each replica's window time is measured by the process that owns it and
+gathered, so every rank's elastic controller takes the same verdicts.
+The introspection policy, the numerics ledger, ``checkpoint_manager=``
+and ``retry_policy=`` raise there (ROADMAP A14e).
 """
 
 from __future__ import annotations
@@ -74,7 +97,7 @@ from deeplearning4j_tpu_torch.observability.recompile import instrument
 from deeplearning4j_tpu_torch.optimize import updaters as upd
 from deeplearning4j_tpu_torch.parallel import zero as zero_mod
 from deeplearning4j_tpu_torch.parallel.elastic import (
-    ElasticConfig, ElasticController,
+    ElasticConfig, ElasticController, check_mask, gather_worker_rows,
 )
 from deeplearning4j_tpu_torch.resilience import stability
 
@@ -117,9 +140,16 @@ def _wmean(stack: torch.Tensor, w: torch.Tensor, wsum) -> torch.Tensor:
             / wsum).to(stack.dtype)
 
 
-def _wavg_(stack: torch.Tensor, w: torch.Tensor, wsum) -> None:
-    """Weighted mean over the slot dim, written into every slot."""
-    stack.copy_(_wmean(stack, w, wsum).expand_as(stack))
+def _slots_of(a, sl: slice):
+    """A window leaf's slots ``sl`` (its dim 1: ``[F, K, ...]``), through
+    dicts and lists; None stays None."""
+    if a is None:
+        return None
+    if isinstance(a, dict):
+        return {k: _slots_of(v, sl) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_slots_of(v, sl) for v in a)
+    return a[:, sl]
 
 
 def _at(tree, path):
@@ -229,6 +259,36 @@ class _WindowAssembler:
             self.close()
 
 
+class _Timer:
+    """The local part of a window across processes, timed by CUDA events
+    on the card (read after the window's losses), by the host clock
+    elsewhere."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self._t = None
+
+    def start(self):
+        if self.cuda:
+            self._t = [torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)]
+            self._t[0].record()
+        else:
+            self._t = [time.perf_counter(), None]
+
+    def stop(self):
+        if self.cuda:
+            self._t[1].record()
+        else:
+            self._t[1] = time.perf_counter()
+
+    def seconds(self) -> float:
+        if self.cuda:
+            self._t[1].synchronize()
+            return self._t[0].elapsed_time(self._t[1]) / 1e3
+        return self._t[1] - self._t[0]
+
+
 class _Staged:
     """The wrapper's live trees on the mesh's device, as a captured
     program sees a net: ``models.capture.StepGraphs`` captures and
@@ -250,7 +310,8 @@ class ParallelWrapper:
         pw = ParallelWrapper(net, workers=4, averaging_frequency=3)
         pw.fit(iterator)
 
-    Without ``mesh`` the mesh is ``workers`` slots of the net's device.
+    Without ``mesh`` the mesh is ``workers`` slots of the net's device
+    (while a process group is up, slots over every process).
     """
 
     def __init__(self, net, workers: Optional[int] = None,
@@ -265,7 +326,10 @@ class ParallelWrapper:
         if mesh is None:
             k = workers or mesh_mod.device_count()
             mesh = mesh_mod.default_mesh(data=k, devices=[net.device] * k)
-        mesh_mod.across_processes("ParallelWrapper", mesh_mod.A14A, mesh)
+        if checkpoint_manager is not None or retry_policy is not None:
+            mesh_mod.across_processes(
+                "a resilient ParallelWrapper (checkpoint_manager=, "
+                "retry_policy=)", mesh_mod.A14E, mesh)
         if mesh.device != net.device:
             raise ValueError(f"the mesh's slots are on {mesh.device}, the "
                              f"net on {net.device}")
@@ -275,6 +339,10 @@ class ParallelWrapper:
             raise ValueError(
                 f"workers={self.workers} must equal the mesh data-axis size "
                 f"{mesh.shape[AXIS_DATA]}")
+        # this process's replicas: the global slots [lo, lo + K_local)
+        self._xp = mesh.spans_processes
+        self._k_local = mesh.local_shape[AXIS_DATA]
+        self._lo = mesh.local_slots.start
         self.prefetch_size = prefetch_size
         self.averaging_frequency = max(1, averaging_frequency)
         self.average_updaters = average_updaters
@@ -288,6 +356,7 @@ class ParallelWrapper:
         self._staged: Optional[_Staged] = None
         self._step_fn = None
         self._pool_bytes: Optional[int] = None
+        self._local_timer: Optional[_Timer] = None
         self.update_sharding = zero_mod.validate_mode(update_sharding, mesh)
         self._zero_layout: Optional[zero_mod.ZeroLayout] = None
         if self.update_sharding == zero_mod.ZERO:
@@ -339,54 +408,78 @@ class ParallelWrapper:
         (reference ``fit_window``).  Returns the ``[F, K]`` losses and,
         under a stability policy, the ``[K]`` poison flags and the
         window's non-finite step count."""
-        staged, K = self._staged, self.workers
+        losses, fins = self._window_steps(xs, ys, fms, lms, key, scalars,
+                                          numerics_now)
+        return self._window_average(losses, fins, weights)
+
+    def _window_steps(self, xs, ys, fms, lms, key, scalars,
+                      numerics_now=None):
+        """The F minibatches of this process's replicas (all K in one
+        process): their ``[F, K_local]`` losses and, under a stability
+        policy, their ``[F, K_local]`` finite flags (else None).  Replica
+        k's key at minibatch f is the window key's child ``f*K + k``, k
+        its global slot."""
+        staged, K, lo = self._staged, self.workers, self._lo
         F = xs.shape[0]
-        policy = stability.policy_of(self.net.conf)
         keys = rng_mod.split(key, F * K)
-        views = [self._replica(staged, k) for k in range(K)]
+        views = [self._replica(staged, k) for k in range(self._k_local)]
         losses, fins = [], []
         for f in range(F):
             sc = {n: v for (ff, n), v in scalars.items() if ff == f}
             row_l, row_f = [], []
-            for k in range(K):
-                view = views[k]
+            for k, view in enumerate(views):
                 stab = view.updater_state.get(stability.STATE_KEY)
                 before = (None if stab is None
                           else stab["nonfinite_total"].clone())
                 loss = view._train_body(
                     xs[f, k], ys[f, k], None if fms is None else fms[f, k],
-                    None if lms is None else lms[f, k], keys[f * K + k],
-                    sc, numerics_now=numerics_now)
+                    None if lms is None else lms[f, k],
+                    keys[f * K + lo + k], sc, numerics_now=numerics_now)
                 row_l.append(loss.float())
                 if before is not None:
                     row_f.append((stab["nonfinite_total"] == before).float())
             losses.append(torch.stack(row_l))
             if row_f:
                 fins.append(torch.stack(row_f))
+        return torch.stack(losses), (torch.stack(fins) if fins else None)
+
+    def _window_average(self, losses, fins, weights):
+        """The weighted average of params, layer state and (with
+        ``average_updaters``) updater state over the K replicas, written
+        into every slot; across processes over the global stacks,
+        gathered in slot order (module docstring).  Returns what
+        ``_window_body`` returns."""
+        staged = self._staged
+        policy = stability.policy_of(self.net.conf)
         with torch.no_grad():
+            if self._xp:
+                losses = mesh_mod.process_gather_slots(losses, dim=1)
+                if fins is not None:
+                    fins = mesh_mod.process_gather_slots(fins, dim=1)
             if policy is not None:
-                fin = torch.stack(fins)
-                win_finite = fin.min(dim=0).values
+                win_finite = fins.min(dim=0).values
                 w_eff = weights * win_finite
                 weights = torch.where(w_eff.sum() > 0, w_eff, weights)
-            wsum = weights.sum()
-            for tree in (staged.params, staged.net_state):
-                for a in common.tree_leaves(tree):
-                    _wavg_(a, weights, wsum)
+            leaves = (common.tree_leaves(staged.params)
+                      + common.tree_leaves(staged.net_state))
             if self.average_updaters:
                 for slot, tree in staged.updater_state.items():
                     if slot not in _HELD:
-                        for a in common.tree_leaves(tree):
-                            _wavg_(a, weights, wsum)
-            out = torch.stack(losses)
+                        leaves += common.tree_leaves(tree)
+            self._average_(leaves, weights, weights.sum())
             if policy is not None:
-                return out, 1.0 - win_finite, (1.0 - fin).sum()
-            return out
+                return losses, 1.0 - win_finite, (1.0 - fins).sum()
+            return losses
 
     def _zero_body(self, xs, ys, fms, lms, weights, key, scalars,
                    numerics_now=None):
-        """The ZeRO window (reference ``_build_zero``, F = 1)."""
+        """The ZeRO window (reference ``_build_zero``, F = 1).  Across
+        processes each process runs its own replicas, gathers every
+        replica's gradient, updates the blocks of its own slots and
+        gathers the updated parameter blocks into every rank."""
         staged, K, net = self._staged, self.workers, self.net
+        xp, lo, kl = self._xp, self._lo, self._k_local
+        own = slice(lo, lo + kl)
         cfg = net.conf.updater
         cfg_sh = zero_mod.no_norm(cfg)
         policy = stability.policy_of(net.conf)
@@ -403,7 +496,7 @@ class ParallelWrapper:
         # every replica's whole gradient, written into one [K, ...] stack
         # a leaf as its backward ends (one copy of the K gradients)
         stacked, losses, fins, new_ns = None, [], [], []
-        for k in range(K):
+        for k in range(kl):
             params = _tmap(lambda a: a.detach(), full)
             train = common.trainable(params)
             leaves = common.tree_leaves(train)
@@ -411,7 +504,7 @@ class ParallelWrapper:
                 p.requires_grad_(True)
             loss, ns = loss_of(
                 net, params, _tmap(lambda a: a[k], ns_k), xs[0, k],
-                ys[0, k], keys[k], None if fms is None else fms[0, k],
+                ys[0, k], keys[lo + k], None if fms is None else fms[0, k],
                 None if lms is None else lms[0, k], collect=acts)
             if acts:
                 act_k.append(introspection.act_summary(
@@ -434,15 +527,30 @@ class ParallelWrapper:
                     gnorms.append(zero_mod.tree_norms(plan, g))
                 g = upd.normalize_tree(cfg, g)
                 if stacked is None:
-                    stacked = _tmap(lambda a: a.new_empty((K,) + a.shape), g)
+                    stacked = _tmap(lambda a: a.new_empty((kl,) + a.shape),
+                                    g)
                 _tmap(lambda dst, a: dst[k].copy_(a), stacked, g)
             del g
             losses.append(loss.detach().float())
             new_ns.append(ns)
         with torch.no_grad():
-            g_all = zero_mod.all_to_all_tree(stacked, K)
             fin_f = (torch.stack(fins).float() if fins
-                     else torch.ones(K, device=weights.device))
+                     else torch.ones(kl, device=weights.device))
+            losses = torch.stack(losses)
+            stab_all = stab_k
+            if xp:
+                # every replica's gradient, finite flag, loss and guard
+                # state, in global slot order
+                paths = common.tree_paths(stacked)
+                got = mesh_mod.process_gather_slots_many(
+                    [a for _, a in paths] + [fin_f, losses])
+                stacked = common._tree_like(stacked, got[:len(paths)])
+                fin_f, losses = got[len(paths)], got[len(paths) + 1]
+                if stab_k is not None:
+                    stab_all = dict(zip(
+                        stab_k, mesh_mod.process_gather_slots_many(
+                            list(stab_k.values()))))
+            g_all = zero_mod.all_to_all_tree(stacked, K)
             w = weights
             if policy is not None:
                 w_eff = weights * fin_f
@@ -453,17 +561,21 @@ class ParallelWrapper:
             # a leaf at a time: every replica's updated block and moments
             # stacked [K, ...] (the leaf's size K times, never the tree's)
             # and averaged as the replicated window averages its stacks,
-            # so the two layouts give the same values
+            # so the two layouts give the same values; across processes
+            # the blocks of this process's slots alone
             mask = common.trainable(self._pmask)
+            gathered = []
             for path, p in common.tree_paths(common.trainable(p_sh)):
-                ln = path[0]
                 blocked = _at(mask, path)
+                mine = own if (xp and blocked) else slice(None)
+                p = p[mine]
+                # across processes the moments hold this process's blocks
                 olds = {slot: _at(tree, path)
                         for slot, tree in inner_sh.items()}
                 news_p, news_s = [], {slot: [] for slot in olds}
                 for r in range(K):
                     g = _at(g_all, path)
-                    g = g[:, r] if blocked else g[r]
+                    g = g[mine, r] if blocked else g[r]
                     u, st = upd.update(
                         cfg_sh, _nest(path, g),
                         {slot: _nest(path, o) for slot, o in olds.items()},
@@ -472,7 +584,7 @@ class ParallelWrapper:
                     st = {slot: _at(t, path) for slot, t in st.items()}
                     if policy is not None:
                         u, st = stability.fold_verdict(
-                            policy, fin_f[r] > 0, stab_k["lr_scale"][r],
+                            policy, fin_f[r] > 0, stab_all["lr_scale"][r],
                             u, st, olds)
                     news_p.append(p - u.to(p.dtype))
                     for slot, t in st.items():
@@ -480,6 +592,14 @@ class ParallelWrapper:
                 p.copy_(_wmean(torch.stack(news_p), w, wsum)[0])
                 for slot, ts in news_s.items():
                     olds[slot].copy_(_wmean(torch.stack(ts), w, wsum)[0])
+                if xp and blocked:
+                    gathered.append((_at(p_sh, path), p))
+            if gathered:
+                # the updated blocks of every process into every rank
+                got = mesh_mod.process_gather_slots_many(
+                    [b for _, b in gathered])
+                for (whole, _), g in zip(gathered, got):
+                    whole.copy_(g)
             if plan is not None:
                 # the update is shared, so its and the params' norms are
                 # one [L] broadcast to every replica's row
@@ -491,25 +611,33 @@ class ParallelWrapper:
                         zero_mod.update_delta_norms(
                             plan, old_p, common.trainable(p_sh)),
                         zero_mod.tree_norms(plan, old_p), acts_k)["packed"])
+            fin_own = fin_f[own] if xp else fin_f
             if new_ns and new_ns[0]:
                 stacked = _tmap(lambda *a: torch.stack(a), *new_ns)
                 if policy is not None and policy.skip_nonfinite:
                     stacked = _tmap(lambda n, o: torch.where(
-                        _rk(fin_f, n) > 0, n, o), stacked, ns_k)
+                        _rk(fin_own, n) > 0, n, o), stacked, ns_k)
                 common.copy_tree_(ns_k, stacked)
-                for a in common.tree_leaves(ns_k):
-                    _wavg_(a, w, wsum)
-            out = torch.stack(losses)[None]
+                self._average_(common.tree_leaves(ns_k), w, wsum)
+            out = losses[None]
             if policy is not None:
-                for r in range(K):
+                for r in range(kl):
                     one = {n: v[r] for n, v in stab_k.items()}
-                    new = stability.next_state(policy, one, fin_f[r] > 0)
+                    new = stability.next_state(policy, one, fin_own[r] > 0)
                     for n, v in new.items():
                         stab_k[n][r].copy_(v)
-                for v in stab_k.values():
-                    _wavg_(v, w, wsum)
+                self._average_(list(stab_k.values()), w, wsum)
                 return out, 1.0 - fin_f, (1.0 - fin_f).sum()
             return out
+
+    def _average_(self, stacks, w, wsum) -> None:
+        """Each ``[K_local, ...]`` stack's weighted mean over the K
+        replicas (gathered across processes first), written into every
+        local slot."""
+        got = (mesh_mod.process_gather_slots_many(stacks) if self._xp
+               else stacks)
+        for a, g in zip(stacks, got):
+            a.copy_(_wmean(g, w, wsum).expand_as(a))
 
     # ---------------------------------------------------------- staging
     def _stage(self, net):
@@ -517,14 +645,25 @@ class ParallelWrapper:
         replicas, or the ZeRO layout (params and inner updater slots in
         blocks, the reserved subtrees and layer state stacked).  A second
         fit of the same structure writes into the tensors of the first,
-        so its captured window replays."""
-        K = self.workers
+        so its captured window replays.  Across processes the stacks
+        hold this process's K/W slots; under ZeRO every process holds
+        every parameter block (the forward reads them all) and the
+        moment blocks of its own slots."""
+        K = self._k_local
         if self._zero_layout is not None:
             lay = self._zero_layout
             self._pmask = lay.mask(net.params)
             params = lay.place(net.params)
             upd_state = lay.place_updater(
                 net.updater_state, reserved_place=lambda t: _stack(t, K))
+            if self._xp:
+                own = slice(self._lo, self._lo + K)
+                reserved = shardstats.RESERVED_REPLICATED_SUBTREES
+                upd_state = {
+                    slot: (tree if slot in reserved else _tmap(
+                        lambda t, m: t[own].clone() if m else t, tree,
+                        self._pmask))
+                    for slot, tree in upd_state.items()}
         else:
             params = _stack(net.params, K)
             upd_state = _stack(net.updater_state, K)
@@ -542,9 +681,21 @@ class ParallelWrapper:
             self._staged = _Staged(net, params, upd_state, ns)
             self._step_fn = None
 
+    def _slot0(self, tree):
+        """``tree``'s stacks as seen at global slot 0: the stacks
+        themselves, or across processes with un-averaged updaters (per
+        replica there) rank 0's first slot, gathered (each leaf
+        ``[1, ...]``)."""
+        if not self._xp or self.average_updaters or tree is None:
+            return tree
+        paths = common.tree_paths(tree)
+        got = mesh_mod.process_all_gather_many([a[:1] for _, a in paths])
+        return common._tree_like(tree, [g[0] for g in got])
+
     def _fold_back(self, net, it, last_losses) -> None:
         """The averaged state into the facade's own tensors (slot 0 of
-        the stacks, or the ZeRO blocks put together)."""
+        the stacks, or the ZeRO blocks put together).  Un-averaged
+        updater state is global slot 0's on every rank."""
         st = self._staged
 
         def put(dst, src, whole):
@@ -562,23 +713,44 @@ class ParallelWrapper:
             if self._zero_layout is not None:
                 put(net.params, st.params, lambda _k: True)
                 for slot, tree in st.updater_state.items():
+                    if (self._xp and slot not in
+                            shardstats.RESERVED_REPLICATED_SUBTREES):
+                        self._put_own_blocks(net.updater_state[slot], tree)
+                        continue
                     put(net.updater_state.setdefault(slot, {}), tree,
                         lambda _k, s=slot:
                         s not in shardstats.RESERVED_REPLICATED_SUBTREES)
             else:
                 put(net.params, st.params, lambda _k: False)
-                put(net.updater_state, st.updater_state, lambda _k: False)
+                put(net.updater_state, self._slot0(st.updater_state),
+                    lambda _k: False)
             put(net.net_state, st.net_state, lambda _k: False)
         if last_losses is not None:
             net.score_value = last_losses[-1].mean().clone()
         net.iteration = it
+
+    def _put_own_blocks(self, dst, src) -> None:
+        """A ZeRO updater slot's blocks of this process's slots (``src``)
+        into the facade's whole tensors (``dst``): the other processes'
+        blocks stay as they were, as under the sync master; the sharded
+        checkpoint saves each block from its owner."""
+        lo, kl, k = self._lo, self._k_local, self.workers
+        for (path, d), (_, v) in zip(common.tree_paths(dst),
+                                     common.tree_paths(src)):
+            if v.shape == d.shape:
+                d.copy_(v)
+            else:
+                d.view((k, d.shape[0] // k) + tuple(d.shape[1:]))[
+                    lo:lo + kl].copy_(v)
 
     def state_trees(self) -> Dict[str, Any]:
         """The live trees as ``Sharded`` leaves over the mesh, as the
         reference's facade holds them after a fit: replicated mode the
         averaged single-model trees (slot 0), ZeRO mode params and inner
         updater slots in their blocks — what ``save_checkpoint(...,
-        trees=, mesh=)`` writes piece by piece."""
+        trees=, mesh=)`` writes piece by piece (across processes each
+        process the blocks of its own slots, process 0 the rest, its
+        slot 0 being the global slot 0)."""
         st, mesh, net = self._staged, self.mesh, self.net
         rep = lambda a: Sharded(a[0], P(), mesh, a.shape[1:])  # noqa: E731
         if self._zero_layout is None:
@@ -590,6 +762,10 @@ class ParallelWrapper:
         for slot, tree in st.updater_state.items():
             if slot in shardstats.RESERVED_REPLICATED_SUBTREES:
                 ustate[slot] = _tmap(rep, tree)
+            elif self._xp:
+                # the facade's tensors, this process's blocks folded back
+                whole = net.updater_state[slot]
+                ustate[slot] = lay.as_sharded(lay.place(whole), whole)
             else:
                 ustate[slot] = lay.as_sharded(tree, net.updater_state[slot])
         return {"params": lay.as_sharded(st.params, net.params),
@@ -641,6 +817,9 @@ class ParallelWrapper:
         names, vals, now = self._scalars(it, F)
         seed = rng_mod.seed_of(net._keys.next())
         dtype = common._scalar_dtype(net)
+        if self._xp:
+            return self._dispatch_across(xs, ys, fms, lms, weights, names,
+                                         vals, seed, dtype)
         body = (self._zero_body if self._zero_layout is not None
                 else self._window_body)
         variant = None
@@ -671,6 +850,54 @@ class ParallelWrapper:
                        **{k: None for k, v in inputs.items() if v is None},
                        key=rng_mod.device_key(seed, dev),
                        scalars=dict(zip(names, sc.unbind(0))))
+        key = cap.signature(common.tree_map(cap.host_or_device, inputs))
+        if key not in self._census_seen:
+            self._census_seen.add(key)
+            self._record_program(key, c.counts)
+        return out
+
+    def _dispatch_across(self, xs, ys, fms, lms, weights, names, vals,
+                         seed, dtype):
+        """A window across processes (module docstring): this process's
+        replica steps, captured on the card (the ZeRO window eagerly),
+        timed for the worker telemetry, then the exchange and the
+        average eagerly."""
+        net, st = self.net, self._staged
+        dev = net.device
+        inputs = {"xs": xs, "ys": ys, "fms": fms, "lms": lms}
+        w = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
+        timer = _Timer(dev)
+        with mesh_mod.census() as c:
+            if self._zero_layout is None and cap.captures(st):
+                graphs = cap.step_graphs(st)
+                staged_in = common.tree_map(cap.host_or_device, inputs)
+                prog = graphs.program("window_local", self._window_steps,
+                                      staged_in, len(vals), dtype)
+                prog.scalar_names = names
+                graphs.stage(prog, staged_in, seed, vals)
+                fresh = prog.graph is None
+                timer.start()
+                losses, fins = graphs.run(prog)
+                timer.stop()
+                if fresh:
+                    self._pool_bytes = prog.pool_bytes
+            else:
+                sc = torch.tensor(vals, dtype=dtype, device=dev)
+                args = dict(
+                    common._on({k: v for k, v in inputs.items()
+                                if v is not None}, dev),
+                    **{k: None for k, v in inputs.items() if v is None},
+                    key=rng_mod.device_key(seed, dev),
+                    scalars=dict(zip(names, sc.unbind(0))))
+                timer.start()
+                if self._zero_layout is not None:
+                    out = self._zero_body(weights=w, **args)
+                else:
+                    losses, fins = self._window_steps(**args)
+                timer.stop()
+            if self._zero_layout is None:
+                out = self._window_average(losses, fins, w)
+        self._local_timer = timer
         key = cap.signature(common.tree_map(cap.host_or_device, inputs))
         if key not in self._census_seen:
             self._census_seen.add(key)
@@ -713,6 +940,13 @@ class ParallelWrapper:
 
         net = self.net
         common.check_trainable(net)
+        if self._xp:
+            for name, what in (("introspection", "the introspection policy"),
+                               ("numerics", "the numerics ledger")):
+                if getattr(net.conf, name, None) is not None:
+                    mesh_mod.across_processes(
+                        f"{what} under ParallelWrapper", mesh_mod.A14E,
+                        self.mesh)
         res = None
         if self.checkpoint_manager is not None or self.retry_policy \
                 is not None:
@@ -796,6 +1030,11 @@ class ParallelWrapper:
                 ids = [str(k) for k in range(K)]
                 ys = inj.poison_replica_labels(ids, it, xs, ys)
                 xs = inj.poison_replica_slots(ids, it, xs)
+            if self._xp:
+                # every process read the global window: its own slots
+                own = slice(self._lo, self._lo + self._k_local)
+                xs, ys, fms, lms = (_slots_of(a, own)
+                                    for a in (xs, ys, fms, lms))
             t_disp0 = time.perf_counter()
             with step_guard("parallel_window",
                             component="parallel_wrapper", iteration=it):
@@ -822,8 +1061,7 @@ class ParallelWrapper:
             if stab_rt is not None:
                 action = stab_rt.poll_master(
                     step=it, losses=last_losses, elastic=self._elastic,
-                    stab_state=self._staged.updater_state.get(
-                        stability.STATE_KEY),
+                    stab_state=self._stab_state(),
                     can_rewind=res is not None and res.cm is not None)
                 if action == "backoff":
                     stability.apply_lr_backoff_(self._staged.updater_state,
@@ -854,10 +1092,14 @@ class ParallelWrapper:
                     res.cm.save(net, trigger=trigger)
         self._fold_back(net, it, last_losses)
         if stab_rt is not None:
-            stab_rt.flush(net, stab_state=self._staged.updater_state.get(
-                stability.STATE_KEY))
+            stab_rt.flush(net, stab_state=self._stab_state())
         self.iteration = it - it0
         return net
+
+    def _stab_state(self):
+        """The guard's state the runtime reads: global slot 0's."""
+        tree = self._staged.updater_state.get(stability.STATE_KEY)
+        return self._slot0(tree)
 
     def _window_weights(self, it: int, pad_w):
         """The eviction mask times the tail's pad weights (reference
@@ -866,6 +1108,8 @@ class ParallelWrapper:
         mask = None
         if self._elastic is not None:
             mask = self._elastic.begin_window(it)
+            if self._xp:
+                check_mask(mask, "ParallelWrapper")
             if mask.min() >= 1.0:
                 mask = None
         if mask is None and pad_w is None:
@@ -897,18 +1141,34 @@ class ParallelWrapper:
 
     def _publish_worker_stats(self, losses, dispatch_s: float,
                               wait_s: float, xs) -> None:
+        """Each replica's window time (plus the injector's delay for it)
+        into the worker telemetry.  Across processes a replica's time is
+        its process's local part (``_Timer``), and the ``[K]`` times are
+        gathered, so every rank observes the same."""
         from deeplearning4j_tpu_torch.resilience import get_fault_injector
 
         F = max(1, int(np.shape(xs)[0]))
         B = int(np.shape(xs)[2]) if np.ndim(xs) >= 3 else None
-        times = self._worker_step_times(losses, dispatch_s)
         inj = get_fault_injector()
-        if inj is not None:
-            times = {w: t + inj.worker_delay(w) for w, t in times.items()}
+        if self._xp:
+            local = self._local_timer.seconds()
+            ids = [str(self._lo + k) for k in range(self._k_local)]
+            rows = gather_worker_rows(
+                [(local + (inj.worker_delay(w) if inj is not None else 0.0),
+                  wait_s) for w in ids])
+            times = {str(k): t for k, (t, _) in enumerate(rows)}
+            waits = {str(k): w for k, (_, w) in enumerate(rows)}
+        else:
+            times = self._worker_step_times(losses, dispatch_s)
+            if inj is not None:
+                times = {w: t + inj.worker_delay(w)
+                         for w, t in times.items()}
+            waits = {w: wait_s for w in times}
         for worker, t in times.items():
             self._workers.observe(
                 worker, t / F, batch=B,
-                phases={"wait_window": wait_s / F, "dispatch": t / F})
+                phases={"wait_window": waits[worker] / F,
+                        "dispatch": t / F})
 
     def cluster_stats(self) -> Dict[str, Any]:
         return self._workers.cluster_view() if self._workers else {}

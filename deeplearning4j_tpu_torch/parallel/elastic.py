@@ -5,6 +5,16 @@ the stalls it pays (``barrier_stalls``, ``barrier_stall_seconds``), so a
 lockstep run and a degraded one compare by counted stalls, not by two
 wall times.
 
+Across processes every rank runs its own controller over the global
+replica ids.  Its inputs are the same on every rank: the fault
+injector's plan, and the replicas' window times, each measured by the
+process that owns the replica and gathered in rank order
+(``gather_worker_rows``).  So every rank takes the same verdicts at the
+same window; ``check_mask`` holds the masks equal through one small
+all-gather and raises on a mismatch.  A dead process is not survivable,
+as in the reference's multi-controller job: the process group's
+timeout turns it into an error.
+
 The reference's text follows.
 
 DeepSpark (arXiv 1602.08191) observes that a synchronous averaging window
@@ -135,9 +145,6 @@ class ElasticController:
                  config: Optional[ElasticConfig] = None,
                  detector=None, registry=None,
                  aliases: Optional[Dict[str, List[str]]] = None):
-        # a replica's eviction would reach only this process's rows
-        mesh_mod.across_processes(f"an elastic controller ({component})",
-                                  mesh_mod.A14A)
         self.component = component
         self.workers = [str(w) for w in worker_ids]
         self.K = len(self.workers)
@@ -418,3 +425,32 @@ class ElasticController:
             time.sleep(stall)
             self._m_stall.observe(stall, component=self.component)
         return stall
+
+
+def check_mask(mask: np.ndarray, what: str) -> None:
+    """Across processes: every rank's ``[K]`` mask for this window is
+    the same (one all-gather of K words), else ``RuntimeError``."""
+    if not mesh_mod.processes_up():
+        return
+    import torch
+
+    got = mesh_mod.process_all_gather(
+        torch.as_tensor(np.asarray(mask, np.float32)), "elastic-mask")
+    if not bool((got == got[0]).all()):
+        raise RuntimeError(
+            f"{what}: the ranks' elastic masks differ at this window "
+            f"({got.tolist()})")
+
+
+def gather_worker_rows(rows) -> np.ndarray:
+    """This process's replicas' rows (``[K/W, c]``: each replica's
+    window time and the like, measured by the process that owns it) and
+    every other process's, in rank order: ``[K, c]`` float64, the same on
+    every rank, so every rank's straggler detector takes the same
+    inputs (the rows themselves without a process group)."""
+    rows = np.asarray(rows, np.float64)
+    if not mesh_mod.processes_up():
+        return rows
+    import torch
+
+    return mesh_mod.process_gather_slots(torch.as_tensor(rows)).numpy()

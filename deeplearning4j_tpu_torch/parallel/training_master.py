@@ -51,9 +51,19 @@ every process's tensors.  That step runs eagerly (a
 gloo collective cannot be captured in a CUDA graph; a captured step over
 NCCL is ROADMAP A14d); its kernels launch on the card as ever.
 
-What still raises across processes, naming its ROADMAP item: elastic
-masters and parameter averaging (A14a), the model and seq axes (A14b),
-the introspection policy, the numerics ledger and resilient fits (A14e).
+Under ZeRO with gradient normalization each leaf's norm is the whole
+summed gradient's, which the exchange hands every rank
+(``updaters.given_norms``), never a process's own blocks'.  With
+``elastic=`` every rank weights out the evicted slots' rows with the
+same mask: its verdicts come from the injector's plan and from the
+slots' step times, each measured by the process that owns the slot and
+gathered in rank order, and the masks are checked equal at each step.
+``ParameterAveragingTrainingMaster`` is a ``ParallelWrapper`` an epoch
+there too (``data_parallel.py``).
+
+What still raises across processes, naming its ROADMAP item: the model
+and seq axes (A14b), the introspection policy, the numerics ledger and
+resilient fits (A14e).
 """
 
 from __future__ import annotations
@@ -74,7 +84,7 @@ from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
 from deeplearning4j_tpu_torch.backend import slots
 from deeplearning4j_tpu_torch.backend.mesh import (
-    A14A, A14E, AXIS_DATA, P, Sharded, across_processes,
+    A14E, AXIS_DATA, P, Sharded, across_processes,
 )
 from deeplearning4j_tpu_torch.models import capture as cap
 from deeplearning4j_tpu_torch.models import common
@@ -84,12 +94,13 @@ from deeplearning4j_tpu_torch.observability import (
 )
 from deeplearning4j_tpu_torch.observability.flightrecorder import step_guard
 from deeplearning4j_tpu_torch.observability.recompile import instrument
+from deeplearning4j_tpu_torch.optimize import updaters as upd
 from deeplearning4j_tpu_torch.parallel import zero as zero_mod
 from deeplearning4j_tpu_torch.parallel.data_parallel import (
     _Staged, _tmap, loss_of,
 )
 from deeplearning4j_tpu_torch.parallel.elastic import (
-    ElasticConfig, ElasticController,
+    ElasticConfig, ElasticController, check_mask, gather_worker_rows,
 )
 from deeplearning4j_tpu_torch.resilience import stability
 
@@ -211,7 +222,6 @@ class SyncTrainingMaster(TrainingMaster):
         self._slots = [f"d{k}" for k in range(self.K)]
         self._elastic: Optional[ElasticController] = None
         if elastic is not False and elastic is not None:
-            across_processes("elastic=", A14A, self.mesh)
             ecfg = elastic if isinstance(elastic, ElasticConfig) \
                 else ElasticConfig()
             self.collect_stats = True
@@ -303,13 +313,16 @@ class SyncTrainingMaster(TrainingMaster):
     def _model_slots(self):
         return contextlib.nullcontext()
 
-    def _exchange(self, h, grads, loss, extra_ok):
+    def _exchange(self, h, norms, grads, loss, extra_ok):
         """The cross-process half of the step (``common.sgd_step``'s
         ``exchange``): the gradients and the loss summed over the
         processes in rank order, one collective; under ZeRO the
         process's own blocks of them, for the holder of its blocks, with
         the guard's verdict folded over the whole summed gradient (so
-        that every rank, and either layout, takes the same branch)."""
+        that every rank, and either layout, takes the same branch), and
+        with gradient normalization (``norms``, a dict) each layer's
+        norms from the whole summed gradient, unscaled as the update
+        unscales it."""
         train = common.trainable(h.params)
         leaves = common.tree_leaves(grads)
         summed = mesh_mod.process_sum_many(leaves + [loss])
@@ -317,10 +330,15 @@ class SyncTrainingMaster(TrainingMaster):
         hl = h._local if self._zero_layout is not None else None
         if hl is None:
             return h, train, grads, loss, extra_ok
+        whole = grads
         if extra_ok is not None:
             stab = h.updater_state[stability.STATE_KEY]
-            extra_ok = extra_ok & stability.unscale(
-                loss, grads, stab["loss_scale"])[1]
+            whole, fin = stability.unscale(loss, grads, stab["loss_scale"])
+            extra_ok = extra_ok & fin
+        if norms is not None:
+            cfg = h.conf.updater
+            for lname, lg in whole.items():
+                norms[lname] = upd.layer_norms(cfg, upd._flat(lg))
         hl.iteration = h.iteration
         local = common.trainable(hl.params)
         sl = self.mesh.local_slots
@@ -365,11 +383,15 @@ class SyncTrainingMaster(TrainingMaster):
             return loss_of(net, self._full(params), h.net_state, x, y, key,
                            fm, lm, collect=collect)
 
-        with slots.data_slots(K, processes=xp), self._model_slots():
+        norms = ({} if xp and self._zero_layout is not None
+                 and net.conf.updater.gradient_normalization != "none"
+                 else None)
+        with slots.data_slots(K, processes=xp), self._model_slots(), \
+                upd.given_norms(norms):
             loss = common.sgd_step(
                 h, loss_fn, scalars, numerics_now=numerics_now,
                 extra_ok=extra_ok,
-                exchange=(functools.partial(self._exchange, h) if xp
+                exchange=(functools.partial(self._exchange, h, norms) if xp
                           else None))
         if xp and self._zero_layout is not None:
             self._gather_blocks(h)
@@ -498,10 +520,6 @@ class SyncTrainingMaster(TrainingMaster):
                 if getattr(net.conf, name, None) is not None:
                     across_processes(f"{what} under the sync master",
                                      A14E, self.mesh)
-            if (self._zero_layout is not None and
-                    net.conf.updater.gradient_normalization != "none"):
-                across_processes("ZeRO with gradient normalization", A14A,
-                                 self.mesh)
         res = None
         if self.checkpoint_manager is not None or self.retry_policy \
                 is not None:
@@ -564,6 +582,8 @@ class SyncTrainingMaster(TrainingMaster):
             step0 = net.iteration
             if self._elastic is not None:
                 emask = self._elastic.begin_window(step0)
+                if xp:
+                    check_mask(emask, "SyncTrainingMaster")
                 if emask.min() >= 1.0:
                     emask = None
             feats = ds.features
@@ -638,10 +658,16 @@ class SyncTrainingMaster(TrainingMaster):
                 step_s = time.perf_counter() - t0
                 self._stats["step_time_ms"].append(step_s * 1e3)
                 per_dev = max(1, len(ds) // K)
-                for worker in self._slots:
-                    w_s = step_s + (inj.worker_delay(worker)
-                                    if inj is not None else 0.0)
-                    self._workers.observe(worker, w_s, batch=per_dev)
+                # each slot's time measured by the process that owns it
+                # (across processes gathered, so every rank's detector
+                # takes the same inputs)
+                sl = self.mesh.local_slots
+                times = gather_worker_rows([
+                    [step_s + (inj.worker_delay(w) if inj is not None
+                               else 0.0)]
+                    for w in self._slots[sl.start:sl.stop]])
+                for worker, (w_s,) in zip(self._slots, times):
+                    self._workers.observe(worker, float(w_s), batch=per_dev)
             if self._elastic is not None:
                 self._elastic.window_barrier(step0)
             self._stats["steps"] += 1
@@ -690,8 +716,6 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
                  prefetch_size: int = 2, repartition: str = "always",
                  mesh=None, collect_stats: bool = False, elastic=False,
                  update_sharding: str = zero_mod.REPLICATED):
-        if mesh is not None:
-            across_processes("ParameterAveragingTrainingMaster", A14A, mesh)
         self.mesh = mesh
         self.workers = workers or (mesh.shape[AXIS_DATA] if mesh is not None
                                    else None)

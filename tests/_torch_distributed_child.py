@@ -12,6 +12,7 @@ nets travel as the configuration's JSON and numpy weights.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import sys
@@ -130,13 +131,13 @@ def _net(job):
     from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 
     return params_from_numpy(MultiLayerConfiguration.from_json(job["conf"]),
-                             job["params"], device="cpu")
+                             job["params"], device=job.get("device", "cpu"))
 
 
-def _mesh(k=4):
+def _mesh(k=4, device="cpu"):
     from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
 
-    return mesh_mod.default_mesh(data=k, devices=["cpu"] * k)
+    return mesh_mod.default_mesh(data=k, devices=[device] * k)
 
 
 def _vec(net):
@@ -163,15 +164,20 @@ def fit(job):
         FaultInjector, inject_faults,
     )
 
+    from deeplearning4j_tpu_torch.parallel import ElasticConfig
+
     net = _net(job)
     mesh = _mesh(job.get("k", 4))
-    master = SyncTrainingMaster(mesh=mesh,
-                                update_sharding=job.get("mode", "replicated"))
+    master = SyncTrainingMaster(
+        mesh=mesh, update_sharding=job.get("mode", "replicated"),
+        elastic=(ElasticConfig(**job["elastic"]) if job.get("elastic")
+                 is not None else False))
+    rec = _Recorded(master.elastic) if master.elastic is not None else None
     ds = DataSet(job["x"], job["y"], labels_mask=job.get("lm"))
     it = ListDataSetIterator(ds, job["batch"])
     p0 = _vec(net)
     steps = []
-    inj = None
+    inj = _injector(job)
     if job.get("poison"):
         inj = FaultInjector(seed=3).poison_gradients(**job["poison"])
     for _ in range(job.get("epochs", 1)):
@@ -187,6 +193,9 @@ def fit(job):
                      if k.startswith("exchange")}}
     if inj is not None:
         out["poisoned"] = [e["kind"] for e in inj.injected]
+    if rec is not None:
+        out.update(masks=rec.masks, stalls=master.elastic.barrier_stalls,
+                   summary=master.elastic.summary())
     from deeplearning4j_tpu_torch.resilience import stability
 
     if stability.policy_of(net.conf) is not None:
@@ -257,12 +266,37 @@ def guards(job):
 
     net = _net(job)
     mesh = _mesh()
+
+    def wrapper_fit(**kw):
+        from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+        x = np.zeros((8, 8), np.float32)
+        ParallelWrapper(net, workers=4, mesh=mesh, **kw).fit(
+            iter([DataSet(x[:2], np.eye(4, dtype=np.float32)[:2])] * 4))
+
+    def with_numerics():
+        import dataclasses
+
+        from deeplearning4j_tpu_torch.nn.conf import TrainingNumerics
+
+        conf = dataclasses.replace(net.conf, introspection=None,
+                                   numerics=TrainingNumerics().to_dict())
+        saved, net.conf = net.conf, conf
+        try:
+            wrapper_fit()
+        finally:
+            net.conf = saved
+
     cases = {
-        "ParallelWrapper": lambda: ParallelWrapper(net, workers=4,
-                                                   mesh=mesh),
-        "ParameterAveraging": lambda: ParameterAveragingTrainingMaster(
-            mesh=mesh),
-        "elastic": lambda: SyncTrainingMaster(mesh=mesh, elastic=True),
+        "wrapper introspection": wrapper_fit,
+        "wrapper numerics": with_numerics,
+        "wrapper checkpoint_manager": lambda: ParallelWrapper(
+            net, workers=4, mesh=mesh, checkpoint_manager=object()),
+        "wrapper retry_policy": lambda: ParallelWrapper(
+            net, workers=4, mesh=mesh, retry_policy=object()),
+        "built": lambda: (ParallelWrapper(net, workers=4, mesh=mesh),
+                          ParameterAveragingTrainingMaster(mesh=mesh),
+                          SyncTrainingMaster(mesh=mesh, elastic=True)),
         "TensorParallel": lambda: TensorParallelTrainingMaster(
             mesh=mesh_mod.default_mesh(data=2, model=2,
                                        devices=["cpu"] * 4)),
@@ -307,6 +341,24 @@ def group(job):
             "typed": typed}
 
 
+def streams(job):
+    """A gather large enough to go over the mesh's gloo streams, float32
+    and bfloat16: whether each equals the plain stack of every rank's
+    tensor, and how many streams it took."""
+    from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
+    r, w = mesh_mod.process_index(), mesh_mod.process_count()
+    out = {}
+    for dt, n in ((torch.float32, (3 << 20) + 5), (torch.bfloat16, 6 << 20)):
+        mine = (torch.arange(n, dtype=torch.float32) % 251 + r).to(dt)
+        got = mesh_mod.process_all_gather(mine)
+        want = torch.stack([(torch.arange(n, dtype=torch.float32) % 251
+                             + k).to(dt) for k in range(w)])
+        out[str(dt)] = (bool(torch.equal(got, want)), len(
+            mesh_mod._gloo_streams(mine.numel() * mine.element_size())))
+    return out
+
+
 def cuda_gather(job):
     """The mesh's cross-process all-gather of tensors on the card and of
     the same tensors on the CPU, and the bytes the census counted."""
@@ -337,6 +389,190 @@ def nccl_psum(job):
             "backend": mesh_mod.process_backend()}
 
 
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
+def _injector(job):
+    """A ``FaultInjector`` armed with ``job["faults"]`` ([method, kwargs]
+    pairs), or None."""
+    from deeplearning4j_tpu_torch.resilience import FaultInjector
+
+    if not job.get("faults"):
+        return None
+    inj = FaultInjector(seed=job.get("fault_seed", 3))
+    for method, kw in job["faults"]:
+        getattr(inj, method)(**kw)
+    return inj
+
+
+def _batches(job):
+    """``job``'s data as the wrapper reads it: an iterator of DataSets
+    (the window assembler) or a ``ListDataSetIterator`` (native slabs)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        ListDataSetIterator,
+    )
+
+    x, y, b = job["x"], job["y"], job["batch"]
+    if job.get("source", "iter") == "list":
+        return ListDataSetIterator(DataSet(x, y), b)
+    return iter([DataSet(x[i:i + b], y[i:i + b])
+                 for i in range(0, len(x), b)])
+
+
+class _Recorded:
+    """An elastic controller's masks, one a window, as ``begin_window``
+    returned them."""
+
+    def __init__(self, ctl):
+        self.masks = []
+        begin = ctl.begin_window
+
+        def rec(step):
+            m = begin(step)
+            self.masks.append((int(step), [float(v) for v in m]))
+            return m
+
+        ctl.begin_window = rec
+
+
+def _flight(since, kinds=("elastic_eviction", "elastic_readmission",
+                          "replica_poisoned")):
+    from deeplearning4j_tpu_torch.observability import get_flight_recorder
+
+    return [(e.kind, dict(e.attrs)) for e in
+            get_flight_recorder().events()[since:] if e.kind in kinds]
+
+
+class _ReplayGraph:
+    """A captured graph's stand-in on the CPU: ``replay`` reruns the body
+    and writes its tensors into the capture's outputs."""
+
+    def __init__(self, fn, out):
+        self.fn, self.out = fn, out
+
+    def replay(self):
+        from deeplearning4j_tpu_torch.models.common import tree_leaves
+
+        for dst, src in zip(tree_leaves(self.out), tree_leaves(self.fn())):
+            if dst is not src:
+                dst.copy_(src)
+
+
+@contextlib.contextmanager
+def _emulated_capture(holder):
+    """The card's capture calls replaced on the CPU for the programs of
+    ``holder()`` (the wrapper's staged trees): the warm-up runs the body,
+    the capture records it without its effects (the state and the
+    programs' static inputs restored after one run), a replay reruns it,
+    the pinned staging is a plain copy."""
+    from deeplearning4j_tpu_torch.models import capture
+    from deeplearning4j_tpu_torch.models.common import tree_leaves
+
+    def fake_capture(fn, pool=None):
+        h = holder()
+        held = capture.state_leaves(h) + [
+            t for p in h._step_graphs.programs.values()
+            for t in tree_leaves(p.statics)]
+        saved = [t.clone() for t in held]
+        out = fn()
+        for t, v in zip(held, saved):
+            t.copy_(v)
+        return _ReplayGraph(fn, out), out
+
+    def put(self, dst, src, name):
+        src = capture.host_or_device(src)
+        if src is not dst:
+            dst.copy_(src)
+
+    patches = [(capture, "captures", lambda n: n is holder()),
+               (capture, "warm_on_side_stream", lambda fn, device: fn()),
+               (capture, "capture_graph", fake_capture),
+               (capture.StepGraphs, "_pool", lambda self: None),
+               (capture.StepGraphs, "put", put)]
+    saved = [(o, n, getattr(o, n)) for o, n, _ in patches]
+    for o, n, v in patches:
+        setattr(o, n, v)
+    try:
+        yield
+    finally:
+        for o, n, v in saved:
+            setattr(o, n, v)
+
+
+def wrapper(job):
+    """``ParallelWrapper`` (or, with ``epochs``, the
+    ``ParameterAveragingTrainingMaster`` over ``DistributedNetwork``) over
+    4 slots across the processes: every leaf after the fit, the elastic
+    masks a window, the stalls and the flight events; ``save`` writes
+    ``state_trees()`` as a sharded checkpoint."""
+    from deeplearning4j_tpu_torch.observability import get_flight_recorder
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedNetwork, ElasticConfig, ParallelWrapper,
+        ParameterAveragingTrainingMaster, save_checkpoint,
+    )
+    from deeplearning4j_tpu_torch.resilience import inject_faults
+
+    net = _net(job)
+    mesh = _mesh(device=job.get("device", "cpu"))
+    since = len(get_flight_recorder().events())
+    elastic = (ElasticConfig(**job["elastic"]) if job.get("elastic")
+               is not None else False)
+    kw = dict(averaging_frequency=job.get("freq", 1),
+              average_updaters=job.get("avg", True), mesh=mesh,
+              elastic=elastic, update_sharding=job.get("mode",
+                                                       "replicated"))
+    if job.get("epochs"):
+        runner = ParameterAveragingTrainingMaster(workers=4, **kw)
+    else:
+        runner = ParallelWrapper(net, workers=4, **kw)
+    rec = _Recorded(runner.elastic) if runner.elastic is not None else None
+    if job.get("evict") is not None:
+        runner.elastic.evict(job["evict"], "manual", step=0)
+    inj = _injector(job)
+    fits = job.get("fits", [{}])
+    for i, one in enumerate(fits):
+        if inj is not None and one.get("clear_delay") is not None:
+            inj.clear_worker_delay(one["clear_delay"])
+
+        def run():
+            if job.get("epochs"):
+                DistributedNetwork(net, runner).fit(_batches(job),
+                                                    epochs=job["epochs"])
+            else:
+                runner.fit(_batches(job))
+
+        with contextlib.ExitStack() as stack:
+            if inj is not None:
+                stack.enter_context(inject_faults(inj))
+            if job.get("emulate_capture"):
+                stack.enter_context(_emulated_capture(
+                    lambda: runner._staged))
+            run()
+    out = {"params": _vec(net), "iteration": net.iteration,
+           "updater_state": _np_tree({k: v for k, v in
+                                      net.updater_state.items()}),
+           "net_state": _state(net), "score": float(net.score_value),
+           "events": _flight(since)}
+    if rec is not None:
+        ctl = runner.elastic
+        out.update(masks=rec.masks, stalls=ctl.barrier_stalls,
+                   stall_s=ctl.barrier_stall_seconds,
+                   evicted=list(ctl.evicted_workers))
+    if job.get("save"):
+        save_checkpoint(job["save"], net, trees=runner.state_trees(),
+                        mesh=mesh)
+    staged = getattr(runner, "_staged", None)
+    if staged is not None and getattr(staged, "_step_graphs", None):
+        g = staged._step_graphs
+        out["graphs"] = {"captures": g.captures, "replays": g.replays,
+                         "programs": [k[0] for k in g.programs]}
+    return out
+
+
 JOBS = {"fit": fit, "evaluate": evaluate, "restore": restore,
         "guards": guards, "group": group, "cuda_gather": cuda_gather,
-        "nccl_psum": nccl_psum}
+        "nccl_psum": nccl_psum, "wrapper": wrapper, "streams": streams}

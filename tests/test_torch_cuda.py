@@ -2800,3 +2800,42 @@ def test_distributed_nccl_world_of_one_psum(cuda):
     (res,) = _xchild().spawn([{"name": "p", "kind": "nccl_psum"}],
                              world=1)
     assert res["p"] == {"equal": True, "backend": "nccl"}
+
+
+def test_distributed_wrapper_window_captured_on_the_card(cuda):
+    """Two processes on ``cuda:0`` over gloo, each holding two of
+    ``ParallelWrapper``'s four slots: the local replica steps are one
+    captured graph, replayed in later windows with the exchange between
+    replays; the ranks end bit for bit equal, and equal to the same
+    wrapper in one process on the card (its whole window one graph)."""
+    xc = _xchild()
+    rs = np.random.RandomState(4)
+    x = rs.rand(64, 8).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rs.randint(0, 4, 64)]
+    from deeplearning4j_tpu_torch.models.sequential import (
+        MultiLayerNetwork,
+    )
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.builder().seed(21)
+        .updater("adam", learning_rate=0.05).list()
+        .layer(L.DenseLayer(n_in=8, n_out=16, activation="tanh"))
+        .layer(L.OutputLayer(n_in=16, n_out=4, loss="mcxent",
+                             activation="softmax")).build()).init(
+        device="cpu")
+    job = dict(name="w", kind="wrapper", conf=net.conf.to_json(),
+               params={k: {n: t.numpy() for n, t in v.items()}
+                       for k, v in net.params.items()},
+               x=x, y=y, batch=4, freq=2, device="cuda")
+    ranks = xc.spawn([job], backend="gloo")
+    one = xc.wrapper(job)
+    for r in ranks:
+        w = r["w"]
+        np.testing.assert_array_equal(w["params"], ranks[0]["w"]["params"])
+        np.testing.assert_array_equal(w["params"], one["params"])
+        assert w["graphs"]["captures"] == 1
+        assert w["graphs"]["replays"] == 1
+        assert w["graphs"]["programs"] == ["window_local"]
+    assert one["graphs"]["programs"] == ["window"]

@@ -476,16 +476,31 @@ def test_jax_four_device_save_restores_onto_two_processes(runs):
 
 
 @pytest.mark.parametrize("case,label", [
-    ("ParallelWrapper", "A14a"), ("ParameterAveraging", "A14a"),
-    ("elastic", "A14a"), ("TensorParallel", "A14b"), ("Pipeline", "A14b"),
+    ("TensorParallel", "A14b"), ("Pipeline", "A14b"),
     ("SequenceParallel", "A14b"), ("DistributedWord2Vec", "A14c"),
     ("DistributedGlove", "A14c"), ("CheckpointManager", "A14e"),
-    ("resilient fit", "A14e"), ("introspection", "A14e")])
+    ("resilient fit", "A14e"), ("introspection", "A14e"),
+    ("wrapper introspection", "A14e"), ("wrapper numerics", "A14e"),
+    ("wrapper checkpoint_manager", "A14e"),
+    ("wrapper retry_policy", "A14e")])
 def test_a14_guards_raise_across_processes(runs, case, label):
     for r in _ranks(runs):
         kind, msg = r["guards"][case]
         assert kind == "NotImplementedError", (case, kind, msg)
         assert label in msg
+
+
+def test_a14a_masters_build_across_processes(runs):
+    """``ParallelWrapper``, ``ParameterAveragingTrainingMaster`` and an
+    elastic sync master build under the two-process mesh (A14a ported);
+    nothing in the port names A14a."""
+    import pathlib
+
+    for r in _ranks(runs):
+        assert r["guards"]["built"] == ("none", "")
+    root = pathlib.Path(__file__).resolve().parent.parent
+    for f in (root / "deeplearning4j_tpu_torch").rglob("*.py"):
+        assert "A14a" not in f.read_text() and "A14A" not in f.read_text()
 
 
 def test_a_data_axis_that_does_not_divide_raises(runs):

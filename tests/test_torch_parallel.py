@@ -267,12 +267,16 @@ def test_captured_window_runs_the_same_body(monkeypatch):
 
 def test_not_yet_ported_masters_raise():
     # a ParallelWrapper over a mesh that spans two processes (rank 0 of a
-    # group of two; the mesh reads the group's size and rank)
+    # group of two; the mesh reads the group's size and rank) holds its
+    # two slots of the four; a resilient one is not ported there (A14e)
     _, tn = pair()
     span = tmesh.Mesh(np.asarray(["cpu"] * 4, dtype=object).reshape(4, 1, 1),
                       tmesh.AXES, processes=2)
-    with pytest.raises(NotImplementedError, match="A14a"):
-        tpar.ParallelWrapper(tn, workers=4, mesh=span)
+    pw = tpar.ParallelWrapper(tn, workers=4, mesh=span)
+    assert (pw.workers, pw._k_local, pw._lo) == (4, 2, 0)
+    with pytest.raises(NotImplementedError, match="A14e"):
+        tpar.ParallelWrapper(tn, workers=4, mesh=span,
+                             retry_policy=object())
     tpar.initialize_distributed()         # one process needs nothing
     with pytest.raises(NotImplementedError,
                        match="A10, meshes across processes and GPUs"):
