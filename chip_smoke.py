@@ -539,7 +539,7 @@ Phases (any failure exits non-zero; nothing is caught):
    the NCCL child's steps one wrapper window on its 2 slots, equal bit
    for bit to the same window here without a group; (e) the bf16 char-LM
    at full width, 4 replicas of 2 x 2048, two a process, Adam, F 1 and
-   F 3 replicated and F 1 ZeRO, one warm-up and two timed windows each:
+   F 3 replicated and F 1 ZeRO, one warm-up and one timed window each:
    the ranks' params bit for bit after every window, the launches and
    the local window graph (captured once, replayed; ZeRO eager), ms a
    window, tokens/s, the exchange's ms and bytes a window, the peak; a
@@ -551,7 +551,24 @@ Phases (any failure exits non-zero; nothing is caught):
    of ``ParameterAveragingTrainingMaster(elastic=True)``, the ranks bit
    for bit; (g) ResNet-50 bf16 under the wrapper, one replica of 16
    images a process, one window: the ranks bit for bit, the local
-   graph holding 53 BatchNorm training launches of each kind.  The NCCL
+   graph holding 53 BatchNorm training launches of each kind.  In the
+   same children: (h) the introspection policy and the numerics ledger
+   (collecting every second step) on (b)'s bf16 sync master, replicated
+   3 steps and ZeRO 2, and on (e)'s wrapper at F 1 for one window: the
+   ranks' vectors (the wrapper's gathered ``[K, N]`` stacks) bit for
+   bit; (b)'s float32 run carries both policies, its vectors within
+   ``DIST_STATS_TOL`` and ``DIST_FRACTION_TOL`` of the one-process
+   four-slot master's here; (i) resilient fits of the sync master and
+   the wrapper on (f)'s 2-layer char-LM through a ``CheckpointManager``
+   and a ``RetryPolicy``: a fatal fault on every rank, the resume from
+   the last commit, a retryable fault and a preemption notice on rank 1
+   alone (every rank retries, and commits at the same step), a resumed
+   run bit for bit the unfaulted one, a fatal fault on rank 1 alone
+   raised on every rank at once; the NCCL child commits and resumes
+   once; (j) ``DistributedWord2Vec`` (skip-gram HS, the NLP phase's
+   corpus and vocabulary) and ``DistributedGlove`` (its cut), 16 batches
+   each, eager: the ranks bit for bit, within ``NLP_DIST_ATOL`` of the
+   one-process four-slot fit here, the exchange a batch.  The NCCL
    child and the gloo children start together, and this process makes
    the oracles' references meanwhile (to keep the run inside its time
    limit): (a)'s, (b)'s and (c)'s times share the card with them.
@@ -8344,19 +8361,36 @@ DIST_RESNET_ROWS = 8        # ResNet-50's images a data slot
 DIST_STEPS = 3              # the bf16 runs' steps, each layout
 DIST_DEADLINE_S = 480       # each group of children, spawn to exit
 DIST_SEED = 7
-# ParallelWrapper across processes: (e) one warm-up and two timed windows
-# a run; its float32 oracle two windows at F 3; (f) the elastic run's
+# ParallelWrapper across processes: (e) one warm-up and one timed window
+# a run (cut from two timed windows to make room for (h)-(j)); its
+# float32 oracle two windows at F 3; (f) the elastic run's
 # char-LM cut to 2 layers (every window's state crosses the host twice
 # through gloo), replica 3 delayed 0.2 s for five windows, then cleared
 # for four, readmitted three windows after its eviction; (g) ResNet-50,
 # one replica of 16 images a process
-DIST_WINDOWS = 3
+DIST_WINDOWS = 2
 DIST_F32_WINDOWS = 2
 DIST_ELASTIC_LAYERS = 2
 DIST_ELASTIC_DELAY = 0.2
 DIST_ELASTIC_WINDOWS = (5, 4)
 DIST_ELASTIC_READMIT = 3
 DIST_RESNET_WRAP_ROWS = 16
+# (h) the introspection policy and the numerics ledger, the ledger every
+# second step (both programs run); (i) the resilient fits on (f)'s 2-layer
+# char-LM: 4 sync steps or 4 wrapper windows, a fatal fault on every rank
+# at step 3, then a resume, a retryable fault on rank 1 at step 2 and its
+# preemption notice at step 3; (j) Word2Vec and GloVe, 16 batches each
+# (the NLP phase's corpus; GloVe on its cut, as the NLP phase's)
+DIST_STATS_INTERVAL = 2
+DIST_RES_STEPS = 4
+DIST_RES_FATAL, DIST_RES_RETRY, DIST_RES_PREEMPT = 3, 2, 3
+DIST_NLP_BATCHES = 16
+# (h) the float32 oracle's statistics against the one-process four-slot
+# master's: the introspection harvest's values to tests/test_introspection
+# .py's rtol 1e-4 (atol 1e-6 for the fractions near 0), the ledger's
+# max-abs to 1e-4 and each sampled fraction within 2 samples of 1024
+DIST_STATS_TOL = dict(rtol=1e-4, atol=1e-6)
+DIST_FRACTION_TOL = 2.0 / 1024
 
 
 def _digest(tensors) -> str:
@@ -8428,17 +8462,22 @@ def _wrapper_windows(pw, net, frames):
     """One ``fit`` a window over ``frames`` (each a window's minibatches),
     timed to the loss read: ms, the cross-process exchange's seconds and
     bytes, and the params digest after each window."""
-    out = {"ms": [], "exchange_s": [], "exchange_bytes": [], "digests": []}
+    out = {"ms": [], "exchange_s": [], "exchange_bytes": [],
+           "stats_s": [], "stats_bytes": [], "digests": []}
     for frame in frames:
         torch.cuda.synchronize()
         ex0 = mesh_mod.process_totals()
+        st0 = mesh_mod.process_totals("statistics")
         t0 = time.perf_counter()
         pw.fit(iter(frame))
         float(net.score_value)
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         ex1 = mesh_mod.process_totals()
+        st1 = mesh_mod.process_totals("statistics")
         out["exchange_s"].append(ex1["seconds"] - ex0["seconds"])
         out["exchange_bytes"].append(ex1["bytes"] - ex0["bytes"])
+        out["stats_s"].append(st1["seconds"] - st0["seconds"])
+        out["stats_bytes"].append(st1["bytes"] - st0["bytes"])
         out["digests"].append(_part_digest(net, "params"))
     return out
 
@@ -8451,17 +8490,41 @@ def _wrapper_graphs(pw):
             "held": list(g.graph_launches().values())}
 
 
+def _observe(net, interval=DIST_STATS_INTERVAL):
+    """(h): the introspection policy and the numerics ledger (collecting
+    every ``interval`` steps) on ``net``."""
+    from deeplearning4j_tpu_torch.nn.conf import (
+        TrainingIntrospection, TrainingNumerics,
+    )
+
+    net.conf = dataclasses.replace(
+        net.conf, introspection=TrainingIntrospection().to_dict(),
+        numerics=TrainingNumerics(interval=interval).to_dict())
+    return net
+
+
+def _observed(tree):
+    """The ``__introspect__`` and ``__numerics__`` vectors of an updater
+    state (or of a wrapper's gathered live stacks), as host arrays."""
+    return {k: tree[k]["packed"].detach().float().cpu().numpy()
+            for k in ("__introspect__", "__numerics__")
+            if tree.get(k) is not None}
+
+
 def _wrapper_child(run, world):
     """(a), (e): ``ParallelWrapper`` over ``world x DIST_SLOTS`` slots, the
     char-LM at full width, ``run["windows"]`` windows of F minibatches of
     ``DIST_ROWS`` x 2048 a replica: ``_wrapper_windows``' numbers, the
     wrapper launches, the window graph's captures, replays and launches,
-    and the peak."""
+    and the peak.  (h): with ``observe`` the statistics' digests (the
+    gathered ``[K, N]`` stacks and the facade's global slot 0 vectors)."""
     from deeplearning4j_tpu_torch.parallel import ParallelWrapper
 
     K = world * DIST_SLOTS
     F = run["freq"]
     net = _lm_wrapper_net(run["dtype"])
+    if run.get("observe"):
+        _observe(net)
     pw = ParallelWrapper(net, workers=K, mesh=_slots(data=K),
                          averaging_frequency=F, update_sharding=run["mode"])
     batches = _lm_batches(run["windows"] * K * F, DIST_ROWS, DIST_SEED + F)
@@ -8472,6 +8535,13 @@ def _wrapper_child(run, world):
     out["launches"] = {k: l for k, (l, _) in _launch_counts().items() if l}
     out["peak_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
     out["graphs"] = _wrapper_graphs(pw)
+    if run.get("observe"):
+        live = _observed({"__introspect__": net._introspect_live,
+                          "__numerics__": net._numerics_live})
+        out["live"] = {k: (list(v.shape), _digest([torch.from_numpy(v)]))
+                       for k, v in live.items()}
+        out["facade"] = {k: _digest([torch.from_numpy(v)]) for k, v in
+                         _observed(net.updater_state).items()}
     if run.get("vec"):
         np.save(run["vec"].format(rank=mesh_mod.process_index()),
                 net.params_to_vector())
@@ -8566,12 +8636,246 @@ def _resnet_wrapper_child(run, world):
     return out
 
 
+class _PreemptAt:
+    """A listener that raises this rank's preemption notice once the net
+    reaches iteration ``at`` (on the training thread: a known step)."""
+
+    def __init__(self, handler, at):
+        self.handler, self.at = handler, at
+
+    def iteration_done(self, model, iteration):
+        if iteration == self.at and not self.handler.stop_requested:
+            self.handler.trigger()
+
+
+def _small_lm():
+    """(f)'s and (i)'s char-LM: full width, 2 layers, SGD."""
+    return transformer_char_lm(device="cuda", **dict(
+        TRAIN_MODEL, layers=DIST_ELASTIC_LAYERS, updater="sgd",
+        lr=PARALLEL_SGD_LR))
+
+
+def _resilient_child(run, world):
+    """(i): a resilient fit across the processes on the 2-layer char-LM
+    (the sync master on ``world x DIST_SLOTS`` slots of ``DIST_ROWS`` x
+    2048, or the wrapper with a replica a slot, F 1), through a
+    ``CheckpointManager`` in the phase's directory and a ``RetryPolicy``:
+    (1) ``DIST_RES_STEPS`` unfaulted steps or windows; (2) a fatal fault
+    on every rank at ``DIST_RES_FATAL`` (commits every second step);
+    (3) a fresh net resumed from the last commit, a retryable fault on
+    rank 1 alone at ``DIST_RES_RETRY``, rank 1's preemption notice at
+    ``DIST_RES_PREEMPT`` (rank 0 has no handler); (4) a fresh net resumed
+    to the end, committing every step; (5) a fatal fault on rank 1 alone
+    at step 1.  Digests, the manager's steps and triggers, the faults'
+    types, each part's seconds and the wrapper launches."""
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedNetwork, ParallelWrapper, SyncTrainingMaster,
+    )
+    from deeplearning4j_tpu_torch.resilience import (
+        CheckpointManager, FaultInjector, PreemptionHandler, RetryPolicy,
+        inject_faults,
+    )
+
+    K = world * DIST_SLOTS
+    mesh = _slots(data=K)
+    sync = run["master"] == "sync"
+    batches = (_lm_global(world, DIST_RES_STEPS) if sync else _lm_batches(
+        DIST_RES_STEPS * K, DIST_ROWS, DIST_SEED + 21))
+    rank = mesh_mod.process_index()
+
+    def fit(cm=None, rp=None, inj=None, preempt=None):
+        net = _small_lm()
+        handler = None
+        if preempt is not None:
+            handler = PreemptionHandler(cm).install()
+            net.listeners = [_PreemptAt(handler, preempt)]
+        runner = (SyncTrainingMaster(mesh=mesh, checkpoint_manager=cm,
+                                     retry_policy=rp) if sync else
+                  ParallelWrapper(net, workers=K, mesh=mesh,
+                                  checkpoint_manager=cm, retry_policy=rp))
+        t0 = time.perf_counter()
+        err = None
+        # the training thread's collectives (a commit's barriers run on
+        # the writer's)
+        seen = mesh_mod.census()
+        try:
+            with seen, (inject_faults(inj) if inj is not None
+                        else contextlib.nullcontext()):
+                if sync:
+                    DistributedNetwork(net, runner).fit(iter(batches))
+                else:
+                    runner.fit(iter(batches))
+            float(net.score_value)
+        except Exception as e:      # the run's planted fault, reported
+            err = type(e).__name__
+        finally:
+            if handler is not None:
+                handler.uninstall()
+        secs = time.perf_counter() - t0
+        agreed = seen.counts.get("agreement", {})
+        out["agree"].append((agreed.get("process_count", 0),
+                             agreed.get("process_seconds", 0.0)))
+        if cm is not None:
+            cm.wait_idle()
+        digest = _part_digest(net, "params")
+        if not sync:
+            _release(runner)
+        _drop(net)
+        return digest, err, secs
+
+    def manager(every):
+        return CheckpointManager(run["dir"], keep=10,
+                                 save_every_steps=every)
+
+    def policy():
+        return RetryPolicy(max_retries=2, base_delay_s=0.0, jitter=0.0)
+
+    _counts_zero()
+    out = {"secs": {}, "agree": []}
+    out["unfaulted"], _, out["secs"]["unfaulted"] = fit()
+    cm = manager(2)
+    _, out["fatal"], out["secs"]["fatal"] = fit(
+        cm, policy(), FaultInjector().fail_at_step(DIST_RES_FATAL,
+                                                   transient=False))
+    out["after_fatal"] = cm.all_steps()
+    cm.close()
+    cm, rp, inj = manager(2), policy(), FaultInjector()
+    if rank == 1:
+        inj.fail_at_step(DIST_RES_RETRY, transient=True)
+    _, out["preempt_err"], out["secs"]["preempted"] = fit(
+        cm, rp, inj, DIST_RES_PREEMPT if rank == 1 else None)
+    out["retries"] = rp.retries
+    out["latest"] = cm.latest_step()
+    out["trigger"] = cm.read_commit(cm.latest())["trigger"]
+    cm.close()
+    cm = manager(1)
+    out["resumed"], out["resumed_err"], out["secs"]["resumed"] = fit(
+        cm, policy())
+    out["steps"] = cm.all_steps()
+    cm.close()
+    inj = FaultInjector()
+    if rank == 1:
+        inj.fail_at_step(1, transient=False)
+    _, out["lone"], out["secs"]["lone"] = fit(rp=policy(), inj=inj)
+    out["launches"] = {k: l for k, (l, _) in _launch_counts().items() if l}
+    return out
+
+
+def _commit_child(run, world):
+    """(i) over NCCL, a world of one: the sync master on the 2-layer
+    char-LM, 3 unfaulted steps; then 2 steps committing every step and a
+    fresh net resumed from that commit (its 2 batches skipped) for the
+    third: the params of both bit for bit."""
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedNetwork, SyncTrainingMaster,
+    )
+    from deeplearning4j_tpu_torch.resilience import CheckpointManager
+
+    mesh = _slots(data=world * DIST_SLOTS)
+    batches = _lm_global(world, 3)
+    _counts_zero()
+
+    def fit(part, cm=None):
+        net = _small_lm()
+        t0 = time.perf_counter()
+        DistributedNetwork(net, SyncTrainingMaster(
+            mesh=mesh, checkpoint_manager=cm)).fit(iter(part))
+        float(net.score_value)
+        if cm is not None:
+            cm.wait_idle()
+        secs = time.perf_counter() - t0
+        d = _part_digest(net, "params")
+        it = net.iteration
+        _drop(net)
+        return d, it, secs
+
+    want, _, t_plain = fit(batches)
+    cm = CheckpointManager(run["dir"], keep=10, save_every_steps=1)
+    _, _, t_saved = fit(batches[:2], cm)
+    steps = cm.all_steps()
+    cm.close()
+    cm = CheckpointManager(run["dir"], keep=10, save_every_steps=1)
+    got, it, t_resumed = fit(batches, cm)
+    out = {"want": want, "got": got, "iteration": it,
+           "steps_saved": steps, "steps": cm.all_steps(),
+           "secs": [t_plain, t_saved, t_resumed],
+           "launches": {k: l for k, (l, _) in _launch_counts().items()
+                        if l}}
+    cm.close()
+    return out
+
+
+def _nlp_model(kind, mesh, cap_batches=DIST_NLP_BATCHES):
+    """(j)'s model over ``mesh``: ``DistributedWord2Vec`` (skip-gram HS at
+    the ``VectorsConfiguration`` defaults) on the NLP phase's corpus, or
+    ``DistributedGlove`` at its defaults on the corpus's cut, one epoch;
+    its fit trains only the first ``cap_batches`` batches (the
+    vocabulary and the co-occurrences are the whole corpus's)."""
+    import itertools
+
+    corpus = nlp_corpus(NLP_SEED)
+    if kind == "w2v":
+        m = (nlp_dist.DistributedWord2Vec.Builder().iterate(corpus)
+             .seed(NLP_SEED).mesh(mesh).build())
+        whole = m._batches
+        m._batches = lambda: itertools.islice(whole(), cap_batches)
+        return m
+    m = nlp_dist.DistributedGlove(
+        sentence_iterator=nlp.CollectionSentenceIterator(
+            _cut(corpus, NLP_CUT)), epochs=1, seed=NLP_SEED, mesh=mesh)
+    whole = m._train_pairs
+    n = cap_batches * m.batch_size
+    m._train_pairs = lambda r, c, v, rs: whole(r[:n], c[:n], v[:n], rs)
+    return m
+
+
+def _nlp_tables(m, kind):
+    lk = m.lookup
+    return ([lk.syn0, lk.syn1] if kind == "w2v" else list(m._state))
+
+
+def _nlp_child(run, world):
+    """(j): ``_nlp_model`` over ``world x DIST_SLOTS`` slots across the
+    processes: the tables' digest, the fit's seconds, the batches, the
+    exchange's ms and bytes a batch, the vocabulary's size; rank 0 saves
+    ``syn0`` for the parent's one-process fit."""
+    K = world * DIST_SLOTS
+    m = _nlp_model(run["model"], _slots(data=K))
+    calls = []
+    run_step = m._step if run["model"] == "w2v" else m._glove_step
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return run_step(*a, **kw)
+
+    if run["model"] == "w2v":
+        m._step = counted
+    else:
+        m._glove_step = counted
+    ex0 = mesh_mod.process_totals()
+    t0 = time.perf_counter()
+    m.fit()
+    loss = m.cum_loss
+    secs = time.perf_counter() - t0
+    ex1 = mesh_mod.process_totals()
+    n = max(len(calls), 1)
+    if mesh_mod.process_index() == 0:
+        np.save(run["vec"], m.lookup.syn0.detach().cpu().numpy())
+    return {"digest": _digest(_nlp_tables(m, run["model"])),
+            "secs": secs, "batches": len(calls), "loss": loss,
+            "vocab": len(m.vocab), "captures": m.programs.counts()["captures"],
+            "exchange_ms": (ex1["seconds"] - ex0["seconds"]) * 1e3 / n,
+            "exchange_mib": (ex1["bytes"] - ex0["bytes"]) / n / 2 ** 20}
+
+
 def _child_run(run, world):
     """One run of a distributed child (``distributed_phase``)."""
     from deeplearning4j_tpu_torch.parallel import save_checkpoint
 
     wrapped = {"wrapper": _wrapper_child, "elastic": _elastic_child,
-               "resnet_wrapper": _resnet_wrapper_child}.get(run["kind"])
+               "resnet_wrapper": _resnet_wrapper_child,
+               "resilient": _resilient_child, "commit": _commit_child,
+               "nlp": _nlp_child}.get(run["kind"])
     if wrapped is not None:
         return wrapped(run, world)
 
@@ -8590,8 +8894,12 @@ def _child_run(run, world):
         kw = TRAIN_MODEL if run["dtype"] == "bf16" else dict(
             TRAIN_MODEL_F32, updater="sgd", lr=PARALLEL_SGD_LR)
         net = transformer_char_lm(device="cuda", **kw)
+        if run.get("observe"):
+            _observe(net)
+        st0 = mesh_mod.process_totals("statistics")
         master, ms, counts = _dist_fit(
             net, mesh, _lm_global(world, run["steps"]), run["mode"])
+        st1 = mesh_mod.process_totals("statistics")
     st = master.training_stats()
     out = {"ms": ms, "launches": counts,
            "params": _part_digest(net, "params"),
@@ -8605,9 +8913,20 @@ def _child_run(run, world):
                            if k in e}
                       for op, e in mesh_mod.collective_totals().items()
                       if e.get("process_count")}}
+    if run["kind"] != "resnet":
+        out.update(stats_s=st1["seconds"] - st0["seconds"],
+                   stats_bytes=st1["bytes"] - st0["bytes"],
+                   stats_count=st1["count"] - st0["count"])
     if run.get("vec"):
         np.save(run["vec"].format(rank=mesh_mod.process_index()),
                 net.params_to_vector())
+    if run.get("observe"):
+        seen = _observed(net.updater_state)
+        out["observed"] = {k: _digest([torch.from_numpy(v)])
+                           for k, v in seen.items()}
+        if run.get("stats"):
+            np.savez(run["stats"].format(rank=mesh_mod.process_index()),
+                     **seen)
     if run.get("save"):
         t0 = time.perf_counter()
         save_checkpoint(run["save"], net, trees=master.state_trees(net),
@@ -8720,13 +9039,16 @@ def _run_children(world, backend, runs, tmp, child=None):
 
 def _gloo_runs(tmp):
     """The gloo children's runs: (b), (c) and the save of (d), then
-    (e)-(g) (``ParallelWrapper``, elastic and ``ParameterAveraging``);
-    with the files their params and save go to."""
+    (e)-(g) (``ParallelWrapper``, elastic and ``ParameterAveraging``),
+    then (h)-(j) (statistics, resilient fits, Word2Vec and GloVe; (b)'s
+    float32 run carries (h)'s policies too); with the files their params
+    and save go to."""
     vec = [f"{tmp}/lm-f32-{{rank}}.npy", f"{tmp}/resnet-{{rank}}.npy",
            f"{tmp}/resnet1-{{rank}}.npy", f"{tmp}/wrap-f32-{{rank}}.npy"]
     ck = f"{tmp}/zero-ckpt"
     runs = [{"name": "f32", "kind": "lm", "dtype": "f32", "steps": 2,
-             "mode": "replicated", "vec": vec[0]},
+             "mode": "replicated", "vec": vec[0], "observe": True,
+             "stats": f"{tmp}/stats-f32-{{rank}}.npz"},
             {"name": "replicated", "kind": "lm", "dtype": "bf16",
              "steps": DIST_STEPS, "mode": "replicated"},
             {"name": "zero", "kind": "lm", "dtype": "bf16",
@@ -8741,6 +9063,17 @@ def _gloo_runs(tmp):
               "vec": vec[3]},
              {"name": "elastic", "kind": "elastic"},
              {"name": "resnet_wrap", "kind": "resnet_wrapper"}]
+    runs += [{"name": "stats", "kind": "lm", "dtype": "bf16",
+              "steps": DIST_STEPS, "mode": "replicated", "observe": True},
+             {"name": "stats_zero", "kind": "lm", "dtype": "bf16",
+              "steps": 2, "mode": "zero", "observe": True},
+             {"name": "wrap_stats", "kind": "wrapper", "dtype": "bf16",
+              "freq": 1, "mode": "replicated", "windows": 1,
+              "observe": True}]
+    runs += [{"name": f"res_{m}", "kind": "resilient", "master": m,
+              "dir": f"{tmp}/res-{m}"} for m in ("sync", "wrapper")]
+    runs += [{"name": m, "kind": "nlp", "model": m,
+              "vec": f"{tmp}/{m}-syn0.npy"} for m in ("w2v", "glove")]
     return vec, ck, runs
 
 
@@ -8795,7 +9128,9 @@ def distributed_phase(name_card):
             {"name": "lm", "kind": "lm", "dtype": "bf16", "steps": 2,
              "mode": "replicated"},
             {"name": "wrap", "kind": "wrapper", "dtype": "bf16", "freq": 1,
-             "mode": "replicated", "windows": 1}], tmp))
+             "mode": "replicated", "windows": 1},
+            {"name": "commit", "kind": "commit",
+             "dir": f"{tmp}/nccl-commit"}], tmp))
         vec, ck, runs = _gloo_runs(tmp)
         groups.append(_Children(2, "gloo", runs, tmp))
         t_ref = time.perf_counter()
@@ -8803,7 +9138,8 @@ def distributed_phase(name_card):
             device="cuda", **TRAIN_MODEL), DIST_SLOTS, _lm_global(1, 2))
         want_wrap = _nccl_wrapper_reference()
         refs = {"f32": _sync_f32_reference(), "resnet": _resnet_reference(),
-                "wrap_f32": _f32_wrapper_reference()}
+                "wrap_f32": _f32_wrapper_reference(),
+                "stats": _stats_f32_reference(), "nlp": _nlp_reference()}
         t_ref = time.perf_counter() - t_ref
         (a,), secs = groups[0].wait()
         r = a["runs"]["lm"]
@@ -8825,6 +9161,7 @@ def distributed_phase(name_card):
         launches["bf16"].update(r["launches"])
         _dist_nccl_wrapper(a["runs"]["wrap"], want_wrap, name_card,
                            launches)
+        _dist_nccl_commit(a["runs"]["commit"], name_card, launches)
         torch.cuda.empty_cache()
         kids, secs = groups[1].wait()
         print(f"distributed: the references here took {t_ref:.1f} s of "
@@ -8843,6 +9180,9 @@ def distributed_phase(name_card):
                           launches)
         _dist_elastic(kids, name_card, launches)
         _dist_resnet_wrapper(kids, name_card, launches)
+        _dist_stats(kids, tmp, refs.pop("stats"), name_card, launches)
+        _dist_resilient(kids, name_card, launches)
+        _dist_nlp(kids, tmp, refs.pop("nlp"), name_card)
         # (d) the ZeRO run's save restored here
         z = kids[0]["runs"]["zero"]
         with open(f"{ck}/checkpoint.json") as f:
@@ -8875,6 +9215,240 @@ def distributed_phase(name_card):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"distributed: phase {time.perf_counter() - t_phase:.1f} s")
     return {k: dict(v) for k, v in launches.items()}
+
+
+def _stats_f32_reference():
+    """(h)'s float32 oracle: the one-process four-slot sync master with
+    (h)'s policies, SGD, on (b)'s two global batches: the plans and the
+    ``__introspect__`` and ``__numerics__`` vectors."""
+    from deeplearning4j_tpu_torch.observability import (
+        introspection, numerics,
+    )
+
+    net = _observe(transformer_char_lm(device="cuda", updater="sgd",
+                                       lr=PARALLEL_SGD_LR,
+                                       **TRAIN_MODEL_F32))
+    _dist_fit(net, _slots(data=2 * DIST_SLOTS), _lm_global(2, 2))
+    out = {"intro_plan": introspection.plan_for(net),
+           "num_plan": numerics.plan_for(net),
+           "vecs": _observed(net.updater_state)}
+    _drop(net)
+    return out
+
+
+def _dist_stats(kids, tmp, ref, name_card, launches):
+    """(h): the statistics across processes.  The ranks' vectors bit for
+    bit (the sync master replicated and ZeRO, bf16; the wrapper's
+    gathered stacks and the facade's vectors); (b)'s float32 run's
+    vectors against the one-process four-slot master's (``ref``) within
+    ``DIST_STATS_TOL`` and ``DIST_FRACTION_TOL``; the launches."""
+    from deeplearning4j_tpu_torch.observability import (
+        introspection, numerics,
+    )
+
+    for name in ("stats", "stats_zero", "f32"):
+        a, b = (k["runs"][name]["observed"] for k in kids)
+        check(a == b, f"distributed (h) {name}: the ranks' statistics bit "
+              f"for bit {a} {b}")
+    for name, steps in (("stats", DIST_STEPS), ("stats_zero", 2)):
+        for rank, k in enumerate(kids):
+            r = k["runs"][name]
+            check(r["launches"] == _want_lm(steps), f"distributed (h) "
+                  f"{name} launches {r['launches']} against "
+                  f"{_want_lm(steps)}")
+            launches["bf16"].update(r["launches"])
+            print(f"distributed (h) bf16 Adam sync master {name}, rank "
+                  f"{rank}, the introspection policy and the numerics "
+                  f"ledger every {DIST_STATS_INTERVAL} steps: steps "
+                  f"{[round(x, 3) for x in r['ms']]} ms, the exchange "
+                  f"{r['exchange_s'] * 1e3 / steps:.3f} ms a step "
+                  f"({r['exchange_count']} collectives, "
+                  f"{r['exchange_bytes'] / steps / 2 ** 20:.1f} MiB sent a "
+                  f"step), the statistics' reductions "
+                  f"{r['stats_s'] * 1e3 / steps:.3f} ms a step "
+                  f"({r['stats_count']} collectives, "
+                  f"{r['stats_bytes'] / steps / 2 ** 10:.1f} KiB a step); "
+                  f"vectors {r['observed']} [{name_card}]")
+    a, b = (k["runs"]["wrap_stats"] for k in kids)
+    check(a["live"] == b["live"] and a["facade"] == b["facade"]
+          and a["digests"] == b["digests"], "distributed (h) wrapper: the "
+          "ranks' gathered stacks, the facade's vectors and the params bit "
+          "for bit")
+    check(all(shape[0] == 2 * DIST_SLOTS for shape, _ in a["live"].values()),
+          f"distributed (h) wrapper: the stacks hold every replica's row "
+          f"{a['live']}")
+    want = _want_wrapper(1, 1, DIST_SLOTS, True)
+    for rank, r in enumerate((a, b)):
+        check(r["launches"] == want, f"distributed (h) wrapper launches "
+              f"{r['launches']} against {want}")
+        launches["bf16"].update(r["launches"])
+        print(f"distributed (h) wrapper F 1 with both policies, rank {rank}: "
+              f"the window {r['ms'][0]:.3f} ms (its capture included), the "
+              f"exchange {r['exchange_s'][0] * 1e3:.3f} ms, "
+              f"{r['exchange_bytes'][0] / 2 ** 20:.1f} MiB, the statistics' "
+              f"gathers {r['stats_s'][0] * 1e3:.3f} ms, "
+              f"{r['stats_bytes'][0] / 2 ** 10:.1f} KiB; stacks "
+              f"{r['live']} [{name_card}]")
+    got = dict(np.load(f"{tmp}/stats-f32-0.npz"))
+    hi = introspection.harvest({"packed": got["__introspect__"]},
+                               ref["intro_plan"])
+    hr = introspection.harvest({"packed": ref["vecs"]["__introspect__"]},
+                               ref["intro_plan"])
+    worst = 0.0
+    for sect in ("gradient_stats", "update_stats", "activation_stats"):
+        for layer, stats in hr[sect].items():
+            for key, v in stats.items():
+                if not isinstance(v, float):
+                    continue
+                g = hi[sect][layer][key]
+                ok = math.isclose(g, v, rel_tol=DIST_STATS_TOL["rtol"],
+                                  abs_tol=DIST_STATS_TOL["atol"])
+                # the share of its tolerance the difference takes
+                worst = max(worst, abs(g - v) / (
+                    DIST_STATS_TOL["atol"] + DIST_STATS_TOL["rtol"] * abs(v)))
+                check(ok, f"distributed (h) float32 {sect}/{layer}/{key} "
+                      f"{g} against {v} within {DIST_STATS_TOL}")
+    ni = numerics.harvest({"packed": got["__numerics__"]}, ref["num_plan"])
+    nr = numerics.harvest({"packed": ref["vecs"]["__numerics__"]},
+                          ref["num_plan"])
+    frac = 0.0
+    for comp in ("gradients", "moments", "activations"):
+        for layer, e in nr[comp].items():
+            g = ni[comp][layer]
+            check(math.isclose(g["max_abs"], e["max_abs"], rel_tol=1e-4,
+                               abs_tol=0.0), f"distributed (h) float32 "
+                  f"ledger {comp}/{layer} max-abs {g['max_abs']} against "
+                  f"{e['max_abs']}")
+            for kind in ("underflow", "overflow"):
+                for fmt, v in e[kind].items():
+                    frac = max(frac, abs(g[kind][fmt] - v))
+    check(frac <= DIST_FRACTION_TOL, f"distributed (h) float32 ledger: "
+          f"every sampled fraction within {DIST_FRACTION_TOL:g} ({frac:g})")
+    print(f"distributed (h) float32 oracle (SGD, 2 processes x "
+          f"{DIST_SLOTS} slots, 2 steps, the ledger collecting at step 0): "
+          f"the introspection harvest's largest difference from the "
+          f"one-process four-slot master's {worst:.3e} of its tolerance "
+          f"(atol + rtol x |value|), the ledger's "
+          f"largest fraction difference {frac:.3e}, every max-abs within "
+          f"1e-4 [{name_card}]")
+
+
+def _dist_resilient(kids, name_card, launches):
+    """(i): both masters' resilient fits, both ranks: the planted faults
+    raised where planned, the resume from the last commit, the retry on
+    both ranks, the preemption's commit at the same step on both, and the
+    resumed runs' params equal the unfaulted runs' bit for bit."""
+    for m in ("sync", "wrapper"):
+        a, b = (k["runs"][f"res_{m}"] for k in kids)
+        for r in (a, b):
+            check(r["fatal"] == "InjectedFault" and r["preempt_err"] is None
+                  and r["resumed_err"] is None, f"distributed (i) {m}: the "
+                  f"fatal fault raised, the other runs clean {r['fatal']} "
+                  f"{r['preempt_err']} {r['resumed_err']}")
+            check(r["after_fatal"] == [2] and r["latest"] == DIST_RES_PREEMPT
+                  and r["trigger"] in ("preempt", "priority"),
+                  f"distributed (i) {m}: commits {r['after_fatal']} before "
+                  f"the fault, the preemption's at {r['latest']} "
+                  f"({r['trigger']})")
+            check(r["steps"] == [2, 3] + list(range(4, DIST_RES_STEPS + 1)),
+                  f"distributed (i) {m}: the commits {r['steps']}")
+            check(r["retries"] == 1, f"distributed (i) {m}: rank 1's fault "
+                  f"retried on every rank ({r['retries']})")
+            check(r["resumed"] == r["unfaulted"], f"distributed (i) {m}: the "
+                  f"resumed run equal to the unfaulted one bit for bit")
+            check(sum(r["launches"].values()) > 0, f"distributed (i) {m}: "
+                  f"the kernels launched {r['launches']}")
+            launches["bf16"].update(r["launches"])
+        check(a["unfaulted"] == b["unfaulted"] and a["launches"]
+              == b["launches"], f"distributed (i) {m}: the ranks bit for "
+              "bit, the same launches")
+        check(a["lone"] == "PeerStepFault" and b["lone"] == "InjectedFault"
+              and max(a["secs"]["lone"], b["secs"]["lone"]) < 60,
+              f"distributed (i) {m}: rank 1's lone fatal fault raised on "
+              f"every rank at once ({a['lone']}, {b['lone']})")
+        n_res, t_res = a["agree"][3]
+        per = t_res * 1e3 / max(n_res, 1)
+        print(f"distributed (i) resilient {m} (the char-LM cut to "
+              f"{DIST_ELASTIC_LAYERS} layers, SGD, {DIST_RES_STEPS} "
+              f"{'steps' if m == 'sync' else 'windows'}): seconds "
+              f"{ {k: round(v, 3) for k, v in a['secs'].items()} }; a fatal "
+              f"fault on every rank at {DIST_RES_FATAL}, resumed from "
+              f"{a['after_fatal'][-1]}; rank 1's retryable fault retried on "
+              f"both; rank 1's preemption committed at {a['latest']} on "
+              f"both ({a['trigger']}); commits {a['steps']}; params "
+              f"{a['resumed']} against the unfaulted {a['unfaulted']}; "
+              f"rank 1's lone fatal fault: {a['lone']} on rank 0 in "
+              f"{a['secs']['lone']:.3f} s, {b['lone']} on rank 1; the "
+              f"training thread's agreements (count, ms) by fit "
+              f"{[(n, round(t * 1e3, 3)) for n, t in a['agree']]}, the "
+              f"resumed fit's {per:.3f} ms each over its "
+              f"{DIST_RES_STEPS - DIST_RES_PREEMPT} "
+              f"{'steps' if m == 'sync' else 'windows'} [{name_card}]")
+
+
+def _dist_nccl_commit(r, name_card, launches):
+    """(i) over NCCL, a world of one: one run committing and one resumed
+    from its commit, bit for bit the unfaulted run."""
+    print(f"distributed (i): a commit and a resume over NCCL, a world of "
+          f"one: commits {r['steps_saved']}, resumed to iteration "
+          f"{r['iteration']} (commits {r['steps']}), params {r['got']} "
+          f"against {r['want']}; seconds "
+          f"{[round(x, 3) for x in r['secs']]} [{name_card}]")
+    check(r["steps_saved"] == [1, 2] and r["steps"] == [1, 2, 3]
+          and r["iteration"] == 3, "distributed (i) NCCL: the commits and "
+          "the resume at step 2")
+    check(r["got"] == r["want"], "distributed (i) NCCL: the resumed run "
+          "equal to the unfaulted one bit for bit")
+    check(sum(r["launches"].values()) > 0, "distributed (i) NCCL: the "
+          "kernels launched")
+    launches["bf16"].update(r["launches"])
+
+
+def _nlp_reference():
+    """(j)'s one-process four-slot fits here on the card: each model's
+    ``syn0`` and seconds."""
+    out = {}
+    for kind in ("w2v", "glove"):
+        m = _nlp_model(kind, _slots(data=2 * DIST_SLOTS))
+        t0 = time.perf_counter()
+        m.fit()
+        float(m.cum_loss)
+        out[kind] = (m.lookup.syn0.detach().cpu().numpy(),
+                     time.perf_counter() - t0)
+        capture_mod.release(m.programs)
+        del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_nlp(kids, tmp, ref, name_card):
+    """(j): ``DistributedWord2Vec`` and ``DistributedGlove`` across
+    processes: the ranks' tables bit for bit, eager (nothing captured),
+    ``DIST_NLP_BATCHES`` batches each, rank 0's ``syn0`` within
+    ``NLP_DIST_ATOL`` of the one-process four-slot fit's (``index_add_``
+    is unordered on the card), and the exchange a batch."""
+    names = {"w2v": "DistributedWord2Vec (skip-gram HS)",
+             "glove": "DistributedGlove"}
+    for m, what in names.items():
+        a, b = (k["runs"][m] for k in kids)
+        check(a["digest"] == b["digest"] and a["loss"] == b["loss"],
+              f"distributed (j) {m}: the ranks' tables bit for bit")
+        check(a["batches"] == b["batches"] == DIST_NLP_BATCHES
+              and a["captures"] == 0, f"distributed (j) {m}: "
+              f"{a['batches']} eager batches ({a['captures']} captured)")
+        want, t_one = ref[m]
+        err = _max_abs(torch.from_numpy(np.load(f"{tmp}/{m}-syn0.npy")),
+                       torch.from_numpy(want))
+        print(f"distributed (j) {what}, 2 processes x {DIST_SLOTS} slots, "
+              f"V {a['vocab']}, {a['batches']} batches: {a['secs']:.3f} s "
+              f"(the one-process four-slot fit {t_one:.3f} s); the "
+              f"exchange {a['exchange_ms']:.3f} ms and "
+              f"{a['exchange_mib']:.1f} MiB sent a batch (rank 1 "
+              f"{b['exchange_ms']:.3f} ms); syn0 max abs {err:.3e} from the "
+              f"one-process fit [{name_card}]")
+        check(err <= NLP_DIST_ATOL, f"distributed (j) {m}: within "
+              f"{NLP_DIST_ATOL} of the one-process four-slot fit")
 
 
 def _want_wrapper(windows, F, k_local, captured, layers=None):

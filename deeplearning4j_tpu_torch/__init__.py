@@ -16,9 +16,12 @@ hosts' command lines and ``bootstrap_distributed``) included.  Training
 runs across processes, one a card, joined by
 ``parallel.initialize_distributed`` over ``torch.distributed`` (NCCL
 between cards, gloo on the CPU): the sync master (replicated and ZeRO),
-``DistributedNetwork`` and the sharded checkpoint; parameter averaging,
-the elastic masters, the model and seq axes, the distributed NLP fits
-and resilient checkpoints raise there, each naming its ROADMAP A14 item.
+``ParallelWrapper`` and parameter averaging, the elastic masters, the
+introspection policy and the numerics ledger, resilient fits (a commit
+is every process's shards staged, a barrier, process 0's rename, a
+barrier), ``DistributedNetwork``, the sharded checkpoint and the
+distributed NLP fits; only the model and seq axes raise there, naming
+ROADMAP A14b.
 The serving stack (the char-LM's
 inference path, ``generation`` and ``serving`` engines, HTTP, the fleet),
 the facades' training, the layer zoo, the data path and the dashboard,

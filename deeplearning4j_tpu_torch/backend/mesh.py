@@ -39,14 +39,27 @@ bits.  Only ``all_gather`` is needed from the backend (gloo for CPU
 tensors and, through host memory in its own CUDA path, the card's; NCCL
 for the card's).  Each cross-process collective adds its bytes and
 seconds to the census beside the slot bytes (``process_bytes``,
-``process_count``) and to ``process_totals()``.
+``process_count``) and to ``process_totals(kind)``: the step's data
+(``"exchange"``), the training statistics' reductions
+(``"statistics"``) and host-side agreement (``"agreement"``) apart.
 
 Under a mesh that spans processes the sync master, ``ParallelWrapper``
 (replicated at any averaging frequency, and ZeRO),
 ``ParameterAveragingTrainingMaster`` and ``elastic=`` on each of them
-run.  What still raises names its ROADMAP item (``across_processes``):
-the model and seq axes (A14b), distributed Word2Vec and GloVe (A14c),
-the introspection policy, the numerics ledger and resilient fits (A14e).
+run, with the introspection policy, the numerics ledger,
+``checkpoint_manager=`` and ``retry_policy=``; so do
+``DistributedWord2Vec`` and ``DistributedGlove``.  What still raises
+names its ROADMAP item (``across_processes``): the model and seq axes
+(A14b).
+
+Host-side agreement (whether to stop, which checkpoint to resume, a
+step fault seen on one rank, a checkpoint's commit barriers) goes over
+gloo groups of its own (``host_group``), so it never needs a device
+tensor and never shares a group with the training thread's exchange:
+``process_any``, ``process_agree`` (rank 0's value), ``process_codes``
+and ``check_agreement`` (a digest equal on every rank, or a raise).
+Their time is counted apart from the exchange's
+(``process_totals("agreement")``), whichever thread ran them.
 
 A mesh in one process whose slots name several devices raises
 ``NotImplementedError`` (ROADMAP A10): its counterpart in the port is
@@ -92,9 +105,6 @@ def _dist():
 
 # what still raises under a mesh that spans processes (ROADMAP A14)
 A14B = "ROADMAP A14b: the model and seq axes across processes"
-A14C = "ROADMAP A14c: DistributedWord2Vec and DistributedGlove across processes"
-A14E = ("ROADMAP A14e: the introspection policy, the numerics ledger and "
-        "resilient checkpoints across processes")
 
 
 def across_processes(what: str, item: str, mesh=None) -> None:
@@ -567,25 +577,35 @@ def ppermute(x: torch.Tensor, shift: int = 1) -> torch.Tensor:
 
 
 # ------------------------------------------------- across processes
-_process_totals: Dict[str, float] = {"count": 0, "bytes": 0.0,
-                                     "seconds": 0.0}
+# the cross-process collectives by kind: "exchange" the step's data
+# (gradients, parameters, slot stacks, NLP deltas, gathered outputs),
+# "statistics" the training statistics' reductions (op "statistics"),
+# "agreement" host-side agreement and commit barriers (a host group's,
+# on whichever thread)
+_PROCESS_KINDS = ("exchange", "statistics", "agreement")
+_process_totals: Dict[str, Dict[str, float]] = {
+    k: {"count": 0, "bytes": 0.0, "seconds": 0.0} for k in _PROCESS_KINDS}
 
 
-def process_totals() -> Dict[str, float]:
-    """Every cross-process collective this process ran: count, bytes it
-    sent, and host seconds (on NCCL the seconds to enqueue; gloo's calls
-    return when done)."""
+def process_totals(kind: str = "exchange") -> Dict[str, float]:
+    """The cross-process collectives of ``kind`` this process ran:
+    count, bytes it sent, and host seconds (on NCCL the seconds to
+    enqueue; gloo's calls return when done).  ``"exchange"`` (the
+    default) leaves out the statistics' reductions and the host-side
+    agreements, so a step's exchange time is its data's alone."""
     with _lock:
-        return dict(_process_totals)
+        return dict(_process_totals[kind])
 
 
-def _note_process(op: str, nbytes: float, secs: float) -> None:
+def _note_process(op: str, nbytes: float, secs: float,
+                  kind: str) -> None:
     extra = {"process_count": 1, "process_bytes": nbytes,
              "process_seconds": secs}
     with _lock:
         _add(_totals, op, 0, 0.0, [], extra)
+        book = _process_totals[kind]
         for k, v in (("count", 1), ("bytes", nbytes), ("seconds", secs)):
-            _process_totals[k] += v
+            book[k] += v
     if _census.counts is not None:
         _add(_census.counts, op, 0, 0.0, [], extra)
 
@@ -619,13 +639,37 @@ def _gloo_streams(nbytes: int) -> List[Optional[object]]:
     return _streams["groups"][:n]
 
 
-def process_all_gather(t: torch.Tensor, op: str = "all-gather"
-                       ) -> torch.Tensor:
+_hosts: Dict[str, object] = {}
+
+
+def host_group(name: str):
+    """A gloo process group of its own, ``name``'s, for host-side
+    protocol: made on first use, which every rank reaches at the same
+    point of its run and on one thread (``dist.new_group`` is a
+    collective of the world), kept while the world is the same.  A
+    group serves one thread: the training thread's agreements
+    (``"agree"``) and a checkpoint writer's barriers (its own) never
+    share one, so neither can interleave with the other or with the
+    exchange on the default group."""
+    dist = _dist()
+    if _hosts.get("world") is not dist.group.WORLD:
+        _hosts.clear()
+        _hosts["world"] = dist.group.WORLD
+    g = _hosts.get(name)
+    if g is None:
+        g = _hosts[name] = dist.new_group(
+            list(range(dist.get_world_size())), backend="gloo")
+    return g
+
+
+def process_all_gather(t: torch.Tensor, op: str = "all-gather",
+                       group=None) -> torch.Tensor:
     """``t`` of every process, stacked in rank order: ``[W, *t.shape]``
     on ``t``'s device (``t`` itself, unsqueezed, without a process
     group).  Every rank receives the same tensor.  Not differentiable
     (``process_gather_rows`` is).  ``op`` names the collective this
-    gather carries in the census."""
+    gather carries in the census; ``group`` (a ``host_group``) carries a
+    host tensor over gloo whatever the default backend."""
     if not processes_up():
         return t.unsqueeze(0)
     dist = _dist()
@@ -635,13 +679,16 @@ def process_all_gather(t: torch.Tensor, op: str = "all-gather"
     as_bytes = src.dtype in _AS_BYTES
     if as_bytes:
         src = src.reshape(-1).view(torch.uint8)
-    if process_backend() == "nccl" and not src.is_cuda:
+    if group is not None:
+        src = src.cpu()
+    elif process_backend() == "nccl" and not src.is_cuda:
         src = src.to(resolve_device(None))    # NCCL carries the card's
     out = torch.empty((world,) + tuple(src.shape), dtype=src.dtype,
                       device=src.device)
-    groups = _gloo_streams(src.numel() * src.element_size())
+    groups = ([group] if group is not None
+              else _gloo_streams(src.numel() * src.element_size()))
     if len(groups) == 1:
-        dist.all_gather(list(out.unbind(0)), src)
+        dist.all_gather(list(out.unbind(0)), src, group=groups[0])
     else:
         flat, rows = src.reshape(-1), out.view(world, -1)
         works = [dist.all_gather(list(o.unbind(0)), c, group=g,
@@ -656,7 +703,9 @@ def process_all_gather(t: torch.Tensor, op: str = "all-gather"
     if as_bytes:
         out = out.view(t.dtype).reshape((world,) + tuple(t.shape))
     _note_process(op, float(t.numel() * t.element_size()),
-                  time.perf_counter() - t0)
+                  time.perf_counter() - t0,
+                  "agreement" if group is not None else
+                  "statistics" if op == "statistics" else "exchange")
     return out
 
 
@@ -706,14 +755,14 @@ def process_gather_slots(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 
 def process_gather_slots_many(tensors: Sequence[torch.Tensor],
-                              dim: int = 0) -> List[torch.Tensor]:
+                              dim: int = 0, op: str = "all-gather"
+                              ) -> List[torch.Tensor]:
     """``process_gather_slots`` of each tensor, as one collective a
     dtype."""
     if not processes_up():
         return list(tensors)
     out = []
-    for t, got in zip(tensors, process_all_gather_many(tensors,
-                                                       "all-gather")):
+    for t, got in zip(tensors, process_all_gather_many(tensors, op)):
         # [W, ..., K/W, ...] -> [..., W, K/W, ...] -> [..., K, ...]
         got = got.movedim(0, dim)
         shp = list(t.shape)
@@ -729,6 +778,46 @@ def process_barrier() -> None:
         dev = resolve_device(None) if process_backend() == "nccl" \
             else torch.device("cpu")
         process_all_gather(torch.zeros((1,), device=dev), "barrier")
+
+
+# ------------------------------------------------- host-side agreement
+def process_codes(codes: Sequence[int], group=None) -> np.ndarray:
+    """Every rank's ``codes`` (a few integers), ``[W, len(codes)]`` in
+    rank order, over ``group`` (default: the training thread's
+    ``host_group("agree")``); ``[1, n]`` without a process group."""
+    t = torch.as_tensor(np.asarray(codes, np.int64).reshape(-1))
+    if not processes_up():
+        return t.numpy()[None]
+    g = group if group is not None else host_group("agree")
+    return process_all_gather(t, "agreement", g).numpy()
+
+
+def process_any(flag: bool, group=None) -> bool:
+    """Whether ``flag`` holds on any rank: every rank gets the same
+    answer."""
+    return bool(process_codes([int(bool(flag))], group).any())
+
+
+def process_agree(value: int, group=None) -> int:
+    """Rank 0's ``value`` on every rank (what one rank decided from what
+    only it may have seen: a directory listing, a clock)."""
+    return int(process_codes([int(value)], group)[0, 0])
+
+
+def check_agreement(what: str, digest: bytes, group=None) -> None:
+    """Raise ``ValueError`` unless ``digest`` (a hash of what every rank
+    must hold alike: a vocabulary, initial tables) is the same on every
+    rank; a no-op without a process group."""
+    if not processes_up():
+        return
+    mine = np.frombuffer(digest, np.uint8).astype(np.int64)
+    got = process_codes(mine, group)
+    bad = [r for r in range(got.shape[0]) if not (got[r] == got[0]).all()]
+    if bad:
+        raise ValueError(
+            f"{what} differs across processes: ranks {bad} differ from "
+            f"rank 0 (digest {bytes(got[0].astype(np.uint8)).hex()[:16]}; "
+            f"this rank's {digest.hex()[:16]})")
 
 
 class _GatherRows(torch.autograd.Function):

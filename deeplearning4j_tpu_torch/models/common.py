@@ -292,23 +292,27 @@ class StepWatch:
     ``__introspect__`` and ``__numerics__`` vectors in place.  Nothing of
     it enters the update, so the parameters are bit for bit those of the
     same net without the policies.  ``now`` is the numerics ledger's
-    collect flag (None: every step; False: a skipping step)."""
+    collect flag (None: every step; False: a skipping step).  With
+    ``processes`` (a step whose forward holds this process's rows of the
+    global batch) the activations' statistics are the global batch's,
+    reduced across the processes."""
 
-    def __init__(self, iplan, nplan, iteration, now):
+    def __init__(self, iplan, nplan, iteration, now, processes=False):
         self.iplan, self.nplan, self.now = iplan, nplan, now
         self.iteration = iteration
+        self.processes = processes
         self.acts = ([] if numerics.wants_acts(iplan, nplan, now)
                      else None)
         self.act_stats = {}
         self.grads = self.old = self.scale = None
 
     @staticmethod
-    def of(net, scalars, now=None):
+    def of(net, scalars, now=None, processes=False):
         """The step's watch, or None when neither policy is set."""
         iplan, nplan = observed_plans(net)
         if iplan is None and nplan is None:
             return None
-        return StepWatch(iplan, nplan, scalars["iteration"], now)
+        return StepWatch(iplan, nplan, scalars["iteration"], now, processes)
 
     def summarise(self) -> None:
         """Reduce the collected (name, activation) pairs to their stat
@@ -319,11 +323,13 @@ class StepWatch:
         with torch.no_grad():
             if self.iplan is not None and self.iplan.collect_acts:
                 self.act_stats.update(introspection.act_summary(
-                    named, dead_eps=self.iplan.policy.dead_eps))
+                    named, dead_eps=self.iplan.policy.dead_eps,
+                    processes=self.processes))
             if (self.nplan is not None and self.nplan.collect_acts
                     and self.now is not False):
                 self.act_stats.update(numerics.act_ranges(
-                    named, policy=self.nplan.policy))
+                    named, policy=self.nplan.policy,
+                    processes=self.processes))
 
     def before_update(self, grads, train, stab) -> None:
         self.grads = grads
@@ -386,10 +392,16 @@ def sgd_step(net, loss_of, scalars, carries=None,
     (the sync master across processes) takes ``(grads, loss, extra_ok)``
     once the gradients are taken and returns ``(net, trainable params,
     grads, loss, extra_ok)`` for the update: the processes' sums, and
-    under ZeRO the holder of the process's own blocks."""
+    under ZeRO the holder of the process's own blocks.  Its ``watched``
+    is then the ``(net, trainable params, grads)`` the introspection and
+    numerics policies read (the whole trees, the summed gradient), its
+    ``finish()`` runs after the update and before they read the updated
+    parameters (ZeRO's gather of every process's blocks), and the
+    activations' statistics are reduced across the processes."""
     policy = stability.policy_of(net.conf)
     stab = net.updater_state.get(stability.STATE_KEY) if policy else None
-    watch = StepWatch.of(net, scalars, numerics_now)
+    watch = StepWatch.of(net, scalars, numerics_now,
+                         processes=exchange is not None)
     train = trainable(net.params)
     leaves = tree_leaves(train)
     for p in leaves:
@@ -410,9 +422,10 @@ def sgd_step(net, loss_of, scalars, carries=None,
     if exchange is not None:
         net, train, grads, loss, extra_ok = exchange(grads, loss.detach(),
                                                      extra_ok)
+    seen = exchange.watched if exchange is not None else (net, train, grads)
     with torch.no_grad():
         if watch is not None:
-            watch.before_update(grads, train, stab)
+            watch.before_update(seen[2], seen[1], stab)
         if stab is not None:
             stability.guarded_update_(
                 net, policy, loss.detach(), grads, train, new_state, scalars,
@@ -427,8 +440,10 @@ def sgd_step(net, loss_of, scalars, carries=None,
             copy_tree_(net.net_state, new_state)
             if carries is not None:
                 advance_carries_(carries, {k: out[2][k] for k in carries})
+        if exchange is not None:
+            exchange.finish()
         if watch is not None:
-            watch.after_update(net)
+            watch.after_update(seen[0])
     return loss.detach()
 
 

@@ -21,12 +21,30 @@ several devices raises (ROADMAP A10).  On the card ``index_add_`` is
 not ordered, so two runs from one seed agree to rounding, not bit for
 bit; the reference's one-device programs are deterministic.
 
+**Across processes** (a mesh made after
+``parallel.initialize_distributed``, ``backend/mesh.py``) every process
+builds the same global batch (the pairs, subsampling and reduced
+windows from the model's ``RandomState``, the negatives from its
+``KeyStream``, both seeded by the configuration alone), runs the steps
+of its own slots, and gathers the count-weighted deltas and the counts
+(GloVe: the eight state tensors' deltas) of every slot in slot order
+(``mesh.process_gather_slots``), which the one-process formula then
+reduces: two processes of two slots give the one-process four-slot
+bits.  The steps run eagerly there (a gloo collective cannot be
+captured).  Before its first batch each process checks that the
+vocabulary, the Huffman codes and points and the initial tables (GloVe:
+its co-occurrence triples and state) hash alike on every rank
+(``mesh.check_agreement``): a mismatch raises, never trains two
+vocabularies.  Each batch moves every local slot's whole ``[V, D]``
+deltas, where only the touched rows change.
+
 ``DistributedWord2Vec`` on a 1-slot mesh reproduces ``Word2Vec`` to
 rounding (the equivalence oracle, ≙ TestSparkWord2Vec-style parity).
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 import threading
 from collections import Counter
@@ -43,6 +61,7 @@ from deeplearning4j_tpu_torch.nlp.sequencevectors import VectorsConfiguration
 from deeplearning4j_tpu_torch.nlp.tokenization import (
     DefaultTokenizerFactory, TokenizerFactory,
 )
+from deeplearning4j_tpu_torch.nlp.vocab import digest as vocab_digest
 from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
 
 
@@ -81,6 +100,26 @@ def _shards(t: torch.Tensor, k: int) -> torch.Tensor:
     return t.reshape((k, -1) + tuple(t.shape[1:]))
 
 
+def _digest(head: bytes, arrays) -> bytes:
+    """sha256 of ``head`` and the bytes of ``arrays`` (numpy arrays or
+    tensors; None skipped), in order."""
+    h = hashlib.sha256(head)
+    for a in arrays:
+        if a is None:
+            continue
+        if torch.is_tensor(a):
+            a = a.detach().cpu().contiguous().view(torch.uint8).numpy()
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.digest()
+
+
+def _eager_across(model, mesh) -> None:
+    """Across processes a step holds a gloo collective, which a CUDA
+    graph cannot capture: the model's programs run eagerly."""
+    if mesh.spans_processes:
+        model._capture = False
+
+
 class DistributedWord2Vec(Word2Vec):
     """Word2Vec whose steps run on every slot of a mesh.
 
@@ -94,12 +133,25 @@ class DistributedWord2Vec(Word2Vec):
                  tokenizer_factory: Optional[TokenizerFactory] = None,
                  mesh: Optional[mesh_mod.Mesh] = None):
         mesh = mesh or mesh_mod.default_mesh()
-        mesh_mod.across_processes("DistributedWord2Vec", mesh_mod.A14C, mesh)
         super().__init__(config, sentence_iterator,
                          tokenizer_factory or DefaultTokenizerFactory(),
                          device=mesh.device)
         self.mesh = mesh
         self._axis = mesh.axis_names[0]
+        _eager_across(self, mesh)
+
+    def _start_programs(self) -> None:
+        if self.mesh.spans_processes:
+            lk = self.lookup
+            mesh_mod.check_agreement(
+                "DistributedWord2Vec's vocabulary and Huffman tree",
+                _digest(vocab_digest(self.vocab),
+                        [self._codes, self._points, self._code_lengths]))
+            mesh_mod.check_agreement(
+                "DistributedWord2Vec's initial lookup tables",
+                _digest(b"tables", [lk.syn0, lk.syn1, lk.syn1neg,
+                                    lk._neg_cdf]))
+        super()._start_programs()
 
     # Which rows of each matrix a step touches, and with what occurrence
     # weights: what turns each slot's collision-mean deltas back into the
@@ -137,13 +189,16 @@ class DistributedWord2Vec(Word2Vec):
         sum_local/count_local; multiplied back by the local count, summed
         over the slots with the counts (``psum``) and divided again, it
         gives Σsums/Σcounts, the serial step's update on the whole batch
-        (the reference's ``_get_sharded``, :121-158)."""
+        (the reference's ``_get_sharded``, :121-158).  Across processes
+        this process runs its own slots and the per-slot stacks are
+        gathered in slot order before the sums (module docstring)."""
         K = self.mesh.shape[self._axis]
-        ra, rb = _replicas(a, K), _replicas(b, K)
+        mine = self.mesh.local_slots
+        ra, rb = _replicas(a, len(mine)), _replicas(b, len(mine))
         shards = [_shards(s, K) for s in sharded]
         losses, ca, cb = [], [], []
-        for k in range(K):
-            local = [s[k] for s in shards]
+        for k, g in enumerate(mine):
+            local = [s[g] for s in shards]
             losses.append(fn(ra[k], rb[k], *local, lr))
             (ia, wa), (ib, wb) = self._row_specs(name, local)
             ca.append(torch.zeros((a.shape[0],), dtype=a.dtype,
@@ -151,15 +206,18 @@ class DistributedWord2Vec(Word2Vec):
             cb.append(torch.zeros((b.shape[0],), dtype=b.dtype,
                                   device=b.device).index_add_(0, ib, wb))
         ca, cb = torch.stack(ca), torch.stack(cb)
+        wa, wb = (ra - a) * ca[..., None], (rb - b) * cb[..., None]
+        losses = torch.stack(losses)
+        if self.mesh.spans_processes:
+            ca, cb, wa, wb, losses = mesh_mod.process_gather_slots_many(
+                [ca, cb, wa, wb, losses])
         ca_tot = mesh_mod.psum(ca)
         cb_tot = mesh_mod.psum(cb)
-        da = (mesh_mod.psum((ra - a) * ca[..., None])
-              / torch.clamp(ca_tot, min=1.0)[:, None])
-        db = (mesh_mod.psum((rb - b) * cb[..., None])
-              / torch.clamp(cb_tot, min=1.0)[:, None])
+        da = mesh_mod.psum(wa) / torch.clamp(ca_tot, min=1.0)[:, None]
+        db = mesh_mod.psum(wb) / torch.clamp(cb_tot, min=1.0)[:, None]
         a.add_(da)
         b.add_(db)
-        return mesh_mod.psum(torch.stack(losses))
+        return mesh_mod.psum(losses)
 
     def _padded(self, n: int) -> int:
         """Global batch size: power-of-two >= n AND divisible by the
@@ -198,7 +256,6 @@ class DistributedGlove(Glove):
 
     def __init__(self, *args, mesh: Optional[mesh_mod.Mesh] = None, **kw):
         mesh = mesh or mesh_mod.default_mesh()
-        mesh_mod.across_processes("DistributedGlove", mesh_mod.A14C, mesh)
         kw["device"] = mesh.device
         super().__init__(*args, **kw)
         self.mesh = mesh
@@ -206,22 +263,46 @@ class DistributedGlove(Glove):
         if self.batch_size % ndev:
             self.batch_size = int(np.ceil(self.batch_size / ndev) * ndev)
         self._glove_step = self._sharded_step
+        self._agreed = None
+        _eager_across(self, mesh)
+
+    def _train_pairs(self, rows, cols, vals, rs):
+        """Across processes, first the check that every rank trains the
+        same vocabulary and triples (and, at a fit's first block, the
+        same initial state)."""
+        if self.mesh.spans_processes:
+            first = self._agreed is not self._state
+            mesh_mod.check_agreement(
+                "DistributedGlove's vocabulary and co-occurrence triples"
+                + (" and initial state" if first else ""),
+                _digest(vocab_digest(self.vocab),
+                        [rows, cols, vals]
+                        + (list(self._state) if first else [])))
+            self._agreed = self._state
+        super()._train_pairs(rows, cols, vals, rs)
 
     def _sharded_step(self, *args):
         """The reference's ``shard_map`` of ``glove_step`` (:255-267):
         slot k's step on its shard and replica, then each state tensor
-        moved by the mean of the slots' deltas; the losses summed."""
+        moved by the mean of the slots' deltas; the losses summed.
+        Across processes this process's slots, the deltas gathered in
+        slot order before the mean."""
         state, batch, (lr, x_max, alpha) = args[:8], args[8:12], args[12:]
         K = self.mesh.shape[self.mesh.axis_names[0]]
-        reps = [_replicas(t, K) for t in state]
+        mine = self.mesh.local_slots
+        reps = [_replicas(t, len(mine)) for t in state]
         shards = [_shards(t, K) for t in batch]
         losses = torch.stack([
             learning.glove_step(
-                *[r[k] for r in reps], *[s[k] for s in shards], lr, x_max,
+                *[r[k] for r in reps], *[s[g] for s in shards], lr, x_max,
                 alpha)
-            for k in range(K)])
-        for old, rep in zip(state, reps):
-            old.add_(mesh_mod.pmean(rep - old))
+            for k, g in enumerate(mine)])
+        deltas = [rep - old for old, rep in zip(state, reps)]
+        if self.mesh.spans_processes:
+            *deltas, losses = mesh_mod.process_gather_slots_many(
+                deltas + [losses])
+        for old, d in zip(state, deltas):
+            old.add_(mesh_mod.pmean(d))
         return mesh_mod.psum(losses)
 
     class Builder(Glove.Builder):

@@ -16,6 +16,7 @@ so its outputs equal the reference's exactly.
 
 from __future__ import annotations
 
+import hashlib
 import heapq
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence as Seq
@@ -207,3 +208,16 @@ def codes_matrix(cache: VocabCache):
         codes[i, :n] = w.codes
         points[i, :n] = w.points
     return codes, points, lengths
+
+
+def digest(cache: VocabCache) -> bytes:
+    """sha256 of the vocabulary as training reads it: every element's
+    label, frequency, index, Huffman codes and points in index order,
+    and the total word count (what every process of a distributed fit
+    must hold alike)."""
+    h = hashlib.sha256()
+    for w in cache.vocab_words():
+        h.update(repr((w.label, float(w.element_frequency), w.index,
+                       w.special, list(w.codes), list(w.points))).encode())
+    h.update(repr(float(cache.total_word_count)).encode())
+    return h.digest()

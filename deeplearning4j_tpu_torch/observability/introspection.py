@@ -196,13 +196,18 @@ def _layer_norms(names, trees, device) -> torch.Tensor:
 
 
 def act_summary(named_acts: Sequence[Tuple[str, torch.Tensor]],
-                dead_eps: float = 0.0) -> Dict[str, torch.Tensor]:
+                dead_eps: float = 0.0, processes: bool = False
+                ) -> Dict[str, torch.Tensor]:
     """Per-layer activation summaries, stacked in input order: mean,
     std, and fraction-"dead" (``|a| <= dead_eps``; exact zeros for the
     ReLU dying-unit case).  Called in the step right after the forward,
     on the detached activations (moment form: sum, sum of squares and
-    the zero count)."""
-    means, stds, zeros = [], [], []
+    the zero count).  With ``processes`` (the sync master across
+    processes, where each rank's forward holds only its own rows of the
+    global batch) the partial sums and counts are summed over the
+    processes in rank order before the moments are formed, so every
+    rank reports the global batch's numbers."""
+    parts, counts = [], []
     for _, a in named_acts:
         a = a.detach()
         n = a.numel()
@@ -213,6 +218,18 @@ def act_summary(named_acts: Sequence[Tuple[str, torch.Tensor]],
             z = (n - torch.count_nonzero(a)).float()
         else:
             z = (a.abs() <= dead_eps).sum(dtype=torch.float32)
+        parts.append(torch.stack([s1, s2, z]))
+        counts.append(n)
+    sums = torch.stack(parts)
+    if processes:
+        from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
+        # the rows split evenly over the processes (the batch is padded
+        # to the data axis), so the global count is W times the local
+        sums = mesh_mod.process_sum(sums, "statistics")
+        counts = [n * mesh_mod.process_count() for n in counts]
+    means, stds, zeros = [], [], []
+    for (s1, s2, z), n in zip(sums.unbind(0), counts):
         mean = s1 / n
         var = torch.clamp(s2 / n - mean.square(), min=0.0)
         means.append(mean)

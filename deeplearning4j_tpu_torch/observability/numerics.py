@@ -233,36 +233,31 @@ def _leaves(tree):
     return [] if tree is None else [tree]
 
 
-def _entry_stats(tree, scale=None, sample=DEFAULT_SAMPLE,
-                 device=None) -> torch.Tensor:
-    """One (component, layer) stat block ``[ENTRY]`` over every leaf of
-    a subtree: exact max-abs (full pass), then per-format
-    underflow/overflow fractions and the exponent histogram over a
-    deterministic stride sample of ~``sample`` values (``sample=0`` =
-    exact; see ``DEFAULT_SAMPLE``).  ``scale`` (the 1/loss_scale
-    gradient unscale) multiplies values BEFORE the threshold
-    comparisons — fractions do not commute with scaling, unlike the
-    norms introspection collects.  Counts are exact integers; the
-    exponent is ``frexp``'s."""
+def _flat_leaves(tree, scale=None):
     leaves = [torch.as_tensor(l).detach().float().reshape(-1)
               for l in _leaves(tree)]
     leaves = [l for l in leaves if l.numel()]
-    if not leaves:
-        return torch.zeros((ENTRY,), dtype=torch.float32, device=device)
     if scale is not None:
         leaves = [l * scale for l in leaves]
+    return leaves
+
+
+def _max_abs(leaves) -> torch.Tensor:
     max_abs = leaves[0].abs().max()
     for l in leaves[1:]:
         max_abs = torch.maximum(max_abs, l.abs().max())
-    total = sum(l.numel() for l in leaves)
-    if sample and total > sample:
-        # one GLOBAL stride: every sampled value represents the same
-        # element count, so plain sampled-count ratios are unbiased
-        stride = -(-total // sample)
-        stat_leaves = [l[::stride] for l in leaves]
-    else:
-        stat_leaves = leaves
-    n = float(sum(l.numel() for l in stat_leaves))
+    return max_abs
+
+
+def _stride(total: int, sample: int) -> int:
+    """One GLOBAL stride: every sampled value represents the same
+    element count, so plain sampled-count ratios are unbiased."""
+    return -(-total // sample) if sample and total > sample else 1
+
+
+def _counts(stat_leaves, max_abs) -> torch.Tensor:
+    """The sampled values' counts, int64: per-format underflow and
+    overflow, then the exponent histogram."""
     a = torch.cat([l.abs() for l in stat_leaves])
     nz = a > 0
     int8_lo = max_abs / 254.0   # int8 per-page scale: zero below max/254
@@ -283,12 +278,77 @@ def _entry_stats(tree, scale=None, sample=DEFAULT_SAMPLE,
     idx = torch.where(nz, idx, torch.full_like(idx, HIST_BINS))
     hist = torch.zeros((HIST_BINS + 1,), dtype=torch.int64, device=a.device)
     hist.scatter_add_(0, idx, torch.ones_like(idx))
+    return torch.cat([torch.stack(under), torch.stack(over),
+                      hist[:HIST_BINS]])
+
+
+def _pack(max_abs, counts, n: float) -> torch.Tensor:
+    """An ``[ENTRY]`` block from the max-abs, the counts and the sampled
+    count ``n``."""
+    nf = len(FORMATS)
     # count x (1 / n) in float32, as the reference's compiled division
     inv_n = torch.tensor(1.0 / n, dtype=torch.float32).item()
     return torch.cat([max_abs.reshape((1,)),
-                      torch.stack(under).float() * inv_n,
-                      torch.stack(over).float() * inv_n,
-                      hist[:HIST_BINS].float()])
+                      counts[:2 * nf].float() * inv_n,
+                      counts[2 * nf:].float()])
+
+
+def _entry_stats(tree, scale=None, sample=DEFAULT_SAMPLE,
+                 device=None) -> torch.Tensor:
+    """One (component, layer) stat block ``[ENTRY]`` over every leaf of
+    a subtree: exact max-abs (full pass), then per-format
+    underflow/overflow fractions and the exponent histogram over a
+    deterministic stride sample of ~``sample`` values (``sample=0`` =
+    exact; see ``DEFAULT_SAMPLE``).  ``scale`` (the 1/loss_scale
+    gradient unscale) multiplies values BEFORE the threshold
+    comparisons — fractions do not commute with scaling, unlike the
+    norms introspection collects.  Counts are exact integers; the
+    exponent is ``frexp``'s."""
+    leaves = _flat_leaves(tree, scale)
+    if not leaves:
+        return torch.zeros((ENTRY,), dtype=torch.float32, device=device)
+    max_abs = _max_abs(leaves)
+    stride = _stride(sum(l.numel() for l in leaves), sample)
+    stat_leaves = [l[::stride] for l in leaves] if stride > 1 else leaves
+    n = float(sum(l.numel() for l in stat_leaves))
+    return _pack(max_abs, _counts(stat_leaves, max_abs), n)
+
+
+def _entries_across(trees, sample) -> torch.Tensor:
+    """``_entry_stats`` of each of ``trees`` as the reference computes it
+    on the global batch, from this process's rows (the sync master
+    across processes): each leaf's global tensor is the processes'
+    leaves in rank order, so rank r's leaf starts at global offset
+    ``r * n``, and its stride sample takes the local positions ``(-r*n)
+    mod stride, ...`` of the one global sample.  The max-abs is the max
+    over the processes before the counts (int8's threshold reads it);
+    the counts and the sampled count are summed in rank order, and only
+    then divided.  ``[len(trees), ENTRY]``."""
+    from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
+    W, r = mesh_mod.process_count(), mesh_mod.process_index()
+    per = [_flat_leaves(t) for t in trees]
+    dev = next((l.device for ls in per for l in ls), None)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    max_abs = mesh_mod.process_all_gather(torch.stack(
+        [_max_abs(ls) if ls else zero for ls in per]), "statistics").amax(0)
+    rows, ns = [], []
+    for ls, mx in zip(per, max_abs.unbind(0)):
+        stride = _stride(W * sum(l.numel() for l in ls), sample)
+        stat = [l[(-r * l.numel()) % stride::stride] for l in ls]
+        stat = [l for l in stat if l.numel()]
+        # the global sample's size: the multiples of the stride in each
+        # leaf's global length
+        ns.append(sum(-(-W * l.numel() // stride) for l in ls))
+        rows.append(_counts(stat, mx) if stat else torch.zeros(
+            (2 * len(FORMATS) + HIST_BINS,), dtype=torch.int64, device=dev))
+    # summed as float64 (exact below 2**53): every backend's gather
+    # carries it, on the card too
+    total = mesh_mod.process_sum(torch.stack(rows).double(), "statistics")
+    return torch.stack([
+        _pack(mx, row, float(n)) if n
+        else torch.zeros((ENTRY,), dtype=torch.float32, device=dev)
+        for n, mx, row in zip(ns, max_abs.unbind(0), total.unbind(0))])
 
 
 def _sample_of(policy) -> int:
@@ -315,11 +375,17 @@ def collect_now(plan, iteration: int):
 
 
 def act_ranges(named_acts: Sequence[Tuple[str, torch.Tensor]],
-               policy=None) -> Dict[str, torch.Tensor]:
+               policy=None, processes: bool = False
+               ) -> Dict[str, torch.Tensor]:
     """Per-layer activation range stats, stacked in input order to
     ``[A, ENTRY]`` — called in the step right after the forward, on the
-    detached activations."""
+    detached activations.  With ``processes`` (each rank holding its own
+    rows of the global batch) the global batch's stats, the same on
+    every rank (``_entries_across``)."""
     sample = _sample_of(policy)
+    if processes:
+        return {"num_act": _entries_across(
+            [a.detach() for _, a in named_acts], sample)}
     return {"num_act": torch.stack(
         [_entry_stats(a.detach(), sample=sample) for _, a in named_acts])}
 

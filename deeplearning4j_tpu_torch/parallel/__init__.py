@@ -16,11 +16,14 @@ replicated and ZeRO (with gradient normalization), ``ParallelWrapper``
 (replicated at any averaging frequency, and ZeRO),
 ``ParameterAveragingTrainingMaster``, ``elastic=`` on each of them,
 ``DistributedNetwork`` and the sharded checkpoint (each process its own
-slots' blocks); every rank ends each step or window holding the same
-bits.  The model and seq axes (ROADMAP A14b), distributed Word2Vec and
-GloVe (A14c), the introspection policy, the numerics ledger and
-resilient fits (A14e) raise there.  A mesh in one process over several
-devices raises (A10: its counterpart is one process a card).
+slots' blocks), the introspection policy and the numerics ledger on
+the sync master and the wrapper, and ``checkpoint_manager=`` and
+``retry_policy=`` on both (a commit is every process's shards staged,
+a barrier, process 0's rename, a barrier; ``resilience/
+checkpoint_manager.py``); every rank ends each step or window holding
+the same bits.  Only the model and seq axes (ROADMAP A14b) raise there.
+A mesh in one process over several devices raises (A10: its
+counterpart is one process a card).
 """
 
 from deeplearning4j_tpu_torch.parallel.checkpoint import (

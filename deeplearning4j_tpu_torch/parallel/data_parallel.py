@@ -67,8 +67,14 @@ moment blocks of its own slots from every replica's gradient (gathered
 across processes), and the updated blocks are gathered into every rank.
 Each replica's window time is measured by the process that owns it and
 gathered, so every rank's elastic controller takes the same verdicts.
-The introspection policy, the numerics ledger, ``checkpoint_manager=``
-and ``retry_policy=`` raise there (ROADMAP A14e).
+The ``__introspect__`` and ``__numerics__`` stacks stay per replica: each
+process computes its own slots' rows, and the harvest's ``[K, N]`` view
+(``net._introspect_live``, ``net._numerics_live``) is every process's
+rows gathered in slot order after each window, so two processes of two
+slots equal one of four bit for bit; the facade's subtree is global slot
+0's on every rank.  ``checkpoint_manager=`` and ``retry_policy=`` run
+through ``FitResilience(mesh=)`` (``training_master.py``), a save being
+each process's part of ``state_trees()``.
 """
 
 from __future__ import annotations
@@ -326,10 +332,6 @@ class ParallelWrapper:
         if mesh is None:
             k = workers or mesh_mod.device_count()
             mesh = mesh_mod.default_mesh(data=k, devices=[net.device] * k)
-        if checkpoint_manager is not None or retry_policy is not None:
-            mesh_mod.across_processes(
-                "a resilient ParallelWrapper (checkpoint_manager=, "
-                "retry_policy=)", mesh_mod.A14E, mesh)
         if mesh.device != net.device:
             raise ValueError(f"the mesh's slots are on {mesh.device}, the "
                              f"net on {net.device}")
@@ -695,7 +697,11 @@ class ParallelWrapper:
     def _fold_back(self, net, it, last_losses) -> None:
         """The averaged state into the facade's own tensors (slot 0 of
         the stacks, or the ZeRO blocks put together).  Un-averaged
-        updater state is global slot 0's on every rank."""
+        updater state is global slot 0's on every rank: across processes
+        it is gathered (``_slot0``), so every rank folds back at the same
+        points; the per-replica statistics' rows come from the window's
+        gathered views (``_held``), and stay as they are before a fit's
+        first window."""
         st = self._staged
 
         def put(dst, src, whole):
@@ -709,10 +715,20 @@ class ParallelWrapper:
                 else:
                     dst[k] = val.clone()
 
+        # the per-replica subtrees are global slot 0's on every rank
+        ustate = dict(st.updater_state)
+        if self._xp:
+            for k in _HELD:
+                if k in ustate:
+                    live = self._held.get(k)
+                    if live is None:
+                        del ustate[k]
+                    else:
+                        ustate[k] = _tmap(lambda a: a[:1], live)
         with torch.no_grad():
             if self._zero_layout is not None:
                 put(net.params, st.params, lambda _k: True)
-                for slot, tree in st.updater_state.items():
+                for slot, tree in ustate.items():
                     if (self._xp and slot not in
                             shardstats.RESERVED_REPLICATED_SUBTREES):
                         self._put_own_blocks(net.updater_state[slot], tree)
@@ -722,7 +738,7 @@ class ParallelWrapper:
                         s not in shardstats.RESERVED_REPLICATED_SUBTREES)
             else:
                 put(net.params, st.params, lambda _k: False)
-                put(net.updater_state, self._slot0(st.updater_state),
+                put(net.updater_state, self._slot0(ustate),
                     lambda _k: False)
             put(net.net_state, st.net_state, lambda _k: False)
         if last_losses is not None:
@@ -819,7 +835,7 @@ class ParallelWrapper:
         dtype = common._scalar_dtype(net)
         if self._xp:
             return self._dispatch_across(xs, ys, fms, lms, weights, names,
-                                         vals, seed, dtype)
+                                         vals, seed, dtype, now)
         body = (self._zero_body if self._zero_layout is not None
                 else self._window_body)
         variant = None
@@ -857,22 +873,28 @@ class ParallelWrapper:
         return out
 
     def _dispatch_across(self, xs, ys, fms, lms, weights, names, vals,
-                         seed, dtype):
+                         seed, dtype, now=None):
         """A window across processes (module docstring): this process's
-        replica steps, captured on the card (the ZeRO window eagerly),
-        timed for the worker telemetry, then the exchange and the
-        average eagerly."""
+        replica steps, captured on the card (the ZeRO window eagerly; the
+        numerics ledger's collecting and skipping windows are two
+        programs), timed for the worker telemetry, then the exchange and
+        the average eagerly."""
         net, st = self.net, self._staged
         dev = net.device
         inputs = {"xs": xs, "ys": ys, "fms": fms, "lms": lms}
         w = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
         timer = _Timer(dev)
+        steps, zero_body, variant = self._window_steps, self._zero_body, None
+        if now is not None:
+            steps = functools.partial(steps, numerics_now=now)
+            zero_body = functools.partial(zero_body, numerics_now=now)
+            variant = ("numerics", now)
         with mesh_mod.census() as c:
             if self._zero_layout is None and cap.captures(st):
                 graphs = cap.step_graphs(st)
                 staged_in = common.tree_map(cap.host_or_device, inputs)
-                prog = graphs.program("window_local", self._window_steps,
-                                      staged_in, len(vals), dtype)
+                prog = graphs.program("window_local", steps, staged_in,
+                                      len(vals), dtype, variant=variant)
                 prog.scalar_names = names
                 graphs.stage(prog, staged_in, seed, vals)
                 fresh = prog.graph is None
@@ -891,9 +913,9 @@ class ParallelWrapper:
                     scalars=dict(zip(names, sc.unbind(0))))
                 timer.start()
                 if self._zero_layout is not None:
-                    out = self._zero_body(weights=w, **args)
+                    out = zero_body(weights=w, **args)
                 else:
-                    losses, fins = self._window_steps(**args)
+                    losses, fins = steps(**args)
                 timer.stop()
             if self._zero_layout is None:
                 out = self._window_average(losses, fins, w)
@@ -937,21 +959,26 @@ class ParallelWrapper:
         from deeplearning4j_tpu_torch.resilience import (
             FitResilience, get_fault_injector, preemption_requested,
         )
+        from deeplearning4j_tpu_torch.resilience.preemption import (
+            preemption_watched,
+        )
 
         net = self.net
         common.check_trainable(net)
-        if self._xp:
-            for name, what in (("introspection", "the introspection policy"),
-                               ("numerics", "the numerics ledger")):
-                if getattr(net.conf, name, None) is not None:
-                    mesh_mod.across_processes(
-                        f"{what} under ParallelWrapper", mesh_mod.A14E,
-                        self.mesh)
         res = None
         if self.checkpoint_manager is not None or self.retry_policy \
                 is not None:
             res = FitResilience("parallel_wrapper", self.checkpoint_manager,
-                                self.retry_policy, net=net, mesh=self.mesh)
+                                self.retry_policy, net=net, mesh=self.mesh,
+                                trees=self.state_trees)
+        # without resilience, across processes, a preemption check is a
+        # gather: made only when a rank holds a handler
+        watch = res is None and preemption_watched(self.mesh)
+        # a listener's fold-back may gather (``_slot0``): across processes
+        # every rank folds back when any rank has a listener as the fit
+        # begins
+        fold_each = self._xp and mesh_mod.process_any(bool(net.listeners))
+        self._held = {}
         K, F = self.workers, self.averaging_frequency
         policy = stability.policy_of(net.conf)
         if policy is not None:
@@ -1011,12 +1038,27 @@ class ParallelWrapper:
                 win = next(win_iter, None)
             wait_s = time.perf_counter() - t_wait0
             if win is None:
+                if res is not None:
+                    # the save due after the last window
+                    _, trigger = res.boundary(it, last=True)
+                    if trigger is not None:
+                        self._fold_back(net, it, last_losses)
+                        res.save(net, trigger)
                 break
             xs, ys, fms, lms, n_batches, pad_w = win
             adv = n_batches // K
             if res is not None and res.skip_window(adv):
                 continue
-            if preemption_requested():
+            if res is not None:
+                # one agreement a window: the stop, the save due after
+                # the previous window, this window's fault
+                stop, trigger = res.boundary(it)
+                if trigger is not None:
+                    self._fold_back(net, it, last_losses)
+                    res.save(net, trigger)
+            else:
+                stop = watch and preemption_requested(self.mesh)
+            if stop:
                 self._fold_back(net, it, last_losses)
                 if res is not None:
                     res.on_preempt(net)
@@ -1058,6 +1100,7 @@ class ParallelWrapper:
             if self._elastic is not None:
                 self._elastic.window_barrier(it)
             it += adv
+            self._refresh_held(introspect, numerics_on)
             if stab_rt is not None:
                 action = stab_rt.poll_master(
                     step=it, losses=last_losses, elastic=self._elastic,
@@ -1068,33 +1111,50 @@ class ParallelWrapper:
                                                 policy)
                 elif action == "rewind":
                     self._fold_back(net, it, last_losses)
-                    if stab_rt.rewind(net, res.cm) is not None:
+                    if stab_rt.rewind(net, res.cm, mesh=self.mesh) \
+                            is not None:
                         it = net.iteration
                         self._stage(net)
-            if introspect:
-                net._introspect_live = self._staged.updater_state.get(
-                    introspection.STATE_KEY)
-            if numerics_on:
-                net._numerics_live = self._staged.updater_state.get(
-                    numerics.STATE_KEY)
-            if net.listeners:
+                        self._refresh_held(introspect, numerics_on)
+            if fold_each or (net.listeners and not self._xp):
                 self._fold_back(net, it, last_losses)
+            if net.listeners:
                 real = n_batches - (0 if pad_w is None
                                     else int((pad_w == 0.0).sum()))
                 common.notify_listeners(
                     net, real * (int(np.shape(xs)[2])
                                  if np.ndim(xs) >= 3 else 1))
             self._phases.steps += 1
-            if res is not None and res.cm is not None:
-                trigger = res.cm.due(it)
-                if trigger is not None:
-                    self._fold_back(net, it, last_losses)
-                    res.cm.save(net, trigger=trigger)
         self._fold_back(net, it, last_losses)
         if stab_rt is not None:
             stab_rt.flush(net, stab_state=self._stab_state())
         self.iteration = it - it0
         return net
+
+    def _live(self, key):
+        """A per-replica subtree's ``[K, N]`` stack, the harvest's view:
+        the staged stack itself, or across processes every process's
+        rows gathered in slot order (every rank the same)."""
+        tree = self._staged.updater_state.get(key)
+        if tree is None or not self._xp:
+            return tree
+        paths = common.tree_paths(tree)
+        got = mesh_mod.process_gather_slots_many([a for _, a in paths],
+                                                 op="statistics")
+        return common._tree_like(tree, got)
+
+    def _refresh_held(self, introspect: bool, numerics_on: bool) -> None:
+        """The harvest's views after a window (or a rewind's restage),
+        on every rank at the same point; across processes their global
+        slot 0 rows are what ``_fold_back`` puts into the facade."""
+        for on, key, attr in ((introspect, introspection.STATE_KEY,
+                               "_introspect_live"),
+                              (numerics_on, numerics.STATE_KEY,
+                               "_numerics_live")):
+            if on:
+                live = self._live(key)
+                setattr(self.net, attr, live)
+                self._held[key] = live
 
     def _stab_state(self):
         """The guard's state the runtime reads: global slot 0's."""

@@ -61,9 +61,22 @@ gathered in rank order, and the masks are checked equal at each step.
 ``ParameterAveragingTrainingMaster`` is a ``ParallelWrapper`` an epoch
 there too (``data_parallel.py``).
 
-What still raises across processes, naming its ROADMAP item: the model
-and seq axes (A14b), the introspection policy, the numerics ledger and
-resilient fits (A14e).
+The introspection policy and the numerics ledger run across processes
+with the reference's semantics: the gradient, update and parameter
+norms come from the summed gradient and the whole parameters every rank
+holds after the exchange (under ZeRO after the updated blocks are
+gathered), and the activations' statistics from every process's rows,
+their partial sums (and the ledger's max-abs, stride-sampled counts and
+histogram, the global batch's sample) reduced across the processes
+before they are divided (``common.sgd_step``'s exchange).  Under ZeRO
+the ledger's subtree is carried through unchanged, as in one process.
+``checkpoint_manager=`` and ``retry_policy=`` run through
+``FitResilience(mesh=)``, whose decisions every rank shares (resume
+step, skipped batches; a save, a preemption notice and a step fault in
+one agreement a step, ``FitResilience.boundary``), and a commit is
+every process's shards behind barriers around process 0's rename
+(``resilience/checkpoint_manager.py``).  What still raises across
+processes, naming its ROADMAP item: the model and seq axes (A14b).
 """
 
 from __future__ import annotations
@@ -83,9 +96,7 @@ from deeplearning4j_tpu_torch.backend import device as device_mod
 from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
 from deeplearning4j_tpu_torch.backend import rng as rng_mod
 from deeplearning4j_tpu_torch.backend import slots
-from deeplearning4j_tpu_torch.backend.mesh import (
-    A14E, AXIS_DATA, P, Sharded, across_processes,
-)
+from deeplearning4j_tpu_torch.backend.mesh import AXIS_DATA, P, Sharded
 from deeplearning4j_tpu_torch.models import capture as cap
 from deeplearning4j_tpu_torch.models import common
 from deeplearning4j_tpu_torch.observability import (
@@ -227,9 +238,6 @@ class SyncTrainingMaster(TrainingMaster):
             self.collect_stats = True
             self._elastic = ElasticController("sync_master", self._slots,
                                               config=ecfg)
-        if checkpoint_manager is not None or retry_policy is not None:
-            across_processes("a resilient fit (checkpoint_manager=, "
-                             "retry_policy=)", A14E, self.mesh)
         self.checkpoint_manager = checkpoint_manager
         self.retry_policy = retry_policy
         self._stats: Dict[str, Any] = {
@@ -314,22 +322,24 @@ class SyncTrainingMaster(TrainingMaster):
         return contextlib.nullcontext()
 
     def _exchange(self, h, norms, grads, loss, extra_ok):
-        """The cross-process half of the step (``common.sgd_step``'s
-        ``exchange``): the gradients and the loss summed over the
-        processes in rank order, one collective; under ZeRO the
-        process's own blocks of them, for the holder of its blocks, with
-        the guard's verdict folded over the whole summed gradient (so
-        that every rank, and either layout, takes the same branch), and
-        with gradient normalization (``norms``, a dict) each layer's
-        norms from the whole summed gradient, unscaled as the update
-        unscales it."""
+        """The cross-process half of the step (``_ProcessExchange``): the
+        gradients and the loss summed over the processes in rank order,
+        one collective; under ZeRO the process's own blocks of them, for
+        the holder of its blocks, with the guard's verdict folded over
+        the whole summed gradient (so that every rank, and either layout,
+        takes the same branch), and with gradient normalization
+        (``norms``, a dict) each layer's norms from the whole summed
+        gradient, unscaled as the update unscales it.  Returns what the
+        update reads and what the statistics read (the whole holder, its
+        trainable params and the summed gradient)."""
         train = common.trainable(h.params)
         leaves = common.tree_leaves(grads)
         summed = mesh_mod.process_sum_many(leaves + [loss])
         grads, loss = common._tree_like(train, summed[:-1]), summed[-1]
+        seen = (h, train, grads)
         hl = h._local if self._zero_layout is not None else None
         if hl is None:
-            return h, train, grads, loss, extra_ok
+            return (h, train, grads, loss, extra_ok), seen
         whole = grads
         if extra_ok is not None:
             stab = h.updater_state[stability.STATE_KEY]
@@ -346,7 +356,8 @@ class SyncTrainingMaster(TrainingMaster):
                 for g, p, l in zip(common.tree_leaves(grads),
                                    common.tree_leaves(train),
                                    common.tree_leaves(local))]
-        return hl, local, common._tree_like(local, mine), loss, extra_ok
+        return (hl, local, common._tree_like(local, mine), loss,
+                extra_ok), seen
 
     def _gather_blocks(self, h) -> None:
         """ZeRO across processes: every process's updated parameter blocks
@@ -391,10 +402,7 @@ class SyncTrainingMaster(TrainingMaster):
             loss = common.sgd_step(
                 h, loss_fn, scalars, numerics_now=numerics_now,
                 extra_ok=extra_ok,
-                exchange=(functools.partial(self._exchange, h, norms) if xp
-                          else None))
-        if xp and self._zero_layout is not None:
-            self._gather_blocks(h)
+                exchange=_ProcessExchange(self, h, norms) if xp else None)
         # the K slots' gradient contributions, summed (a reduce-scatter
         # into ZeRO's blocks), and their weighted losses
         op = "reduce-scatter" if self._zero_layout is not None \
@@ -508,23 +516,24 @@ class SyncTrainingMaster(TrainingMaster):
         from deeplearning4j_tpu_torch.resilience import (
             FitResilience, get_fault_injector, preemption_requested,
         )
+        from deeplearning4j_tpu_torch.resilience.preemption import (
+            preemption_watched,
+        )
 
         if net.device != self.mesh.device:
             raise ValueError(f"the mesh's slots are on {self.mesh.device}, "
                              f"the net on {net.device}")
         common.check_trainable(net)
         xp = self.mesh.spans_processes
-        if xp:
-            for name, what in (("introspection", "the introspection policy"),
-                               ("numerics", "the numerics ledger")):
-                if getattr(net.conf, name, None) is not None:
-                    across_processes(f"{what} under the sync master",
-                                     A14E, self.mesh)
         res = None
         if self.checkpoint_manager is not None or self.retry_policy \
                 is not None:
             res = FitResilience("sync_master", self.checkpoint_manager,
-                                self.retry_policy, net=net, mesh=self.mesh)
+                                self.retry_policy, net=net, mesh=self.mesh,
+                                trees=lambda: self.state_trees(net))
+        # without resilience, across processes, a preemption check is a
+        # gather: made only when a rank holds a handler
+        watch = res is None and preemption_watched(self.mesh)
         if isinstance(iterator, DataSetIterator) and \
                 iterator.async_supported():
             iterator = AsyncDataSetIterator(iterator, self.prefetch_size)
@@ -562,15 +571,26 @@ class SyncTrainingMaster(TrainingMaster):
         it = iter(iterator)
         while True:
             with self._phases.phase("fetch"):
-                try:
-                    ds = next(it)
-                except StopIteration:
-                    break
+                ds = next(it, None)
+            if ds is None:
+                if res is not None:
+                    # the save due after the last step
+                    _, trigger = res.boundary(net.iteration, last=True)
+                    if trigger is not None:
+                        res.save(net, trigger)
+                break
             if res is not None and res.skip_batch():
                 continue
-            if preemption_requested():
-                if res is not None:
+            if res is not None:
+                # one agreement a step: the stop, the save due after the
+                # previous step, this step's fault
+                stop, trigger = res.boundary(net.iteration)
+                if trigger is not None:
+                    res.save(net, trigger)
+                if stop:
                     res.on_preempt(net)
+                    break
+            elif watch and preemption_requested(self.mesh):
                 break
             n_real = len(ds)
             if len(ds) % K:
@@ -639,10 +659,6 @@ class SyncTrainingMaster(TrainingMaster):
                     stability.apply_lr_backoff_(net.updater_state, policy)
                 elif action == "rewind":
                     stab_rt.rewind(net, res.cm, mesh=self.mesh)
-            if res is not None and res.cm is not None:
-                trigger = res.cm.due(net.iteration)
-                if trigger is not None:
-                    res.cm.save(net, trigger=trigger)
             if self.collect_stats:
                 if self._workers is None:
                     self._workers = (
@@ -685,6 +701,27 @@ class SyncTrainingMaster(TrainingMaster):
         if self._elastic is not None:
             out["elastic"] = self._elastic.summary()
         return out
+
+
+class _ProcessExchange:
+    """``common.sgd_step``'s ``exchange`` for the sync master across
+    processes (``SyncTrainingMaster._exchange``); after the call
+    ``watched`` holds what the statistics read, and ``finish()`` gathers
+    ZeRO's updated parameter blocks into every rank before they read
+    the updated parameters."""
+
+    def __init__(self, master, h, norms):
+        self.master, self.h, self.norms = master, h, norms
+        self.watched = None
+
+    def __call__(self, grads, loss, extra_ok):
+        out, self.watched = self.master._exchange(self.h, self.norms, grads,
+                                                  loss, extra_ok)
+        return out
+
+    def finish(self) -> None:
+        if self.master._zero_layout is not None:
+            self.master._gather_blocks(self.h)
 
 
 def _process_rows(n: int, mesh) -> slice:

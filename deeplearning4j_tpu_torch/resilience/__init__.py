@@ -30,7 +30,7 @@ from deeplearning4j_tpu_torch.resilience.faults import (
     get_fault_injector, inject_faults, set_fault_injector,
 )
 from deeplearning4j_tpu_torch.resilience.integration import (
-    FitResilience, StepStateLost,
+    FitResilience, PeerStepFault, StepStateLost, TransientPeerStepFault,
 )
 from deeplearning4j_tpu_torch.resilience.preemption import (
     PreemptionHandler, get_preemption_handler, preemption_requested,
@@ -45,7 +45,8 @@ __all__ = [
     "CheckpointError", "CheckpointManager",
     "FaultInjector", "InjectedFault", "TransientInjectedFault",
     "get_fault_injector", "inject_faults", "set_fault_injector",
-    "FitResilience", "StepStateLost",
+    "FitResilience", "PeerStepFault", "StepStateLost",
+    "TransientPeerStepFault",
     "PreemptionHandler", "get_preemption_handler", "preemption_requested",
     "RetryPolicy", "TransientError", "is_transient",
 ]

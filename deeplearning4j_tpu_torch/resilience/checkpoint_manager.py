@@ -35,11 +35,10 @@ Metric families (docs/observability.md): ``dl4j_checkpoint_saves_total``,
 stopped checkpointing fails ``/health`` before the loss of progress is
 discovered the hard way.
 
-Multi-host note: this manager is the single-controller path (every
-process's arrays visible to one process, as in this repo's virtual-device
-meshes).  A true multi-host pod writes per-process shard files through the
-low-level API plus an external commit barrier; the COMMIT protocol here is
-deliberately file-based so such a coordinator can adopt it.
+Multi-host note: the reference's manager is the single-controller path
+(every process's arrays visible to one process) and leaves a multi-host
+commit to an external commit barrier over this file-based protocol; the
+port adopts the protocol across processes itself (below).
 
 Port: a copy of ``deeplearning4j_tpu/resilience/checkpoint_manager.py`` with its imports
 rewritten to the port. It stages, commits and restores through
@@ -47,6 +46,35 @@ the port's ``parallel/checkpoint.py``, whose snapshot copies every
 leaf to host memory on the training thread and whose restore writes
 into the net's live tensors; with ``mesh=`` through the resharded
 restore (``parallel/checkpoint.py``).
+
+**Across processes** (a ``torch.distributed`` group is up; one process a
+card, every rank sharing the run directory) a save is collective: every
+rank calls it at the same step, the masters through ``FitResilience``.
+Each process snapshots its own blocks (``snapshot_trees`` over the
+``mesh`` that spans the processes: ``parallel/checkpoint.py``'s
+per-process layout, process 0 the replicated leaves and the meta).
+There is one commit, for one process and for many: the file-based
+protocol above with barriers around process 0's rename: (1) process 0
+clears ``step-N.tmp/`` (or finds the step already committed) and every
+rank learns which, (2) every process stages its shard file and manifest
+there, fsynced, (3) a barrier, then process 0 lists every process's
+files in ``COMMIT``, renames ``step-N.tmp/`` to ``step-N/`` (the commit
+point) and prunes (retention and stray ``.tmp`` dirs run on process 0
+only), (4) a barrier.  Each barrier carries every rank's status, so a
+failure anywhere fails the commit on every rank and none reports a step
+that did not commit; in one process it passes the process's own status
+through, and a failed staging's ``.tmp`` is removed there too.  The
+barriers run on a gloo group of the manager's
+own (``backend/mesh.host_group``, made by the first save on the
+training thread, the same point on every rank), never on the group the
+training thread's gradient exchange uses: the async writer thread's
+barriers would otherwise be unordered against that exchange, and could
+deadlock or cross its messages.  Being gloo, the group takes host
+tensors under NCCL too (a world of one included).  ``resume`` and a
+``restore`` that discovers its checkpoint first drain the writer, then
+take process 0's choice of step, so no rank picks another step because
+it listed the directory at another moment.  The result restores in the
+JAX package and in one process like any two-process save.
 """
 
 from __future__ import annotations
@@ -107,10 +135,10 @@ class CheckpointError(RuntimeError):
 
 class _Job:
     __slots__ = ("step", "snapshot", "trigger", "replace", "done", "error",
-                 "bytes")
+                 "bytes", "group")
 
     def __init__(self, step: int, snapshot: Dict[str, Any], trigger: str,
-                 replace: bool = False):
+                 replace: bool = False, group=None):
         self.step = step
         self.snapshot = snapshot
         self.trigger = trigger
@@ -118,6 +146,7 @@ class _Job:
         self.done = threading.Event()
         self.error: Optional[BaseException] = None
         self.bytes = 0
+        self.group = group          # across processes: the commit's group
 
     def wait(self, timeout: Optional[float] = None) -> None:
         if not self.done.wait(timeout):
@@ -270,6 +299,22 @@ class CheckpointManager:
         commit = self.read_commit(path)
         return int(commit["step"]) if commit else None
 
+    def _agreed_path(self, choose) -> Optional[str]:
+        """``choose()``'s path (a committed step directory or None): in
+        one process its own, across processes process 0's, handed to
+        every rank as its step after the writer is drained."""
+        from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
+        if not mesh_mod.processes_up():
+            return choose()
+        self.wait_idle()
+        path = choose() if mesh_mod.process_index() == 0 else None
+        step = -1
+        if path is not None:
+            step = int(os.path.basename(path)[len(_STEP_PREFIX):])
+        step = mesh_mod.process_agree(step)
+        return None if step < 0 else self._step_dir(step)
+
     def all_steps(self) -> List[int]:
         return [s for s, _ in self._committed()]
 
@@ -310,10 +355,12 @@ class CheckpointManager:
         return trigger
 
     def save_if_stale(self, net, trigger: str = "preempt",
-                      block: bool = True) -> bool:
+                      block: bool = True, trees=None, mesh=None) -> bool:
         """Commit the current state unless a save at this step was already
         queued/committed; used on the preemption path so the stop never
-        double-writes.  Always drains the writer when ``block``."""
+        double-writes.  Always drains the writer when ``block``.  Across
+        processes every rank reaches the same answer (they queue the same
+        saves, and a commit's outcome is every rank's)."""
         step = int(getattr(net, "iteration", 0))
         with self._lock:
             covered = (self._last_queued_step is not None
@@ -327,40 +374,54 @@ class CheckpointManager:
                 covered = (self.last_committed_step is not None
                            and self.last_committed_step >= step)
         if not covered:
-            self.save(net, trigger=trigger, block=block)
+            self.save(net, trigger=trigger, block=block, trees=trees,
+                      mesh=mesh)
             return True
         return False
 
     # ----------------------------------------------------------------- save
     def save(self, net, *, trigger: str = "explicit",
              block: Optional[bool] = None, trees=None,
-             replace: bool = False) -> _Job:
+             replace: bool = False, mesh=None) -> _Job:
         """Snapshot now (device->host on this thread), commit async (or
         inline when ``async_save=False`` / ``block=True`` waits).  A step
         already committed is kept as it is (the same step of one run holds
         the same state) unless ``replace``: a state written back over the
         run's (the online pipeline's revert of a rejected window) then
-        takes the step's place."""
+        takes the step's place.  While a process group is up the save is
+        collective (module docstring): ``trees`` over ``mesh`` (a mesh
+        that spans the processes; without one, the net's trees
+        replicated, written by process 0)."""
         if self._closed:
             raise CheckpointError("CheckpointManager is closed")
         from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
 
-        if mesh_mod.process_count() > 1:
-            # the reference's manager is single-controller too: a commit
-            # across processes needs a barrier around its rename
-            raise NotImplementedError(
-                "CheckpointManager's commit across processes is not ported "
-                f"yet ({mesh_mod.A14E})")
+        group = None
+        if mesh_mod.processes_up():
+            if mesh is None or not mesh.spans_processes:
+                w = mesh_mod.process_count()
+                mesh = mesh_mod.default_mesh(data=w, devices=[net.device] * w)
+            # made here, on the training thread, at the same save on
+            # every rank; the writer thread's barriers use it alone
+            group = mesh_mod.host_group(f"commit:{self.label}")
         try:
-            snapshot = snapshot_trees(net, trees=trees)
-        except BaseException:
+            snapshot = snapshot_trees(net, trees=trees, mesh=mesh)
+            failed = None
+        except BaseException as e:
             self._reg().counter(
                 _FAILURES, "Checkpoint attempts that failed, by stage "
                 "(snapshot = device->host copy on the training thread, "
                 "write = staging/commit on the writer)",
                 labels=("stage",)).inc(stage="snapshot")
-            raise
-        job = _Job(snapshot["iteration"], snapshot, trigger, replace)
+            if group is None:
+                raise
+            failed = e
+        if group is not None and mesh_mod.process_any(failed is not None):
+            # one rank's failed snapshot fails the save on every rank
+            raise failed if failed is not None else CheckpointError(
+                f"checkpoint step-{int(getattr(net, 'iteration', 0))}: "
+                "another rank's snapshot failed")
+        job = _Job(snapshot["iteration"], snapshot, trigger, replace, group)
         with self._lock:
             self._last_mark_step = job.step
             self._last_mark_time = time.monotonic()
@@ -484,16 +545,71 @@ class CheckpointManager:
             seconds=round(dt, 4), committed=True)
 
     def _commit(self, job: _Job) -> int:
+        """Stage, barrier, process 0's COMMIT and rename, barrier (module
+        docstring).  Every barrier carries every rank's status (0 go, 1
+        already committed, 2 failed) over ``job.group``; in one process
+        (no group) it passes this process's own status through."""
+        from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
         final = self._step_dir(job.step)
-        if os.path.isdir(final):
-            if self._valid(final) and not job.replace:
-                return 0    # an identical step is already committed
-            shutil.rmtree(final)
         tmp = final + ".tmp"
-        if os.path.isdir(tmp):
-            shutil.rmtree(tmp)
-        nbytes = write_snapshot(tmp, job.snapshot, fsync=True,
-                                on_file=self._on_file)
+        lead = job.group is None or mesh_mod.process_index() == 0
+        error: Optional[BaseException] = None
+
+        def barrier(code: int, stage: str) -> int:
+            codes = ([code] if job.group is None else
+                     mesh_mod.process_codes([code], job.group)[:, 0])
+            bad = [r for r, c in enumerate(codes) if c == 2]
+            if bad:
+                if error is not None:
+                    raise error
+                raise CheckpointError(
+                    f"checkpoint step-{job.step}: {stage} failed on "
+                    f"rank(s) {bad}")
+            return int(codes[0])
+
+        code = 0
+        if lead:
+            try:
+                if os.path.isdir(final):
+                    if self._valid(final) and not job.replace:
+                        code = 1    # an identical step is already committed
+                    else:
+                        shutil.rmtree(final)
+                if code == 0:
+                    if os.path.isdir(tmp):
+                        shutil.rmtree(tmp)
+                    os.makedirs(tmp)
+            except BaseException as e:
+                error, code = e, 2
+        if barrier(code, "preparing") == 1:
+            return 0
+        nbytes = 0
+        try:
+            nbytes = write_snapshot(tmp, job.snapshot, fsync=True,
+                                    on_file=self._on_file)
+            code = 0
+        except BaseException as e:
+            error, code = e, 2
+        try:
+            barrier(code, "staging")
+        except BaseException:
+            if lead:
+                shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        if lead:
+            try:
+                nbytes += self._seal(job, tmp, final)
+                code = 0
+            except BaseException as e:
+                error, code = e, 2
+        barrier(code, "the commit")
+        return nbytes
+
+    def _seal(self, job: _Job, tmp: str, final: str) -> int:
+        """COMMIT over every file staged in ``tmp``, then the rename (the
+        commit point) and retention (process 0's); returns COMMIT's
+        bytes."""
         files = {}
         for name in sorted(os.listdir(tmp)):
             p = os.path.join(tmp, name)
@@ -511,12 +627,11 @@ class CheckpointManager:
             json.dump(commit, f)
             f.flush()
             os.fsync(f.fileno())
-        nbytes += os.path.getsize(commit_path)
         self._on_file(commit_path)
         os.rename(tmp, final)          # the commit point
         _fsync_dir(self.directory)
         self._prune()
-        return nbytes
+        return os.path.getsize(os.path.join(final, COMMIT_FILE))
 
     # ------------------------------------------------------------ retention
     def _prune(self) -> None:
@@ -547,8 +662,11 @@ class CheckpointManager:
         committed.  ``path=`` skips discovery for an ALREADY-VALIDATED
         directory (``resume()`` passes the one its ``latest()`` call just
         CRC-verified, so the full scan is not paid twice)."""
+        from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
         from deeplearning4j_tpu_torch.observability import get_flight_recorder
 
+        if mesh_mod.processes_up():
+            self.wait_idle()       # every rank's commits are in place
         if path is None:
             if step is not None:
                 path = self._step_dir(step)
@@ -557,7 +675,7 @@ class CheckpointManager:
                         f"no valid committed checkpoint for step {step} in "
                         f"{self.directory}")
             else:
-                path = self.latest()
+                path = self._agreed_path(self.latest)
                 if path is None:
                     raise FileNotFoundError(
                         f"no valid committed checkpoint in {self.directory}")
@@ -599,8 +717,19 @@ class CheckpointManager:
         Cost discipline: the cheap COMMIT manifest decides "is it ahead?"
         BEFORE the full size+CRC verification — a fit entry that has
         nothing to resume (the common case) never reads the checkpoint
-        bytes.  Torn/invalid snapshots still fall through to older ones."""
+        bytes.  Torn/invalid snapshots still fall through to older ones.
+        Across processes process 0 chooses and every rank restores its
+        choice."""
         entry = int(getattr(net, "iteration", 0))
+        path = self._agreed_path(lambda: self._ahead(entry))
+        if path is None:
+            return None
+        self.restore(net, mesh=mesh, path=path)
+        return int(net.iteration)
+
+    def _ahead(self, entry: int) -> Optional[str]:
+        """The newest valid committed checkpoint ahead of iteration
+        ``entry``, or None."""
         for step, path in reversed(self._committed()):
             commit = self.read_commit(path)
             if commit is None:
@@ -608,7 +737,6 @@ class CheckpointManager:
             if int(commit["iteration"]) <= entry:
                 return None            # newest committed is not ahead
             if self._valid(path):
-                self.restore(net, mesh=mesh, path=path)
-                return int(net.iteration)
+                return path
             # corrupt despite COMMIT: an older snapshot may still be ahead
         return None

@@ -7,7 +7,8 @@ signal as "checkpoint NOW and exit cleanly": the ``PreemptionHandler``
 watches the signals, requests a priority save from its
 ``CheckpointManager``, and raises a flag every fit loop checks at its next
 step boundary (all the loops in this codebase poll
-``preemption_requested()`` once per step — a module-global read).
+``preemption_requested()`` once per step — a module-global read in one
+process).
 
 Signal-handler discipline: the handler itself only sets plain flags (no
 locks, no IO — a signal can interrupt the main thread while it holds the
@@ -17,7 +18,12 @@ The SECOND signal restores the previous disposition first, so a stuck
 drain can still be killed the ordinary way.
 
 Port: a copy of ``deeplearning4j_tpu/resilience/preemption.py`` with its imports
-rewritten to the port.
+rewritten to the port.  Across processes one rank's notice stops every
+rank at the same step: a check there is a small gather over the ranks'
+own gloo group, so a resilient master folds it into its one agreement a
+step (``FitResilience.boundary``), and a master without resilience
+checks only when a rank has a handler installed as its fit begins
+(``preemption_watched``: one gather a fit).
 """
 
 from __future__ import annotations
@@ -184,12 +190,40 @@ def get_preemption_handler() -> Optional[PreemptionHandler]:
     return _active
 
 
-def preemption_requested() -> bool:
+def preemption_seen() -> bool:
+    """Whether this process's handler has seen its signal (noticed once);
+    a module-global read."""
+    h = _active
+    seen = h is not None and h._stop.is_set()
+    if seen:
+        h.notice()
+    return seen
+
+
+def preemption_requested(mesh=None) -> bool:
     """True when an installed handler has seen its signal.  Fit loops call
     this at every step boundary; when it flips, they commit a priority
-    checkpoint (if a manager is wired) and return cleanly."""
-    h = _active
-    if h is None or not h._stop.is_set():
-        return False
-    h.notice()
-    return True
+    checkpoint (if a manager is wired) and return cleanly.  With a
+    ``mesh`` that spans processes it is true on every rank when any
+    rank's handler has seen its signal (one small gather a call over the
+    ranks' own gloo group), so every rank stops, and commits, at the same
+    step."""
+    seen = preemption_seen()
+    if mesh is not None and mesh.spans_processes:
+        from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
+        return mesh_mod.process_any(seen)
+    return seen
+
+
+def preemption_watched(mesh=None) -> bool:
+    """Whether a fit over ``mesh`` checks ``preemption_requested`` at its
+    step boundaries: in one process always; across processes only when
+    some rank has a handler installed as the fit begins (one gather a
+    fit), since each check there is a gather.  A handler installed on a
+    rank during such a fit is watched from the next fit."""
+    if mesh is None or not mesh.spans_processes:
+        return True
+    from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
+    return mesh_mod.process_any(_active is not None)

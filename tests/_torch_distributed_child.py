@@ -167,7 +167,7 @@ def fit(job):
     from deeplearning4j_tpu_torch.parallel import ElasticConfig
 
     net = _net(job)
-    mesh = _mesh(job.get("k", 4))
+    mesh = _mesh(job.get("k", 4), job.get("device", "cpu"))
     master = SyncTrainingMaster(
         mesh=mesh, update_sharding=job.get("mode", "replicated"),
         elastic=(ElasticConfig(**job["elastic"]) if job.get("elastic")
@@ -190,7 +190,8 @@ def fit(job):
     out = {"params": _vec(net), "p0": p0, "per_epoch": steps,
            "net_state": _state(net), "iteration": net.iteration,
            "stats": {k: v for k, v in master.training_stats().items()
-                     if k.startswith("exchange")}}
+                     if k.startswith("exchange")},
+           "observed": _observed(net.updater_state)}
     if inj is not None:
         out["poisoned"] = [e["kind"] for e in inj.injected]
     if rec is not None:
@@ -253,26 +254,34 @@ def restore(job):
 
 
 def guards(job):
-    """Every A14 guard under the 2-process mesh, and a data axis that does
-    not divide over the processes: {case: the error's type and text}."""
+    """Every A14 path under the 2-process mesh, built and run small (the
+    A14b masters still raise), and a data axis that does not divide over
+    the processes: {case: the error's type and text, or ("none", "")}."""
     from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
-    from deeplearning4j_tpu_torch.nlp import distributed as nd
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
     from deeplearning4j_tpu_torch.parallel import (
-        ParallelWrapper, ParameterAveragingTrainingMaster,
+        DistributedNetwork, ParallelWrapper, ParameterAveragingTrainingMaster,
         PipelineParallelTrainingMaster, SequenceParallelTrainingMaster,
         SyncTrainingMaster, TensorParallelTrainingMaster,
     )
-    from deeplearning4j_tpu_torch.resilience import CheckpointManager
+    from deeplearning4j_tpu_torch.resilience import (
+        CheckpointManager, RetryPolicy,
+    )
 
     net = _net(job)
     mesh = _mesh()
+    x = np.zeros((8, 8), np.float32)
+    y = np.eye(4, dtype=np.float32)[np.arange(8) % 4]
+
+    def frames():
+        return iter([DataSet(x[i:i + 2], y[i:i + 2]) for i in range(0, 8, 2)])
+
+    def manager(name):
+        return CheckpointManager(f"{job['dir']}/{name}", async_save=False,
+                                 save_every_steps=1)
 
     def wrapper_fit(**kw):
-        from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-
-        x = np.zeros((8, 8), np.float32)
-        ParallelWrapper(net, workers=4, mesh=mesh, **kw).fit(
-            iter([DataSet(x[:2], np.eye(4, dtype=np.float32)[:2])] * 4))
+        ParallelWrapper(net, workers=4, mesh=mesh, **kw).fit(frames())
 
     def with_numerics():
         import dataclasses
@@ -287,13 +296,33 @@ def guards(job):
         finally:
             net.conf = saved
 
+    def sync_fit(**kw):
+        DistributedNetwork(net, SyncTrainingMaster(mesh=mesh, **kw)).fit(
+            iter([DataSet(x, y)]))
+
+    def nlp(cls):
+        from deeplearning4j_tpu_torch.nlp import distributed as nd
+        from deeplearning4j_tpu_torch.nlp.documents import (
+            CollectionSentenceIterator,
+        )
+
+        text = ["the cat sat on the mat", "the dog sat on the log"] * 4
+        if cls == "glove":
+            nd.DistributedGlove(sentence_iterator=CollectionSentenceIterator(
+                text), layer_size=8, window=2, epochs=1, batch_size=8,
+                mesh=mesh).fit()
+        else:
+            (nd.DistributedWord2Vec.Builder().iterate(text).layer_size(8)
+             .window_size(2).batch_size(8).epochs(1).seed(1).mesh(mesh)
+             .build().fit())
+
     cases = {
         "wrapper introspection": wrapper_fit,
         "wrapper numerics": with_numerics,
-        "wrapper checkpoint_manager": lambda: ParallelWrapper(
-            net, workers=4, mesh=mesh, checkpoint_manager=object()),
-        "wrapper retry_policy": lambda: ParallelWrapper(
-            net, workers=4, mesh=mesh, retry_policy=object()),
+        "wrapper checkpoint_manager": lambda: wrapper_fit(
+            checkpoint_manager=manager("wrapper")),
+        "wrapper retry_policy": lambda: wrapper_fit(
+            retry_policy=RetryPolicy(max_retries=1)),
         "built": lambda: (ParallelWrapper(net, workers=4, mesh=mesh),
                           ParameterAveragingTrainingMaster(mesh=mesh),
                           SyncTrainingMaster(mesh=mesh, elastic=True)),
@@ -304,15 +333,15 @@ def guards(job):
             n_stages=2, devices=["cpu"] * 2),
         "SequenceParallel": lambda: SequenceParallelTrainingMaster(
             mesh=mesh_mod.default_mesh(data=2, seq=2, devices=["cpu"] * 4)),
-        "DistributedWord2Vec": lambda: nd.DistributedWord2Vec(
-            None, None, mesh=mesh),
-        "DistributedGlove": lambda: nd.DistributedGlove(mesh=mesh),
-        "CheckpointManager": lambda: CheckpointManager(
-            job["dir"], async_save=False).save(net),
-        "resilient fit": lambda: SyncTrainingMaster(
-            mesh=mesh, checkpoint_manager=object()),
-        "introspection": lambda: SyncTrainingMaster(
-            mesh=mesh).execute_training(net, []),
+        "DistributedWord2Vec": lambda: nlp("word2vec"),
+        "DistributedGlove": lambda: nlp("glove"),
+        "CheckpointManager": lambda: (
+            manager("explicit").save(net),
+            manager("explicit").resume(_net(job), mesh=mesh)),
+        "resilient fit": lambda: sync_fit(
+            checkpoint_manager=manager("sync"),
+            retry_policy=RetryPolicy(max_retries=1)),
+        "introspection": sync_fit,
         "three slots": lambda: mesh_mod.default_mesh(data=3,
                                                      devices=["cpu"] * 3),
     }
@@ -387,6 +416,14 @@ def nccl_psum(job):
     local = mesh_mod.psum(stack)
     return {"equal": bool(torch.equal(mesh_mod.process_sum(local), local)),
             "backend": mesh_mod.process_backend()}
+
+
+def _observed(tree):
+    """The ``__introspect__`` and ``__numerics__`` vectors of an updater
+    state (or of a wrapper's live stacks), as numpy."""
+    return {k: tree[k]["packed"].detach().cpu().numpy().copy()
+            for k in ("__introspect__", "__numerics__")
+            if tree.get(k) is not None}
 
 
 def _np_tree(tree):
@@ -508,7 +545,9 @@ def wrapper(job):
     ``ParameterAveragingTrainingMaster`` over ``DistributedNetwork``) over
     4 slots across the processes: every leaf after the fit, the elastic
     masks a window, the stalls and the flight events; ``save`` writes
-    ``state_trees()`` as a sharded checkpoint."""
+    ``state_trees()`` as a sharded checkpoint; ``listener_rank`` gives
+    that rank alone a listener, whose iterations are returned."""
+    from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
     from deeplearning4j_tpu_torch.observability import get_flight_recorder
     from deeplearning4j_tpu_torch.parallel import (
         DistributedNetwork, ElasticConfig, ParallelWrapper,
@@ -530,6 +569,10 @@ def wrapper(job):
     else:
         runner = ParallelWrapper(net, workers=4, **kw)
     rec = _Recorded(runner.elastic) if runner.elastic is not None else None
+    heard = None
+    if job.get("listener_rank") == mesh_mod.process_index():
+        heard = _Heard()
+        net.listeners = list(net.listeners) + [heard]
     if job.get("evict") is not None:
         runner.elastic.evict(job["evict"], "manual", step=0)
     inj = _injector(job)
@@ -556,7 +599,12 @@ def wrapper(job):
            "updater_state": _np_tree({k: v for k, v in
                                       net.updater_state.items()}),
            "net_state": _state(net), "score": float(net.score_value),
-           "events": _flight(since)}
+           "events": _flight(since),
+           "live": _observed({k: getattr(net, f"_{n}_live", None)
+                              for k, n in (("__introspect__", "introspect"),
+                                           ("__numerics__", "numerics"))})}
+    if heard is not None:
+        out["heard"] = heard.iterations
     if rec is not None:
         ctl = runner.elastic
         out.update(masks=rec.masks, stalls=ctl.barrier_stalls,
@@ -573,6 +621,248 @@ def wrapper(job):
     return out
 
 
+class _Heard:
+    """A listener that records the iterations it was told of."""
+
+    def __init__(self):
+        self.iterations = []
+
+    def iteration_done(self, model, iteration):
+        self.iterations.append(int(iteration))
+
+
+class _Preempt:
+    """A listener that raises this rank's preemption notice once the net
+    reaches ``at`` (on the training thread, so at a known step)."""
+
+    def __init__(self, handler, at):
+        self.handler, self.at = handler, at
+
+    def iteration_done(self, model, iteration):
+        if iteration == self.at and not self.handler.stop_requested:
+            self.handler.trigger()
+
+
+def resilient(job):
+    """A resilient fit across the processes (``job["master"]``: the sync
+    master or ``ParallelWrapper``, 4 slots, ``job["mode"]``), through
+    ``CheckpointManager(save_every_steps=2)`` in ``job["dir"]`` and a
+    ``RetryPolicy``: (1) an unfaulted run; (2) a fatal fault on every
+    rank at ``fatal_at`` (both raise); (3) a fresh net resumes from the
+    last commit, a retryable fault on rank 1 alone at ``retry_at`` and a
+    preemption notice on rank 1 alone at ``preempt_at`` (rank 0 has no
+    handler): every rank stops there with a commit; (4) a fresh net
+    resumes and finishes, committing every step; (5) a fatal fault on rank 1 alone at step 1,
+    without a manager: every rank raises, and how soon."""
+    from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedNetwork, ParallelWrapper, SyncTrainingMaster,
+    )
+    from deeplearning4j_tpu_torch.resilience import (
+        CheckpointManager, FaultInjector, PreemptionHandler, RetryPolicy,
+        inject_faults,
+    )
+
+    rank = mesh_mod.process_index()
+    mesh = _mesh(device=job.get("device", "cpu"))
+    x, y, b = job["x"], job["y"], job["batch"]
+    mode = job.get("mode", "replicated")
+
+    def fit(net, cm=None, rp=None, inj=None):
+        batches = [DataSet(x[i:i + b], y[i:i + b])
+                   for i in range(0, len(x), b)]
+        if job["master"] == "sync":
+            run = DistributedNetwork(net, SyncTrainingMaster(
+                mesh=mesh, update_sharding=mode, checkpoint_manager=cm,
+                retry_policy=rp)).fit
+        else:
+            run = ParallelWrapper(net, workers=4, mesh=mesh,
+                                  update_sharding=mode,
+                                  checkpoint_manager=cm,
+                                  retry_policy=rp).fit
+        with contextlib.ExitStack() as stack:
+            if inj is not None:
+                stack.enter_context(inject_faults(inj))
+            run(iter(batches))
+
+    def manager(every=2):
+        return CheckpointManager(job["dir"], keep=10, save_every_steps=every,
+                                 async_save=job.get("async", True))
+
+    def policy():
+        return RetryPolicy(max_retries=2, base_delay_s=0.0, jitter=0.0)
+
+    out = {}
+    net = _net(job)
+    fit(net)
+    out["unfaulted"] = _vec(net)
+    out["iterations"] = [net.iteration]
+    # (2) a fatal fault on every rank
+    net, cm = _net(job), manager()
+    try:
+        fit(net, cm, policy(), FaultInjector().fail_at_step(
+            job["fatal_at"], transient=False))
+        out["fatal"] = "none"
+    except Exception as e:
+        out["fatal"] = type(e).__name__
+    cm.wait_idle()
+    out["iterations"].append(net.iteration)
+    out["steps_after_fatal"] = cm.all_steps()
+    cm.close()
+    # (3) resumed; a retryable fault and a preemption notice on rank 1
+    net, cm, rp = _net(job), manager(), policy()
+    inj = FaultInjector()
+    handler = None
+    if rank == 1:
+        inj.fail_at_step(job["retry_at"], transient=True)
+        handler = PreemptionHandler(cm)
+        handler.install()
+        net.listeners = list(net.listeners) + [
+            _Preempt(handler, job["preempt_at"])]
+    try:
+        fit(net, cm, rp, inj)
+    finally:
+        if handler is not None:
+            handler.uninstall()
+    cm.wait_idle()
+    out["iterations"].append(net.iteration)
+    out["retries"] = rp.retries
+    out["injected"] = [e["kind"] for e in inj.injected]
+    out["latest"] = cm.latest_step()
+    out["trigger"] = cm.read_commit(cm.latest())["trigger"]
+    cm.close()
+    # (4) resumed to the end, committing every step; the training
+    # thread's agreements counted
+    net, cm = _net(job), manager(every=1)
+    with mesh_mod.census() as seen:
+        fit(net, cm, policy())
+    out["agreements"] = seen.counts["agreement"]["process_count"]
+    cm.wait_idle()
+    out["iterations"].append(net.iteration)
+    out["resumed"] = _vec(net)
+    out["steps"] = cm.all_steps()
+    cm.close()
+    # (5) a fatal fault on rank 1 alone
+    net = _net(job)
+    inj = FaultInjector()
+    if rank == 1:
+        inj.fail_at_step(1, transient=False)
+    t0 = time.monotonic()
+    try:
+        fit(net, rp=policy(), inj=inj)
+        out["lone_fatal"] = ("none", 0.0)
+    except Exception as e:
+        out["lone_fatal"] = (type(e).__name__, time.monotonic() - t0)
+    out["lone_iteration"] = net.iteration
+    return out
+
+
+@contextlib.contextmanager
+def _numpy_negatives(on):
+    """Every model's negatives from one numpy stream of seed 0 (the same
+    on every rank, and what the JAX side is fed)."""
+    from deeplearning4j_tpu_torch.nlp import lookup
+
+    if not on:
+        yield
+        return
+    stream = np.random.RandomState(0)
+
+    def draw(self, key, shape):
+        return torch.as_tensor(stream.randint(0, len(self.cache), shape)
+                               .astype(np.int32)).to(self.device)
+
+    saved = lookup.InMemoryLookupTable.sample_negatives
+    lookup.InMemoryLookupTable.sample_negatives = draw
+    try:
+        yield
+    finally:
+        lookup.InMemoryLookupTable.sample_negatives = saved
+
+
+def _sentences(job):
+    """The job's corpus; ``differ_on`` names a rank that drops its first
+    sentence (a vocabulary that differs there)."""
+    from deeplearning4j_tpu_torch.backend import mesh as mesh_mod
+
+    s = list(job["sentences"])
+    return s[1:] if job.get("differ_on") == mesh_mod.process_index() else s
+
+
+def nlp_fit(job):
+    """``DistributedWord2Vec`` (``job["w2v"]``: the Builder's settings)
+    or ``DistributedGlove`` (``job["glove"]``) over 4 slots across the
+    processes (or in one process): the tables, the summed loss and the
+    vocabulary's size, or the error an agreement check raised."""
+    from deeplearning4j_tpu_torch.nlp import distributed as nd
+    from deeplearning4j_tpu_torch.nlp.documents import (
+        CollectionSentenceIterator,
+    )
+
+    mesh = _mesh(device=job.get("device", "cpu"))
+    with _numpy_negatives(job.get("numpy_negatives")):
+        if "glove" in job:
+            model = nd.DistributedGlove(
+                sentence_iterator=CollectionSentenceIterator(
+                    _sentences(job)), mesh=mesh, **job["glove"])
+        else:
+            b = nd.DistributedWord2Vec.Builder().iterate(_sentences(job))
+            for k, v in job["w2v"].items():
+                getattr(b, k)(v)
+            model = b.mesh(mesh).build()
+        try:
+            model.fit()
+        except ValueError as e:
+            return {"error": str(e)}
+    lk = model.lookup
+    tables = {k: getattr(lk, k) for k in ("syn0", "syn1", "syn1neg")}
+    if "glove" in job:
+        tables = {f"state{i}": t for i, t in enumerate(model._state)}
+        tables["syn0"] = lk.syn0
+    return {"tables": {k: t.detach().cpu().numpy().copy()
+                       for k, t in tables.items() if t is not None},
+            "cum_loss": model.cum_loss, "vocab": len(model.vocab),
+            "captures": model.programs.counts()["captures"]}
+
+
+def commit(job):
+    """The sync master over 4 slots across the processes committing
+    every step for ``job["first"]`` batches (``CheckpointManager`` in
+    ``job["dir"]``), then a fresh net resumed from that commit for the
+    rest, against an unfaulted fit: both params and the commits."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import (
+        DistributedNetwork, SyncTrainingMaster,
+    )
+    from deeplearning4j_tpu_torch.resilience import CheckpointManager
+
+    mesh = _mesh(device=job.get("device", "cpu"))
+    x, y, b = job["x"], job["y"], job["batch"]
+    batches = [DataSet(x[i:i + b], y[i:i + b]) for i in range(0, len(x), b)]
+
+    def fit(part, cm=None):
+        net = _net(job)
+        DistributedNetwork(net, SyncTrainingMaster(
+            mesh=mesh, checkpoint_manager=cm)).fit(iter(part))
+        if cm is not None:
+            cm.wait_idle()
+        return net
+
+    want = _vec(fit(batches))
+    cm = CheckpointManager(job["dir"], keep=10, save_every_steps=1)
+    fit(batches[:job["first"]], cm)
+    saved = cm.all_steps()
+    cm.close()
+    cm = CheckpointManager(job["dir"], keep=10, save_every_steps=1)
+    net = fit(batches, cm)
+    out = {"want": want, "got": _vec(net), "iteration": net.iteration,
+           "saved": saved, "steps": cm.all_steps()}
+    cm.close()
+    return out
+
+
 JOBS = {"fit": fit, "evaluate": evaluate, "restore": restore,
         "guards": guards, "group": group, "cuda_gather": cuda_gather,
-        "nccl_psum": nccl_psum, "wrapper": wrapper, "streams": streams}
+        "nccl_psum": nccl_psum, "wrapper": wrapper, "streams": streams,
+        "resilient": resilient, "nlp_fit": nlp_fit, "commit": commit}

@@ -2839,3 +2839,106 @@ def test_distributed_wrapper_window_captured_on_the_card(cuda):
         assert w["graphs"]["replays"] == 1
         assert w["graphs"]["programs"] == ["window_local"]
     assert one["graphs"]["programs"] == ["window"]
+
+
+def _xjob(name, kind, n=64, batch=4, **kw):
+    """A child job on the card: the parity tests' small net (Adam) and
+    ``n`` rows of its data."""
+    from deeplearning4j_tpu_torch.models.sequential import (
+        MultiLayerNetwork,
+    )
+    from deeplearning4j_tpu_torch.nn import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+
+    b = (NeuralNetConfiguration.builder().seed(21)
+         .updater("adam", learning_rate=0.05))
+    if kw.pop("observe", False):
+        b = (b.training_introspection()
+             .training_numerics(interval=1, sample=7))
+    net = MultiLayerNetwork(
+        b.list().layer(L.DenseLayer(n_in=8, n_out=16, activation="tanh"))
+        .layer(L.OutputLayer(n_in=16, n_out=4, loss="mcxent",
+                             activation="softmax")).build()).init(
+        device="cpu")
+    rs = np.random.RandomState(4)
+    return dict(name=name, kind=kind, conf=net.conf.to_json(),
+                params={k: {m: t.numpy() for m, t in v.items()}
+                        for k, v in net.params.items()},
+                x=rs.rand(n, 8).astype(np.float32),
+                y=np.eye(4, dtype=np.float32)[rs.randint(0, 4, n)],
+                batch=batch, device="cuda", **kw)
+
+
+def test_distributed_nccl_world_of_one_commit_and_resume(cuda, tmp_path):
+    """A world of one over NCCL: the sync master commits every step
+    through ``CheckpointManager`` (its barriers on a gloo group of their
+    own), and a fresh net resumed from the commit ends bit for bit equal
+    to the unfaulted fit."""
+    (res,) = _xchild().spawn([_xjob("c", "commit", n=48, batch=8, first=2,
+                                    dir=str(tmp_path / "ck"))], world=1)
+    c = res["c"]
+    assert c["saved"] == [1, 2] and c["steps"] == [1, 2, 3, 4, 5, 6]
+    assert c["iteration"] == 6
+    np.testing.assert_array_equal(c["got"], c["want"])
+
+
+@pytest.mark.parametrize("master", ["sync", "wrapper"])
+def test_distributed_resilient_fit_on_the_card(cuda, tmp_path, master):
+    """Two processes on ``cuda:0`` over gloo: a fatal fault on every rank,
+    the resume from the last commit, rank 1's retryable fault and its
+    preemption notice, rank 1's lone fatal fault (the tests'
+    ``resilient`` job): the resumed run equals the unfaulted one bit for
+    bit on both ranks."""
+    job = _xjob("r", "resilient", n=48 if master == "sync" else 64,
+                batch=8 if master == "sync" else 4, master=master,
+                dir=str(tmp_path / "ck"), fatal_at=3, retry_at=2,
+                preempt_at=3)
+    a, b = (r["r"] for r in _xchild().spawn([job], backend="gloo"))
+    for r in (a, b):
+        assert r["fatal"] == "InjectedFault" and r["retries"] == 1
+        assert r["latest"] == 3
+        np.testing.assert_array_equal(r["resumed"], r["unfaulted"])
+    np.testing.assert_array_equal(a["resumed"], b["resumed"])
+    assert (a["lone_fatal"][0], b["lone_fatal"][0]) == ("PeerStepFault",
+                                                       "InjectedFault")
+
+
+def test_distributed_statistics_on_the_card(cuda):
+    """Two processes on ``cuda:0`` over gloo with the introspection
+    policy and a stride-sampled ledger: the sync master's vectors equal
+    on both ranks; the wrapper's local graph holds the replicas'
+    statistics and its gathered ``[K, N]`` stacks equal the one-process
+    wrapper's on the card bit for bit."""
+    xc = _xchild()
+    fit = _xjob("f", "fit", n=32, batch=32, observe=True)
+    wrap = _xjob("w", "wrapper", observe=True)
+    ranks = xc.spawn([fit, wrap], backend="gloo")
+    one = xc.wrapper(wrap)
+    for r in ranks:
+        for k, v in r["f"]["observed"].items():
+            np.testing.assert_array_equal(v, ranks[0]["f"]["observed"][k])
+        np.testing.assert_array_equal(r["w"]["params"], one["params"])
+        for k, v in r["w"]["live"].items():
+            assert v.shape[0] == 4
+            np.testing.assert_array_equal(v, one["live"][k])
+        assert r["w"]["graphs"]["programs"] == ["window_local"]
+
+
+def test_distributed_word2vec_on_the_card(cuda):
+    """Two processes on ``cuda:0`` over gloo, each two of the four slots:
+    ``DistributedWord2Vec`` (skip-gram HS) eager across processes, the
+    ranks bit for bit, within 1e-4 of the one-process four-slot fit on
+    the card (``index_add_`` is unordered there)."""
+    rs = np.random.RandomState(7)
+    words = [f"w{i}" for i in range(40)]
+    sentences = [" ".join(rs.choice(words, 12)) for _ in range(80)]
+    job = dict(name="n", kind="nlp_fit", sentences=sentences, device="cuda",
+               w2v=dict(layer_size=32, window_size=3, min_word_frequency=2,
+                        learning_rate=0.2, epochs=2, seed=1, batch_size=64))
+    a, b = (r["n"] for r in _xchild().spawn([job], backend="gloo"))
+    one = _xchild().nlp_fit(job)
+    for k in a["tables"]:
+        np.testing.assert_array_equal(a["tables"][k], b["tables"][k])
+        np.testing.assert_allclose(a["tables"][k], one["tables"][k],
+                                   atol=1e-4, rtol=0)
+    assert a["captures"] == 0 and one["captures"] >= 1

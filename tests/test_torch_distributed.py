@@ -477,12 +477,7 @@ def test_jax_four_device_save_restores_onto_two_processes(runs):
 
 @pytest.mark.parametrize("case,label", [
     ("TensorParallel", "A14b"), ("Pipeline", "A14b"),
-    ("SequenceParallel", "A14b"), ("DistributedWord2Vec", "A14c"),
-    ("DistributedGlove", "A14c"), ("CheckpointManager", "A14e"),
-    ("resilient fit", "A14e"), ("introspection", "A14e"),
-    ("wrapper introspection", "A14e"), ("wrapper numerics", "A14e"),
-    ("wrapper checkpoint_manager", "A14e"),
-    ("wrapper retry_policy", "A14e")])
+    ("SequenceParallel", "A14b")])
 def test_a14_guards_raise_across_processes(runs, case, label):
     for r in _ranks(runs):
         kind, msg = r["guards"][case]
@@ -490,17 +485,32 @@ def test_a14_guards_raise_across_processes(runs, case, label):
         assert label in msg
 
 
+@pytest.mark.parametrize("case", [
+    "DistributedWord2Vec", "DistributedGlove", "CheckpointManager",
+    "resilient fit", "introspection", "wrapper introspection",
+    "wrapper numerics", "wrapper checkpoint_manager",
+    "wrapper retry_policy"])
+def test_a14c_and_a14e_paths_run_across_processes(runs, case):
+    """Each path that raised before A14c and A14e were ported builds and
+    runs a small fit (or a save and a resume) under the two-process mesh
+    on both ranks."""
+    for r in _ranks(runs):
+        assert r["guards"][case] == ("none", ""), r["guards"][case]
+
+
 def test_a14a_masters_build_across_processes(runs):
     """``ParallelWrapper``, ``ParameterAveragingTrainingMaster`` and an
     elastic sync master build under the two-process mesh (A14a ported);
-    nothing in the port names A14a."""
+    nothing in the port names A14a, A14c or A14e (ported too)."""
     import pathlib
 
     for r in _ranks(runs):
         assert r["guards"]["built"] == ("none", "")
     root = pathlib.Path(__file__).resolve().parent.parent
     for f in (root / "deeplearning4j_tpu_torch").rglob("*.py"):
-        assert "A14a" not in f.read_text() and "A14A" not in f.read_text()
+        text = f.read_text()
+        for label in ("A14a", "A14A", "A14c", "A14C", "A14e", "A14E"):
+            assert label not in text, (f, label)
 
 
 def test_a_data_axis_that_does_not_divide_raises(runs):

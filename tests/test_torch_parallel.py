@@ -268,15 +268,18 @@ def test_captured_window_runs_the_same_body(monkeypatch):
 def test_not_yet_ported_masters_raise():
     # a ParallelWrapper over a mesh that spans two processes (rank 0 of a
     # group of two; the mesh reads the group's size and rank) holds its
-    # two slots of the four; a resilient one is not ported there (A14e)
+    # two slots of the four, resilient or not; a master of the model axis
+    # is not ported there (A14b)
     _, tn = pair()
     span = tmesh.Mesh(np.asarray(["cpu"] * 4, dtype=object).reshape(4, 1, 1),
                       tmesh.AXES, processes=2)
-    pw = tpar.ParallelWrapper(tn, workers=4, mesh=span)
+    pw = tpar.ParallelWrapper(tn, workers=4, mesh=span,
+                              retry_policy=object())
     assert (pw.workers, pw._k_local, pw._lo) == (4, 2, 0)
-    with pytest.raises(NotImplementedError, match="A14e"):
-        tpar.ParallelWrapper(tn, workers=4, mesh=span,
-                             retry_policy=object())
+    tp_span = tmesh.Mesh(np.asarray(["cpu"] * 4, dtype=object).reshape(
+        2, 2, 1), tmesh.AXES, processes=2)
+    with pytest.raises(NotImplementedError, match="A14b"):
+        tpar.TensorParallelTrainingMaster(mesh=tp_span)
     tpar.initialize_distributed()         # one process needs nothing
     with pytest.raises(NotImplementedError,
                        match="A10, meshes across processes and GPUs"):
